@@ -1,0 +1,133 @@
+"""Fused decode layer: rope + paged attention + output projection
+(``apex_tpu/ops/decode_step.py``).
+
+For CUDA tensors :func:`fused_decode_layer` is one call of kernel K3
+(``csrc/decode_step.cu``); for CPU tensors, and under
+``backend="reference"``, it is :func:`decode_layer_reference`, the
+composition of rope, :func:`~apex_tpu_torch.ops.paged_attention.
+paged_attention_reference` and a matmul with the same dtype edges.
+
+Layout: ``q`` ``[b, num_heads, dh]`` PRE-rope; pools ``[num_blocks,
+block_size, kv_groups, dh]``; ``block_tables`` ``[b, max_blocks]``
+(entries ``>= num_blocks`` unmapped); ``lengths`` ``[b]`` live tokens
+(query included); ``w_proj`` ``[num_heads·dh, h_out]`` float;
+``rope_cos``/``rope_sin`` ``[b, d2]`` per-sequence angle rows or
+``None`` → ``[b, h_out]`` in ``q``'s dtype.
+"""
+
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from apex_tpu_torch.ops import _kernel_utils as ku
+from apex_tpu_torch.ops.paged_attention import (
+    _check_paged_shapes, paged_attention_reference)
+from apex_tpu_torch.ops.rope import _rope
+from apex_tpu_torch.utils.registry import check_backend, on_cuda
+
+__all__ = ["fused_decode_layer", "decode_layer_reference"]
+
+DECODE_LAYER = ku.register(ku.Kernel(
+    "fused_decode_layer", "decode_step.cu", "apex_decode_layer",
+    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_int],
+    replaces="apex_tpu/ops/decode_step.py:157"))
+
+
+def _check_fused_shapes(q, w_proj, rope_cos, rope_sin):
+    if isinstance(w_proj, dict):
+        raise NotImplementedError(
+            "quantized projection slabs come with a later slice of the port")
+    b, nh, dh = q.shape
+    if w_proj.ndim != 2 or w_proj.shape[0] != nh * dh:
+        raise ValueError(
+            f"expected w_proj [num_heads*dh={nh * dh}, h_out], got "
+            f"{tuple(w_proj.shape)}")
+    if (rope_cos is None) != (rope_sin is None):
+        raise ValueError("pass rope_cos and rope_sin together or not at all")
+    if rope_cos is not None:
+        d2 = rope_cos.shape[-1]
+        if tuple(rope_cos.shape) != (b, d2) or \
+                tuple(rope_sin.shape) != (b, d2):
+            raise ValueError(
+                f"expected per-sequence rope rows [b={b}, d2], got cos "
+                f"{tuple(rope_cos.shape)} sin {tuple(rope_sin.shape)}")
+        if d2 > dh or d2 % 2:
+            raise ValueError(
+                f"rotary dim d2={d2} must be even and <= head dim {dh}")
+
+
+def decode_layer_reference(q, k_pool, v_pool, block_tables, lengths, w_proj,
+                           *, rope_cos=None, rope_sin=None,
+                           scale: Optional[float] = None):
+    """Rope (fp32 math, rounded to q's dtype) → paged attention →
+    ``ctx.to(dtype) @ w_proj.to(dtype)``: the unfused decode layer's op
+    sequence, the parity oracle of kernel K3."""
+    _check_paged_shapes(q, k_pool, v_pool, block_tables, lengths)
+    _check_fused_shapes(q, w_proj, rope_cos, rope_sin)
+    b = q.shape[0]
+    if rope_cos is not None:
+        q = _rope(q[:, None], rope_cos.float()[:, None, None, :],
+                  rope_sin.float()[:, None, None, :])[:, 0]
+    ctx = paged_attention_reference(q, k_pool, v_pool, block_tables,
+                                    lengths, scale=scale)
+    return ctx.to(q.dtype).reshape(b, -1) @ w_proj.to(q.dtype)
+
+
+def _fused_kernel(q, k_pool, v_pool, block_tables, lengths, w_proj,
+                  rope_cos, rope_sin, scale):
+    b, nh, dh = q.shape
+    nb, bs, g, _ = k_pool.shape
+    mb = block_tables.shape[1]
+    h_out = w_proj.shape[1]
+    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
+        raise NotImplementedError(
+            f"pool dtype {k_pool.dtype} differs from q's {q.dtype}: the "
+            "kernel reads the pool in the compute dtype")
+    rep = nh // g
+    if rep > 8 or rep * dh > 1024 or dh % 8:
+        raise ValueError(
+            f"decode kernel takes num_heads/kv_groups <= 8, "
+            f"(num_heads/kv_groups)*dh <= 1024 and dh % 8 == 0; got "
+            f"rep={rep}, dh={dh}")
+    q = q.contiguous()
+    tables = block_tables.to(torch.int32).contiguous()
+    lens = lengths.to(torch.int32).contiguous()
+    w = w_proj.float().contiguous()
+    cos = None if rope_cos is None else rope_cos.float().contiguous()
+    sin = None if rope_sin is None else rope_sin.float().contiguous()
+    d2 = 0 if cos is None else cos.shape[-1]
+    ku.check_cuda_operands("fused_decode_layer", q, k_pool, v_pool, tables,
+                           lens, w, cos, sin)
+    ku.check_aligned("fused_decode_layer", k_pool, v_pool)
+    out = torch.empty(b, h_out, dtype=q.dtype, device=q.device)
+    partial = torch.empty(b, g, h_out, dtype=torch.float32, device=q.device)
+    DECODE_LAYER(q.device, ku.ptr(q), ku.ptr(k_pool), ku.ptr(v_pool),
+                 ku.ptr(tables), ku.ptr(lens), ku.ptr(w), ku.ptr(cos),
+                 ku.ptr(sin), ku.ptr(out), ku.ptr(partial), b, nh, dh, nb,
+                 bs, g, mb, h_out, d2, scale, ku.dtype_code(q))
+    return out
+
+
+def fused_decode_layer(q, k_pool, v_pool, block_tables, lengths, w_proj, *,
+                       rope_cos=None, rope_sin=None,
+                       scale: Optional[float] = None,
+                       backend: Optional[str] = None,
+                       k_scale=None, v_scale=None) -> torch.Tensor:
+    """One decode token per sequence: rope the query, attend over its
+    paged KV blocks and project the context — one launch of kernel K3 on
+    the card.  Inference only."""
+    _check_paged_shapes(q, k_pool, v_pool, block_tables, lengths,
+                        k_scale, v_scale)
+    _check_fused_shapes(q, w_proj, rope_cos, rope_sin)
+    dh = q.shape[-1]
+    scale = (1.0 / dh ** 0.5) if scale is None else float(scale)
+    if check_backend(backend) is None and on_cuda(q):
+        return _fused_kernel(q, k_pool, v_pool, block_tables, lengths,
+                             w_proj, rope_cos, rope_sin, scale)
+    return decode_layer_reference(q, k_pool, v_pool, block_tables, lengths,
+                                  w_proj, rope_cos=rope_cos,
+                                  rope_sin=rope_sin, scale=scale)

@@ -1,0 +1,56 @@
+"""Rotary position embeddings (``apex_tpu/ops/rope.py``), the layouts the
+serving path uses, in plain PyTorch (the JAX package wrote these in XLA,
+not Pallas, so there is no kernel to port).
+
+NeoX "rotate_half" rotation with partial rotation: for rotary dim
+``d2 = cos.shape[-1] <= d``::
+
+    out[..., :d2] = t[..., :d2]·cos + rotate_half(t[..., :d2])·sin
+    out[..., d2:] = t[..., d2:]
+
+computed in fp32 and cast back to ``t``'s dtype.
+"""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["_rope", "fused_apply_rotary_pos_emb_cached",
+           "fused_apply_rotary_pos_emb_ragged"]
+
+
+def _rotate_half(x):
+    half = x.shape[-1] // 2
+    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
+
+
+def _rope(t, cos, sin):
+    """Rotate the first ``d2`` features of ``t``; ``cos``/``sin`` (fp32)
+    broadcast against ``t[..., :d2]``."""
+    d2 = cos.shape[-1]
+    t32 = t[..., :d2].float()
+    out = (t32 * cos + _rotate_half(t32) * sin).to(t.dtype)
+    if d2 < t.shape[-1]:
+        out = torch.cat([out, t[..., d2:]], dim=-1)
+    return out
+
+
+def fused_apply_rotary_pos_emb_cached(t, cos_, sin_):
+    """Precomputed ``cos_``/``sin_`` broadcastable to ``t``
+    (``[s, 1, 1, d2]`` for sbhd, ``[1, s, 1, d2]`` for bshd)."""
+    return _rope(t, cos_.float(), sin_.float())
+
+
+def fused_apply_rotary_pos_emb_ragged(t, cos_, sin_, positions):
+    """``t`` ``[b, s, h, d]``, tables ``[max_len, d2]``, ``positions``
+    ``[b]`` int: token (i, j) rotates by table row ``positions[i] + j``,
+    clamped to the table (a finished sequence past ``max_len`` reads a
+    valid, ignored row)."""
+    b, s = t.shape[0], t.shape[1]
+    pos = torch.as_tensor(positions, device=t.device).to(torch.long)
+    pos = pos.expand(b) if pos.ndim == 0 else pos
+    rows = pos[:, None] + torch.arange(s, device=t.device)[None]
+    rows = rows.clamp(0, cos_.shape[0] - 1)
+    cos_g = cos_.float()[rows][:, :, None, :]
+    sin_g = sin_.float()[rows][:, :, None, :]
+    return _rope(t, cos_g, sin_g)
