@@ -121,6 +121,29 @@ def _layer_params(params: dict, layer: int) -> dict:
     return lp
 
 
+# leaves every layer casts to the compute dtype at each use; K1 reads the
+# norm scales and K3 the projection W in fp32, so those stay
+_CAST_ONCE = ("qkv_kernel", "qkv_bias", "proj_bias", "fc1_kernel",
+              "fc1_bias", "fc2_kernel", "fc2_bias")
+
+
+def _compute_dtype_params(params: dict, cfg: TransformerConfig) -> dict:
+    """``params`` with the weights every step casts to the compute dtype
+    cast once: the same values at each use, without a cast per layer per
+    step (``generate`` calls this once per call)."""
+    cd = cfg.compute_dtype
+    layers = dict(params["layers"])
+    for name in _CAST_ONCE:
+        if name in layers and not isinstance(layers[name], dict):
+            layers[name] = layers[name].to(cd)
+    out = dict(params, layers=layers,
+               embedding={k: v.to(cd)
+                          for k, v in params["embedding"].items()})
+    if "lm_head" in params:
+        out["lm_head"] = {"kernel": params["lm_head"]["kernel"].to(cd)}
+    return out
+
+
 def _logits(params: dict, cfg: TransformerConfig, x):
     """``x [..., h] @ head.T`` with both operands in the compute dtype and
     fp32 products and sums (the JAX einsum's preferred fp32 output)."""
@@ -361,6 +384,7 @@ def generate(params: dict, prompt, cfg: TransformerConfig, *,
     cache = init_kv_cache(cfg, b, total, cache_dtype=cache_dtype,
                           cache_layout=cache_layout, block_size=block_size,
                           cache_wire=cache_wire, device=dev)
+    params = _compute_dtype_params(params, cfg)
     lens = (torch.full((b,), s, dtype=torch.long, device=dev)
             if prompt_lens is None
             else torch.as_tensor(prompt_lens, device=dev).long())
