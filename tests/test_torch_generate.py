@@ -1,10 +1,7 @@
 """The port's serving path (apex_tpu_torch.models.generate) against the
-JAX package's, on the CPU at fp32: the parameter converter, prefill
-logits and cache, per-step decode logits, and greedy generate tokens on
-both cache layouts with ragged prompts.  Logits tolerance 2e-4 as in
-tests/test_generate_paged.py."""
-
-import importlib
+JAX package's, on the CPU at fp32: the parameter converter, and greedy
+generate tokens on both cache layouts with ragged prompts (prefill and
+decode_step alone: tests/test_torch_prefill_decode.py)."""
 
 import jax
 import jax.numpy as jnp
@@ -12,52 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from apex_tpu.models.config import TransformerConfig as JConfig
-from apex_tpu.models.transformer_lm import init_gpt_params as j_init
 from apex_tpu_torch.models import generate as tgen
-from apex_tpu_torch.models.config import TransformerConfig as TConfig
 from apex_tpu_torch.models.convert import params_from_numpy, params_to_numpy
-
-# the package re-exports the function `generate` over its module name
-jgen = importlib.import_module("apex_tpu.models.generate")
-
-LOGIT_TOL = 2e-4
-
-BASE = dict(num_layers=2, hidden_size=128, num_attention_heads=4,
-            vocab_size=256, max_position_embeddings=64)
-VARIANTS = {
-    "learned_mha_gelu": {},
-    "rope_gqa_swiglu": dict(position_embedding_type="rope",
-                            num_query_groups=2, activation="swiglu",
-                            normalization="rmsnorm"),
-}
-LENS = [5, 11, 8]
-
-
-def _cfgs(name):
-    kw = dict(BASE, **VARIANTS[name])
-    return (JConfig(compute_dtype=jnp.float32, **kw),
-            TConfig(compute_dtype=torch.float32, **kw))
-
-
-_PARAMS = {}
-
-
-def _params(name):
-    if name not in _PARAMS:
-        jcfg, _ = _cfgs(name)
-        jp = j_init(jax.random.PRNGKey(0), jcfg)
-        tree = jax.tree.map(np.asarray, jp)
-        _PARAMS[name] = (jp, tree, params_from_numpy(tree, device="cpu"))
-    return _PARAMS[name]
-
-
-def _prompt(vocab, lens, seed=0):
-    rng = np.random.RandomState(seed)
-    batch = np.zeros((len(lens), max(lens)), np.int32)
-    for i, n in enumerate(lens):
-        batch[i, :n] = rng.randint(0, vocab, (n,))
-    return batch
+from torch_port_cases import LENS, VARIANTS, _cfgs, _params, _prompt, jgen
 
 
 @pytest.mark.parametrize("name", list(VARIANTS))
@@ -77,43 +31,6 @@ def test_converter_bf16_goes_through_float32():
     t = params_from_numpy(tree, device="cpu", dtype=torch.bfloat16)
     assert t["w"].dtype == torch.bfloat16
     np.testing.assert_array_equal(params_to_numpy(t)["w"], [1.5, -2.25])
-
-
-@pytest.mark.parametrize("layout", ["contiguous", "paged"])
-@pytest.mark.parametrize("name", list(VARIANTS))
-def test_prefill_and_decode_steps_match(name, layout):
-    jcfg, tcfg = _cfgs(name)
-    jp, _, tp = _params(name)
-    prompt = _prompt(jcfg.vocab_size, LENS)
-    lens = np.asarray(LENS, np.int32)
-    total = prompt.shape[1] + 4
-    jcache = jgen.init_kv_cache(jcfg, len(LENS), total,
-                                cache_layout=layout, block_size=4)
-    tcache = tgen.init_kv_cache(tcfg, len(LENS), total, cache_layout=layout,
-                                block_size=4, device="cpu")
-    jl, jcache = jgen.prefill(jp, jnp.asarray(prompt), jcfg,
-                              prompt_lens=jnp.asarray(lens), cache=jcache)
-    tl, tcache = tgen.prefill(tp, torch.from_numpy(prompt), tcfg,
-                              prompt_lens=torch.from_numpy(lens),
-                              cache=tcache, device="cpu")
-    np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=LOGIT_TOL,
-                               rtol=0)
-    for side in ("k", "v"):
-        np.testing.assert_allclose(tcache[side].numpy(),
-                                   np.asarray(jcache[side]), atol=LOGIT_TOL,
-                                   rtol=0)
-    np.testing.assert_array_equal(tcache["pos"].numpy(),
-                                  np.asarray(jcache["pos"]))
-    rng = np.random.RandomState(1)
-    for _ in range(3):
-        tok = rng.randint(0, jcfg.vocab_size, (len(LENS),)).astype(np.int32)
-        jl, jcache = jgen.decode_step(jp, jnp.asarray(tok), jcache, jcfg)
-        tl, tcache = tgen.decode_step(tp, torch.from_numpy(tok), tcache,
-                                      tcfg, device="cpu")
-        np.testing.assert_allclose(tl.numpy(), np.asarray(jl),
-                                   atol=LOGIT_TOL, rtol=0)
-    np.testing.assert_array_equal(tcache["pos"].numpy(),
-                                  np.asarray(jcache["pos"]))
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "paged"])
