@@ -23,8 +23,9 @@
 // token scores the group's rep query heads, block reductions give the
 // running max and sum, and each thread owns rep*dh/128 accumulator
 // elements.  Each thread issues its 8 K and 8 V 16-byte tile loads
-// before storing any, so the tile arrives in about one memory latency.  Tiles past the sequence length are never loaded.  At the
-// end the CTA multiplies its rep heads' context by their rep*dh rows of
+// before storing any, so the tile arrives in about one memory latency.
+// Tiles past the sequence length are never loaded.  At the end the CTA
+// multiplies its rep heads' context by their rep*dh rows of
 // W into an fp32 partial [h_out]; a second tiny kernel sums the g
 // partials of each sequence in a fixed order (deterministic, no
 // atomics) and writes the output in the compute dtype.  The (sequence,
