@@ -15,12 +15,14 @@ plain PyTorch version for CPU tensors; entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.
 
 Ported so far: the GPT serving path ``models.generate.generate``
-(prefill → paged decode → sampling).
+(prefill → paged decode → sampling) and the single-device AMP train step
+``models.gpt.make_gpt_train_step`` (``amp``, ``optimizers.fused_adam``,
+the LayerNorm and flash-attention backward kernels).
 """
 
 __version__ = "0.1.0"
 
-_LAZY_SUBMODULES = ("models", "ops", "serving", "utils")
+_LAZY_SUBMODULES = ("amp", "models", "ops", "optimizers", "serving", "utils")
 
 
 def __getattr__(name):

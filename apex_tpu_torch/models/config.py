@@ -1,8 +1,8 @@
 """Model configuration (``apex_tpu/models/config.py``), with
 ``compute_dtype``/``params_dtype`` as torch dtypes.
 
-Only the fields the serving path reads carry meaning here; the rest are
-kept so a configuration spells the same in both packages.
+Only the fields the serving and training paths read carry meaning here;
+the rest are kept so a configuration spells the same in both packages.
 """
 
 from __future__ import annotations
@@ -41,12 +41,23 @@ class TransformerConfig:
 
     hidden_dropout: float = 0.0
     attention_dropout: float = 0.0
+    drop_path_rate: float = 0.0
     init_method_std: float = 0.02
 
     params_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
     softmax_in_fp32: bool = True
     attention_backend: str = "flash"
+
+    # training: the JAX package checkpoints each layer under remat and
+    # scans the stack under scan_layers; the port's decoder is a Python
+    # loop either way and keeps every activation (remat is not ported)
+    remat: bool = False
+    scan_layers: bool = True
+    # fuse the LM-head matmul into the CE loss, chunked over tokens, so
+    # the [tokens, vocab] logits never exist whole (ops/lm_head_ce.py)
+    fused_head_ce: bool = False
+    head_ce_chunk: int = 2048
 
     def __post_init__(self):
         if self.ffn_hidden_size is None:

@@ -31,7 +31,7 @@ import torch
 
 from apex_tpu_torch.models.config import TransformerConfig
 from apex_tpu_torch.models.transformer_lm import (
-    _attention, _mlp, apply_norm, lm_head_weight, rope_cos_sin, split_qkv)
+    _attention, _mlp, apply_norm, lm_head_logits, rope_cos_sin, split_qkv)
 from apex_tpu_torch.ops.decode_step import fused_decode_layer
 from apex_tpu_torch.ops.fused_sampling import fused_sample
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_ragged
@@ -144,13 +144,6 @@ def _compute_dtype_params(params: dict, cfg: TransformerConfig) -> dict:
     return out
 
 
-def _logits(params: dict, cfg: TransformerConfig, x):
-    """``x [..., h] @ head.T`` with both operands in the compute dtype and
-    fp32 products and sums (the JAX einsum's preferred fp32 output)."""
-    head = lm_head_weight(params, cfg).to(cfg.compute_dtype)
-    return x.float() @ head.float().T
-
-
 def _embed(params, cfg, tokens, positions):
     cd = cfg.compute_dtype
     x = params["embedding"]["word"][tokens].to(cd)
@@ -232,7 +225,7 @@ def prefill(params: dict, prompt, cfg: TransformerConfig, *,
                    params["final_ln"]["bias"], backend=backend)
     x_last = x[torch.arange(b, device=dev), (lens.long() - 1).clamp(min=0)]
     out = dict(cache, pos=lens)
-    return _logits(params, cfg, x_last), out
+    return lm_head_logits(params, x_last, cfg), out
 
 
 def _stripe_block(total: int) -> int:
@@ -323,7 +316,7 @@ def decode_step(params: dict, token, cache: dict, cfg: TransformerConfig,
     x = apply_norm(cfg, x, params["final_ln"]["scale"],
                    params["final_ln"]["bias"], backend=backend)
     new_pos = (pos + 1).to(torch.int32)
-    return _logits(params, cfg, x[:, 0]), dict(cache, pos=new_pos)
+    return lm_head_logits(params, x[:, 0], cfg), dict(cache, pos=new_pos)
 
 
 def sample_logits(logits, generator: Optional[torch.Generator] = None, *,

@@ -1,11 +1,15 @@
-"""GPT transformer pieces (``apex_tpu/models/transformer_lm.py``), the
-single-device subset the serving path runs.
+"""GPT transformer (``apex_tpu/models/transformer_lm.py``), the
+single-device subset the serving and training paths run.
 
 Parameters are a plain dict with the JAX package's keys; layers are
 stacked on a leading ``L`` axis and the decoder loops over them in
 Python.  Activations are ``[b, s, h]``; attention runs BSND through
-``ops/flash_attention.py`` (kernel K2 on the card) and every norm
-through ``ops/layer_norm.py`` (kernel K1).
+``ops/flash_attention.py`` (kernels K2, K6 and K7 on the card) and every
+norm through ``ops/layer_norm.py`` (kernels K1 and K5).  The training
+forward (:func:`gpt_loss`) is differentiable with the JAX package's
+casts: the word and position tables go to ``cfg.compute_dtype`` before
+the lookup, every matmul weight and bias to the activations' dtype, the
+gelu runs in fp32, and the norms read their scales in fp32.
 """
 
 from __future__ import annotations
@@ -18,11 +22,15 @@ import torch.nn.functional as F
 from apex_tpu_torch.models.config import TransformerConfig
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm, fused_rms_norm
+from apex_tpu_torch.ops.lm_head_ce import lm_head_cross_entropy
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_cached
+from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.utils.registry import resolve_device
 
 __all__ = ["init_gpt_params", "rope_cos_sin", "apply_norm",
-           "split_qkv_gqa", "lm_head_weight"]
+           "split_qkv_gqa", "lm_head_weight", "embed_tokens",
+           "transformer_backbone", "gpt_hidden", "gpt_forward",
+           "lm_head_logits", "gpt_loss", "lm_cross_entropy"]
 
 
 def init_gpt_params(cfg: TransformerConfig,
@@ -132,8 +140,9 @@ def lm_head_weight(params: dict, cfg: TransformerConfig):
 
 def _core_attention(cfg: TransformerConfig, q, k, v, key_padding_mask,
                     *, backend: Optional[str] = None):
-    """softmax(QK^T/sqrt(d))V through the flash path (kernel K2 on the
-    card); ``key_padding_mask`` ``[b, sk]`` bool, True = masked."""
+    """softmax(QK^T/sqrt(d))V through the flash path (kernel K2 forward,
+    K6/K7 backward on the card); ``key_padding_mask`` ``[b, sk]`` bool,
+    True = masked."""
     if cfg.attention_backend != "flash":
         raise NotImplementedError(
             f"attention_backend={cfg.attention_backend!r}: only 'flash' "
@@ -174,6 +183,124 @@ def _mlp(cfg: TransformerConfig, lp: dict, x):
         y = (F.silu(y[..., 0, :]) * y[..., 1, :]).to(x.dtype)
     else:
         y = x @ w1 + lp["fc1_bias"].to(x.dtype)
-        approx = "tanh" if cfg.activation == "gelu_tanh" else "none"
-        y = F.gelu(y.float(), approximate=approx).to(x.dtype)
+        # PyTorch's gelu computes a 16-bit input in fp32 and rounds once,
+        # forward and backward: the JAX package's fp32 round trip, in one
+        # pass each way instead of three
+        y = F.gelu(y, approximate="tanh" if cfg.activation == "gelu_tanh"
+                   else "none")
     return y @ lp["fc2_kernel"].to(x.dtype) + lp["fc2_bias"].to(x.dtype)
+
+
+def _check_training_cfg(cfg: TransformerConfig) -> None:
+    if cfg.remat:
+        raise NotImplementedError(
+            "remat=True (per-layer activation checkpointing) is not ported "
+            "yet; the port keeps every layer's activations")
+    if cfg.hidden_dropout > 0 or cfg.attention_dropout > 0 \
+            or cfg.drop_path_rate > 0:
+        raise NotImplementedError(
+            "dropout (hidden, attention — the in-kernel _keep_mask hash — "
+            "and drop-path) is not ported yet")
+    if cfg.num_experts:
+        raise NotImplementedError("MoE layers are not ported yet")
+
+
+def _layer(cfg: TransformerConfig, lp: dict, x, key_padding_mask, rope, *,
+           backend: Optional[str] = None):
+    """Pre-LN block: LN → attention → residual → LN → MLP → residual."""
+    h = apply_norm(cfg, x, lp["ln1_scale"], lp["ln1_bias"], backend=backend)
+    a = _attention(cfg, lp, h, key_padding_mask, rope, backend=backend)
+    res = h if cfg.apply_residual_connection_post_layernorm else x
+    x = res + a
+    h = apply_norm(cfg, x, lp["ln2_scale"], lp["ln2_bias"], backend=backend)
+    m = _mlp(cfg, lp, h)
+    res = h if cfg.apply_residual_connection_post_layernorm else x
+    return res + m
+
+
+def embed_tokens(emb: dict, tokens, cfg: TransformerConfig):
+    """Word lookup + learned positions, both tables cast to the compute
+    dtype first (so their gradients scatter in that dtype, as in JAX)."""
+    cd = cfg.compute_dtype
+    h = emb["word"].to(cd)[tokens]
+    if cfg.position_embedding_type == "learned":
+        h = h + emb["position"][:tokens.shape[1]].to(cd)[None]
+    return h
+
+
+def transformer_backbone(params: dict, hidden, cfg: TransformerConfig, *,
+                         attention_mask=None, apply_final_norm: bool = True,
+                         backend: Optional[str] = None):
+    """The decoder stack (a Python loop over the stacked layers) + final
+    norm.  ``hidden`` ``[b, s, h]``; ``attention_mask`` ``[b, s]`` bool
+    (True = masked key) for ``attn_mask_type='padding'`` models."""
+    _check_training_cfg(cfg)
+    s = hidden.shape[1]
+    rope = None
+    if cfg.position_embedding_type == "rope":
+        rope = rope_cos_sin(s, cfg.kv_channels, device=hidden.device)
+    layers = params["layers"]
+    n_layers = next(iter(layers.values())).shape[0]
+    for i in range(n_layers):
+        lp = {k: v[i] for k, v in layers.items()}
+        hidden = _layer(cfg, lp, hidden, attention_mask, rope,
+                        backend=backend)
+    if not apply_final_norm:
+        return hidden
+    return apply_norm(cfg, hidden, params["final_ln"]["scale"],
+                      params["final_ln"]["bias"], backend=backend)
+
+
+def gpt_hidden(params: dict, tokens, cfg: TransformerConfig, *,
+               attention_mask=None, backend: Optional[str] = None):
+    """Embed + decoder stack + final norm → hidden ``[b, s, h]``."""
+    h = embed_tokens(params["embedding"], tokens, cfg)
+    return transformer_backbone(params, h, cfg,
+                                attention_mask=attention_mask,
+                                backend=backend)
+
+
+def lm_head_logits(params: dict, hidden, cfg: TransformerConfig):
+    """Final hidden → fp32 vocab logits ``[b, s, v]`` (both operands in
+    the compute dtype, fp32 products and sums)."""
+    head = lm_head_weight(params, cfg).to(cfg.compute_dtype)
+    return hidden.float() @ head.float().t()
+
+
+def gpt_forward(params: dict, tokens, cfg: TransformerConfig, *,
+                attention_mask=None, backend: Optional[str] = None):
+    """Token ids ``[b, s]`` → fp32 logits ``[b, s, v]``."""
+    h = gpt_hidden(params, tokens, cfg, attention_mask=attention_mask,
+                   backend=backend)
+    return lm_head_logits(params, h, cfg)
+
+
+def gpt_loss(params: dict, tokens, labels, cfg: TransformerConfig, *,
+             attention_mask=None, backend: Optional[str] = None):
+    """Mean next-token CE over labels != -1 (fp32 scalar).  With
+    ``cfg.fused_head_ce`` the head matmul is chunked into the loss
+    (``ops/lm_head_ce.py``); otherwise full logits go through
+    :func:`lm_cross_entropy`."""
+    if cfg.fused_head_ce:
+        h = gpt_hidden(params, tokens, cfg, attention_mask=attention_mask,
+                       backend=backend)
+        head = lm_head_weight(params, cfg).to(cfg.compute_dtype)
+        losses = lm_head_cross_entropy(h, head, labels,
+                                       chunk=cfg.head_ce_chunk,
+                                       ignore_index=-1)
+        n_valid = torch.clamp((labels != -1).sum(), min=1)
+        return losses.sum() / n_valid.float()
+    logits = gpt_forward(params, tokens, cfg, attention_mask=attention_mask,
+                         backend=backend)
+    return lm_cross_entropy(logits, labels)
+
+
+def lm_cross_entropy(logits, labels):
+    """Mean token CE; labels of -1 are padding and contribute zero."""
+    flat = labels.reshape(-1)
+    losses = softmax_cross_entropy_loss(
+        logits.reshape(-1, logits.shape[-1]), torch.clamp(flat, min=0),
+        padding_idx=None)
+    losses = torch.where(flat == -1, 0.0, losses)
+    n_valid = torch.clamp((labels != -1).sum(), min=1)
+    return losses.sum() / n_valid.float()

@@ -18,7 +18,16 @@
    and sampled, counting every kernel launch; then replays the greedy
    tokens teacher-forced through the kernel path and the plain path
    (``backend="reference"``) and compares their logits.
-5. Prints one JSON line describing every kernel, then the card's name and
+5. Holds the backward kernels (K5 LayerNorm backward, K6 flash dq, K7
+   flash dK/dV) against autograd of their plain forward at the train
+   step's shapes, timed like the others.
+6. Drives the training path: the GPT-2 125M AMP-O2 train step
+   (``make_gpt_train_step``, ``fused_adam(lr=1e-4)``, fused head+CE) at
+   b16 x s1024 on random tokens, counting every kernel launch of one
+   step; step time, tokens/s, MFU and the device idle share of one
+   profiled step; then 3 steps at b4 x s1024 on the kernel path and on
+   the plain path from one state (loss, scaler decisions, grad norm).
+7. Prints one JSON line describing every kernel, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
 Any failed check raises, so the script exits non-zero and prints no
@@ -28,6 +37,7 @@ result line; it never falls back to the CPU.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -45,6 +55,17 @@ VOCAB_LIMIT = 50257             # GPT-2's 50257 ids padded to 50304
 LOGIT_TOL = 0.1                 # bf16 compute through 12 layers
 PREFILL_RUNS = 10
 GENERATE_RUNS = 5
+
+TRAIN_BATCH, TRAIN_SEQ = 16, 1024
+TRAIN_WARMUP, TRAIN_STEPS = 2, 10
+CHECK_BATCH, CHECK_STEPS = 4, 3
+TRAIN_LOSS_TOL = 2e-2           # kernel vs plain loss, bf16 through 12 layers
+GRAD_NORM_RTOL = 2e-2
+# backward errors relative to the largest plain gradient: K5's dx is
+# rounded once to the activation dtype; K6/K7 round p and ds to bf16
+# before the tensor-core products
+LN_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+FLASH_BWD_TOL = 2e-2
 
 
 def check(cond: bool, what: str) -> None:
@@ -99,6 +120,56 @@ def quartiles(xs):
 
 def max_err(a, b) -> float:
     return float((a.float() - b.float()).abs().max())
+
+
+def wall_ms(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _category(kernel: str) -> str:
+    if "(anonymous namespace)::" in kernel:      # apex_tpu_torch/csrc
+        return "hand-written kernels"
+    if any(t in kernel.lower() for t in ("gemm", "nvjet", "cutlass")):
+        return "cuBLAS matmuls"
+    return "other (elementwise, reductions, copies)"
+
+
+def profile_busy(fn):
+    """(wall ms, device busy ms, top kernels, ms by category, top ops) of
+    one ``fn()`` under torch.profiler.  Busy time sums the device-side
+    kernel events only: a CPU op's self device time repeats the kernels
+    it launched (the hand-written kernels would count twice, under their
+    own name and under ``_Flash``/``_Norm``).  The top ops are the CPU
+    ops ranked by that self device time: which op launched the time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = wall_ms(fn)
+    by_name, by_cat, by_op = {}, {}, {}
+    for ev in prof.key_averages():
+        if not ev.self_device_time_total:
+            continue
+        ms = ev.self_device_time_total / 1e3
+        if ev.device_type != DeviceType.CUDA:
+            by_op[ev.key] = by_op.get(ev.key, 0.0) + ms
+            continue
+        by_name[ev.key[:60]] = by_name.get(ev.key[:60], 0.0) + ms
+        cat = _category(ev.key)
+        by_cat[cat] = by_cat.get(cat, 0.0) + ms
+
+    def top(d):
+        return {k: round(v, 3)
+                for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:12]}
+
+    return (t, sum(by_name.values()), top(by_name),
+            {k: round(v, 3) for k, v in by_cat.items()}, top(by_op))
 
 
 def kernel_layer_norm(dev, gen):
@@ -291,9 +362,10 @@ def slice_phase(dev):
 
     steps = NEW_TOKENS - 1
     L = cfg.num_layers
-    want_greedy = {"layer_norm_fwd": (2 * L + 1) * (1 + steps),
-                   "flash_attention_fwd": L, "fused_decode_layer": L * steps,
-                   "fused_sample": 0}
+    want_greedy = {name: 0 for name in ku.KERNELS}
+    want_greedy.update({"layer_norm_fwd": (2 * L + 1) * (1 + steps),
+                        "flash_attention_fwd": L,
+                        "fused_decode_layer": L * steps})
     check(after_greedy == want_greedy,
           f"greedy launches {after_greedy} != {want_greedy}")
     want_total = {k: 2 * v for k, v in want_greedy.items()}
@@ -343,13 +415,6 @@ def slice_phase(dev):
           f"{gap:.5f}; plain argmax == generated on {agree:.4f} of steps")
 
     # --- timing: prefill alone, then the whole greedy generate -----------
-    def wall_ms(fn):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3
-
     def do_prefill():
         cache = tgen.init_kv_cache(cfg, b, s + NEW_TOKENS,
                                    cache_layout="paged", block_size=16,
@@ -365,19 +430,7 @@ def slice_phase(dev):
     decode_ms = (gen_ms[1] - prefill[1]) / steps
 
     # --- device busy share of one greedy generate (torch.profiler) -------
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t_prof = wall_ms(do_generate)
-    by_name = {}
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0.0)
-        if dev_us > 0:
-            by_name[ev.key] = by_name.get(ev.key, 0.0) + dev_us / 1e3
-    busy = sum(by_name.values())
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    t_prof, busy, top, by_cat, by_op = profile_busy(do_generate)
     return {
         "prefill_ms": prefill[1], "prefill_ms_q1_q3": [prefill[0],
                                                        prefill[2]],
@@ -390,10 +443,254 @@ def slice_phase(dev):
         "device_busy_ms": busy if busy > 0 else "not measured",
         "device_idle_share": (1 - busy / t_prof) if busy > 0
         else "not measured",
-        "device_top_ms": {k[:60]: round(v, 3) for k, v in top},
+        "device_top_ms": top, "device_ms_by_category": by_cat,
+        "device_ms_by_op": by_op,
         "counts": counts, "logit_err": logit_err, "token_gap": gap,
         "argmax_agree": agree,
     }
+
+
+def rel_err(got, want) -> float:
+    """max |got - want| over max |want|."""
+    want = want.float()
+    return float((got.float() - want).abs().max()
+                 / want.abs().max().clamp_min(1e-12))
+
+
+def kernel_layer_norm_bwd(dev, gen):
+    """K5 against autograd of the plain LayerNorm forward, [16384, 768]
+    (ln1, ln2 and the final LN of the b16 x s1024 train step)."""
+    from apex_tpu_torch.ops import layer_norm as tln
+
+    rows, h = TRAIN_BATCH * TRAIN_SEQ, 768
+    w = 1 + 0.1 * torch.randn(h, device=dev, generator=gen)
+    b = 0.1 * torch.randn(h, device=dev, generator=gen)
+    errs, abs_errs = {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        x = (torch.randn(rows, h, device=dev, generator=gen) * 2).to(dtype)
+        dy = torch.randn(rows, h, device=dev, generator=gen).to(dtype)
+        _, mu, rs = tln.layer_norm_fwd_stats(x, w, b)
+        got = tln.layer_norm_bwd(dy, x, w, mu, rs)
+        leaves = [t.detach().requires_grad_() for t in (x, w, b)]
+        want = torch.autograd.grad(tln.layer_norm_ref(*leaves), leaves, dy)
+        errs[str(dtype)] = max(rel_err(a, e) for a, e in zip(got, want))
+        abs_errs[str(dtype)] = max(max_err(a, e) for a, e in zip(got, want))
+        check(errs[str(dtype)] <= LN_BWD_TOL[dtype],
+              f"K5 {dtype} error {errs}")
+    # timed at the train step's bf16 activations
+    x = torch.randn(rows, h, device=dev, generator=gen).to(torch.bfloat16)
+    dy = torch.randn(rows, h, device=dev, generator=gen).to(torch.bfloat16)
+    _, mu, rs = tln.layer_norm_fwd_stats(x, w, b)
+    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
+    _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [h], wb, bb, 1e-5)
+    nbytes = 3 * rows * h * 2 + 2 * rows * 4 + 3 * h * 4
+    bms, by = bound(nbytes, 13 * rows * h, PEAK_FP32_FLOPS)
+    return {
+        "err": abs_errs["torch.bfloat16"], "rel_err": max(errs.values()),
+        "tol": LN_BWD_TOL[torch.bfloat16], "detail": errs,
+        "ms": time_ms(lambda: tln.layer_norm_bwd(dy, x, w, mu, rs)),
+        "plain_ms": time_ms(lambda: tln.layer_norm_bwd(
+            dy, x, w, mu, rs, backend="reference")),
+        "library_ms": time_ms(lambda: torch.ops.aten.native_layer_norm_backward(
+            dy, x, [h], lmean, lrstd, wb, bb, [True, True, True])),
+        "bound_ms": bms, "bound_by": by,
+        "shape": f"[{rows}, {h}] bf16 dx, fp32 dgamma/dbeta (also fp32 "
+                 "checked); library = aten native_layer_norm_backward",
+    }
+
+
+def kernel_flash_bwd(dev, gen):
+    """K6 and K7 against autograd of mha_reference at b16 s1024 n12 d64
+    bf16: causal, causal with key padding, GQA g=4; timed on the causal
+    MHA case the train step runs."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    b, s, n, d = TRAIN_BATCH, TRAIN_SEQ, 12, 64
+    lens = torch.linspace(s, s // 8, b, device=dev).long()
+    kpm = torch.arange(s, device=dev)[None] >= lens[:, None]
+    errs, abs_err = {}, 0.0
+    main = None
+    for name, g, pad in (("causal", 12, False), ("causal+pad", 12, True),
+                         ("gqa g=4 causal", 4, False)):
+        q = torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+        k = torch.randn(b, s, g, d, device=dev, generator=gen).bfloat16()
+        v = torch.randn(b, s, g, d, device=dev, generator=gen).bfloat16()
+        do = torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+        m = kpm if pad else None
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal=True,
+                                         key_padding_mask=m)
+        got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                      key_padding_mask=m)
+        leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+        want = torch.autograd.grad(tfa.mha_reference(
+            *leaves, causal=True, key_padding_mask=m), leaves, do)
+        for gname, a, e in zip(("dq", "dk", "dv"), got, want):
+            errs[f"{name} {gname}"] = rel_err(a, e)
+            abs_err = max(abs_err, max_err(a, e))
+        del want, leaves
+        check(max(errs.values()) <= FLASH_BWD_TOL,
+              f"K6/K7 {name} error {errs}")
+        if name == "causal":
+            main = (q, k, v, o, lse, do)
+    q, k, v, o, lse, do = main
+    ops = tfa.flash_bwd_operands(q, k, v, o, lse, do)
+    pairs = n * b * s * (s + 1) // 2           # causal, no padding
+    io = 2 * b * s * n * d * 2 + 2 * b * s * n * d * 2   # q, do; k, v
+    stats = 2 * b * n * s * 4                           # lse, delta
+    dq_b, dq_by = bound(io + stats + b * s * n * d * 2, 6 * d * pairs,
+                        PEAK_BF16_FLOPS)
+    dkv_b, dkv_by = bound(io + stats + 2 * b * s * n * d * 2, 8 * d * pairs,
+                          PEAK_BF16_FLOPS)
+    plain_ms = time_ms(lambda: tfa.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=True), iters=2, reps=2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+
+    lib_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+              - time_ms(sdpa))
+    common = {"err": abs_err, "rel_err": max(errs.values()),
+              "tol": FLASH_BWD_TOL, "detail": errs,
+              "plain_ms": plain_ms, "library_ms": lib_ms}
+    shape = (f"b={b} s={s} n={n} d={d} bf16 causal (checked also with "
+             "key padding and GQA g=4); plain and library = the whole "
+             "backward (dq, dk, dv)")
+    return {
+        "flash_attention_bwd_dq": dict(
+            common, ms=time_ms(lambda: tfa.flash_bwd_dq(ops, causal=True)),
+            bound_ms=dq_b, bound_by=dq_by, shape=shape),
+        "flash_attention_bwd_dkv": dict(
+            common, ms=time_ms(lambda: tfa.flash_bwd_dkv(ops, causal=True)),
+            bound_ms=dkv_b, bound_by=dkv_by, shape=shape),
+    }
+
+
+def _train_cfg():
+    from apex_tpu_torch.models.config import gpt_125m
+
+    return gpt_125m(max_position_embeddings=TRAIN_SEQ, remat=False,
+                    scan_layers=False, fused_head_ce=True)
+
+
+def _batch(cfg, b, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (b, TRAIN_SEQ), generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (b, TRAIN_SEQ), generator=gen)
+    return tokens.to(dev), labels.to(dev)
+
+
+def train_phase(dev):
+    """The GPT-2 125M AMP-O2 train step at b16 x s1024 with exact launch
+    counts, step time, tokens/s, MFU and the device idle share."""
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.optimizers._common import tree_leaves
+
+    cfg = _train_cfg()
+    init, step = make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
+                                     device=dev)
+    state = init(torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(state.master_params))
+    tokens, labels = _batch(cfg, TRAIN_BATCH, 0, dev)
+    traj = []
+
+    def one():
+        nonlocal state
+        state, m = step(state, tokens, labels)
+        traj.append(m)
+
+    for _ in range(TRAIN_WARMUP):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # --- the main path: counts reset just before, read just after -------
+    ku.reset_launch_counts()
+    one()
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    L = cfg.num_layers
+    want = {name: 0 for name in ku.KERNELS}
+    want.update({"layer_norm_fwd": 2 * L + 1, "layer_norm_bwd": 2 * L + 1,
+                 "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                 "flash_attention_bwd_dkv": L})
+    check(counts == want, f"train-step launches {counts} != {want}")
+    print(f"launches (one train step): {counts}")
+
+    step_ms = [wall_ms(one) for _ in range(TRAIN_STEPS)]
+    q1, med, q3 = quartiles(step_ms)
+    t_prof, busy, top, by_cat, by_op = profile_busy(one)
+    losses = [float(m["loss"]) for m in traj]
+    scales = [float(m["loss_scale"]) for m in traj]
+    overflow = [bool(m["overflow"]) for m in traj]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(not all(overflow), "every train step overflowed")
+    tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
+    flops_per_tok = 6 * n_params + 12 * L * cfg.hidden_size * TRAIN_SEQ
+    return {
+        "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "step_ms": med, "step_ms_q1_q3": [q1, q3], "steps_timed": TRAIN_STEPS,
+        "tokens_per_s": tokens_per_s,
+        "mfu": tokens_per_s * flops_per_tok / PEAK_BF16_FLOPS,
+        "profiled_step_ms": t_prof,
+        "device_busy_ms": busy if busy > 0 else "not measured",
+        "device_idle_share": (1 - busy / t_prof) if busy > 0
+        else "not measured",
+        "device_top_ms": top, "device_ms_by_category": by_cat,
+        "device_ms_by_op": by_op,
+        "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "losses": losses, "loss_scales": scales, "overflow": overflow,
+        "counts": counts,
+    }
+
+
+def train_check(dev):
+    """3 steps at b4 x s1024 from one state on the kernel path and on the
+    plain path (backend="reference"): per-step loss, identical scaler
+    decisions, global grad norm within GRAD_NORM_RTOL."""
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.optimizers import fused_adam, global_norm
+
+    cfg = _train_cfg()
+    tokens, labels = _batch(cfg, CHECK_BATCH, 1, dev)
+    runs, state0 = {}, None
+    for backend in (None, "reference"):
+        norms = []
+
+        def post(grads, norms=norms):
+            norms.append(global_norm(grads))
+            return grads
+
+        init, step = make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
+                                         device=dev, backend=backend,
+                                         grad_postprocess=post)
+        if state0 is None:
+            state0 = init(torch.Generator().manual_seed(0))
+        state, seq = state0, []
+        for _ in range(CHECK_STEPS):
+            state, m = step(state, tokens, labels)
+            seq.append((float(m["loss"]), bool(m["overflow"]),
+                        float(m["loss_scale"])))
+        runs["kernel" if backend is None else "plain"] = (
+            seq, [float(x) for x in norms])
+        del state
+    (ks, kn), (ps, pn) = runs["kernel"], runs["plain"]
+    loss_err = max(abs(a[0] - b[0]) for a, b in zip(ks, ps))
+    check(loss_err <= TRAIN_LOSS_TOL,
+          f"kernel vs plain losses {ks} {ps} differ by {loss_err}")
+    check([a[1:] for a in ks] == [b[1:] for b in ps],
+          f"scaler decisions differ: kernel {ks} plain {ps}")
+    norm_err = max(abs(a - b) / b for a, b, s in zip(kn, pn, ks)
+                   if not s[1])
+    check(norm_err <= GRAD_NORM_RTOL,
+          f"grad norms kernel {kn} plain {pn}: {norm_err} > {GRAD_NORM_RTOL}")
+    return {"kernel": ks, "plain": ps, "grad_norm_kernel": kn,
+            "grad_norm_plain": pn, "loss_err": loss_err,
+            "grad_norm_rel_err": norm_err}
 
 
 def main() -> int:
@@ -420,20 +717,27 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     results = {}
+
+    def report(kname, r):
+        results[kname] = r
+        lib = r["library_ms"]
+        err = (f"max_rel_err {r['rel_err']:.3g} (tol {r['tol']}, relative "
+               f"to max |plain|), max_abs_err {r['err']:.3g}"
+               if "rel_err" in r else
+               f"max_abs_err {r['err']:.3g} (tol {r['tol']})")
+        print(f"{kname}: {r['shape']}: {err} {r['detail']}; kernel "
+              f"{r['ms']:.4f} ms, "
+              f"plain {r['plain_ms']:.4f} ms, library "
+              f"{'none' if lib is None else f'{lib:.4f} ms'}, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
-        gen = torch.Generator(device="cuda").manual_seed(0)
         for kname, fn in (("layer_norm_fwd", kernel_layer_norm),
                           ("flash_attention_fwd", kernel_flash),
                           ("fused_decode_layer", kernel_decode),
                           ("fused_sample", kernel_sampler)):
-            r = fn(dev, gen)
-            results[kname] = r
-            lib = r["library_ms"]
-            print(f"{kname}: {r['shape']}: max_abs_err {r['err']:.3g} "
-                  f"(tol {r['tol']}) {r['detail']}; kernel {r['ms']:.4f} ms, "
-                  f"plain {r['plain_ms']:.4f} ms, library "
-                  f"{'none' if lib is None else f'{lib:.4f} ms'}, "
-                  f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+            report(kname, fn(dev, gen))
         sl = slice_phase(dev)
     print(f"serving gpt_125m b=8 prompts {PROMPT_LENS} +{NEW_TOKENS} tokens "
           f"paged bf16 on {smi}: prefill median {sl['prefill_ms']:.2f} ms "
@@ -444,17 +748,52 @@ def main() -> int:
           f"{sl['tokens_per_s']:.1f} tokens/s; profiled generate "
           f"{sl['profiled_generate_ms']:.1f} ms, device busy "
           f"{sl['device_busy_ms']} ms, idle share "
-          f"{sl['device_idle_share']}; top device time {sl['device_top_ms']}")
+          f"{sl['device_idle_share']}; device ms by category "
+          f"{sl['device_ms_by_category']}; top device time "
+          f"{sl['device_top_ms']}")
 
+    report("layer_norm_bwd", kernel_layer_norm_bwd(dev, gen))
+    for kname, r in kernel_flash_bwd(dev, gen).items():
+        report(kname, r)
+    torch.cuda.empty_cache()
+    tr = train_phase(dev)
+    print(f"train gpt_125m AMP-O2 fused_adam(lr=1e-4) b{TRAIN_BATCH} x "
+          f"s{TRAIN_SEQ} ({tr['params']} params) on {smi}: step median "
+          f"{tr['step_ms']:.2f} ms (q1-q3 {tr['step_ms_q1_q3']}, "
+          f"{TRAIN_STEPS} steps), {tr['tokens_per_s']:.1f} tokens/s, MFU "
+          f"{tr['mfu']:.4f} of 989 TFLOP/s; profiled step "
+          f"{tr['profiled_step_ms']:.1f} ms, device busy "
+          f"{tr['device_busy_ms']} ms, idle share {tr['device_idle_share']}"
+          f"; peak memory {tr['peak_memory_gb']:.2f} GB; losses "
+          f"{tr['losses']}; loss scales {tr['loss_scales']}; overflow "
+          f"{tr['overflow']}; device ms by category "
+          f"{tr['device_ms_by_category']}; top device time "
+          f"{tr['device_top_ms']}; by launching op {tr['device_ms_by_op']}")
+    torch.cuda.empty_cache()
+    tc = train_check(dev)
+    print(f"train kernel vs plain, b{CHECK_BATCH} x s{TRAIN_SEQ}, "
+          f"{CHECK_STEPS} steps: (loss, overflow, scale) kernel "
+          f"{tc['kernel']} plain {tc['plain']}; max loss diff "
+          f"{tc['loss_err']:.5f} (tol {TRAIN_LOSS_TOL}); grad norms kernel "
+          f"{tc['grad_norm_kernel']} plain {tc['grad_norm_plain']}, max "
+          f"rel diff {tc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL})")
+
+    paths = {"serving": sl["counts"], "train_step": tr["counts"]}
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": "apex_tpu_torch/csrc/"
          + ku.KERNELS[k].source, "replaces": ku.KERNELS[k].replaces,
-         "launches": sl["counts"][k], "max_abs_err": r["err"],
-         "tol": r["tol"], "ms": r["ms"], "plain_ms": r["plain_ms"],
-         "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "launches": sum(c[k] for c in paths.values()),
+         "launches_by_path": {p: c[k] for p, c in paths.items()},
+         "max_abs_err": r["err"], "max_rel_err": r.get("rel_err"),
+         "tol": r["tol"],
+         "tol_of": "max_rel_err" if "rel_err" in r else "max_abs_err",
+         "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
         for k, r in results.items()],
-        "slice": {k: v for k, v in sl.items() if k != "counts"}}
+        "slice": {k: v for k, v in sl.items() if k != "counts"},
+        "train": {k: v for k, v in tr.items() if k != "counts"},
+        "train_check": tc}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

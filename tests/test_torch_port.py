@@ -7,9 +7,12 @@ import pathlib
 import pytest
 import torch
 
+from apex_tpu_torch import amp
 from apex_tpu_torch.models import generate as tgen
 from apex_tpu_torch.models.config import gpt_tiny
+from apex_tpu_torch.models.gpt import make_gpt_train_step
 from apex_tpu_torch.models.transformer_lm import init_gpt_params
+from apex_tpu_torch.optimizers import fused_adam
 from apex_tpu_torch.utils.registry import resolve_device
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
@@ -76,6 +79,21 @@ def test_entry_points_raise_without_device_or_cuda(monkeypatch, entry):
             params, torch.zeros(1, dtype=torch.long), cache, cfg),
         "generate": lambda: tgen.generate(params, prompt, cfg,
                                           max_new_tokens=2),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+@pytest.mark.parametrize("entry", ["make_gpt_train_step", "initialize",
+                                   "init_loss_scale"])
+def test_train_entry_points_raise_without_device_or_cuda(monkeypatch,
+                                                          entry):
+    _no_cuda(monkeypatch)
+    cfg = gpt_tiny(num_layers=1)
+    calls = {
+        "make_gpt_train_step": lambda: make_gpt_train_step(cfg, fused_adam()),
+        "initialize": lambda: amp.initialize("O2"),
+        "init_loss_scale": lambda: amp.init_loss_scale(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
