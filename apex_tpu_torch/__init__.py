@@ -22,7 +22,8 @@ the LayerNorm and flash-attention backward kernels).
 
 __version__ = "0.1.0"
 
-_LAZY_SUBMODULES = ("amp", "models", "ops", "optimizers", "serving", "utils")
+_LAZY_SUBMODULES = ("amp", "models", "observability", "ops", "optimizers",
+                    "serving", "utils")
 
 
 def __getattr__(name):

@@ -3,7 +3,9 @@
 ``params_from_numpy`` takes the JAX package's parameter tree as a nested
 dict of numpy arrays (``jax.tree.map(np.asarray, params)`` on the caller's
 side) and returns the port's dict of tensors with the same keys; a bf16
-leaf (ml_dtypes in numpy) travels through float32.
+leaf (ml_dtypes in numpy) travels through float32; a quantized weight
+leaf ``{"wire": int8, "scale": fp32}`` (``models/quantized.py``) crosses
+as it is, the int8 unchanged and never through a float.
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` (params, fp32
 masters, Adam moments and step, loss-scale state) across, so both
 packages can start from one mid-training state.  Nothing here imports
@@ -27,7 +29,11 @@ def params_from_numpy(tree, *, device: Union[str, torch.device],
     else kept in their own dtype (bf16 leaves, which numpy holds as
     ml_dtypes bfloat16, come back as torch bfloat16)."""
     if isinstance(tree, dict):
-        return {k: params_from_numpy(v, device=device, dtype=dtype)
+        # a quantized slab keeps its int8 wire and fp32 scales whatever
+        # ``dtype`` the float leaves take
+        keep = "wire" in tree and "scale" in tree
+        return {k: params_from_numpy(v, device=device,
+                                     dtype=None if keep else dtype)
                 for k, v in tree.items()}
     arr = np.asarray(tree)
     bf16 = arr.dtype.kind == "V" or str(arr.dtype) == "bfloat16"

@@ -19,8 +19,13 @@ position frozen.  Every norm is kernel K1.
 
 The port updates the KV cache in place (the JAX package returns new
 buffers); the returned dict holds the same K/V tensors and a new
-``pos``.  Not ported in this slice: ``spec=`` (speculative decoding),
-``lora=``, ``cache_wire="int8"`` and quantized weight leaves.
+``pos``.  ``cache_wire="int8"`` pools quantize K/V per (token, group)
+at every write (``serving/paged_cache.scatter_kv_quantized``) and the
+attention kernels dequantize them as they load.  Quantized weight
+leaves (``models/quantized.quantize_params``) run kernel row 10 at every
+matmul site; their decode attention is the stand-alone paged kernel
+(row 6) followed by the quantized projection, as in JAX, instead of K3.
+Not ported yet: ``spec=`` (speculative decoding) and ``lora=``.
 """
 
 from __future__ import annotations
@@ -33,9 +38,12 @@ from apex_tpu_torch.models.config import TransformerConfig
 from apex_tpu_torch.models.transformer_lm import (
     _attention, _mlp, apply_norm, lm_head_logits, rope_cos_sin, split_qkv)
 from apex_tpu_torch.ops.decode_step import fused_decode_layer
+from apex_tpu_torch.ops.dense import is_quantized, quantized_matmul
 from apex_tpu_torch.ops.fused_sampling import fused_sample
+from apex_tpu_torch.ops.paged_attention import ragged_paged_attention
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_ragged
-from apex_tpu_torch.serving.paged_cache import blocks_for, init_paged_pool
+from apex_tpu_torch.serving.paged_cache import (
+    blocks_for, init_paged_pool, scatter_kv_quantized)
 from apex_tpu_torch.utils.registry import check_backend, resolve_device
 
 __all__ = ["init_kv_cache", "prefill", "decode_step", "sample_logits",
@@ -102,10 +110,6 @@ def _check_decode_cfg(cfg: TransformerConfig) -> None:
 
 
 def _check_cache(cache: dict) -> None:
-    if "k_scale" in cache:
-        raise NotImplementedError(
-            "int8 caches (cache_wire='int8') come with the serving-engine "
-            "slice of the port")
     if cache["pos"].ndim != 1:
         raise ValueError(
             f"cache['pos'] must be a [b] int32 vector, got shape "
@@ -113,12 +117,10 @@ def _check_cache(cache: dict) -> None:
 
 
 def _layer_params(params: dict, layer: int) -> dict:
-    lp = {k: v[layer] for k, v in params["layers"].items()}
-    for name in ("qkv_kernel", "proj_kernel", "fc1_kernel", "fc2_kernel"):
-        if isinstance(params["layers"].get(name), dict):
-            raise NotImplementedError(
-                "quantized weight leaves come with a later slice of the port")
-    return lp
+    """Layer ``layer``'s leaves; a quantized slab keeps its dict form."""
+    return {k: ({kk: vv[layer] for kk, vv in v.items()}
+                if isinstance(v, dict) else v[layer])
+            for k, v in params["layers"].items()}
 
 
 # leaves every layer casts to the compute dtype at each use; K1 reads the
@@ -176,6 +178,7 @@ def prefill(params: dict, prompt, cfg: TransformerConfig, *,
                               cache_dtype=cache_dtype, device=dev)
     _check_cache(cache)
     paged = "block_tables" in cache
+    quant = "k_scale" in cache
     cache_len = (cache["block_tables"].shape[1] * cache["k"].shape[2]
                  if paged else cache["k"].shape[2])
     if s > cache_len:
@@ -212,9 +215,13 @@ def prefill(params: dict, prompt, cfg: TransformerConfig, *,
         h = apply_norm(cfg, x, lp["ln2_scale"], lp["ln2_bias"],
                        backend=backend)
         res = h if cfg.apply_residual_connection_post_layernorm else x
-        x = res + _mlp(cfg, lp, h)
+        x = res + _mlp(cfg, lp, h, backend=backend)
         ck, cv = cache["k"][layer], cache["v"][layer]
-        if paged:
+        if paged and quant:
+            scatter_kv_quantized(ck, cv, cache["k_scale"][layer],
+                                 cache["v_scale"][layer], k[rows, cols],
+                                 v[rows, cols], (cell_blk, cell_off))
+        elif paged:
             ck[cell_blk, cell_off] = k[rows, cols].to(ck.dtype)
             cv[cell_blk, cell_off] = v[rows, cols].to(cv.dtype)
         else:
@@ -281,19 +288,33 @@ def decode_step(params: dict, token, cache: dict, cfg: TransformerConfig,
         r = pos.clamp(0, max_pos - 1)
         rope_cos, rope_sin = rope[0][r], rope[1][r]
 
+    quant = "k_scale" in cache
     for layer in range(cfg.num_layers):
         lp = _layer_params(params, layer)
+        # a quantized projection slab stays unfused (as in JAX): row 6
+        # attends, then row 10 projects
+        fuse = not is_quantized(lp["proj_kernel"])
         h = apply_norm(cfg, x, lp["ln1_scale"], lp["ln1_bias"],
                        backend=backend)
-        qkv = h @ lp["qkv_kernel"].to(x.dtype) + lp["qkv_bias"].to(x.dtype)
+        qkv = (quantized_matmul(h, lp["qkv_kernel"], backend=backend)
+               + lp["qkv_bias"].to(x.dtype))
         q, k, v = split_qkv(cfg, qkv, b, 1)
         if rope is not None:
             k = fused_apply_rotary_pos_emb_ragged(k, rope[0], rope[1], pos)
+            if not fuse:
+                q = fused_apply_rotary_pos_emb_ragged(q, rope[0], rope[1],
+                                                      pos)
         ck, cv = cache["k"][layer], cache["v"][layer]
+        sk = sv = None
         if paged:
             sel = slice(None) if rows is None else rows
-            ck[blk[sel], off[sel]] = k[sel, 0].to(ck.dtype)
-            cv[blk[sel], off[sel]] = v[sel, 0].to(cv.dtype)
+            if quant:
+                sk, sv = cache["k_scale"][layer], cache["v_scale"][layer]
+                scatter_kv_quantized(ck, cv, sk, sv, k[sel, 0], v[sel, 0],
+                                     (blk[sel], off[sel]))
+            else:
+                ck[blk[sel], off[sel]] = k[sel, 0].to(ck.dtype)
+                cv[blk[sel], off[sel]] = v[sel, 0].to(cv.dtype)
             pool_k, pool_v = ck, cv
         else:
             sel = torch.arange(b, device=dev) if rows is None else rows
@@ -302,16 +323,24 @@ def decode_step(params: dict, token, cache: dict, cfg: TransformerConfig,
             g, dh = ck.shape[2], ck.shape[3]
             pool_k = ck.view(b * nbl, bs, g, dh)
             pool_v = cv.view(b * nbl, bs, g, dh)
-        a = fused_decode_layer(q[:, 0], pool_k, pool_v, tables, pos + 1,
-                               lp["proj_kernel"], rope_cos=rope_cos,
-                               rope_sin=rope_sin, backend=backend)
+        if fuse:
+            a = fused_decode_layer(q[:, 0], pool_k, pool_v, tables, pos + 1,
+                                   lp["proj_kernel"], rope_cos=rope_cos,
+                                   rope_sin=rope_sin, backend=backend,
+                                   k_scale=sk, v_scale=sv)
+        else:
+            ctx = ragged_paged_attention(q[:, 0], pool_k, pool_v, tables,
+                                         pos + 1, backend=backend,
+                                         k_scale=sk, v_scale=sv)
+            a = quantized_matmul(ctx.to(x.dtype).reshape(b, -1),
+                                 lp["proj_kernel"], backend=backend)
         a = a[:, None] + lp["proj_bias"].to(x.dtype)
         res = h if cfg.apply_residual_connection_post_layernorm else x
         x = res + a
         h = apply_norm(cfg, x, lp["ln2_scale"], lp["ln2_bias"],
                        backend=backend)
         res = h if cfg.apply_residual_connection_post_layernorm else x
-        x = res + _mlp(cfg, lp, h)
+        x = res + _mlp(cfg, lp, h, backend=backend)
 
     x = apply_norm(cfg, x, params["final_ln"]["scale"],
                    params["final_ln"]["bias"], backend=backend)

@@ -9,7 +9,9 @@ norm through ``ops/layer_norm.py`` (kernels K1 and K5).  The training
 forward (:func:`gpt_loss`) is differentiable with the JAX package's
 casts: the word and position tables go to ``cfg.compute_dtype`` before
 the lookup, every matmul weight and bias to the activations' dtype, the
-gelu runs in fp32, and the norms read their scales in fp32.
+gelu runs in fp32, and the norms read their scales in fp32.  A
+quantized kernel (``models/quantized.quantize_params``) runs the int8
+weight-slab matmul at each site (kernel row 10 on the card).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from apex_tpu_torch.models.config import TransformerConfig
+from apex_tpu_torch.ops.dense import is_quantized, quantized_matmul
 from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm, fused_rms_norm
 from apex_tpu_torch.ops.lm_head_ce import lm_head_cross_entropy
@@ -159,7 +162,8 @@ def _attention(cfg: TransformerConfig, lp: dict, x, key_padding_mask,
     projection.  ``return_kv`` also returns the post-rope group-width K/V
     (the prefill cache write)."""
     b, s, _ = x.shape
-    qkv = x @ lp["qkv_kernel"].to(x.dtype) + lp["qkv_bias"].to(x.dtype)
+    qkv = (quantized_matmul(x, lp["qkv_kernel"], backend=backend)
+           + lp["qkv_bias"].to(x.dtype))
     q, k, v = split_qkv(cfg, qkv, b, s)
     if rope is not None:
         cos, sin = rope
@@ -168,27 +172,32 @@ def _attention(cfg: TransformerConfig, lp: dict, x, key_padding_mask,
         k = fused_apply_rotary_pos_emb_cached(k, cos[None, :, None, :],
                                               sin[None, :, None, :])
     ctxv = _core_attention(cfg, q, k, v, key_padding_mask, backend=backend)
-    out = ctxv.reshape(b, s, -1) @ lp["proj_kernel"].to(x.dtype)
+    out = quantized_matmul(ctxv.reshape(b, s, -1), lp["proj_kernel"],
+                           backend=backend)
     out = out + lp["proj_bias"].to(x.dtype)
     return (out, k, v) if return_kv else out
 
 
-def _mlp(cfg: TransformerConfig, lp: dict, x):
+def _mlp(cfg: TransformerConfig, lp: dict, x, *,
+         backend: Optional[str] = None):
     """fc1 → bias + activation (gelu / gelu_tanh in fp32, or the paired
     ``[h, 2, f]`` swiglu) → fc2 + bias."""
-    w1 = lp["fc1_kernel"].to(x.dtype)
+    w1 = lp["fc1_kernel"]
     if cfg.activation == "swiglu":
-        y = torch.einsum("bsh,hcf->bscf", x, w1)
+        y = (quantized_matmul(x, w1, backend=backend) if is_quantized(w1)
+             else torch.einsum("bsh,hcf->bscf", x, w1.to(x.dtype)))
         y = y.float() + lp["fc1_bias"].to(x.dtype).float()
         y = (F.silu(y[..., 0, :]) * y[..., 1, :]).to(x.dtype)
     else:
-        y = x @ w1 + lp["fc1_bias"].to(x.dtype)
+        y = (quantized_matmul(x, w1, backend=backend)
+             + lp["fc1_bias"].to(x.dtype))
         # PyTorch's gelu computes a 16-bit input in fp32 and rounds once,
         # forward and backward: the JAX package's fp32 round trip, in one
         # pass each way instead of three
         y = F.gelu(y, approximate="tanh" if cfg.activation == "gelu_tanh"
                    else "none")
-    return y @ lp["fc2_kernel"].to(x.dtype) + lp["fc2_bias"].to(x.dtype)
+    return (quantized_matmul(y, lp["fc2_kernel"], backend=backend)
+            + lp["fc2_bias"].to(x.dtype))
 
 
 def _check_training_cfg(cfg: TransformerConfig) -> None:
@@ -213,7 +222,7 @@ def _layer(cfg: TransformerConfig, lp: dict, x, key_padding_mask, rope, *,
     res = h if cfg.apply_residual_connection_post_layernorm else x
     x = res + a
     h = apply_norm(cfg, x, lp["ln2_scale"], lp["ln2_bias"], backend=backend)
-    m = _mlp(cfg, lp, h)
+    m = _mlp(cfg, lp, h, backend=backend)
     res = h if cfg.apply_residual_connection_post_layernorm else x
     return res + m
 

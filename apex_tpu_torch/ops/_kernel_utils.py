@@ -9,7 +9,7 @@ first use it is compiled with
          -Xcompiler -fPIC -o build/apex_tpu_torch/<name>-<hash>.so <name>.cu
 
 into the repository's ``build/apex_tpu_torch/`` directory (git-ignored),
-keyed on a hash of the source and the shared header, and loaded with
+keyed on a hash of the source and the shared headers, and loaded with
 ``ctypes``.  :func:`build_all` starts one ``nvcc`` per source at once.
 
 Every pointer and the stream pass as ``c_void_p`` (a bare Python int
@@ -41,7 +41,7 @@ __all__ = ["Kernel", "KERNELS", "register", "build_all",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
     "apex_tpu_torch"
-_COMMON = ("common.cuh",)
+_COMMON = ("common.cuh", "paged_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

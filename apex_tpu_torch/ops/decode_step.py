@@ -8,7 +8,9 @@ composition of rope, :func:`~apex_tpu_torch.ops.paged_attention.
 paged_attention_reference` and a matmul with the same dtype edges.
 
 Layout: ``q`` ``[b, num_heads, dh]`` PRE-rope; pools ``[num_blocks,
-block_size, kv_groups, dh]``; ``block_tables`` ``[b, max_blocks]``
+block_size, kv_groups, dh]`` in q's dtype, or int8 with ``k_scale``/
+``v_scale`` ``[num_blocks, block_size, kv_groups]`` fp32
+(``cache_wire="int8"``); ``block_tables`` ``[b, max_blocks]``
 (entries ``>= num_blocks`` unmapped); ``lengths`` ``[b]`` live tokens
 (query included); ``w_proj`` ``[num_heads·dh, h_out]`` float;
 ``rope_cos``/``rope_sin`` ``[b, d2]`` per-sequence angle rows or
@@ -24,7 +26,7 @@ import torch
 
 from apex_tpu_torch.ops import _kernel_utils as ku
 from apex_tpu_torch.ops.paged_attention import (
-    _check_paged_shapes, paged_attention_reference)
+    _check_paged_shapes, check_kernel_geometry, paged_attention_reference)
 from apex_tpu_torch.ops.rope import _rope
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
@@ -32,8 +34,8 @@ __all__ = ["fused_decode_layer", "decode_layer_reference"]
 
 DECODE_LAYER = ku.register(ku.Kernel(
     "fused_decode_layer", "decode_step.cu", "apex_decode_layer",
-    [ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
-    + [ctypes.c_float, ctypes.c_int],
+    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+    + [ctypes.c_float, ctypes.c_int, ctypes.c_int],
     replaces="apex_tpu/ops/decode_step.py:157"))
 
 
@@ -62,37 +64,32 @@ def _check_fused_shapes(q, w_proj, rope_cos, rope_sin):
 
 def decode_layer_reference(q, k_pool, v_pool, block_tables, lengths, w_proj,
                            *, rope_cos=None, rope_sin=None,
-                           scale: Optional[float] = None):
-    """Rope (fp32 math, rounded to q's dtype) → paged attention →
-    ``ctx.to(dtype) @ w_proj.to(dtype)``: the unfused decode layer's op
-    sequence, the parity oracle of kernel K3."""
-    _check_paged_shapes(q, k_pool, v_pool, block_tables, lengths)
+                           scale: Optional[float] = None,
+                           k_scale=None, v_scale=None):
+    """Rope (fp32 math, rounded to q's dtype) → paged attention (int8
+    pools dequantized by their scales) → ``ctx.to(dtype) @
+    w_proj.to(dtype)``: the unfused decode layer's op sequence, the
+    parity oracle of kernel K3."""
+    _check_paged_shapes(q, k_pool, v_pool, block_tables, lengths,
+                        k_scale, v_scale)
     _check_fused_shapes(q, w_proj, rope_cos, rope_sin)
     b = q.shape[0]
     if rope_cos is not None:
         q = _rope(q[:, None], rope_cos.float()[:, None, None, :],
                   rope_sin.float()[:, None, None, :])[:, 0]
     ctx = paged_attention_reference(q, k_pool, v_pool, block_tables,
-                                    lengths, scale=scale)
+                                    lengths, scale=scale, k_scale=k_scale,
+                                    v_scale=v_scale)
     return ctx.to(q.dtype).reshape(b, -1) @ w_proj.to(q.dtype)
 
 
 def _fused_kernel(q, k_pool, v_pool, block_tables, lengths, w_proj,
-                  rope_cos, rope_sin, scale):
+                  rope_cos, rope_sin, scale, k_scale, v_scale):
     b, nh, dh = q.shape
     nb, bs, g, _ = k_pool.shape
     mb = block_tables.shape[1]
     h_out = w_proj.shape[1]
-    if k_pool.dtype != q.dtype or v_pool.dtype != q.dtype:
-        raise NotImplementedError(
-            f"pool dtype {k_pool.dtype} differs from q's {q.dtype}: the "
-            "kernel reads the pool in the compute dtype")
-    rep = nh // g
-    if rep > 8 or rep * dh > 1024 or dh % 8:
-        raise ValueError(
-            f"decode kernel takes num_heads/kv_groups <= 8, "
-            f"(num_heads/kv_groups)*dh <= 1024 and dh % 8 == 0; got "
-            f"rep={rep}, dh={dh}")
+    check_kernel_geometry("fused_decode_layer", q, k_pool)
     q = q.contiguous()
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
@@ -100,15 +97,17 @@ def _fused_kernel(q, k_pool, v_pool, block_tables, lengths, w_proj,
     cos = None if rope_cos is None else rope_cos.float().contiguous()
     sin = None if rope_sin is None else rope_sin.float().contiguous()
     d2 = 0 if cos is None else cos.shape[-1]
-    ku.check_cuda_operands("fused_decode_layer", q, k_pool, v_pool, tables,
-                           lens, w, cos, sin)
+    ku.check_cuda_operands("fused_decode_layer", q, k_pool, v_pool, k_scale,
+                           v_scale, tables, lens, w, cos, sin)
     ku.check_aligned("fused_decode_layer", k_pool, v_pool)
     out = torch.empty(b, h_out, dtype=q.dtype, device=q.device)
     partial = torch.empty(b, g, h_out, dtype=torch.float32, device=q.device)
     DECODE_LAYER(q.device, ku.ptr(q), ku.ptr(k_pool), ku.ptr(v_pool),
-                 ku.ptr(tables), ku.ptr(lens), ku.ptr(w), ku.ptr(cos),
-                 ku.ptr(sin), ku.ptr(out), ku.ptr(partial), b, nh, dh, nb,
-                 bs, g, mb, h_out, d2, scale, ku.dtype_code(q))
+                 ku.ptr(k_scale), ku.ptr(v_scale), ku.ptr(tables),
+                 ku.ptr(lens), ku.ptr(w), ku.ptr(cos), ku.ptr(sin),
+                 ku.ptr(out), ku.ptr(partial), b, nh, dh, nb, bs, g, mb,
+                 h_out, d2, scale, ku.dtype_code(q),
+                 int(k_scale is not None))
     return out
 
 
@@ -118,8 +117,8 @@ def fused_decode_layer(q, k_pool, v_pool, block_tables, lengths, w_proj, *,
                        backend: Optional[str] = None,
                        k_scale=None, v_scale=None) -> torch.Tensor:
     """One decode token per sequence: rope the query, attend over its
-    paged KV blocks and project the context — one launch of kernel K3 on
-    the card.  Inference only."""
+    paged KV blocks (dequantizing an int8 pool) and project the context
+    — one launch of kernel K3 on the card.  Inference only."""
     _check_paged_shapes(q, k_pool, v_pool, block_tables, lengths,
                         k_scale, v_scale)
     _check_fused_shapes(q, w_proj, rope_cos, rope_sin)
@@ -127,7 +126,9 @@ def fused_decode_layer(q, k_pool, v_pool, block_tables, lengths, w_proj, *,
     scale = (1.0 / dh ** 0.5) if scale is None else float(scale)
     if check_backend(backend) is None and on_cuda(q):
         return _fused_kernel(q, k_pool, v_pool, block_tables, lengths,
-                             w_proj, rope_cos, rope_sin, scale)
+                             w_proj, rope_cos, rope_sin, scale, k_scale,
+                             v_scale)
     return decode_layer_reference(q, k_pool, v_pool, block_tables, lengths,
                                   w_proj, rope_cos=rope_cos,
-                                  rope_sin=rope_sin, scale=scale)
+                                  rope_sin=rope_sin, scale=scale,
+                                  k_scale=k_scale, v_scale=v_scale)

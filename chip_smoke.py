@@ -8,16 +8,25 @@
 2. Builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and prints the build time.
 3. Holds each kernel (K1 LayerNorm, K2 flash attention, K3 fused decode
-   layer, K4 fused sampler) against its plain PyTorch version at the
-   serving path's shapes, and times kernel, plain version and, where one
-   exists, a single PyTorch library call computing the same function,
-   beside the least time the card could take (the larger of bytes over
-   3.35 TB/s and operations over the peak rate of their type).
+   layer with a bf16 and an int8 pool, K4 fused sampler, row 6 ragged
+   paged attention, row 10 int8-weight matmul) against its plain PyTorch
+   version at the serving paths' shapes, and times kernel, plain version
+   and, where one exists, a single PyTorch library call computing the
+   same function, beside the least time the card could take (the larger
+   of bytes over 3.35 TB/s and operations over the peak rate of their
+   type).
 4. Drives the serving path: ``generate`` on GPT-2 125M (random weights
    from a seeded generator, bf16 compute) for 8 ragged requests, greedy
    and sampled, counting every kernel launch; then replays the greedy
    tokens teacher-forced through the kernel path and the plain path
    (``backend="reference"``) and compares their logits.
+4b. Drives the paged ``ServingEngine`` on GPT-2 125M (32 lanes, 512
+   blocks of 16 tokens) under bench.py's long_prompt_starvation mix, with
+   float and ``quantize_params`` weights and native and int8 pools: exact
+   launch identities from the engine's decode-step and prefill-call
+   counts, TTFT/TPOT, first tokens against the same engine on the plain
+   path, teacher-forced kernel-vs-plain logits, a profiled run's device
+   idle share, and a 64-block run that must preempt and still finish.
 5. Holds the backward kernels (K5 LayerNorm backward, K6 flash dq, K7
    flash dK/dV) against autograd of their plain forward at the train
    step's shapes, timed like the others.
@@ -281,10 +290,28 @@ def kernel_decode(dev, gen):
             main = (args, g)
     args, g = main
     live = int(lens.sum())
-    nbytes = (live * g * dh * 2 * 2 + nh * dh * h_out * 4 + b * nh * dh * 2
-              + b * h_out * 2 + args[3].numel() * 4)
-    flops = 4 * live * nh * dh + 2 * b * nh * dh * h_out
-    bms, by = bound(nbytes, flops, PEAK_FP32_FLOPS)
+
+    def decode_bound(kv_bytes_per_elem, scale_bytes):
+        nbytes = (live * g * (dh * kv_bytes_per_elem + scale_bytes) * 2
+                  + nh * dh * h_out * 4 + b * nh * dh * 2 + b * h_out * 2
+                  + args[3].numel() * 4)
+        flops = 4 * live * nh * dh + 2 * b * nh * dh * h_out
+        return bound(nbytes, flops, PEAK_FP32_FLOPS)
+
+    bms, by = decode_bound(2, 0)
+    # the int8 branch: the same tables and lengths over a block-scaled
+    # int8 pool (one fp32 scale per token and kv group)
+    from apex_tpu_torch.serving.paged_cache import quantize_kv
+    kq, ks = quantize_kv(args[1].float())
+    vq, vs = quantize_kv(args[2].float())
+    qargs = (args[0], kq, vq, args[3], args[4], args[5])
+    sc = dict(k_scale=ks, v_scale=vs)
+    got = tds.fused_decode_layer(*qargs, **sc)
+    want = tds.fused_decode_layer(*qargs, backend="reference", **sc)
+    errs["mha learned, int8 pool"] = max_err(got, want)
+    check(errs["mha learned, int8 pool"] <= tol,
+          f"K3 int8 pool error {errs['mha learned, int8 pool']}")
+    qbms, qby = decode_bound(1, 4)
     return {
         "err": max(errs.values()), "tol": tol, "detail": errs,
         "ms": time_ms(lambda: tds.fused_decode_layer(*args)),
@@ -292,6 +319,139 @@ def kernel_decode(dev, gen):
             *args, backend="reference")),
         "library_ms": None, "bound_ms": bms, "bound_by": by,
         "shape": f"b={b} nh={nh} dh={dh} block={bs} lengths 17-576 bf16",
+        "variants": {"int8 pool": {
+            "ms": time_ms(lambda: tds.fused_decode_layer(*qargs, **sc)),
+            "plain_ms": time_ms(lambda: tds.fused_decode_layer(
+                *qargs, backend="reference", **sc)),
+            "library_ms": None, "bound_ms": qbms, "bound_by": qby}},
+    }
+
+
+# row 6 at the engine's decode shape: 32 lanes, lengths 1-1024 with
+# len % 16 in {0, 1, 15}, and a lane of length 0 whose table holds only
+# sentinels (a free engine lane)
+PAGED_LENS = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100, 128, 129, 200,
+              255, 256, 257, 300, 383, 384, 385, 500, 511, 512, 513, 640,
+              767, 768, 769, 1000, 1024, 0]
+
+
+def _paged_inputs(dev, gen, g, quant, nh=12, dh=64, bs=16, mb=64):
+    from apex_tpu_torch.serving.paged_cache import quantize_kv
+
+    b = len(PAGED_LENS)
+    lens = torch.tensor(PAGED_LENS, device=dev, dtype=torch.int32)
+    nb = b * mb + 7
+    tables = torch.randperm(nb, device=dev, generator=gen)[:b * mb]
+    tables = tables.view(b, mb).to(torch.int32)
+    for i, n in enumerate(PAGED_LENS):
+        tables[i, -(-n // bs):] = nb + 1 + i          # sentinel tails
+    q = torch.randn(b, nh, dh, device=dev, generator=gen).bfloat16()
+    kp = torch.randn(nb, bs, g, dh, device=dev, generator=gen)
+    vp = torch.randn(nb, bs, g, dh, device=dev, generator=gen)
+    if not quant:
+        return (q, kp.bfloat16(), vp.bfloat16(), tables, lens), {}
+    kq, ks = quantize_kv(kp)
+    vq, vs = quantize_kv(vp)
+    return (q, kq, vq, tables, lens), dict(k_scale=ks, v_scale=vs)
+
+
+def kernel_paged(dev, gen):
+    from apex_tpu_torch.ops import paged_attention as tpa
+
+    nh, dh = 12, 64
+    tol = 2e-2
+    errs, timed = {}, {}
+    for name, g, quant in (("mha bf16 pool", 12, False),
+                           ("mha int8 pool", 12, True),
+                           ("gqa g=4 int8 pool", 4, True)):
+        args, sc = _paged_inputs(dev, gen, g, quant)
+        got = tpa.ragged_paged_attention(*args, **sc)
+        want = tpa.ragged_paged_attention(*args, backend="reference", **sc)
+        errs[name] = max_err(got, want)
+        check(errs[name] <= tol, f"row 6 {name} error {errs[name]}")
+        check(int(torch.count_nonzero(got[-1])) == 0,
+              f"row 6 {name}: the length-0 lane is not exact zeros")
+        if g == 12:
+            live = sum(PAGED_LENS)
+            per_elem, per_scale = (1, 4) if quant else (2, 0)
+            b = len(PAGED_LENS)
+            nbytes = (live * g * (dh * per_elem + per_scale) * 2
+                      + 2 * b * nh * dh * 2 + args[3].numel() * 4 + b * 4)
+            bms, by = bound(nbytes, 4 * live * nh * dh, PEAK_FP32_FLOPS)
+            timed[name] = {
+                "ms": time_ms(lambda: tpa.ragged_paged_attention(
+                    *args, **sc)),
+                "plain_ms": time_ms(lambda: tpa.ragged_paged_attention(
+                    *args, backend="reference", **sc)),
+                "library_ms": None, "bound_ms": bms, "bound_by": by}
+    main = timed.pop("mha bf16 pool")
+    return dict(main, err=max(errs.values()), tol=tol, detail=errs,
+                variants={"int8 pool": timed["mha int8 pool"]},
+                shape=f"b={len(PAGED_LENS)} nh={nh} g=12 dh={dh} block=16 "
+                      "max_blocks=64 lengths 0-1024 bf16 pool (also int8 "
+                      "pool, and GQA g=4 int8 checked)")
+
+
+# row 10 at GPT-2 125M's four per-layer matmuls: (in, out)
+DENSE_SITES = (("qkv", 768, 2304), ("proj", 768, 768), ("fc1", 768, 3072),
+               ("fc2", 3072, 768))
+DENSE_ROWS = (32, 1024)          # decode lanes; a prefill of 1024 tokens
+DENSE_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
+
+
+def kernel_dense_int8(dev, gen):
+    """Row 10 against its plain version (fp32 x against the dequantized
+    slab) at M in {32, 1024} x the four GPT-2 125M kernels in bf16 and
+    one fp32 case; errors relative to max |plain|.  The library time is
+    bf16 ``torch.mm`` on the weight dequantized to bf16 beforehand: a
+    reference point that reads bf16 weights, not the same input."""
+    from apex_tpu_torch.ops import dense as td
+
+    errs, abs_err, variants = {}, 0.0, {}
+    cases = [(m, site, torch.bfloat16) for m in DENSE_ROWS
+             for site in DENSE_SITES]
+    cases.append((32, DENSE_SITES[0], torch.float32))
+    for m, (site, k, n), dtype in cases:
+        w = torch.randn(k, n, device=dev, generator=gen) * 0.02
+        slab = td.quantize_weight(w)
+        x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
+        args = (x, slab["wire"], slab["scale"])
+        got = td.dense_quantized(*args)
+        want = td.dense_quantized(*args, backend="reference")
+        name = f"M={m} {site} [{k}, {n}] {str(dtype)[6:]}"
+        errs[name] = rel_err(got, want)
+        abs_err = max(abs_err, max_err(got, want))
+        check(errs[name] <= DENSE_TOL[dtype], f"row 10 {name} error {errs}")
+        kb = k // slab["scale"].shape[0]
+        esz = x.element_size()
+        nbytes = m * k * esz + k * n + (k // kb) * n * 4 + m * n * esz
+        bms, by = bound(nbytes, 2 * m * k * n,
+                        PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                        else PEAK_FP32_FLOPS)
+        wd = td.dequantize_weight(slab["wire"], slab["scale"]).to(dtype)
+        variants[name] = {
+            "ms": time_ms(lambda: td.dense_quantized(*args)),
+            "plain_ms": time_ms(lambda: td.dense_quantized(
+                *args, backend="reference")),
+            "library_ms": time_ms(lambda: torch.mm(x, wd)),
+            "bound_ms": bms, "bound_by": by}
+    # the headline numbers: one decode layer's four matmuls at M=32
+    decode = [v for k, v in variants.items()
+              if k.startswith("M=32 ") and k.endswith("bfloat16")]
+    return {
+        "err": abs_err, "rel_err": max(errs.values()),
+        "tol": DENSE_TOL[torch.bfloat16], "detail": errs,
+        "ms": sum(v["ms"] for v in decode),
+        "plain_ms": sum(v["plain_ms"] for v in decode),
+        "library_ms": sum(v["library_ms"] for v in decode),
+        "bound_ms": sum(v["bound_ms"] for v in decode),
+        "bound_by": ("bytes" if all(v["bound_by"] == "bytes" for v in decode)
+                     else "operations"),
+        "variants": variants,
+        "shape": "sum of the four GPT-2 125M matmuls (qkv, proj, fc1, "
+                 "fc2) at M=32 bf16; per-shape times, M=1024 and fp32 "
+                 "under variants; library = bf16 torch.mm on the weight "
+                 "dequantized beforehand (reads bf16, not the int8 slab)",
     }
 
 
@@ -448,6 +608,262 @@ def slice_phase(dev):
         "counts": counts, "logit_err": logit_err, "token_gap": gap,
         "argmax_agree": agree,
     }
+
+
+# the serving engine at bench.py's paged geometry and its
+# long_prompt_starvation mix
+ENGINE_KW = dict(max_slots=32, max_len=1024, cache_layout="paged",
+                 block_size=16, num_blocks=512, top_k=50, top_p=0.95,
+                 vocab_limit=VOCAB_LIMIT)
+ENGINE_RUNS = (("float", None), ("float", "int8"), ("quantized", None),
+               ("quantized", "int8"))
+STARVED_BLOCKS = 64
+FORCED_BATCH = 8
+
+
+def engine_requests(vocab):
+    """2 long prompts (768 tokens, 64 new, class batch) submitted first,
+    then 16 short ones (32 tokens, 32 new, class interactive), every
+    fourth sampled at temperature 0.8, the rest greedy."""
+    import numpy as np
+
+    rng = np.random.RandomState(1)
+    reqs = [dict(prompt=rng.randint(0, vocab, (768,)), max_new_tokens=64,
+                 slo_class="batch") for _ in range(2)]
+    reqs += [dict(prompt=rng.randint(0, vocab, (32,)), max_new_tokens=32,
+                  slo_class="interactive",
+                  temperature=0.8 if i % 4 == 3 else 0.0)
+             for i in range(16)]
+    return reqs
+
+
+def pct(vals, q):
+    """bench.py's nearest-rank percentile."""
+    vals = sorted(vals)
+    if not vals:
+        return 0.0
+    return vals[min(len(vals) - 1, max(0, round(q * (len(vals) - 1))))]
+
+
+def drive_engine(engine, reqs):
+    """Submit, step until idle, track the concurrency high-water mark →
+    (responses by request id, wall ms, most concurrent requests)."""
+    for kw in reqs:
+        engine.submit(**kw)
+    resps, hw = [], 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not engine.idle:
+        resps.extend(engine.step())
+        hw = max(hw, engine.stats()["active"])
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return sorted(resps, key=lambda r: r.request_id), wall, hw
+
+
+def check_responses(engine, reqs, resps, what):
+    check(len(resps) == len(reqs), f"{what}: {len(resps)} of {len(reqs)} "
+                                   "requests completed")
+    for r, kw in zip(resps, reqs):
+        check(r.finish_reason == "length"
+              and r.tokens.size == kw["max_new_tokens"],
+              f"{what}: request {r.request_id} ended {r.finish_reason} "
+              f"after {r.tokens.size} of {kw['max_new_tokens']} tokens")
+        check(int(r.tokens.max()) < VOCAB_LIMIT and int(r.tokens.min()) >= 0,
+              f"{what}: request {r.request_id} token outside the vocab")
+    st = engine.stats()
+    check(engine.idle and st["blocks_in_use"] == 0
+          and st["blocks_free"] == st["num_blocks"],
+          f"{what}: ledger not clean once idle: {st['blocks_in_use']} "
+          f"blocks in use, {st['blocks_free']} free of {st['num_blocks']}")
+
+
+def first_token_tie(engine, prompt, tok_kernel, tok_plain, dev):
+    """A greedy first token that differs between the kernel and the plain
+    engine: the request's prefill logits on both paths (the engine's own
+    bucket-padded prefill call).  It is a near-tie when each path's
+    argmax is the token its engine emitted, the paths agree within
+    LOGIT_TOL everywhere, and the two tokens' plain logits lie within
+    LOGIT_TOL of each other."""
+    from apex_tpu_torch.models import generate as tgen
+    from apex_tpu_torch.serving.batching import pad_prompt, pick_bucket
+
+    n = prompt.size
+    bucket = pick_bucket(n, engine.buckets)
+    padded = torch.as_tensor(pad_prompt(prompt, bucket)[None],
+                             dtype=torch.long, device=dev)
+    lens = torch.tensor([n], dtype=torch.int32, device=dev)
+    lk, lp = (tgen.prefill(engine.params, padded, engine.cfg,
+                           prompt_lens=lens, max_len=bucket, device=dev,
+                           backend=b)[0][0, :VOCAB_LIMIT]
+              for b in (None, "reference"))
+    err = max_err(lk, lp)
+    gap = float(lp[tok_plain] - lp[tok_kernel])
+    return {"kernel_token": tok_kernel, "plain_token": tok_plain,
+            "logit_err": err, "plain_gap": gap,
+            "near_tie": (int(lk.argmax()) == tok_kernel
+                         and int(lp.argmax()) == tok_plain
+                         and err <= LOGIT_TOL and gap <= LOGIT_TOL)}
+
+
+def forced_logits(params, cfg, reqs, resps, wire, backend, dev):
+    """Teacher-forced decode over the kernel run's greedy streams: the
+    first FORCED_BATCH greedy requests prefilled together (ragged), then
+    ``decode_step`` fed their generated tokens → logits [b, steps + 1, v]."""
+    from apex_tpu_torch.models import generate as tgen
+
+    ids = [i for i, kw in enumerate(reqs)
+           if kw.get("temperature", 0.0) == 0.0][:FORCED_BATCH]
+    lens = [reqs[i]["prompt"].size for i in ids]
+    steps = min(resps[i].tokens.size for i in ids) - 1
+    b, s = len(ids), max(lens)
+    prompt = torch.zeros(b, s, dtype=torch.long)
+    for row, i in enumerate(ids):
+        prompt[row, :lens[row]] = torch.as_tensor(reqs[i]["prompt"])
+    toks = torch.stack([torch.as_tensor(resps[i].tokens[:steps]).long()
+                        for i in ids]).to(dev)
+    cache = tgen.init_kv_cache(cfg, b, s + steps + 1, cache_layout="paged",
+                               block_size=16, cache_wire=wire, device=dev)
+    logits, cache = tgen.prefill(params, prompt.to(dev), cfg,
+                                 prompt_lens=torch.tensor(lens, device=dev),
+                                 cache=cache, device=dev, backend=backend)
+    out = [logits]
+    for j in range(steps):
+        logits, cache = tgen.decode_step(params, toks[:, j], cache, cfg,
+                                         device=dev, backend=backend)
+        out.append(logits)
+    return torch.stack(out, 1)[..., :VOCAB_LIMIT]
+
+
+def engine_phase(dev):
+    """The paged ServingEngine on GPT-2 125M: float or quantize_params
+    weights x native or int8 pool, each with exact launch identities,
+    SLO numbers, a clean ledger, first-token identity against the same
+    engine on the plain path and (besides float + native) teacher-forced
+    logits kernel vs plain; one profiled run for the idle share; one
+    starved run that must preempt."""
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.quantized import param_bytes, quantize_params
+    from apex_tpu_torch.models.transformer_lm import init_gpt_params
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.serving import ServingEngine
+
+    cfg = gpt_125m()
+    L = cfg.num_layers
+    weights = {"float": init_gpt_params(cfg, torch.Generator().manual_seed(0),
+                                        dev)}
+    weights["quantized"] = quantize_params(weights["float"])
+    reqs = engine_requests(cfg.vocab_size)
+    greedy = [i for i, kw in enumerate(reqs)
+              if kw.get("temperature", 0.0) == 0.0]
+
+    def engine(wname, wire, **kw):
+        return ServingEngine(weights[wname], cfg, cache_wire=wire,
+                             generator=torch.Generator().manual_seed(0),
+                             device=dev, **dict(ENGINE_KW, **kw))
+
+    out = {}
+    for wname, wire in ENGINE_RUNS:
+        name = f"{wname} weights, {wire or 'native'} pool"
+        # warm-up: allocator and library handles, both prompt buckets
+        engine(wname, wire).run([dict(reqs[0], max_new_tokens=2),
+                                 dict(reqs[2], max_new_tokens=2)])
+        eng = engine(wname, wire)
+        # --- the main path: counts reset just before, read just after ---
+        ku.reset_launch_counts()
+        resps, wall, hw = drive_engine(eng, reqs)
+        counts = ku.launch_counts()
+        st = eng.stats()
+        D, P = st["decode_steps"], st["prefill_calls"]
+        want = {k: 0 for k in ku.KERNELS if k != "fused_sample"}
+        want.update(layer_norm_fwd=(D + P) * (2 * L + 1),
+                    flash_attention_fwd=P * L)
+        if wname == "float":
+            want["fused_decode_layer"] = D * L
+        else:
+            want.update(ragged_paged_attention=D * L,
+                        dense_int8=(D + P) * L * 4)
+        got = {k: v for k, v in counts.items() if k != "fused_sample"}
+        check(got == want, f"engine {name}: launches {got} != {want} "
+                           f"({D} decode steps, {P} prefill calls)")
+        check_responses(eng, reqs, resps, f"engine {name}")
+        ref = engine(wname, wire, backend="reference")
+        rresps = ref.run(reqs)
+        check_responses(ref, reqs, rresps, f"plain engine {name}")
+        flips = {}
+        for i in greedy:
+            tk, tp = int(resps[i].tokens[0]), int(rresps[i].tokens[0])
+            if tk != tp:
+                flips[i] = first_token_tie(eng, reqs[i]["prompt"], tk, tp,
+                                           dev)
+        check(all(f["near_tie"] for f in flips.values()),
+              f"engine {name}: first tokens differ from the plain "
+              f"engine's beyond a bf16 near-tie: {flips}")
+        same = sum(int((resps[i].tokens == rresps[i].tokens).sum())
+                   for i in greedy)
+        total = sum(resps[i].tokens.size for i in greedy)
+        row = {
+            "wall_ms": wall,
+            "gen_tokens_per_s": sum(r.tokens.size for r in resps)
+            / (wall / 1e3),
+            "decode_steps": D, "prefill_calls": P,
+            "max_concurrent_requests": hw,
+            "blocks_high_water": st["blocks_high_water"],
+            "param_bytes": param_bytes(weights[wname]),
+            "cache_bytes": st["cache_bytes"],
+            "greedy_tokens_identical_to_plain": same / total,
+            "greedy_first_tokens_identical": (len(greedy) - len(flips),
+                                              len(greedy)),
+            "first_token_near_ties": flips,
+            "counts": counts,
+        }
+        for cls in ("batch", "interactive"):
+            rs = [r for r in resps if r.slo_class == cls]
+            for metric in ("ttft_ms", "tpot_ms"):
+                vals = [getattr(r, metric) for r in rs]
+                row[f"{cls}_{metric}_p50"] = pct(vals, 0.5)
+                row[f"{cls}_{metric}_p95"] = pct(vals, 0.95)
+        if (wname, wire) != ("float", None):
+            lk = forced_logits(weights[wname], cfg, reqs, resps, wire, None,
+                               dev)
+            lp = forced_logits(weights[wname], cfg, reqs, resps, wire,
+                               "reference", dev)
+            row["forced_logit_err"] = max_err(lk, lp)
+            check(row["forced_logit_err"] <= LOGIT_TOL,
+                  f"engine {name}: teacher-forced logits kernel vs plain "
+                  f"differ by {row['forced_logit_err']} > {LOGIT_TOL}")
+        out[name] = row
+        print(f"engine {name}: {json.dumps(row)}")
+
+    # --- device idle share: one profiled run, quantized + int8 -----------
+    eng = engine("quantized", "int8")
+    for kw in reqs:
+        eng.submit(**kw)
+    t_prof, busy, top, by_cat, by_op = profile_busy(eng.run)
+    check(eng.idle, "profiled engine run did not drain")
+    out["profiled quantized weights, int8 pool"] = {
+        "wall_ms": t_prof, "device_busy_ms": busy if busy > 0
+        else "not measured",
+        "device_idle_share": (1 - busy / t_prof) if busy > 0
+        else "not measured",
+        "device_top_ms": top, "device_ms_by_category": by_cat,
+        "device_ms_by_op": by_op}
+
+    # --- a starved pool: must preempt, complete everything, end clean ----
+    short = [reqs[0]] + reqs[2:10]
+    eng = engine("quantized", "int8", num_blocks=STARVED_BLOCKS)
+    resps, wall, hw = drive_engine(eng, short)
+    check_responses(eng, short, resps, "starved engine")
+    st = eng.stats()
+    check(st["preemptions"] >= 1, f"starved engine ({STARVED_BLOCKS} "
+                                  "blocks) never preempted")
+    row = {"num_blocks": STARVED_BLOCKS, "requests": len(short),
+           "preemptions": st["preemptions"], "wall_ms": wall,
+           "max_concurrent_requests": hw,
+           "blocks_high_water": st["blocks_high_water"]}
+    out["starved quantized weights, int8 pool"] = row
+    print(f"engine starved, quantized weights, int8 pool: {json.dumps(row)}")
+    return out
 
 
 def rel_err(got, want) -> float:
@@ -707,7 +1123,8 @@ def main() -> int:
 
     from apex_tpu_torch.ops import _kernel_utils as ku
     from apex_tpu_torch.ops import (  # noqa: F401  (register the kernels)
-        decode_step, flash_attention, fused_sampling, layer_norm)
+        decode_step, dense, flash_attention, fused_sampling, layer_norm,
+        paged_attention)
 
     t0 = time.perf_counter()
     built = ku.build_all()
@@ -730,15 +1147,24 @@ def main() -> int:
               f"plain {r['plain_ms']:.4f} ms, library "
               f"{'none' if lib is None else f'{lib:.4f} ms'}, "
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+        for vname, v in r.get("variants", {}).items():
+            vlib = v["library_ms"]
+            print(f"  {kname} [{vname}]: kernel {v['ms']:.4f} ms, plain "
+                  f"{v['plain_ms']:.4f} ms, library "
+                  f"{'none' if vlib is None else f'{vlib:.4f} ms'}, bound "
+                  f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
 
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         for kname, fn in (("layer_norm_fwd", kernel_layer_norm),
                           ("flash_attention_fwd", kernel_flash),
                           ("fused_decode_layer", kernel_decode),
-                          ("fused_sample", kernel_sampler)):
+                          ("fused_sample", kernel_sampler),
+                          ("ragged_paged_attention", kernel_paged),
+                          ("dense_int8", kernel_dense_int8)):
             report(kname, fn(dev, gen))
         sl = slice_phase(dev)
+        eng = engine_phase(dev)
     print(f"serving gpt_125m b=8 prompts {PROMPT_LENS} +{NEW_TOKENS} tokens "
           f"paged bf16 on {smi}: prefill median {sl['prefill_ms']:.2f} ms "
           f"(q1-q3 {sl['prefill_ms_q1_q3']}, {PREFILL_RUNS} runs), generate "
@@ -779,6 +1205,8 @@ def main() -> int:
           f"rel diff {tc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL})")
 
     paths = {"serving": sl["counts"], "train_step": tr["counts"]}
+    paths.update({f"engine {name}": row["counts"]
+                  for name, row in eng.items() if "counts" in row})
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": "apex_tpu_torch/csrc/"
          + ku.KERNELS[k].source, "replaces": ku.KERNELS[k].replaces,
@@ -789,9 +1217,12 @@ def main() -> int:
          "tol_of": "max_rel_err" if "rel_err" in r else "max_abs_err",
          "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"]}
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "variants": r.get("variants", {})}
         for k, r in results.items()],
         "slice": {k: v for k, v in sl.items() if k != "counts"},
+        "engine": {n: {k: v for k, v in row.items() if k != "counts"}
+                   for n, row in eng.items()},
         "train": {k: v for k, v in tr.items() if k != "counts"},
         "train_check": tc}
     print(json.dumps(line))

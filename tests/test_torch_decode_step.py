@@ -98,6 +98,7 @@ def test_shape_and_option_checks():
         tds.fused_decode_layer(*args[:5], args[5][:-1])
     with pytest.raises(ValueError, match="together"):
         tds.fused_decode_layer(*args, rope_cos=torch.ones(2, 16))
-    with pytest.raises(NotImplementedError, match="int8"):
+    # scales belong to int8 pools only (the int8 branch is ported)
+    with pytest.raises(ValueError, match="int8"):
         tds.fused_decode_layer(*args, k_scale=torch.ones(1),
                                v_scale=torch.ones(1))

@@ -49,6 +49,32 @@ def test_greedy_generate_token_identical(name, layout):
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("name, wire, quant", [
+    ("learned_mha_gelu", "int8", False), ("rope_gqa_swiglu", None, True),
+    ("rope_gqa_swiglu", "int8", True)])
+def test_int8_pool_and_quantized_weights_generate_token_identical(
+        name, wire, quant):
+    """Paged generate with a block-scaled int8 pool and/or
+    ``quantize_params`` weights: greedy tokens equal the JAX package's."""
+    from apex_tpu.models.quantized import quantize_params as j_quantize
+    from apex_tpu_torch.models.quantized import quantize_params as t_quantize
+
+    jcfg, tcfg = _cfgs(name)
+    jp, _, tp = _params(name)
+    if quant:
+        jp, tp = j_quantize(jp), t_quantize(tp)
+    prompt = _prompt(jcfg.vocab_size, LENS, seed=5)
+    lens = np.asarray(LENS, np.int32)
+    want = jgen.generate(jp, jnp.asarray(prompt), jcfg, max_new_tokens=6,
+                         prompt_lens=jnp.asarray(lens), cache_layout="paged",
+                         block_size=4, cache_wire=wire)
+    got = tgen.generate(tp, torch.from_numpy(prompt), tcfg, max_new_tokens=6,
+                        prompt_lens=torch.from_numpy(lens),
+                        cache_layout="paged", block_size=4, cache_wire=wire,
+                        device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
 def test_generate_eos_freezes_rows():
     """A row that emits EOS writes it, then stops writing; the loop ends
     once every row is done (the JAX while-loop's contract)."""
@@ -85,7 +111,6 @@ def test_sampled_generate_is_seeded_and_in_vocab():
 
 @pytest.mark.parametrize("kw, match", [
     (dict(spec="ngram"), "speculative"),
-    (dict(cache_layout="paged", cache_wire="int8"), "int8"),
 ])
 def test_unported_options_raise(kw, match):
     _, tcfg = _cfgs("learned_mha_gelu")

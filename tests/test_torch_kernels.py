@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels K1–K7 against their plain PyTorch
-versions, on the card.  Marked ``cuda``: they skip where there is no
+"""The port's hand-written CUDA kernels (K1–K7, K3's int8 branch, row 6
+ragged paged attention, row 10 int8-weight matmul) against their plain
+PyTorch versions, on the card.  Marked ``cuda``: they skip where there is no
 CUDA device.  This file imports no JAX, so on a GPU machine without JAX
 it runs as
 
@@ -223,6 +224,101 @@ def test_flash_autograd_matches_reference_route(dev):
         grads.append([t.grad for t in leaves])
     for a, e in zip(*grads):
         assert _rel_err(a, e) <= _BWD_TOL[torch.bfloat16]
+
+
+def _paged_case(dtype, nh, g, quant, seed, dh=64, bs=16):
+    """A pool with shuffled tables, sentinel tails (>= num_blocks) and
+    lengths with len % bs in {0, 1, bs - 1}, one of them an empty lane."""
+    gen = _gen(seed)
+    lens = torch.tensor([1, 16, 17, 47, 192, 0], device="cuda",
+                        dtype=torch.int32)
+    b, mb = lens.numel(), 13
+    nb = b * mb + 3
+    tables = torch.randperm(nb, device="cuda", generator=gen)[:b * mb]
+    tables = tables.view(b, mb).to(torch.int32)
+    for i in range(b):
+        tables[i, -(-int(lens[i]) // bs):] = nb + 5 + i
+    q = torch.randn(b, nh, dh, device="cuda", generator=gen).to(dtype)
+    kp = torch.randn(nb, bs, g, dh, device="cuda", generator=gen)
+    vp = torch.randn(nb, bs, g, dh, device="cuda", generator=gen)
+    sc = {}
+    if quant:
+        from apex_tpu_torch.serving.paged_cache import quantize_kv
+        kp, ks = quantize_kv(kp)
+        vp, vs = quantize_kv(vp)
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    return q, kp, vp, tables, lens, sc
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("nh, g", [(12, 12), (12, 4), (8, 1)])
+@pytest.mark.parametrize("quant", [False, True])
+def test_row6_ragged_paged_attention(dev, dtype, tol, nh, g, quant):
+    from apex_tpu_torch.ops import paged_attention as tpa
+
+    q, kp, vp, tables, lens, sc = _paged_case(dtype, nh, g, quant, seed=7)
+    before = tpa.PAGED_ATTENTION.launches
+    out = tpa.ragged_paged_attention(q, kp, vp, tables, lens, **sc)
+    ref = tpa.ragged_paged_attention(q, kp, vp, tables, lens,
+                                     backend="reference", **sc)
+    torch.cuda.synchronize()
+    assert tpa.PAGED_ATTENTION.launches == before + 1
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.count_nonzero(out[-1]) == 0      # the empty lane
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("nh, g, rope", [(12, 12, False), (12, 4, True)])
+def test_k3_fused_decode_layer_int8_pool(dev, dtype, tol, nh, g, rope):
+    q, kp, vp, tables, lens, sc = _paged_case(dtype, nh, g, True, seed=8)
+    b, dh = q.shape[0], q.shape[2]
+    gen = _gen(9)
+    w = torch.randn(nh * dh, 256, device=dev, generator=gen) * 0.03
+    cos = sin = None
+    if rope:
+        ang = torch.rand(b, dh // 2, device=dev, generator=gen) * 6
+        ang = torch.cat([ang, ang], -1)
+        cos, sin = ang.cos(), ang.sin()
+    before = tds.DECODE_LAYER.launches
+    out = tds.fused_decode_layer(q, kp, vp, tables, lens, w, rope_cos=cos,
+                                 rope_sin=sin, **sc)
+    ref = tds.fused_decode_layer(q, kp, vp, tables, lens, w, rope_cos=cos,
+                                 rope_sin=sin, backend="reference", **sc)
+    torch.cuda.synchronize()
+    assert tds.DECODE_LAYER.launches == before + 1
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4),
+                                        (torch.bfloat16, 2e-2),
+                                        (torch.float16, 4e-3)])
+@pytest.mark.parametrize("m", [1, 32, 77, 1024])
+@pytest.mark.parametrize("k, n, block", [(768, 2304, None), (3072, 768, None),
+                                         (96, 40, 32), (100, 24, None)])
+def test_row10_dense_int8(dev, dtype, tol, m, k, n, block):
+    """Tensor-core tiles (kb % 32 == 0, n % 16 == 0, 16-bit x), the
+    CUDA-core path (fp32 x, odd shapes), ragged row counts."""
+    from apex_tpu_torch.ops import dense as td
+
+    gen = _gen(10)
+    w = torch.randn(k, n, device=dev, generator=gen) * 0.05
+    slab = td.quantize_weight(w, block)
+    x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
+    before = td.DENSE_INT8.launches
+    out = td.dense_quantized(x, slab["wire"], slab["scale"])
+    ref = td.dense_quantized(x, slab["wire"], slab["scale"],
+                             backend="reference")
+    torch.cuda.synchronize()
+    assert td.DENSE_INT8.launches == before + 1
+    assert out.dtype == dtype and out.shape == (m, n)
+    # relative to the output's scale: fp32 sums in another order, and a
+    # 16-bit output rounds once
+    assert _rel_err(out, ref) <= tol
 
 
 def test_launch_counts_reset(dev):

@@ -63,7 +63,9 @@ def test_paged_pool_shapes_and_int8_wire():
     assert pool["k"].shape == (2, 5, 8, 2, 16)
     assert pool["k"].dtype == torch.bfloat16
     assert blocks_for(17, 8) == 3 and blocks_for(0, 8) == 0
-    with pytest.raises(NotImplementedError, match="int8"):
-        init_paged_pool(cfg, 5, 8, cache_wire="int8", device="cpu")
+    q8 = init_paged_pool(cfg, 5, 8, cache_wire="int8", device="cpu")
+    assert q8["k"].dtype == torch.int8 and q8["k"].shape == (2, 5, 8, 2, 16)
+    assert q8["k_scale"].shape == (2, 5, 8, 2)
+    assert bool((q8["v_scale"] == 1).all())
     with pytest.raises(ValueError, match="cache_wire"):
         init_paged_pool(cfg, 5, 8, cache_wire="fp8", device="cpu")
