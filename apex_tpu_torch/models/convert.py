@@ -8,8 +8,9 @@ leaf ``{"wire": int8, "scale": fp32}`` (``models/quantized.py``) crosses
 as it is, the int8 unchanged and never through a float.
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` (params, fp32
 masters, Adam moments and step, loss-scale state) across, so both
-packages can start from one mid-training state.  Nothing here imports
-JAX: the caller hands over numpy.
+packages can start from one mid-training state, and
+``lora_adapter_from_jax`` one LoRA adapter, so both serve the same
+factors.  Nothing here imports JAX: the caller hands over numpy.
 """
 
 from __future__ import annotations
@@ -19,7 +20,8 @@ from typing import Optional, Union
 import numpy as np
 import torch
 
-__all__ = ["params_from_numpy", "params_to_numpy", "train_state_from_jax"]
+__all__ = ["lora_adapter_from_jax", "params_from_numpy", "params_to_numpy",
+           "train_state_from_jax"]
 
 
 def params_from_numpy(tree, *, device: Union[str, torch.device],
@@ -79,3 +81,18 @@ def train_state_from_jax(state, *, device: Union[str, torch.device]):
                             conv(opt.exp_avg_sq)),
         loss_scale_state=LossScaleState(conv(ls.loss_scale),
                                         conv(ls.unskipped)))
+
+
+def lora_adapter_from_jax(adapter, *, device: Union[str, torch.device]):
+    """The JAX package's ``LoRAAdapter`` (its ``a``/``b`` factor dicts as
+    numpy-convertible arrays, ``rank``, ``alpha``) → the port's
+    :class:`~apex_tpu_torch.models.lora.LoRAAdapter` on ``device``, each
+    factor in its own dtype."""
+    from apex_tpu_torch.models.lora import LoRAAdapter
+
+    return LoRAAdapter(
+        rank=int(adapter.rank), alpha=float(adapter.alpha),
+        a=params_from_numpy({k: np.asarray(v) for k, v in adapter.a.items()},
+                            device=device),
+        b=params_from_numpy({k: np.asarray(v) for k, v in adapter.b.items()},
+                            device=device))

@@ -8,6 +8,9 @@
   layout runs the fused decode layer (kernel K3: rope, paged attention
   and output projection in one launch), and the contiguous stripe runs
   the same kernel over the stripe viewed as a linear block pool;
+- :func:`decode_verify` appends ``m`` tokens per sequence in one forward
+  (dense attention over the gathered cache); the serving engine
+  prefills adapter prompts through it;
 - :func:`sample_logits` picks next tokens (kernel K4 when the
   temperature is not a static 0);
 - :func:`generate` is prefill plus a Python decode loop that stops when
@@ -25,7 +28,10 @@ attention kernels dequantize them as they load.  Quantized weight
 leaves (``models/quantized.quantize_params``) run kernel row 10 at every
 matmul site; their decode attention is the stand-alone paged kernel
 (row 6) followed by the quantized projection, as in JAX, instead of K3.
-Not ported yet: ``spec=`` (speculative decoding) and ``lora=``.
+``lora=`` on ``decode_step`` and ``decode_verify`` adds per-row adapter
+deltas at the four target matmuls through the grouped matmul (kernel row
+9, ``models/lora.py``) and runs row 6 instead of K3.  Not ported yet:
+``spec=`` (speculative decoding).
 """
 
 from __future__ import annotations
@@ -35,6 +41,8 @@ from typing import Optional, Sequence
 import torch
 
 from apex_tpu_torch.models.config import TransformerConfig
+from apex_tpu_torch.models.lora import (
+    batched_lora_delta, lora_mlp, lora_plan)
 from apex_tpu_torch.models.transformer_lm import (
     _attention, _mlp, apply_norm, lm_head_logits, rope_cos_sin, split_qkv)
 from apex_tpu_torch.ops.decode_step import fused_decode_layer
@@ -43,11 +51,11 @@ from apex_tpu_torch.ops.fused_sampling import fused_sample
 from apex_tpu_torch.ops.paged_attention import ragged_paged_attention
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_ragged
 from apex_tpu_torch.serving.paged_cache import (
-    blocks_for, init_paged_pool, scatter_kv_quantized)
+    blocks_for, dequantize_kv, init_paged_pool, scatter_kv_quantized)
 from apex_tpu_torch.utils.registry import check_backend, resolve_device
 
-__all__ = ["init_kv_cache", "prefill", "decode_step", "sample_logits",
-           "generate"]
+__all__ = ["init_kv_cache", "prefill", "decode_step", "decode_verify",
+           "sample_logits", "generate"]
 
 DEFAULT_BLOCK_SIZE = 16
 
@@ -243,6 +251,69 @@ def _stripe_block(total: int) -> int:
     return max(mult8 or cands)
 
 
+def _lora_operands(lora, dev, m: int = 1):
+    """The optional LoRA bundle (``{"idx": [b] slot ids, "slabs": {target:
+    {"a": [L, G, in, r], "b": [L, G, r, out]}}}``) → (slabs, sort plan
+    over the forward's ``b * m`` rows).  A verify block's token (i, j)
+    flattens row-major, so each sequence's slot id repeats m times."""
+    if lora is None:
+        return None, None
+    slabs = lora["slabs"]
+    n_slots = next(iter(slabs.values()))["a"].shape[1]
+    idx = torch.as_tensor(lora["idx"], device=dev).to(torch.int32)
+    if m > 1:
+        idx = idx.repeat_interleave(m)
+    return slabs, lora_plan(idx, n_slots)
+
+
+def _layer_lora(slabs, layer: int):
+    """Layer ``layer``'s slabs, ``{target: {"a": [G, in, r], "b": [G, r,
+    out]}}``, or ``None`` without LoRA."""
+    if slabs is None:
+        return None
+    return {t: {"a": ab["a"][layer], "b": ab["b"][layer]}
+            for t, ab in slabs.items()}
+
+
+def _qkv(cfg, lp, x, ll, plan, backend):
+    """ln1 → fused qkv projection (+ its LoRA delta) → (h, q, k, v) before
+    rope."""
+    b, s = x.shape[0], x.shape[1]
+    h = apply_norm(cfg, x, lp["ln1_scale"], lp["ln1_bias"], backend=backend)
+    qkv = (quantized_matmul(h, lp["qkv_kernel"], backend=backend)
+           + lp["qkv_bias"].to(x.dtype))
+    if ll is not None and "qkv" in ll:
+        qkv = qkv + batched_lora_delta(h, ll["qkv"]["a"], ll["qkv"]["b"],
+                                       plan, backend=backend)
+    q, k, v = split_qkv(cfg, qkv, b, s)
+    return h, q, k, v
+
+
+def _out_proj(cfg, lp, ctx_flat, ll, plan, backend):
+    """Output projection of the attention context (+ its LoRA delta),
+    bias not applied."""
+    a = quantized_matmul(ctx_flat, lp["proj_kernel"], backend=backend)
+    if ll is not None and "proj" in ll:
+        a = a + batched_lora_delta(ctx_flat, ll["proj"]["a"],
+                                   ll["proj"]["b"], plan, backend=backend)
+    return a
+
+
+def _out_post(cfg, lp, x, h, a, ll, plan, backend):
+    """Projection bias → residual → ln2 → MLP (with its LoRA deltas) →
+    residual."""
+    a = a + lp["proj_bias"].to(x.dtype)
+    res = h if cfg.apply_residual_connection_post_layernorm else x
+    x = res + a
+    h = apply_norm(cfg, x, lp["ln2_scale"], lp["ln2_bias"], backend=backend)
+    if ll is not None and ("fc1" in ll or "fc2" in ll):
+        m = lora_mlp(cfg, lp, h, ll, plan, backend=backend)
+    else:
+        m = _mlp(cfg, lp, h, backend=backend)
+    res = h if cfg.apply_residual_connection_post_layernorm else x
+    return res + m
+
+
 def decode_step(params: dict, token, cache: dict, cfg: TransformerConfig,
                 *, lora=None, device=None, backend: Optional[str] = None):
     """One decoding step: ``token`` ``[b]`` at positions ``cache['pos']``
@@ -250,10 +321,13 @@ def decode_step(params: dict, token, cache: dict, cfg: TransformerConfig,
 
     A ``block_tables`` entry selects the paged layout: the new K/V append
     to each sequence's tail block; writes past the table's reach or
-    through an unmapped entry drop."""
-    if lora is not None:
-        raise NotImplementedError(
-            "lora= (multi-tenant adapters) comes with a later slice")
+    through an unmapped entry drop.
+
+    ``lora`` (``{"idx": [b] slot ids, "slabs": stacked factors}``) adds
+    each row's low-rank delta at every target matmul through two grouped
+    matmuls (kernel row 9); slot-0 rows get none.  LoRA takes the
+    unfused route (row 6, then the projection), since K3 owns the
+    projection the delta must land on."""
     _check_decode_cfg(cfg)
     check_backend(backend)
     dev = resolve_device(device)
@@ -287,18 +361,16 @@ def decode_step(params: dict, token, cache: dict, cfg: TransformerConfig,
         rope = rope_cos_sin(max_pos, cfg.kv_channels, device=dev)
         r = pos.clamp(0, max_pos - 1)
         rope_cos, rope_sin = rope[0][r], rope[1][r]
+    slabs, plan = _lora_operands(lora, dev)
 
     quant = "k_scale" in cache
     for layer in range(cfg.num_layers):
         lp = _layer_params(params, layer)
+        ll = _layer_lora(slabs, layer)
         # a quantized projection slab stays unfused (as in JAX): row 6
-        # attends, then row 10 projects
-        fuse = not is_quantized(lp["proj_kernel"])
-        h = apply_norm(cfg, x, lp["ln1_scale"], lp["ln1_bias"],
-                       backend=backend)
-        qkv = (quantized_matmul(h, lp["qkv_kernel"], backend=backend)
-               + lp["qkv_bias"].to(x.dtype))
-        q, k, v = split_qkv(cfg, qkv, b, 1)
+        # attends, then row 10 projects; so do LoRA lanes
+        fuse = ll is None and not is_quantized(lp["proj_kernel"])
+        h, q, k, v = _qkv(cfg, lp, x, ll, plan, backend)
         if rope is not None:
             k = fused_apply_rotary_pos_emb_ragged(k, rope[0], rope[1], pos)
             if not fuse:
@@ -332,20 +404,121 @@ def decode_step(params: dict, token, cache: dict, cfg: TransformerConfig,
             ctx = ragged_paged_attention(q[:, 0], pool_k, pool_v, tables,
                                          pos + 1, backend=backend,
                                          k_scale=sk, v_scale=sv)
-            a = quantized_matmul(ctx.to(x.dtype).reshape(b, -1),
-                                 lp["proj_kernel"], backend=backend)
-        a = a[:, None] + lp["proj_bias"].to(x.dtype)
-        res = h if cfg.apply_residual_connection_post_layernorm else x
-        x = res + a
-        h = apply_norm(cfg, x, lp["ln2_scale"], lp["ln2_bias"],
-                       backend=backend)
-        res = h if cfg.apply_residual_connection_post_layernorm else x
-        x = res + _mlp(cfg, lp, h, backend=backend)
+            a = _out_proj(cfg, lp, ctx.to(x.dtype).reshape(b, -1), ll, plan,
+                          backend)
+        x = _out_post(cfg, lp, x, h, a[:, None], ll, plan, backend)
 
     x = apply_norm(cfg, x, params["final_ln"]["scale"],
                    params["final_ln"]["bias"], backend=backend)
     new_pos = (pos + 1).to(torch.int32)
     return lm_head_logits(params, x[:, 0], cfg), dict(cache, pos=new_pos)
+
+
+def _verify_attention(cfg, q, kk, vv, pos):
+    """Dense masked attention of ``m`` appended queries ``q`` ``[b, m, nh,
+    dh]`` over a cache view ``kk``/``vv`` ``[b, T, g, dh]``: query j of
+    sequence i sees positions ``t <= pos[i] + j``.  fp32 products and
+    sums of the operands as they are, probabilities rounded to the cache
+    dtype before the second product (the JAX einsums)."""
+    b, m = q.shape[0], q.shape[1]
+    nh, dh, g = cfg.num_attention_heads, cfg.kv_channels, cfg.kv_groups
+    rep = nh // g
+    qg = q.reshape(b, m, g, rep, dh)
+    s = torch.einsum("bqgrd,btgd->bgrqt", qg.float(), kk.float())
+    s = s * (1.0 / dh ** 0.5)
+    t_idx = torch.arange(kk.shape[1], device=q.device)
+    qpos = pos[:, None] + torch.arange(m, device=q.device)[None]
+    live = (t_idx[None, None] <= qpos[:, :, None])[:, None, None]
+    s = torch.where(live, s, torch.full_like(s, -1e30))
+    p = torch.softmax(s, dim=-1)
+    ctx = torch.einsum("bgrqt,btgd->bqgrd", p.to(vv.dtype).float(),
+                       vv.float())
+    return ctx.reshape(b, m, nh * dh)
+
+
+def decode_verify(params: dict, tokens, cache: dict,
+                  cfg: TransformerConfig, *, lora=None, device=None,
+                  backend: Optional[str] = None):
+    """Verification forward: ``tokens`` ``[b, m]`` appended at each
+    sequence's ``cache['pos']`` in ONE pass → (logits ``[b, m, v]`` fp32,
+    the cache with ``pos + m``).
+
+    Token (i, j) lands at position ``pos[i] + j``, attends to the cache
+    prefix and the block's tokens before it, and its logits predict the
+    next position: the gold sequence through this reproduces
+    ``decode_step`` run m times.  Writes past the stripe or through an
+    unmapped table entry drop; an int8 pool quantizes the new K/V as they
+    land and the gathered view dequantizes.  Attention is dense torch
+    arithmetic over the whole gathered view (the JAX package's einsums,
+    no Pallas kernel).  ``lora``: the ``decode_step`` bundle, each
+    sequence's slot id applied to its m rows; the serving engine
+    prefills adapter prompts through this."""
+    _check_decode_cfg(cfg)
+    check_backend(backend)
+    dev = resolve_device(device)
+    _check_cache(cache)
+    tokens = torch.as_tensor(tokens, device=dev).long()
+    b, m = tokens.shape
+    pos = cache["pos"].long()
+    paged = "block_tables" in cache
+    quant = "k_scale" in cache
+    wpos = pos[:, None] + torch.arange(m, device=dev)[None]      # [b, m]
+    x = _embed(params, cfg, tokens, wpos)
+    if paged:
+        tables = cache["block_tables"].long()
+        nb, bs = cache["k"].shape[1], cache["k"].shape[2]
+        mb = tables.shape[1]
+        max_pos = mb * bs
+        blk = tables.gather(1, (wpos // bs).clamp(0, mb - 1))
+        blk = torch.where(wpos < max_pos, blk, nb)
+        keep = blk < nb
+        tbl = tables.clamp(max=nb - 1)
+    else:
+        max_pos = cache["k"].shape[2]
+        keep = wpos < max_pos
+    # one host sync per call: the cells whose write drops
+    rows, cols = keep.nonzero(as_tuple=True)
+    if paged:
+        cell = (blk[rows, cols], wpos[rows, cols] % bs)
+    else:
+        cell = (rows, wpos[rows, cols])
+    rope = None
+    if cfg.position_embedding_type == "rope":
+        rope = rope_cos_sin(max_pos, cfg.kv_channels, device=dev)
+    slabs, plan = _lora_operands(lora, dev, m)
+
+    for layer in range(cfg.num_layers):
+        lp = _layer_params(params, layer)
+        ll = _layer_lora(slabs, layer)
+        h, q, k, v = _qkv(cfg, lp, x, ll, plan, backend)
+        if rope is not None:
+            q = fused_apply_rotary_pos_emb_ragged(q, rope[0], rope[1], pos)
+            k = fused_apply_rotary_pos_emb_ragged(k, rope[0], rope[1], pos)
+        ck, cv = cache["k"][layer], cache["v"][layer]
+        if quant:
+            sk, sv = cache["k_scale"][layer], cache["v_scale"][layer]
+            scatter_kv_quantized(ck, cv, sk, sv, k[rows, cols],
+                                 v[rows, cols], cell)
+        else:
+            ck[cell] = k[rows, cols].to(ck.dtype)
+            cv[cell] = v[rows, cols].to(cv.dtype)
+        if paged:
+            g, dh = ck.shape[2], ck.shape[3]
+            kk = ck[tbl].reshape(b, mb * bs, g, dh)
+            vv = cv[tbl].reshape(b, mb * bs, g, dh)
+            if quant:
+                kk = dequantize_kv(kk, sk[tbl].reshape(b, mb * bs, g))
+                vv = dequantize_kv(vv, sv[tbl].reshape(b, mb * bs, g))
+        else:
+            kk, vv = ck, cv
+        ctx = _verify_attention(cfg, q, kk, vv, pos).to(x.dtype)
+        a = _out_proj(cfg, lp, ctx, ll, plan, backend)
+        x = _out_post(cfg, lp, x, h, a, ll, plan, backend)
+
+    x = apply_norm(cfg, x, params["final_ln"]["scale"],
+                   params["final_ln"]["bias"], backend=backend)
+    new_pos = (pos + m).to(torch.int32)
+    return lm_head_logits(params, x, cfg), dict(cache, pos=new_pos)
 
 
 def sample_logits(logits, generator: Optional[torch.Generator] = None, *,

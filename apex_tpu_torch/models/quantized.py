@@ -8,8 +8,8 @@ quantized.py``): the one-shot conversion.
 grid matches the JAX package's ``vmap`` bit for bit.  The model code
 branches on :func:`~apex_tpu_torch.ops.dense.is_quantized` at each
 matmul site and runs kernel row 10.  Embedding, head, biases and norms
-stay float.  The MoE expert slabs need the grouped matmul (kernel row
-9), which comes with the LoRA slice.
+stay float.  The MoE expert slabs need row 9's int8-slab branch
+(``grouped_matmul_quantized``), which comes with the MoE slice.
 """
 
 from __future__ import annotations
@@ -47,8 +47,8 @@ def quantize_params(params: dict, *, block: Optional[int] = None) -> dict:
         if layers.get(name) is not None:
             raise NotImplementedError(
                 f"params['layers'][{name!r}]: quantized MoE expert slabs "
-                "need the grouped matmul (kernel row 9), which comes with "
-                "the LoRA serving slice of the port")
+                "need row 9's int8-slab branch (grouped_matmul_quantized), "
+                "which comes with the MoE slice of the port")
     for name in _DENSE_KERNELS:
         w = layers.get(name)
         if w is None:

@@ -1,6 +1,6 @@
 """Serving pieces of the port (``apex_tpu/serving``): the paged KV pool
-and its block ledger, bucketing, SLO classes, and the continuous-batching
-:class:`ServingEngine`.
+and its block ledger, bucketing, SLO classes, the LoRA adapter pool, and
+the continuous-batching :class:`ServingEngine`.
 
 The names load on first use: ``models/generate.py`` imports
 ``serving.paged_cache``, and the engine imports ``models/generate.py``.
@@ -9,6 +9,7 @@ The names load on first use: ``models/generate.py`` imports
 import importlib
 
 _EXPORTS = {
+    "AdapterPool": "adapter_pool",
     "ServingEngine": "engine", "Request": "engine", "Response": "engine",
     "BlockManager": "paged_cache", "dequantize_kv": "paged_cache",
     "init_paged_pool": "paged_cache", "quantize_kv": "paged_cache",

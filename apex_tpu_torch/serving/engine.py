@@ -37,6 +37,17 @@ youngest live request: its blocks free at once and it requeues at the
 front with its progress; resume replays prompt + generated tokens
 through prefill.
 
+Multi-tenant LoRA: with ``adapter_pool=``
+(:class:`~apex_tpu_torch.serving.adapter_pool.AdapterPool`),
+``submit(adapter_id=k)`` serves a registered adapter.  Admission pins
+the adapter's slab slot first (FIFO: a head request whose pool is pinned
+full waits, and nothing jumps it), prefills the prompt through
+:func:`~apex_tpu_torch.models.generate.decode_verify` with the delta,
+into fresh blocks that are never published (adapter K/V is the
+tenant's own), and every decode step passes the per-lane slot ids, so
+the whole batch runs the grouped matmul (kernel row 9) at the four
+target matmuls.  Completion and preemption unpin.
+
 Differences from the JAX engine: pools are updated in place; sampling
 draws its key words from a ``torch.Generator`` (``generator=``), so
 sampled lanes are reproducible per seed but not the JAX tokens (greedy
@@ -44,14 +55,14 @@ lanes are the identity contract); there is nothing to compile, so the
 buckets bound the shapes a per-bucket CUDA-graph capture would need.
 Not ported yet (raise ``NotImplementedError``): ``spec``,
 ``chunk_tokens``, ``host_tier_bytes``, ``compile_cache_dir``,
-``adapter_pool``, ``token_masks``, ``submit_prefilled`` and ``drain``.
+``token_masks``, ``submit_prefilled`` and ``drain``.
 
 Telemetry (no-op unless :func:`~apex_tpu_torch.observability.configure`
 ran) uses the JAX engine's names: ``serving.{requests,prefill_calls,
 decode_steps,tokens_generated,preemptions}`` counters, occupancy, queue
 and block gauges, per-class ``serving.{queue_wait_ms,ttft_ms,tpot_ms,
-e2e_ms,preempt_overhead_ms}`` sketches and ``serving.goodput.{met,
-missed}``.
+e2e_ms,preempt_overhead_ms}`` sketches, ``serving.goodput.{met,
+missed}`` and ``serving.adapter.requests{adapter=}``.
 """
 
 from __future__ import annotations
@@ -66,8 +77,8 @@ import torch
 
 from apex_tpu_torch.models.config import TransformerConfig
 from apex_tpu_torch.models.generate import (
-    _check_decode_cfg, _compute_dtype_params, decode_step, init_kv_cache,
-    prefill)
+    _check_decode_cfg, _compute_dtype_params, decode_step, decode_verify,
+    init_kv_cache, prefill)
 from apex_tpu_torch.observability import metrics as _telemetry
 from apex_tpu_torch.observability import span
 from apex_tpu_torch.observability.device import (
@@ -98,6 +109,8 @@ class Request:
     eos_token_id: Optional[int] = None
     request_id: Optional[int] = None
     slo_class: str = "default"
+    # the LoRA adapter this request decodes through, 0 = base model
+    adapter_id: int = 0
     # lifecycle stamps (perf_counter seconds; 0.0 = not yet)
     submitted_t: float = 0.0
     admitted_t: float = 0.0
@@ -115,6 +128,9 @@ class Request:
     # memoized (token count, full tokens, prefix digests)
     _hash_cache: Optional[tuple] = dataclasses.field(
         default=None, repr=False)
+    # the 1-based AdapterPool slot acquire() pinned (0 = no ref held);
+    # release keys off it, so a double release cannot happen
+    _lane: int = dataclasses.field(default=0, repr=False)
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -128,6 +144,9 @@ class Request:
                 f"temperature={self.temperature}: negative temperatures "
                 "would invert the distribution; pass 0 for greedy or a "
                 "positive value")
+        if self.adapter_id < 0:
+            raise ValueError(
+                f"adapter_id={self.adapter_id} must be >= 0 (0 = base)")
 
 
 @dataclasses.dataclass
@@ -165,7 +184,7 @@ class _Slot:
 
 
 _UNPORTED = ("spec", "chunk_tokens", "host_tier_bytes", "host_tier_wire",
-             "compile_cache_dir", "adapter_pool")
+             "compile_cache_dir")
 
 
 def _dtype_name(dt: torch.dtype) -> str:
@@ -184,9 +203,9 @@ class ServingEngine:
     paged admission margin.  ``top_k`` / ``top_p`` / ``vocab_limit`` are
     engine-wide sampling knobs; temperature is per request.
     ``generator`` (a CPU ``torch.Generator``, default seeded 0) keys the
-    sampled lanes.  ``device`` defaults to ``cuda``; ``backend=
-    "reference"`` pins every op to its plain version (tests and
-    ``chip_smoke.py``)."""
+    sampled lanes.  ``adapter_pool`` serves LoRA adapters (module doc).
+    ``device`` defaults to ``cuda``; ``backend="reference"`` pins every
+    op to its plain version (tests and ``chip_smoke.py``)."""
 
     def __init__(self, params: dict, cfg: TransformerConfig, *,
                  max_slots: int = 8, max_len: Optional[int] = None,
@@ -208,8 +227,7 @@ class ServingEngine:
         given = dict(spec=spec, chunk_tokens=chunk_tokens,
                      host_tier_bytes=host_tier_bytes,
                      host_tier_wire=host_tier_wire,
-                     compile_cache_dir=compile_cache_dir,
-                     adapter_pool=adapter_pool)
+                     compile_cache_dir=compile_cache_dir)
         for name in _UNPORTED:
             if given[name] not in (None, "off"):
                 raise NotImplementedError(
@@ -305,6 +323,10 @@ class ServingEngine:
                      else torch.Generator().manual_seed(0))
         self._pending = np.zeros((self.max_slots,), np.int32)
         self._temps = np.zeros((self.max_slots,), np.float32)
+        # the adapter pool and the per-lane slab index (0 = base), a host
+        # mirror uploaded each step like _pending and _temps
+        self._adapters = adapter_pool
+        self._lane_slab = np.zeros((self.max_slots,), np.int32)
         self._next_id = 0
         self._decode_count = 0
         self._prefill_count = 0
@@ -320,14 +342,26 @@ class ServingEngine:
                eos_token_id: Optional[int] = None,
                slo_class: str = "default", adapter_id: int = 0,
                token_mask_fn=None) -> int:
-        """Queue one request; returns its request id."""
-        if adapter_id or token_mask_fn is not None:
+        """Queue one request; returns its request id.  ``adapter_id``
+        selects an adapter registered on the engine's pool (0 = base
+        model)."""
+        if token_mask_fn is not None:
             raise NotImplementedError(
-                "adapter_id / token_mask_fn come with the LoRA serving "
+                "token_mask_fn (constrained decoding) comes with a later "
                 "slice of the port")
+        if adapter_id:
+            if self._adapters is None:
+                raise ValueError(
+                    f"adapter_id={adapter_id} but the engine has no "
+                    "adapter_pool — pass adapter_pool= at construction")
+            if not self._adapters.registered(adapter_id):
+                raise ValueError(
+                    f"adapter_id={adapter_id} is not registered on the "
+                    "engine's adapter pool")
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
                       temperature=temperature, eos_token_id=eos_token_id,
-                      request_id=self._next_id, slo_class=str(slo_class))
+                      request_id=self._next_id, slo_class=str(slo_class),
+                      adapter_id=int(adapter_id))
         if req.prompt.size + req.max_new_tokens > self.max_len:
             raise ValueError(
                 f"prompt ({req.prompt.size}) + max_new_tokens "
@@ -341,6 +375,9 @@ class ServingEngine:
         req.submitted_t = time.perf_counter()
         self._queue.append(req)
         _telemetry.counter("serving.requests").inc()
+        if req.adapter_id:
+            _telemetry.counter("serving.adapter.requests",
+                               {"adapter": str(req.adapter_id)}).inc()
         _telemetry.event("serving.request.begin", id=req.request_id,
                          prompt_tokens=int(req.prompt.size),
                          max_new_tokens=req.max_new_tokens,
@@ -451,6 +488,8 @@ class ServingEngine:
         else:
             out["free_block_headroom"] = self._pool.n_free
             out["headroom_tokens"] = self._pool.n_free * self.max_len
+        if self._adapters is not None:
+            out["adapter_pool"] = self._adapters.stats()
         return out
 
     # -- internals ---------------------------------------------------------
@@ -516,6 +555,15 @@ class ServingEngine:
                     and self._mgr.n_free < (self._blocks_needed(req)
                                             + self.reserve_blocks)):
                 break      # wait for completions or a preemption
+            if req.adapter_id and not req._lane:
+                # pin the adapter's slab slot for the whole residency
+                # before claiming a lane; None = every slot is pinned by
+                # live requests: wait, FIFO (a later request must not
+                # jump a blocked adapter head)
+                lane = self._adapters.acquire(req.adapter_id)
+                if lane is None:
+                    break
+                req._lane = lane
             self._queue.popleft()
             slot = self._pool.claim()
             try:
@@ -525,11 +573,24 @@ class ServingEngine:
                 # in _admit_one)
                 if (self._slots[slot] is None
                         and self._pool.is_active(slot)):
+                    self._release_adapter(req)
                     self._pool.release(slot)
                     self._queue.appendleft(req)
                     self._set_gauges()
                 raise
         return completed
+
+    def _release_adapter(self, req: Request) -> None:
+        """Drop the request's adapter-pool pin, if it holds one: every
+        teardown edge (complete, preempt, admission unwind) comes here."""
+        if self._adapters is not None and req._lane:
+            self._adapters.release(req.adapter_id)
+            req._lane = 0
+
+    def _bind_slot_lane(self, req: Request, slot: int) -> None:
+        """Stamp the lane's slab index at slot handoff; every teardown
+        edge resets it."""
+        self._lane_slab[slot] = req._lane
 
     def _claim_blocks(self, tokens: np.ndarray, hashes: List[bytes]):
         """Map/allocate the block list for ``tokens``: published full
@@ -563,6 +624,22 @@ class ServingEngine:
             self._mgr.free_all(blocks)
             raise
         return blocks, write_ids, shared
+
+    def _claim_blocks_fresh(self, n_tokens: int) -> List[int]:
+        """Allocate ``blocks_for(n_tokens)`` fresh blocks, no prefix
+        mapping and no publishing; raises on exhaustion with everything
+        unwound."""
+        blocks: List[int] = []
+        try:
+            for _ in range(blocks_for(n_tokens, self.block_size)):
+                blk = self._mgr.alloc()
+                if blk is None:
+                    raise RuntimeError("block pool exhausted mid-admit")
+                blocks.append(blk)
+        except Exception:
+            self._mgr.free_all(blocks)
+            raise
+        return blocks
 
     def _insert_prefill_kv(self, slot: int, bucket: int,
                            write_ids: List[int], ks, vs, n: int) -> None:
@@ -605,6 +682,8 @@ class ServingEngine:
     def _admit_one(self, req: Request, slot: int) -> List[Response]:
         """Prefill one claimed request into its lane (block allocations
         unwind here on failure)."""
+        if req.adapter_id:
+            return self._admit_one_adapter(req, slot)
         completed: List[Response] = []
         hashes: List[bytes] = []
         if self._mgr is not None:
@@ -668,6 +747,95 @@ class ServingEngine:
         self._slots[slot] = st
         self._pending[slot] = tok
         self._temps[slot] = req.temperature
+        self._bind_slot_lane(req, slot)
+        done = self._finish_reason(st, tok)
+        if done:
+            completed.append(self._complete(slot, done))
+        return completed
+
+    def _lora_prefill(self, padded, n: int, slot: int, lane: int):
+        """The bucket-padded prompt ``[1, bucket]`` through one b=1
+        ``decode_verify`` at position 0 with the request's adapter delta,
+        writing the lane's K/V in place (paged: through the lane's table
+        row, stamped before the call); sets the lane's position to ``n``
+        and returns the logits ``[1, bucket, v]``."""
+        dev = self.device
+        zero = torch.zeros(1, dtype=torch.int32, device=dev)
+        if self._mgr is not None:
+            sub = {k: v for k, v in self.cache.items() if k != "pos"}
+            sub["block_tables"] = torch.as_tensor(self._tables[slot][None],
+                                                  device=dev)
+        else:
+            sub = {"k": self.cache["k"][:, slot:slot + 1],
+                   "v": self.cache["v"][:, slot:slot + 1]}
+        sub["pos"] = zero
+        lora = {"idx": torch.tensor([lane], dtype=torch.int32, device=dev),
+                "slabs": self._adapters.slabs()}
+        logits, _ = decode_verify(self.params, padded, sub, self.cfg,
+                                  lora=lora, device=dev,
+                                  backend=self.backend)
+        self.cache["pos"][slot] = n
+        return logits
+
+    def _admit_one_adapter(self, req: Request, slot: int) -> List[Response]:
+        """Admit one LoRA request: the whole prompt through the verify
+        forward with the adapter's delta.  Blocks are claimed fresh and
+        never published: adapter K/V must not alias the base model's
+        prefix digests."""
+        completed: List[Response] = []
+        tokens = self._full_tokens(req)
+        n = int(tokens.size)
+        bucket = pick_bucket(n, self.buckets)
+        blocks: List[int] = []
+        if self._mgr is not None:
+            blocks = self._claim_blocks_fresh(n)
+        t0 = time.perf_counter()
+        if req.admitted_t == 0.0:
+            req.admitted_t = t0
+            req.queue_wait_s = t0 - req.submitted_t
+        try:
+            if self._mgr is not None:
+                # the verify forward writes through the table row
+                self._tables[slot, :] = self.num_blocks
+                self._tables[slot, : len(blocks)] = blocks
+                self._blocks_hw = max(self._blocks_hw, self._mgr.n_in_use)
+            with span("serving.lora_prefill"), \
+                    compile_label("serving.prefill"):
+                padded = torch.as_tensor(pad_prompt(tokens, bucket)[None],
+                                         dtype=torch.long,
+                                         device=self.device)
+                logits = self._lora_prefill(padded, n, slot, req._lane)
+                first = self._sample(
+                    logits[:, n - 1],
+                    np.asarray([req.temperature], np.float32))
+                tok = int(first[0])                      # host sync
+            self._prefill_count += 1
+            now = time.perf_counter()
+            ms = (now - t0) * 1e3
+            if req.first_token_t == 0.0:
+                req.first_token_t = now
+                _telemetry.event("serving.request.first_token",
+                                 id=req.request_id, slo_class=req.slo_class)
+            if req.preempted_t:
+                req.preempt_overhead_s += now - req.preempted_t
+                req.preempted_t = 0.0
+            _telemetry.counter("serving.prefill_calls").inc()
+            _telemetry.histogram("serving.prefill_ms").observe(ms)
+            _telemetry.counter("serving.tokens_generated").inc()
+            if _telemetry.enabled():
+                sample_device_memory()
+            st = _Slot(request=req, tokens=list(req.resume_tokens) + [tok],
+                       prefill_ms=ms, blocks=blocks, cache_len=n,
+                       shared_blocks=0, decode_polls=req.resume_polls)
+        except Exception:
+            if self._mgr is not None:
+                self._mgr.free_all(blocks)
+                self._tables[slot, :] = self.num_blocks
+            raise
+        self._slots[slot] = st
+        self._pending[slot] = tok
+        self._temps[slot] = req.temperature
+        self._bind_slot_lane(req, slot)
         done = self._finish_reason(st, tok)
         if done:
             completed.append(self._complete(slot, done))
@@ -689,10 +857,14 @@ class ServingEngine:
         self._slots[slot] = None
         self._pending[slot] = 0
         self._temps[slot] = 0.0
+        self._lane_slab[slot] = 0
         self._tables[slot, :] = self.num_blocks
         self._mgr.free_all(st.blocks)
         self._pool.release(slot)
         req = st.request
+        # no slab slot held hostage across the requeue wait: re-admission
+        # acquires again, possibly paging the adapter back in
+        self._release_adapter(req)
         req.resume_tokens = list(st.tokens)
         req.preemptions += 1
         req.resume_polls = st.decode_polls
@@ -739,9 +911,16 @@ class ServingEngine:
                 cache = dict(cache, block_tables=torch.as_tensor(
                     self._tables, device=dev))
             prev_pos = self.cache["pos"]
+            lora = None
+            if self._adapters is not None:
+                # every step of an engine with a pool, whatever the mix:
+                # slot-0 lanes sit outside the grouped matmul's window
+                lora = {"idx": torch.as_tensor(self._lane_slab, device=dev),
+                        "slabs": self._adapters.slabs()}
             logits, new = decode_step(
                 self.params, torch.as_tensor(self._pending, device=dev),
-                cache, self.cfg, device=dev, backend=self.backend)
+                cache, self.cfg, lora=lora, device=dev,
+                backend=self.backend)
             self.cache["pos"] = torch.where(
                 torch.as_tensor(active, device=dev), new["pos"], prev_pos)
             nxt_host = self._sample(logits, self._temps).cpu().numpy()
@@ -782,11 +961,13 @@ class ServingEngine:
         st = self._slots[slot]
         self._slots[slot] = None
         self._temps[slot] = 0.0
+        self._lane_slab[slot] = 0
         if self._mgr is not None:
             self._tables[slot, :] = self.num_blocks
             self._mgr.free_all(st.blocks)
         self._pool.release(slot)
         req = st.request
+        self._release_adapter(req)
         now = time.perf_counter()
         latency_ms = (now - req.submitted_t) * 1e3
         queue_wait_ms = req.queue_wait_s * 1e3

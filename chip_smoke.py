@@ -9,12 +9,12 @@
    ``nvcc`` per source, all at once) and prints the build time.
 3. Holds each kernel (K1 LayerNorm, K2 flash attention, K3 fused decode
    layer with a bf16 and an int8 pool, K4 fused sampler, row 6 ragged
-   paged attention, row 10 int8-weight matmul) against its plain PyTorch
-   version at the serving paths' shapes, and times kernel, plain version
-   and, where one exists, a single PyTorch library call computing the
-   same function, beside the least time the card could take (the larger
-   of bytes over 3.35 TB/s and operations over the peak rate of their
-   type).
+   paged attention, row 9 ragged grouped matmul, row 10 int8-weight
+   matmul) against its plain PyTorch version at the serving paths'
+   shapes, and times kernel, plain version and, where one exists, a
+   single PyTorch library call computing the same function, beside the
+   least time the card could take (the larger of bytes over 3.35 TB/s
+   and operations over the peak rate of their type).
 4. Drives the serving path: ``generate`` on GPT-2 125M (random weights
    from a seeded generator, bf16 compute) for 8 ragged requests, greedy
    and sampled, counting every kernel launch; then replays the greedy
@@ -27,6 +27,16 @@
    counts, TTFT/TPOT, first tokens against the same engine on the plain
    path, teacher-forced kernel-vs-plain logits, a profiled run's device
    idle share, and a 64-block run that must preempt and still finish.
+4c. Drives multi-tenant LoRA serving on the same engine geometry: 64
+   rank-8 adapters through a 24-slot AdapterPool, 64 requests of mixed
+   tenants (every 8th on the base model, 8 sampled), on float weights
+   with a bf16 pool and on ``quantize_params`` weights with an int8 pool:
+   exact launch identities (row 9 at 96 per decode step and adapter
+   prefill), a clean block ledger and adapter pool, LRU churn, first
+   tokens against the plain engine, teacher-forced kernel-vs-plain
+   logits; beside it a merged single-adapter engine on the same requests,
+   a profiled run's idle share, and at fp32 (2 layers, full width) each
+   tenant's stream against its merged-weights ``generate``.
 5. Holds the backward kernels (K5 LayerNorm backward, K6 flash dq, K7
    flash dK/dV) against autograd of their plain forward at the train
    step's shapes, timed like the others.
@@ -484,6 +494,124 @@ def kernel_sampler(dev, gen):
     }
 
 
+# row 9 at the LoRA path of GPT-2 125M: rank 8 over a 24-slot pool; each
+# target matmul runs an A side [N, in] x [in, 8] and a B side [N, 8] x
+# [8, out].  Decode has 32 lanes; an adapter prefill a bucket of up to 1024
+LORA_RANK, LORA_SLOTS = 8, 24
+LORA_SITES = (("qkv", 768, 2304), ("proj", 768, 768), ("fc1", 768, 3072),
+              ("fc2", 3072, 768))
+GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+
+
+def _gmm_offsets(name):
+    """(N, G, offsets) of one row-9 layout: the decode batch (4 slot-0
+    lanes before the window, 28 adapter lanes over 20 live groups of 24),
+    one 1024-token adapter prefill, and adversarial windows."""
+    def offs(first, counts):
+        out = [first]
+        for c in counts:
+            out.append(out[-1] + c)
+        return out
+
+    if name == "decode":
+        counts, live = [], 0
+        for g in range(LORA_SLOTS):
+            if g % 6 == 3:
+                counts.append(0)
+            else:
+                counts.append(2 if live < 8 else 1)
+                live += 1
+        return 32, LORA_SLOTS, offs(4, counts)
+    if name == "prefill":
+        counts = [0] * LORA_SLOTS
+        counts[7] = 1024
+        return 1024, LORA_SLOTS, offs(0, counts)
+    return {"empty groups": (40, 6, offs(0, [0, 10, 0, 0, 25, 5])),
+            "window, N=77": (77, 5, offs(9, [12, 0, 30, 7, 5])),
+            "G=1 window": (130, 1, offs(3, [125])),
+            "all outside": (20, 3, offs(20, [0, 0, 0])),
+            "N=300 window": (300, 4, offs(17, [129, 1, 0, 140])),
+            # more than 32 segments: the tile search spans warp chunks
+            "G=70 window": (400, 70, offs(11, [(g * 7) % 13 for g in
+                                                range(70)]))}[name]
+
+
+def kernel_grouped_matmul(dev, gen):
+    """Row 9 against its plain version (one masked fp32 product per group)
+    at the LoRA decode and prefill shapes and adversarial offsets, fp32
+    and bf16; rows outside the window must be exact zeros.  The library
+    point is ``torch.bmm`` of each row against its own group's weight,
+    gathered per row beforehand (the gather not timed): no single PyTorch
+    call computes this function."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    errs, abs_err, variants = {}, 0.0, {}
+    cases = [(lay, f"{site} {side}", k, p, torch.float32)
+             for lay in ("decode", "prefill")
+             for site, h_in, h_out in LORA_SITES
+             for side, k, p in (("A", h_in, LORA_RANK),
+                                ("B", LORA_RANK, h_out))]
+    cases += [("decode", "qkv A", 768, LORA_RANK, torch.bfloat16),
+              ("decode", "qkv B", LORA_RANK, 2304, torch.bfloat16)]
+    cases += [(name, "", k, p, dt)
+              for name in ("empty groups", "window, N=77", "G=1 window",
+                           "all outside", "N=300 window", "G=70 window")
+              for k, p, dt in ((100, 24, torch.float32),
+                               (8, 300, torch.bfloat16))]
+    for lay, site, k, p, dtype in cases:
+        n, g, off = _gmm_offsets(lay)
+        x = torch.randn(n, k, device=dev, generator=gen).to(dtype)
+        w = (torch.randn(g, k, p, device=dev, generator=gen) * 0.1).to(dtype)
+        offs = torch.tensor(off, dtype=torch.int32, device=dev)
+        got = tgm.grouped_matmul(x, w, offs)
+        want = tgm.grouped_matmul(x, w, offs, backend="reference")
+        name = f"{lay} {site} N={n} k={k} p={p} {str(dtype)[6:]}"
+        check(int(torch.count_nonzero(got[:off[0]]))
+              + int(torch.count_nonzero(got[off[-1]:])) == 0,
+              f"row 9 {name}: rows outside the window are not zero")
+        errs[name] = rel_err(got, want) if off[-1] > off[0] else 0.0
+        abs_err = max(abs_err, max_err(got, want))
+        check(errs[name] <= GMM_TOL[dtype], f"row 9 {name} error {errs}")
+        if not site:
+            continue
+        live = sum(1 for a, b in zip(off, off[1:]) if b > a)
+        esz = x.element_size()
+        nbytes = (n * k + live * k * p + n * p) * esz + 4 * (g + 1)
+        bms, by = bound(nbytes, 2 * (off[-1] - off[0]) * k * p,
+                        PEAK_FP32_FLOPS)
+        gid = tgm.group_ids(offs, n, g).long()
+        wrow = torch.cat([w, w.new_zeros(1, k, p)])[gid]     # [N, k, p]
+        x3 = x[:, None, :]
+        variants[name] = {
+            "ms": time_ms(lambda: tgm.grouped_matmul(x, w, offs)),
+            "plain_ms": time_ms(lambda: tgm.grouped_matmul(
+                x, w, offs, backend="reference")),
+            "library_ms": time_ms(lambda: torch.bmm(x3, wrow)),
+            "bound_ms": bms, "bound_by": by}
+        del wrow
+    # the headline: one decode layer's LoRA deltas, the 8 fp32 calls
+    decode = [v for k, v in variants.items()
+              if k.startswith("decode") and k.endswith("float32")]
+    check(len(decode) == 8, "row 9: decode variants")
+    return {
+        "err": abs_err, "rel_err": max(errs.values()),
+        "tol": GMM_TOL[torch.float32], "tol_bf16": GMM_TOL[torch.bfloat16],
+        "detail": errs,
+        "ms": sum(v["ms"] for v in decode),
+        "plain_ms": sum(v["plain_ms"] for v in decode),
+        "library_ms": sum(v["library_ms"] for v in decode),
+        "bound_ms": sum(v["bound_ms"] for v in decode),
+        "bound_by": ("bytes" if all(v["bound_by"] == "bytes" for v in decode)
+                     else "operations"),
+        "variants": variants,
+        "shape": "sum of one decode layer's 8 LoRA calls (A and B sides of "
+                 "qkv, proj, fc1, fc2; N=32 over 20 live groups of 24, "
+                 "rank 8, fp32); per-shape times, the 1024-row prefill, "
+                 "bf16 and adversarial offsets under variants; library = "
+                 "torch.bmm on per-row gathered weights (gather not timed)",
+    }
+
+
 def slice_phase(dev):
     from apex_tpu_torch.models import generate as tgen
     from apex_tpu_torch.models.config import gpt_125m
@@ -697,6 +825,11 @@ def first_token_tie(engine, prompt, tok_kernel, tok_plain, dev):
                            prompt_lens=lens, max_len=bucket, device=dev,
                            backend=b)[0][0, :VOCAB_LIMIT]
               for b in (None, "reference"))
+    return tie_verdict(lk, lp, tok_kernel, tok_plain)
+
+
+def tie_verdict(lk, lp, tok_kernel, tok_plain):
+    """The near-tie rule on one position's kernel and plain logits."""
     err = max_err(lk, lp)
     gap = float(lp[tok_plain] - lp[tok_kernel])
     return {"kernel_token": tok_kernel, "plain_token": tok_plain,
@@ -864,6 +997,331 @@ def engine_phase(dev):
     out["starved quantized weights, int8 pool"] = row
     print(f"engine starved, quantized weights, int8 pool: {json.dumps(row)}")
     return out
+
+
+# multi-tenant LoRA serving on the engine geometry above: bench.py's
+# bench_adapter_ablation (64 tenants, rank 8, every 8th request on the
+# base model) at GPT-2 125M widths
+LORA_ADAPTERS, LORA_REQUESTS, LORA_NEW = 64, 64, 32
+LORA_RUNS = (("float", None), ("quantized", "int8"))
+ORACLE_LAYERS, ORACLE_TENANTS, ORACLE_NEW, ORACLE_SLOTS = 2, 8, 16, 4
+ORACLE_TIE = 1e-3               # |logit gap| of an fp32 near-tie
+
+
+def adapter_suite(cfg, n, dev, seed=0):
+    """Adapters 1..n, adapter ``aid`` drawn from a generator seeded
+    ``seed * 100003 + aid`` (the JAX package's ``build_adapter_suite``
+    contract): rank 8, all four targets, B at std 0.02."""
+    from apex_tpu_torch.models.lora import init_lora_adapter
+
+    return {aid: init_lora_adapter(
+                torch.Generator().manual_seed(seed * 100_003 + aid), cfg,
+                rank=LORA_RANK, b_std=0.02, device=dev)
+            for aid in range(1, n + 1)}
+
+
+def lora_requests():
+    """64 prompts of 16-256 tokens, 32 new tokens each; request i serves
+    adapter i + 1, every 8th the base model; 8 sampled at 0.8."""
+    import numpy as np
+
+    rng = np.random.RandomState(2)
+    return [dict(prompt=rng.randint(0, VOCAB_LIMIT,
+                                    (int(rng.randint(16, 257)),)),
+                 max_new_tokens=LORA_NEW,
+                 adapter_id=0 if i % 8 == 7 else i + 1,
+                 temperature=0.8 if i % 8 == 3 else 0.0)
+            for i in range(LORA_REQUESTS)]
+
+
+def lora_first_logits(engine, prompt, adapter, dev, backend):
+    """An adapter request's first-token logits as its engine computes
+    them: the bucket-padded prompt through one ``decode_verify`` with the
+    adapter's delta in one slot of a pool-sized slab, over a lane of the
+    engine's length and wire — the same shapes, so the same sums."""
+    from apex_tpu_torch.models import generate as tgen
+    from apex_tpu_torch.models.lora import stack_adapter_slabs
+    from apex_tpu_torch.serving.batching import pad_prompt, pick_bucket
+
+    n = prompt.size
+    bucket = pick_bucket(n, engine.buckets)
+    padded = torch.as_tensor(pad_prompt(prompt, bucket)[None],
+                             dtype=torch.long, device=dev)
+    cache = tgen.init_kv_cache(engine.cfg, 1, engine.max_len,
+                               cache_layout="paged",
+                               block_size=engine.block_size,
+                               cache_wire=engine.cache_wire, device=dev)
+    slots = engine.stats()["adapter_pool"]["slots"]
+    lora = {"idx": torch.full((1,), slots, dtype=torch.int32, device=dev),
+            "slabs": stack_adapter_slabs([None] * (slots - 1) + [adapter],
+                                         engine.cfg)}
+    logits, _ = tgen.decode_verify(engine.params, padded, cache, engine.cfg,
+                                   lora=lora, device=dev, backend=backend)
+    return logits[0, n - 1, :VOCAB_LIMIT]
+
+
+def lora_forced_logits(params, cfg, suite, reqs, resps, wire, backend, dev):
+    """Teacher-forced LoRA decode over the kernel run's greedy streams:
+    the first FORCED_BATCH greedy adapter requests' prompts through one
+    ``decode_verify`` (each row its own adapter), then ``decode_step`` fed
+    their generated tokens → logits [b, steps + 1, v]."""
+    from apex_tpu_torch.models import generate as tgen
+    from apex_tpu_torch.models.lora import stack_adapter_slabs
+
+    ids = [i for i, kw in enumerate(reqs)
+           if kw["temperature"] == 0.0 and kw["adapter_id"]][:FORCED_BATCH]
+    lens = [reqs[i]["prompt"].size for i in ids]
+    prompt = torch.zeros(len(ids), max(lens), dtype=torch.long)
+    for row, i in enumerate(ids):
+        prompt[row, :lens[row]] = torch.as_tensor(reqs[i]["prompt"])
+    prompt = prompt.to(dev)
+    steps = min(resps[i].tokens.size for i in ids) - 1
+    toks = torch.stack([torch.as_tensor(resps[i].tokens[:steps]).long()
+                        for i in ids]).to(dev)
+    b = len(ids)
+    lora = {"idx": torch.arange(1, b + 1, dtype=torch.int32, device=dev),
+            "slabs": stack_adapter_slabs(
+                [suite[reqs[i]["adapter_id"]] for i in ids], cfg)}
+    cache = tgen.init_kv_cache(cfg, b, prompt.shape[1] + steps + 1,
+                               cache_layout="paged", block_size=16,
+                               cache_wire=wire, device=dev)
+    vlog, cache = tgen.decode_verify(params, prompt, cache, cfg, lora=lora,
+                                     device=dev, backend=backend)
+    last = torch.tensor(lens, device=dev) - 1
+    out = [vlog[torch.arange(b, device=dev), last]]
+    # continue each row from its own length (the padding behind is masked)
+    cache["pos"] = (last + 1).to(torch.int32)
+    for j in range(steps):
+        logits, cache = tgen.decode_step(params, toks[:, j], cache, cfg,
+                                         lora=lora, device=dev,
+                                         backend=backend)
+        out.append(logits)
+    return torch.stack(out, 1)[..., :VOCAB_LIMIT]
+
+
+def lora_engine_phase(dev):
+    """Multi-tenant LoRA on the paged ServingEngine, GPT-2 125M: float
+    weights + bf16 pool and quantize_params weights + int8 pool, each with
+    exact launch identities, a clean block ledger and adapter pool, LRU
+    churn, first tokens against the plain engine and teacher-forced
+    kernel-vs-plain logits; a merged single-adapter engine on the same
+    requests; one profiled run."""
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.lora import merge_lora
+    from apex_tpu_torch.models.quantized import quantize_params
+    from apex_tpu_torch.models.transformer_lm import init_gpt_params
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.serving import AdapterPool, ServingEngine
+
+    t_phase = time.perf_counter()
+    cfg = gpt_125m()
+    L = cfg.num_layers
+    weights = {"float": init_gpt_params(cfg, torch.Generator().manual_seed(0),
+                                        dev)}
+    weights["quantized"] = quantize_params(weights["float"])
+    suite = adapter_suite(cfg, LORA_ADAPTERS, dev)
+    reqs = lora_requests()
+    greedy = [i for i, kw in enumerate(reqs) if kw["temperature"] == 0.0]
+
+    def engine(wname, wire, **kw):
+        pool = AdapterPool(cfg, slots=LORA_SLOTS)
+        for aid, ad in suite.items():
+            pool.register(aid, ad)
+        return ServingEngine(weights[wname], cfg, cache_wire=wire,
+                             adapter_pool=pool,
+                             generator=torch.Generator().manual_seed(0),
+                             device=dev, **dict(ENGINE_KW, **kw))
+
+    def slo(resps):
+        ttft = [r.ttft_ms for r in resps]
+        tpot = [r.tpot_ms for r in resps]
+        return {"ttft_ms_p50": pct(ttft, 0.5), "ttft_ms_p95": pct(ttft, 0.95),
+                "tpot_ms_p50": pct(tpot, 0.5), "tpot_ms_p95": pct(tpot, 0.95)}
+
+    warm = [dict(reqs[0], max_new_tokens=2), dict(reqs[7], max_new_tokens=2)]
+    out = {}
+    for wname, wire in LORA_RUNS:
+        name = f"lora {wname} weights, {wire or 'native'} pool"
+        engine(wname, wire).run(warm)
+        eng = engine(wname, wire)
+        # --- the main path: counts reset just before, read just after ---
+        ku.reset_launch_counts()
+        resps, wall, hw = drive_engine(eng, reqs)
+        counts = ku.launch_counts()
+        st = eng.stats()
+        D, P = st["decode_steps"], st["prefill_calls"]
+        # adapter prefills: every admission of an adapter request,
+        # re-admissions after a preemption included
+        PA = sum(1 + r.preemptions for r, kw in zip(resps, reqs)
+                 if kw["adapter_id"])
+        want = {k: 0 for k in ku.KERNELS if k != "fused_sample"}
+        want.update(layer_norm_fwd=(D + P) * (2 * L + 1),
+                    flash_attention_fwd=(P - PA) * L,
+                    ragged_paged_attention=D * L,
+                    grouped_matmul=(D + PA) * L * 8)
+        if wname == "quantized":
+            want["dense_int8"] = (D + P) * L * 4
+        got = {k: v for k, v in counts.items() if k != "fused_sample"}
+        check(got == want, f"engine {name}: launches {got} != {want} ({D} "
+                           f"decode steps, {P} prefill calls, {PA} adapter)")
+        check_responses(eng, reqs, resps, f"engine {name}")
+        ps = st["adapter_pool"]
+        census = eng._adapters.census()
+        check(ps["pinned_refs"] == 0 and census["pinned"] == 0
+              and ps["evictions"] >= 1,
+              f"engine {name}: adapter pool not clean or never churned: "
+              f"{ps} {census}")
+        ref = engine(wname, wire, backend="reference")
+        rresps = ref.run(reqs)
+        check_responses(ref, reqs, rresps, f"plain engine {name}")
+        flips = {}
+        for i in greedy:
+            tk, tp = int(resps[i].tokens[0]), int(rresps[i].tokens[0])
+            if tk == tp:
+                continue
+            aid = reqs[i]["adapter_id"]
+            if aid:
+                lk, lp = (lora_first_logits(eng, reqs[i]["prompt"],
+                                            suite[aid], dev, b)
+                          for b in (None, "reference"))
+                flips[i] = tie_verdict(lk, lp, tk, tp)
+            else:
+                flips[i] = first_token_tie(eng, reqs[i]["prompt"], tk, tp,
+                                           dev)
+        check(all(f["near_tie"] for f in flips.values()),
+              f"engine {name}: first tokens differ from the plain "
+              f"engine's beyond a bf16 near-tie: {flips}")
+        same = sum(int((resps[i].tokens == rresps[i].tokens).sum())
+                   for i in greedy)
+        total = sum(resps[i].tokens.size for i in greedy)
+        lk = lora_forced_logits(weights[wname], cfg, suite, reqs, resps,
+                                wire, None, dev)
+        lp = lora_forced_logits(weights[wname], cfg, suite, reqs, resps,
+                                wire, "reference", dev)
+        forced = max_err(lk, lp)
+        check(forced <= LOGIT_TOL,
+              f"engine {name}: teacher-forced LoRA logits kernel vs plain "
+              f"differ by {forced} > {LOGIT_TOL}")
+        row = dict(slo(resps), **{
+            "wall_ms": wall,
+            "gen_tokens_per_s": sum(r.tokens.size for r in resps)
+            / (wall / 1e3),
+            "decode_steps": D, "prefill_calls": P,
+            "adapter_prefill_calls": PA,
+            "max_concurrent_requests": hw,
+            "blocks_high_water": st["blocks_high_water"],
+            "preemptions": st["preemptions"],
+            "adapter_pool": {k: ps[k] for k in (
+                "slots", "hits", "misses", "evictions", "resident",
+                "pinned_refs", "pool_bytes")},
+            "greedy_tokens_identical_to_plain": same / total,
+            "greedy_first_tokens_identical": (len(greedy) - len(flips),
+                                              len(greedy)),
+            "first_token_near_ties": flips,
+            "forced_logit_err": forced,
+            "counts": counts,
+        })
+        out[name] = row
+        print(f"engine {name}: {json.dumps(row)}")
+
+    # --- the same requests on one merged adapter, no pool (K3 decodes) ---
+    merged = merge_lora(weights["float"], cfg, suite[1])
+    base_reqs = [{k: v for k, v in kw.items() if k != "adapter_id"}
+                 for kw in reqs]
+
+    def merged_engine():
+        return ServingEngine(merged, cfg,
+                             generator=torch.Generator().manual_seed(0),
+                             device=dev, **ENGINE_KW)
+
+    merged_engine().run([{k: v for k, v in kw.items() if k != "adapter_id"}
+                         for kw in warm])
+    mresps, mwall, mhw = drive_engine(merged_engine(), base_reqs)
+    mrow = dict(slo(mresps), wall_ms=mwall,
+                gen_tokens_per_s=sum(r.tokens.size for r in mresps)
+                / (mwall / 1e3), max_concurrent_requests=mhw)
+    batched = out["lora float weights, native pool"]
+    mrow["batched_over_merged"] = (batched["gen_tokens_per_s"]
+                                   / mrow["gen_tokens_per_s"])
+    out["merged adapter 1, float weights, native pool"] = mrow
+    print(f"engine merged single adapter: {json.dumps(mrow)}")
+
+    # --- device idle share: one profiled LoRA run, float weights ---------
+    eng = engine("float", None)
+    for kw in reqs:
+        eng.submit(**kw)
+    t_prof, busy, top, by_cat, by_op = profile_busy(eng.run)
+    check(eng.idle, "profiled LoRA engine run did not drain")
+    out["profiled lora float weights, native pool"] = {
+        "wall_ms": t_prof, "device_busy_ms": busy if busy > 0
+        else "not measured",
+        "device_idle_share": (1 - busy / t_prof) if busy > 0
+        else "not measured",
+        "device_top_ms": top, "device_ms_by_category": by_cat,
+        "device_ms_by_op": by_op}
+    out["phase_wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def lora_oracle_phase(dev):
+    """At fp32 (GPT-2 125M widths, 2 layers): 8 tenants, 8 greedy requests
+    through a 4-slot pool; each stream equals its tenant's merged-weights
+    ``generate`` stream, or first diverges where the merged model's two
+    logits lie within ORACLE_TIE."""
+    import numpy as np
+
+    from apex_tpu_torch.models import generate as tgen
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.lora import merge_lora
+    from apex_tpu_torch.models.transformer_lm import init_gpt_params
+    from apex_tpu_torch.serving import AdapterPool, ServingEngine
+
+    cfg = gpt_125m(num_layers=ORACLE_LAYERS, compute_dtype=torch.float32)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0), dev)
+    suite = adapter_suite(cfg, ORACLE_TENANTS, dev)
+    rng = np.random.RandomState(3)
+    reqs = [dict(prompt=rng.randint(0, VOCAB_LIMIT,
+                                    (int(rng.randint(16, 129)),)),
+                 max_new_tokens=ORACLE_NEW, adapter_id=aid)
+            for aid in range(1, ORACLE_TENANTS + 1)]
+    pool = AdapterPool(cfg, slots=ORACLE_SLOTS)
+    for aid, ad in suite.items():
+        pool.register(aid, ad)
+    eng = ServingEngine(params, cfg, adapter_pool=pool,
+                        max_slots=ORACLE_TENANTS, cache_layout="paged",
+                        block_size=16, vocab_limit=VOCAB_LIMIT, device=dev)
+    resps = eng.run(reqs)
+    check(len(resps) == len(reqs) and pool.stats()["pinned_refs"] == 0,
+          "fp32 LoRA engine did not drain clean")
+    report = {}
+    for r, kw in zip(resps, reqs):
+        merged = merge_lora(params, cfg, suite[kw["adapter_id"]])
+        prompt = torch.as_tensor(kw["prompt"][None], device=dev)
+        want = tgen.generate(merged, prompt, cfg, max_new_tokens=ORACLE_NEW,
+                             cache_layout="paged", vocab_limit=VOCAB_LIMIT,
+                             device=dev)[0, prompt.shape[1]:].cpu().numpy()
+        diff = np.nonzero(r.tokens != want)[0]
+        if not diff.size:
+            report[kw["adapter_id"]] = "identical"
+            continue
+        d = int(diff[0])
+        ctx = torch.cat([prompt[0], torch.as_tensor(
+            r.tokens[:d], device=dev).long()])[None]
+        cache = tgen.init_kv_cache(cfg, 1, ctx.shape[1], device=dev)
+        logits, _ = tgen.decode_verify(merged, ctx, cache, cfg, device=dev,
+                                       backend="reference")
+        gap = abs(float(logits[0, -1, int(want[d])]
+                        - logits[0, -1, int(r.tokens[d])]))
+        report[kw["adapter_id"]] = {"first_divergence": d,
+                                    "engine_token": int(r.tokens[d]),
+                                    "merged_token": int(want[d]),
+                                    "merged_logit_gap": gap}
+        check(gap <= ORACLE_TIE,
+              f"fp32 LoRA stream of adapter {kw['adapter_id']} leaves its "
+              f"merged oracle at step {d} by a logit gap {gap} > "
+              f"{ORACLE_TIE}")
+    return {"streams": report, "adapter_pool": pool.stats(),
+            "identical": sum(v == "identical" for v in report.values())}
 
 
 def rel_err(got, want) -> float:
@@ -1123,8 +1581,8 @@ def main() -> int:
 
     from apex_tpu_torch.ops import _kernel_utils as ku
     from apex_tpu_torch.ops import (  # noqa: F401  (register the kernels)
-        decode_step, dense, flash_attention, fused_sampling, layer_norm,
-        paged_attention)
+        decode_step, dense, flash_attention, fused_sampling, grouped_matmul,
+        layer_norm, paged_attention)
 
     t0 = time.perf_counter()
     built = ku.build_all()
@@ -1161,10 +1619,20 @@ def main() -> int:
                           ("fused_decode_layer", kernel_decode),
                           ("fused_sample", kernel_sampler),
                           ("ragged_paged_attention", kernel_paged),
+                          ("grouped_matmul", kernel_grouped_matmul),
                           ("dense_int8", kernel_dense_int8)):
             report(kname, fn(dev, gen))
         sl = slice_phase(dev)
         eng = engine_phase(dev)
+        lora = lora_engine_phase(dev)
+        oracle = lora_oracle_phase(dev)
+    prof = lora["profiled lora float weights, native pool"]
+    print(f"lora engine phase on {smi}: {lora['phase_wall_s']:.1f}s wall; "
+          f"profiled run {json.dumps(prof)}")
+    print(f"lora fp32 merged oracle ({ORACLE_LAYERS} layers, "
+          f"{ORACLE_TENANTS} tenants, {ORACLE_NEW} new tokens): "
+          f"{oracle['identical']} of {ORACLE_TENANTS} streams identical; "
+          f"{json.dumps(oracle)}")
     print(f"serving gpt_125m b=8 prompts {PROMPT_LENS} +{NEW_TOKENS} tokens "
           f"paged bf16 on {smi}: prefill median {sl['prefill_ms']:.2f} ms "
           f"(q1-q3 {sl['prefill_ms_q1_q3']}, {PREFILL_RUNS} runs), generate "
@@ -1207,6 +1675,9 @@ def main() -> int:
     paths = {"serving": sl["counts"], "train_step": tr["counts"]}
     paths.update({f"engine {name}": row["counts"]
                   for name, row in eng.items() if "counts" in row})
+    paths.update({f"engine {name}": row["counts"]
+                  for name, row in lora.items()
+                  if isinstance(row, dict) and "counts" in row})
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": "apex_tpu_torch/csrc/"
          + ku.KERNELS[k].source, "replaces": ku.KERNELS[k].replaces,
@@ -1223,6 +1694,10 @@ def main() -> int:
         "slice": {k: v for k, v in sl.items() if k != "counts"},
         "engine": {n: {k: v for k, v in row.items() if k != "counts"}
                    for n, row in eng.items()},
+        "lora_engine": {n: ({k: v for k, v in row.items() if k != "counts"}
+                            if isinstance(row, dict) else row)
+                        for n, row in lora.items()},
+        "lora_oracle": oracle,
         "train": {k: v for k, v in tr.items() if k != "counts"},
         "train_check": tc}
     print(json.dumps(line))

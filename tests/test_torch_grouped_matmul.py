@@ -1,0 +1,108 @@
+"""The port's ragged grouped matmul (plain version of kernel row 9)
+against the JAX package's: its XLA reference and its Pallas kernel in
+interpret mode, on seeded numpy inputs at the LoRA decode layout and
+adversarial offsets (empty groups, a window with ``offsets[0] > 0`` and
+``offsets[-1] < N``, one group, every row outside, N above 128), fp32 and
+bf16.  Rows outside the window are exactly zero.
+
+Tolerances: fp32 1e-5 (the same fp32 products summed in another order);
+bf16 outputs one bf16 rounding apart (2**-8 relative, plus 1e-3 absolute
+for values near zero).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from apex_tpu.ops import grouped_matmul as jgm
+from apex_tpu_torch.ops import grouped_matmul as tgm
+from torch_gmm_cases import ADVERSARIAL, offsets_case
+
+CASES = ("decode",) + ADVERSARIAL
+TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -8, 1e-3)}
+
+
+def _inputs(case, k, p, dtype, seed=0):
+    n, g, off = offsets_case(case)
+    rng = np.random.RandomState(seed)
+    x = rng.randn(n, k).astype(np.float32)
+    w = (rng.randn(g, k, p) * 0.1).astype(np.float32)
+    jx, jw = jnp.asarray(x, dtype), jnp.asarray(w, dtype)
+    tdt = getattr(torch, dtype)
+    tx = torch.from_numpy(x).to(tdt)
+    tw = torch.from_numpy(w).to(tdt)
+    return (jx, jw, jnp.asarray(off)), (tx, tw, torch.from_numpy(off)), off
+
+
+def _np(a):
+    return np.asarray(a, np.float32) if not isinstance(a, torch.Tensor) \
+        else a.float().numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k, p", [(32, 8), (8, 48)])
+@pytest.mark.parametrize("case", CASES)
+def test_plain_matches_jax_reference(case, k, p, dtype):
+    (jx, jw, joff), (tx, tw, toff), off = _inputs(case, k, p, dtype)
+    got = tgm.grouped_matmul(tx, tw, toff)
+    want = jgm.grouped_matmul_reference(jx, jw, joff)
+    assert str(got.dtype) == f"torch.{want.dtype}"
+    rtol, atol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+    assert (_np(got)[:off[0]] == 0).all() and (_np(got)[off[-1]:] == 0).all()
+
+
+@pytest.mark.parametrize("case, dtype", [
+    ("decode", "float32"), ("prefill", "float32"), ("window", "float32"),
+    ("empty_groups", "float32"), ("ragged_300", "bfloat16"),
+    ("one_group", "bfloat16"), ("all_outside", "bfloat16")])
+def test_plain_matches_pallas_kernel_interpret(case, dtype):
+    """The Pallas ``_gmm_kernel`` run in interpret mode on the CPU (each
+    layout once: interpret mode costs seconds a call)."""
+    k, p = (16, 8) if case == "prefill" else (32, 24)
+    (jx, jw, joff), (tx, tw, toff), off = _inputs(case, k, p, dtype, 1)
+    got = tgm.grouped_matmul(tx, tw, toff)
+    want = jgm.grouped_matmul(jx, jw, joff, backend="kernel")
+    rtol, atol = TOL[dtype]
+    np.testing.assert_allclose(_np(got), _np(want), rtol=rtol, atol=atol)
+    assert (_np(want)[:off[0]] == 0).all()
+
+
+@pytest.mark.parametrize("case", CASES + ("prefill",))
+def test_group_ids_match_jax(case):
+    n, g, off = offsets_case(case)
+    want = np.asarray(jgm.group_ids(jnp.asarray(off), n, g))
+    got = tgm.group_ids(torch.from_numpy(off), n, g).numpy()
+    np.testing.assert_array_equal(got, want)
+
+
+def test_mixed_dtypes_promote_like_jax():
+    (jx, jw, joff), (tx, tw, toff), _ = _inputs("window", 16, 8, "bfloat16")
+    got = tgm.grouped_matmul(tx, tw.float(), toff)
+    want = jgm.grouped_matmul_reference(jx, jw.astype(jnp.float32), joff)
+    assert got.dtype == torch.float32 and want.dtype == jnp.float32
+    np.testing.assert_allclose(_np(got), _np(want), rtol=1e-5, atol=1e-6)
+
+
+def test_empty_rows_and_checks():
+    w = torch.zeros(3, 4, 5)
+    off = torch.tensor([0, 0, 0, 0], dtype=torch.int32)
+    out = tgm.grouped_matmul(torch.zeros(0, 4), w, off)
+    assert out.shape == (0, 5) and out.dtype == torch.float32
+    with pytest.raises(ValueError):
+        tgm.grouped_matmul(torch.zeros(2, 4), w, off[:3])
+    with pytest.raises(ValueError):
+        tgm.grouped_matmul(torch.zeros(2, 3), w, off)
+    with pytest.raises(ValueError):
+        tgm.grouped_matmul(torch.zeros(2, 4), w, off, backend="kernel")
+
+
+def test_gradient_waits_for_the_moe_training_slice():
+    x = torch.randn(4, 4, requires_grad=True)
+    w = torch.randn(2, 4, 3)
+    off = torch.tensor([0, 2, 4], dtype=torch.int32)
+    with pytest.raises(NotImplementedError, match="MoE"):
+        tgm.grouped_matmul(x, w, off)
+    with torch.no_grad():
+        assert tgm.grouped_matmul(x, w, off).shape == (4, 3)

@@ -1,8 +1,8 @@
 """The port's hand-written CUDA kernels (K1–K7, K3's int8 branch, row 6
-ragged paged attention, row 10 int8-weight matmul) against their plain
-PyTorch versions, on the card.  Marked ``cuda``: they skip where there is no
-CUDA device.  This file imports no JAX, so on a GPU machine without JAX
-it runs as
+ragged paged attention, row 9 ragged grouped matmul, row 10 int8-weight
+matmul) against their plain PyTorch versions, on the card.  Marked
+``cuda``: they skip where there is no CUDA device.  This file imports no
+JAX, so on a GPU machine without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels.py
 """
@@ -319,6 +319,109 @@ def test_row10_dense_int8(dev, dtype, tol, m, k, n, block):
     # relative to the output's scale: fp32 sums in another order, and a
     # 16-bit output rounds once
     assert _rel_err(out, ref) <= tol
+
+
+def _gmm_inputs(case, k, p, dtype, seed):
+    from torch_gmm_cases import offsets_case
+
+    n, g, off = offsets_case(case)
+    gen = _gen(seed)
+    x = torch.randn(n, k, device="cuda", generator=gen).to(dtype)
+    w = (torch.randn(g, k, p, device="cuda", generator=gen) * 0.1).to(dtype)
+    return x, w, torch.as_tensor(off, device="cuda"), off
+
+
+def _check_gmm(x, w, offs, off_np, out, tol):
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    ref = tgm.grouped_matmul(x, w, offs, backend="reference")
+    assert out.dtype == ref.dtype and out.shape == ref.shape
+    lo, hi = int(off_np[0]), int(off_np[-1])
+    # rows outside the window are exact zeros (the no-adapter lanes)
+    assert int(torch.count_nonzero(out[:lo])) == 0
+    assert int(torch.count_nonzero(out[hi:])) == 0
+    if hi > lo:
+        assert _rel_err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("k, p", [(768, 8), (3072, 8), (8, 2304), (8, 768),
+                                  (8, 3072)])
+@pytest.mark.parametrize("case", ["decode", "prefill"])
+def test_row9_grouped_matmul_lora_shapes(dev, dtype, tol, k, p, case):
+    """The LoRA path's A side (k = 768/3072, p = 8) and B side (k = 8) at
+    decode (32 lanes over 20 live groups of 24) and at an adapter prefill
+    (1024 rows of one group)."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    x, w, offs, off_np = _gmm_inputs(case, k, p, dtype, 20)
+    before = tgm.GROUPED_MATMUL.launches
+    out = tgm.grouped_matmul(x, w, offs)
+    torch.cuda.synchronize()
+    assert tgm.GROUPED_MATMUL.launches == before + 1
+    _check_gmm(x, w, offs, off_np, out, tol)
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2),
+                                        (torch.float16, 2e-3)])
+@pytest.mark.parametrize("k, p", [(100, 24), (8, 300), (768, 8), (0, 5)])
+@pytest.mark.parametrize("case", ["empty_groups", "window", "one_group",
+                                  "all_outside", "ragged_300",
+                                  "many_groups"])
+def test_row9_grouped_matmul_adversarial(dev, dtype, tol, k, p, case):
+    """Empty groups, a window (offsets[0] > 0 and offsets[-1] < N), G = 1,
+    every row outside, N not a multiple of the 16-row tile, more than 32
+    segments (G = 70), k = 0."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    x, w, offs, off_np = _gmm_inputs(case, k, p, dtype, 21)
+    out = tgm.grouped_matmul(x, w, offs)
+    torch.cuda.synchronize()
+    _check_gmm(x, w, offs, off_np, out, tol)
+
+
+@pytest.mark.parametrize("k, p", [(768, 8), (3072, 8), (1000, 40)])
+def test_row9_contraction_splits_agree(dev, k, p):
+    """Every split count of the contraction gives the plain result, and
+    the fixed-order second pass makes each split count deterministic."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    x, w, offs, off_np = _gmm_inputs("decode", k, p, torch.float32, 22)
+    chunks = -(-k // 256)
+    for splits in sorted({1, 2, chunks}):
+        out = tgm._gmm_kernel(x, w, offs, splits=splits)
+        again = tgm._gmm_kernel(x, w, offs, splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        _check_gmm(x, w, offs, off_np, out, 1e-5)
+
+
+def test_row9_offsets_stay_on_the_device(dev):
+    """No host read of the offsets: the launch captures in a CUDA graph,
+    and a replay after the offsets change in place follows the new
+    offsets."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    x, w, offs, off_np = _gmm_inputs("decode", 768, 8, torch.float32, 23)
+    static = offs.clone()
+    with torch.no_grad():
+        tgm.grouped_matmul(x, w, static)          # build, warm
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = tgm.grouped_matmul(x, w, static)
+        # the decode layout, every row outside, all rows in group 11
+        for case_off in (off_np.tolist(), [32] * 25, [0] * 12 + [32] * 13):
+            new = torch.tensor(case_off, dtype=torch.int32, device=dev)
+            static.copy_(new)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = tgm.grouped_matmul(x, w, new, backend="reference")
+            assert int(torch.count_nonzero(out[:case_off[0]])) == 0
+            if case_off[0] < 32:
+                assert _rel_err(out, want) <= 1e-5
 
 
 def test_launch_counts_reset(dev):

@@ -1,0 +1,52 @@
+"""Offsets of the ragged grouped matmul (kernel row 9) for the port's tests:
+the LoRA decode and prefill layouts and adversarial windows.  numpy only,
+so the card-only kernel tests (which import no JAX) share it with the CPU
+parity tests."""
+
+import numpy as np
+
+
+def _offsets(first, counts):
+    return np.concatenate([[first], first + np.cumsum(counts)]).astype(
+        np.int32)
+
+
+def offsets_case(name):
+    """``(N, G, offsets [G + 1] int32)`` of one named layout."""
+    if name == "decode":
+        # 32 lanes: 4 no-adapter rows before the window, 28 adapter rows
+        # over 20 live groups of a 24-slot pool (2 rows in the first 8)
+        counts, live = [], 0
+        for g in range(24):
+            if g % 6 == 3:
+                counts.append(0)
+            else:
+                counts.append(2 if live < 8 else 1)
+                live += 1
+        return 32, 24, _offsets(4, counts)
+    if name == "prefill":
+        # one adapter prompt of 1024 tokens, group 7 of 24
+        counts = [0] * 24
+        counts[7] = 1024
+        return 1024, 24, _offsets(0, counts)
+    if name == "empty_groups":
+        return 40, 6, _offsets(0, [0, 10, 0, 0, 25, 5])
+    if name == "window":
+        # offsets[0] > 0 and offsets[-1] < N, N not a tile multiple
+        return 77, 5, _offsets(9, [12, 0, 30, 7, 5])
+    if name == "one_group":
+        return 130, 1, _offsets(3, [125])
+    if name == "all_outside":
+        return 20, 3, _offsets(20, [0, 0, 0])
+    if name == "ragged_300":
+        return 300, 4, _offsets(17, [129, 1, 0, 140])
+    if name == "many_groups":
+        # more than 32 segments: the kernel's tile search carries across
+        # warp-wide chunks of the offsets
+        counts = np.random.RandomState(70).choice([0, 0, 1, 3, 9, 20], 70)
+        return 11 + int(counts.sum()) + 7, 70, _offsets(11, counts)
+    raise KeyError(name)
+
+
+ADVERSARIAL = ("empty_groups", "window", "one_group", "all_outside",
+               "ragged_300", "many_groups")

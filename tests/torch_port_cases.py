@@ -55,3 +55,25 @@ def _prompt(vocab, lens, seed=0):
     for i, n in enumerate(lens):
         batch[i, :n] = rng.randint(0, vocab, (n,))
     return batch
+
+
+def lora_pair(jcfg, n, *, rank=4, targets=None, alpha=None, seed=100):
+    """n LoRA adapters with seeded numpy factors (``A ~ N(0, 1/r)``, ``B ~
+    N(0, 0.05²)``) as JAX ``LoRAAdapter``s, and the same adapters carried
+    into the port with ``lora_adapter_from_jax``."""
+    from apex_tpu.models import lora as jl
+    from apex_tpu_torch.models.convert import lora_adapter_from_jax
+
+    targets = jl.TARGETS if targets is None else tuple(targets)
+    shapes = jl.target_shapes(jcfg)
+    L = jcfg.num_layers
+    ja = []
+    for i in range(n):
+        rng = np.random.RandomState(seed + i)
+        a = {t: jnp.asarray(rng.randn(L, shapes[t][0], rank) / rank ** 0.5,
+                            jnp.float32) for t in targets}
+        b = {t: jnp.asarray(rng.randn(L, rank, shapes[t][1]) * 0.05,
+                            jnp.float32) for t in targets}
+        ja.append(jl.LoRAAdapter(rank=rank, alpha=float(alpha or rank),
+                                 a=a, b=b))
+    return ja, [lora_adapter_from_jax(a, device="cpu") for a in ja]
