@@ -753,13 +753,17 @@ class ServingEngine:
             completed.append(self._complete(slot, done))
         return completed
 
-    def _lora_prefill(self, padded, n: int, slot: int, lane: int):
-        """The bucket-padded prompt ``[1, bucket]`` through one b=1
-        ``decode_verify`` at position 0 with the request's adapter delta,
-        writing the lane's K/V in place (paged: through the lane's table
-        row, stamped before the call); sets the lane's position to ``n``
-        and returns the logits ``[1, bucket, v]``."""
+    def _lora_prefill(self, tokens: np.ndarray, slot: int, lane: int):
+        """The prompt, padded to its bucket, through one b=1
+        ``decode_verify`` at position 0 with the delta of slab slot
+        ``lane``, writing the lane's K/V in place (paged: through the lane's
+        table row, stamped before the call); sets the lane's position to
+        the prompt's length and returns the logits ``[1, bucket, v]``."""
         dev = self.device
+        n = int(tokens.size)
+        padded = torch.as_tensor(
+            pad_prompt(tokens, pick_bucket(n, self.buckets))[None],
+            dtype=torch.long, device=dev)
         zero = torch.zeros(1, dtype=torch.int32, device=dev)
         if self._mgr is not None:
             sub = {k: v for k, v in self.cache.items() if k != "pos"}
@@ -777,6 +781,30 @@ class ServingEngine:
         self.cache["pos"][slot] = n
         return logits
 
+    def adapter_prefill_logits(self, prompt, adapter_id: int) -> torch.Tensor:
+        """The logits ``[v]`` from which admitting ``prompt`` under
+        ``adapter_id`` samples the first token: the admission's own verify
+        call, on a lane, blocks and an adapter pin that an idle engine
+        claims for the call and gives back after it."""
+        if self._adapters is None or not self.idle or not adapter_id:
+            raise RuntimeError("adapter_prefill_logits needs an idle engine "
+                               "with an adapter_pool and an adapter_id ≥ 1")
+        tokens = np.asarray(prompt, np.int32)
+        lane = self._adapters.acquire(int(adapter_id))
+        slot = self._pool.claim()
+        blocks: List[int] = []
+        try:
+            if self._mgr is not None:
+                blocks = self._claim_blocks_fresh(int(tokens.size))
+                self._tables[slot, : len(blocks)] = blocks
+            return self._lora_prefill(tokens, slot, lane)[0, tokens.size - 1]
+        finally:
+            if self._mgr is not None:
+                self._tables[slot, :] = self.num_blocks
+                self._mgr.free_all(blocks)
+            self._pool.release(slot)
+            self._adapters.release(int(adapter_id))
+
     def _admit_one_adapter(self, req: Request, slot: int) -> List[Response]:
         """Admit one LoRA request: the whole prompt through the verify
         forward with the adapter's delta.  Blocks are claimed fresh and
@@ -785,7 +813,6 @@ class ServingEngine:
         completed: List[Response] = []
         tokens = self._full_tokens(req)
         n = int(tokens.size)
-        bucket = pick_bucket(n, self.buckets)
         blocks: List[int] = []
         if self._mgr is not None:
             blocks = self._claim_blocks_fresh(n)
@@ -801,10 +828,7 @@ class ServingEngine:
                 self._blocks_hw = max(self._blocks_hw, self._mgr.n_in_use)
             with span("serving.lora_prefill"), \
                     compile_label("serving.prefill"):
-                padded = torch.as_tensor(pad_prompt(tokens, bucket)[None],
-                                         dtype=torch.long,
-                                         device=self.device)
-                logits = self._lora_prefill(padded, n, slot, req._lane)
+                logits = self._lora_prefill(tokens, slot, req._lane)
                 first = self._sample(
                     logits[:, n - 1],
                     np.asarray([req.temperature], np.float32))

@@ -60,6 +60,7 @@ import math
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -503,39 +504,6 @@ LORA_SITES = (("qkv", 768, 2304), ("proj", 768, 768), ("fc1", 768, 3072),
 GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 
 
-def _gmm_offsets(name):
-    """(N, G, offsets) of one row-9 layout: the decode batch (4 slot-0
-    lanes before the window, 28 adapter lanes over 20 live groups of 24),
-    one 1024-token adapter prefill, and adversarial windows."""
-    def offs(first, counts):
-        out = [first]
-        for c in counts:
-            out.append(out[-1] + c)
-        return out
-
-    if name == "decode":
-        counts, live = [], 0
-        for g in range(LORA_SLOTS):
-            if g % 6 == 3:
-                counts.append(0)
-            else:
-                counts.append(2 if live < 8 else 1)
-                live += 1
-        return 32, LORA_SLOTS, offs(4, counts)
-    if name == "prefill":
-        counts = [0] * LORA_SLOTS
-        counts[7] = 1024
-        return 1024, LORA_SLOTS, offs(0, counts)
-    return {"empty groups": (40, 6, offs(0, [0, 10, 0, 0, 25, 5])),
-            "window, N=77": (77, 5, offs(9, [12, 0, 30, 7, 5])),
-            "G=1 window": (130, 1, offs(3, [125])),
-            "all outside": (20, 3, offs(20, [0, 0, 0])),
-            "N=300 window": (300, 4, offs(17, [129, 1, 0, 140])),
-            # more than 32 segments: the tile search spans warp chunks
-            "G=70 window": (400, 70, offs(11, [(g * 7) % 13 for g in
-                                                range(70)]))}[name]
-
-
 def kernel_grouped_matmul(dev, gen):
     """Row 9 against its plain version (one masked fp32 product per group)
     at the LoRA decode and prefill shapes and adversarial offsets, fp32
@@ -544,6 +512,10 @@ def kernel_grouped_matmul(dev, gen):
     gathered per row beforehand (the gather not timed): no single PyTorch
     call computes this function."""
     from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    # the layouts the card-only kernel tests check, from one definition
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_gmm_cases import ADVERSARIAL, offsets_case
 
     errs, abs_err, variants = {}, 0.0, {}
     cases = [(lay, f"{site} {side}", k, p, torch.float32)
@@ -554,12 +526,12 @@ def kernel_grouped_matmul(dev, gen):
     cases += [("decode", "qkv A", 768, LORA_RANK, torch.bfloat16),
               ("decode", "qkv B", LORA_RANK, 2304, torch.bfloat16)]
     cases += [(name, "", k, p, dt)
-              for name in ("empty groups", "window, N=77", "G=1 window",
-                           "all outside", "N=300 window", "G=70 window")
+              for name in ADVERSARIAL
               for k, p, dt in ((100, 24, torch.float32),
                                (8, 300, torch.bfloat16))]
     for lay, site, k, p, dtype in cases:
-        n, g, off = _gmm_offsets(lay)
+        n, g, off = offsets_case(lay)
+        off = off.tolist()
         x = torch.randn(n, k, device=dev, generator=gen).to(dtype)
         w = (torch.randn(g, k, p, device=dev, generator=gen) * 0.1).to(dtype)
         offs = torch.tensor(off, dtype=torch.int32, device=dev)
@@ -576,7 +548,10 @@ def kernel_grouped_matmul(dev, gen):
             continue
         live = sum(1 for a, b in zip(off, off[1:]) if b > a)
         esz = x.element_size()
-        nbytes = (n * k + live * k * p + n * p) * esz + 4 * (g + 1)
+        # x: the window's rows only (the rest are never read); the
+        # output: every row, zeros included
+        nbytes = ((off[-1] - off[0]) * k + live * k * p + n * p) * esz \
+            + 4 * (g + 1)
         bms, by = bound(nbytes, 2 * (off[-1] - off[0]) * k * p,
                         PEAK_FP32_FLOPS)
         gid = tgm.group_ids(offs, n, g).long()
@@ -1034,32 +1009,6 @@ def lora_requests():
             for i in range(LORA_REQUESTS)]
 
 
-def lora_first_logits(engine, prompt, adapter, dev, backend):
-    """An adapter request's first-token logits as its engine computes
-    them: the bucket-padded prompt through one ``decode_verify`` with the
-    adapter's delta in one slot of a pool-sized slab, over a lane of the
-    engine's length and wire — the same shapes, so the same sums."""
-    from apex_tpu_torch.models import generate as tgen
-    from apex_tpu_torch.models.lora import stack_adapter_slabs
-    from apex_tpu_torch.serving.batching import pad_prompt, pick_bucket
-
-    n = prompt.size
-    bucket = pick_bucket(n, engine.buckets)
-    padded = torch.as_tensor(pad_prompt(prompt, bucket)[None],
-                             dtype=torch.long, device=dev)
-    cache = tgen.init_kv_cache(engine.cfg, 1, engine.max_len,
-                               cache_layout="paged",
-                               block_size=engine.block_size,
-                               cache_wire=engine.cache_wire, device=dev)
-    slots = engine.stats()["adapter_pool"]["slots"]
-    lora = {"idx": torch.full((1,), slots, dtype=torch.int32, device=dev),
-            "slabs": stack_adapter_slabs([None] * (slots - 1) + [adapter],
-                                         engine.cfg)}
-    logits, _ = tgen.decode_verify(engine.params, padded, cache, engine.cfg,
-                                   lora=lora, device=dev, backend=backend)
-    return logits[0, n - 1, :VOCAB_LIMIT]
-
-
 def lora_forced_logits(params, cfg, suite, reqs, resps, wire, backend, dev):
     """Teacher-forced LoRA decode over the kernel run's greedy streams:
     the first FORCED_BATCH greedy adapter requests' prompts through one
@@ -1181,9 +1130,9 @@ def lora_engine_phase(dev):
                 continue
             aid = reqs[i]["adapter_id"]
             if aid:
-                lk, lp = (lora_first_logits(eng, reqs[i]["prompt"],
-                                            suite[aid], dev, b)
-                          for b in (None, "reference"))
+                lk, lp = (e.adapter_prefill_logits(reqs[i]["prompt"],
+                                                   aid)[:VOCAB_LIMIT]
+                          for e in (eng, ref))
                 flips[i] = tie_verdict(lk, lp, tk, tp)
             else:
                 flips[i] = first_token_tie(eng, reqs[i]["prompt"], tk, tp,

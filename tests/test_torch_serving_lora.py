@@ -71,3 +71,28 @@ def test_submit_validates_adapters():
         je.submit([1, 2], adapter_id=-1)
     with pytest.raises(NotImplementedError):
         te.submit([1, 2], token_mask_fn=lambda v: [1])
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_adapter_prefill_logits_give_the_admitted_first_token(layout):
+    """An idle engine's ``adapter_prefill_logits`` is its admission's own
+    verify call: the argmax is each adapter request's greedy first token,
+    and the lane, blocks and adapter pin it claims come back."""
+    _, te, _, tpool = _engines(layout)
+    reqs = _requests()
+    done = {r.request_id: r for r in te.run(reqs)}
+    before = te.stats()
+    for i, r in enumerate(reqs):
+        if not r["adapter_id"]:
+            continue
+        logits = te.adapter_prefill_logits(r["prompt"], r["adapter_id"])
+        assert logits.shape == (TCFG.vocab_size,)
+        assert int(logits.argmax()) == int(done[i].tokens[0]), i
+    after = te.stats()
+    assert te.idle
+    assert {k: after.get(k) for k in ("blocks_in_use", "free_slots")} == \
+        {k: before.get(k) for k in ("blocks_in_use", "free_slots")}
+    assert tpool.stats()["pinned_refs"] == 0
+    assert tpool.census()["pinned"] == 0
+    with pytest.raises(RuntimeError):
+        te.adapter_prefill_logits(reqs[0]["prompt"], 0)
