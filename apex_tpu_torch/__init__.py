@@ -15,15 +15,19 @@ plain PyTorch version for CPU tensors; entry points run on ``cuda``
 unless the caller passes ``device="cpu"``.
 
 Ported so far: the GPT serving path ``models.generate.generate``
-(prefill → paged decode → sampling) and the single-device AMP train step
+(prefill → paged decode → sampling), the paged ``serving.ServingEngine``
+with LoRA adapters, the single-device AMP train step
 ``models.gpt.make_gpt_train_step`` (``amp``, ``optimizers.fused_adam``,
-the LayerNorm and flash-attention backward kernels).
+the LayerNorm and flash-attention backward kernels), and the BERT
+pretrain step ``models.bert.make_bert_train_step`` (``optimizers.
+fused_lamb``, the short-key flash backward, the scaled masked softmax of
+``ops.softmax`` and ``transformer.functional.FusedScaleMaskSoftmax``).
 """
 
 __version__ = "0.1.0"
 
 _LAZY_SUBMODULES = ("amp", "models", "observability", "ops", "optimizers",
-                    "serving", "utils")
+                    "serving", "transformer", "utils")
 
 
 def __getattr__(name):

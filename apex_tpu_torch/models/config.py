@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-__all__ = ["TransformerConfig", "gpt_tiny", "gpt_125m"]
+__all__ = ["TransformerConfig", "gpt_tiny", "gpt_125m", "bert_large"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,4 +119,17 @@ def gpt_125m(**kw) -> TransformerConfig:
     kw.setdefault("num_attention_heads", 12)
     kw.setdefault("vocab_size", 50304)
     kw.setdefault("max_position_embeddings", 1024)
+    return TransformerConfig(**kw)
+
+
+def bert_large(**kw) -> TransformerConfig:
+    """BERT-large pretrain shape: 24 layers, h=1024, 16 heads, vocab
+    30522 padded to 30592, 512 learned positions, a bidirectional
+    encoder (key-padding mask, no causal triangle)."""
+    kw.setdefault("num_layers", 24)
+    kw.setdefault("hidden_size", 1024)
+    kw.setdefault("num_attention_heads", 16)
+    kw.setdefault("vocab_size", 30592)
+    kw.setdefault("max_position_embeddings", 512)
+    kw.setdefault("attn_mask_type", "padding")
     return TransformerConfig(**kw)

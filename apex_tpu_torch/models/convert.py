@@ -7,7 +7,7 @@ leaf (ml_dtypes in numpy) travels through float32; a quantized weight
 leaf ``{"wire": int8, "scale": fp32}`` (``models/quantized.py``) crosses
 as it is, the int8 unchanged and never through a float.
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` (params, fp32
-masters, Adam moments and step, loss-scale state) across, so both
+masters, Adam or LAMB moments and step, loss-scale state) across, so both
 packages can start from one mid-training state, and
 ``lora_adapter_from_jax`` one LoRA adapter, so both serve the same
 factors.  Nothing here imports JAX: the caller hands over numpy.
@@ -63,22 +63,31 @@ def params_to_numpy(params: dict) -> dict:
 
 def train_state_from_jax(state, *, device: Union[str, torch.device]):
     """The JAX package's ``TrainState`` with numpy leaves (``jax.tree.map(
-    np.asarray, state)``; ``opt_state`` a FusedAdam ``AdamState``) → the
-    port's :class:`~apex_tpu_torch.amp.frontend.TrainState` on
-    ``device``, every leaf in its own dtype."""
+    np.asarray, state)``; ``opt_state`` a FusedAdam ``AdamState`` or a
+    FusedLAMB ``LambState``) → the port's
+    :class:`~apex_tpu_torch.amp.frontend.TrainState` on ``device``, every
+    leaf in its own dtype.  Parameter keys cross with no renaming, BERT's
+    (``embedding.tokentype``, ``embedding_ln``, ``lm_head``,
+    ``binary_head``) as GPT's."""
     from apex_tpu_torch.amp.frontend import TrainState
     from apex_tpu_torch.amp.scaler import LossScaleState
     from apex_tpu_torch.optimizers.fused_adam import AdamState
+    from apex_tpu_torch.optimizers.fused_lamb import LambState
 
     def conv(tree):
         return params_from_numpy(tree, device=device)
 
     opt, ls = state.opt_state, state.loss_scale_state
+    opt_cls = {"AdamState": AdamState, "LambState": LambState}.get(
+        type(opt).__name__)
+    if opt_cls is None:
+        raise TypeError(f"opt_state {type(opt).__name__}: expected an "
+                        "AdamState or a LambState")
     return TrainState(
         step=conv(state.step), params=conv(state.params),
         master_params=conv(state.master_params),
-        opt_state=AdamState(conv(opt.step), conv(opt.exp_avg),
-                            conv(opt.exp_avg_sq)),
+        opt_state=opt_cls(conv(opt.step), conv(opt.exp_avg),
+                          conv(opt.exp_avg_sq)),
         loss_scale_state=LossScaleState(conv(ls.loss_scale),
                                         conv(ls.unskipped)))
 

@@ -4,7 +4,9 @@ single-device subset the serving and training paths run.
 Parameters are a plain dict with the JAX package's keys; layers are
 stacked on a leading ``L`` axis and the decoder loops over them in
 Python.  Activations are ``[b, s, h]``; attention runs BSND through
-``ops/flash_attention.py`` (kernels K2, K6 and K7 on the card) and every
+``ops/flash_attention.py`` (kernels K2, K6 and K7 on the card, and row
+5 for keys up to 512) or, under ``attention_backend='fused_softmax'``,
+through materialized scores and ``ops/softmax.py`` (row 11), and every
 norm through ``ops/layer_norm.py`` (kernels K1 and K5).  The training
 forward (:func:`gpt_loss`) is differentiable with the JAX package's
 casts: the word and position tables go to ``cfg.compute_dtype`` before
@@ -27,6 +29,8 @@ from apex_tpu_torch.ops.flash_attention import flash_attention
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm, fused_rms_norm
 from apex_tpu_torch.ops.lm_head_ce import lm_head_cross_entropy
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_cached
+from apex_tpu_torch.ops.softmax import (
+    scaled_masked_softmax, scaled_softmax, scaled_upper_triang_masked_softmax)
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.utils.registry import resolve_device
 
@@ -143,16 +147,52 @@ def lm_head_weight(params: dict, cfg: TransformerConfig):
 
 def _core_attention(cfg: TransformerConfig, q, k, v, key_padding_mask,
                     *, backend: Optional[str] = None):
-    """softmax(QK^T/sqrt(d))V through the flash path (kernel K2 forward,
-    K6/K7 backward on the card); ``key_padding_mask`` ``[b, sk]`` bool,
-    True = masked."""
-    if cfg.attention_backend != "flash":
+    """softmax(QK^T/sqrt(d))V; ``key_padding_mask`` ``[b, sk]`` bool, True
+    = masked.  ``attention_backend='flash'``: the flash path (kernel K2
+    forward; row 5 backward for key lengths up to 512, K6/K7 above).
+    ``'fused_softmax'``: materialized scores through the scaled-softmax
+    family (kernel row 11 forward), as the JAX package's
+    ``_core_attention`` (``transformer_lm.py:474-507``): grouped K/V
+    broadcast to the query heads, fp32 scores (``q.dtype`` when
+    ``softmax_in_fp32=False``), the key padding broadcast to ``[b, 1, 1,
+    sk]`` and combined with the causal triangle, probabilities cast to
+    v's dtype before the context product (fp32 products and sums)."""
+    scale = 1.0 / q.shape[-1] ** 0.5
+    causal = cfg.attn_mask_type == "causal"
+    if cfg.attention_backend == "flash":
+        return flash_attention(q, k, v, causal=causal,
+                               key_padding_mask=key_padding_mask,
+                               scale=scale, backend=backend)
+    if cfg.attention_backend != "fused_softmax":
         raise NotImplementedError(
-            f"attention_backend={cfg.attention_backend!r}: only 'flash' "
-            "is ported")
-    return flash_attention(q, k, v, causal=cfg.attn_mask_type == "causal",
-                           key_padding_mask=key_padding_mask,
-                           scale=1.0 / q.shape[-1] ** 0.5, backend=backend)
+            f"attention_backend={cfg.attention_backend!r}: expected 'flash' "
+            "or 'fused_softmax'")
+    if k.shape[2] != q.shape[2]:
+        rep = q.shape[2] // k.shape[2]
+        k = k.repeat_interleave(rep, dim=2)
+        v = v.repeat_interleave(rep, dim=2)
+    mask = (None if key_padding_mask is None
+            else key_padding_mask[:, None, None, :])
+    scores = torch.einsum("bsnd,btnd->bnst", q.float(), k.float())
+    if not cfg.softmax_in_fp32:
+        scores = scores.to(q.dtype)
+    if causal:
+        if mask is not None:
+            sq, sk = scores.shape[-2], scores.shape[-1]
+            row = torch.arange(sq, device=q.device)[:, None]
+            col = torch.arange(sk, device=q.device)[None]
+            probs = scaled_masked_softmax(
+                scores, mask | (col > row)[None, None], scale,
+                backend=backend)
+        else:
+            probs = scaled_upper_triang_masked_softmax(scores, scale,
+                                                       backend=backend)
+    elif mask is not None:
+        probs = scaled_masked_softmax(scores, mask, scale, backend=backend)
+    else:
+        probs = scaled_softmax(scores, scale, backend=backend)
+    return torch.einsum("bnst,btnd->bsnd", probs.to(v.dtype).float(),
+                        v.float()).to(v.dtype)
 
 
 def _attention(cfg: TransformerConfig, lp: dict, x, key_padding_mask,

@@ -41,7 +41,7 @@ __all__ = ["Kernel", "KERNELS", "register", "build_all",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
     "apex_tpu_torch"
-_COMMON = ("common.cuh", "paged_tile.cuh")
+_COMMON = ("common.cuh", "paged_tile.cuh", "flash_bwd_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 

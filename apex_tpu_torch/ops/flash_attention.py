@@ -4,9 +4,13 @@
 :func:`flash_attention` is a ``torch.autograd.Function`` that saves
 ``q, k, v, o`` and the forward's ``lse``.  For CUDA tensors the forward
 is kernel K2 (``csrc/flash_attention.cu``: online softmax, causal, an
-additive or boolean key-padding mask, grouped K/V) and the backward the
-split pair K6 (dq) and K7 (dk/dv) of ``csrc/flash_attention_bwd.cu``,
-after ``delta = rowsum(do·o)`` in fp32 (XLA in JAX, a torch op here).
+additive or boolean key-padding mask, grouped K/V).  The backward, after
+``delta = rowsum(do·o)`` in fp32 (XLA in JAX, a torch op here), routes
+by the key length as the JAX ``auto`` route does: up to
+:data:`SHORT_KEYS_MAX` (512) keys it is row 5, the one-pass dq/dk/dv of
+``csrc/flash_attention_bwd_short.cu``; above, the split pair K6 (dq) and
+K7 (dk/dv) of ``csrc/flash_attention_bwd.cu``.  The route depends on the
+shape only (no environment variable).
 For CPU tensors, and under ``backend="reference"``, the forward is
 :func:`flash_attention_fwd_ref` (the materialized softmax of
 :func:`mha_reference`, plus its lse) and the backward
@@ -30,6 +34,7 @@ from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_bwd_operands", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_bwd_fused", "SHORT_KEYS_MAX",
            "flash_attention_fwd_ref", "flash_attention_bwd_ref",
            "mha_reference"]
 
@@ -52,6 +57,14 @@ FLASH_BWD_DKV = ku.register(ku.Kernel(
     "flash_attention_bwd_dkv", "flash_attention_bwd.cu", "apex_flash_bwd_dkv",
     [ctypes.c_void_p] * 9 + _BWD_ARGS,
     replaces="apex_tpu/ops/flash_attention.py:452"))
+
+FLASH_BWD_SHORT = ku.register(ku.Kernel(
+    "flash_attention_bwd_short", "flash_attention_bwd_short.cu",
+    "apex_flash_bwd_short", [ctypes.c_void_p] * 11 + _BWD_ARGS,
+    replaces="apex_tpu/ops/flash_attention.py:551"))
+
+# the JAX auto route's crossover (APEX_TPU_FLASH_BWD_FUSED_MAX default)
+SHORT_KEYS_MAX = 512
 
 
 def _additive_kpm(key_padding_mask: torch.Tensor) -> torch.Tensor:
@@ -174,7 +187,7 @@ def _check(q, k, v):
 
 
 def _kernel_operands(q, k, v, key_padding_mask, scale):
-    """Checks shared by K2, K6 and K7; returns (kpm, scale)."""
+    """Checks shared by K2, K6, K7 and row 5; returns (kpm, scale)."""
     _check(q, k, v)
     b, sq, n, d = q.shape
     sk = k.shape[1]
@@ -213,7 +226,7 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
 
 def flash_bwd_operands(q, k, v, o, lse, do, *, key_padding_mask=None,
                        scale: Optional[float] = None) -> dict:
-    """Checked, contiguous operands of K6 and K7, with ``delta =
+    """Checked, contiguous operands of K6, K7 and row 5, with ``delta =
     rowsum(do·o)`` ``[b·n, sq]`` fp32 (XLA in JAX, a torch op here)."""
     kpm, scale = _kernel_operands(q, k, v, key_padding_mask, scale)
     b, sq, n, _ = q.shape
@@ -258,13 +271,34 @@ def flash_bwd_dkv(ops: dict, *, causal: bool):
     return dk, dv
 
 
+def flash_bwd_fused(ops: dict, *, causal: bool):
+    """Kernel row 5 on :func:`flash_bwd_operands` → ``(dq, dk, dv)``: one
+    pass over the (key tile, query tile) pairs, dq summed from fp32
+    per-key-tile partials in a second fixed-order pass."""
+    q, k = ops["q"], ops["k"]
+    b, sq, n, d = q.shape
+    # one fp32 dq partial per 64-key tile (the kernel's tile rows)
+    nkt, sqp = -(-k.shape[1] // 64), -(-sq // 64) * 64
+    part = torch.empty(nkt, b * n, sqp, d, dtype=torch.float32,
+                       device=q.device)
+    dq = torch.empty_like(q)
+    dk, dv = torch.empty_like(k), torch.empty_like(ops["v"])
+    FLASH_BWD_SHORT(dq.device, *(ku.ptr(ops[name]) for name in (
+        "q", "k", "v", "do", "lse", "delta", "kpm")), ku.ptr(part),
+        ku.ptr(dq), ku.ptr(dk), ku.ptr(dv), *_bwd_tail(ops, causal))
+    return dq, dk, dv
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,
                         key_padding_mask=None,
                         scale: Optional[float] = None):
-    """Kernels K6 (dq) and K7 (dk, dv) on CUDA tensors, from K2's ``o``
-    and ``lse [b·n, sq]`` → ``(dq, dk, dv)`` in the inputs' dtypes."""
+    """The backward on CUDA tensors, from K2's ``o`` and ``lse [b·n,
+    sq]`` → ``(dq, dk, dv)`` in the inputs' dtypes: row 5 for key lengths
+    up to :data:`SHORT_KEYS_MAX`, else K6 (dq) and K7 (dk, dv)."""
     ops = flash_bwd_operands(q, k, v, o, lse, do,
                              key_padding_mask=key_padding_mask, scale=scale)
+    if k.shape[1] <= SHORT_KEYS_MAX:
+        return flash_bwd_fused(ops, causal=causal)
     return (flash_bwd_dq(ops, causal=causal),
             *flash_bwd_dkv(ops, causal=causal))
 

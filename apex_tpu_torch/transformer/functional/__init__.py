@@ -1,0 +1,3 @@
+from apex_tpu_torch.transformer.functional.fused_softmax import (  # noqa: F401
+    FusedScaleMaskSoftmax,
+)

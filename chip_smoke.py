@@ -39,13 +39,26 @@
    tenant's stream against its merged-weights ``generate``.
 5. Holds the backward kernels (K5 LayerNorm backward, K6 flash dq, K7
    flash dK/dV) against autograd of their plain forward at the train
-   step's shapes, timed like the others.
+   step's shapes, timed like the others; row 5 (the short-key one-pass
+   flash backward) against its plain version at BERT-large's shape (b8
+   s512 n16 d64, ragged key padding, one fully masked batch row; also
+   causal and GQA), beside K6 + K7 on the same inputs and SDPA's
+   backward; row 11 (the scaled masked softmax) at BERT's fused_softmax
+   scores [8, 16, 512, 512] fp32 with a [8, 1, 1, 512] mask (also bf16,
+   causal, a full-shape mask); K2 at BERT's forward shape as a variant.
 6. Drives the training path: the GPT-2 125M AMP-O2 train step
    (``make_gpt_train_step``, ``fused_adam(lr=1e-4)``, fused head+CE) at
    b16 x s1024 on random tokens, counting every kernel launch of one
    step; step time, tokens/s, MFU and the device idle share of one
    profiled step; then 3 steps at b4 x s1024 on the kernel path and on
    the plain path from one state (loss, scaler decisions, grad norm).
+6b. Drives the BERT-large AMP-O2 pretrain step (``make_bert_train_step``,
+   ``fused_lamb(lr=1e-4, weight_decay=0.01)``, 24 layers, h=1024) at b8 x
+   s512 on a seeded batch with ragged padding and MLM/NSP labels, under
+   both attention backends: exact launch counts per step (flash: K1 and
+   K5 51 each, K2 24, row 5 24; fused_softmax: K1 and K5 51, row 11 24),
+   step time, tokens/s, MFU, idle share, peak memory; then 3 kernel-vs-
+   plain steps at b4 from one state.
 7. Prints one JSON line describing every kernel, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -86,6 +99,13 @@ GRAD_NORM_RTOL = 2e-2
 # before the tensor-core products
 LN_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 FLASH_BWD_TOL = 2e-2
+
+# BERT-large pretraining at phase 2's length (bench.py:2135-2178)
+BERT_BATCH, BERT_SEQ = 8, 512
+BERT_BACKENDS = ("flash", "fused_softmax")
+# fp32 softmax against its plain version; bf16 results round once from
+# fp32 on both sides, so they may differ by one bf16 step at 1
+SOFTMAX_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8}
 
 
 def check(cond: bool, what: str) -> None:
@@ -251,7 +271,12 @@ def kernel_flash(dev, gen):
     nbytes = 4 * b * s * n * d * 2 + b * s * 4 + b * n * s * 4
     bms, by = bound(nbytes, 4 * d * pairs, PEAK_BF16_FLOPS)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    bert = kernel_flash_bert_shape(dev, gen)
+    errs.update(bert.pop("errs"))
+    check(max(errs.values()) <= tol, f"K2 error {errs}")
     return {
+        "variants": {"bert b8 s512 n16 d64 non-causal, ragged padding":
+                     bert},
         "err": max(errs.values()), "tol": tol, "detail": errs,
         "ms": time_ms(lambda: tfa.flash_attention(
             q, k, v, causal=True, key_padding_mask=m)),
@@ -262,6 +287,45 @@ def kernel_flash(dev, gen):
             qt, kt, vt, is_causal=True)),
         "bound_ms": bms, "bound_by": by,
         "shape": f"b={b} s={s} n={n} d={d} bf16 causal, ragged padding",
+    }
+
+
+def bert_lens(b, s, gen):
+    """BERT batch rows' valid lengths: drawn from 3/4 s .. s, row 0 full."""
+    lens = torch.randint(s * 3 // 4, s + 1, (b,), generator=gen)
+    lens[0] = s
+    return lens
+
+
+def kernel_flash_bert_shape(dev, gen):
+    """K2 at BERT-large's forward shape: b8 s512 n16 d64 bf16,
+    non-causal, ragged key padding with one fully masked batch row."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    b, s, n, d = BERT_BATCH, BERT_SEQ, 16, 64
+    lens = bert_lens(b, s, torch.Generator().manual_seed(3)).to(dev)
+    lens[-1] = 0
+    kpm = torch.arange(s, device=dev)[None] >= lens[:, None]
+    q, k, v = (torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+               for _ in range(3))
+    got = tfa.flash_attention(q, k, v, key_padding_mask=kpm)
+    want = tfa.flash_attention(q, k, v, key_padding_mask=kpm,
+                               backend="reference")
+    err = max_err(got, want)
+    pairs = int(lens.sum()) * s * n
+    nbytes = 4 * b * s * n * d * 2 + b * s * 4 + b * n * s * 4
+    bms, by = bound(nbytes, 4 * d * pairs, PEAK_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    add = torch.where(kpm, -1e30, 0.0).bfloat16()[:, None, None, :]
+    return {
+        "errs": {"bert non-causal+pad": err},
+        "ms": time_ms(lambda: tfa.flash_attention(q, k, v,
+                                                  key_padding_mask=kpm)),
+        "plain_ms": time_ms(lambda: tfa.flash_attention(
+            q, k, v, key_padding_mask=kpm, backend="reference"), iters=4),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=add)),
+        "bound_ms": bms, "bound_by": by,
     }
 
 
@@ -1516,6 +1580,300 @@ def train_check(dev):
             "grad_norm_rel_err": norm_err}
 
 
+def kernel_flash_bwd_short(dev, gen):
+    """Row 5 against flash_attention_bwd_ref at BERT-large's shape (b8
+    s512 n16 d64 bf16, non-causal, ragged key padding with one fully
+    masked batch row), and causal and GQA g=4 variants; K6 + K7 on the
+    same inputs (the split pair the JAX route chose against) and SDPA's
+    backward with the same additive mask beside it."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    b, s, n, d = BERT_BATCH, BERT_SEQ, 16, 64
+    lens = bert_lens(b, s, torch.Generator().manual_seed(4)).to(dev)
+    lens[-1] = 0
+    kpm = torch.arange(s, device=dev)[None] >= lens[:, None]
+    errs, abs_err, main = {}, 0.0, None
+    for name, g, causal in (("non-causal+pad", 16, False),
+                            ("causal+pad", 16, True),
+                            ("gqa g=4 non-causal+pad", 4, False)):
+        q = torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+        k = torch.randn(b, s, g, d, device=dev, generator=gen).bfloat16()
+        v = torch.randn(b, s, g, d, device=dev, generator=gen).bfloat16()
+        do = torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+        o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal,
+                                         key_padding_mask=kpm)
+        ops = tfa.flash_bwd_operands(q, k, v, o, lse, do,
+                                     key_padding_mask=kpm)
+        got = tfa.flash_bwd_fused(ops, causal=causal)
+        want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do,
+                                           causal=causal,
+                                           key_padding_mask=kpm)
+        for gname, a, e in zip(("dq", "dk", "dv"), got, want):
+            errs[f"{name} {gname}"] = rel_err(a, e)
+            abs_err = max(abs_err, max_err(a, e))
+        check(all(int(torch.count_nonzero(t[-1])) == 0 for t in got),
+              f"row 5 {name}: the fully masked batch row has gradients")
+        del want
+        check(max(errs.values()) <= FLASH_BWD_TOL,
+              f"row 5 {name} error {errs}")
+        if name == "non-causal+pad":
+            main = (q, k, v, o, lse, do, ops)
+    q, k, v, o, lse, do, ops = main
+    split = (tfa.flash_bwd_dq(ops, causal=False),
+             *tfa.flash_bwd_dkv(ops, causal=False))
+    fused = tfa.flash_bwd_fused(ops, causal=False)
+    errs["row 5 vs K6+K7"] = max(rel_err(a, e) for a, e in zip(fused, split))
+    check(errs["row 5 vs K6+K7"] <= FLASH_BWD_TOL,
+          f"row 5 against K6 + K7: {errs}")
+    # open (query, key) pairs: every query row against its batch row's
+    # valid keys; 5 products of 2*d flops each
+    pairs = int(lens.sum()) * s * n
+    io = 7 * b * s * n * d * 2                  # q k v do in, dq dk dv out
+    stats = 2 * b * n * s * 4 + b * s * 4       # lse, delta, key padding
+    bms, by = bound(io + stats, 10 * d * pairs, PEAK_BF16_FLOPS)
+    split_b, split_by = bound(io + 2 * stats, 14 * d * pairs,
+                              PEAK_BF16_FLOPS)
+    plain_ms = time_ms(lambda: tfa.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, key_padding_mask=kpm), iters=2, reps=2)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+    add = torch.where(kpm, -1e30, 0.0).bfloat16()[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add)
+
+    lib_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+              - time_ms(sdpa))
+    split_ms = time_ms(lambda: (tfa.flash_bwd_dq(ops, causal=False),
+                                tfa.flash_bwd_dkv(ops, causal=False)))
+    return {
+        "err": abs_err, "rel_err": max(errs.values()),
+        "tol": FLASH_BWD_TOL, "detail": errs,
+        "ms": time_ms(lambda: tfa.flash_bwd_fused(ops, causal=False)),
+        "plain_ms": plain_ms, "library_ms": lib_ms,
+        "bound_ms": bms, "bound_by": by,
+        "variants": {"K6+K7 on the same inputs": {
+            "ms": split_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": split_b, "bound_by": split_by}},
+        "shape": f"b={b} s={s} n={n} d={d} bf16 non-causal, key lengths "
+                 f"{lens.tolist()} (checked also causal and GQA g=4); plain "
+                 "= flash_attention_bwd_ref, library = SDPA backward with "
+                 "the same additive mask",
+    }
+
+
+def kernel_softmax(dev, gen):
+    """Row 11 against _softmax_fwd_ref at BERT-large's fused_softmax scores
+    [8, 16, 512, 512] fp32 with a [8, 1, 1, 512] bool mask; variants bf16
+    input, causal, and a full-shape mask."""
+    from apex_tpu_torch.ops import softmax as tsm
+
+    b, n, s = BERT_BATCH, 16, BERT_SEQ
+    scale = 1.0 / 8.0
+    lens = bert_lens(b, s, torch.Generator().manual_seed(5)).to(dev)
+    lens[-1] = 0
+    kpm = (torch.arange(s, device=dev)[None] >= lens[:, None])[
+        :, None, None, :]
+    full = torch.rand(b, n, s, s, device=dev, generator=gen) < 0.2
+    x32 = torch.randn(b, n, s, s, device=dev, generator=gen) * 8
+    errs, variants, main = {}, {}, None
+    for name, x, mask, causal in (
+            ("fp32 key padding", x32, kpm, False),
+            ("bf16 key padding", x32.bfloat16(), kpm, False),
+            ("fp32 causal", x32, None, True),
+            ("fp32 full-shape mask", x32, full, False)):
+        got = tsm.softmax_fwd(x, scale, mask, causal)
+        want = tsm._softmax_fwd_ref(x, scale, mask, causal)
+        errs[name] = max_err(got, want)
+        check(errs[name] <= SOFTMAX_TOL[x.dtype],
+              f"row 11 {name} error {errs}")
+        if mask is kpm:
+            check(int(torch.count_nonzero(got[-1])) == 0,
+                  f"row 11 {name}: the fully masked batch row is not 0")
+        del got, want
+        x_in = torch.where(mask, -10000.0, x.float() * scale) if (
+            mask is not None) else x.float() * scale
+        if causal:
+            tri = torch.ones(s, s, dtype=torch.bool, device=dev).triu(1)
+            x_in = x_in.masked_fill(tri, -10000.0)
+        x_in = x_in.to(x.dtype)
+        elems = x.numel()
+        mbytes = 0 if mask is None else (mask.numel() if mask is full
+                                         else b * s)
+        bms, by = bound(2 * elems * x.element_size() + mbytes, 5 * elems,
+                        PEAK_FP32_FLOPS)
+        row = {"ms": time_ms(lambda: tsm.softmax_fwd(x, scale, mask,
+                                                     causal)),
+               "plain_ms": time_ms(lambda: tsm._softmax_fwd_ref(
+                   x, scale, mask, causal), iters=4),
+               "library_ms": time_ms(lambda: torch.softmax(x_in, -1)),
+               "bound_ms": bms, "bound_by": by}
+        del x_in
+        if main is None:
+            main = row
+        else:
+            variants[name] = row
+    return dict(main, err=max(errs.values()), tol=SOFTMAX_TOL[torch.float32],
+                detail=errs, variants=variants,
+                shape=f"[{b}, {n}, {s}, {s}] fp32, [{b}, 1, 1, {s}] bool "
+                      f"mask, scale {scale}, key lengths {lens.tolist()}; "
+                      "library = torch.softmax of the pre-scaled, "
+                      "pre-masked input; bf16 tolerance "
+                      f"{SOFTMAX_TOL[torch.bfloat16]}")
+
+
+def bert_cfg(backend):
+    from apex_tpu_torch.models.config import bert_large
+
+    return bert_large(max_position_embeddings=BERT_SEQ, remat=False,
+                      attention_backend=backend)
+
+
+def bert_batch(cfg, b, seed, dev):
+    """A seeded BERT pretraining batch: valid lengths from 3/4 s to s (row
+    0 full), random tokens, ~15% of the real positions with MLM labels
+    (the rest -1), NSP labels 0/1, token types 0 then 1 split at a
+    per-row boundary inside the valid length, int attention mask (1 =
+    real token)."""
+    gen = torch.Generator().manual_seed(seed)
+    s = BERT_SEQ
+    lens = bert_lens(b, s, gen)
+    am = (torch.arange(s)[None] < lens[:, None]).long()
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    picked = (torch.rand(b, s, generator=gen) < 0.15) & (am == 1)
+    mlm = torch.where(picked, torch.randint(0, cfg.vocab_size, (b, s),
+                                            generator=gen), -1)
+    nsp = torch.randint(0, 2, (b,), generator=gen)
+    split = (torch.rand(b, generator=gen) * (lens - 1)).long() + 1
+    tt = (torch.arange(s)[None] >= split[:, None]).long()
+    return tuple(t.to(dev) for t in (tokens, mlm, nsp, tt, am))
+
+
+def bert_train_phase(dev, backend):
+    """The BERT-large AMP-O2 FusedLAMB train step at b8 x s512 under one
+    attention backend: exact launch counts, step time, tokens/s (b x s and
+    real tokens), MFU, the device idle share and peak memory."""
+    from apex_tpu_torch.models.bert import make_bert_train_step
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.optimizers import fused_lamb
+    from apex_tpu_torch.optimizers._common import tree_leaves
+
+    cfg = bert_cfg(backend)
+    init, step = make_bert_train_step(
+        cfg, fused_lamb(lr=1e-4, weight_decay=0.01), "O2", device=dev)
+    t0 = time.perf_counter()
+    state = init(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(state.master_params))
+    batch = bert_batch(cfg, BERT_BATCH, 0, dev)
+    real_tokens = int(batch[4].sum())
+    traj = []
+
+    def one():
+        nonlocal state
+        state, m = step(state, *batch)
+        traj.append(m)
+
+    for _ in range(TRAIN_WARMUP):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # --- the main path: counts reset just before, read just after -------
+    ku.reset_launch_counts()
+    one()
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    L = cfg.num_layers
+    want = {name: 0 for name in ku.KERNELS}
+    want.update({"layer_norm_fwd": 2 * L + 3, "layer_norm_bwd": 2 * L + 3})
+    if backend == "flash":
+        want.update({"flash_attention_fwd": L,
+                     "flash_attention_bwd_short": L})
+    else:
+        want.update({"scaled_softmax_fwd": L})
+    check(counts == want, f"bert {backend} launches {counts} != {want}")
+    print(f"launches (one bert {backend} train step): {counts}")
+
+    step_ms = [wall_ms(one) for _ in range(TRAIN_STEPS)]
+    q1, med, q3 = quartiles(step_ms)
+    t_prof, busy, top, by_cat, by_op = profile_busy(one)
+    losses = [float(m["loss"]) for m in traj]
+    scales = [float(m["loss_scale"]) for m in traj]
+    overflow = [bool(m["overflow"]) for m in traj]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(not all(overflow), "every train step overflowed")
+    tokens_per_s = BERT_BATCH * BERT_SEQ / (med / 1e3)
+    flops_per_tok = 6 * n_params + 12 * L * cfg.hidden_size * BERT_SEQ
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    return {
+        "params": n_params, "batch": BERT_BATCH, "seq": BERT_SEQ,
+        "real_tokens": real_tokens, "init_s": init_s,
+        "step_ms": med, "step_ms_q1_q3": [q1, q3], "steps_timed": TRAIN_STEPS,
+        "tokens_per_s": tokens_per_s,
+        "real_tokens_per_s": real_tokens / (med / 1e3),
+        "mfu": tokens_per_s * flops_per_tok / PEAK_BF16_FLOPS,
+        "profiled_step_ms": t_prof,
+        "device_busy_ms": busy if busy > 0 else "not measured",
+        "device_idle_share": (1 - busy / t_prof) if busy > 0
+        else "not measured",
+        "device_top_ms": top, "device_ms_by_category": by_cat,
+        "device_ms_by_op": by_op, "peak_memory_gb": peak_gb,
+        "losses": losses, "loss_scales": scales, "overflow": overflow,
+        "counts": counts,
+    }
+
+
+def bert_train_check(dev, backend):
+    """3 steps at b4 x s512 from one state on the kernel path and on the
+    plain path (backend="reference"): per-step loss, identical scaler
+    decisions, global grad norm within GRAD_NORM_RTOL."""
+    from apex_tpu_torch.models.bert import make_bert_train_step
+    from apex_tpu_torch.optimizers import fused_lamb, global_norm
+
+    cfg = bert_cfg(backend)
+    batch = bert_batch(cfg, CHECK_BATCH, 1, dev)
+    runs, state0 = {}, None
+    for path in (None, "reference"):
+        norms = []
+
+        def post(grads, norms=norms):
+            norms.append(global_norm(grads))
+            return grads
+
+        init, step = make_bert_train_step(
+            cfg, fused_lamb(lr=1e-4, weight_decay=0.01), "O2", device=dev,
+            backend=path, grad_postprocess=post)
+        if state0 is None:
+            state0 = init(torch.Generator().manual_seed(0))
+        state, seq = state0, []
+        for _ in range(CHECK_STEPS):
+            state, m = step(state, *batch)
+            seq.append((float(m["loss"]), bool(m["overflow"]),
+                        float(m["loss_scale"])))
+        runs["kernel" if path is None else "plain"] = (
+            seq, [float(x) for x in norms])
+        del state
+    (ks, kn), (ps, pn) = runs["kernel"], runs["plain"]
+    loss_err = max(abs(a[0] - b[0]) for a, b in zip(ks, ps))
+    check(loss_err <= TRAIN_LOSS_TOL,
+          f"bert {backend} kernel vs plain losses {ks} {ps} differ by "
+          f"{loss_err}")
+    check([a[1:] for a in ks] == [b[1:] for b in ps],
+          f"bert {backend} scaler decisions differ: kernel {ks} plain {ps}")
+    check(not all(x[1] for x in ks), f"bert {backend}: every step overflowed")
+    norm_err = max(abs(a - b) / b for a, b, s in zip(kn, pn, ks) if not s[1])
+    check(norm_err <= GRAD_NORM_RTOL,
+          f"bert {backend} grad norms kernel {kn} plain {pn}: {norm_err} > "
+          f"{GRAD_NORM_RTOL}")
+    return {"kernel": ks, "plain": ps, "grad_norm_kernel": kn,
+            "grad_norm_plain": pn, "loss_err": loss_err,
+            "grad_norm_rel_err": norm_err}
+
+
 def main() -> int:
     check(torch.cuda.is_available(),
           "no CUDA device: chip_smoke.py runs only on the card")
@@ -1531,7 +1889,7 @@ def main() -> int:
     from apex_tpu_torch.ops import _kernel_utils as ku
     from apex_tpu_torch.ops import (  # noqa: F401  (register the kernels)
         decode_step, dense, flash_attention, fused_sampling, grouped_matmul,
-        layer_norm, paged_attention)
+        layer_norm, paged_attention, softmax)
 
     t0 = time.perf_counter()
     built = ku.build_all()
@@ -1598,6 +1956,9 @@ def main() -> int:
     report("layer_norm_bwd", kernel_layer_norm_bwd(dev, gen))
     for kname, r in kernel_flash_bwd(dev, gen).items():
         report(kname, r)
+    report("flash_attention_bwd_short", kernel_flash_bwd_short(dev, gen))
+    with torch.inference_mode():
+        report("scaled_softmax_fwd", kernel_softmax(dev, gen))
     torch.cuda.empty_cache()
     tr = train_phase(dev)
     print(f"train gpt_125m AMP-O2 fused_adam(lr=1e-4) b{TRAIN_BATCH} x "
@@ -1621,7 +1982,38 @@ def main() -> int:
           f"{tc['grad_norm_kernel']} plain {tc['grad_norm_plain']}, max "
           f"rel diff {tc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL})")
 
+    bert, bert_checks = {}, {}
+    for backend in BERT_BACKENDS:
+        torch.cuda.empty_cache()
+        br = bert[backend] = bert_train_phase(dev, backend)
+        print(f"train bert_large {backend} AMP-O2 fused_lamb(lr=1e-4, "
+              f"wd=0.01) b{BERT_BATCH} x s{BERT_SEQ} ({br['params']} "
+              f"params, {br['real_tokens']} real tokens) on {smi}: step "
+              f"median {br['step_ms']:.2f} ms (q1-q3 {br['step_ms_q1_q3']}, "
+              f"{TRAIN_STEPS} steps), {br['tokens_per_s']:.1f} tokens/s "
+              f"(b x s), {br['real_tokens_per_s']:.1f} real tokens/s, MFU "
+              f"{br['mfu']:.4f} of 989 TFLOP/s; profiled step "
+              f"{br['profiled_step_ms']:.1f} ms, device busy "
+              f"{br['device_busy_ms']} ms, idle share "
+              f"{br['device_idle_share']}; peak memory "
+              f"{br['peak_memory_gb']:.2f} GB; init {br['init_s']:.1f}s; "
+              f"losses {br['losses']}; loss scales {br['loss_scales']}; "
+              f"overflow {br['overflow']}; device ms by category "
+              f"{br['device_ms_by_category']}; top device time "
+              f"{br['device_top_ms']}; by launching op "
+              f"{br['device_ms_by_op']}")
+        torch.cuda.empty_cache()
+        bc = bert_checks[backend] = bert_train_check(dev, backend)
+        print(f"train bert {backend} kernel vs plain, b{CHECK_BATCH} x "
+              f"s{BERT_SEQ}, {CHECK_STEPS} steps: (loss, overflow, scale) "
+              f"kernel {bc['kernel']} plain {bc['plain']}; max loss diff "
+              f"{bc['loss_err']:.5f} (tol {TRAIN_LOSS_TOL}); grad norms "
+              f"kernel {bc['grad_norm_kernel']} plain "
+              f"{bc['grad_norm_plain']}, max rel diff "
+              f"{bc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL})")
+
     paths = {"serving": sl["counts"], "train_step": tr["counts"]}
+    paths.update({f"bert {b}": row["counts"] for b, row in bert.items()})
     paths.update({f"engine {name}": row["counts"]
                   for name, row in eng.items() if "counts" in row})
     paths.update({f"engine {name}": row["counts"]
@@ -1648,7 +2040,10 @@ def main() -> int:
                         for n, row in lora.items()},
         "lora_oracle": oracle,
         "train": {k: v for k, v in tr.items() if k != "counts"},
-        "train_check": tc}
+        "train_check": tc,
+        "bert_train": {n: {k: v for k, v in row.items() if k != "counts"}
+                       for n, row in bert.items()},
+        "bert_train_check": bert_checks}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

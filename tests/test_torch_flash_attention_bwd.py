@@ -2,8 +2,10 @@
 plain backward flash_attention_bwd_ref on the CPU) against jax.vjp of
 the JAX package's flash_attention, whose Pallas backward runs in
 interpret mode: both of its routes, APEX_TPU_FLASH_BWD=split (the
-dq + dk/dv pair K6 and K7 port) and =fused (the single pass), for
-causal, key padding, GQA g=2 and a fully masked batch row.
+dq + dk/dv pair K6 and K7 port) and =fused (the single pass row 5
+ports), for causal, key padding, GQA g=2 and a fully masked batch row;
+and the short-key class (keys up to 512) under the default auto route,
+which sends it to the single pass as the port sends it to row 5.
 
 Inputs are fp32 and the tolerance 1e-5 relative to each gradient's
 largest element: both sides compute in fp32, in another order."""
@@ -68,6 +70,46 @@ def test_grads_match_jax(monkeypatch, mode, case):
         assert _rel(t.grad.numpy(), e) <= TOL, name
     if case == "fully_masked_row":
         assert all(torch.count_nonzero(t.grad[1]) == 0 for t in leaves)
+
+
+SHORT_CASES = {
+    # BERT's pattern: bidirectional, ragged key padding, one batch row
+    # fully masked; then GQA and causal variants
+    "padded": (3, 40, 4, 4, 16, False, [40, 23, 0]),
+    "gqa_g2_padded": (2, 64, 4, 2, 32, False, [51, 64]),
+    "causal_padded": (2, 48, 4, 4, 16, True, [48, 0]),
+    "gqa_g1_causal": (1, 33, 4, 1, 16, True, None),
+}
+
+
+class TestShortKeys:
+    """The default (auto) route, which takes the single-pass backward
+    for padded key lengths up to 512."""
+
+    @pytest.mark.parametrize("case", sorted(SHORT_CASES))
+    def test_grads_match_jax_auto_route(self, monkeypatch, case):
+        monkeypatch.delenv("APEX_TPU_FLASH_BWD", raising=False)
+        monkeypatch.delenv("APEX_TPU_FLASH_BWD_FUSED_MAX", raising=False)
+        b, s, n, g, d, causal, lens = SHORT_CASES[case]
+        assert s <= tfa.SHORT_KEYS_MAX
+        q, k, v, do, kpm = _inputs(b, s, n, g, d, lens, seed=2)
+        jkpm = None if kpm is None else jnp.asarray(kpm)
+        _, vjp = jax.vjp(lambda q_, k_, v_: j_flash(
+            q_, k_, v_, causal=causal, key_padding_mask=jkpm),
+            *(jnp.asarray(a) for a in (q, k, v)))
+        want = vjp(jnp.asarray(do))
+        leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+        tfa.flash_attention(
+            *leaves, causal=causal,
+            key_padding_mask=None if kpm is None else torch.from_numpy(kpm)
+        ).backward(torch.from_numpy(do))
+        for t, e, name in zip(leaves, want, ("dq", "dk", "dv")):
+            assert t.grad.shape == e.shape, name
+            assert _rel(t.grad.numpy(), e) <= TOL, name
+        if lens is not None and 0 in lens:
+            row = lens.index(0)
+            assert all(torch.count_nonzero(t.grad[row]) == 0
+                       for t in leaves)
 
 
 def test_reference_bwd_matches_autograd_of_the_materialized_softmax():

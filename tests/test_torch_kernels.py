@@ -1,6 +1,7 @@
-"""The port's hand-written CUDA kernels (K1–K7, K3's int8 branch, row 6
-ragged paged attention, row 9 ragged grouped matmul, row 10 int8-weight
-matmul) against their plain PyTorch versions, on the card.  Marked
+"""The port's hand-written CUDA kernels (K1–K7, K3's int8 branch, row 5
+short-key flash backward, row 6 ragged paged attention, row 9 ragged
+grouped matmul, row 10 int8-weight matmul, row 11 scaled masked softmax)
+against their plain PyTorch versions, on the card.  Marked
 ``cuda``: they skip where there is no CUDA device.  This file imports no
 JAX, so on a GPU machine without JAX it runs as
 
@@ -15,6 +16,7 @@ from apex_tpu_torch.ops import decode_step as tds
 from apex_tpu_torch.ops import flash_attention as tfa
 from apex_tpu_torch.ops import fused_sampling as tfs
 from apex_tpu_torch.ops import layer_norm as tln
+from apex_tpu_torch.ops import softmax as tsm
 
 pytestmark = pytest.mark.cuda
 
@@ -185,8 +187,9 @@ _BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
     (12, 4, True, True, 64), (8, 1, True, True, 64), (4, 2, True, True, 128),
     (4, 4, True, True, 32)])
 def test_k6_k7_flash_attention_bwd(dev, dtype, n, g, causal, padded, d):
-    """K6 dq and K7 dk/dv against flash_attention_bwd_ref on the same o
-    and lse; batch row 2 is fully masked when padded."""
+    """K6 dq and K7 dk/dv, launched directly, against
+    flash_attention_bwd_ref on the same o and lse; batch row 2 is fully
+    masked when padded."""
     b, s = 3, 130
     q, k, v, do = _flash_inputs(dtype, b, s, n, g, d, seed=5)
     kpm = None
@@ -196,8 +199,9 @@ def test_k6_k7_flash_attention_bwd(dev, dtype, n, g, causal, padded, d):
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal,
                                      key_padding_mask=kpm)
     before = (tfa.FLASH_BWD_DQ.launches, tfa.FLASH_BWD_DKV.launches)
-    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                  key_padding_mask=kpm)
+    ops = tfa.flash_bwd_operands(q, k, v, o, lse, do, key_padding_mask=kpm)
+    got = (tfa.flash_bwd_dq(ops, causal=causal),
+           *tfa.flash_bwd_dkv(ops, causal=causal))
     want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
                                        key_padding_mask=kpm)
     torch.cuda.synchronize()
@@ -209,6 +213,68 @@ def test_k6_k7_flash_attention_bwd(dev, dtype, n, g, causal, padded, d):
         assert _rel_err(a, e) <= _BWD_TOL[dtype], name
     if padded:   # the fully masked batch row has no gradient at all
         assert all(torch.count_nonzero(t[2]) == 0 for t in got)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("s, n, g, causal, padded, d", [
+    (512, 4, 4, False, True, 64), (200, 4, 4, False, False, 64),
+    (130, 4, 4, True, True, 64), (130, 12, 4, False, True, 64),
+    (512, 8, 1, True, True, 64), (77, 4, 2, False, True, 128),
+    (130, 4, 4, True, True, 32)])
+def test_row5_flash_bwd_short(dev, dtype, s, n, g, causal, padded, d):
+    """Row 5 (the route of flash_attention_bwd up to 512 keys) against
+    flash_attention_bwd_ref and against K6 + K7 on the same o and lse;
+    batch row 2 is fully masked when padded."""
+    b = 3
+    q, k, v, do = _flash_inputs(dtype, b, s, n, g, d, seed=7)
+    kpm = None
+    if padded:
+        lens = torch.tensor([s, s // 2 + 3, 0], device=dev)
+        kpm = torch.arange(s, device=dev)[None] >= lens[:, None]
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal,
+                                     key_padding_mask=kpm)
+    before = ku.launch_counts()
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                  key_padding_mask=kpm)
+    torch.cuda.synchronize()
+    after = ku.launch_counts()
+    assert after["flash_attention_bwd_short"] == \
+        before["flash_attention_bwd_short"] + 1
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name]
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       key_padding_mask=kpm)
+    ops = tfa.flash_bwd_operands(q, k, v, o, lse, do, key_padding_mask=kpm)
+    split = (tfa.flash_bwd_dq(ops, causal=causal),
+             *tfa.flash_bwd_dkv(ops, causal=causal))
+    torch.cuda.synchronize()
+    for a, e, sp, name in zip(got, want, split, ("dq", "dk", "dv")):
+        assert a.dtype == dtype and a.shape == e.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_err(a, e) <= _BWD_TOL[dtype], name
+        assert _rel_err(a, sp) <= _BWD_TOL[dtype], name
+    if padded:
+        assert all(torch.count_nonzero(t[2]) == 0 for t in got)
+
+
+def test_row5_is_deterministic_and_long_keys_take_k6_k7(dev):
+    q, k, v, do = _flash_inputs(torch.bfloat16, 2, 512, 16, 16, 64, seed=8)
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    first = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    again = tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+    q, k, v, do = _flash_inputs(torch.bfloat16, 1, 520, 4, 4, 64, seed=9)
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    before = ku.launch_counts()
+    tfa.flash_attention_bwd(q, k, v, o, lse, do)
+    torch.cuda.synchronize()
+    after = ku.launch_counts()
+    assert after["flash_attention_bwd_short"] == \
+        before["flash_attention_bwd_short"]
+    assert after["flash_attention_bwd_dq"] == \
+        before["flash_attention_bwd_dq"] + 1
 
 
 def test_flash_autograd_matches_reference_route(dev):
@@ -224,6 +290,78 @@ def test_flash_autograd_matches_reference_route(dev):
         grads.append([t.grad for t in leaves])
     for a, e in zip(*grads):
         assert _rel_err(a, e) <= _BWD_TOL[torch.bfloat16]
+
+
+# both sides compute in fp32 and round once to the input type
+_SOFTMAX_TOL = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -8,
+                torch.float16: 2.0 ** -11}
+
+
+def _softmax_mask(kind, b, n, sq, sk, dev):
+    gen = _gen(11)
+    if kind == "none" or kind == "causal":
+        return None
+    if kind == "key_padding":             # [b, 1, 1, sk], row 1 all masked
+        lens = torch.tensor([sk, 0] + [sk // 2 + 1] * (b - 2), device=dev)
+        return (torch.arange(sk, device=dev)[None] >= lens[:, None])[
+            :, None, None, :]
+    shape = (b, 1, sq, sk) if kind == "per_query" else (b, n, sq, sk)
+    m = torch.rand(shape, device=dev, generator=gen) < 0.4
+    m[0, 0, 3] = True                     # one fully masked row
+    return m
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("kind", ["none", "key_padding", "per_query",
+                                  "full", "causal"])
+@pytest.mark.parametrize("sk", [40, 512, 1100])
+def test_row11_scaled_softmax(dev, dtype, kind, sk):
+    """Row 11 against _softmax_fwd_ref: broadcast and full masks, causal,
+    fully masked rows, row lengths that are not a multiple of 128 and
+    longer than 1024."""
+    b, n = 3, 2
+    sq = sk if kind == "causal" else 24
+    x = (torch.randn(b, n, sq, sk, device=dev, generator=_gen(10))
+         * 4).to(dtype)
+    mask = _softmax_mask(kind, b, n, sq, sk, dev)
+    before = tsm.SOFTMAX_FWD.launches
+    got = tsm.softmax_fwd(x, 0.5, mask, kind == "causal")
+    torch.cuda.synchronize()
+    assert tsm.SOFTMAX_FWD.launches == before + 1
+    want = tsm._softmax_fwd_ref(x, 0.5, mask, kind == "causal")
+    assert got.dtype == dtype and got.shape == x.shape
+    assert max_abs(got, want) <= _SOFTMAX_TOL[dtype]
+    if kind == "key_padding":
+        assert torch.count_nonzero(got[1]) == 0
+
+
+def test_row11_through_autograd_and_fused_module(dev):
+    from apex_tpu_torch.transformer.enums import AttnMaskType
+    from apex_tpu_torch.transformer.functional import FusedScaleMaskSoftmax
+
+    x = torch.randn(2, 4, 64, 64, device=dev, generator=_gen(12))
+    dy = torch.randn(2, 4, 64, 64, device=dev, generator=_gen(13))
+    mask = torch.rand(2, 1, 1, 64, device=dev, generator=_gen(14)) < 0.3
+    grads = []
+    for backend in (None, "reference"):
+        xs = x.clone().requires_grad_()
+        y = tsm.scaled_masked_softmax(xs, mask, 0.125, backend=backend)
+        y.backward(dy)
+        grads.append((y.detach(), xs.grad))
+    assert max_abs(grads[0][0], grads[1][0]) <= 1e-6
+    assert _rel_err(grads[0][1], grads[1][1]) <= 1e-5
+    for kind in (AttnMaskType.causal, AttnMaskType.padding):
+        mod = FusedScaleMaskSoftmax(attn_mask_type=kind, scale=0.5)
+        before = tsm.SOFTMAX_FWD.launches
+        y = mod(x, None if kind == AttnMaskType.causal else mask)
+        torch.cuda.synchronize()
+        assert tsm.SOFTMAX_FWD.launches == before + 1
+        assert torch.isfinite(y).all()
+
+
+def max_abs(a, b):
+    return float((a.float() - b.float()).abs().max())
 
 
 def _paged_case(dtype, nh, g, quant, seed, dh=64, bs=16):
