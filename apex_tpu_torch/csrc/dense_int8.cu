@@ -18,7 +18,7 @@
 // with mma.sync m16n8k16 (fp32 accumulation); products of two 16-bit
 // floats are exact in fp32, so this is the TPU kernel's function up to
 // summation order.  CTA tile 64 x 64, four warps of 32 x 32, k steps of
-// 32.  The accumulator layout of mma.sync is fixed (row groupID and
+// 32 (the tile of csrc/mma_tile.cuh, shared with row 9).  The accumulator layout of mma.sync is fixed (row groupID and
 // groupID + 8, columns 2 * (lane % 4) + {0, 1}), so each thread knows
 // the columns it holds and scales them in registers.  Few output tiles
 // (decode: M = 32 gives 12-48 tiles for 132 SMs) split the contraction
@@ -29,163 +29,48 @@
 // and fp32 activations take the CUDA-core path: one CTA per (row,
 // 256 columns), the x row staged in shared memory, one column per
 // thread, fp32 products summed block by block.
-#include "common.cuh"
+#include "mma_tile.cuh"
 
 namespace {
 
-constexpr int kBM = 64, kBN = 64, kBK = 32, kPad = 8;
-constexpr int kThreads = 128;
+constexpr int kBM = kTileM, kBN = kTileN, kBK = kTileK;
+constexpr int kThreads = kTileThreads;
 
-template <typename T>
-__device__ __forceinline__ void mma16816(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]);
-
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(
-    float (&d)[4], const uint32_t (&a)[4], const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <>
-__device__ __forceinline__ void mma16816<__half>(float (&d)[4],
-                                                 const uint32_t (&a)[4],
-                                                 const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-template <typename T>
-__device__ __forceinline__ T from_int8(int8_t v);
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_int8<__nv_bfloat16>(int8_t v) {
-  return __float2bfloat16_rn((float)v);
-}
-template <>
-__device__ __forceinline__ __half from_int8<__half>(int8_t v) {
-  return __float2half_rn((float)v);
-}
-
-// 16-bit activations on the tensor cores.  Needs K % kb == 0,
-// kb % kBK == 0, N % 16 == 0, x and wire 16-byte aligned.
+// 16-bit activations on the tensor cores (the tile of csrc/mma_tile.cuh).
+// Needs K % kb == 0, kb % kBK == 0, N % 16 == 0, x and wire 16-byte
+// aligned.
 template <typename T>
 __global__ void __launch_bounds__(kThreads) dq_mma_kernel(
     const T* __restrict__ x, const int8_t* __restrict__ wire,
     const float* __restrict__ scale, T* __restrict__ y,
     float* __restrict__ partial, int M, int K, int N, int kb, int splits) {
-  __shared__ __align__(16) T sA[kBM][kBK + kPad];   // x tile, k contiguous
-  __shared__ __align__(16) T sB[kBN][kBK + kPad];   // weight tile, transposed
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31, warp = tid >> 5;
-  const int wm = warp >> 1, wn = warp & 1;          // 2 x 2 warps of 32 x 32
-  const int grp = lane >> 2, tig = lane & 3;
+  __shared__ __align__(16) MmaSmemKN<T> s;
   const int m0 = blockIdx.y * kBM, n0 = blockIdx.x * kBN;
+  const int rows = min(kBM, M - m0);
 
-  float part[2][4][4], acc[2][4][4];
-#pragma unroll
-  for (int a = 0; a < 2; ++a)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) part[a][b][c] = acc[a][b][c] = 0.0f;
+  MmaFrag part, acc;
+  mma_zero(part);
+  mma_zero(acc);
 
   // this split's whole scale blocks of the contraction axis
   const int nkb = K / kb;
   const int k_lo = (int)((long long)blockIdx.z * nkb / splits) * kb;
   const int k_hi = (int)((long long)(blockIdx.z + 1) * nkb / splits) * kb;
   for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
-    // x tile: 64 rows x 32 values = 256 16-byte chunks, two per thread
-#pragma unroll
-    for (int j = 0; j < 2; ++j) {
-      const int c = tid + j * kThreads;
-      const int r = c >> 2, col = (c & 3) * 8;
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (m0 + r < M)
-        v = *reinterpret_cast<const uint4*>(x + (size_t)(m0 + r) * K + k0 + col);
-      *reinterpret_cast<uint4*>(&sA[r][col]) = v;
-    }
-    // weight tile: 32 k rows x 64 columns of int8 = 128 16-byte chunks
-    {
-      const int r = tid >> 2, col = (tid & 3) * 16;
-      alignas(16) int8_t w[16];
-      uint4 v = make_uint4(0, 0, 0, 0);
-      if (n0 + col < N)
-        v = *reinterpret_cast<const uint4*>(wire + (size_t)(k0 + r) * N + n0 + col);
-      *reinterpret_cast<uint4*>(w) = v;
-#pragma unroll
-      for (int u = 0; u < 16; ++u) sB[col + u][r] = from_int8<T>(w[u]);
-    }
+    mma_stage_a(s, x, K, m0, rows, k0);
+    mma_stage_b_int8(s, wire, K, N, k0, n0);
     __syncthreads();
-
-#pragma unroll
-    for (int kk = 0; kk < kBK; kk += 16) {
-      uint32_t af[2][4], bf[4][2];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const int r = wm * 32 + mt * 16 + grp;
-        af[mt][0] = *reinterpret_cast<const uint32_t*>(&sA[r][kk + tig * 2]);
-        af[mt][1] = *reinterpret_cast<const uint32_t*>(&sA[r + 8][kk + tig * 2]);
-        af[mt][2] = *reinterpret_cast<const uint32_t*>(&sA[r][kk + tig * 2 + 8]);
-        af[mt][3] =
-            *reinterpret_cast<const uint32_t*>(&sA[r + 8][kk + tig * 2 + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = wn * 32 + nt * 8 + grp;
-        bf[nt][0] = *reinterpret_cast<const uint32_t*>(&sB[n][kk + tig * 2]);
-        bf[nt][1] = *reinterpret_cast<const uint32_t*>(&sB[n][kk + tig * 2 + 8]);
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma16816<T>(part[mt][nt], af[mt], bf[nt]);
-    }
+    mma_tile_step(s, part);
     __syncthreads();
-
-    if ((k0 + kBK) % kb == 0) {   // a scale block ends: scale and add
-      const float* srow = scale + (size_t)((k0 + kBK) / kb - 1) * N;
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int n = n0 + wn * 32 + nt * 8 + tig * 2;
-        const float s0 = n < N ? srow[n] : 0.0f;
-        const float s1 = n + 1 < N ? srow[n + 1] : 0.0f;
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) {
-          acc[mt][nt][0] += part[mt][nt][0] * s0;
-          acc[mt][nt][1] += part[mt][nt][1] * s1;
-          acc[mt][nt][2] += part[mt][nt][2] * s0;
-          acc[mt][nt][3] += part[mt][nt][3] * s1;
-#pragma unroll
-          for (int c = 0; c < 4; ++c) part[mt][nt][c] = 0.0f;
-        }
-      }
-    }
+    if ((k0 + kBK) % kb == 0)   // a scale block ends: scale and add
+      mma_scale_add(acc, part, scale + (size_t)((k0 + kBK) / kb - 1) * N, n0,
+                    N);
   }
 
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int r = m0 + wm * 32 + mt * 16 + grp;
-      const int n = n0 + wn * 32 + nt * 8 + tig * 2;
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int rr = r + (c >= 2 ? 8 : 0), nn = n + (c & 1);
-        if (rr < M && nn < N) {
-          if (splits == 1)
-            y[(size_t)rr * N + nn] = apex_from_float<T>(acc[mt][nt][c]);
-          else
-            partial[((size_t)blockIdx.z * M + rr) * N + nn] = acc[mt][nt][c];
-        }
-      }
-    }
+  if (splits == 1)
+    mma_store(acc, y, N, m0, rows, n0, N);
+  else
+    mma_store(acc, partial + (size_t)blockIdx.z * M * N, N, m0, rows, n0, N);
 }
 
 // y = the splits' partials added in split order, rounded once.

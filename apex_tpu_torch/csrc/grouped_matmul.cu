@@ -3,39 +3,73 @@
 // rows outside [offsets[0], offsets[G]) exactly zero.
 //
 // Replaces apex_tpu/ops/grouped_matmul.py:_gmm_kernel (launched by
-// _gmm_pallas, its float branch): x [N, K] sorted by group, w [G, K, P],
-// offsets [G + 1] int32 non-decreasing, on the device; y [N, P] in x's
-// dtype, accumulated in fp32.  The TPU kernel walks a static list of
-// (row block, group) steps prepared by the host-side jnp metadata and
-// carries one VMEM accumulator across the steps of a block.  Here the
-// rows split into G + 2 segments (the rows before offsets[0], the G
-// groups' spans, the rows from offsets[G] on), each segment into tiles of
-// at most kBM rows of that segment alone, so no tile mixes two groups and
-// the work is N*K*P plus at most one partial tile per segment, never
-// G*N*K*P.  Every CTA reads the offsets itself and finds its tile by a
-// warp scan over the segments' tile counts: no metadata pass, no host read
-// of the offsets, so a caller can capture the launch in a CUDA graph.
-// The grid is the static bound ceil(N / kBM) + G + 2 tiles; CTAs past the
-// real tile count return at once.  The two outer segments' tiles write
-// zeros: every element of y is written exactly once, zeros included.
+// _gmm_pallas): x [N, K] sorted by group, w [G, K, P], offsets [G + 1]
+// int32 non-decreasing, on the device; y [N, P], accumulated in fp32.
+// The TPU kernel walks a static list of (row block, group) steps
+// prepared by the host-side jnp metadata and carries one VMEM
+// accumulator across the steps of a block.  Here the rows split into
+// G + 2 segments (the rows before offsets[0], the G groups' spans, the
+// rows from offsets[G] on), each segment into tiles of rows of that
+// segment alone, so no tile mixes two groups and the work is N*K*P plus
+// at most one partial tile per segment, never G*N*K*P.  Every CTA reads
+// the offsets itself and finds its tile by a warp scan over the
+// segments' tile counts: no metadata pass, no host read of the offsets,
+// so a caller can capture the launch in a CUDA graph.  The grid is the
+// static bound ceil(N / tile rows) + G + 2 tiles; CTAs past the real
+// tile count return at once.  The two outer segments' tiles write zeros:
+// every element of y is written exactly once, zeros included.
 //
-// Bound on the H100: bytes.  The LoRA delta runs at rank r = 8: the A
-// side (K = 768 or 3072, P = 8) and the B side (K = 8, P = 768..3072) do
-// 2 flops per weight element for each row of its group, and a decode
-// batch holds one or two rows per group, so the weights of the live
-// groups are the bytes.  Design: fp32 FMA on the CUDA cores (the slabs
-// are fp32 and the merged-weights oracle is fp32; TF32 would break it),
-// 16-bit operands widened to fp32 on load.  A CTA of 256 threads holds a
-// tile of up to kBM rows x bn columns (bn = P rounded up to a power of
-// two, at most 256); the 256 / bn thread slices split the contraction
-// and a fixed-order sum in shared memory adds them (P = 8 gives 32
-// slices).  x's rows stage in shared memory kKC columns at a time, k
-// major, so a thread reads four rows with one 16-byte load.  When the
-// tiles are few and K is long (the A side at decode), the contraction
-// also splits across blockIdx.z in whole kKC chunks: each split writes an
-// fp32 partial [N, P] and a second kernel adds the splits in order.  No
-// atomics: the result does not depend on scheduling.
-#include "common.cuh"
+// Three branches, one entry point each:
+//
+// * apex_grouped_matmul, the fp32 branch (LoRA's slabs; also 16-bit
+//   operands of shapes the tensor-core tile does not take).  Bound on the
+//   H100: bytes.  The LoRA delta runs at rank r = 8: the A side (K = 768
+//   or 3072, P = 8) and the B side (K = 8, P = 768..3072) do 2 flops per
+//   weight element for each row of its group, and a decode batch holds
+//   one or two rows per group, so the weights of the live groups are the
+//   bytes.  Design: fp32 FMA on the CUDA cores (the slabs are fp32 and
+//   the merged-weights oracle is fp32; TF32 would break it), 16-bit
+//   operands widened to fp32 on load.  A CTA of 256 threads holds a tile
+//   of up to kBM rows x bn columns (bn = P rounded up to a power of two,
+//   at most 256); the 256 / bn thread slices split the contraction and a
+//   fixed-order sum in shared memory adds them (P = 8 gives 32 slices).
+//   x's rows stage in shared memory kKC columns at a time, k major, so a
+//   thread reads four rows with one 16-byte load.  When the tiles are
+//   few and K is long (the A side at decode), the contraction also splits
+//   across blockIdx.z in whole kKC chunks: each split writes an fp32
+//   partial [N, P] and a second kernel adds the splits in order.  No
+//   atomics: the result does not depend on scheduling.
+//
+// * apex_grouped_matmul_mma, the 16-bit branch (the MoE experts: bf16 x
+//   and w, y in their dtype).  Bound on the H100: at the ragged MoE step
+//   (N = 4096, K = 768, P = 3072, G = 8, or the transpose) bytes and
+//   operations are within 10% of each other (~0.02 ms a call).  Design:
+//   row 10's tensor-core tile (csrc/mma_tile.cuh: 64 x 64 per CTA of
+//   four warps, mma.sync m16n8k16, fp32 accumulators, k steps of 32 in
+//   shared memory) over tiles of 64 rows of one segment; the rows of a
+//   partial tile outside the segment load as zeros and are not stored.
+//   The TPU kernel widens both operands to fp32 before its dot; a product
+//   of two 16-bit floats is exact in fp32, so this is its function up to
+//   summation order.  trans = 1 reads w as [G, P, K] (each group's
+//   weight transposed in place, k contiguous): dx = g @ w[g]^T of the
+//   backward without a transposed copy of the slab.  Either way each
+//   weight tile stages in shared memory in its source's layout with
+//   16-byte stores (k-major for the forward, fragments by
+//   ldmatrix.trans; n-major for the transposed read).  Needs K % 8 == 0,
+//   P % 8 == 0 and 16-byte-aligned x and w (16-byte loads).
+//
+// * apex_grouped_matmul_int8, the int8-slab branch (quantized MoE
+//   experts; _gmm_kernel with quant=True): wire [G, K, P] int8 and scale
+//   [G, K / kb, P] fp32, one scale per (kb-row block, column), read
+//   through the tile's group as the TPU kernel's BlockSpec reads both
+//   through its step's group.  The same tile, with each int8 tile widened
+//   to x's 16-bit type in shared memory (exact: |q| <= 127) and each k
+//   block's fp32 partial multiplied by its scale row in registers before
+//   it joins the accumulator, as row 10 does; y in x's dtype.  Needs
+//   16-bit x, K % 8 == 0, kb % 32 == 0, P % 16 == 0.
+#include <type_traits>
+
+#include "mma_tile.cuh"
 
 namespace {
 
@@ -53,11 +87,12 @@ __device__ __forceinline__ int raw_bound(const int* __restrict__ off, int G,
   return min(max(off[i - 1], 0), N);
 }
 
-// Warp 0: the tile of index t — (segment, first row, rows); rows = 0 when
-// t is past the last tile.  Segment bounds are the running max of the
-// clamped offsets, so the segments tile [0, N) whatever the offsets hold.
+// Warp 0: the tile of index t, tiles of at most bm rows — (segment,
+// first row, rows); rows = 0 when t is past the last tile.  Segment
+// bounds are the running max of the clamped offsets, so the segments
+// tile [0, N) whatever the offsets hold.
 __device__ void find_tile(const int* __restrict__ off, int G, int N, int t,
-                          int* s_tile) {
+                          int bm, int* s_tile) {
   const unsigned full = 0xffffffffu;
   const int lane = threadIdx.x & 31;
   const int nseg = G + 2;
@@ -72,7 +107,7 @@ __device__ void find_tile(const int* __restrict__ off, int G, int N, int t,
     }
     lo = max(lo, bound_before);
     const int hi = s < nseg ? max(lo, raw_bound(off, G, N, s + 1)) : N;
-    const int nt = s < nseg ? (hi - lo + kBM - 1) / kBM : 0;
+    const int nt = s < nseg ? (hi - lo + bm - 1) / bm : 0;
     int incl = nt;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
@@ -84,10 +119,10 @@ __device__ void find_tile(const int* __restrict__ off, int G, int N, int t,
     const unsigned mine = __ballot_sync(full, t >= excl && t < incl);
     if (mine) {
       if (lane == __ffs(mine) - 1) {
-        const int row0 = lo + (t - excl) * kBM;
+        const int row0 = lo + (t - excl) * bm;
         s_tile[0] = s;
         s_tile[1] = row0;
-        s_tile[2] = min(kBM, hi - row0);
+        s_tile[2] = min(bm, hi - row0);
       }
       return;
     }
@@ -107,7 +142,7 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(
   __shared__ float red[kBM][kThreads];
   __shared__ int s_tile[3];
 
-  if (threadIdx.x < 32) find_tile(off, G, N, blockIdx.x, s_tile);
+  if (threadIdx.x < 32) find_tile(off, G, N, blockIdx.x, kBM, s_tile);
   __syncthreads();
   const int seg = s_tile[0], row0 = s_tile[1], R = s_tile[2];
   if (R <= 0) return;
@@ -196,6 +231,77 @@ __global__ void gmm_sum_splits_kernel(const float* __restrict__ partial,
   y[e] = apex_from_float<T>(s);
 }
 
+// The 16-bit branch: one CTA per (tile of <= 64 rows of one segment, 64
+// columns).  kTrans reads w as [G, P, K].
+template <typename T, bool kTrans>
+__global__ void __launch_bounds__(kTileThreads) gmm_mma_kernel(
+    const T* __restrict__ x, const T* __restrict__ w,
+    const int* __restrict__ off, T* __restrict__ y, int N, int K, int P,
+    int G) {
+  // B stages as its source lies: k-major from [K, P], n-major from the
+  // transposed [P, K]
+  using Smem = typename std::conditional<kTrans, MmaSmemNK<T>,
+                                         MmaSmemKN<T>>::type;
+  __shared__ __align__(16) Smem s;
+  __shared__ int s_tile[3];
+  if (threadIdx.x < 32) find_tile(off, G, N, blockIdx.x, kTileM, s_tile);
+  __syncthreads();
+  const int seg = s_tile[0], row0 = s_tile[1], R = s_tile[2];
+  if (R <= 0) return;
+  const int n0 = blockIdx.y * kTileN;
+  MmaFrag acc;
+  mma_zero(acc);
+  // segments 0 and G + 1 lie outside the window: their tiles write zeros
+  if (seg >= 1 && seg <= G) {
+    const T* __restrict__ wg = w + (size_t)(seg - 1) * K * P;
+    for (int k0 = 0; k0 < K; k0 += kTileK) {
+      mma_stage_a(s, x, K, row0, R, k0);
+      if constexpr (kTrans)
+        mma_stage_bt(s, wg, K, P, k0, n0);
+      else
+        mma_stage_b(s, wg, K, P, k0, n0);
+      __syncthreads();
+      mma_tile_step(s, acc);
+      __syncthreads();
+    }
+  }
+  mma_store(acc, y, P, row0, R, n0, P);
+}
+
+// The int8-slab branch: the 16-bit tile with int8 weights widened in
+// shared memory and each kb block's partial scaled in registers.
+template <typename T>
+__global__ void __launch_bounds__(kTileThreads) gmm_int8_kernel(
+    const T* __restrict__ x, const int8_t* __restrict__ wire,
+    const float* __restrict__ scale, const int* __restrict__ off,
+    T* __restrict__ y, int N, int K, int P, int G, int kb) {
+  __shared__ __align__(16) MmaSmemKN<T> s;
+  __shared__ int s_tile[3];
+  if (threadIdx.x < 32) find_tile(off, G, N, blockIdx.x, kTileM, s_tile);
+  __syncthreads();
+  const int seg = s_tile[0], row0 = s_tile[1], R = s_tile[2];
+  if (R <= 0) return;
+  const int n0 = blockIdx.y * kTileN;
+  MmaFrag part, acc;
+  mma_zero(part);
+  mma_zero(acc);
+  if (seg >= 1 && seg <= G) {
+    const int8_t* __restrict__ wg = wire + (size_t)(seg - 1) * K * P;
+    const float* __restrict__ sg = scale + (size_t)(seg - 1) * (K / kb) * P;
+    for (int k0 = 0; k0 < K; k0 += kTileK) {
+      mma_stage_a(s, x, K, row0, R, k0);
+      mma_stage_b_int8(s, wg, K, P, k0, n0);
+      __syncthreads();
+      mma_tile_step(s, part);
+      __syncthreads();
+      if ((k0 + kTileK) % kb == 0)   // a scale block ends: scale and add
+        mma_scale_add(acc, part, sg + (size_t)((k0 + kTileK) / kb - 1) * P,
+                      n0, P);
+    }
+  }
+  mma_store(acc, y, P, row0, R, n0, P);
+}
+
 int column_tile(int P) {
   int bn = 1;
   while (bn < P && bn < kThreads) bn <<= 1;
@@ -238,4 +344,70 @@ extern "C" int apex_grouped_matmul(const void* x, const void* w,
     return launch<T>(x, w, offsets, y, partial, N, K, P, G, splits, stream);
   });
   return (int)cudaErrorInvalidValue;
+}
+
+// x [N, K] and y [N, P] bf16 or fp16, w [G, K, P] (trans = 0) or
+// [G, P, K] (trans = 1) of the same dtype, offsets [G + 1] int32 on the
+// device.  Needs K % 8 == 0, P % 8 == 0 and 16-byte-aligned x and w.
+extern "C" int apex_grouped_matmul_mma(const void* x, const void* w,
+                                       const void* offsets, void* y, int N,
+                                       int K, int P, int G, int trans,
+                                       int dtype, cudaStream_t stream) {
+  if (N <= 0 || K < 0 || P <= 0 || G < 0 || K % 8 != 0 || P % 8 != 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + kTileM - 1) / kTileM + G + 2, (P + kTileN - 1) / kTileN);
+  switch (dtype) {
+    case APEX_BF16:
+      if (trans)
+        gmm_mma_kernel<__nv_bfloat16, true><<<grid, kTileThreads, 0, stream>>>(
+            (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+            (const int*)offsets, (__nv_bfloat16*)y, N, K, P, G);
+      else
+        gmm_mma_kernel<__nv_bfloat16, false><<<grid, kTileThreads, 0, stream>>>(
+            (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
+            (const int*)offsets, (__nv_bfloat16*)y, N, K, P, G);
+      break;
+    case APEX_F16:
+      if (trans)
+        gmm_mma_kernel<__half, true><<<grid, kTileThreads, 0, stream>>>(
+            (const __half*)x, (const __half*)w, (const int*)offsets,
+            (__half*)y, N, K, P, G);
+      else
+        gmm_mma_kernel<__half, false><<<grid, kTileThreads, 0, stream>>>(
+            (const __half*)x, (const __half*)w, (const int*)offsets,
+            (__half*)y, N, K, P, G);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// x [N, K] and y [N, P] bf16 or fp16; wire [G, K, P] int8; scale
+// [G, K / kb, P] fp32; offsets [G + 1] int32 on the device.  Needs
+// K % kb == 0, kb % 32 == 0, P % 16 == 0 and 16-byte-aligned x and wire.
+extern "C" int apex_grouped_matmul_int8(const void* x, const void* wire,
+                                        const void* scale,
+                                        const void* offsets, void* y, int N,
+                                        int K, int P, int G, int kb,
+                                        int dtype, cudaStream_t stream) {
+  if (N <= 0 || K < 0 || P <= 0 || G < 0 || kb <= 0 || kb % kTileK != 0 ||
+      K % kb != 0 || P % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  dim3 grid((N + kTileM - 1) / kTileM + G + 2, (P + kTileN - 1) / kTileN);
+  switch (dtype) {
+    case APEX_BF16:
+      gmm_int8_kernel<__nv_bfloat16><<<grid, kTileThreads, 0, stream>>>(
+          (const __nv_bfloat16*)x, (const int8_t*)wire, (const float*)scale,
+          (const int*)offsets, (__nv_bfloat16*)y, N, K, P, G, kb);
+      break;
+    case APEX_F16:
+      gmm_int8_kernel<__half><<<grid, kTileThreads, 0, stream>>>(
+          (const __half*)x, (const int8_t*)wire, (const float*)scale,
+          (const int*)offsets, (__half*)y, N, K, P, G, kb);
+      break;
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
 }

@@ -43,6 +43,7 @@ def init_bert_params(cfg: TransformerConfig,
     pooler/classifier, N(0, std) weights drawn on the CPU from
     ``generator`` (default: seed 0) after GPT's, unit scales and zero
     biases, on ``device`` (default ``cuda``)."""
+    _check_dense(cfg)
     dev = resolve_device(device)
     gen = generator if generator is not None else \
         torch.Generator().manual_seed(0)
@@ -75,6 +76,13 @@ def init_bert_params(cfg: TransformerConfig,
     return params
 
 
+def _check_dense(cfg: TransformerConfig) -> None:
+    if cfg.num_experts:
+        raise NotImplementedError(
+            "BERT is a dense encoder in the port: num_experts is for the "
+            "GPT family (models/transformer_lm.py)")
+
+
 def _padding_mask(attention_mask):
     """``[b, s]`` validity (1 = real token) → ``[b, s]`` bool key-padding
     mask (True = masked)."""
@@ -87,6 +95,7 @@ def bert_forward(params: dict, tokens, cfg: TransformerConfig, *,
                  tokentype_ids=None, attention_mask=None,
                  backend: Optional[str] = None):
     """→ ``(lm_logits [b, s, v] fp32, binary_logits [b, 2] fp32)``."""
+    _check_dense(cfg)
     cd = cfg.compute_dtype
     emb = params["embedding"]
     h = embed_tokens(emb, tokens, cfg)

@@ -37,7 +37,18 @@ class TransformerConfig:
     layernorm_epsilon: float = 1e-5
     apply_residual_connection_post_layernorm: bool = False
 
-    num_experts: Optional[int] = None
+    # mixture-of-experts (transformer/moe.py)
+    num_experts: Optional[int] = None           # None = dense FFN
+    moe_capacity_factor: float = 1.25
+    moe_top_k: int = 1
+    moe_aux_loss_coeff: float = 1e-2
+    moe_ep_axis: str = "ep"                     # expert mesh axis name
+    # 'capacity' = Switch drop-token einsums; 'ragged' = capacity-free
+    # sort-by-expert routing through the grouped matmul (kernel row 9)
+    moe_routing: str = "capacity"
+    # expert-parallel dispatch wire dtype on the ragged path ('fp32' |
+    # 'bf16' | 'int8'); read by the expert-parallel island only
+    moe_comm: str = "fp32"
 
     hidden_dropout: float = 0.0
     attention_dropout: float = 0.0
@@ -72,6 +83,14 @@ class TransformerConfig:
                     "kv_channels is not given")
             object.__setattr__(self, "kv_channels",
                                self.hidden_size // self.num_attention_heads)
+        if self.moe_routing not in ("capacity", "ragged"):
+            raise ValueError(
+                f"moe_routing ({self.moe_routing!r}) must be 'capacity' "
+                "or 'ragged'")
+        if self.moe_comm not in ("fp32", "bf16", "int8"):
+            raise ValueError(
+                f"moe_comm ({self.moe_comm!r}) must be 'fp32', 'bf16' "
+                "or 'int8'")
         if self.num_query_groups is not None:
             if (self.num_query_groups < 1
                     or self.num_attention_heads % self.num_query_groups):

@@ -5,7 +5,9 @@ dict of numpy arrays (``jax.tree.map(np.asarray, params)`` on the caller's
 side) and returns the port's dict of tensors with the same keys; a bf16
 leaf (ml_dtypes in numpy) travels through float32; a quantized weight
 leaf ``{"wire": int8, "scale": fp32}`` (``models/quantized.py``) crosses
-as it is, the int8 unchanged and never through a float.
+as it is, the int8 unchanged and never through a float.  An MoE tree
+(``router_kernel``, ``moe_fc1``/``moe_fc2`` and their biases, or their
+quantized expert slabs) crosses with no renaming like any other.
 ``train_state_from_jax`` carries a whole JAX ``TrainState`` (params, fp32
 masters, Adam or LAMB moments and step, loss-scale state) across, so both
 packages can start from one mid-training state, and

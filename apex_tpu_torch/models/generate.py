@@ -44,7 +44,8 @@ from apex_tpu_torch.models.config import TransformerConfig
 from apex_tpu_torch.models.lora import (
     batched_lora_delta, lora_mlp, lora_plan)
 from apex_tpu_torch.models.transformer_lm import (
-    _attention, _mlp, apply_norm, lm_head_logits, rope_cos_sin, split_qkv)
+    _attention, _layer_params, _mlp, apply_norm, lm_head_logits,
+    rope_cos_sin, split_qkv)
 from apex_tpu_torch.ops.decode_step import fused_decode_layer
 from apex_tpu_torch.ops.dense import is_quantized, quantized_matmul
 from apex_tpu_torch.ops.fused_sampling import fused_sample
@@ -122,13 +123,6 @@ def _check_cache(cache: dict) -> None:
         raise ValueError(
             f"cache['pos'] must be a [b] int32 vector, got shape "
             f"{tuple(cache['pos'].shape)}; build caches with init_kv_cache")
-
-
-def _layer_params(params: dict, layer: int) -> dict:
-    """Layer ``layer``'s leaves; a quantized slab keeps its dict form."""
-    return {k: ({kk: vv[layer] for kk, vv in v.items()}
-                if isinstance(v, dict) else v[layer])
-            for k, v in params["layers"].items()}
 
 
 # leaves every layer casts to the compute dtype at each use; K1 reads the

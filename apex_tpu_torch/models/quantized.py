@@ -8,8 +8,11 @@ quantized.py``): the one-shot conversion.
 grid matches the JAX package's ``vmap`` bit for bit.  The model code
 branches on :func:`~apex_tpu_torch.ops.dense.is_quantized` at each
 matmul site and runs kernel row 10.  Embedding, head, biases and norms
-stay float.  The MoE expert slabs need row 9's int8-slab branch
-(``grouped_matmul_quantized``), which comes with the MoE slice.
+stay float.  The MoE expert slabs (``moe_fc1``, ``moe_fc2``) become
+``{"wire": int8 [L, E, k, p], "scale": fp32 [L, E, k/kb, p]}`` through
+:func:`~apex_tpu_torch.ops.grouped_matmul.quantize_group_weights`, per
+layer, and run kernel row 9's int8 branch (``grouped_matmul_quantized``);
+the router stays float.
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import torch
 
 from apex_tpu_torch.ops.dense import (
     QUANT_BLOCK, dequantize_weight, is_quantized, quantize_weight)
+from apex_tpu_torch.ops.grouped_matmul import (
+    _dequantize_group, quantize_group_weights)
 
 __all__ = ["dequantize_params", "is_quantized_tree", "param_bytes",
            "quantize_params"]
@@ -43,21 +48,18 @@ def quantize_params(params: dict, *, block: Optional[int] = None) -> dict:
     shared; a tree that is already quantized raises."""
     block = int(block or QUANT_BLOCK)
     layers = dict(params["layers"])
-    for name in _GROUPED_KERNELS:
-        if layers.get(name) is not None:
-            raise NotImplementedError(
-                f"params['layers'][{name!r}]: quantized MoE expert slabs "
-                "need row 9's int8-slab branch (grouped_matmul_quantized), "
-                "which comes with the MoE slice of the port")
-    for name in _DENSE_KERNELS:
-        w = layers.get(name)
-        if w is None:
-            continue
-        if is_quantized(w):
-            raise ValueError(
-                f"params['layers'][{name!r}] is already quantized — "
-                "quantize_params expects a float tree")
-        layers[name] = _per_layer(lambda wl: quantize_weight(wl, block), w)
+    for names, quantize in ((_DENSE_KERNELS, quantize_weight),
+                            (_GROUPED_KERNELS, quantize_group_weights)):
+        for name in names:
+            w = layers.get(name)
+            if w is None:
+                continue
+            if is_quantized(w):
+                raise ValueError(
+                    f"params['layers'][{name!r}] is already quantized — "
+                    "quantize_params expects a float tree")
+            layers[name] = _per_layer(
+                lambda wl, q=quantize: q(wl, block), w)
     return dict(params, layers=layers)
 
 
@@ -67,8 +69,9 @@ def dequantize_params(params: dict) -> dict:
     layers = dict(params["layers"])
     for name, leaf in list(layers.items()):
         if is_quantized(leaf):
-            layers[name] = _per_layer(dequantize_weight, leaf["wire"],
-                                      leaf["scale"])
+            fn = (_dequantize_group if name in _GROUPED_KERNELS
+                  else dequantize_weight)
+            layers[name] = _per_layer(fn, leaf["wire"], leaf["scale"])
     return dict(params, layers=layers)
 
 

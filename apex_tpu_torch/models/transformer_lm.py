@@ -13,7 +13,12 @@ casts: the word and position tables go to ``cfg.compute_dtype`` before
 the lookup, every matmul weight and bias to the activations' dtype, the
 gelu runs in fp32, and the norms read their scales in fp32.  A
 quantized kernel (``models/quantized.quantize_params``) runs the int8
-weight-slab matmul at each site (kernel row 10 on the card).
+weight-slab matmul at each site (kernel row 10 on the card).  A config
+with ``num_experts`` replaces each layer's MLP by the MoE FFN of
+``transformer/moe.py`` (capacity or ragged routing; the ragged experts
+run kernel row 9, int8 slabs its int8 branch) and adds the summed
+load-balance loss, ``moe_aux_loss_coeff · aux / num_layers``, to
+:func:`gpt_loss`.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_cached
 from apex_tpu_torch.ops.softmax import (
     scaled_masked_softmax, scaled_softmax, scaled_upper_triang_masked_softmax)
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
+from apex_tpu_torch.transformer import moe as _moe
 from apex_tpu_torch.utils.registry import resolve_device
 
 __all__ = ["init_gpt_params", "rope_cos_sin", "apply_norm",
@@ -66,8 +72,6 @@ def init_gpt_params(cfg: TransformerConfig,
     swiglu = cfg.activation == "swiglu"
     fc1_shape = (L, h, 2, f) if swiglu else (L, h, f)
     fc1_bias_shape = (L, 2, f) if swiglu else (L, f)
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
     word = nrm((cfg.vocab_size, h), std)
     layers = {
         "ln1_scale": const((L, h), 1.0),
@@ -78,11 +82,25 @@ def init_gpt_params(cfg: TransformerConfig,
         "proj_bias": const((L, h), 0.0),
         "ln2_scale": const((L, h), 1.0),
         "ln2_bias": const((L, h), 0.0),
-        "fc1_kernel": nrm(fc1_shape, std),
-        "fc1_bias": const(fc1_bias_shape, 0.0),
-        "fc2_kernel": nrm((L, f, h), out_std),
-        "fc2_bias": const((L, h), 0.0),
     }
+    if cfg.num_experts:
+        E = cfg.num_experts
+        # swiglu experts carry the concatenated [gate ‖ up] fc1 (2f)
+        f1 = 2 * f if swiglu else f
+        layers.update({
+            "router_kernel": nrm((L, h, E), std),
+            "moe_fc1": nrm((L, E, h, f1), std),
+            "moe_fc1_bias": const((L, E, f1), 0.0),
+            "moe_fc2": nrm((L, E, f, h), out_std),
+            "moe_fc2_bias": const((L, E, h), 0.0),
+        })
+    else:
+        layers.update({
+            "fc1_kernel": nrm(fc1_shape, std),
+            "fc1_bias": const(fc1_bias_shape, 0.0),
+            "fc2_kernel": nrm((L, f, h), out_std),
+            "fc2_bias": const((L, h), 0.0),
+        })
     params = {
         "embedding": {"word": word},
         "layers": layers,
@@ -145,57 +163,64 @@ def lm_head_weight(params: dict, cfg: TransformerConfig):
             else params["embedding"]["word"])
 
 
-def _core_attention(cfg: TransformerConfig, q, k, v, key_padding_mask,
-                    *, backend: Optional[str] = None):
-    """softmax(QK^T/sqrt(d))V; ``key_padding_mask`` ``[b, sk]`` bool, True
-    = masked.  ``attention_backend='flash'``: the flash path (kernel K2
-    forward; row 5 backward for key lengths up to 512, K6/K7 above).
-    ``'fused_softmax'``: materialized scores through the scaled-softmax
-    family (kernel row 11 forward), as the JAX package's
-    ``_core_attention`` (``transformer_lm.py:474-507``): grouped K/V
-    broadcast to the query heads, fp32 scores (``q.dtype`` when
-    ``softmax_in_fp32=False``), the key padding broadcast to ``[b, 1, 1,
-    sk]`` and combined with the causal triangle, probabilities cast to
-    v's dtype before the context product (fp32 products and sums)."""
+def _core_attention(cfg: TransformerConfig, q, k, v, attention_mask, *,
+                    backend: Optional[str] = None):
+    """softmax(QK^T/sqrt(d))V, routed as the JAX package's
+    ``_core_attention`` (``transformer_lm.py:464-502``).
+    ``attention_mask`` is bool, True = masked.  A 2-D ``[b, sk]`` mask is
+    key padding: under ``attention_backend='flash'`` it goes to the flash
+    path (kernel K2 forward; row 5 backward for key lengths up to 512,
+    K6/K7 above), under ``'fused_softmax'`` it is broadcast to ``[b, 1,
+    1, sk]``.  Any other mask (``[b, 1, sq, sk]``, ``[b, n, sq, sk]``, ...)
+    takes the materialized-score path under both backends, as does
+    everything under ``'fused_softmax'``: grouped K/V broadcast to the
+    query heads, fp32 scores (``q.dtype`` when ``softmax_in_fp32=
+    False``), the mask OR-ed with the causal triangle for causal models,
+    the scaled-softmax family (kernel row 11 forward), probabilities
+    cast to v's dtype before the context product (fp32 products and
+    sums)."""
     scale = 1.0 / q.shape[-1] ** 0.5
     causal = cfg.attn_mask_type == "causal"
-    if cfg.attention_backend == "flash":
-        return flash_attention(q, k, v, causal=causal,
-                               key_padding_mask=key_padding_mask,
-                               scale=scale, backend=backend)
-    if cfg.attention_backend != "fused_softmax":
+    if cfg.attention_backend not in ("flash", "fused_softmax"):
         raise NotImplementedError(
             f"attention_backend={cfg.attention_backend!r}: expected 'flash' "
             "or 'fused_softmax'")
+    kpm = None
+    if attention_mask is not None and attention_mask.ndim == 2:
+        kpm, attention_mask = attention_mask, None
+    if cfg.attention_backend == "flash" and attention_mask is None:
+        return flash_attention(q, k, v, causal=causal, key_padding_mask=kpm,
+                               scale=scale, backend=backend)
     if k.shape[2] != q.shape[2]:
         rep = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    mask = (None if key_padding_mask is None
-            else key_padding_mask[:, None, None, :])
+    if kpm is not None:
+        attention_mask = kpm[:, None, None, :]
     scores = torch.einsum("bsnd,btnd->bnst", q.float(), k.float())
     if not cfg.softmax_in_fp32:
         scores = scores.to(q.dtype)
     if causal:
-        if mask is not None:
+        if attention_mask is not None:
             sq, sk = scores.shape[-2], scores.shape[-1]
             row = torch.arange(sq, device=q.device)[:, None]
             col = torch.arange(sk, device=q.device)[None]
             probs = scaled_masked_softmax(
-                scores, mask | (col > row)[None, None], scale,
+                scores, attention_mask | (col > row)[None, None], scale,
                 backend=backend)
         else:
             probs = scaled_upper_triang_masked_softmax(scores, scale,
                                                        backend=backend)
-    elif mask is not None:
-        probs = scaled_masked_softmax(scores, mask, scale, backend=backend)
+    elif attention_mask is not None:
+        probs = scaled_masked_softmax(scores, attention_mask, scale,
+                                      backend=backend)
     else:
         probs = scaled_softmax(scores, scale, backend=backend)
     return torch.einsum("bnst,btnd->bsnd", probs.to(v.dtype).float(),
                         v.float()).to(v.dtype)
 
 
-def _attention(cfg: TransformerConfig, lp: dict, x, key_padding_mask,
+def _attention(cfg: TransformerConfig, lp: dict, x, attention_mask,
                rope, *, return_kv: bool = False,
                backend: Optional[str] = None):
     """Fused QKV projection → split → rope → core attention → output
@@ -211,7 +236,7 @@ def _attention(cfg: TransformerConfig, lp: dict, x, key_padding_mask,
                                               sin[None, :, None, :])
         k = fused_apply_rotary_pos_emb_cached(k, cos[None, :, None, :],
                                               sin[None, :, None, :])
-    ctxv = _core_attention(cfg, q, k, v, key_padding_mask, backend=backend)
+    ctxv = _core_attention(cfg, q, k, v, attention_mask, backend=backend)
     out = quantized_matmul(ctxv.reshape(b, s, -1), lp["proj_kernel"],
                            backend=backend)
     out = out + lp["proj_bias"].to(x.dtype)
@@ -240,6 +265,25 @@ def _mlp(cfg: TransformerConfig, lp: dict, x, *,
             + lp["fc2_bias"].to(x.dtype))
 
 
+def _moe_mlp(cfg: TransformerConfig, lp: dict, x, *,
+             backend: Optional[str] = None):
+    """The MoE FFN (``transformer/moe.switch_moe_mlp``) in place of the
+    dense MLP: ``(out, aux_loss)``."""
+    moe_params = {
+        "router": lp["router_kernel"],
+        "fc1": lp["moe_fc1"],
+        "fc1_bias": lp["moe_fc1_bias"],
+        "fc2": lp["moe_fc2"],
+        "fc2_bias": lp["moe_fc2_bias"],
+    }
+    o = _moe.switch_moe_mlp(
+        moe_params, x, capacity_factor=cfg.moe_capacity_factor,
+        top_k=cfg.moe_top_k, ep_axis=cfg.moe_ep_axis,
+        activation=cfg.activation, routing=cfg.moe_routing,
+        moe_comm=cfg.moe_comm, gmm_backend=backend)
+    return o.out, o.aux_loss
+
+
 def _check_training_cfg(cfg: TransformerConfig) -> None:
     if cfg.remat:
         raise NotImplementedError(
@@ -250,21 +294,24 @@ def _check_training_cfg(cfg: TransformerConfig) -> None:
         raise NotImplementedError(
             "dropout (hidden, attention — the in-kernel _keep_mask hash — "
             "and drop-path) is not ported yet")
-    if cfg.num_experts:
-        raise NotImplementedError("MoE layers are not ported yet")
 
 
-def _layer(cfg: TransformerConfig, lp: dict, x, key_padding_mask, rope, *,
+def _layer(cfg: TransformerConfig, lp: dict, x, attention_mask, rope, *,
            backend: Optional[str] = None):
-    """Pre-LN block: LN → attention → residual → LN → MLP → residual."""
+    """Pre-LN block: LN → attention → residual → LN → MLP (or MoE FFN) →
+    residual.  Returns ``(x, aux)``: the MoE load-balance loss, ``None``
+    for a dense layer."""
     h = apply_norm(cfg, x, lp["ln1_scale"], lp["ln1_bias"], backend=backend)
-    a = _attention(cfg, lp, h, key_padding_mask, rope, backend=backend)
+    a = _attention(cfg, lp, h, attention_mask, rope, backend=backend)
     res = h if cfg.apply_residual_connection_post_layernorm else x
     x = res + a
     h = apply_norm(cfg, x, lp["ln2_scale"], lp["ln2_bias"], backend=backend)
-    m = _mlp(cfg, lp, h, backend=backend)
+    if cfg.num_experts:
+        m, aux = _moe_mlp(cfg, lp, h, backend=backend)
+    else:
+        m, aux = _mlp(cfg, lp, h, backend=backend), None
     res = h if cfg.apply_residual_connection_post_layernorm else x
-    return res + m
+    return res + m, aux
 
 
 def embed_tokens(emb: dict, tokens, cfg: TransformerConfig):
@@ -279,34 +326,49 @@ def embed_tokens(emb: dict, tokens, cfg: TransformerConfig):
 
 def transformer_backbone(params: dict, hidden, cfg: TransformerConfig, *,
                          attention_mask=None, apply_final_norm: bool = True,
+                         with_aux: bool = False,
                          backend: Optional[str] = None):
     """The decoder stack (a Python loop over the stacked layers) + final
-    norm.  ``hidden`` ``[b, s, h]``; ``attention_mask`` ``[b, s]`` bool
-    (True = masked key) for ``attn_mask_type='padding'`` models."""
+    norm.  ``hidden`` ``[b, s, h]``; ``attention_mask`` bool, True =
+    masked: ``[b, s]`` key padding or any mask that broadcasts to the
+    scores ``[b, n, sq, sk]`` (see :func:`_core_attention`).
+    ``with_aux=True`` also returns the per-layer MoE load-balance losses
+    summed (an fp32 scalar, 0 for a dense config)."""
     _check_training_cfg(cfg)
     s = hidden.shape[1]
     rope = None
     if cfg.position_embedding_type == "rope":
         rope = rope_cos_sin(s, cfg.kv_channels, device=hidden.device)
-    layers = params["layers"]
-    n_layers = next(iter(layers.values())).shape[0]
+    n_layers = params["layers"]["ln1_scale"].shape[0]
+    aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n_layers):
-        lp = {k: v[i] for k, v in layers.items()}
-        hidden = _layer(cfg, lp, hidden, attention_mask, rope,
-                        backend=backend)
-    if not apply_final_norm:
-        return hidden
-    return apply_norm(cfg, hidden, params["final_ln"]["scale"],
-                      params["final_ln"]["bias"], backend=backend)
+        lp = _layer_params(params, i)
+        hidden, layer_aux = _layer(cfg, lp, hidden, attention_mask, rope,
+                                   backend=backend)
+        if layer_aux is not None:
+            aux = aux + layer_aux
+    if apply_final_norm:
+        hidden = apply_norm(cfg, hidden, params["final_ln"]["scale"],
+                            params["final_ln"]["bias"], backend=backend)
+    return (hidden, aux) if with_aux else hidden
+
+
+def _layer_params(params: dict, layer: int) -> dict:
+    """Layer ``layer``'s leaves; a quantized slab keeps its dict form."""
+    return {k: ({kk: vv[layer] for kk, vv in v.items()}
+                if isinstance(v, dict) else v[layer])
+            for k, v in params["layers"].items()}
 
 
 def gpt_hidden(params: dict, tokens, cfg: TransformerConfig, *,
-               attention_mask=None, backend: Optional[str] = None):
-    """Embed + decoder stack + final norm → hidden ``[b, s, h]``."""
+               attention_mask=None, with_aux: bool = False,
+               backend: Optional[str] = None):
+    """Embed + decoder stack + final norm → hidden ``[b, s, h]`` (and the
+    summed MoE aux loss under ``with_aux``)."""
     h = embed_tokens(params["embedding"], tokens, cfg)
     return transformer_backbone(params, h, cfg,
                                 attention_mask=attention_mask,
-                                backend=backend)
+                                with_aux=with_aux, backend=backend)
 
 
 def lm_head_logits(params: dict, hidden, cfg: TransformerConfig):
@@ -317,31 +379,42 @@ def lm_head_logits(params: dict, hidden, cfg: TransformerConfig):
 
 
 def gpt_forward(params: dict, tokens, cfg: TransformerConfig, *,
-                attention_mask=None, backend: Optional[str] = None):
-    """Token ids ``[b, s]`` → fp32 logits ``[b, s, v]``."""
-    h = gpt_hidden(params, tokens, cfg, attention_mask=attention_mask,
-                   backend=backend)
-    return lm_head_logits(params, h, cfg)
+                attention_mask=None, with_aux: bool = False,
+                backend: Optional[str] = None):
+    """Token ids ``[b, s]`` → fp32 logits ``[b, s, v]`` (and the summed
+    MoE aux loss under ``with_aux``)."""
+    h, aux = gpt_hidden(params, tokens, cfg, attention_mask=attention_mask,
+                        with_aux=True, backend=backend)
+    logits = lm_head_logits(params, h, cfg)
+    return (logits, aux) if with_aux else logits
 
 
 def gpt_loss(params: dict, tokens, labels, cfg: TransformerConfig, *,
              attention_mask=None, backend: Optional[str] = None):
-    """Mean next-token CE over labels != -1 (fp32 scalar).  With
+    """Mean next-token CE over labels != -1 (fp32 scalar), plus
+    ``moe_aux_loss_coeff · aux / num_layers`` for an MoE config.  With
     ``cfg.fused_head_ce`` the head matmul is chunked into the loss
     (``ops/lm_head_ce.py``); otherwise full logits go through
     :func:`lm_cross_entropy`."""
     if cfg.fused_head_ce:
-        h = gpt_hidden(params, tokens, cfg, attention_mask=attention_mask,
-                       backend=backend)
+        h, aux = gpt_hidden(params, tokens, cfg,
+                            attention_mask=attention_mask, with_aux=True,
+                            backend=backend)
         head = lm_head_weight(params, cfg).to(cfg.compute_dtype)
         losses = lm_head_cross_entropy(h, head, labels,
                                        chunk=cfg.head_ce_chunk,
                                        ignore_index=-1)
         n_valid = torch.clamp((labels != -1).sum(), min=1)
-        return losses.sum() / n_valid.float()
-    logits = gpt_forward(params, tokens, cfg, attention_mask=attention_mask,
-                         backend=backend)
-    return lm_cross_entropy(logits, labels)
+        loss = losses.sum() / n_valid.float()
+    else:
+        logits, aux = gpt_forward(params, tokens, cfg,
+                                  attention_mask=attention_mask,
+                                  with_aux=True, backend=backend)
+        loss = lm_cross_entropy(logits, labels)
+    if cfg.num_experts:
+        # Switch load-balance term, mean over layers
+        loss = loss + cfg.moe_aux_loss_coeff * aux / cfg.num_layers
+    return loss
 
 
 def lm_cross_entropy(logits, labels):

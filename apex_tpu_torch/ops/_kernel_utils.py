@@ -35,13 +35,15 @@ import torch
 
 __all__ = ["Kernel", "KERNELS", "register", "build_all",
            "reset_launch_counts", "launch_counts", "ptr", "stream_ptr",
-           "dtype_code", "check_cuda_operands", "check_aligned", "CSRC",
+           "dtype_code", "check_cuda_operands", "check_aligned", "aligned",
+           "CSRC",
            "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
     "apex_tpu_torch"
-_COMMON = ("common.cuh", "paged_tile.cuh", "flash_bwd_tile.cuh")
+_COMMON = ("common.cuh", "paged_tile.cuh", "flash_bwd_tile.cuh",
+           "mma_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -152,6 +154,13 @@ def check_aligned(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(
                 f"{name}: operand at {t.data_ptr():#x} is not 16-byte "
                 "aligned; pass a fresh contiguous tensor")
+
+
+def aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous at a 16-byte-aligned address (a row view may not
+    be), for the kernels that load 16 bytes at a time."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

@@ -141,9 +141,7 @@ def _dq_kernel(x2, wire2, scale2):
     m, k = x2.shape
     n = wire2.shape[1]
     kb = _quant_block_of(wire2, scale2)
-    x2 = x2.contiguous()
-    if x2.data_ptr() % 16:          # a row view: the tiles load 16 bytes
-        x2 = x2.clone()
+    x2 = ku.aligned(x2)
     wire2 = wire2.contiguous()
     scale2 = scale2.float().contiguous()
     ku.check_cuda_operands("dense_quantized", x2, wire2, scale2)

@@ -17,9 +17,12 @@ For CPU tensors, and under ``backend="reference"``, the forward is
 :func:`flash_attention_bwd_ref` (``p = exp(s − lse)``,
 ``ds = p·(dp − delta)·scale``).
 
-Not on the kernels: segment ids and attention dropout (they raise), and
-a generic ``mask``/``bias``, which :func:`mha_reference` computes (and
-autograd differentiates) on any device but a CUDA tensor refuses.
+Not on the kernels: segment ids and attention dropout (they raise).  A
+call with a generic ``mask=`` or ``bias=`` runs :func:`mha_reference`, a
+torch composition that autograd differentiates, on every device, CUDA
+included: the JAX package runs its XLA composition for these calls on
+every device and never a Pallas kernel, so this is the function, not a
+fallback from a kernel.
 """
 
 from __future__ import annotations
@@ -333,7 +336,9 @@ def flash_attention(q, k, v, *, causal: bool = False,
     """Differentiable attention over ``[b, s, n, d]`` tensors;
     ``key_padding_mask`` ``[b, sk]`` is bool (True = masked) or additive
     float.  K/V may carry fewer heads than Q (GQA), read by index, never
-    repeated."""
+    repeated.  With ``mask=`` or ``bias=`` the call runs the torch
+    composition :func:`mha_reference` on any device, as the JAX package
+    runs its XLA composition."""
     _check(q, k, v)
     if dropout_p > 0.0:
         raise NotImplementedError(
@@ -344,10 +349,8 @@ def flash_attention(q, k, v, *, causal: bool = False,
             "segment_ids (packed sequences) are not ported yet")
     plain = check_backend(backend) is not None or not on_cuda(q)
     if mask is not None or bias is not None:
-        if not plain:
-            raise NotImplementedError(
-                "mask and bias are not on the CUDA flash kernels; call "
-                "mha_reference for generic masks")
+        # the JAX package's route on every device (flash_attention.py:
+        # 1050-1058): the materialized composition, never a kernel
         return mha_reference(q, k, v, causal=causal,
                              key_padding_mask=key_padding_mask, mask=mask,
                              bias=bias, scale=scale)

@@ -1,22 +1,42 @@
-"""Grouped (segment) matmul (``apex_tpu/ops/grouped_matmul.py``, the float
-forward): ``out[r] = x[r] @ w[g]`` for rows ``r`` in group ``g``'s span
-``[offsets[g], offsets[g+1])`` of ``x`` sorted by group.
+"""Grouped (segment) matmul (``apex_tpu/ops/grouped_matmul.py``):
+``out[r] = x[r] @ w[g]`` for rows ``r`` in group ``g``'s span
+``[offsets[g], offsets[g+1])`` of ``x`` sorted by group, its gradient,
+and the int8-slab form.
 
 Rows outside ``[offsets[0], offsets[-1])`` come back exactly zero: the
 LoRA path (``models/lora.py``) packs its no-adapter rows before
 ``offsets[0]``, where their delta is 0 without a zero-weight group.
 
-For CUDA tensors it is one launch of kernel row 9
-(``csrc/grouped_matmul.cu``): rows split into segments by the offsets,
-which the kernel reads on the device (no host read, so the launch can
-sit in a CUDA graph), each segment into tiles of 16 rows of one group;
-fp32 FMA on the CUDA cores, the contraction split across CTAs with a
-fixed-order second pass when the tiles are few.  For CPU tensors, and
-under ``backend="reference"``, it is :func:`grouped_matmul_reference`:
-one masked fp32 product per group, the JAX reference route.
+For CUDA tensors each call is one launch of kernel row 9
+(``csrc/grouped_matmul.cu``), which reads the offsets on the device (no
+host read, so the launch can sit in a CUDA graph) and cuts the rows into
+tiles of one group each.  It has three branches, each with its own
+launch count:
 
-Not ported here: the gradient (``_gmm_bwd``, the MoE training slice) and
-the int8-slab branch (``grouped_matmul_quantized``, the MoE slice).
+- fp32 operands (LoRA's slabs), and 16-bit operands of a shape the
+  tensor-core tile does not take: :data:`GROUPED_MATMUL`, fp32 FMA on
+  the CUDA cores over tiles of 16 rows, the contraction split across
+  CTAs with a fixed-order second pass when the tiles are few;
+- bf16/fp16 operands with ``k`` and ``p`` multiples of 8 (the MoE
+  experts): :data:`GROUPED_MATMUL_MMA`, row 10's ``mma.sync`` tile
+  (``csrc/mma_tile.cuh``) over tiles of 64 rows, fp32 accumulation;
+  :data:`GROUPED_MATMUL_MMA_T` counts the same kernel reading each
+  group's weight transposed in place, the backward's ``g @ w[g]ᵀ``;
+- an int8 slab with fp32 scales (:func:`grouped_matmul_quantized`):
+  :data:`GROUPED_MATMUL_INT8`, the same tile with the int8 weights
+  widened to x's 16-bit type in shared memory and each scale block's
+  partial scaled in registers.
+
+For CPU tensors, and under ``backend="reference"``, the plain version
+:func:`grouped_matmul_reference` runs: one masked fp32 product per group,
+the JAX reference route.
+
+The gradient follows ``_gmm_fwd``/``_gmm_bwd``: dx re-enters the routed
+primitive on ``(g, w[g]ᵀ)`` (on the card the transposed read, never a
+transposed copy of the slab), dw is :func:`_grouped_dw`, masked segment
+outer products in fp32 (XLA in the JAX package, a torch composition
+here).  The int8 form's backward is ``_gmmq_bwd``: dx over the
+fp32-dequantized slab, no gradient for the wire, zeros for the scales.
 """
 
 from __future__ import annotations
@@ -27,18 +47,35 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch.ops import _kernel_utils as ku
+from apex_tpu_torch.ops.dense import quantize_weight
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
-__all__ = ["group_ids", "grouped_matmul", "grouped_matmul_reference"]
+__all__ = ["group_ids", "grouped_matmul", "grouped_matmul_quantized",
+           "grouped_matmul_reference", "quantize_group_weights"]
+
+_REPLACES = "apex_tpu/ops/grouped_matmul.py:113"
 
 GROUPED_MATMUL = ku.register(ku.Kernel(
     "grouped_matmul", "grouped_matmul.cu", "apex_grouped_matmul",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6,
-    replaces="apex_tpu/ops/grouped_matmul.py:113"))
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, replaces=_REPLACES))
 
-# csrc/grouped_matmul.cu's tile rows, contraction chunk and CTA width,
-# and the H100's SM count
+_MMA_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+GROUPED_MATMUL_MMA = ku.register(ku.Kernel(
+    "grouped_matmul_mma", "grouped_matmul.cu", "apex_grouped_matmul_mma",
+    _MMA_ARGS, replaces=_REPLACES))
+# the same entry with trans = 1, counted apart: the backward's dx
+GROUPED_MATMUL_MMA_T = ku.register(ku.Kernel(
+    "grouped_matmul_mma_t", "grouped_matmul.cu", "apex_grouped_matmul_mma",
+    _MMA_ARGS, replaces=_REPLACES))
+
+GROUPED_MATMUL_INT8 = ku.register(ku.Kernel(
+    "grouped_matmul_int8", "grouped_matmul.cu", "apex_grouped_matmul_int8",
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, replaces=_REPLACES))
+
+# csrc/grouped_matmul.cu's fp32-branch tile rows, contraction chunk and
+# CTA width, and the H100's SM count
 _BM, _KC, _THREADS, _SMS = 16, 256, 256, 132
+_HALF = (torch.bfloat16, torch.float16)
 
 
 def group_ids(offsets: torch.Tensor, n_rows: int, n_groups: int):
@@ -102,7 +139,8 @@ def _splits(n: int, k: int, p: int, g: int) -> int:
     return min(chunks, -(-2 * _SMS // ctas))
 
 
-def _gmm_kernel(x, w, offsets, splits: Optional[int] = None):
+def _gmm_fp32_kernel(x, w, offsets, splits: Optional[int] = None):
+    """Row 9's fp32 branch (any float dtype, widened on load)."""
     dtype = torch.promote_types(x.dtype, w.dtype)
     x = x.to(dtype).contiguous()
     w = w.to(dtype).contiguous()
@@ -121,6 +159,98 @@ def _gmm_kernel(x, w, offsets, splits: Optional[int] = None):
     return out
 
 
+def _mma_takes(dtype, k: int, p: int) -> bool:
+    """The 16-bit tensor-core tile: bf16/fp16 with ``k`` and ``p``
+    multiples of 8 (its 16-byte loads)."""
+    return dtype in _HALF and k % 8 == 0 and p % 8 == 0
+
+
+def _gmm_kernel(x, w, offsets, *, trans: bool = False):
+    """Row 9 on the card: ``w`` is ``[G, k, p]``, or with ``trans``
+    ``[G, p, k]`` read as its per-group transpose.  16-bit operands of a
+    shape the tile takes launch the tensor-core branch; everything else
+    the fp32 branch (a transposed weight then as a contiguous copy: only
+    off the MoE training path)."""
+    dtype = torch.promote_types(x.dtype, w.dtype)
+    n, k = x.shape
+    g = w.shape[0]
+    p = w.shape[1] if trans else w.shape[2]
+    if not _mma_takes(dtype, k, p):
+        if trans:
+            w = w.transpose(1, 2)
+        return _gmm_fp32_kernel(x, w, offsets)
+    x = ku.aligned(x.to(dtype))
+    w = ku.aligned(w.to(dtype))
+    off = offsets.to(torch.int32).contiguous()
+    ku.check_cuda_operands("grouped_matmul", x, w, off)
+    out = torch.empty(n, p, dtype=dtype, device=x.device)
+    kernel = GROUPED_MATMUL_MMA_T if trans else GROUPED_MATMUL_MMA
+    kernel(x.device, ku.ptr(x), ku.ptr(w), ku.ptr(off), ku.ptr(out), n, k, p,
+           g, int(trans), ku.dtype_code(x))
+    return out
+
+
+def _gmm_route(x, w, offsets, reference: bool, trans: bool = False):
+    """``_gmm_impl``: the kernel for CUDA tensors, the plain version for
+    CPU tensors or under ``reference``; no rows or columns give zeros."""
+    p = w.shape[1] if trans else w.shape[2]
+    if x.shape[0] == 0 or p == 0:
+        return torch.zeros(x.shape[0], p, device=x.device,
+                           dtype=torch.promote_types(x.dtype, w.dtype))
+    if reference or not on_cuda(x):
+        return grouped_matmul_reference(
+            x, w.transpose(1, 2) if trans else w, offsets)
+    return _gmm_kernel(x, w, offsets, trans=trans)
+
+
+def _grouped_dw(x, g, offsets, *, fp32_operands: Optional[bool] = None):
+    """``dw[e] = x_seg(e)ᵀ @ g_seg(e)``: one masked full-N outer product
+    per group, fp32 sums, ``[G, k, p]`` fp32 (the JAX ``_grouped_dw``).
+    16-bit CUDA operands multiply as they are with an fp32 result (a
+    product of two 16-bit floats is exact in fp32, so it is the same
+    function up to summation order); ``fp32_operands=True`` widens them
+    first, as the plain version does."""
+    n = x.shape[0]
+    off = offsets.to(torch.int32)
+    rows = torch.arange(n, dtype=torch.int32, device=x.device)
+    if fp32_operands is None:
+        fp32_operands = not (on_cuda(x) and x.dtype in _HALF
+                             and g.dtype == x.dtype)
+    xs, gs = (x.float(), g.float()) if fp32_operands else (x, g)
+    # masking either operand gives the same products: mask the narrower
+    mask_x = xs.shape[1] <= gs.shape[1]
+    zero = torch.zeros((), dtype=xs.dtype, device=x.device)
+    parts = []
+    for e in range(off.shape[0] - 1):
+        mask = ((rows >= off[e]) & (rows < off[e + 1]))[:, None]
+        a = torch.where(mask, xs, zero) if mask_x else xs
+        b = gs if mask_x else torch.where(mask, gs, zero)
+        parts.append(a.t() @ b if fp32_operands
+                     else torch.mm(a.t(), b, out_dtype=torch.float32))
+    return torch.stack(parts)
+
+
+class _GroupedMatmul(torch.autograd.Function):
+    """``_gmm`` with ``_gmm_fwd``/``_gmm_bwd``; offsets get no gradient."""
+
+    @staticmethod
+    def forward(ctx, x, w, offsets, reference):
+        ctx.save_for_backward(x, w, offsets)
+        ctx.reference = reference
+        return _gmm_route(x, w, offsets, reference)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, offsets = ctx.saved_tensors
+        dx = dw = None
+        if ctx.needs_input_grad[0]:
+            dx = _gmm_route(g, w.to(g.dtype), offsets, ctx.reference,
+                            trans=True).to(x.dtype)
+        if ctx.needs_input_grad[1]:
+            dw = _grouped_dw(x, g, offsets).to(w.dtype)
+        return dx, dw, None, None
+
+
 def grouped_matmul(x, w, offsets, *, backend: Optional[str] = None):
     """``out[r] = x[r] @ w[g]`` for rows ``r`` in group ``g``'s span
     ``[offsets[g], offsets[g+1])``; rows outside every span (including
@@ -129,16 +259,133 @@ def grouped_matmul(x, w, offsets, *, backend: Optional[str] = None):
 
     ``x`` ``[N, k]`` sorted by group, ``w`` ``[G, k, p]``, ``offsets``
     ``[G+1]`` non-decreasing integers on ``x``'s device.  fp32
-    accumulation, output in ``promote_types(x, w)``.  ``backend=
-    "reference"`` pins the plain version."""
+    accumulation, output in ``promote_types(x, w)``.  Differentiable in
+    ``x`` and ``w``: dx runs the same routed primitive with the weights
+    transposed, dw masked segment outer products.  ``backend=
+    "reference"`` pins the plain version, backward included."""
     _check(x, w, offsets)
-    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
-        raise NotImplementedError(
-            "grouped_matmul's gradient (_gmm_bwd) comes with the MoE "
-            "training slice of the port; call it under torch.no_grad()")
-    if x.shape[0] == 0 or w.shape[-1] == 0:
-        return torch.zeros(x.shape[0], w.shape[-1], device=x.device,
-                           dtype=torch.promote_types(x.dtype, w.dtype))
-    if check_backend(backend) == "reference" or not on_cuda(x):
-        return grouped_matmul_reference(x, w, offsets)
-    return _gmm_kernel(x, w, offsets)
+    reference = check_backend(backend) == "reference"
+    return _GroupedMatmul.apply(x, w, offsets, reference)
+
+
+# ---------------------------------------------------------------------------
+# the int8-slab form
+# ---------------------------------------------------------------------------
+
+
+def quantize_group_weights(w, block: Optional[int] = None) -> dict:
+    """An expert slab ``[G, k, p]`` → ``{"wire": int8 [G, k, p],
+    "scale": fp32 [G, k/kb, p]}``: per expert exactly
+    :func:`~apex_tpu_torch.ops.dense.quantize_weight` (the JAX package
+    ``vmap``s it over the experts; one call over the ``[k, G, p]`` view
+    does the same arithmetic per column, bit for bit)."""
+    if w.ndim != 3:
+        raise ValueError(
+            f"quantize_group_weights expects [G, k, p] slabs, got "
+            f"{tuple(w.shape)}")
+    q = quantize_weight(w.permute(1, 0, 2), block)
+    return {"wire": q["wire"].permute(1, 0, 2).contiguous(),
+            "scale": q["scale"].permute(1, 0, 2).contiguous()}
+
+
+def _check_group_slab(wire, scale) -> None:
+    g_n, k, p = wire.shape
+    if (scale.ndim != 3 or scale.shape[0] != g_n
+            or scale.shape[2] != p or not scale.shape[1]
+            or k % scale.shape[1]):
+        raise ValueError(
+            f"scale {tuple(scale.shape)} does not tile slab "
+            f"{tuple(wire.shape)}")
+
+
+def _dequantize_group(wire, scale):
+    """fp32 ``[G, k, p]`` weights of a quantized expert slab."""
+    _check_group_slab(wire, scale)
+    g_n, k, p = wire.shape
+    nkb = scale.shape[1]
+    wf = wire.float().reshape(g_n, nkb, k // nkb, p)
+    return (wf * scale[:, :, None, :]).reshape(g_n, k, p)
+
+
+def _gmmq_kernel(x, wire, scale, offsets):
+    n, k = x.shape
+    g, _, p = wire.shape
+    kb = k // scale.shape[1]
+    if x.dtype not in _HALF or kb % 32 or p % 16 or k % 8:
+        raise ValueError(
+            f"grouped_matmul_quantized on the card takes bf16/fp16 x with "
+            f"the scale block a multiple of 32 and p a multiple of 16; got "
+            f"{x.dtype}, kb={kb}, p={p}")
+    x = ku.aligned(x)
+    wire = ku.aligned(wire)
+    scale = scale.float().contiguous()
+    off = offsets.to(torch.int32).contiguous()
+    ku.check_cuda_operands("grouped_matmul_quantized", x, wire, scale, off)
+    out = torch.empty(n, p, dtype=x.dtype, device=x.device)
+    GROUPED_MATMUL_INT8(x.device, ku.ptr(x), ku.ptr(wire), ku.ptr(scale),
+                        ku.ptr(off), ku.ptr(out), n, k, p, g, kb,
+                        ku.dtype_code(x))
+    return out
+
+
+def _gmmq_route(x, wire, scale, offsets, reference: bool):
+    if x.shape[0] == 0:
+        return torch.zeros(0, wire.shape[-1], dtype=x.dtype, device=x.device)
+    if reference or not on_cuda(x):
+        return grouped_matmul_reference(
+            x, _dequantize_group(wire, scale), offsets).to(x.dtype)
+    return _gmmq_kernel(x, wire, scale, offsets)
+
+
+class _GroupedMatmulQ(torch.autograd.Function):
+    """``_gmmq`` with ``_gmmq_bwd``: dx through the routed float
+    primitive over the fp32-dequantized slab, so no requantization error
+    enters the cotangent; the wire gets none, the scales zeros (frozen
+    serving constants)."""
+
+    @staticmethod
+    def forward(ctx, x, wire, scale, offsets, reference):
+        ctx.save_for_backward(wire, scale, offsets)
+        ctx.reference, ctx.x_dtype = reference, x.dtype
+        return _gmmq_route(x, wire, scale, offsets, reference)
+
+    @staticmethod
+    def backward(ctx, g):
+        wire, scale, offsets = ctx.saved_tensors
+        dx = dscale = None
+        if ctx.needs_input_grad[0]:
+            # off the training path (a quantized tree serves): the fp32
+            # transposed slab as a contiguous copy, the fp32 branch
+            deq_t = _dequantize_group(wire, scale).transpose(1, 2)
+            dx = _gmm_route(g.float(), deq_t.contiguous(), offsets,
+                            ctx.reference).to(ctx.x_dtype)
+        if ctx.needs_input_grad[2]:
+            dscale = torch.zeros_like(scale)
+        return dx, None, dscale, None, None
+
+
+def grouped_matmul_quantized(x, wire, scale, offsets, *,
+                             backend: Optional[str] = None):
+    """:func:`grouped_matmul` off a quantized expert slab
+    (:func:`quantize_group_weights`): ``out[r] = x[r] @ deq(w[g])`` for
+    rows in group ``g``'s span, rows outside every span exactly zero,
+    output in ``x.dtype`` with fp32 accumulation.  On the card the int8
+    branch of row 9 (the weight read is the int8 bytes); the plain
+    version dequantizes the whole slab.  Backward: dx against the fp32
+    dequantized weights; wire and scales frozen."""
+    if x.ndim != 2 or wire.ndim != 3 or offsets.ndim != 1:
+        raise ValueError(
+            f"grouped_matmul_quantized: expected x [N, k], wire "
+            f"[G, k, p], offsets [G+1]; got {tuple(x.shape)}, "
+            f"{tuple(wire.shape)}, {tuple(offsets.shape)}")
+    if wire.shape[0] + 1 != offsets.shape[0]:
+        raise ValueError(
+            f"grouped_matmul_quantized: offsets length "
+            f"{offsets.shape[0]} != G + 1 = {wire.shape[0] + 1}")
+    if x.shape[1] != wire.shape[1]:
+        raise ValueError(
+            f"grouped_matmul_quantized: contraction mismatch — x "
+            f"[..., {x.shape[1]}] vs wire [., {wire.shape[1]}, .]")
+    _check_group_slab(wire, scale)
+    reference = check_backend(backend) == "reference"
+    return _GroupedMatmulQ.apply(x, wire, scale, offsets, reference)

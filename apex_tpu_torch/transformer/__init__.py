@@ -1,5 +1,6 @@
 """Transformer building blocks of the port (``apex_tpu/transformer``):
-the enums and ``functional.FusedScaleMaskSoftmax`` so far."""
+the enums, ``functional.FusedScaleMaskSoftmax`` and the single-device
+MoE FFN (``moe.switch_moe_mlp``)."""
 
 from apex_tpu_torch.transformer import functional  # noqa: F401
 from apex_tpu_torch.transformer.enums import (  # noqa: F401
@@ -7,4 +8,10 @@ from apex_tpu_torch.transformer.enums import (  # noqa: F401
     AttnType,
     LayerType,
     ModelType,
+)
+from apex_tpu_torch.transformer.moe import (  # noqa: F401
+    MOE_ROUTINGS,
+    MoEOutput,
+    init_moe_params,
+    switch_moe_mlp,
 )

@@ -9,9 +9,9 @@
    ``nvcc`` per source, all at once) and prints the build time.
 3. Holds each kernel (K1 LayerNorm, K2 flash attention, K3 fused decode
    layer with a bf16 and an int8 pool, K4 fused sampler, row 6 ragged
-   paged attention, row 9 ragged grouped matmul, row 10 int8-weight
-   matmul) against its plain PyTorch version at the serving paths'
-   shapes, and times kernel, plain version and, where one exists, a
+   paged attention, row 9 ragged grouped matmul (LoRA's fp32 branch),
+   row 10 int8-weight matmul) against its plain PyTorch version at the
+   serving paths' shapes, and times kernel, plain version and, where one exists, a
    single PyTorch library call computing the same function, beside the
    least time the card could take (the larger of bytes over 3.35 TB/s
    and operations over the peak rate of their type).
@@ -59,6 +59,24 @@
    K5 51 each, K2 24, row 5 24; fused_softmax: K1 and K5 51, row 11 24),
    step time, tokens/s, MFU, idle share, peak memory; then 3 kernel-vs-
    plain steps at b4 from one state.
+6c. Drives the GPT-MoE AMP-O2 train step of bench.py's bench_gpt_moe (12
+   layers, h=768, 8 experts, 520M parameters, ``fused_adam(lr=1e-4)``) at
+   b8 x s512 on seeded tokens under ``moe_routing="capacity"`` (the bench
+   as configured; no grouped matmul) and ``"ragged"`` (row 9's 16-bit
+   branch: 24 forward and 24 transposed dx launches per step): exact
+   launch counts, step time, tokens/s, MFU over the active parameters,
+   device time, peak memory, each layer's expert load, aux loss and
+   dropped fraction; then 3 kernel-vs-plain steps at b4 in lockstep, with
+   every routing difference between the paths checked to be a near-tie.
+   Then ``quantize_params`` of the ragged model and a teacher-forced
+   ``gpt_forward`` on the same batch: row 9's int8 branch at the 24
+   expert sites and row 10 at the 24 dense ones, kernel vs plain logits,
+   the loss against the float forward.  Row 9's 16-bit, transposed and
+   int8 branches are then held against the plain version at that step's
+   shapes and expert loads (and adversarial offsets), timed beside their
+   bounds and ``torch._grouped_mm``; ``_grouped_dw`` is timed per call.
+6d. A [b, 1, s, s] attention mask through ``gpt_forward`` (GPT-2 widths,
+   2 layers): the materialized-score path, row 11 once per layer.
 7. Prints one JSON line describing every kernel, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -170,8 +188,30 @@ def wall_ms(fn):
     return (time.perf_counter() - t0) * 1e3
 
 
+def _hand_written_names():
+    """The ``__global__`` functions of apex_tpu_torch/csrc."""
+    import re
+
+    names = set()
+    for src in (Path(__file__).resolve().parent / "apex_tpu_torch"
+                / "csrc").glob("*.cu*"):
+        names.update(re.findall(
+            r"__global__\s+void\s+(?:__launch_bounds__\([^)]*\)\s+)?(\w+)",
+            src.read_text()))
+    return names
+
+
+_HAND_WRITTEN = None
+
+
 def _category(kernel: str) -> str:
-    if "(anonymous namespace)::" in kernel:      # apex_tpu_torch/csrc
+    global _HAND_WRITTEN
+    if _HAND_WRITTEN is None:
+        _HAND_WRITTEN = _hand_written_names()
+    # ours live in anonymous namespaces, as do some of PyTorch's own
+    # (indexing_backward_kernel): match the function's name
+    tail = kernel.split("(anonymous namespace)::", 1)
+    if len(tail) == 2 and tail[1].split("<")[0].split("(")[0] in _HAND_WRITTEN:
         return "hand-written kernels"
     if any(t in kernel.lower() for t in ("gemm", "nvjet", "cutlass")):
         return "cuBLAS matmuls"
@@ -1874,6 +1914,609 @@ def bert_train_check(dev, backend):
             "grad_norm_rel_err": norm_err}
 
 
+# GPT-MoE training (bench.py:2219-2259 bench_gpt_moe): 12 layers, h768,
+# 12 heads, vocab 50304, 8 experts, b8 x s512, fused_adam(lr=1e-4), O2;
+# "capacity" is the bench as configured, "ragged" the one-device row of
+# bench_moe_ablation (bench.py:2470-2483, 2541-2546)
+MOE_BATCH, MOE_SEQ = 8, 512
+MOE_ROUTINGS = ("capacity", "ragged")
+# a kernel-path and a plain-path token whose expert differs is a routing
+# near-tie when its plain top-k gap is at most twice the largest change
+# of its router probabilities between the two paths (bf16 hidden states
+# round differently on the two paths); flips at a gap below ROUTER_TIE
+# are counted beside it
+ROUTER_TIE = 1e-5
+
+
+def moe_cfg(routing):
+    from apex_tpu_torch.models.config import TransformerConfig
+
+    return TransformerConfig(
+        num_layers=12, hidden_size=768, num_attention_heads=12,
+        vocab_size=50304, max_position_embeddings=MOE_SEQ, num_experts=8,
+        moe_routing=routing, remat=False, scan_layers=False)
+
+
+def moe_batch(cfg, b, seed, dev):
+    """bench_gpt_moe's batch: tokens then labels from RandomState(seed)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    tokens = rng.randint(0, cfg.vocab_size, (b, MOE_SEQ))
+    labels = rng.randint(0, cfg.vocab_size, (b, MOE_SEQ))
+    return (torch.from_numpy(tokens).to(dev),
+            torch.from_numpy(labels).to(dev))
+
+
+def moe_active_params(cfg, n_params):
+    """Parameters one token passes through: all but the E - k experts of
+    each layer that it skips."""
+    h, f = cfg.hidden_size, cfg.ffn_hidden_size
+    expert = 2 * h * f + f + h
+    return n_params - cfg.num_layers * (
+        cfg.num_experts - cfg.moe_top_k) * expert
+
+
+class MoEProbe:
+    """Within a ``with`` block, records each MoE layer's ``MoEOutput`` and
+    router probabilities by wrapping the port's own
+    ``transformer/moe.switch_moe_mlp`` and ``_router_probs`` (a probe
+    forward outside every counted window)."""
+
+    def __enter__(self):
+        from apex_tpu_torch.transformer import moe
+
+        self.outs, self.probs = [], []
+        self._moe = moe
+        self._real = (moe.switch_moe_mlp, moe._router_probs)
+
+        def switch(*a, **kw):
+            self.outs.append(self._real[0](*a, **kw))
+            return self.outs[-1]
+
+        def probs(*a):
+            self.probs.append(self._real[1](*a))
+            return self.probs[-1]
+
+        moe.switch_moe_mlp, moe._router_probs = switch, probs
+        return self
+
+    def __exit__(self, *exc):
+        self._moe.switch_moe_mlp, self._moe._router_probs = self._real
+
+    def stats(self):
+        return {
+            "expert_load": [[int(v) for v in o.expert_load.tolist()]
+                            for o in self.outs],
+            "aux_loss": [float(o.aux_loss) for o in self.outs],
+            "dropped_fraction": [float(o.dropped_fraction)
+                                 for o in self.outs]}
+
+
+def moe_probe(params, tokens, cfg, backend=None):
+    from apex_tpu_torch.models.transformer_lm import gpt_forward
+
+    with torch.no_grad(), MoEProbe() as probe:
+        logits = gpt_forward(params, tokens, cfg, backend=backend)
+    return logits, probe
+
+
+def routing_flips(pk, pp, top_k):
+    """Kernel-path vs plain-path routing of one forward, layer by layer:
+    the tokens whose top-k expert set differs, how many of them sit at a
+    plain top-k gap below ROUTER_TIE, and how many the two paths'
+    probability change does not explain (must be none); the flipped
+    positions, to leave them out of a logit comparison."""
+    from apex_tpu_torch.transformer.moe import _topk_routing
+
+    out = {"tokens_flipped": 0, "below_1e-5": 0, "unexplained": 0,
+           "layers_with_flips": 0, "max_flipped_gap": 0.0,
+           "max_prob_change": 0.0}
+    flipped_any = None
+    for a, b in zip(pk.probs, pp.probs):
+        ca = _topk_routing(a, top_k)[0].sort(-1).values
+        cb = _topk_routing(b, top_k)[0].sort(-1).values
+        flip = (ca != cb).any(-1)
+        flipped_any = flip if flipped_any is None else flipped_any | flip
+        change = (a - b).abs().amax(-1)
+        out["max_prob_change"] = max(out["max_prob_change"],
+                                     float(change.max()))
+        n = int(flip.sum())
+        if not n:
+            continue
+        top = b.sort(-1, descending=True).values
+        gap = (top[:, top_k - 1] - top[:, top_k])[flip]
+        out["tokens_flipped"] += n
+        out["layers_with_flips"] += 1
+        out["below_1e-5"] += int((gap < ROUTER_TIE).sum())
+        out["unexplained"] += int((gap > 2 * change[flip] + 1e-7).sum())
+        out["max_flipped_gap"] = max(out["max_flipped_gap"],
+                                     float(gap.max()))
+    return out, flipped_any
+
+
+def moe_train_phase(dev, routing):
+    """The GPT-MoE AMP-O2 train step at b8 x s512 under one routing:
+    exact launch counts, step time, tokens/s, MFU over the active
+    parameters, device busy time and idle share, peak memory, and a probe
+    forward's expert loads, aux losses and dropped fractions.  Returns
+    (result, the state's fp32 master parameters)."""
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.optimizers._common import tree_leaves
+
+    cfg = moe_cfg(routing)
+    init, step = make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
+                                     device=dev)
+    t0 = time.perf_counter()
+    state = init(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(state.master_params))
+    n_active = moe_active_params(cfg, n_params)
+    tokens, labels = moe_batch(cfg, MOE_BATCH, 0, dev)
+    traj = []
+
+    def one():
+        nonlocal state
+        state, m = step(state, tokens, labels)
+        traj.append(m)
+
+    for _ in range(TRAIN_WARMUP):
+        one()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # --- the main path: counts reset just before, read just after -------
+    ku.reset_launch_counts()
+    one()
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    L = cfg.num_layers
+    want = {name: 0 for name in ku.KERNELS}
+    want.update({"layer_norm_fwd": 2 * L + 1, "layer_norm_bwd": 2 * L + 1,
+                 "flash_attention_fwd": L, "flash_attention_bwd_short": L})
+    if routing == "ragged":
+        # fc1 and fc2 forward, and their dx through the transposed read
+        want.update({"grouped_matmul_mma": 2 * L,
+                     "grouped_matmul_mma_t": 2 * L})
+    check(counts == want, f"moe {routing} launches {counts} != {want}")
+    print(f"launches (one moe {routing} train step): {counts}")
+
+    step_ms = [wall_ms(one) for _ in range(TRAIN_STEPS)]
+    q1, med, q3 = quartiles(step_ms)
+    t_prof, busy, top, by_cat, by_op = profile_busy(one)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [float(m["loss"]) for m in traj]
+    scales = [float(m["loss_scale"]) for m in traj]
+    overflow = [bool(m["overflow"]) for m in traj]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    check(not all(overflow), "every moe train step overflowed")
+    _, probe = moe_probe(state.params, tokens, cfg)
+    routing_stats = probe.stats()
+    check(len(probe.outs) == L, "moe probe: one output per layer")
+    check(all(sum(ld) == MOE_BATCH * MOE_SEQ * cfg.moe_top_k
+              for ld in routing_stats["expert_load"]),
+          f"expert loads {routing_stats['expert_load']}")
+    if routing == "ragged":
+        check(all(d == 0.0 for d in routing_stats["dropped_fraction"]),
+              "ragged routing dropped tokens")
+    tokens_per_s = MOE_BATCH * MOE_SEQ / (med / 1e3)
+    flops_per_tok = 6 * n_active + 12 * L * cfg.hidden_size * MOE_SEQ
+    master = state.master_params
+    del state
+    return {
+        "params": n_params, "active_params": n_active, "batch": MOE_BATCH,
+        "seq": MOE_SEQ, "init_s": init_s,
+        "step_ms": med, "step_ms_q1_q3": [q1, q3], "steps_timed": TRAIN_STEPS,
+        "tokens_per_s": tokens_per_s,
+        "mfu": tokens_per_s * flops_per_tok / PEAK_BF16_FLOPS,
+        "mfu_formula": "tokens/s x (6 x active params + 12 x L x h x s) / "
+                       "989 TFLOP/s",
+        "profiled_step_ms": t_prof,
+        "device_busy_ms": busy if busy > 0 else "not measured",
+        "device_idle_share": (1 - busy / t_prof) if busy > 0
+        else "not measured",
+        "busy_over_median_step": busy / med if busy > 0 else "not measured",
+        "device_top_ms": top, "device_ms_by_category": by_cat,
+        "device_ms_by_op": by_op, "peak_memory_gb": peak_gb,
+        "losses": losses, "loss_scales": scales, "overflow": overflow,
+        "counts": counts, **routing_stats,
+    }, master
+
+
+def moe_train_check(dev, routing):
+    """3 kernel-vs-plain steps at b4 x s512 in lockstep: each step starts
+    the kernel path and the plain path (backend="reference") from the
+    kernel path's state, so a routing flip in one step does not carry
+    into the next (under capacity routing a flipped token changes which
+    later tokens drop).  Per step: loss within TRAIN_LOSS_TOL, identical
+    scaler decisions, grad norms within GRAD_NORM_RTOL, and a probe
+    forward of the shared state on each path: expert loads equal except
+    at routing near-ties, every flip a near-tie (routing_flips)."""
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.optimizers import fused_adam, global_norm
+
+    cfg = moe_cfg(routing)
+    tokens, labels = moe_batch(cfg, CHECK_BATCH, 1, dev)
+    steps, norms = {}, {}
+    for path in (None, "reference"):
+        name = "kernel" if path is None else "plain"
+        norms[name] = []
+
+        def post(grads, out=norms[name]):
+            out.append(global_norm(grads))
+            return grads
+
+        steps[name] = make_gpt_train_step(
+            cfg, fused_adam(lr=1e-4), "O2", device=dev, backend=path,
+            grad_postprocess=post)
+    state = steps["kernel"][0](torch.Generator().manual_seed(0))
+    seq = {"kernel": [], "plain": []}
+    flips, loads_differ = [], 0
+    for _ in range(CHECK_STEPS):
+        _, pk = moe_probe(state.params, tokens, cfg)
+        _, pp = moe_probe(state.params, tokens, cfg, backend="reference")
+        f, _ = routing_flips(pk, pp, cfg.moe_top_k)
+        flips.append(f)
+        loads_differ += sum(not torch.equal(a.expert_load, b.expert_load)
+                            for a, b in zip(pk.outs, pp.outs))
+        check(f["unexplained"] == 0,
+              f"moe {routing}: routing flips that are not near-ties {f}")
+        new = {}
+        for name in ("kernel", "plain"):
+            new[name], m = steps[name][1](state, tokens, labels)
+            seq[name].append((float(m["loss"]), bool(m["overflow"]),
+                              float(m["loss_scale"])))
+        state = new["kernel"]
+        del new
+    ks, ps = seq["kernel"], seq["plain"]
+    kn = [float(x) for x in norms["kernel"]]
+    pn = [float(x) for x in norms["plain"]]
+    loss_err = max(abs(a[0] - b[0]) for a, b in zip(ks, ps))
+    check(loss_err <= TRAIN_LOSS_TOL,
+          f"moe {routing} kernel vs plain losses {ks} {ps} differ by "
+          f"{loss_err}")
+    check([a[1:] for a in ks] == [b[1:] for b in ps],
+          f"moe {routing} scaler decisions differ: kernel {ks} plain {ps}")
+    check(not all(x[1] for x in ks), f"moe {routing}: every step overflowed")
+    norm_err = max(abs(a - b) / b for a, b, s in zip(kn, pn, ks) if not s[1])
+    check(norm_err <= GRAD_NORM_RTOL,
+          f"moe {routing} grad norms kernel {kn} plain {pn}: {norm_err} > "
+          f"{GRAD_NORM_RTOL}")
+    return {"kernel": ks, "plain": ps, "grad_norm_kernel": kn,
+            "grad_norm_plain": pn, "loss_err": loss_err,
+            "grad_norm_rel_err": norm_err, "routing_flips": flips,
+            "layers_with_unequal_loads": loads_differ}
+
+
+def moe_quantized_phase(dev, master):
+    """``quantize_params`` of the ragged model, then a teacher-forced
+    ``gpt_forward`` on the b8 x s512 batch: exact launch counts (row 9's
+    int8 branch at the 24 expert sites, row 10 at the 24 dense ones),
+    forward time, tokens/s, forward MFU, device busy time, peak memory,
+    kernel vs plain logits (positions whose routing flipped at a near-tie
+    compared apart), and the loss against the float forward on the same
+    weights."""
+    from apex_tpu_torch.models.quantized import param_bytes, quantize_params
+    from apex_tpu_torch.models.transformer_lm import (
+        gpt_forward, lm_cross_entropy)
+    from apex_tpu_torch.ops import _kernel_utils as ku
+
+    cfg = moe_cfg("ragged")
+    qp = quantize_params(master)
+    tokens, labels = moe_batch(cfg, MOE_BATCH, 0, dev)
+    with torch.no_grad():
+        gpt_forward(qp, tokens, cfg)                  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # --- the main path: counts reset just before, read just after ---
+        ku.reset_launch_counts()
+        logits = gpt_forward(qp, tokens, cfg)
+        torch.cuda.synchronize()
+        counts = ku.launch_counts()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        L = cfg.num_layers
+        want = {name: 0 for name in ku.KERNELS}
+        want.update({"layer_norm_fwd": 2 * L + 1, "flash_attention_fwd": L,
+                     "grouped_matmul_int8": 2 * L, "dense_int8": 2 * L})
+        check(counts == want, f"moe int8 forward launches {counts} != {want}")
+        print(f"launches (one quantized moe forward): {counts}")
+        fwd_ms = [wall_ms(lambda: gpt_forward(qp, tokens, cfg))
+                  for _ in range(TRAIN_STEPS)]
+        q1, med, q3 = quartiles(fwd_ms)
+        t_prof, busy, top, by_cat, by_op = profile_busy(
+            lambda: gpt_forward(qp, tokens, cfg))
+        lk, pk = moe_probe(qp, tokens, cfg)
+        lp, pp = moe_probe(qp, tokens, cfg, backend="reference")
+        flips, flipped = routing_flips(pk, pp, cfg.moe_top_k)
+        check(flips["unexplained"] == 0,
+              f"moe int8 forward: routing flips that are not near-ties "
+              f"{flips}")
+        # a flipped token's own logits follow another expert: compare
+        # the positions whose routing agreed in every layer
+        keep = ~flipped.reshape(MOE_BATCH, MOE_SEQ)
+        logit_err = max_err(lk[keep], lp[keep])
+        flipped_err = max_err(lk[~keep], lp[~keep]) if (~keep).any() else 0.0
+        check(logit_err <= LOGIT_TOL,
+              f"moe int8 forward kernel vs plain logits {logit_err}")
+        loss_q = float(lm_cross_entropy(logits, labels))
+        loss_f = float(lm_cross_entropy(gpt_forward(master, tokens, cfg),
+                                        labels))
+        check(abs(loss_q - loss_f) <= LOGIT_TOL,
+              f"quantized loss {loss_q} vs float {loss_f}")
+    n_params = sum(p.numel() for p in _leaves(master))
+    n_active = moe_active_params(cfg, n_params)
+    tokens_per_s = MOE_BATCH * MOE_SEQ / (med / 1e3)
+    flops_per_tok = 2 * n_active + 4 * L * cfg.hidden_size * MOE_SEQ
+    return {
+        "forward_ms": med, "forward_ms_q1_q3": [q1, q3],
+        "forwards_timed": TRAIN_STEPS, "tokens_per_s": tokens_per_s,
+        "mfu": tokens_per_s * flops_per_tok / PEAK_BF16_FLOPS,
+        "mfu_formula": "tokens/s x (2 x active params + 4 x L x h x s) / "
+                       "989 TFLOP/s",
+        "profiled_forward_ms": t_prof,
+        "device_busy_ms": busy if busy > 0 else "not measured",
+        "device_idle_share": (1 - busy / t_prof) if busy > 0
+        else "not measured",
+        "device_top_ms": top, "device_ms_by_category": by_cat,
+        "device_ms_by_op": by_op, "peak_memory_gb": peak_gb,
+        "param_bytes_quantized": param_bytes(qp),
+        "param_bytes_float": param_bytes(master),
+        "logit_err": logit_err, "logit_err_flipped_positions": flipped_err,
+        "positions_flipped": int((~keep).sum()), "routing_flips": flips,
+        "loss_quantized": loss_q, "loss_float": loss_f,
+        "counts": counts, **pk.stats(),
+    }
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+MOE_H, MOE_F = 768, 3072
+QUANT_KB = 128
+
+
+def _gmm_bound(off, n, k, p, w_bytes_per, x_bytes=2, out_bytes=2,
+               scale_rows=0):
+    """Least time of one row 9 call: x over the window's rows, the live
+    groups' weights (and scale rows), every output row; operations on the
+    window's rows at the bf16 tensor-core rate."""
+    rows = off[-1] - off[0]
+    live = sum(1 for a, b in zip(off, off[1:]) if b > a)
+    nbytes = (rows * k * x_bytes + live * k * p * w_bytes_per
+              + live * scale_rows * p * 4 + n * p * out_bytes
+              + 4 * len(off))
+    return bound(nbytes, 2 * rows * k * p, PEAK_BF16_FLOPS)
+
+
+def _grouped_mm_library(x, w, offs, trans):
+    """One ``torch._grouped_mm`` call for the same function (bf16, sm_90),
+    where this torch has it: (callable, name) or (None, reason)."""
+    fn = getattr(torch, "_grouped_mm", None)
+    if fn is None:
+        return None, "none: this torch has no torch._grouped_mm"
+    wb = w.transpose(1, 2) if trans else w
+    ends = offs[1:].contiguous()
+    try:
+        fn(x, wb, offs=ends)
+        torch.cuda.synchronize()
+    except RuntimeError as e:          # a layout this torch refuses
+        return None, f"none: torch._grouped_mm refused: {str(e)[:160]}"
+    return (lambda: fn(x, wb, offs=ends)), "torch._grouped_mm"
+
+
+def kernel_grouped_matmul_moe(dev, gen, loads):
+    """Row 9's 16-bit, transposed and int8 branches at the ragged MoE
+    step's shapes (N = 8 x 512 token slots over the 8 experts with the
+    loads the seeded ragged run routed in layer 0), each against the
+    plain version on the card and timed as CUDA-graph replays beside its
+    bound and ``torch._grouped_mm`` where it exists; adversarial offsets
+    checked at small shapes; and ``_grouped_dw`` per call (fp32 operands
+    and bf16 operands with an fp32 result).  Returns the three kernels'
+    results and the dw timing."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_gmm_cases import ADVERSARIAL, MOE, offsets_case
+
+    n, g = sum(loads), len(loads)
+    off = [0]
+    for c in loads:
+        off.append(off[-1] + c)
+    offs = torch.tensor(off, dtype=torch.int32, device=dev)
+    bf = torch.bfloat16
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(*shape, device=dev, generator=gen)
+                * scale).to(bf)
+
+    x1, x2 = rnd(n, MOE_H), rnd(n, MOE_F)
+    g1, g2 = rnd(n, MOE_F), rnd(n, MOE_H)
+    w1, w2 = rnd(g, MOE_H, MOE_F, scale=0.02), rnd(g, MOE_F, MOE_H,
+                                                     scale=0.02)
+    q1 = tgm.quantize_group_weights(w1.float(), QUANT_KB)
+    q2 = tgm.quantize_group_weights(w2.float(), QUANT_KB)
+    calls = {
+        "grouped_matmul_mma": [("fc1 forward", x1, w1, False),
+                               ("fc2 forward", x2, w2, False)],
+        "grouped_matmul_mma_t": [("fc1 dx", g1, w1, True),
+                                 ("fc2 dx", g2, w2, True)],
+    }
+    out = {}
+    for kname, cl in calls.items():
+        errs, abs_err, variants, lib_notes = {}, 0.0, {}, {}
+        for name, x, w, trans in cl:
+            got = tgm._gmm_route(x, w, offs, False, trans=trans)
+            wf = w.transpose(1, 2) if trans else w
+            want = tgm.grouped_matmul_reference(x, wf, offs)
+            errs[name] = rel_err(got, want)
+            abs_err = max(abs_err, max_err(got, want))
+            check(errs[name] <= GMM_TOL[bf], f"row 9 {kname} {name} {errs}")
+            k, p = x.shape[1], wf.shape[2]
+            bms, by = _gmm_bound(off, n, k, p, 2)
+            lib, note = _grouped_mm_library(x, w, offs, trans)
+            lib_ms = None
+            if lib is not None:
+                lib_notes[name] = f"{note}, error {rel_err(lib(), want):.3g}"
+                lib_ms = time_ms(lib)
+            else:
+                lib_notes[name] = note
+            variants[f"{name} N={n} k={k} p={p}"] = {
+                "ms": time_ms(lambda: tgm._gmm_route(x, w, offs, False,
+                                                     trans=trans)),
+                "plain_ms": time_ms(
+                    lambda: tgm.grouped_matmul_reference(x, wf, offs),
+                    iters=5),
+                "library_ms": lib_ms, "bound_ms": bms, "bound_by": by,
+                "library": lib_notes[name]}
+            del got, want
+        out[kname] = (errs, abs_err, variants)
+    errs, abs_err, variants = {}, 0.0, {}
+    for name, x, q in (("fc1 int8", x1, q1), ("fc2 int8", x2, q2)):
+        got = tgm.grouped_matmul_quantized(x, q["wire"], q["scale"], offs)
+        want = tgm.grouped_matmul_quantized(x, q["wire"], q["scale"], offs,
+                                            backend="reference")
+        errs[name] = rel_err(got, want)
+        abs_err = max(abs_err, max_err(got, want))
+        check(errs[name] <= GMM_TOL[bf], f"row 9 int8 {name} {errs}")
+        k, p = q["wire"].shape[1:]
+        bms, by = _gmm_bound(off, n, k, p, 1,
+                             scale_rows=q["scale"].shape[1])
+        variants[f"{name} N={n} k={k} p={p} kb={QUANT_KB}"] = {
+            "ms": time_ms(lambda: tgm.grouped_matmul_quantized(
+                x, q["wire"], q["scale"], offs)),
+            "plain_ms": time_ms(lambda: tgm.grouped_matmul_quantized(
+                x, q["wire"], q["scale"], offs, backend="reference"),
+                iters=5),
+            "library_ms": None, "bound_ms": bms, "bound_by": by,
+            "library": "none: no PyTorch call multiplies by an int8 slab "
+                       "with per-block scales"}
+        del got, want
+    out["grouped_matmul_int8"] = (errs, abs_err, variants)
+
+    # adversarial offsets (checked, not timed): windows, empty groups,
+    # N < 64, G = 70, at shapes with a partial column tile
+    for case in ADVERSARIAL + MOE[1:]:
+        na, ga, oa = offsets_case(case)
+        oa_t = torch.as_tensor(oa, device=dev)
+        xa, wa = rnd(na, 64), rnd(ga, 64, 72, scale=0.1)
+        for kname, trans in (("grouped_matmul_mma", False),
+                             ("grouped_matmul_mma_t", True)):
+            # trans reads the [G, 64, 72] slab as [G, 72, 64]
+            xin = rnd(na, 72) if trans else xa
+            got = tgm._gmm_route(xin, wa, oa_t, False, trans=trans)
+            want = tgm.grouped_matmul_reference(
+                xin, wa.transpose(1, 2) if trans else wa, oa_t)
+            e = rel_err(got, want) if oa[-1] > oa[0] else 0.0
+            check(int(torch.count_nonzero(got[:oa[0]]))
+                  + int(torch.count_nonzero(got[oa[-1]:])) == 0,
+                  f"row 9 {kname} {case}: rows outside the window")
+            check(e <= GMM_TOL[bf], f"row 9 {kname} {case} error {e}")
+            out[kname][0][case] = e
+        qa = tgm.quantize_group_weights(rnd(ga, 64, 80).float(), 32)
+        got = tgm.grouped_matmul_quantized(xa, qa["wire"], qa["scale"], oa_t)
+        want = tgm.grouped_matmul_quantized(xa, qa["wire"], qa["scale"],
+                                            oa_t, backend="reference")
+        e = rel_err(got, want) if oa[-1] > oa[0] else 0.0
+        check(e <= GMM_TOL[bf], f"row 9 int8 {case} error {e}")
+        out["grouped_matmul_int8"][0][case] = e
+
+    shapes = (f"N={n} token slots over {g} experts with loads {loads} "
+              f"(the ragged run's layer 0), bf16")
+    desc = {
+        "grouped_matmul_mma": "sum of one ragged MoE layer's 2 forward "
+        "calls: fc1 [N, 768] x [8, 768, 3072] and fc2 [N, 3072] x "
+        "[8, 3072, 768]; ",
+        "grouped_matmul_mma_t": "sum of one ragged MoE layer's 2 dx calls "
+        "(the transposed read): [N, 3072] x w1[g]^T and [N, 768] x "
+        "w2[g]^T; ",
+        "grouped_matmul_int8": "sum of one quantized ragged MoE layer's 2 "
+        "int8-slab calls: scales [8, 6, 3072] and [8, 24, 768] (kb 128); ",
+    }
+    results = {}
+    for kname, (errs, abs_err, variants) in out.items():
+        timed = list(variants.values())
+        libs = [v["library_ms"] for v in timed]
+        results[kname] = {
+            "err": abs_err, "rel_err": max(errs.values()),
+            "tol": GMM_TOL[bf], "detail": errs,
+            "ms": sum(v["ms"] for v in timed),
+            "plain_ms": sum(v["plain_ms"] for v in timed),
+            "library_ms": (None if any(v is None for v in libs)
+                           else sum(libs)),
+            "bound_ms": sum(v["bound_ms"] for v in timed),
+            "bound_by": ("bytes" if all(v["bound_by"] == "bytes"
+                                        for v in timed) else "operations"),
+            "variants": variants,
+            "shape": desc[kname] + shapes + "; adversarial offsets "
+            "checked at k=64, p=72 (int8 p=80, kb 32)",
+        }
+
+    # _grouped_dw per call: the masked full-N products, as the JAX
+    # package's XLA composition (no kernel of this repository)
+    dw = {}
+    for name, x, gg in (("fc1 dw", x1, g1), ("fc2 dw", x2, g2)):
+        a = tgm._grouped_dw(x, gg, offs, fp32_operands=True)
+        b = tgm._grouped_dw(x, gg, offs, fp32_operands=False)
+        k, p = x.shape[1], gg.shape[1]
+        dw[name] = {
+            "fp32_operands_ms": time_ms(lambda: tgm._grouped_dw(
+                x, gg, offs, fp32_operands=True), iters=3),
+            "bf16_operands_fp32_result_ms": time_ms(
+                lambda: tgm._grouped_dw(x, gg, offs, fp32_operands=False),
+                iters=3),
+            "rel_diff": rel_err(b, a),
+            "flops_computed": 2 * g * n * k * p,
+            "flops_needed": 2 * n * k * p,
+            "bound_ms": bound((n * k + n * p) * 2 + g * k * p * 4,
+                              2 * n * k * p, PEAK_BF16_FLOPS)[0]}
+        check(dw[name]["rel_diff"] <= 1e-2, f"_grouped_dw {name}: {dw}")
+        del a, b
+    return results, dw
+
+
+def generic_mask_phase(dev):
+    """A [b, 1, s, s] bool mask through ``gpt_forward`` on GPT-2 125M
+    widths (2 layers, b2 x s256, attention_backend="flash"): the generic
+    mask takes the materialized-score path, so row 11 runs once per layer
+    and K2 never; logits against the plain path."""
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.transformer_lm import (
+        gpt_forward, init_gpt_params)
+    from apex_tpu_torch.ops import _kernel_utils as ku
+
+    cfg = gpt_125m(num_layers=2, max_position_embeddings=256)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0), dev)
+    gen = torch.Generator().manual_seed(2)
+    b, s = 2, 256
+    tokens = torch.randint(0, VOCAB_LIMIT, (b, s), generator=gen).to(dev)
+    mask = (torch.rand(b, 1, s, s, generator=gen) < 0.2).to(dev)
+    with torch.no_grad():
+        ku.reset_launch_counts()
+        got = gpt_forward(params, tokens, cfg, attention_mask=mask)
+        torch.cuda.synchronize()
+        counts = ku.launch_counts()
+        want_counts = {name: 0 for name in ku.KERNELS}
+        want_counts.update({"layer_norm_fwd": 2 * cfg.num_layers + 1,
+                            "scaled_softmax_fwd": cfg.num_layers})
+        check(counts == want_counts,
+              f"generic-mask launches {counts} != {want_counts}")
+        plain = gpt_forward(params, tokens, cfg, attention_mask=mask,
+                            backend="reference")
+    err = max_err(got, plain)
+    check(err <= LOGIT_TOL, f"generic-mask logits kernel vs plain {err}")
+    return {"counts": counts, "logit_err": err,
+            "shape": f"gpt_125m widths, 2 layers, b{b} x s{s}, "
+                     f"[{b}, 1, {s}, {s}] bool mask, flash backend"}
+
+
 def main() -> int:
     check(torch.cuda.is_available(),
           "no CUDA device: chip_smoke.py runs only on the card")
@@ -2012,8 +2655,82 @@ def main() -> int:
               f"{bc['grad_norm_plain']}, max rel diff "
               f"{bc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL})")
 
+    moe, moe_checks, moe_master = {}, {}, None
+    for routing in MOE_ROUTINGS:
+        torch.cuda.empty_cache()
+        mr, master = moe_train_phase(dev, routing)
+        moe[routing] = mr
+        if routing == "ragged":
+            moe_master = master
+        del master
+        print(f"train gpt_moe {routing} AMP-O2 fused_adam(lr=1e-4) "
+              f"b{MOE_BATCH} x s{MOE_SEQ} ({mr['params']} params, "
+              f"{mr['active_params']} active per token) on {smi}: step "
+              f"median {mr['step_ms']:.2f} ms (q1-q3 {mr['step_ms_q1_q3']}, "
+              f"{TRAIN_STEPS} steps), {mr['tokens_per_s']:.1f} tokens/s, MFU "
+              f"{mr['mfu']:.4f} ({mr['mfu_formula']}); profiled step "
+              f"{mr['profiled_step_ms']:.1f} ms, device busy "
+              f"{mr['device_busy_ms']} ms, idle share "
+              f"{mr['device_idle_share']}, busy / median step "
+              f"{mr['busy_over_median_step']}; peak memory "
+              f"{mr['peak_memory_gb']:.2f} GB; init {mr['init_s']:.1f}s; "
+              f"losses {mr['losses']}; loss scales {mr['loss_scales']}; "
+              f"overflow {mr['overflow']}; expert load per layer "
+              f"{mr['expert_load']}; aux loss per layer {mr['aux_loss']}; "
+              f"dropped fraction per layer {mr['dropped_fraction']}; device "
+              f"ms by category {mr['device_ms_by_category']}; top device "
+              f"time {mr['device_top_ms']}; by launching op "
+              f"{mr['device_ms_by_op']}")
+        torch.cuda.empty_cache()
+        mc = moe_checks[routing] = moe_train_check(dev, routing)
+        print(f"train gpt_moe {routing} kernel vs plain, b{CHECK_BATCH} x "
+              f"s{MOE_SEQ}, {CHECK_STEPS} steps: (loss, overflow, scale) "
+              f"kernel {mc['kernel']} plain {mc['plain']}; max loss diff "
+              f"{mc['loss_err']:.5f} (tol {TRAIN_LOSS_TOL}); grad norms "
+              f"kernel {mc['grad_norm_kernel']} plain "
+              f"{mc['grad_norm_plain']}, max rel diff "
+              f"{mc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL}); "
+              f"routing flips per step {mc['routing_flips']}; layers with "
+              f"unequal expert loads {mc['layers_with_unequal_loads']}")
+    torch.cuda.empty_cache()
+    mq = moe_quantized_phase(dev, moe_master)
+    del moe_master
+    print(f"gpt_moe ragged quantize_params teacher-forced forward "
+          f"b{MOE_BATCH} x s{MOE_SEQ} on {smi}: forward median "
+          f"{mq['forward_ms']:.2f} ms (q1-q3 {mq['forward_ms_q1_q3']}), "
+          f"{mq['tokens_per_s']:.1f} tokens/s, MFU {mq['mfu']:.4f} "
+          f"({mq['mfu_formula']}); profiled forward "
+          f"{mq['profiled_forward_ms']:.1f} ms, device busy "
+          f"{mq['device_busy_ms']} ms, idle share {mq['device_idle_share']};"
+          f" peak memory {mq['peak_memory_gb']:.2f} GB; param bytes "
+          f"{mq['param_bytes_quantized']} (float {mq['param_bytes_float']})"
+          f"; logits kernel vs plain {mq['logit_err']:.5f} (tol "
+          f"{LOGIT_TOL}) over positions routed alike, "
+          f"{mq['positions_flipped']} flipped positions at "
+          f"{mq['logit_err_flipped_positions']:.5f}; routing flips "
+          f"{mq['routing_flips']}; loss quantized {mq['loss_quantized']:.5f}"
+          f" vs float {mq['loss_float']:.5f}; expert load per layer "
+          f"{mq['expert_load']}; device ms by category "
+          f"{mq['device_ms_by_category']}; top device time "
+          f"{mq['device_top_ms']}")
+    torch.cuda.empty_cache()
+    with torch.inference_mode():
+        moe_kernels, grouped_dw = kernel_grouped_matmul_moe(
+            dev, gen, moe["ragged"]["expert_load"][0])
+    for kname, r in moe_kernels.items():
+        report(kname, r)
+    print(f"_grouped_dw per call (masked full-N products over the "
+          f"{MOE_BATCH * MOE_SEQ} token slots, [8, k, p] fp32) on {smi}: "
+          f"{json.dumps(grouped_dw)}")
+    gm = generic_mask_phase(dev)
+    print(f"generic mask: {gm['shape']}: launches {gm['counts']}; logits "
+          f"kernel vs plain {gm['logit_err']:.5f} (tol {LOGIT_TOL})")
+
     paths = {"serving": sl["counts"], "train_step": tr["counts"]}
     paths.update({f"bert {b}": row["counts"] for b, row in bert.items()})
+    paths.update({f"moe {r}": row["counts"] for r, row in moe.items()})
+    paths["moe int8 forward"] = mq["counts"]
+    paths["generic mask"] = gm["counts"]
     paths.update({f"engine {name}": row["counts"]
                   for name, row in eng.items() if "counts" in row})
     paths.update({f"engine {name}": row["counts"]
@@ -2043,7 +2760,13 @@ def main() -> int:
         "train_check": tc,
         "bert_train": {n: {k: v for k, v in row.items() if k != "counts"}
                        for n, row in bert.items()},
-        "bert_train_check": bert_checks}
+        "bert_train_check": bert_checks,
+        "moe_train": {n: {k: v for k, v in row.items() if k != "counts"}
+                      for n, row in moe.items()},
+        "moe_train_check": moe_checks,
+        "moe_int8_forward": {k: v for k, v in mq.items() if k != "counts"},
+        "grouped_dw": grouped_dw,
+        "generic_mask": {k: v for k, v in gm.items() if k != "counts"}}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

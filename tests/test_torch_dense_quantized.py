@@ -141,9 +141,22 @@ def test_quantize_params_tree_and_bytes_equal(name):
 
 
 def test_moe_slabs_wait_for_the_grouped_kernel():
+    """Row 9's int8 branch came with the MoE slice: the expert slabs
+    quantize per layer as ``quantize_group_weights`` (one scale block of
+    32 here: 128 clamped to the in-dim), and ``dequantize_params`` gives
+    them back as fp32 slabs within half a scale step."""
+    from apex_tpu_torch.ops.grouped_matmul import quantize_group_weights
+
     cfg = TConfig(num_layers=1, hidden_size=32, num_attention_heads=2,
                   vocab_size=64, max_position_embeddings=16)
     assert cfg.num_experts is None
-    params = {"layers": {"moe_fc1": torch.zeros(1, 2, 32, 64)}}
-    with pytest.raises(NotImplementedError, match="row 9"):
-        tq.quantize_params(params)
+    w = torch.randn(1, 2, 32, 64, generator=torch.Generator().manual_seed(0))
+    q = tq.quantize_params({"layers": {"moe_fc1": w}})["layers"]["moe_fc1"]
+    assert tuple(q["wire"].shape) == (1, 2, 32, 64)
+    assert tuple(q["scale"].shape) == (1, 2, 1, 64)
+    want = quantize_group_weights(w[0])
+    assert torch.equal(q["wire"][0], want["wire"])
+    assert torch.equal(q["scale"][0], want["scale"])
+    deq = tq.dequantize_params({"layers": {"moe_fc1": q}})["layers"]
+    err = (deq["moe_fc1"] - w).abs()
+    assert bool((err <= q["scale"][:, :, None, 0, :] / 2 + 1e-7).all())

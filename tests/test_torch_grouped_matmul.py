@@ -5,6 +5,9 @@ adversarial offsets (empty groups, a window with ``offsets[0] > 0`` and
 ``offsets[-1] < N``, one group, every row outside, N above 128), fp32 and
 bf16.  Rows outside the window are exactly zero.
 
+The gradient and the int8-slab form are held against the JAX package in
+tests/test_torch_grouped_matmul_grad.py.
+
 Tolerances: fp32 1e-5 (the same fp32 products summed in another order);
 bf16 outputs one bf16 rounding apart (2**-8 relative, plus 1e-3 absolute
 for values near zero).
@@ -99,10 +102,18 @@ def test_empty_rows_and_checks():
 
 
 def test_gradient_waits_for_the_moe_training_slice():
+    """The gradient came with the MoE training slice: x and w get theirs
+    (here against autograd of the plain per-group products), the offsets
+    none, and under no_grad the forward is unchanged."""
     x = torch.randn(4, 4, requires_grad=True)
-    w = torch.randn(2, 4, 3)
+    w = torch.randn(2, 4, 3, requires_grad=True)
     off = torch.tensor([0, 2, 4], dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="MoE"):
-        tgm.grouped_matmul(x, w, off)
+    tgm.grouped_matmul(x, w, off).pow(2).sum().backward()
+    xr = x.detach().clone().requires_grad_(True)
+    wr = w.detach().clone().requires_grad_(True)
+    ref = torch.cat([xr[:2] @ wr[0], xr[2:] @ wr[1]])
+    ref.pow(2).sum().backward()
+    torch.testing.assert_close(x.grad, xr.grad)
+    torch.testing.assert_close(w.grad, wr.grad)
     with torch.no_grad():
         assert tgm.grouped_matmul(x, w, off).shape == (4, 3)

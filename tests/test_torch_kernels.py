@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels (K1–K7, K3's int8 branch, row 5
 short-key flash backward, row 6 ragged paged attention, row 9 ragged
-grouped matmul, row 10 int8-weight matmul, row 11 scaled masked softmax)
+grouped matmul — its fp32, 16-bit, transposed and int8 branches — row 10
+int8-weight matmul, row 11 scaled masked softmax)
 against their plain PyTorch versions, on the card.  Marked
 ``cuda``: they skip where there is no CUDA device.  This file imports no
 JAX, so on a GPU machine without JAX it runs as
@@ -494,10 +495,14 @@ def test_row9_grouped_matmul_lora_shapes(dev, dtype, tol, k, p, case):
     from apex_tpu_torch.ops import grouped_matmul as tgm
 
     x, w, offs, off_np = _gmm_inputs(case, k, p, dtype, 20)
-    before = tgm.GROUPED_MATMUL.launches
+    # fp32 (LoRA's slabs) runs the CUDA-core branch; 16-bit operands of
+    # these shapes the tensor-core branch
+    kernel = (tgm.GROUPED_MATMUL if dtype == torch.float32
+              else tgm.GROUPED_MATMUL_MMA)
+    before = kernel.launches
     out = tgm.grouped_matmul(x, w, offs)
     torch.cuda.synchronize()
-    assert tgm.GROUPED_MATMUL.launches == before + 1
+    assert kernel.launches == before + 1
     _check_gmm(x, w, offs, off_np, out, tol)
 
 
@@ -529,8 +534,8 @@ def test_row9_contraction_splits_agree(dev, k, p):
     x, w, offs, off_np = _gmm_inputs("decode", k, p, torch.float32, 22)
     chunks = -(-k // 256)
     for splits in sorted({1, 2, chunks}):
-        out = tgm._gmm_kernel(x, w, offs, splits=splits)
-        again = tgm._gmm_kernel(x, w, offs, splits=splits)
+        out = tgm._gmm_fp32_kernel(x, w, offs, splits=splits)
+        again = tgm._gmm_fp32_kernel(x, w, offs, splits=splits)
         torch.cuda.synchronize()
         assert torch.equal(out, again)
         _check_gmm(x, w, offs, off_np, out, 1e-5)
@@ -560,6 +565,206 @@ def test_row9_offsets_stay_on_the_device(dev):
             assert int(torch.count_nonzero(out[:case_off[0]])) == 0
             if case_off[0] < 32:
                 assert _rel_err(out, want) <= 1e-5
+
+
+def _gmm_t_inputs(case, k, p, dtype, seed):
+    """x [N, k] and a slab stored as [G, p, k]: the backward's dx reads
+    it as w[g]^T without a copy."""
+    x, w, offs, off_np = _gmm_inputs(case, k, p, dtype, seed)
+    return x, w.transpose(1, 2).contiguous(), offs, off_np
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 1e-2),
+                                        (torch.float16, 2e-3)])
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k, p", [(64, 64), (32, 72), (8, 16), (768, 256),
+                                  (0, 8)])
+@pytest.mark.parametrize("case", ["moe_small", "empty_groups", "window",
+                                  "one_group", "all_outside", "ragged_300",
+                                  "many_groups"])
+def test_row9_mma_branch(dev, dtype, tol, trans, k, p, case):
+    """The 16-bit tensor-core branch, forward and transposed read: K and
+    P at the tile's limits (one k step, one 64-column tile, a partial
+    column tile, K = 0), N < 64, windows, empty groups, G = 70.  Rows
+    outside the window are exact zeros, and the result is the plain
+    version's within a 16-bit rounding."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    if trans:
+        x, w, offs, off_np = _gmm_t_inputs(case, k, p, dtype, 24)
+    else:
+        x, w, offs, off_np = _gmm_inputs(case, k, p, dtype, 24)
+    kernel = tgm.GROUPED_MATMUL_MMA_T if trans else tgm.GROUPED_MATMUL_MMA
+    before, other = kernel.launches, tgm.GROUPED_MATMUL.launches
+    out = tgm._gmm_kernel(x, w, offs, trans=trans)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    assert tgm.GROUPED_MATMUL.launches == other
+    wf = w.transpose(1, 2) if trans else w
+    _check_gmm(x, wf, offs, off_np, out, tol)
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k, p", [(768, 3072), (3072, 768)])
+def test_row9_mma_branch_moe_shape(dev, trans, k, p):
+    """The ragged MoE step's fc1 and fc2 (N = 4096 over 8 uneven experts,
+    bf16), forward and the transposed dx read."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    fn = _gmm_t_inputs if trans else _gmm_inputs
+    x, w, offs, off_np = fn("moe", k, p, torch.bfloat16, 25)
+    out = tgm._gmm_kernel(x, w, offs, trans=trans)
+    torch.cuda.synchronize()
+    _check_gmm(x, w.transpose(1, 2) if trans else w, offs, off_np, out, 1e-2)
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("k, p, dtype", [(100, 24, torch.bfloat16),
+                                         (24, 100, torch.bfloat16),
+                                         (64, 64, torch.float32)])
+def test_row9_shapes_the_tile_does_not_take(dev, trans, k, p, dtype):
+    """K or P not a multiple of 8, or fp32 operands: the fp32 branch, with
+    a transposed weight as a contiguous copy; never the tile."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    fn = _gmm_t_inputs if trans else _gmm_inputs
+    x, w, offs, off_np = fn("window", k, p, dtype, 26)
+    mma = tgm.GROUPED_MATMUL_MMA.launches + tgm.GROUPED_MATMUL_MMA_T.launches
+    before = tgm.GROUPED_MATMUL.launches
+    out = tgm._gmm_kernel(x, w, offs, trans=trans)
+    torch.cuda.synchronize()
+    assert tgm.GROUPED_MATMUL.launches == before + 1
+    assert (tgm.GROUPED_MATMUL_MMA.launches
+            + tgm.GROUPED_MATMUL_MMA_T.launches) == mma
+    _check_gmm(x, w.transpose(1, 2) if trans else w, offs, off_np, out,
+               1e-5 if dtype == torch.float32 else 1e-2)
+
+
+def _gmmq_inputs(case, k, p, block, dtype, seed):
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    x, w, offs, off_np = _gmm_inputs(case, k, p, torch.float32, seed)
+    q = tgm.quantize_group_weights(w, block)
+    return x.to(dtype), q["wire"], q["scale"], offs, off_np
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 1e-2),
+                                        (torch.float16, 2e-3)])
+@pytest.mark.parametrize("k, p, block", [(768, 3072, 128), (256, 64, 128),
+                                         (64, 80, 32), (96, 16, 32)])
+@pytest.mark.parametrize("case", ["moe", "moe_small", "empty_groups",
+                                  "window", "all_outside", "many_groups"])
+def test_row9_int8_branch(dev, dtype, tol, k, p, block, case):
+    """The int8-slab branch against its plain version (the slab
+    dequantized to fp32, one masked fp32 product per group): several
+    scale blocks per K or one, P at one column tile and above, windows,
+    N < 64, G = 70."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    if case == "moe" and k != 768:
+        pytest.skip("the MoE layout runs at the MoE slab shape only")
+    x, wire, scale, offs, off_np = _gmmq_inputs(case, k, p, block, dtype, 27)
+    before = tgm.GROUPED_MATMUL_INT8.launches
+    out = tgm.grouped_matmul_quantized(x, wire, scale, offs)
+    torch.cuda.synchronize()
+    assert tgm.GROUPED_MATMUL_INT8.launches == before + 1
+    ref = tgm.grouped_matmul_quantized(x, wire, scale, offs,
+                                       backend="reference")
+    assert out.dtype == dtype == ref.dtype and out.shape == ref.shape
+    lo, hi = int(off_np[0]), int(off_np[-1])
+    assert int(torch.count_nonzero(out[:lo])) == 0
+    assert int(torch.count_nonzero(out[hi:])) == 0
+    if hi > lo:
+        assert _rel_err(out, ref) <= tol
+
+
+@pytest.mark.parametrize("k, p, block, dtype", [
+    (64, 24, 32, torch.bfloat16),      # p not a multiple of 16
+    (64, 32, 16, torch.bfloat16),      # scale block not a multiple of 32
+    (64, 32, 32, torch.float32)])      # fp32 activations
+def test_row9_int8_shapes_the_tile_does_not_take_raise(dev, k, p, block,
+                                                       dtype):
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    x, wire, scale, offs, _ = _gmmq_inputs("window", k, p, block, dtype, 28)
+    with pytest.raises(ValueError, match="takes bf16/fp16"):
+        tgm.grouped_matmul_quantized(x, wire, scale, offs)
+
+
+def test_row9_zero_rows_launch_nothing(dev):
+    """N = 0: every branch returns an empty [0, p] result in the right
+    dtype without a launch (the JAX _gmm_impl's early return)."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    off = torch.zeros(5, dtype=torch.int32, device=dev)
+    x = torch.zeros(0, 64, dtype=torch.bfloat16, device=dev)
+    w = torch.zeros(4, 64, 32, dtype=torch.bfloat16, device=dev)
+    q = tgm.quantize_group_weights(w.float(), 32)
+    before = dict(ku.launch_counts())
+    outs = [tgm.grouped_matmul(x, w, off),
+            tgm._gmm_route(x, w.transpose(1, 2).contiguous(), off, False,
+                           trans=True),
+            tgm.grouped_matmul_quantized(x, q["wire"], q["scale"], off)]
+    assert ku.launch_counts() == before
+    for out in outs:
+        assert tuple(out.shape) == (0, 32) and out.dtype == torch.bfloat16
+
+
+def test_row9_autograd_on_the_card(dev):
+    """grouped_matmul's backward on CUDA bf16 tensors: dx through the
+    transposed tensor-core read (one launch, no fp32 branch), dw the
+    masked products; both against the plain route's autograd."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    x, w, offs, off_np = _gmm_inputs("moe_small", 64, 128, torch.bfloat16,
+                                     29)
+    g = torch.randn(x.shape[0], 128, device=dev,
+                    generator=_gen(30)).to(torch.bfloat16)
+    grads = {}
+    for backend in (None, "reference"):
+        xa = x.clone().requires_grad_(True)
+        wa = w.clone().requires_grad_(True)
+        t0 = tgm.GROUPED_MATMUL_MMA_T.launches
+        f0 = tgm.GROUPED_MATMUL.launches
+        out = tgm.grouped_matmul(xa, wa, offs, backend=backend)
+        out.backward(g)
+        torch.cuda.synchronize()
+        if backend is None:
+            assert tgm.GROUPED_MATMUL_MMA_T.launches == t0 + 1
+            assert tgm.GROUPED_MATMUL.launches == f0
+        grads[backend] = (xa.grad, wa.grad)
+    (dx, dw), (rdx, rdw) = grads[None], grads["reference"]
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.bfloat16
+    assert _rel_err(dx, rdx) <= 1e-2 and _rel_err(dw, rdw) <= 1e-2
+    for fp32 in (True, False):
+        dw32 = tgm._grouped_dw(x, g, offs, fp32_operands=fp32)
+        assert dw32.dtype == torch.float32
+        assert _rel_err(dw32, rdw.float()) <= 1e-2
+
+
+def test_row9_mma_offsets_stay_on_the_device(dev):
+    """The tensor-core branch also reads its offsets on the device: a
+    captured launch follows offsets changed in place."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    x, w, offs, off_np = _gmm_inputs("moe_small", 64, 64, torch.bfloat16, 31)
+    static = offs.clone()
+    with torch.no_grad():
+        tgm.grouped_matmul(x, w, static)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = tgm.grouped_matmul(x, w, static)
+        for case_off in (off_np.tolist(), [50] * 5, [0, 0, 50, 50, 50]):
+            static.copy_(torch.tensor(case_off, dtype=torch.int32,
+                                      device=dev))
+            graph.replay()
+            torch.cuda.synchronize()
+            want = tgm.grouped_matmul(x, w, static.clone(),
+                                      backend="reference")
+            assert int(torch.count_nonzero(out[:case_off[0]])) == 0
+            if case_off[0] < 50:
+                assert _rel_err(out, want) <= 1e-2
 
 
 def test_launch_counts_reset(dev):

@@ -1,5 +1,6 @@
 """Offsets of the ragged grouped matmul (kernel row 9) for the port's tests:
-the LoRA decode and prefill layouts and adversarial windows.  numpy only,
+the LoRA decode and prefill layouts, adversarial windows and the MoE
+expert layout (every row in a group, sorted by expert).  numpy only,
 so the card-only kernel tests (which import no JAX) share it with the CPU
 parity tests."""
 
@@ -45,8 +46,23 @@ def offsets_case(name):
         # warp-wide chunks of the offsets
         counts = np.random.RandomState(70).choice([0, 0, 1, 3, 9, 20], 70)
         return 11 + int(counts.sum()) + 7, 70, _offsets(11, counts)
+    if name == "moe":
+        # a ragged MoE layer: 4096 token slots over 8 experts, uneven
+        return 4096, 8, moe_offsets(4096, 8, seed=6)
+    if name == "moe_small":
+        # fewer rows than one 64-row tile per expert, one expert empty
+        return 50, 4, _offsets(0, [13, 0, 30, 7])
     raise KeyError(name)
+
+
+def moe_offsets(n, g, seed=0):
+    """``[g + 1]`` offsets of ``n`` rows split over ``g`` experts with
+    uneven, seeded counts (every row inside the window)."""
+    p = np.random.RandomState(seed).dirichlet(np.full(g, 2.0))
+    counts = np.random.RandomState(seed + 1).multinomial(n, p)
+    return _offsets(0, counts)
 
 
 ADVERSARIAL = ("empty_groups", "window", "one_group", "all_outside",
                "ragged_300", "many_groups")
+MOE = ("moe", "moe_small")
