@@ -203,20 +203,18 @@ def _gmm_route(x, w, offsets, reference: bool, trans: bool = False):
     return _gmm_kernel(x, w, offsets, trans=trans)
 
 
-def _grouped_dw(x, g, offsets, *, fp32_operands: Optional[bool] = None):
+def _grouped_dw(x, g, offsets):
     """``dw[e] = x_seg(e)ᵀ @ g_seg(e)``: one masked full-N outer product
     per group, fp32 sums, ``[G, k, p]`` fp32 (the JAX ``_grouped_dw``).
-    16-bit CUDA operands multiply as they are with an fp32 result (a
-    product of two 16-bit floats is exact in fp32, so it is the same
-    function up to summation order); ``fp32_operands=True`` widens them
-    first, as the plain version does."""
+    16-bit CUDA operands of one dtype multiply as they are with an fp32
+    result (a product of two 16-bit floats is exact in fp32, so it is the
+    same function up to summation order); other operands are widened to
+    fp32 first, as the plain version does."""
     n = x.shape[0]
     off = offsets.to(torch.int32)
     rows = torch.arange(n, dtype=torch.int32, device=x.device)
-    if fp32_operands is None:
-        fp32_operands = not (on_cuda(x) and x.dtype in _HALF
-                             and g.dtype == x.dtype)
-    xs, gs = (x.float(), g.float()) if fp32_operands else (x, g)
+    half = on_cuda(x) and x.dtype in _HALF and g.dtype == x.dtype
+    xs, gs = (x, g) if half else (x.float(), g.float())
     # masking either operand gives the same products: mask the narrower
     mask_x = xs.shape[1] <= gs.shape[1]
     zero = torch.zeros((), dtype=xs.dtype, device=x.device)
@@ -225,8 +223,8 @@ def _grouped_dw(x, g, offsets, *, fp32_operands: Optional[bool] = None):
         mask = ((rows >= off[e]) & (rows < off[e + 1]))[:, None]
         a = torch.where(mask, xs, zero) if mask_x else xs
         b = gs if mask_x else torch.where(mask, gs, zero)
-        parts.append(a.t() @ b if fp32_operands
-                     else torch.mm(a.t(), b, out_dtype=torch.float32))
+        parts.append(torch.mm(a.t(), b, out_dtype=torch.float32) if half
+                     else a.t() @ b)
     return torch.stack(parts)
 
 

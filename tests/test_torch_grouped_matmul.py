@@ -104,7 +104,8 @@ def test_empty_rows_and_checks():
 def test_gradient_waits_for_the_moe_training_slice():
     """The gradient came with the MoE training slice: x and w get theirs
     (here against autograd of the plain per-group products), the offsets
-    none, and under no_grad the forward is unchanged."""
+    none, and under no_grad the forward is unchanged.  (The name dates
+    from when this test asserted that the gradient raised.)"""
     x = torch.randn(4, 4, requires_grad=True)
     w = torch.randn(2, 4, 3, requires_grad=True)
     off = torch.tensor([0, 2, 4], dtype=torch.int32)
