@@ -5,27 +5,23 @@
 // key-padding row, the causal mask from row/column indices, the kv tail
 // mask at sk, grouped K/V read by index (kv head = h / (n / g), never
 // repeated), and o plus lse written with the -1e30 sentinel and the
-// l == 0 guard on fully masked rows.  The probabilities are rounded to
-// V's dtype before the PV product, as the TPU kernel does.
+// l == 0 guard on fully masked rows.  l sums the fp32 probabilities; they
+// are rounded to V's dtype only for the PV product, as the TPU kernel
+// does, and the m_new > -1e30/2 guard keeps fully masked rows at 0.
 //
 // Bound on the H100: at the serving shapes (b=8, s<=512, d=64) bytes —
 // q, k, v and o are read and written once and the causal, padded pairs
 // need fewer flops than the ~295 flop/byte ridge; longer sequences turn
 // it compute-bound (4·d flops per open (query, key) pair at the 989
 // TFLOP/s bf16 tensor-core rate).
-// Design: one CTA per (64-query tile, batch·head) with a loop over
-// 64-key tiles; kv tiles wholly above the diagonal are never loaded.
-// 16-bit inputs run QK^T and PV on the tensor cores (WMMA 16x16x16, fp32
-// accumulators, four warps of 16 query rows): Q/K/V tiles sit in shared
-// memory in their own type, scores and the output accumulator in fp32
-// shared memory, and two lanes per row run the masked online softmax.
-// fp32 inputs take a CUDA-core path: Q, K and V tiles in shared memory
-// as fp32 (rows padded one word), four threads per query row, each
-// scoring 16 keys and owning d/4 output dims.  Tiles are loaded
-// synchronously; a TMA ring with wgmma is the next step (ROADMAP.md).
-#include <mma.h>
-
+// Design: 16-bit inputs run the Hopper kernel below (TMA ring, wgmma,
+// warp specialisation; sm90_tile.cuh).  fp32 inputs take a CUDA-core
+// path: one CTA per (64-query tile, batch·head) with a loop over 64-key
+// tiles (tiles wholly above the diagonal never loaded), Q, K and V tiles
+// in shared memory as fp32 (rows padded one word), four threads per query
+// row, each scoring 16 keys and owning d/4 output dims.
 #include "common.cuh"
+#include "sm90_tile.cuh"
 
 namespace {
 
@@ -156,197 +152,338 @@ __global__ void __launch_bounds__(kThreads)
 }
 
 // ---------------------------------------------------------------------------
-// 16-bit inputs: QK^T and PV on the tensor cores (WMMA 16x16x16, fp32
-// accumulators).  Four warps per 64-query tile, each owning 16 rows.  The
-// scores go to shared memory (fp32) for the masked online softmax, done
-// by two lanes per row; the probabilities are written back in T (the
-// TPU kernel's rounding of p to V's dtype) and the output accumulator
-// lives in shared memory (fp32), rescaled by each row's alpha before
-// the PV product adds into it.
+// 16-bit inputs: the Hopper kernel, persistent: one CTA of 384 threads
+// per SM walks (128-query tile, b*n) work items, longest first.  Warp 8,
+// the producer, issues the TMA loads (each item's Q into one of two
+// buffers, so the next item's Q arrives while this one ends; K and V
+// into a four-stage ring, each stage freed by the eight consumer warps)
+// and copies each key tile's padding row beside it (cp.async).
+// Warpgroups 0 and 1 own query rows 0-63 and 64-127 of an item.
+// S = Q K^T is a wgmma with its accumulator in registers (Q read once
+// into registers as the A operand up to d = 64, from shared memory at
+// d = 128); the masked online softmax runs on the accumulator fragments,
+// the row max and sum reduced over the quad by shuffles, the causal and
+// tail masks only on tiles that cross the diagonal or sk; P, rounded to
+// V's dtype, is the register A operand of O += P V, and O stays in
+// registers for the whole key loop.  Key tile t's S runs while tile
+// t-1's P V runs, and t's softmax overlaps the latter; the warpgroups
+// take turns to issue their products, so one's products overlap the
+// other's softmax.  Scores are carried in log2 units (exp2), lse
+// converted back on the way out.
 // ---------------------------------------------------------------------------
 
-constexpr int kTcWarps = 4;
-constexpr int kTcThreads = 32 * kTcWarps;
-
-template <typename T, int D>
-struct TcSmem {
-  static constexpr int LDT = D + 8;         // T tiles (Q, K, V)
-  static constexpr int LDS = kBK + 4;       // fp32 scores
-  static constexpr int LDP = kBK + 8;       // T probabilities
-  static constexpr int LDO = D + 4;         // fp32 output accumulator
-  static constexpr int q_off = 0;
-  static constexpr int k_off = q_off + kBQ * LDT * (int)sizeof(T);
-  static constexpr int v_off = k_off + kBK * LDT * (int)sizeof(T);
-  static constexpr int s_off = v_off + kBK * LDT * (int)sizeof(T);
-  static constexpr int p_off = s_off + kBQ * LDS * 4;
-  static constexpr int o_off = p_off + kBQ * LDP * (int)sizeof(T);
-  static constexpr int a_off = o_off + kBQ * LDO * 4;
-  static constexpr int bytes = a_off + kBQ * 4;
+template <int D>
+struct Fwd {
+  static constexpr int BQ = 128;
+  static constexpr int BK = D == 128 ? 64 : 128;
+  static constexpr int STAGES = 4;
+  using QT = sm90::Tile<D, BQ>;
+  using KT = sm90::Tile<D, BK>;
+  static constexpr int q_off = 0;  // two Q buffers: this item's, the next
+  static constexpr int k_off = q_off + 2 * QT::BYTES;
+  static constexpr int v_off = k_off + STAGES * KT::BYTES;
+  static constexpr int kpm_off = v_off + STAGES * KT::BYTES;
+  static constexpr int bar_off = kpm_off + STAGES * BK * 4;
+  // q_full[2], q_empty[2], k_full[S], v_full[S], empty[S]; 1024 bytes of
+  // alignment slack
+  static constexpr int bytes = bar_off + (4 + 3 * STAGES) * 8 + 1024;
 };
 
 template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, const T* src, int rows,
-                                          int row0, int nrows, int stride) {
-  // rows x D of T from src (row r at src + r * stride) into dst with
-  // leading dimension D + 8; rows at or past nrows are zero
-  constexpr int kVec = 8;                    // 16 bytes of 16-bit values
-  constexpr int LDT = D + 8;
-  for (int i = threadIdx.x; i < rows * (D / kVec); i += kTcThreads) {
-    const int r = i / (D / kVec), c = (i % (D / kVec)) * kVec;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (row0 + r < nrows)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)r * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDT + c) = v;
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                          const __grid_constant__ CUtensorMap tk,
+                          const __grid_constant__ CUtensorMap tv,
+                          const float* __restrict__ kpm, T* __restrict__ o,
+                          float* __restrict__ lse, int nb, int sq, int sk,
+                          int n, int g, float scale, int causal) {
+  using C = Fwd<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, S = C::STAGES;
+  constexpr bool kQRegs = sm90::kStationaryInRegs<D>;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + C::bar_off);
+  uint64_t* q_empty = q_full + 2;
+  uint64_t* k_full = q_empty + 2;
+  uint64_t* v_full = k_full + S;
+  uint64_t* empty = v_full + S;
+  float* skpm = reinterpret_cast<float*>(smem + C::kpm_off);
+
+  const int bn = nb * n;
+  const int nqt = (sq + BQ - 1) / BQ;
+  const int items = nqt * bn;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < 2; ++i) {
+      sm90::bar_init(&q_full[i], 1);
+      sm90::bar_init(&q_empty[i], sm90::kConsumerWarps);
+    }
+    for (int s = 0; s < S; ++s) {
+      sm90::bar_init(&k_full[s], 32);  // every producer lane (or its copies)
+      sm90::bar_init(&v_full[s], 1);
+      sm90::bar_init(&empty[s], sm90::kConsumerWarps);
+    }
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // producer warpgroup: its first warp loads, the other three leave
+    sm90::reg_dealloc<sm90::kProducerRegs>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x & 31;
+      int ring = 0;  // position in the K/V ring, over all items
+      int j = 0;     // items of this CTA so far
+      for (int item; (item = sm90::snake_item(j, items)) >= 0; ++j) {
+        const sm90::QueryTile w(item, bn, nqt, sk, BQ, BK, causal);
+        const int b = w.bh / n, h = w.bh % n, kvh = h / (n / g);
+        const int qb = j & 1;
+        sm90::bar_wait(&q_empty[qb], ((j >> 1) & 1) ^ 1);
+        if (lane == 0) {
+          sm90::bar_arrive_tx(&q_full[qb], C::QT::BYTES);
+          sm90::tma_tile<D, BQ>(smem + C::q_off + qb * C::QT::BYTES, &tq,
+                                &q_full[qb], h, w.q0, b);
+        }
+        for (int t = 0; t < w.ntiles; ++t, ++ring) {
+          const int s = ring % S;
+          const int k0 = t * BK;
+          sm90::bar_wait(&empty[s], ((ring / S) & 1) ^ 1);
+          if (lane == 0) {
+            sm90::bar_expect_tx(&k_full[s], C::KT::BYTES);
+            sm90::tma_tile<D, BK>(smem + C::k_off + s * C::KT::BYTES, &tk,
+                                  &k_full[s], kvh, k0, b);
+            sm90::bar_arrive_tx(&v_full[s], C::KT::BYTES);
+            sm90::tma_tile<D, BK>(smem + C::v_off + s * C::KT::BYTES, &tv,
+                                  &v_full[s], kvh, k0, b);
+          }
+          if (kpm != nullptr) {
+            for (int c = lane; c < BK; c += 32) {
+              const bool in = k0 + c < sk;
+              sm90::cp_async4(&skpm[s * BK + c],
+                              kpm + (size_t)b * sk + (in ? k0 + c : 0), in);
+            }
+            sm90::cp_async_arrive(&k_full[s]);
+          } else {
+            sm90::bar_arrive(&k_full[s]);
+          }
+        }
+      }
+    }
+  } else {
+    sm90::reg_alloc<sm90::kConsumerRegs>();
+    const int wg = threadIdx.x >> 7;
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const float sl2 = scale * sm90::kLog2e;
+    int ring = 0;  // ring position of this item's first key tile
+    int j = 0;
+    if (wg == 1) sm90::turn_end(wg);  // warpgroup 0 issues first
+    for (int item; (item = sm90::snake_item(j, items)) >= 0; ++j) {
+      const sm90::QueryTile w(item, bn, nqt, sk, BQ, BK, causal);
+      const int bh = w.bh, b = bh / n, h = bh % n;
+      const int ntiles = w.ntiles;
+      const int wg_row = w.q0 + wg * 64;
+      const int row0 = wg_row + warp * 16 + (lane >> 2);  // and row0 + 8
+      const int qb = j & 1;
+      const uint32_t sQ = sm90::smem_addr(smem + C::q_off + qb * C::QT::BYTES);
+      float acc_o[D / 2];
+#pragma unroll
+      for (int r = 0; r < D / 2; ++r) acc_o[r] = 0.0f;
+      float m_i[2] = {APEX_NEG_INF, APEX_NEG_INF};
+      float l_i[2] = {0.0f, 0.0f};  // this lane's share of the row sums
+      float alpha[2];
+      uint32_t pa[BK / 16][4];  // the previous tile's p, rounded to V's dtype
+      uint32_t qf[kQRegs ? D / 16 : 1][4];  // Q as the A operand of S
+
+      // S = Q K^T of key tile t into acc, issued and committed, not waited
+      auto issue_s = [&](float (&acc)[BK / 2], int t) {
+        const int r = ring + t;
+        const uint32_t sK =
+            sm90::smem_addr(smem + C::k_off + (r % S) * C::KT::BYTES);
+        sm90::bar_wait(&k_full[r % S], (r / S) & 1);
+#pragma unroll
+        for (int kk = 0; kk < D / 16; ++kk) {
+          if constexpr (kQRegs)
+            sm90::mma_rs<T, BK, 0>(acc, qf[kk],
+                                   sm90::desc_k<D, BK>(sK, 0, kk), kk > 0);
+          else
+            sm90::mma_ss<T, BK, 0>(acc, sm90::desc_k<D, BQ>(sQ, wg * 64, kk),
+                                   sm90::desc_k<D, BK>(sK, 0, kk), kk > 0);
+        }
+        sm90::mma_commit();
+      };
+      // O += P V of key tile t (P in pa), issued and committed
+      auto issue_pv = [&](int t) {
+        const int r = ring + t;
+        const uint32_t sV =
+            sm90::smem_addr(smem + C::v_off + (r % S) * C::KT::BYTES);
+        sm90::bar_wait(&v_full[r % S], (r / S) & 1);
+#pragma unroll
+        for (int kk = 0; kk < BK / 16; ++kk)
+          sm90::mma_rs<T, D, 1>(acc_o, pa[kk], sm90::desc_mn<D, BK>(sV, kk),
+                                1);
+        sm90::mma_commit();
+      };
+      auto release = [&](uint64_t* bar) {
+        __syncwarp();
+        if (lane == 0) sm90::bar_arrive(bar);
+      };
+      // scale, padding row and masks of key tile t, then its probabilities
+      // in place; folds the row maxima into m_i, l_i and sets alpha
+      auto softmax = [&](float (&acc)[BK / 2], int t) {
+        const int k0 = t * BK;
+        const float* kp = skpm + ((ring + t) % S) * BK + 2 * (lane & 3);
+        const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > wg_row);
+        // inner tiles without padding: the raw maxima scaled once, and p
+        // in one FMA and one exp2 per score
+        const bool plain = !edge && kpm == nullptr && sl2 > 0.0f;
+        float mx[2] = {APEX_NEG_INF, APEX_NEG_INF};
+        if (plain) {
+#pragma unroll
+          for (int r = 0; r < BK / 2; ++r)
+            mx[sm90::frag_row(r)] = fmaxf(mx[sm90::frag_row(r)], acc[r]);
+          mx[0] *= sl2;
+          mx[1] *= sl2;
+        } else {
+#pragma unroll
+          for (int cc = 0; cc < BK / 8; ++cc) {
+            float2 kv = make_float2(0.0f, 0.0f);
+            if (kpm != nullptr) {
+              kv = *reinterpret_cast<const float2*>(kp + 8 * cc);
+              kv.x *= sm90::kLog2e;
+              kv.y *= sm90::kLog2e;
+            }
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int r = 4 * cc + e;
+              const int i = sm90::frag_row(r);
+              float v = acc[r] * sl2 + ((e & 1) ? kv.y : kv.x);
+              if (edge) {
+                const int col = k0 + sm90::frag_col(r, lane);
+                if (col >= sk || (causal && col > row0 + 8 * i))
+                  v = APEX_NEG_INF;
+              }
+              acc[r] = v;
+              mx[i] = fmaxf(mx[i], v);
+            }
+          }
+        }
+        bool live[2];
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const float m_new = fmaxf(m_i[i], sm90::quad_max(mx[i]));
+          live[i] = m_new > APEX_NEG_INF / 2;
+          alpha[i] = live[i] ? sm90::ex2(m_i[i] - m_new) : 0.0f;
+          m_i[i] = m_new;
+          l_i[i] *= alpha[i];
+        }
+        // acc (scaled or not) minus m, to the power of 2; l sums the fp32 p
+        const float a = plain ? sl2 : 1.0f;
+#pragma unroll
+        for (int r = 0; r < BK / 2; ++r) {
+          const int i = sm90::frag_row(r);
+          const float p = live[i] ? sm90::ex2(fmaf(acc[r], a, -m_i[i])) : 0.0f;
+          l_i[i] += p;
+          acc[r] = p;
+        }
+      };
+
+      // Software pipeline: key tile t's S = Q K^T runs while tile t-1's
+      // O += P V runs, and tile t's softmax overlaps the latter.  The
+      // warpgroups take turns to issue their products (sm90::turn_begin),
+      // so one's products overlap the other's softmax.
+      sm90::bar_wait(&q_full[qb], (j >> 1) & 1);
+      if constexpr (kQRegs) {
+        sm90::load_a_frags<D, BQ>(sQ, wg * 64, qf);
+        release(&q_empty[qb]);  // Q is in registers: the next one may come
+      }
+      {
+        float acc_s[BK / 2];
+        sm90::turn_begin(wg);
+        sm90::mma_fence();
+        issue_s(acc_s, 0);
+        sm90::turn_end(wg);
+        sm90::mma_wait<0>();
+        sm90::fence_regs(acc_s);
+        softmax(acc_s, 0);
+        sm90::to_a_frags<T>(acc_s, pa);
+      }
+      for (int t = 1; t < ntiles; ++t) {
+        float acc_s[BK / 2];
+        sm90::turn_begin(wg);
+        sm90::mma_fence();
+        issue_s(acc_s, t);
+        issue_pv(t - 1);
+        sm90::turn_end(wg);
+        sm90::mma_wait<1>();  // S of tile t
+        sm90::fence_regs(acc_s);
+        softmax(acc_s, t);
+        sm90::mma_wait<0>();  // P V of tile t-1
+        sm90::fence_regs(acc_o);
+        release(&empty[(ring + t - 1) % S]);
+#pragma unroll
+        for (int r = 0; r < D / 2; ++r) acc_o[r] *= alpha[sm90::frag_row(r)];
+        sm90::to_a_frags<T>(acc_s, pa);
+      }
+      if constexpr (!kQRegs)
+        release(&q_empty[qb]);  // every S of the item is done: the next Q
+      sm90::turn_begin(wg);
+      sm90::mma_fence();
+      issue_pv(ntiles - 1);
+      sm90::turn_end(wg);
+      sm90::mma_wait<0>();
+      sm90::fence_regs(acc_o);
+      release(&empty[(ring + ntiles - 1) % S]);
+      ring += ntiles;
+
+      float inv[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const float l = sm90::quad_sum(l_i[i]);
+        const float safe_l = l == 0.0f ? 1.0f : l;
+        inv[i] = 1.0f / safe_l;
+        const int row = row0 + 8 * i;
+        if (row < sq && (lane & 3) == 0)
+          lse[(size_t)bh * sq + row] =
+              l == 0.0f ? APEX_NEG_INF
+                        : (m_i[i] + log2f(safe_l)) * sm90::kLn2;
+      }
+      sm90::store_rows<T>(acc_o, inv, o + ((size_t)b * sq * n + h) * D,
+                          (size_t)n * D, row0, sq);
+    }
+    if (wg == 0) sm90::turn_begin(wg);  // the last hand-over
   }
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(kTcThreads)
-    flash_fwd_tc_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                        const T* __restrict__ v, const float* __restrict__ kpm,
-                        T* __restrict__ o, float* __restrict__ lse, int sq,
-                        int sk, int n, int g, float scale, int causal) {
-  using namespace nvcuda;
-  using L = TcSmem<T, D>;
-  extern __shared__ __align__(128) unsigned char tc_smem[];
-  T* sQ = reinterpret_cast<T*>(tc_smem + L::q_off);
-  T* sK = reinterpret_cast<T*>(tc_smem + L::k_off);
-  T* sV = reinterpret_cast<T*>(tc_smem + L::v_off);
-  float* sS = reinterpret_cast<float*>(tc_smem + L::s_off);
-  T* sP = reinterpret_cast<T*>(tc_smem + L::p_off);
-  float* sO = reinterpret_cast<float*>(tc_smem + L::o_off);
-  float* sAlpha = reinterpret_cast<float*>(tc_smem + L::a_off);
-
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int bh = blockIdx.y;
-  const int b = bh / n;
-  const int h = bh % n;
-  const int kvh = h / (n / g);
-  const int q0 = blockIdx.x * kBQ;
-  const int qstride = n * D, kstride = g * D;
-
-  load_tile<T, D>(sQ, q + (((size_t)b * sq + q0) * n + h) * D, kBQ, q0, sq,
-                  qstride);
-  for (int i = threadIdx.x; i < kBQ * L::LDO; i += kTcThreads) sO[i] = 0.0f;
-
-  // softmax ownership: lane pair (2r, 2r+1) of warp w holds row
-  // w*16 + r; each lane scores half of the 64 keys of a tile
-  const int lrow = warp * 16 + (lane >> 1);
-  const int half = lane & 1;
-  const int row = q0 + lrow;
-  float m = APEX_NEG_INF, l = 0.0f;
-
-  const int kv_end = causal ? min(sk, q0 + kBQ) : sk;
-  for (int k0 = 0; k0 < kv_end; k0 += kBK) {
-    __syncthreads();  // the previous tile's readers of sK/sV are done
-    const size_t kbase = (((size_t)b * sk + k0) * g + kvh) * D;
-    load_tile<T, D>(sK, k + kbase, kBK, k0, sk, kstride);
-    load_tile<T, D>(sV, v + kbase, kBK, k0, sk, kstride);
-    __syncthreads();
-
-    // S[16 x 64] of this warp = Q[16 x D] K^T
-#pragma unroll
-    for (int nb = 0; nb < kBK / 16; ++nb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      wmma::fill_fragment(acc, 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::col_major> fb;
-        wmma::load_matrix_sync(fa, sQ + (warp * 16) * L::LDT + kk * 16,
-                               L::LDT);
-        wmma::load_matrix_sync(fb, sK + (nb * 16) * L::LDT + kk * 16,
-                               L::LDT);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(sS + (warp * 16) * L::LDS + nb * 16, acc,
-                              L::LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
-
-    // masked online softmax over this row's 32 keys, shared with the pair
-    float* srow = sS + lrow * L::LDS + half * 32;
-    float mx = APEX_NEG_INF;
-    for (int c = 0; c < 32; ++c) {
-      const int col = k0 + half * 32 + c;
-      float sv = srow[c] * scale;
-      if (kpm != nullptr && col < sk) sv += kpm[(size_t)b * sk + col];
-      const bool pred = col < sk && (!causal || col <= row);
-      sv = pred ? sv : APEX_NEG_INF;
-      srow[c] = sv;
-      mx = fmaxf(mx, sv);
-    }
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    const float m_new = fmaxf(m, mx);
-    const bool live = m_new > APEX_NEG_INF / 2;
-    const float alpha = live ? expf(m - m_new) : 0.0f;
-    float ps = 0.0f;
-    T* prow = sP + lrow * L::LDP + half * 32;
-    for (int c = 0; c < 32; ++c) {
-      const float p = live ? expf(srow[c] - m_new) : 0.0f;
-      ps += p;
-      prow[c] = apex_from_float<T>(p);
-    }
-    ps += __shfl_xor_sync(0xffffffffu, ps, 1);
-    l = l * alpha + ps;
-    m = m_new;
-    if (half == 0) sAlpha[lrow] = alpha;
-    __syncwarp();
-
-    // O[16 x D] = alpha * O + P[16 x 64] V[64 x D]
-    for (int e = lane; e < 16 * D; e += 32) {
-      const int r = warp * 16 + e / D;
-      sO[r * L::LDO + e % D] *= sAlpha[r];
-    }
-    __syncwarp();
-#pragma unroll
-    for (int nb = 0; nb < D / 16; ++nb) {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-      float* optr = sO + (warp * 16) * L::LDO + nb * 16;
-      wmma::load_matrix_sync(acc, optr, L::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, T, wmma::row_major> fa;
-        wmma::fragment<wmma::matrix_b, 16, 16, 16, T, wmma::row_major> fb;
-        wmma::load_matrix_sync(fa, sP + (warp * 16) * L::LDP + kk * 16,
-                               L::LDP);
-        wmma::load_matrix_sync(fb, sV + (kk * 16) * L::LDT + nb * 16,
-                               L::LDT);
-        wmma::mma_sync(acc, fa, fb, acc);
-      }
-      wmma::store_matrix_sync(optr, acc, L::LDO, wmma::mem_row_major);
-    }
-    __syncwarp();
-  }
-
-  if (row < sq) {
-    const float safe_l = l == 0.0f ? 1.0f : l;
-    T* orow = o + (((size_t)b * sq + row) * n + h) * D;
-    const float* orow_s = sO + lrow * L::LDO;
-    for (int d = half; d < D; d += 2)
-      orow[d] = apex_from_float<T>(orow_s[d] / safe_l);
-    if (half == 0)
-      lse[(size_t)bh * sq + row] =
-          l == 0.0f ? APEX_NEG_INF : m + logf(safe_l);
-  }
+int launch_sm90(const void* q, const void* k, const void* v, const void* kpm,
+                void* o, void* lse, int b, int sq, int sk, int n, int g,
+                float scale, int causal, cudaStream_t stream) {
+  using C = Fwd<D>;
+  CUtensorMap tq, tk, tv;
+  int err = sm90::encode_bsnd<T>(&tq, q, b, sq, n, D, C::BQ);
+  if (err == 0) err = sm90::encode_bsnd<T>(&tk, k, b, sk, g, D, C::BK);
+  if (err == 0) err = sm90::encode_bsnd<T>(&tv, v, b, sk, g, D, C::BK);
+  if (err == 0) err = sm90::set_smem(flash_fwd_sm90_kernel<T, D>, C::bytes);
+  int grid = 0;
+  if (err == 0) err = sm90::persistent_grid((sq + C::BQ - 1) / C::BQ * b * n,
+                                            &grid);
+  if (err != 0) return err;
+  flash_fwd_sm90_kernel<T, D><<<grid, sm90::kThreads, C::bytes, stream>>>(
+      tq, tk, tv, (const float*)kpm, (T*)o, (float*)lse, b, sq, sk, n, g,
+      scale, causal);
+  return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kpm,
            void* o, void* lse, int b, int sq, int sk, int n, int g,
            float scale, int causal, cudaStream_t stream) {
-  const dim3 grid((sq + kBQ - 1) / kBQ, b * n);
   if constexpr (sizeof(T) == 2) {
-    const int bytes = TcSmem<T, D>::bytes;
-    cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_tc_kernel<T, D>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-    if (err != cudaSuccess) return (int)err;
-    flash_fwd_tc_kernel<T, D><<<grid, kTcThreads, bytes, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const float*)kpm, (T*)o,
-        (float*)lse, sq, sk, n, g, scale, causal);
+    return launch_sm90<T, D>(q, k, v, kpm, o, lse, b, sq, sk, n, g, scale,
+                             causal, stream);
   } else {
+    const dim3 grid((sq + kBQ - 1) / kBQ, b * n);
     const int bytes = smem_floats<D>() * (int)sizeof(float);
     cudaError_t err = cudaFuncSetAttribute(
         flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -355,8 +492,8 @@ int launch(const void* q, const void* k, const void* v, const void* kpm,
     flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)kpm, (T*)o,
         (float*)lse, sq, sk, n, g, scale, causal);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -385,5 +522,34 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
         return (int)cudaErrorInvalidValue;
     }
   });
+  return (int)cudaErrorInvalidValue;
+}
+
+namespace {
+
+template <typename T>
+int fwd_attrs(int d, int* out) {
+  switch (d) {
+    case 32:
+      return sm90::kernel_attrs(flash_fwd_sm90_kernel<T, 32>, Fwd<32>::bytes,
+                                sm90::kThreads, out);
+    case 64:
+      return sm90::kernel_attrs(flash_fwd_sm90_kernel<T, 64>, Fwd<64>::bytes,
+                                sm90::kThreads, out);
+    case 128:
+      return sm90::kernel_attrs(flash_fwd_sm90_kernel<T, 128>,
+                                Fwd<128>::bytes, sm90::kThreads, out);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace
+
+// The 16-bit kernel's {registers, shared memory per CTA, CTAs per SM,
+// spill bytes} for head size d (sm90::kernel_attrs).
+extern "C" int apex_flash_fwd_attrs(int dtype, int d, int* out) {
+  if (dtype == APEX_BF16) return fwd_attrs<__nv_bfloat16>(d, out);
+  if (dtype == APEX_F16) return fwd_attrs<__half>(d, out);
   return (int)cudaErrorInvalidValue;
 }

@@ -9,8 +9,11 @@ first use it is compiled with
          -Xcompiler -fPIC -o build/apex_tpu_torch/<name>-<hash>.so <name>.cu
 
 into the repository's ``build/apex_tpu_torch/`` directory (git-ignored),
-keyed on a hash of the source and the shared headers, and loaded with
-``ctypes``.  :func:`build_all` starts one ``nvcc`` per source at once.
+keyed on a hash of the source, every ``csrc/*.cuh`` header and the
+flags, and loaded with ``ctypes``.  :func:`build_all` starts one
+``nvcc`` per source at once.  The Hopper kernels (K2, K6, K7) find the
+driver's ``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``,
+so no library links ``-lcuda``.
 
 Every pointer and the stream pass as ``c_void_p`` (a bare Python int
 would be cut to 32 bits).  The C entry returns ``cudaGetLastError()``
@@ -18,6 +21,15 @@ after its launch; :class:`Kernel` raises on anything but 0, so a launch
 the card refuses (too much shared memory, a bad grid) never goes
 unnoticed.  Each kernel keeps a plain integer ``launches`` count, raised
 by one per launch and nowhere else.
+
+    python -m apex_tpu_torch.ops._kernel_utils [source.cu ...]
+
+compiles each source (default: K2's and K6/K7's) once more with the
+build's flags plus ``-Xptxas -v`` into ``build/apex_tpu_torch/report/``,
+prints what ``ptxas`` says of every kernel (registers, shared memory,
+spills), and beside it how many ``HGMMA`` (``wgmma``) and ``UTMALDG``
+(TMA load) instructions ``cuobjdump --dump-sass`` lists in each kernel.
+Needs the CUDA toolkit; no card.
 """
 
 from __future__ import annotations
@@ -25,15 +37,18 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import sys
 import threading
 from pathlib import Path
-from typing import Dict, Iterable, List, Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 
-__all__ = ["Kernel", "KERNELS", "register", "build_all",
+__all__ = ["Kernel", "KERNELS", "register", "build_all", "library",
+           "lib_path", "ptxas_report", "sass_counts", "demangle",
            "reset_launch_counts", "launch_counts", "ptr", "stream_ptr",
            "dtype_code", "check_cuda_operands", "check_aligned", "aligned",
            "CSRC",
@@ -42,8 +57,6 @@ __all__ = ["Kernel", "KERNELS", "register", "build_all",
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
     "apex_tpu_torch"
-_COMMON = ("common.cuh", "paged_tile.cuh", "flash_bwd_tile.cuh",
-           "mma_tile.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo")
 
@@ -51,18 +64,23 @@ _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"), "/usr/local/cuda/bin/nvcc"):
+def _cuda_tool(name: str) -> str:
+    for cand in (shutil.which(name), f"/usr/local/cuda/bin/{name}"):
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError(
-        "nvcc not found (PATH or /usr/local/cuda/bin): the port's CUDA "
+        f"{name} not found (PATH or /usr/local/cuda/bin): the port's CUDA "
         "kernels are built from apex_tpu_torch/csrc at first use")
 
 
-def _lib_path(source: str) -> Path:
+def lib_path(source: str) -> Path:
+    """Where the library of one source is built (its name carries the
+    build key)."""
     h = hashlib.sha256()
-    for name in (source,) + _COMMON:
+    # every header, whether the source includes it or not: a header added
+    # later cannot leave a stale library behind
+    headers = sorted(p.name for p in CSRC.glob("*.cuh"))
+    for name in [source] + headers:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -73,12 +91,12 @@ def _lib_path(source: str) -> Path:
 def _start_build(source: str):
     """Start ``nvcc`` on one source unless its library is already built;
     returns ``(process, temporary path, final path)`` or ``None``."""
-    out = _lib_path(source)
+    out = lib_path(source)
     if out.exists():
         return None
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+    cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
            str(CSRC / source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
@@ -106,11 +124,12 @@ def build_all(sources: Optional[Iterable[str]] = None) -> List[str]:
                 # atomic: a concurrent build in another process sees all
                 # or none of the library
                 os.replace(tmp, out)
-            _libs[s] = ctypes.CDLL(str(_lib_path(s)))
+            _libs[s] = ctypes.CDLL(str(lib_path(s)))
     return [s for s, b in started if b is not None]
 
 
-def _lib(source: str) -> ctypes.CDLL:
+def library(source: str) -> ctypes.CDLL:
+    """The loaded library of one source, built first if need be."""
     lib = _libs.get(source)
     if lib is None:
         build_all([source])
@@ -191,7 +210,7 @@ class Kernel:
 
     def _entry(self):
         if self._fn is None:
-            fn = getattr(_lib(self.source), self.symbol)
+            fn = getattr(library(self.source), self.symbol)
             fn.argtypes = self.argtypes
             fn.restype = ctypes.c_int
             self._fn = fn
@@ -223,3 +242,97 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> Dict[str, int]:
     return {name: k.launches for name, k in KERNELS.items()}
+
+
+# ---- what ptxas and cuobjdump say of the built kernels ----
+
+REPORT_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
+SASS_OPS = ("HGMMA", "UTMALDG")
+
+
+def demangle(names: List[str]) -> Dict[str, str]:
+    """Mangled → readable names (``cu++filt``; unchanged without it)."""
+    try:
+        tool = _cuda_tool("cu++filt")
+    except RuntimeError:
+        return {n: n for n in names}
+    out = subprocess.run([tool], input="\n".join(names), text=True,
+                         capture_output=True, check=True).stdout.split("\n")
+    return dict(zip(names, out))
+
+
+def ptxas_report(source: str) -> Tuple[Dict[str, dict], List[str]]:
+    """``({mangled kernel: {"registers", "smem", "stack", "spill_stores",
+    "spill_loads"}}, notes)`` from ``nvcc -Xptxas -v`` on one source; the
+    notes are ptxas's warnings and performance remarks (a serialized
+    ``wgmma``, say)."""
+    out_dir = BUILD_DIR / "report"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-Xptxas", "-v", "-I", str(CSRC),
+           "-o", str(out_dir / source.replace(".cu", ".so")),
+           str(CSRC / source)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on csrc/{source}:\n{res.stderr}")
+    report, notes, cur = {}, [], None
+    for line in (res.stdout + res.stderr).splitlines():
+        if "warning" in line or "Performance" in line:
+            notes.append(line.strip())
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = report.setdefault(m.group(1), {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            cur.update(stack=int(m.group(1)), spill_stores=int(m.group(2)),
+                       spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(sm.group(1)) if sm else 0
+    return report, notes
+
+
+def sass_counts(lib: Path) -> Dict[str, Dict[str, int]]:
+    """``{mangled kernel: {"HGMMA": n, "UTMALDG": n}}`` over the machine
+    code of one built library."""
+    res = subprocess.run([_cuda_tool("cuobjdump"), "--dump-sass", str(lib)],
+                         capture_output=True, text=True, check=True)
+    counts, cur = {}, None
+    for line in res.stdout.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            cur = counts.setdefault(m.group(1), dict.fromkeys(SASS_OPS, 0))
+            continue
+        if cur is not None:
+            for op in SASS_OPS:
+                if re.search(rf"\b{op}\b", line):
+                    cur[op] += 1
+    return counts
+
+
+def main(argv: List[str]) -> int:
+    sources = argv or list(REPORT_SOURCES)
+    for source in sources:
+        rep, notes = ptxas_report(source)
+        sass = sass_counts(BUILD_DIR / "report" / source.replace(".cu", ".so"))
+        names = demangle(sorted(set(rep) | set(sass)))
+        print(f"== csrc/{source}")
+        for line in notes:
+            print(line)
+        for k in sorted(rep):
+            r, s = rep[k], sass.get(k, {})
+            print(f"{names[k]}: {r.get('registers')} registers, "
+                  f"{r.get('smem')} bytes static smem, stack "
+                  f"{r.get('stack')}, spill stores {r.get('spill_stores')}, "
+                  f"spill loads {r.get('spill_loads')}; SASS "
+                  + ", ".join(f"{op} {s.get(op, 0)}" for op in SASS_OPS))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))

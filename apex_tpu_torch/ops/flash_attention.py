@@ -4,13 +4,16 @@
 :func:`flash_attention` is a ``torch.autograd.Function`` that saves
 ``q, k, v, o`` and the forward's ``lse``.  For CUDA tensors the forward
 is kernel K2 (``csrc/flash_attention.cu``: online softmax, causal, an
-additive or boolean key-padding mask, grouped K/V).  The backward, after
-``delta = rowsum(do·o)`` in fp32 (XLA in JAX, a torch op here), routes
-by the key length as the JAX ``auto`` route does: up to
+additive or boolean key-padding mask, grouped K/V; bf16 and fp16 on a
+Hopper kernel of TMA loads and ``wgmma`` products, fp32 on CUDA cores).
+The backward, after ``delta = rowsum(do·o)`` in fp32 (XLA in JAX, a
+torch op here), routes by the key length as the JAX ``auto`` route does:
+up to
 :data:`SHORT_KEYS_MAX` (512) keys it is row 5, the one-pass dq/dk/dv of
 ``csrc/flash_attention_bwd_short.cu``; above, the split pair K6 (dq) and
-K7 (dk/dv) of ``csrc/flash_attention_bwd.cu``.  The route depends on the
-shape only (no environment variable).
+K7 (dk/dv) of ``csrc/flash_attention_bwd.cu`` (Hopper kernels for bf16
+and fp16, as K2).  The route depends on the shape only (no environment
+variable).
 For CPU tensors, and under ``backend="reference"``, the forward is
 :func:`flash_attention_fwd_ref` (the materialized softmax of
 :func:`mha_reference`, plus its lse) and the backward
@@ -37,7 +40,7 @@ from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_bwd_operands", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_bwd_fused", "SHORT_KEYS_MAX",
+           "flash_bwd_fused", "SHORT_KEYS_MAX", "hopper_attributes",
            "flash_attention_fwd_ref", "flash_attention_bwd_ref",
            "mha_reference"]
 
@@ -68,6 +71,29 @@ FLASH_BWD_SHORT = ku.register(ku.Kernel(
 
 # the JAX auto route's crossover (APEX_TPU_FLASH_BWD_FUSED_MAX default)
 SHORT_KEYS_MAX = 512
+
+
+def hopper_attributes(dtype: torch.dtype = torch.bfloat16,
+                      d: int = 64) -> dict:
+    """What the driver reports for the 16-bit Hopper kernels of K2, K6
+    and K7 at head size ``d``: ``{kernel: {"registers", "smem_bytes",
+    "ctas_per_sm", "spill_bytes"}}`` (registers per thread at launch,
+    dynamic plus static shared memory per CTA, resident CTAs per SM,
+    local memory per thread).  Needs the card."""
+    code = ku.dtype_code(torch.empty((), dtype=dtype))
+    keys = ("registers", "smem_bytes", "ctas_per_sm", "spill_bytes")
+    out = {}
+    for kern, symbol, lead in ((FLASH_FWD, "apex_flash_fwd_attrs", ()),
+                               (FLASH_BWD_DQ, "apex_flash_bwd_attrs", (0,)),
+                               (FLASH_BWD_DKV, "apex_flash_bwd_attrs",
+                                (1,))):
+        fn = getattr(ku.library(kern.source), symbol)
+        vals = (ctypes.c_int * 4)()
+        err = fn(*(ctypes.c_int(x) for x in lead + (code, d)), vals)
+        if err != 0:
+            raise RuntimeError(f"{symbol}: cudaError {err}")
+        out[kern.name] = dict(zip(keys, vals))
+    return out
 
 
 def _additive_kpm(key_padding_mask: torch.Tensor) -> torch.Tensor:

@@ -6,7 +6,10 @@
 1. Checks the card (CUDA present, compute capability 9.0) and prints its
    name, count and power limit.
 2. Builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (one
-   ``nvcc`` per source, all at once) and prints the build time.
+   ``nvcc`` per source, all at once) and prints the build time; prints
+   the registers, shared memory per CTA and CTAs per SM of the Hopper
+   kernels of K2, K6 and K7 (bf16, fp16; d 32/64/128) and checks that
+   each one's machine code holds ``HGMMA`` and ``UTMALDG`` instructions.
 3. Holds each kernel (K1 LayerNorm, K2 flash attention, K3 fused decode
    layer with a bf16 and an int8 pool, K4 fused sampler, row 6 ragged
    paged attention, row 9 ragged grouped matmul (LoRA's fp32 branch),
@@ -45,7 +48,10 @@
    causal and GQA), beside K6 + K7 on the same inputs and SDPA's
    backward; row 11 (the scaled masked softmax) at BERT's fused_softmax
    scores [8, 16, 512, 512] fp32 with a [8, 1, 1, 512] mask (also bf16,
-   causal, a full-shape mask); K2 at BERT's forward shape as a variant.
+   causal, a full-shape mask); K2 at BERT's forward shape and at the GPT
+   step's (b16 s1024 n12 d64 causal, beside SDPA's forward) as variants;
+   K6 + K7 also timed as one pair, the backward function, with its own
+   bound.
 6. Drives the training path: the GPT-2 125M AMP-O2 train step
    (``make_gpt_train_step``, ``fused_adam(lr=1e-4)``, fused head+CE) at
    b16 x s1024 on random tokens, counting every kernel launch of one
@@ -313,10 +319,14 @@ def kernel_flash(dev, gen):
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     bert = kernel_flash_bert_shape(dev, gen)
     errs.update(bert.pop("errs"))
+    gpt = kernel_flash_gpt_shape(dev, gen)
+    errs.update(gpt.pop("errs"))
     check(max(errs.values()) <= tol, f"K2 error {errs}")
     return {
         "variants": {"bert b8 s512 n16 d64 non-causal, ragged padding":
-                     bert},
+                     bert,
+                     f"gpt step b{TRAIN_BATCH} s{TRAIN_SEQ} n12 d64 causal":
+                     gpt},
         "err": max(errs.values()), "tol": tol, "detail": errs,
         "ms": time_ms(lambda: tfa.flash_attention(
             q, k, v, causal=True, key_padding_mask=m)),
@@ -367,6 +377,61 @@ def kernel_flash_bert_shape(dev, gen):
             qt, kt, vt, attn_mask=add)),
         "bound_ms": bms, "bound_by": by,
     }
+
+
+def kernel_flash_gpt_shape(dev, gen):
+    """K2 at the GPT O2 step's forward shape: b16 s1024 n12 d64 bf16
+    causal, no padding (12 launches a step), beside SDPA's forward."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    b, s, n, d = TRAIN_BATCH, TRAIN_SEQ, 12, 64
+    q, k, v = (torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+               for _ in range(3))
+    got = tfa.flash_attention(q, k, v, causal=True)
+    want = tfa.flash_attention(q, k, v, causal=True, backend="reference")
+    err = max_err(got, want)
+    del want
+    pairs = n * b * s * (s + 1) // 2
+    nbytes = 4 * b * s * n * d * 2 + b * n * s * 4
+    bms, by = bound(nbytes, 4 * d * pairs, PEAK_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    return {
+        "errs": {"gpt step causal": err},
+        "ms": time_ms(lambda: tfa.flash_attention(q, k, v, causal=True)),
+        "plain_ms": time_ms(lambda: tfa.flash_attention(
+            q, k, v, causal=True, backend="reference"), iters=2, reps=2),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True)),
+        "bound_ms": bms, "bound_by": by,
+    }
+
+
+def hopper_kernels():
+    """The 16-bit K2, K6 and K7 kernels as built and as the driver sees
+    them: registers, shared memory per CTA and CTAs per SM of each (bf16
+    and fp16, d 32/64/128), and the HGMMA (wgmma) and UTMALDG (TMA load)
+    instructions in each one's machine code, which must both be there."""
+    import re
+
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    attrs = {f"{str(dt)[6:]} d{d}": tfa.hopper_attributes(dt, d)
+             for dt in (torch.bfloat16, torch.float16)
+             for d in (32, 64, 128)}
+    sass = {}
+    for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
+        counts = {k: c
+                  for k, c in ku.sass_counts(ku.lib_path(src)).items()
+                  if "sm90_kernel" in k}
+        for k, name in ku.demangle(sorted(counts)).items():
+            m = re.search(r"(\w+_sm90_kernel<[^>]*>)", name)
+            sass[m.group(1) if m else name] = counts[k]
+    check(len(sass) == 18, f"expected 3 kernels x 2 dtypes x 3 head sizes "
+          f"of Hopper code, found {sorted(sass)}")
+    check(all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in sass.values()),
+          f"a Hopper kernel without wgmma or TMA loads: {sass}")
+    return attrs, sass
 
 
 def kernel_decode(dev, gen):
@@ -1479,9 +1544,18 @@ def kernel_flash_bwd(dev, gen):
 
     lib_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
               - time_ms(sdpa))
+    # the pair as one function: 10·d flops per open pair (s, dp, dq, dk,
+    # dv), each of q, k, v, do, dq, dk, dv, lse and delta moved once
+    pair_b, pair_by = bound(7 * b * s * n * d * 2 + stats, 10 * d * pairs,
+                            PEAK_BF16_FLOPS)
+    pair = {"ms": time_ms(lambda: (tfa.flash_bwd_dq(ops, causal=True),
+                                   tfa.flash_bwd_dkv(ops, causal=True))),
+            "plain_ms": plain_ms, "library_ms": lib_ms,
+            "bound_ms": pair_b, "bound_by": pair_by}
     common = {"err": abs_err, "rel_err": max(errs.values()),
               "tol": FLASH_BWD_TOL, "detail": errs,
-              "plain_ms": plain_ms, "library_ms": lib_ms}
+              "plain_ms": plain_ms, "library_ms": lib_ms,
+              "variants": {"pair K6 + K7 (dq, dk, dv: the function)": pair}}
     shape = (f"b={b} s={s} n={n} d={d} bf16 causal (checked also with "
              "key padding and GQA g=4); plain and library = the whole "
              "backward (dq, dk, dv)")
@@ -2582,6 +2656,11 @@ def main() -> int:
     built = ku.build_all()
     print(f"build: {time.perf_counter() - t0:.1f}s wall (one nvcc per "
           f"source, in parallel), compiled now: {built}")
+
+    attrs, sass = hopper_kernels()
+    print(f"hopper kernels (16-bit K2, K6, K7) on {smi}: registers, shared "
+          f"memory per CTA and CTAs per SM {json.dumps(attrs)}; SASS "
+          f"HGMMA / UTMALDG per kernel {json.dumps(sass)}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False

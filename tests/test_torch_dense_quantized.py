@@ -140,12 +140,11 @@ def test_quantize_params_tree_and_bytes_equal(name):
         tq.quantize_params(tqp)
 
 
-def test_moe_slabs_wait_for_the_grouped_kernel():
+def test_moe_slabs_quantize_per_layer():
     """Row 9's int8 branch came with the MoE slice: the expert slabs
     quantize per layer as ``quantize_group_weights`` (one scale block of
     32 here: 128 clamped to the in-dim), and ``dequantize_params`` gives
-    them back as fp32 slabs within half a scale step.  (The name dates
-    from when this test asserted that MoE slabs raised.)"""
+    them back as fp32 slabs within half a scale step."""
     from apex_tpu_torch.ops.grouped_matmul import quantize_group_weights
 
     cfg = TConfig(num_layers=1, hidden_size=32, num_attention_heads=2,

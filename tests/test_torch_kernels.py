@@ -58,22 +58,41 @@ def test_k1_layer_norm(dev, dtype, tol, rms, hidden):
                                         (torch.float16, 2e-3)])
 @pytest.mark.parametrize("n, g, causal, padded, d", [
     (4, 4, True, False, 64), (4, 4, True, True, 64), (4, 4, False, True, 64),
-    (12, 4, True, True, 64), (4, 2, True, True, 128), (4, 4, True, True, 32)])
-def test_k2_flash_attention(dev, dtype, tol, n, g, causal, padded, d):
+    (12, 4, True, True, 64), (4, 2, True, True, 128), (4, 4, True, True, 32),
+    (8, 1, True, True, 64), (4, 1, False, True, 128),
+    (8, 2, False, False, 32)])
+@pytest.mark.parametrize("sq, sk", [(130, 130), (1030, 1030), (130, 300),
+                                    (300, 130)])
+def test_k2_flash_attention(dev, dtype, tol, n, g, causal, padded, d, sq,
+                            sk):
+    """K2 against mha_reference: tails past a 128-row tile (130, 1030),
+    sq != sk, MQA and GQA, every head size; when padded, batch row 2 is
+    fully masked (o = 0, lse = -1e30)."""
     gen = _gen(1)
-    b, s = 3, 130
-    q = torch.randn(b, s, n, d, device=dev, generator=gen).to(dtype)
-    k = torch.randn(b, s, g, d, device=dev, generator=gen).to(dtype)
-    v = torch.randn(b, s, g, d, device=dev, generator=gen).to(dtype)
+    b = 3
+    q = torch.randn(b, sq, n, d, device=dev, generator=gen).to(dtype)
+    k = torch.randn(b, sk, g, d, device=dev, generator=gen).to(dtype)
+    v = torch.randn(b, sk, g, d, device=dev, generator=gen).to(dtype)
     kpm = None
     if padded:
-        lens = torch.tensor([130, 77, 5], device=dev)
-        kpm = torch.arange(s, device=dev)[None] >= lens[:, None]
+        lens = torch.tensor([sk, 77, 0], device=dev)
+        kpm = torch.arange(sk, device=dev)[None] >= lens[:, None]
+    before = tfa.FLASH_FWD.launches
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal,
                                      key_padding_mask=kpm)
-    ref = tfa.mha_reference(q, k, v, causal=causal, key_padding_mask=kpm)
+    ref, ref_lse = tfa.flash_attention_fwd_ref(q, k, v, causal=causal,
+                                               key_padding_mask=kpm)
+    torch.cuda.synchronize()
+    assert tfa.FLASH_FWD.launches == before + 1
     torch.testing.assert_close(o.float(), ref.float(), atol=tol, rtol=tol)
     assert torch.isfinite(lse).all()
+    live = ref_lse > -1e29
+    assert torch.equal(lse > -1e29, live)
+    torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3,
+                               rtol=1e-4)
+    if padded:
+        assert torch.count_nonzero(o[2]) == 0
+        assert bool((lse.reshape(b, n, sq)[2] == -1e30).all())
 
 
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5),
@@ -186,16 +205,19 @@ _BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
 @pytest.mark.parametrize("n, g, causal, padded, d", [
     (4, 4, True, False, 64), (4, 4, True, True, 64), (4, 4, False, True, 64),
     (12, 4, True, True, 64), (8, 1, True, True, 64), (4, 2, True, True, 128),
-    (4, 4, True, True, 32)])
-def test_k6_k7_flash_attention_bwd(dev, dtype, n, g, causal, padded, d):
+    (4, 4, True, True, 32), (4, 1, False, True, 128),
+    (8, 2, False, False, 32)])
+@pytest.mark.parametrize("s", [130, 1030])
+def test_k6_k7_flash_attention_bwd(dev, dtype, n, g, causal, padded, d, s):
     """K6 dq and K7 dk/dv, launched directly, against
-    flash_attention_bwd_ref on the same o and lse; batch row 2 is fully
+    flash_attention_bwd_ref on the same o and lse: tails past a 128-row
+    tile (130, 1030), MQA and GQA, every head size; batch row 2 is fully
     masked when padded."""
-    b, s = 3, 130
+    b = 3
     q, k, v, do = _flash_inputs(dtype, b, s, n, g, d, seed=5)
     kpm = None
     if padded:
-        lens = torch.tensor([130, 77, 0], device=dev)
+        lens = torch.tensor([s, 77, 0], device=dev)
         kpm = torch.arange(s, device=dev)[None] >= lens[:, None]
     o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal,
                                      key_padding_mask=kpm)
@@ -214,6 +236,71 @@ def test_k6_k7_flash_attention_bwd(dev, dtype, n, g, causal, padded, d):
         assert _rel_err(a, e) <= _BWD_TOL[dtype], name
     if padded:   # the fully masked batch row has no gradient at all
         assert all(torch.count_nonzero(t[2]) == 0 for t in got)
+
+
+def test_split_backward_launches_once_and_is_deterministic(dev):
+    """Above SHORT_KEYS_MAX keys flash_attention_bwd launches K6 and K7
+    once each (row 5 not at all), and two calls give bitwise-equal dq, dk
+    and dv: every output tile has one writer and no atomics."""
+    q, k, v, do = _flash_inputs(torch.bfloat16, 2, 1030, 8, 2, 64, seed=11)
+    kpm = torch.arange(1030, device=dev)[None] >= torch.tensor(
+        [[1030], [600]], device=dev)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=True,
+                                     key_padding_mask=kpm)
+    runs = []
+    for _ in range(2):
+        before = ku.launch_counts()
+        runs.append(tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True,
+                                            key_padding_mask=kpm))
+        torch.cuda.synchronize()
+        after = ku.launch_counts()
+        assert after["flash_attention_bwd_dq"] == \
+            before["flash_attention_bwd_dq"] + 1
+        assert after["flash_attention_bwd_dkv"] == \
+            before["flash_attention_bwd_dkv"] + 1
+        assert after["flash_attention_bwd_short"] == \
+            before["flash_attention_bwd_short"]
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+
+
+def test_hopper_flash_kernels_in_a_cuda_graph(dev):
+    """K2 and the pair K6 + K7 captured in a CUDA graph (their tensor
+    maps pass by value): a replay on new inputs copied into the captured
+    buffers equals the eager calls on those inputs, bit for bit."""
+    args = dict(causal=True)
+    q, k, v, do = _flash_inputs(torch.bfloat16, 2, 600, 4, 2, 64, seed=12)
+
+    def step():
+        o, lse = tfa.flash_attention_fwd(q, k, v, **args)
+        ops = tfa.flash_bwd_operands(q, k, v, o, lse, do)
+        return (o, lse, tfa.flash_bwd_dq(ops, **args),
+                *tfa.flash_bwd_dkv(ops, **args))
+
+    step()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = step()
+    fresh = _flash_inputs(torch.bfloat16, 2, 600, 4, 2, 64, seed=13)
+    for dst, src in zip((q, k, v, do), fresh):
+        dst.copy_(src)
+    graph.replay()
+    eager = step()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("d", [32, 64, 128])
+def test_hopper_flash_kernels_fit_the_sm(dev, dtype, d):
+    """The 16-bit K2, K6 and K7 kernels launch one 384-thread CTA per SM
+    within the 227 KB of shared memory a block may use."""
+    attrs = tfa.hopper_attributes(dtype, d)
+    assert set(attrs) == {"flash_attention_fwd", "flash_attention_bwd_dq",
+                          "flash_attention_bwd_dkv"}
+    for a in attrs.values():
+        assert a["ctas_per_sm"] >= 1 and a["smem_bytes"] <= 232448
+        assert 0 < a["registers"] <= 168
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
