@@ -44,32 +44,28 @@
 //   and w, y in their dtype).  Bound on the H100: at the ragged MoE step
 //   (N = 4096, K = 768, P = 3072, G = 8, or the transpose) bytes and
 //   operations are within 10% of each other (~0.02 ms a call).  Design:
-//   row 10's tensor-core tile (csrc/mma_tile.cuh: 64 x 64 per CTA of
-//   four warps, mma.sync m16n8k16, fp32 accumulators, k steps of 32 in
-//   shared memory) over tiles of 64 rows of one segment; the rows of a
-//   partial tile outside the segment load as zeros and are not stored.
-//   The TPU kernel widens both operands to fp32 before its dot; a product
-//   of two 16-bit floats is exact in fp32, so this is its function up to
-//   summation order.  trans = 1 reads w as [G, P, K] (each group's
-//   weight transposed in place, k contiguous): dx = g @ w[g]^T of the
-//   backward without a transposed copy of the slab.  Either way each
-//   weight tile stages in shared memory in its source's layout with
-//   16-byte stores (k-major for the forward, fragments by
-//   ldmatrix.trans; n-major for the transposed read).  Needs K % 8 == 0,
-//   P % 8 == 0 and 16-byte-aligned x and w (16-byte loads).
+//   the Hopper GEMM of sm90_gemm.cuh (persistent CTAs, a TMA ring fed by
+//   one producer warp, two consumer warpgroups issuing wgmma m64n128k16
+//   from shared memory into fp32 registers) over tiles of 128 rows of one
+//   segment; the rows of a partial tile outside the segment are computed
+//   and dropped at the store.  The TPU kernel widens both operands to
+//   fp32 before its dot; a product of two 16-bit floats is exact in fp32,
+//   so this is its function up to summation order.  trans = 0 reads w[g]
+//   [K, P] as an MN-major B; trans = 1 reads w as [G, P, K] (each group's
+//   weight transposed in place, k contiguous), a K-major B: dx = g @
+//   w[g]^T of the backward without a transposed copy.  Needs K % 8 == 0,
+//   P % 8 == 0 and 16-byte-aligned x and w (TMA's row strides).
 //
 // * apex_grouped_matmul_int8, the int8-slab branch (quantized MoE
 //   experts; _gmm_kernel with quant=True): wire [G, K, P] int8 and scale
 //   [G, K / kb, P] fp32, one scale per (kb-row block, column), read
 //   through the tile's group as the TPU kernel's BlockSpec reads both
-//   through its step's group.  The same tile, with each int8 tile widened
-//   to x's 16-bit type in shared memory (exact: |q| <= 127) and each k
-//   block's fp32 partial multiplied by its scale row in registers before
-//   it joins the accumulator, as row 10 does; y in x's dtype.  Needs
-//   16-bit x, K % 8 == 0, kb % 32 == 0, P % 16 == 0.
-#include <type_traits>
-
-#include "mma_tile.cuh"
+//   through its step's group.  The same GEMM, with each int8 tile widened
+//   to x's 16-bit type in shared memory by the producer warpgroup (exact:
+//   |q| <= 127) and each k block's fp32 partial multiplied by its scale
+//   row in registers before it joins the accumulator, as row 10 does; y in
+//   x's dtype.  Needs 16-bit x, K % kb == 0, kb % 32 == 0, P % 16 == 0.
+#include "sm90_gemm.cuh"
 
 namespace {
 
@@ -77,15 +73,6 @@ constexpr int kThreads = 256;
 constexpr int kBM = 16;         // rows of one tile (one segment's)
 constexpr int kKC = 256;        // contraction chunk staged in shared memory
 constexpr int kXs = kBM + 4;    // padded k row of the staged chunk
-
-// Segment bound i of 0..G+2 before the running max: 0, offsets[0..G]
-// clamped into [0, N], N.
-__device__ __forceinline__ int raw_bound(const int* __restrict__ off, int G,
-                                         int N, int i) {
-  if (i <= 0) return 0;
-  if (i > G + 1) return N;
-  return min(max(off[i - 1], 0), N);
-}
 
 // Warp 0: the tile of index t, tiles of at most bm rows — (segment,
 // first row, rows); rows = 0 when t is past the last tile.  Segment
@@ -99,14 +86,15 @@ __device__ void find_tile(const int* __restrict__ off, int G, int N, int t,
   int tiles_before = 0, bound_before = 0;
   for (int base = 0; base < nseg; base += 32) {
     const int s = base + lane;
-    int lo = s < nseg ? raw_bound(off, G, N, s) : N;
+    int lo = s < nseg ? gemm::raw_bound(off, G, N, s) : N;
 #pragma unroll
     for (int o = 1; o < 32; o <<= 1) {
       const int v = __shfl_up_sync(full, lo, o);
       if (lane >= o) lo = max(lo, v);
     }
     lo = max(lo, bound_before);
-    const int hi = s < nseg ? max(lo, raw_bound(off, G, N, s + 1)) : N;
+    const int hi =
+        s < nseg ? max(lo, gemm::raw_bound(off, G, N, s + 1)) : N;
     const int nt = s < nseg ? (hi - lo + bm - 1) / bm : 0;
     int incl = nt;
 #pragma unroll
@@ -231,77 +219,6 @@ __global__ void gmm_sum_splits_kernel(const float* __restrict__ partial,
   y[e] = apex_from_float<T>(s);
 }
 
-// The 16-bit branch: one CTA per (tile of <= 64 rows of one segment, 64
-// columns).  kTrans reads w as [G, P, K].
-template <typename T, bool kTrans>
-__global__ void __launch_bounds__(kTileThreads) gmm_mma_kernel(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const int* __restrict__ off, T* __restrict__ y, int N, int K, int P,
-    int G) {
-  // B stages as its source lies: k-major from [K, P], n-major from the
-  // transposed [P, K]
-  using Smem = typename std::conditional<kTrans, MmaSmemNK<T>,
-                                         MmaSmemKN<T>>::type;
-  __shared__ __align__(16) Smem s;
-  __shared__ int s_tile[3];
-  if (threadIdx.x < 32) find_tile(off, G, N, blockIdx.x, kTileM, s_tile);
-  __syncthreads();
-  const int seg = s_tile[0], row0 = s_tile[1], R = s_tile[2];
-  if (R <= 0) return;
-  const int n0 = blockIdx.y * kTileN;
-  MmaFrag acc;
-  mma_zero(acc);
-  // segments 0 and G + 1 lie outside the window: their tiles write zeros
-  if (seg >= 1 && seg <= G) {
-    const T* __restrict__ wg = w + (size_t)(seg - 1) * K * P;
-    for (int k0 = 0; k0 < K; k0 += kTileK) {
-      mma_stage_a(s, x, K, row0, R, k0);
-      if constexpr (kTrans)
-        mma_stage_bt(s, wg, K, P, k0, n0);
-      else
-        mma_stage_b(s, wg, K, P, k0, n0);
-      __syncthreads();
-      mma_tile_step(s, acc);
-      __syncthreads();
-    }
-  }
-  mma_store(acc, y, P, row0, R, n0, P);
-}
-
-// The int8-slab branch: the 16-bit tile with int8 weights widened in
-// shared memory and each kb block's partial scaled in registers.
-template <typename T>
-__global__ void __launch_bounds__(kTileThreads) gmm_int8_kernel(
-    const T* __restrict__ x, const int8_t* __restrict__ wire,
-    const float* __restrict__ scale, const int* __restrict__ off,
-    T* __restrict__ y, int N, int K, int P, int G, int kb) {
-  __shared__ __align__(16) MmaSmemKN<T> s;
-  __shared__ int s_tile[3];
-  if (threadIdx.x < 32) find_tile(off, G, N, blockIdx.x, kTileM, s_tile);
-  __syncthreads();
-  const int seg = s_tile[0], row0 = s_tile[1], R = s_tile[2];
-  if (R <= 0) return;
-  const int n0 = blockIdx.y * kTileN;
-  MmaFrag part, acc;
-  mma_zero(part);
-  mma_zero(acc);
-  if (seg >= 1 && seg <= G) {
-    const int8_t* __restrict__ wg = wire + (size_t)(seg - 1) * K * P;
-    const float* __restrict__ sg = scale + (size_t)(seg - 1) * (K / kb) * P;
-    for (int k0 = 0; k0 < K; k0 += kTileK) {
-      mma_stage_a(s, x, K, row0, R, k0);
-      mma_stage_b_int8(s, wg, K, P, k0, n0);
-      __syncthreads();
-      mma_tile_step(s, part);
-      __syncthreads();
-      if ((k0 + kTileK) % kb == 0)   // a scale block ends: scale and add
-        mma_scale_add(acc, part, sg + (size_t)((k0 + kTileK) / kb - 1) * P,
-                      n0, P);
-    }
-  }
-  mma_store(acc, y, P, row0, R, n0, P);
-}
-
 int column_tile(int P) {
   int bn = 1;
   while (bn < P && bn < kThreads) bn <<= 1;
@@ -348,66 +265,83 @@ extern "C" int apex_grouped_matmul(const void* x, const void* w,
 
 // x [N, K] and y [N, P] bf16 or fp16, w [G, K, P] (trans = 0) or
 // [G, P, K] (trans = 1) of the same dtype, offsets [G + 1] int32 on the
-// device.  Needs K % 8 == 0, P % 8 == 0 and 16-byte-aligned x and w.
+// device, G <= 2048; tiles of 128 columns, or 256 with wide = 1.  Needs
+// K % 8 == 0, P % 8 == 0 and 16-byte-aligned x and w.
 extern "C" int apex_grouped_matmul_mma(const void* x, const void* w,
                                        const void* offsets, void* y, int N,
                                        int K, int P, int G, int trans,
-                                       int dtype, cudaStream_t stream) {
+                                       int wide, int dtype,
+                                       cudaStream_t stream) {
   if (N <= 0 || K < 0 || P <= 0 || G < 0 || K % 8 != 0 || P % 8 != 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((N + kTileM - 1) / kTileM + G + 2, (P + kTileN - 1) / kTileN);
-  switch (dtype) {
-    case APEX_BF16:
-      if (trans)
-        gmm_mma_kernel<__nv_bfloat16, true><<<grid, kTileThreads, 0, stream>>>(
-            (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-            (const int*)offsets, (__nv_bfloat16*)y, N, K, P, G);
-      else
-        gmm_mma_kernel<__nv_bfloat16, false><<<grid, kTileThreads, 0, stream>>>(
-            (const __nv_bfloat16*)x, (const __nv_bfloat16*)w,
-            (const int*)offsets, (__nv_bfloat16*)y, N, K, P, G);
-      break;
-    case APEX_F16:
-      if (trans)
-        gmm_mma_kernel<__half, true><<<grid, kTileThreads, 0, stream>>>(
-            (const __half*)x, (const __half*)w, (const int*)offsets,
-            (__half*)y, N, K, P, G);
-      else
-        gmm_mma_kernel<__half, false><<<grid, kTileThreads, 0, stream>>>(
-            (const __half*)x, (const __half*)w, (const int*)offsets,
-            (__half*)y, N, K, P, G);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  const int mode = wide ? (trans ? gemm::kTransWide : gemm::kFwdWide)
+                        : (trans ? gemm::kTrans : gemm::kFwd);
+#define APEX_GMM_LAUNCH(T, MODE)                                            \
+  case MODE:                                                                \
+    return gemm::launch<T, MODE>(x, w, nullptr, offsets, y, N, K, P, G, 0, \
+                                 stream);
+  if (dtype == APEX_BF16) {
+    switch (mode) {
+      APEX_GMM_LAUNCH(__nv_bfloat16, gemm::kFwd)
+      APEX_GMM_LAUNCH(__nv_bfloat16, gemm::kTrans)
+      APEX_GMM_LAUNCH(__nv_bfloat16, gemm::kFwdWide)
+      APEX_GMM_LAUNCH(__nv_bfloat16, gemm::kTransWide)
+    }
+  } else if (dtype == APEX_F16) {
+    switch (mode) {
+      APEX_GMM_LAUNCH(__half, gemm::kFwd)
+      APEX_GMM_LAUNCH(__half, gemm::kTrans)
+      APEX_GMM_LAUNCH(__half, gemm::kFwdWide)
+      APEX_GMM_LAUNCH(__half, gemm::kTransWide)
+    }
   }
-  return (int)cudaGetLastError();
+#undef APEX_GMM_LAUNCH
+  return (int)cudaErrorInvalidValue;
 }
 
 // x [N, K] and y [N, P] bf16 or fp16; wire [G, K, P] int8; scale
-// [G, K / kb, P] fp32; offsets [G + 1] int32 on the device.  Needs
-// K % kb == 0, kb % 32 == 0, P % 16 == 0 and 16-byte-aligned x and wire.
+// [G, K / kb, P] fp32; offsets [G + 1] int32 on the device, G <= 2048;
+// tiles of 64 columns with narrow = 1 (when kb % 64 == 0), else 128.
+// Needs K % kb == 0, kb % 32 == 0, P % 16 == 0 and 16-byte-aligned x and
+// wire.
 extern "C" int apex_grouped_matmul_int8(const void* x, const void* wire,
                                         const void* scale,
                                         const void* offsets, void* y, int N,
                                         int K, int P, int G, int kb,
-                                        int dtype, cudaStream_t stream) {
-  if (N <= 0 || K < 0 || P <= 0 || G < 0 || kb <= 0 || kb % kTileK != 0 ||
+                                        int narrow, int dtype,
+                                        cudaStream_t stream) {
+  if (N <= 0 || K < 0 || P <= 0 || G < 0 || kb <= 0 || kb % 32 != 0 ||
       K % kb != 0 || P % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  dim3 grid((N + kTileM - 1) / kTileM + G + 2, (P + kTileN - 1) / kTileN);
-  switch (dtype) {
-    case APEX_BF16:
-      gmm_int8_kernel<__nv_bfloat16><<<grid, kTileThreads, 0, stream>>>(
-          (const __nv_bfloat16*)x, (const int8_t*)wire, (const float*)scale,
-          (const int*)offsets, (__nv_bfloat16*)y, N, K, P, G, kb);
-      break;
-    case APEX_F16:
-      gmm_int8_kernel<__half><<<grid, kTileThreads, 0, stream>>>(
-          (const __half*)x, (const int8_t*)wire, (const float*)scale,
-          (const int*)offsets, (__half*)y, N, K, P, G, kb);
-      break;
-    default:
-      return (int)cudaErrorInvalidValue;
+  if (dtype == APEX_BF16)
+    return gemm::launch_int8<__nv_bfloat16>(x, wire, scale, offsets, y, N, K,
+                                            P, G, kb, narrow, stream);
+  if (dtype == APEX_F16)
+    return gemm::launch_int8<__half>(x, wire, scale, offsets, y, N, K, P, G,
+                                     kb, narrow, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// {registers, shared memory per CTA, CTAs per SM, spill bytes} of the
+// tensor-core branches' kernels (gemm::Mode: 0 forward, 1 transposed
+// read, 2 int8 slab in stages of 64 k rows, 3 of 32, 4 and 5 the 16-bit
+// ones at 256 columns, 6 the int8 slab at 64 columns).
+extern "C" int apex_grouped_matmul_attrs(int mode, int dtype, int* out) {
+  const bool bf = dtype == APEX_BF16;
+  if (!bf && dtype != APEX_F16) return (int)cudaErrorInvalidValue;
+#define APEX_GMM_ATTRS(MODE)                                  \
+  case MODE:                                                  \
+    return bf ? gemm::attrs<__nv_bfloat16, MODE>(out)         \
+              : gemm::attrs<__half, MODE>(out);
+  switch (mode) {
+    APEX_GMM_ATTRS(gemm::kFwd)
+    APEX_GMM_ATTRS(gemm::kTrans)
+    APEX_GMM_ATTRS(gemm::kInt8)
+    APEX_GMM_ATTRS(gemm::kInt8K32)
+    APEX_GMM_ATTRS(gemm::kFwdWide)
+    APEX_GMM_ATTRS(gemm::kTransWide)
+    APEX_GMM_ATTRS(gemm::kInt8N64)
   }
-  return (int)cudaGetLastError();
+#undef APEX_GMM_ATTRS
+  return (int)cudaErrorInvalidValue;
 }

@@ -63,6 +63,16 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
+// The CUDA driver's encode needs the device's context current on the
+// thread.  A host thread that has made no runtime call yet (autograd's
+// backward thread, say) has none until the runtime binds it.
+inline int bind_context() {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaSetDevice(dev);
+  return (int)err;
+}
+
 // The map of a [batch, seq, heads, d] tensor of T (16-bit) as the 4-D
 // (d, heads, seq, batch), box (W, 1, rows, 1) with W = min(d, 64) and the
 // W * 2-byte swizzle.  Rows past seq read as zeros.  Returns 0 or an error.
@@ -71,6 +81,7 @@ int encode_bsnd(CUtensorMap* map, const void* base, int batch, int seq,
                 int heads, int d, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kTensorMapError;
+  if (int err = bind_context()) return err;
   const int w = d < 64 ? d : 64;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
@@ -86,6 +97,51 @@ int encode_bsnd(CUtensorMap* map, const void* base, int batch, int seq,
       CU_TENSOR_MAP_INTERLEAVE_NONE,
       w == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
+}
+
+// TMA's element type of T: bf16, fp16, or the bytes of an int8 slab.
+template <typename T>
+constexpr CUtensorMapDataType map_type() {
+  if (std::is_same<T, __half>::value) return CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  if (std::is_same<T, __nv_bfloat16>::value)
+    return CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  return CU_TENSOR_MAP_DATA_TYPE_UINT8;
+}
+
+// The map of a dense row-major tensor of T as `rank` (2 or 3) dimensions,
+// innermost first (x [N, K] is (K, N); a slab [G, K, P] is (P, K, G), so
+// that a box never crosses a group), box `box`.  The swizzle follows the
+// box's inner bytes: 128 or 64 bytes swizzle over themselves (the wgmma
+// operand layouts of Tile), anything else, an int8 tile that is widened
+// before any product reads it, lands unswizzled.  Boxes past an edge read
+// zeros.  Needs a 16-byte-aligned base and every row stride a multiple of
+// 16 bytes.  Returns 0 or an error.
+template <typename T>
+int encode_map(CUtensorMap* map, const void* base, int rank,
+               const uint64_t* dims, const uint32_t* box) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return kTensorMapError;
+  if (int err = bind_context()) return err;
+  cuuint64_t d[3], strides[2];
+  cuuint32_t b[3], elem[3] = {1, 1, 1};
+  uint64_t stride = sizeof(T);
+  for (int i = 0; i < rank; ++i) {
+    d[i] = dims[i];
+    b[i] = box[i];
+    if (i > 0) strides[i - 1] = stride;
+    stride *= dims[i];
+  }
+  const uint32_t inner = box[0] * (uint32_t)sizeof(T);
+  const CUtensorMapSwizzle swz = inner == 128 && sizeof(T) == 2
+                                     ? CU_TENSOR_MAP_SWIZZLE_128B
+                                 : inner == 64 && sizeof(T) == 2
+                                     ? CU_TENSOR_MAP_SWIZZLE_64B
+                                     : CU_TENSOR_MAP_SWIZZLE_NONE;
+  const CUresult r =
+      fn(map, map_type<T>(), rank, const_cast<void*>(base), d, strides, b,
+         elem, CU_TENSOR_MAP_INTERLEAVE_NONE, swz,
+         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kTensorMapError + (int)r;
 }
 
@@ -233,6 +289,41 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// One TMA box of a 2-D or 3-D map at (c0, c1[, c2]) into dst.
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// Orders this thread's generic writes to shared memory before later
+// reads by the asynchronous proxy (wgmma, TMA): a tile written by
+// threads (an int8 tile widened to 16 bits) is fenced by its writers
+// before they signal the warps whose wgmma reads it.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void st_shared16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
 // Every panel of a rows x D tile: rows row0.. of head `head`, batch b.
 template <int D, int ROWS>
 __device__ __forceinline__ void tma_tile(unsigned char* dst,
@@ -340,12 +431,75 @@ __device__ __forceinline__ uint32_t pack2(float lo, float hi) {
   }
 }
 
-// wgmma.mma_async m64nNk16, fp32 accumulators d (N / 2 per thread), A from
-// shared memory (descriptor a, K-major) or from registers (a[4], the
-// fragment layout of an m64 x k16 accumulator slice), B by descriptor;
-// TB = 1 reads B MN-major.  scale_d = 0 overwrites d.
+// 16 int8 values (one 16-byte load) widened to T, which is exact for
+// |q| <= 127: lo holds values 0-7 and hi 8-15, packed low-first as in
+// memory.  No I2F (a quarter-rate unit): each byte, flipped to q + 128,
+// is placed under a magic exponent by a byte permute and the bias taken
+// off in the float unit.  fp16: 0x64uu is the half 1024 + u, minus 1152
+// (two values an instruction).  bf16: 0x4B0000uu is the float 2^23 + u,
+// minus 2^23 + 128; the bf16 of a small integer is its float's upper half.
+template <typename T>
+__device__ __forceinline__ void widen16(uint4 raw, uint4& lo, uint4& hi) {
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const uint32_t u = w[i] ^ 0x80808080u;
+    if constexpr (std::is_same<T, __half>::value) {
+      const __half2 bias = __float2half2_rn(1152.0f);
+      uint32_t a = __byte_perm(u, 0x64646464u, 0x5140);
+      uint32_t b = __byte_perm(u, 0x64646464u, 0x5342);
+      __half2 ha = __hsub2(*reinterpret_cast<__half2*>(&a), bias);
+      __half2 hb = __hsub2(*reinterpret_cast<__half2*>(&b), bias);
+      o[2 * i] = *reinterpret_cast<uint32_t*>(&ha);
+      o[2 * i + 1] = *reinterpret_cast<uint32_t*>(&hb);
+    } else {
+      uint32_t f[4];
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+        f[j] = __float_as_uint(
+            __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540 | j)) -
+            8388736.0f);
+      o[2 * i] = __byte_perm(f[0], f[1], 0x7632);
+      o[2 * i + 1] = __byte_perm(f[2], f[3], 0x7632);
+    }
+  }
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
+}
 
-template <typename T, int TB>
+// wgmma.mma_async m64nNk16, fp32 accumulators d (N / 2 per thread), A from
+// shared memory (descriptor a) or from registers (a[4], the fragment
+// layout of an m64 x k16 accumulator slice), B by descriptor; TB = 1
+// reads B MN-major, TA = 1 a shared-memory A MN-major (16-bit types
+// only; the MN-major descriptor of an m64 A is desc_mn of a 64-column
+// tile).  scale_d = 0 overwrites d.
+
+template <typename T, int TB, int TA = 0>
+__device__ __forceinline__ void mma_ss_n16(float (&d)[8], uint64_t a,
+                                           uint64_t b, int scale_d) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.f16.f16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7},"
+        "%8, %9, p, 1, 1, %12, %11;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7},"
+        "%8, %9, p, 1, 1, %12, %11;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
+  }
+}
+
+template <typename T, int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t a,
                                            uint64_t b, int scale_d) {
   if constexpr (std::is_same<T, __half>::value) {
@@ -354,28 +508,28 @@ __device__ __forceinline__ void mma_ss_n32(float (&d)[16], uint64_t a,
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.f16.f16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15},"
-        "%16, %17, p, 1, 1, 0, %19;\n}\n"
+        "%16, %17, p, 1, 1, %20, %19;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
         "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15},"
-        "%16, %17, p, 1, 1, 0, %19;\n}\n"
+        "%16, %17, p, 1, 1, %20, %19;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 }
 
-template <typename T, int TB>
+template <typename T, int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
                                            uint64_t b, int scale_d) {
   if constexpr (std::is_same<T, __half>::value) {
@@ -385,7 +539,7 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
         "%26, %27, %28, %29, %30, %31},"
-        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        "%32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -393,7 +547,7 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
@@ -401,7 +555,7 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
         "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
         "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
         "%26, %27, %28, %29, %30, %31},"
-        "%32, %33, p, 1, 1, 0, %35;\n}\n"
+        "%32, %33, p, 1, 1, %36, %35;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -409,11 +563,11 @@ __device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 }
 
-template <typename T, int TB>
+template <typename T, int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
                                            uint64_t b, int scale_d) {
   if constexpr (std::is_same<T, __half>::value) {
@@ -426,7 +580,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
         "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
         "%62, %63},"
-        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        "%64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -440,7 +594,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   } else {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
@@ -451,7 +605,7 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
         "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
         "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
         "%62, %63},"
-        "%64, %65, p, 1, 1, 0, %67;\n}\n"
+        "%64, %65, p, 1, 1, %68, %67;\n}\n"
         : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
@@ -465,7 +619,103 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
         "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(a), "l"(b), "r"(scale_d), "n"(TB));
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
+  }
+}
+
+template <typename T, int TB, int TA = 0>
+__device__ __forceinline__ void mma_ss_n256(float (&d)[128], uint64_t a,
+                                            uint64_t b, int scale_d) {
+  if constexpr (std::is_same<T, __half>::value) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.f16.f16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+        "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+        "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+        "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+        "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+        "},"
+        "%128, %129, p, 1, 1, %132, %131;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+          "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+        "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+        "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37, "
+        "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+        "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, "
+        "%62, %63, %64, %65, %66, %67, %68, %69, %70, %71, %72, %73, "
+        "%74, %75, %76, %77, %78, %79, %80, %81, %82, %83, %84, %85, "
+        "%86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+        "%98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+        "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, "
+        "%118, %119, %120, %121, %122, %123, %124, %125, %126, %127 "
+        "},"
+        "%128, %129, p, 1, 1, %132, %131;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+          "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+          "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+          "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+          "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+          "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+          "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+          "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+          "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+          "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+          "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+          "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+          "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+          "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+          "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+          "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+          "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+          "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+          "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+          "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+          "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+          "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+          "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+          "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+        : "l"(a), "l"(b), "r"(scale_d), "n"(TB), "n"(TA));
   }
 }
 
@@ -593,16 +843,20 @@ __device__ __forceinline__ void mma_rs_n128(float (&d)[64], const uint32_t (&a)[
   }
 }
 
-template <typename T, int N, int TB>
+template <typename T, int N, int TB, int TA = 0>
 __device__ __forceinline__ void mma_ss(float (&d)[N / 2], uint64_t a,
                                        uint64_t b, int scale_d) {
-  if constexpr (N == 32) {
-    mma_ss_n32<T, TB>(d, a, b, scale_d);
+  if constexpr (N == 16) {
+    mma_ss_n16<T, TB, TA>(d, a, b, scale_d);
+  } else if constexpr (N == 32) {
+    mma_ss_n32<T, TB, TA>(d, a, b, scale_d);
   } else if constexpr (N == 64) {
-    mma_ss_n64<T, TB>(d, a, b, scale_d);
+    mma_ss_n64<T, TB, TA>(d, a, b, scale_d);
+  } else if constexpr (N == 128) {
+    mma_ss_n128<T, TB, TA>(d, a, b, scale_d);
   } else {
-    static_assert(N == 128, "wgmma widths 32, 64 and 128");
-    mma_ss_n128<T, TB>(d, a, b, scale_d);
+    static_assert(N == 256, "wgmma widths 16, 32, 64, 128 and 256");
+    mma_ss_n256<T, TB, TA>(d, a, b, scale_d);
   }
 }
 

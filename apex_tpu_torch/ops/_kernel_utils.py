@@ -11,9 +11,10 @@ first use it is compiled with
 into the repository's ``build/apex_tpu_torch/`` directory (git-ignored),
 keyed on a hash of the source, every ``csrc/*.cuh`` header and the
 flags, and loaded with ``ctypes``.  :func:`build_all` starts one
-``nvcc`` per source at once.  The Hopper kernels (K2, K6, K7) find the
-driver's ``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``,
-so no library links ``-lcuda``.
+``nvcc`` per source at once.  The Hopper kernels (K2, K6, K7 and rows 9
+and 10's tensor-core routes) find the CUDA driver's
+``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``, so no
+library links ``-lcuda``.
 
 Every pointer and the stream pass as ``c_void_p`` (a bare Python int
 would be cut to 32 bits).  The C entry returns ``cudaGetLastError()``
@@ -24,7 +25,8 @@ by one per launch and nowhere else.
 
     python -m apex_tpu_torch.ops._kernel_utils [source.cu ...]
 
-compiles each source (default: K2's and K6/K7's) once more with the
+compiles each source (default: the Hopper kernels' sources: K2's,
+K6/K7's, row 9's and row 10's) once more with the
 build's flags plus ``-Xptxas -v`` into ``build/apex_tpu_torch/report/``,
 prints what ``ptxas`` says of every kernel (registers, shared memory,
 spills), and beside it how many ``HGMMA`` (``wgmma``) and ``UTMALDG``
@@ -51,7 +53,7 @@ __all__ = ["Kernel", "KERNELS", "register", "build_all", "library",
            "lib_path", "ptxas_report", "sass_counts", "demangle",
            "reset_launch_counts", "launch_counts", "ptr", "stream_ptr",
            "dtype_code", "check_cuda_operands", "check_aligned", "aligned",
-           "CSRC",
+           "tma_strides_ok", "ATTR_KEYS", "hopper_attrs", "CSRC",
            "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -182,6 +184,35 @@ def aligned(t: torch.Tensor) -> torch.Tensor:
     return t.clone() if t.data_ptr() % 16 else t
 
 
+def tma_strides_ok(shape: Sequence[int], itemsize: int) -> bool:
+    """Whether a TMA tensor map can describe a contiguous tensor of this
+    shape and element size: every row stride (the bytes of the axes
+    inside it) a multiple of 16 below 2**40.  With a 16-byte-aligned base
+    (:func:`aligned`) these are the maps' only conditions on a tensor."""
+    stride = itemsize
+    for d in reversed(tuple(shape)[1:]):
+        stride *= int(d)
+        if stride % 16 or stride >= 2 ** 40:
+            return False
+    return True
+
+
+# what sm90::kernel_attrs reports of one Hopper kernel
+ATTR_KEYS = ("registers", "smem_bytes", "ctas_per_sm", "spill_bytes")
+
+
+def hopper_attrs(source: str, symbol: str, *args: int) -> dict:
+    """``{"registers", "smem_bytes", "ctas_per_sm", "spill_bytes"}`` of
+    one Hopper kernel, from a source's ``<symbol>(int args..., int*
+    out)`` entry (which calls ``sm90::kernel_attrs``).  Needs the card."""
+    vals = (ctypes.c_int * len(ATTR_KEYS))()
+    err = getattr(library(source), symbol)(
+        *(ctypes.c_int(a) for a in args), vals)
+    if err != 0:
+        raise RuntimeError(f"{symbol}{args}: cudaError {err}")
+    return dict(zip(ATTR_KEYS, vals))
+
+
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:
     """Device pointer of ``t`` (``NULL`` for ``None``)."""
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
@@ -246,7 +277,8 @@ def launch_counts() -> Dict[str, int]:
 
 # ---- what ptxas and cuobjdump say of the built kernels ----
 
-REPORT_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu")
+REPORT_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
+                  "grouped_matmul.cu", "dense_int8.cu")
 SASS_OPS = ("HGMMA", "UTMALDG")
 
 

@@ -8,17 +8,27 @@ bit for bit the JAX package's wire and scales.  :func:`dense_quantized`
 computes ``x @ (wire · scale)`` in fp32 and returns ``x``'s dtype.
 
 For CUDA tensors it is one launch of kernel row 10
-(``csrc/dense_int8.cu``): 16-bit activations take a tensor-core path
-(each int8 weight converted to bf16/fp16 in shared memory, which is
-exact for |q| <= 127, one ``mma.sync`` product per 128-row scale block
-in fp32, multiplied by that block's scale row into an fp32
-accumulator; when the output has few 64×64 tiles, as at decode, the
-contraction axis splits into whole scale blocks across CTAs and a
-second pass adds the fp32 partials in order); fp32 activations take a
-CUDA-core path.  For CPU tensors,
-and under ``backend="reference"``, it is :func:`dense_quantized_reference`:
-the whole slab dequantized to fp32, then one fp32 matmul (the JAX
-reference route).
+(``csrc/dense_int8.cu``), by one of three routes (:func:`dense_route`),
+each with its own launch count:
+
+- bf16/fp16 activations above 64 rows (prefill): :data:`DENSE_INT8`, the
+  Hopper GEMM row 9's int8 branch runs (``csrc/sm90_gemm.cuh``: TMA ring,
+  each int8 tile widened to 16 bits in shared memory, which is exact for
+  |q| <= 127, ``wgmma`` into an fp32 partial per scale block, multiplied
+  by that block's scale row into an fp32 accumulator; tiles of 128 or 64
+  columns, :func:`int8_column_tile`);
+- the same at 64 rows or fewer (decode): :data:`DENSE_INT8_DECODE`, the
+  roles swapped (``yᵀ = Wᵀ xᵀ``, the weight's columns fill ``wgmma``'s
+  64 rows) and the contraction split into whole scale blocks across the
+  CTAs of one thread-block cluster (:func:`decode_splits`), whose fp32
+  partials are added in rank order in shared memory;
+- fp32 activations and the shapes the tiles do not take (the scale block
+  not a multiple of 32, an operand row not a multiple of 16 bytes):
+  :data:`DENSE_INT8_SIMT`, the CUDA cores.
+
+For CPU tensors, and under ``backend="reference"``, it is
+:func:`dense_quantized_reference`: the whole slab dequantized to fp32,
+then one fp32 matmul (the JAX reference route).
 
 The gradient is the JAX package's ``_dqmm_bwd`` as a
 ``torch.autograd.Function``: dx against the fp32-dequantized weight, no
@@ -39,20 +49,33 @@ from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["QUANT_BLOCK", "pick_quant_block", "is_quantized",
            "quantize_weight", "dequantize_weight", "dense_quantized",
-           "dense_quantized_reference", "quantized_matmul"]
+           "dense_quantized_reference", "quantized_matmul", "dense_route",
+           "decode_splits", "int8_column_tile", "hopper_attributes"]
 
 QUANT_BLOCK = 128
 _INT8_MAX = 127.0
 
+_REPLACES = "apex_tpu/ops/dense.py:212"
+_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4
 DENSE_INT8 = ku.register(ku.Kernel(
     "dense_int8", "dense_int8.cu", "apex_dense_int8",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6,
-    replaces="apex_tpu/ops/dense.py:212"))
+    _ARGS + [ctypes.c_int] * 2, replaces=_REPLACES))
+DENSE_INT8_DECODE = ku.register(ku.Kernel(
+    "dense_int8_decode", "dense_int8.cu", "apex_dense_int8_decode",
+    _ARGS + [ctypes.c_int] * 2, replaces=_REPLACES))
+DENSE_INT8_SIMT = ku.register(ku.Kernel(
+    "dense_int8_simt", "dense_int8.cu", "apex_dense_int8_simt",
+    _ARGS + [ctypes.c_int], replaces=_REPLACES))
 
-# the tensor-core path's CTA tile, and the CTAs that fill the H100's 132
-# SMs twice over
-_TILE = 64
-_TARGET_CTAS = 264
+# the decode route: at most this many rows, 64 weight columns per CTA, a
+# portable cluster of at most 8 CTAs, and ~2 CTAs for each of the H100's
+# 132 SMs
+DECODE_ROWS = 64
+_DECODE_COLS = 64
+MAX_CLUSTER = 8
+_SMS = 132
+_TARGET_CTAS = 2 * _SMS
+_HALF = (torch.bfloat16, torch.float16)
 
 
 def pick_quant_block(in_dim: int, block: Optional[int] = None) -> int:
@@ -127,34 +150,77 @@ def dense_quantized_reference(x2, wire2, scale2):
     return (x2.float() @ dequantize_weight(wire2, scale2)).to(x2.dtype)
 
 
-def _splits(m, k, n, kb, dtype) -> int:
-    """Contraction splits of the tensor-core path: whole scale blocks,
-    enough to give ~_TARGET_CTAS CTAs when the output tiles are few (the
-    decode shapes); 1 on the CUDA-core path."""
-    if dtype == torch.float32 or kb % 32 or n % 16:
-        return 1
-    tiles = -(-m // _TILE) * -(-n // _TILE)
-    return max(1, min(k // kb, -(-_TARGET_CTAS // tiles)))
+def dense_route(m: int, k: int, n: int, kb: int, dtype) -> str:
+    """Row 10's kernel for a CUDA call: ``"tiles"`` (16-bit ``x`` above
+    :data:`DECODE_ROWS` rows), ``"decode"`` (the same at fewer rows) or
+    ``"simt"`` (fp32 ``x``, a scale block that is not a multiple of 32,
+    or an operand whose rows a TMA map cannot describe)."""
+    if (dtype not in _HALF or kb % 32 or k % kb
+            or not ku.tma_strides_ok((m, k), 2)
+            or not ku.tma_strides_ok((k, n), 1)):
+        return "simt"
+    return "decode" if m <= DECODE_ROWS else "tiles"
 
 
-def _dq_kernel(x2, wire2, scale2):
+def int8_column_tile(row_tiles: int, n: int, kb: int) -> int:
+    """Columns of the int8 GEMM's tiles (rows 9 and 10) over
+    ``row_tiles`` tiles of 128 rows: 64 when twice as many tiles still
+    fit one wave of the H100's 132 persistent CTAs (a 64-column tile
+    takes ~0.7 of a 128-column one's time, so narrower tiles pay only
+    where wider ones leave SMs idle) and the scale block allows stages
+    of 64 k rows; else 128."""
+    tiles = row_tiles * -(-n // 128)
+    return 64 if kb % 64 == 0 and 2 * tiles <= _SMS else 128
+
+
+def decode_splits(k: int, n: int, kb: int) -> int:
+    """CTAs of one cluster on the decode route: each takes whole scale
+    blocks of the contraction, at most :data:`MAX_CLUSTER` and the block
+    count, enough for ~2 CTAs per SM over the 64-column tiles."""
+    cols = -(-n // _DECODE_COLS)
+    return max(1, min(MAX_CLUSTER, k // kb, -(-_TARGET_CTAS // cols)))
+
+
+def _dq_kernel(x2, wire2, scale2, splits: Optional[int] = None):
+    """Row 10 on the card by :func:`dense_route`; ``splits`` overrides
+    :func:`decode_splits` on the decode route."""
     m, k = x2.shape
     n = wire2.shape[1]
     kb = _quant_block_of(wire2, scale2)
     x2 = ku.aligned(x2)
-    wire2 = wire2.contiguous()
+    wire2 = ku.aligned(wire2)
     scale2 = scale2.float().contiguous()
     ku.check_cuda_operands("dense_quantized", x2, wire2, scale2)
-    ku.check_aligned("dense_quantized", x2, wire2)
     out = torch.empty(m, n, dtype=x2.dtype, device=x2.device)
-    splits = _splits(m, k, n, kb, x2.dtype)
-    partial = (None if splits == 1 else
-               torch.empty(splits, m, n, dtype=torch.float32,
-                           device=x2.device))
-    DENSE_INT8(x2.device, ku.ptr(x2), ku.ptr(wire2), ku.ptr(scale2),
-               ku.ptr(out), ku.ptr(partial), m, k, n, kb, splits,
-               ku.dtype_code(x2))
+    args = (ku.ptr(x2), ku.ptr(wire2), ku.ptr(scale2), ku.ptr(out), m, k, n,
+            kb)
+    route = dense_route(m, k, n, kb, x2.dtype)
+    if route == "simt":
+        DENSE_INT8_SIMT(x2.device, *args, ku.dtype_code(x2))
+    elif route == "decode":
+        DENSE_INT8_DECODE(x2.device, *args,
+                          splits or decode_splits(k, n, kb),
+                          ku.dtype_code(x2))
+    else:
+        narrow = int8_column_tile(-(-m // 128), n, kb) == 64
+        DENSE_INT8(x2.device, *args, int(narrow), ku.dtype_code(x2))
     return out
+
+
+def hopper_attributes(dtype: torch.dtype = torch.bfloat16) -> dict:
+    """What the CUDA runtime reports for row 10's Hopper kernels: the
+    tensor-core route (stages of 64 and 32 k rows, 64 columns), and the
+    decode route at n = 16, 32 and 64 with chunks of 128 and of 32 k rows
+    (``{name: {"registers", "smem_bytes", "ctas_per_sm",
+    "spill_bytes"}}``).  Needs the card."""
+    code = ku.dtype_code(torch.empty((), dtype=dtype))
+    decode = [(f"dense_int8_decode n{mp} k{kc}", route, mp)
+              for route, kc in ((1, 128), (2, 32)) for mp in (16, 32, 64)]
+    return {name: ku.hopper_attrs(DENSE_INT8.source, "apex_dense_int8_attrs",
+                                  route, code, mp)
+            for name, route, mp in [("dense_int8", 0, 0),
+                                    ("dense_int8 k32", 3, 0),
+                                    ("dense_int8 n64", 4, 0)] + decode}
 
 
 class _DQMatmul(torch.autograd.Function):

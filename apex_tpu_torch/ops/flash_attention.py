@@ -81,19 +81,11 @@ def hopper_attributes(dtype: torch.dtype = torch.bfloat16,
     dynamic plus static shared memory per CTA, resident CTAs per SM,
     local memory per thread).  Needs the card."""
     code = ku.dtype_code(torch.empty((), dtype=dtype))
-    keys = ("registers", "smem_bytes", "ctas_per_sm", "spill_bytes")
-    out = {}
-    for kern, symbol, lead in ((FLASH_FWD, "apex_flash_fwd_attrs", ()),
-                               (FLASH_BWD_DQ, "apex_flash_bwd_attrs", (0,)),
-                               (FLASH_BWD_DKV, "apex_flash_bwd_attrs",
-                                (1,))):
-        fn = getattr(ku.library(kern.source), symbol)
-        vals = (ctypes.c_int * 4)()
-        err = fn(*(ctypes.c_int(x) for x in lead + (code, d)), vals)
-        if err != 0:
-            raise RuntimeError(f"{symbol}: cudaError {err}")
-        out[kern.name] = dict(zip(keys, vals))
-    return out
+    return {kern.name: ku.hopper_attrs(kern.source, symbol, *lead, code, d)
+            for kern, symbol, lead in (
+                (FLASH_FWD, "apex_flash_fwd_attrs", ()),
+                (FLASH_BWD_DQ, "apex_flash_bwd_attrs", (0,)),
+                (FLASH_BWD_DKV, "apex_flash_bwd_attrs", (1,)))}
 
 
 def _additive_kpm(key_padding_mask: torch.Tensor) -> torch.Tensor:

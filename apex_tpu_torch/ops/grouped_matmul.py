@@ -18,14 +18,17 @@ launch count:
   the CUDA cores over tiles of 16 rows, the contraction split across
   CTAs with a fixed-order second pass when the tiles are few;
 - bf16/fp16 operands with ``k`` and ``p`` multiples of 8 (the MoE
-  experts): :data:`GROUPED_MATMUL_MMA`, row 10's ``mma.sync`` tile
-  (``csrc/mma_tile.cuh``) over tiles of 64 rows, fp32 accumulation;
-  :data:`GROUPED_MATMUL_MMA_T` counts the same kernel reading each
-  group's weight transposed in place, the backward's ``g @ w[g]ᵀ``;
+  experts): :data:`GROUPED_MATMUL_MMA`, the Hopper GEMM
+  (``csrc/sm90_gemm.cuh``: persistent CTAs, a TMA ring, ``wgmma`` into
+  fp32 registers) over tiles of 128 rows of one group and 128 or 256
+  columns (:func:`mma_column_tile`);
+  :data:`GROUPED_MATMUL_MMA_T` counts the same GEMM reading each group's
+  weight transposed in place, the backward's ``g @ w[g]ᵀ``;
 - an int8 slab with fp32 scales (:func:`grouped_matmul_quantized`):
-  :data:`GROUPED_MATMUL_INT8`, the same tile with the int8 weights
-  widened to x's 16-bit type in shared memory and each scale block's
-  partial scaled in registers.
+  :data:`GROUPED_MATMUL_INT8`, the same GEMM with each int8 tile widened
+  to x's 16-bit type in shared memory and each scale block's partial
+  scaled in registers (row 10's tensor-core route is this kernel with one
+  group).
 
 For CPU tensors, and under ``backend="reference"``, the plain version
 :func:`grouped_matmul_reference` runs: one masked fp32 product per group,
@@ -47,11 +50,12 @@ from typing import Optional
 import torch
 
 from apex_tpu_torch.ops import _kernel_utils as ku
-from apex_tpu_torch.ops.dense import quantize_weight
+from apex_tpu_torch.ops.dense import int8_column_tile, quantize_weight
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["group_ids", "grouped_matmul", "grouped_matmul_quantized",
-           "grouped_matmul_reference", "quantize_group_weights"]
+           "grouped_matmul_reference", "quantize_group_weights",
+           "hopper_attributes", "mma_column_tile", "MAX_TILE_GROUPS"]
 
 _REPLACES = "apex_tpu/ops/grouped_matmul.py:113"
 
@@ -59,7 +63,7 @@ GROUPED_MATMUL = ku.register(ku.Kernel(
     "grouped_matmul", "grouped_matmul.cu", "apex_grouped_matmul",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, replaces=_REPLACES))
 
-_MMA_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6
+_MMA_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
 GROUPED_MATMUL_MMA = ku.register(ku.Kernel(
     "grouped_matmul_mma", "grouped_matmul.cu", "apex_grouped_matmul_mma",
     _MMA_ARGS, replaces=_REPLACES))
@@ -70,12 +74,14 @@ GROUPED_MATMUL_MMA_T = ku.register(ku.Kernel(
 
 GROUPED_MATMUL_INT8 = ku.register(ku.Kernel(
     "grouped_matmul_int8", "grouped_matmul.cu", "apex_grouped_matmul_int8",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, replaces=_REPLACES))
+    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7, replaces=_REPLACES))
 
 # csrc/grouped_matmul.cu's fp32-branch tile rows, contraction chunk and
 # CTA width, and the H100's SM count
 _BM, _KC, _THREADS, _SMS = 16, 256, 256, 132
 _HALF = (torch.bfloat16, torch.float16)
+# the tensor-core GEMM keeps its segment table in shared memory
+MAX_TILE_GROUPS = 2048
 
 
 def group_ids(offsets: torch.Tensor, n_rows: int, n_groups: int):
@@ -159,23 +165,39 @@ def _gmm_fp32_kernel(x, w, offsets, splits: Optional[int] = None):
     return out
 
 
-def _mma_takes(dtype, k: int, p: int) -> bool:
-    """The 16-bit tensor-core tile: bf16/fp16 with ``k`` and ``p``
-    multiples of 8 (its 16-byte loads)."""
-    return dtype in _HALF and k % 8 == 0 and p % 8 == 0
+def _mma_takes(dtype, n: int, k: int, p: int, g: int) -> bool:
+    """The 16-bit tensor-core GEMM: bf16/fp16 operands whose rows its TMA
+    maps describe (``k`` and ``p`` multiples of 8) and at most
+    :data:`MAX_TILE_GROUPS` groups."""
+    return (dtype in _HALF and g <= MAX_TILE_GROUPS
+            and ku.tma_strides_ok((n, k), 2)
+            and ku.tma_strides_ok((g, k, p), 2))
 
 
-def _gmm_kernel(x, w, offsets, *, trans: bool = False):
+def mma_column_tile(n: int, p: int, g: int) -> int:
+    """Columns of the 16-bit GEMM's tiles for ``n`` rows over ``g``
+    groups: 256 (each warpgroup m64n256, half the re-reads of x) when the
+    tiles so cut fit in one wave of the H100's 132 persistent CTAs, else
+    128, whose smaller tiles fill the last of several waves better.  Row
+    tiles are counted as ``ceil(n / 128) + g``: at most one partial tile
+    per group (the outer segments' zero tiles cost no products)."""
+    rows = -(-n // 128) + g
+    return 256 if rows * -(-p // 256) <= _SMS else 128
+
+
+def _gmm_kernel(x, w, offsets, *, trans: bool = False,
+                cols: Optional[int] = None):
     """Row 9 on the card: ``w`` is ``[G, k, p]``, or with ``trans``
     ``[G, p, k]`` read as its per-group transpose.  16-bit operands of a
-    shape the tile takes launch the tensor-core branch; everything else
-    the fp32 branch (a transposed weight then as a contiguous copy: only
-    off the MoE training path)."""
+    shape the tile takes launch the tensor-core branch (``cols``, 128 or
+    256, overrides :func:`mma_column_tile`); everything else the fp32
+    branch (a transposed weight then as a contiguous copy: only off the
+    MoE training path)."""
     dtype = torch.promote_types(x.dtype, w.dtype)
     n, k = x.shape
     g = w.shape[0]
     p = w.shape[1] if trans else w.shape[2]
-    if not _mma_takes(dtype, k, p):
+    if not _mma_takes(dtype, n, k, p, g):
         if trans:
             w = w.transpose(1, 2)
         return _gmm_fp32_kernel(x, w, offsets)
@@ -186,8 +208,25 @@ def _gmm_kernel(x, w, offsets, *, trans: bool = False):
     out = torch.empty(n, p, dtype=dtype, device=x.device)
     kernel = GROUPED_MATMUL_MMA_T if trans else GROUPED_MATMUL_MMA
     kernel(x.device, ku.ptr(x), ku.ptr(w), ku.ptr(off), ku.ptr(out), n, k, p,
-           g, int(trans), ku.dtype_code(x))
+           g, int(trans), int((cols or mma_column_tile(n, p, g)) == 256),
+           ku.dtype_code(x))
     return out
+
+
+def hopper_attributes(dtype: torch.dtype = torch.bfloat16) -> dict:
+    """What the CUDA runtime reports for row 9's Hopper GEMM in each
+    tensor-core branch: the 16-bit ones at both column tiles, the int8
+    slab at both stage depths and at 64 columns (``{name:
+    {"registers", "smem_bytes", "ctas_per_sm", "spill_bytes"}}``, the
+    segment table sized for 8 groups).  Needs the card."""
+    code = ku.dtype_code(torch.empty((), dtype=dtype))
+    mma, mma_t = GROUPED_MATMUL_MMA.name, GROUPED_MATMUL_MMA_T.name
+    q = GROUPED_MATMUL_INT8.name
+    names = (mma, mma_t, q, q + " k32", mma + " n256", mma_t + " n256",
+             q + " n64")
+    return {name: ku.hopper_attrs(GROUPED_MATMUL_MMA.source,
+                                  "apex_grouped_matmul_attrs", mode, code)
+            for mode, name in enumerate(names)}
 
 
 def _gmm_route(x, w, offsets, reference: bool, trans: bool = False):
@@ -309,19 +348,22 @@ def _gmmq_kernel(x, wire, scale, offsets):
     n, k = x.shape
     g, _, p = wire.shape
     kb = k // scale.shape[1]
-    if x.dtype not in _HALF or kb % 32 or p % 16 or k % 8:
+    if (x.dtype not in _HALF or kb % 32 or g > MAX_TILE_GROUPS
+            or not ku.tma_strides_ok((g, k, p), 1)):
         raise ValueError(
             f"grouped_matmul_quantized on the card takes bf16/fp16 x with "
-            f"the scale block a multiple of 32 and p a multiple of 16; got "
-            f"{x.dtype}, kb={kb}, p={p}")
+            f"the scale block a multiple of 32, p a multiple of 16 and at "
+            f"most {MAX_TILE_GROUPS} groups; got {x.dtype}, kb={kb}, p={p}, "
+            f"G={g}")
     x = ku.aligned(x)
     wire = ku.aligned(wire)
     scale = scale.float().contiguous()
     off = offsets.to(torch.int32).contiguous()
     ku.check_cuda_operands("grouped_matmul_quantized", x, wire, scale, off)
     out = torch.empty(n, p, dtype=x.dtype, device=x.device)
+    narrow = int8_column_tile(-(-n // 128) + g, p, kb) == 64
     GROUPED_MATMUL_INT8(x.device, ku.ptr(x), ku.ptr(wire), ku.ptr(scale),
-                        ku.ptr(off), ku.ptr(out), n, k, p, g, kb,
+                        ku.ptr(off), ku.ptr(out), n, k, p, g, kb, int(narrow),
                         ku.dtype_code(x))
     return out
 

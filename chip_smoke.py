@@ -7,13 +7,17 @@
    name, count and power limit.
 2. Builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and prints the build time; prints
-   the registers, shared memory per CTA and CTAs per SM of the Hopper
-   kernels of K2, K6 and K7 (bf16, fp16; d 32/64/128) and checks that
-   each one's machine code holds ``HGMMA`` and ``UTMALDG`` instructions.
+   the registers, shared memory per CTA, CTAs per SM and spill bytes of
+   the Hopper kernels of K2, K6 and K7 (bf16, fp16; d 32/64/128) and of
+   rows 9 and 10's tensor-core routes (which must not spill), and checks
+   that each one's machine code holds ``HGMMA`` and ``UTMALDG``
+   instructions.
 3. Holds each kernel (K1 LayerNorm, K2 flash attention, K3 fused decode
    layer with a bf16 and an int8 pool, K4 fused sampler, row 6 ragged
    paged attention, row 9 ragged grouped matmul (LoRA's fp32 branch),
-   row 10 int8-weight matmul) against its plain PyTorch version at the
+   row 10 int8-weight matmul on each of its three routes: the decode
+   kernel at M=32, the tensor-core GEMM at M=1024 and 4096, the CUDA
+   cores at fp32) against its plain PyTorch version at the
    serving paths' shapes, and times kernel, plain version and, where one exists, a
    single PyTorch library call computing the same function, beside the
    least time the card could take (the larger of bytes over 3.35 TB/s
@@ -88,6 +92,13 @@
 
 Any failed check raises, so the script exits non-zero and prints no
 result line; it never falls back to the CPU.
+
+    python3 chip_smoke.py --matmul-times ROOT
+
+times only rows 9 and 10 of the port under ROOT (a ``git archive`` of
+another commit, say) at the main paths' shapes and prints one JSON line,
+so that two commits compare in one chip call (parent, change, change,
+parent).
 """
 
 from __future__ import annotations
@@ -214,11 +225,14 @@ def _category(kernel: str) -> str:
     global _HAND_WRITTEN
     if _HAND_WRITTEN is None:
         _HAND_WRITTEN = _hand_written_names()
-    # ours live in anonymous namespaces, as do some of PyTorch's own
-    # (indexing_backward_kernel): match the function's name
-    tail = kernel.split("(anonymous namespace)::", 1)
-    if len(tail) == 2 and tail[1].split("<")[0].split("(")[0] in _HAND_WRITTEN:
-        return "hand-written kernels"
+    # ours live in anonymous namespaces (and the shared GEMM in gemm::),
+    # as do some of PyTorch's own (indexing_backward_kernel): match the
+    # function's name within one of those namespaces
+    for ns in ("(anonymous namespace)::", "gemm::"):
+        tail = kernel.split(ns, 1)
+        if (len(tail) == 2
+                and tail[1].split("<")[0].split("(")[0] in _HAND_WRITTEN):
+            return "hand-written kernels"
     if any(t in kernel.lower() for t in ("gemm", "nvjet", "cutlass")):
         return "cuBLAS matmuls"
     return "other (elementwise, reductions, copies)"
@@ -406,29 +420,50 @@ def kernel_flash_gpt_shape(dev, gen):
     }
 
 
+# csrc sources of the Hopper kernels and how many instantiations each
+# holds, each in bf16 and fp16: K2 and K6/K7 at 3 head sizes; row 9's
+# GEMM (forward and transposed read at 128 and 256 columns, the int8
+# slab at stages of 64 and 32 k rows and at 64 columns); row 10's (the
+# same three int8 GEMMs, the decode kernel at n = 16, 32, 64 x chunks of
+# 128 or 32 k rows)
+HOPPER_SOURCES = {"flash_attention.cu": 6, "flash_attention_bwd.cu": 12,
+                  "grouped_matmul.cu": 14, "dense_int8.cu": 18}
+
+
 def hopper_kernels():
-    """The 16-bit K2, K6 and K7 kernels as built and as the driver sees
-    them: registers, shared memory per CTA and CTAs per SM of each (bf16
-    and fp16, d 32/64/128), and the HGMMA (wgmma) and UTMALDG (TMA load)
-    instructions in each one's machine code, which must both be there."""
+    """The Hopper kernels as built and as the CUDA runtime sees them:
+    registers, shared memory per CTA, CTAs per SM and spill bytes of each
+    (bf16 and fp16; K2, K6, K7 at d 32/64/128; rows 9 and 10's tensor-core
+    routes), and the HGMMA (wgmma) and UTMALDG (TMA load) instructions in
+    each one's machine code, which must both be there.  Rows 9 and 10
+    must not spill."""
     import re
 
     from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import dense as td
     from apex_tpu_torch.ops import flash_attention as tfa
+    from apex_tpu_torch.ops import grouped_matmul as tgm
 
     attrs = {f"{str(dt)[6:]} d{d}": tfa.hopper_attributes(dt, d)
              for dt in (torch.bfloat16, torch.float16)
              for d in (32, 64, 128)}
+    for dt in (torch.bfloat16, torch.float16):
+        rows = {**tgm.hopper_attributes(dt), **td.hopper_attributes(dt)}
+        check(all(a["spill_bytes"] == 0 for a in rows.values()),
+              f"rows 9 and 10 spill: {rows}")
+        attrs[f"{str(dt)[6:]} rows 9, 10"] = rows
     sass = {}
-    for src in ("flash_attention.cu", "flash_attention_bwd.cu"):
+    for src, n in HOPPER_SOURCES.items():
         counts = {k: c
                   for k, c in ku.sass_counts(ku.lib_path(src)).items()
                   if "sm90_kernel" in k}
+        found = {}
         for k, name in ku.demangle(sorted(counts)).items():
             m = re.search(r"(\w+_sm90_kernel<[^>]*>)", name)
-            sass[m.group(1) if m else name] = counts[k]
-    check(len(sass) == 18, f"expected 3 kernels x 2 dtypes x 3 head sizes "
-          f"of Hopper code, found {sorted(sass)}")
+            found[f"{src}: {m.group(1) if m else name}"] = counts[k]
+        check(len(found) == n, f"expected {n} Hopper kernels in {src}, "
+              f"found {sorted(found)}")
+        sass.update(found)
     check(all(c["HGMMA"] > 0 and c["UTMALDG"] > 0 for c in sass.values()),
           f"a Hopper kernel without wgmma or TMA loads: {sass}")
     return attrs, sass
@@ -575,64 +610,97 @@ def kernel_paged(dev, gen):
 # row 10 at GPT-2 125M's four per-layer matmuls: (in, out)
 DENSE_SITES = (("qkv", 768, 2304), ("proj", 768, 768), ("fc1", 768, 3072),
                ("fc2", 3072, 768))
-DENSE_ROWS = (32, 1024)          # decode lanes; a prefill of 1024 tokens
+# decode lanes (the decode route); a prefill of 1024 tokens and the
+# quantized MoE forward's 4096 (the tensor-core GEMM)
+DENSE_ROWS = {"dense_int8_decode": (32,), "dense_int8": (1024, 4096)}
 DENSE_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-5}
 
 
-def kernel_dense_int8(dev, gen):
-    """Row 10 against its plain version (fp32 x against the dequantized
-    slab) at M in {32, 1024} x the four GPT-2 125M kernels in bf16 and
-    one fp32 case; errors relative to max |plain|.  The library time is
-    bf16 ``torch.mm`` on the weight dequantized to bf16 beforehand: a
-    reference point that reads bf16 weights, not the same input."""
+def _dense_case(dev, gen, m, k, n, dtype):
+    """One row 10 call on a seeded slab against its plain version: (args,
+    relative error, max abs error, bound ms, what bounds it, the weight
+    dequantized to x's dtype for the library call)."""
     from apex_tpu_torch.ops import dense as td
 
-    errs, abs_err, variants = {}, 0.0, {}
-    cases = [(m, site, torch.bfloat16) for m in DENSE_ROWS
+    w = torch.randn(k, n, device=dev, generator=gen) * 0.02
+    slab = td.quantize_weight(w)
+    x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
+    args = (x, slab["wire"], slab["scale"])
+    got = td.dense_quantized(*args)
+    want = td.dense_quantized(*args, backend="reference")
+    kb = k // slab["scale"].shape[0]
+    esz = x.element_size()
+    nbytes = m * k * esz + k * n + (k // kb) * n * 4 + m * n * esz
+    bms, by = bound(nbytes, 2 * m * k * n,
+                    PEAK_BF16_FLOPS if dtype == torch.bfloat16
+                    else PEAK_FP32_FLOPS)
+    wd = td.dequantize_weight(slab["wire"], slab["scale"]).to(dtype)
+    return args, rel_err(got, want), max_err(got, want), bms, by, wd
+
+
+def kernel_dense_int8(dev, gen):
+    """Row 10's three routes against the plain version (fp32 x against
+    the dequantized slab): the decode route at M = 32 and the tensor-core
+    GEMM at M = 1024 and 4096, each at the four GPT-2 125M kernels in
+    bf16, and the CUDA-core route on one fp32 case; errors relative to
+    max |plain|.  Every call is checked to launch its route's kernel.
+    The library time is bf16 ``torch.mm`` on the weight dequantized to
+    bf16 beforehand: a reference point that reads bf16 weights, not the
+    same input."""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import dense as td
+
+    cases = [(kname, m, site, torch.bfloat16)
+             for kname, rows in DENSE_ROWS.items() for m in rows
              for site in DENSE_SITES]
-    cases.append((32, DENSE_SITES[0], torch.float32))
-    for m, (site, k, n), dtype in cases:
-        w = torch.randn(k, n, device=dev, generator=gen) * 0.02
-        slab = td.quantize_weight(w)
-        x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
-        args = (x, slab["wire"], slab["scale"])
-        got = td.dense_quantized(*args)
-        want = td.dense_quantized(*args, backend="reference")
+    cases.append(("dense_int8_simt", 32, DENSE_SITES[0], torch.float32))
+    out = {}
+    for kname, m, (site, k, n), dtype in cases:
+        errs, abs_err, variants = out.setdefault(kname, ({}, 0.0, {}))
+        before = ku.KERNELS[kname].launches
+        args, rel, err, bms, by, wd = _dense_case(dev, gen, m, k, n, dtype)
+        check(ku.KERNELS[kname].launches == before + 1,
+              f"row 10 M={m} {site} {dtype} did not take {kname}")
         name = f"M={m} {site} [{k}, {n}] {str(dtype)[6:]}"
-        errs[name] = rel_err(got, want)
-        abs_err = max(abs_err, max_err(got, want))
-        check(errs[name] <= DENSE_TOL[dtype], f"row 10 {name} error {errs}")
-        kb = k // slab["scale"].shape[0]
-        esz = x.element_size()
-        nbytes = m * k * esz + k * n + (k // kb) * n * 4 + m * n * esz
-        bms, by = bound(nbytes, 2 * m * k * n,
-                        PEAK_BF16_FLOPS if dtype == torch.bfloat16
-                        else PEAK_FP32_FLOPS)
-        wd = td.dequantize_weight(slab["wire"], slab["scale"]).to(dtype)
+        errs[name] = rel
+        check(rel <= DENSE_TOL[dtype], f"row 10 {kname} {name} error {errs}")
+        x = args[0]
         variants[name] = {
             "ms": time_ms(lambda: td.dense_quantized(*args)),
             "plain_ms": time_ms(lambda: td.dense_quantized(
                 *args, backend="reference")),
             "library_ms": time_ms(lambda: torch.mm(x, wd)),
             "bound_ms": bms, "bound_by": by}
-    # the headline numbers: one decode layer's four matmuls at M=32
-    decode = [v for k, v in variants.items()
-              if k.startswith("M=32 ") and k.endswith("bfloat16")]
-    return {
-        "err": abs_err, "rel_err": max(errs.values()),
-        "tol": DENSE_TOL[torch.bfloat16], "detail": errs,
-        "ms": sum(v["ms"] for v in decode),
-        "plain_ms": sum(v["plain_ms"] for v in decode),
-        "library_ms": sum(v["library_ms"] for v in decode),
-        "bound_ms": sum(v["bound_ms"] for v in decode),
-        "bound_by": ("bytes" if all(v["bound_by"] == "bytes" for v in decode)
-                     else "operations"),
-        "variants": variants,
-        "shape": "sum of the four GPT-2 125M matmuls (qkv, proj, fc1, "
-                 "fc2) at M=32 bf16; per-shape times, M=1024 and fp32 "
-                 "under variants; library = bf16 torch.mm on the weight "
-                 "dequantized beforehand (reads bf16, not the int8 slab)",
+        out[kname] = (errs, max(abs_err, err), variants)
+    desc = {
+        "dense_int8_decode": "sum of the four GPT-2 125M matmuls (qkv, "
+        "proj, fc1, fc2) at M=32 bf16, the decode route",
+        "dense_int8": "sum of the four GPT-2 125M matmuls at M=1024 bf16 "
+        "(the tensor-core GEMM); M=4096 per matmul under variants",
+        "dense_int8_simt": "qkv [768, 2304] at M=32 fp32 (the CUDA-core "
+        "route; no main path runs it)",
     }
+    results = {}
+    for kname, (errs, abs_err, variants) in out.items():
+        # the headline: the first row count's four matmuls (or the one case)
+        m0 = DENSE_ROWS.get(kname, (32,))[0]
+        head = [v for k, v in variants.items() if k.startswith(f"M={m0} ")]
+        results[kname] = {
+            "err": abs_err, "rel_err": max(errs.values()),
+            "tol": DENSE_TOL[torch.float32 if kname == "dense_int8_simt"
+                             else torch.bfloat16], "detail": errs,
+            "ms": sum(v["ms"] for v in head),
+            "plain_ms": sum(v["plain_ms"] for v in head),
+            "library_ms": sum(v["library_ms"] for v in head),
+            "bound_ms": sum(v["bound_ms"] for v in head),
+            "bound_by": ("bytes" if all(v["bound_by"] == "bytes"
+                                        for v in head) else "operations"),
+            "variants": variants,
+            "shape": desc[kname] + "; library = bf16 torch.mm on the "
+                     "weight dequantized beforehand (reads bf16, not the "
+                     "int8 slab)",
+        }
+    return results
 
 
 def kernel_sampler(dev, gen):
@@ -917,6 +985,40 @@ def pct(vals, q):
     return vals[min(len(vals) - 1, max(0, round(q * (len(vals) - 1))))]
 
 
+class PrefillBuckets:
+    """Records the bucket of every prefill the engine runs (its
+    ``pad_prompt`` calls), so that row 10's launches split by route: a
+    prefill of at most 64 padded tokens takes the decode route, a longer
+    one the tensor-core GEMM."""
+
+    def __enter__(self):
+        from apex_tpu_torch.serving import engine as engine_mod
+
+        self._mod, self._orig = engine_mod, engine_mod.pad_prompt
+        self.buckets = []
+
+        def recorded(tokens, bucket, *args, **kw):
+            self.buckets.append(int(bucket))
+            return self._orig(tokens, bucket, *args, **kw)
+
+        engine_mod.pad_prompt = recorded
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.pad_prompt = self._orig
+
+    def row10(self, decode_steps, prefills, layers):
+        """Row 10's launches per route: four matmuls a layer for every
+        decode step (32 lanes) and every prefill."""
+        from apex_tpu_torch.ops.dense import DECODE_ROWS
+
+        check(len(self.buckets) == prefills,
+              f"{len(self.buckets)} padded prompts, {prefills} prefills")
+        short = sum(1 for b in self.buckets if b <= DECODE_ROWS)
+        return {"dense_int8_decode": (decode_steps + short) * layers * 4,
+                "dense_int8": (prefills - short) * layers * 4}
+
+
 def drive_engine(engine, reqs):
     """Submit, step until idle, track the concurrency high-water mark →
     (responses by request id, wall ms, most concurrent requests)."""
@@ -1047,9 +1149,10 @@ def engine_phase(dev):
                                  dict(reqs[2], max_new_tokens=2)])
         eng = engine(wname, wire)
         # --- the main path: counts reset just before, read just after ---
-        ku.reset_launch_counts()
-        resps, wall, hw = drive_engine(eng, reqs)
-        counts = ku.launch_counts()
+        with PrefillBuckets() as pb:
+            ku.reset_launch_counts()
+            resps, wall, hw = drive_engine(eng, reqs)
+            counts = ku.launch_counts()
         st = eng.stats()
         D, P = st["decode_steps"], st["prefill_calls"]
         want = {k: 0 for k in ku.KERNELS if k != "fused_sample"}
@@ -1058,8 +1161,7 @@ def engine_phase(dev):
         if wname == "float":
             want["fused_decode_layer"] = D * L
         else:
-            want.update(ragged_paged_attention=D * L,
-                        dense_int8=(D + P) * L * 4)
+            want.update(ragged_paged_attention=D * L, **pb.row10(D, P, L))
         got = {k: v for k, v in counts.items() if k != "fused_sample"}
         check(got == want, f"engine {name}: launches {got} != {want} "
                            f"({D} decode steps, {P} prefill calls)")
@@ -1263,9 +1365,10 @@ def lora_engine_phase(dev):
         engine(wname, wire).run(warm)
         eng = engine(wname, wire)
         # --- the main path: counts reset just before, read just after ---
-        ku.reset_launch_counts()
-        resps, wall, hw = drive_engine(eng, reqs)
-        counts = ku.launch_counts()
+        with PrefillBuckets() as pb:
+            ku.reset_launch_counts()
+            resps, wall, hw = drive_engine(eng, reqs)
+            counts = ku.launch_counts()
         st = eng.stats()
         D, P = st["decode_steps"], st["prefill_calls"]
         # adapter prefills: every admission of an adapter request,
@@ -1278,7 +1381,7 @@ def lora_engine_phase(dev):
                     ragged_paged_attention=D * L,
                     grouped_matmul=(D + PA) * L * 8)
         if wname == "quantized":
-            want["dense_int8"] = (D + P) * L * 4
+            want.update(pb.row10(D, P, L))
         got = {k: v for k, v in counts.items() if k != "fused_sample"}
         check(got == want, f"engine {name}: launches {got} != {want} ({D} "
                            f"decode steps, {P} prefill calls, {PA} adapter)")
@@ -2440,7 +2543,7 @@ def kernel_grouped_matmul_moe(dev, gen, loads):
     from apex_tpu_torch.ops import grouped_matmul as tgm
 
     sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
-    from torch_gmm_cases import ADVERSARIAL, MOE, offsets_case
+    from torch_gmm_cases import ADVERSARIAL, MOE, TILE_EDGES, offsets_case
 
     n, g = sum(loads), len(loads)
     off = [0]
@@ -2518,8 +2621,9 @@ def kernel_grouped_matmul_moe(dev, gen, loads):
     out["grouped_matmul_int8"] = (errs, abs_err, variants)
 
     # adversarial offsets (checked, not timed): windows, empty groups,
-    # N < 64, G = 70, at shapes with a partial column tile
-    for case in ADVERSARIAL + MOE[1:]:
+    # N < 64, G = 70, segments across 128-row tiles, one expert holding
+    # all rows but one, at shapes with a partial column tile
+    for case in ADVERSARIAL + MOE[1:] + TILE_EDGES:
         na, ga, oa = offsets_case(case)
         oa_t = torch.as_tensor(oa, device=dev)
         xa, wa = rnd(na, 64), rnd(ga, 64, 72, scale=0.1)
@@ -2635,9 +2739,74 @@ def generic_mask_phase(dev):
                      f"[{b}, 1, {s}, {s}] bool mask, flash backend"}
 
 
+def matmul_times(root: str) -> dict:
+    """Rows 9 and 10 of the ``apex_tpu_torch`` found under ``root`` (this
+    checkout, or a ``git archive`` of another commit unpacked elsewhere),
+    built from that tree's sources and timed as CUDA-graph replays at the
+    main paths' shapes: row 10 at the four GPT-2 125M matmuls for M = 32,
+    1024 and 4096 (bf16), row 9's forward, transposed read and int8 slab
+    (kb 128) at the ragged MoE step's fc1 and fc2 over the ``moe`` offsets
+    of tests/torch_gmm_cases.py (4096 rows, 8 uneven experts).  It calls
+    only entry points both this tree and its parent have, so that parent
+    and change run the same measurement in one chip call."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import apex_tpu_torch
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import dense as td
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    pkg = Path(apex_tpu_torch.__file__).resolve().parent
+    check(pkg.parent == Path(root).resolve(),
+          f"imported {pkg}, not the tree under {root}")
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_gmm_cases import offsets_case
+
+    t0 = time.perf_counter()
+    ku.build_all(["dense_int8.cu", "grouped_matmul.cu"])
+    build_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    bf = torch.bfloat16
+    row10 = {}
+    with torch.inference_mode():
+        for m in (32, 1024, 4096):
+            for site, k, n in DENSE_SITES:
+                slab = td.quantize_weight(
+                    torch.randn(k, n, device="cuda", generator=gen) * 0.02)
+                x = torch.randn(m, k, device="cuda", generator=gen).to(bf)
+                row10[f"M={m} {site}"] = time_ms(
+                    lambda: td.dense_quantized(x, slab["wire"],
+                                               slab["scale"]))
+        n, g, off = offsets_case("moe")
+        offs = torch.as_tensor(off, device="cuda")
+
+        def rnd(*shape, scale=1.0):
+            return (torch.randn(*shape, device="cuda", generator=gen)
+                    * scale).to(bf)
+
+        row9 = {}
+        for site, k, p in (("fc1", MOE_H, MOE_F), ("fc2", MOE_F, MOE_H)):
+            w = rnd(g, k, p, scale=0.02)
+            x, dy = rnd(n, k), rnd(n, p)
+            q = tgm.quantize_group_weights(w.float(), QUANT_KB)
+            row9[f"{site} forward"] = time_ms(
+                lambda: tgm._gmm_route(x, w, offs, False))
+            row9[f"{site} dx"] = time_ms(
+                lambda: tgm._gmm_route(dy, w, offs, False, trans=True))
+            row9[f"{site} int8"] = time_ms(
+                lambda: tgm.grouped_matmul_quantized(x, q["wire"],
+                                                     q["scale"], offs))
+    return {"root": str(root), "device": nvidia_smi(),
+            "build_s": build_s, "row10_ms": row10, "row9_ms": row9,
+            "moe_loads": [int(b - a) for a, b in zip(off, off[1:])]}
+
+
 def main() -> int:
     check(torch.cuda.is_available(),
           "no CUDA device: chip_smoke.py runs only on the card")
+    if sys.argv[1:2] == ["--matmul-times"]:
+        # python3 chip_smoke.py --matmul-times ROOT: rows 9 and 10 only
+        print(json.dumps(matmul_times(sys.argv[2])))
+        return 0
     dev = torch.device("cuda")
     cap = torch.cuda.get_device_capability(0)
     check(cap == (9, 0), f"compute capability {cap}, need (9, 0) (Hopper)")
@@ -2658,9 +2827,10 @@ def main() -> int:
           f"source, in parallel), compiled now: {built}")
 
     attrs, sass = hopper_kernels()
-    print(f"hopper kernels (16-bit K2, K6, K7) on {smi}: registers, shared "
-          f"memory per CTA and CTAs per SM {json.dumps(attrs)}; SASS "
-          f"HGMMA / UTMALDG per kernel {json.dumps(sass)}")
+    print(f"hopper kernels (16-bit K2, K6, K7; rows 9 and 10's tensor-core "
+          f"routes) on {smi}: registers, shared memory per CTA, CTAs per "
+          f"SM and spill bytes {json.dumps(attrs)}; SASS HGMMA / UTMALDG "
+          f"per kernel {json.dumps(sass)}")
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2692,9 +2862,10 @@ def main() -> int:
                           ("fused_decode_layer", kernel_decode),
                           ("fused_sample", kernel_sampler),
                           ("ragged_paged_attention", kernel_paged),
-                          ("grouped_matmul", kernel_grouped_matmul),
-                          ("dense_int8", kernel_dense_int8)):
+                          ("grouped_matmul", kernel_grouped_matmul)):
             report(kname, fn(dev, gen))
+        for kname, r in kernel_dense_int8(dev, gen).items():
+            report(kname, r)
         sl = slice_phase(dev)
         eng = engine_phase(dev)
         lora = lora_engine_phase(dev)

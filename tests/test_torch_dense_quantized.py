@@ -160,3 +160,63 @@ def test_moe_slabs_quantize_per_layer():
     deq = tq.dequantize_params({"layers": {"moe_fc1": q}})["layers"]
     err = (deq["moe_fc1"] - w).abs()
     assert bool((err <= q["scale"][:, :, None, 0, :] / 2 + 1e-7).all())
+
+
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+
+
+@pytest.mark.parametrize("m, k, n, kb, dtype, route", [
+    (32, 768, 2304, 128, BF16, "decode"),      # engine decode, 32 lanes
+    (1, 768, 768, 128, F16, "decode"),
+    (64, 3072, 768, 128, BF16, "decode"),
+    (65, 3072, 768, 128, BF16, "tiles"),
+    (1024, 768, 3072, 128, BF16, "tiles"),     # a 1024-token prefill
+    (4096, 768, 3072, 128, F16, "tiles"),      # the quantized MoE forward
+    (32, 768, 2304, 128, F32, "simt"),         # fp32 activations
+    (32, 96, 40, 32, BF16, "simt"),            # 40-byte wire rows
+    (32, 100, 24, 100, BF16, "simt"),          # kb not a multiple of 32
+    (1024, 96, 96, 32, BF16, "tiles")])
+def test_dense_route(m, k, n, kb, dtype, route):
+    """Row 10's route on the card: the tensor-core kernels take 16-bit x,
+    kb % 32 == 0 and rows a TMA map describes; 64 rows or fewer take the
+    swapped decode kernel."""
+    assert td.dense_route(m, k, n, kb, dtype) == route
+
+
+@pytest.mark.parametrize("k, n, splits", [
+    (768, 2304, 6), (768, 768, 6), (768, 3072, 6), (3072, 768, 8),
+    (128, 384, 1), (256, 640, 2), (192, 96, 6)])
+def test_decode_splits_at_the_gpt2_sites(k, n, splits):
+    """The cluster of the decode route at GPT-2 125M's four matmuls (kb
+    128), a single scale block and fewer blocks than a cluster holds."""
+    kb = 32 if n == 96 else 128
+    assert td.decode_splits(k, n, kb) == splits
+
+
+def test_decode_splits_bounds():
+    """Every cluster holds 1 to 8 CTAs and never more than the scale
+    blocks, so each CTA takes at least one whole block; the grid reaches
+    ~2 CTAs per SM whenever the blocks allow it."""
+    for nkb in range(1, 40):
+        for n in range(16, 8192, 272):
+            s = td.decode_splits(nkb * 128, n, 128)
+            assert 1 <= s <= min(td.MAX_CLUSTER, nkb)
+            cols = -(-n // 64)
+            if s < min(td.MAX_CLUSTER, nkb):
+                assert s * cols >= 264
+
+
+@pytest.mark.parametrize("row_tiles, n, kb, cols", [
+    (8, 768, 128, 64),        # M=1024 proj / fc2: 48 tiles of 128 columns
+    (11, 768, 128, 64),       # 66 tiles: 132 of 64 columns, one wave
+    (12, 768, 128, 128),      # 72 tiles: 144 of 64 columns, two waves
+    (8, 2304, 128, 128),      # M=1024 qkv: 144 tiles, every SM busy
+    (32, 768, 128, 128),      # M=4096 fc2: 192 tiles
+    (40, 768, 128, 128),      # the MoE fc2 int8 slab (4096 rows, 8 groups)
+    (8, 768, 32, 128),        # kb = 32: stages of 32 rows keep 128
+    (1, 16, 64, 64)])
+def test_int8_column_tile(row_tiles, n, kb, cols):
+    """The int8 GEMM narrows its tiles to 64 columns only when twice the
+    128-column tiles still fit one wave and the scale block allows
+    64-row stages."""
+    assert td.int8_column_tile(row_tiles, n, kb) == cols

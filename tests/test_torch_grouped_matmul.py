@@ -20,9 +20,10 @@ import torch
 
 from apex_tpu.ops import grouped_matmul as jgm
 from apex_tpu_torch.ops import grouped_matmul as tgm
-from torch_gmm_cases import ADVERSARIAL, offsets_case
+from apex_tpu_torch.ops import _kernel_utils as ku
+from torch_gmm_cases import ADVERSARIAL, TILE_EDGES, offsets_case
 
-CASES = ("decode",) + ADVERSARIAL
+CASES = ("decode",) + ADVERSARIAL + TILE_EDGES
 TOL = {"float32": (1e-5, 1e-5), "bfloat16": (2 ** -8, 1e-3)}
 
 
@@ -117,3 +118,46 @@ def test_gradient_matches_per_group_autograd():
     torch.testing.assert_close(w.grad, wr.grad)
     with torch.no_grad():
         assert tgm.grouped_matmul(x, w, off).shape == (4, 3)
+
+
+@pytest.mark.parametrize("dtype, n, k, p, g, takes", [
+    (torch.bfloat16, 4096, 768, 3072, 8, True),     # the MoE fc1
+    (torch.float16, 4096, 3072, 768, 8, True),
+    (torch.bfloat16, 32, 768, 8, 24, True),         # LoRA A side in bf16
+    (torch.bfloat16, 32, 8, 2304, 24, True),        # LoRA B side in bf16
+    (torch.bfloat16, 50, 0, 8, 4, True),            # k = 0: zeros, no loads
+    (torch.float32, 4096, 768, 3072, 8, False),     # fp32: the CUDA cores
+    (torch.bfloat16, 77, 100, 24, 5, False),        # 200-byte rows of x
+    (torch.bfloat16, 77, 24, 100, 5, False),        # 200-byte rows of w
+    (torch.bfloat16, 77, 64, 64, tgm.MAX_TILE_GROUPS, True),
+    (torch.bfloat16, 77, 64, 64, tgm.MAX_TILE_GROUPS + 1, False)])
+def test_tensor_core_branch_choice(dtype, n, k, p, g, takes):
+    """Which operands the 16-bit tensor-core branch takes: 16-bit types
+    whose rows a TMA map can describe (16-byte strides), and a segment
+    table that fits in shared memory; the rest keep the fp32 branch."""
+    assert tgm._mma_takes(dtype, n, k, p, g) is takes
+
+
+@pytest.mark.parametrize("shape, itemsize, ok", [
+    ((4096, 768), 2, True), ((8, 3072, 768), 2, True),
+    ((8, 768, 3072), 1, True), ((77, 100), 2, False), ((77, 24), 1, False),
+    ((50, 8), 2, True), ((1, 16), 1, True), ((8, 2 ** 39), 2, False),
+    ((5,), 4, True)])
+def test_tma_strides_ok(shape, itemsize, ok):
+    """A TMA map's conditions on a contiguous tensor: every row stride a
+    multiple of 16 bytes below 2**40 (a 1-D tensor has none)."""
+    assert ku.tma_strides_ok(shape, itemsize) is ok
+
+
+@pytest.mark.parametrize("n, p, g, cols", [
+    (4096, 768, 8, 256),      # MoE fc2 forward / fc1 dx: 40 x 3 tiles
+    (4096, 3072, 8, 128),     # MoE fc1 forward / fc2 dx: 40 x 12 tiles
+    (1024, 3072, 4, 128),     # 12 x 12 = 144 tiles of 256: two waves
+    (1024, 2816, 4, 256),     # 12 x 11 = 132: exactly one wave
+    (32, 2304, 24, 128),      # the LoRA B side in bf16: 25 x 9 = 225
+    (50, 8, 4, 256),
+    (16384, 256, 1, 256)])    # 129 row tiles of one column tile
+def test_mma_column_tile(n, p, g, cols):
+    """The 16-bit GEMM takes 256-column tiles only when they fit in one
+    wave of the 132 persistent CTAs (no tail to lose), else 128."""
+    assert tgm.mma_column_tile(n, p, g) == cols

@@ -535,16 +535,116 @@ def test_row10_dense_int8(dev, dtype, tol, m, k, n, block):
     w = torch.randn(k, n, device=dev, generator=gen) * 0.05
     slab = td.quantize_weight(w, block)
     x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
-    before = td.DENSE_INT8.launches
+    kern = _row10_kernel(m, slab, dtype)
+    before = dict(ku.launch_counts())
     out = td.dense_quantized(x, slab["wire"], slab["scale"])
     ref = td.dense_quantized(x, slab["wire"], slab["scale"],
                              backend="reference")
     torch.cuda.synchronize()
-    assert td.DENSE_INT8.launches == before + 1
+    before[kern.name] += 1
+    assert ku.launch_counts() == before     # one launch, on its route
     assert out.dtype == dtype and out.shape == (m, n)
     # relative to the output's scale: fp32 sums in another order, and a
     # 16-bit output rounds once
     assert _rel_err(out, ref) <= tol
+
+
+def _row10_kernel(m, slab, dtype):
+    """The launch counter of the route dense_quantized takes."""
+    from apex_tpu_torch.ops import dense as td
+
+    k, n = slab["wire"].shape
+    kb = k // slab["scale"].shape[0]
+    return {"tiles": td.DENSE_INT8, "decode": td.DENSE_INT8_DECODE,
+            "simt": td.DENSE_INT8_SIMT}[td.dense_route(m, k, n, kb, dtype)]
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.bfloat16, 1e-2),
+                                        (torch.float16, 4e-3)])
+@pytest.mark.parametrize("m", [1, 7, 32, 33, 64, 65, 1024, 4096])
+@pytest.mark.parametrize("k, n, block", [
+    (768, 2304, 128),     # qkv: six scale blocks
+    (3072, 768, 128),     # fc2: 24 blocks, a full cluster of 8
+    (256, 272, 128),      # n not a multiple of 128 (nor of 64)
+    (128, 384, 128),      # k = kb: a single scale block
+    (256, 640, 128),      # two blocks, fewer than the cluster's 8
+    (192, 96, 32)])       # kb = 32: several blocks per 64 rows of k
+def test_row10_tensor_core_routes(dev, dtype, tol, m, k, n, block):
+    """The two Hopper routes of row 10: the swapped, cluster-split decode
+    kernel at m <= 64 and the int8-slab GEMM above, one launch each on
+    its own counter, the plain version's result within a 16-bit
+    rounding, bitwise the same over repeated launches."""
+    from apex_tpu_torch.ops import dense as td
+
+    gen = _gen(40)
+    w = torch.randn(k, n, device=dev, generator=gen) * 0.05
+    slab = td.quantize_weight(w, block)
+    assert slab["scale"].shape[0] == k // block
+    x = torch.randn(m, k, device=dev, generator=gen).to(dtype)
+    kern = _row10_kernel(m, slab, dtype)
+    assert kern is (td.DENSE_INT8_DECODE if m <= 64 else td.DENSE_INT8)
+    before = dict(ku.launch_counts())
+    out = td.dense_quantized(x, slab["wire"], slab["scale"])
+    torch.cuda.synchronize()
+    before[kern.name] += 1
+    assert ku.launch_counts() == before
+    ref = td.dense_quantized(x, slab["wire"], slab["scale"],
+                             backend="reference")
+    assert out.dtype == dtype and out.shape == (m, n)
+    assert _rel_err(out, ref) <= tol
+    for _ in range(3):
+        again = td.dense_quantized(x, slab["wire"], slab["scale"])
+        assert torch.equal(again, out)
+
+
+@pytest.mark.parametrize("m", [1, 32, 64])
+@pytest.mark.parametrize("k, n", [(768, 2304), (3072, 768), (256, 272)])
+def test_row10_every_cluster_size_agrees(dev, m, k, n):
+    """Each cluster size of the decode route (1 .. min(8, k / kb) CTAs,
+    whole scale blocks each, uneven splits included) gives the plain
+    result, and each is deterministic."""
+    from apex_tpu_torch.ops import dense as td
+
+    gen = _gen(41)
+    slab = td.quantize_weight(torch.randn(k, n, device=dev, generator=gen)
+                              * 0.05)
+    x = torch.randn(m, k, device=dev, generator=gen).to(torch.bfloat16)
+    ref = td.dense_quantized(x, slab["wire"], slab["scale"],
+                             backend="reference")
+    nkb = slab["scale"].shape[0]
+    for splits in range(1, min(td.MAX_CLUSTER, nkb) + 1):
+        out = td._dq_kernel(x, slab["wire"], slab["scale"], splits=splits)
+        again = td._dq_kernel(x, slab["wire"], slab["scale"], splits=splits)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        assert _rel_err(out, ref) <= 1e-2, splits
+
+
+@pytest.mark.parametrize("m", [32, 1024])
+def test_row10_captures_in_a_cuda_graph(dev, m):
+    """Both Hopper routes (the decode route a cluster launch) capture in
+    a CUDA graph, and a replay follows new activations copied in place."""
+    from apex_tpu_torch.ops import dense as td
+
+    gen = _gen(42)
+    slab = td.quantize_weight(torch.randn(768, 3072, device=dev,
+                                          generator=gen) * 0.05)
+    x = torch.randn(m, 768, device=dev, generator=gen).to(torch.bfloat16)
+    static = x.clone()
+    with torch.no_grad():
+        td.dense_quantized(static, slab["wire"], slab["scale"])
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = td.dense_quantized(static, slab["wire"], slab["scale"])
+        for seed in (43, 44):
+            new = torch.randn(m, 768, device=dev,
+                              generator=_gen(seed)).to(torch.bfloat16)
+            static.copy_(new)
+            graph.replay()
+            torch.cuda.synchronize()
+            want = td.dense_quantized(new, slab["wire"], slab["scale"])
+            assert torch.equal(out, want)
 
 
 def _gmm_inputs(case, k, p, dtype, seed):
@@ -668,7 +768,7 @@ def _gmm_t_inputs(case, k, p, dtype, seed):
                                   (0, 8)])
 @pytest.mark.parametrize("case", ["moe_small", "empty_groups", "window",
                                   "one_group", "all_outside", "ragged_300",
-                                  "many_groups"])
+                                  "many_groups", "straddle", "skewed"])
 def test_row9_mma_branch(dev, dtype, tol, trans, k, p, case):
     """The 16-bit tensor-core branch, forward and transposed read: K and
     P at the tile's limits (one k step, one 64-column tile, a partial
@@ -740,7 +840,8 @@ def _gmmq_inputs(case, k, p, block, dtype, seed):
 @pytest.mark.parametrize("k, p, block", [(768, 3072, 128), (256, 64, 128),
                                          (64, 80, 32), (96, 16, 32)])
 @pytest.mark.parametrize("case", ["moe", "moe_small", "empty_groups",
-                                  "window", "all_outside", "many_groups"])
+                                  "window", "all_outside", "many_groups",
+                                  "straddle", "skewed"])
 def test_row9_int8_branch(dev, dtype, tol, k, p, block, case):
     """The int8-slab branch against its plain version (the slab
     dequantized to fp32, one masked fp32 product per group): several
@@ -776,6 +877,56 @@ def test_row9_int8_shapes_the_tile_does_not_take_raise(dev, k, p, block,
     x, wire, scale, offs, _ = _gmmq_inputs("window", k, p, block, dtype, 28)
     with pytest.raises(ValueError, match="takes bf16/fp16"):
         tgm.grouped_matmul_quantized(x, wire, scale, offs)
+
+
+@pytest.mark.parametrize("trans", [False, True])
+@pytest.mark.parametrize("case, k, p", [("moe", 768, 3072),
+                                        ("moe", 3072, 768),
+                                        ("straddle", 64, 72),
+                                        ("many_groups", 8, 520)])
+def test_row9_both_column_tiles(dev, trans, case, k, p):
+    """The 16-bit GEMM at 128- and 256-column tiles on the same inputs:
+    each the plain version's result within a 16-bit rounding, rows
+    outside the window zero, each deterministic."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    fn = _gmm_t_inputs if trans else _gmm_inputs
+    x, w, offs, off_np = fn(case, k, p, torch.bfloat16, 46)
+    wf = w.transpose(1, 2) if trans else w
+    for cols in (128, 256):
+        out = tgm._gmm_kernel(x, w, offs, trans=trans, cols=cols)
+        again = tgm._gmm_kernel(x, w, offs, trans=trans, cols=cols)
+        torch.cuda.synchronize()
+        assert torch.equal(out, again)
+        _check_gmm(x, wf, offs, off_np, out, 1e-2)
+
+
+@pytest.mark.parametrize("branch", ["mma", "mma_t", "int8"])
+@pytest.mark.parametrize("case", ["moe", "skewed"])
+def test_row9_tensor_core_branches_repeat_bitwise(dev, branch, case):
+    """Twenty launches of each tensor-core branch at the ragged MoE
+    step's fc1 shape give the same bits: one writer per output element,
+    no atomics, and no stale read of a widened int8 stage (the proxy
+    fence between its writers and the wgmma that read it)."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    if branch == "int8":
+        x, wire, scale, offs, _ = _gmmq_inputs(case, 768, 3072, 128,
+                                               torch.bfloat16, 45)
+
+        def call():
+            return tgm.grouped_matmul_quantized(x, wire, scale, offs)
+    else:
+        trans = branch == "mma_t"
+        fn = _gmm_t_inputs if trans else _gmm_inputs
+        x, w, offs, _ = fn(case, 768, 3072, torch.bfloat16, 45)
+
+        def call():
+            return tgm._gmm_kernel(x, w, offs, trans=trans)
+    first = call()
+    for _ in range(20):
+        assert torch.equal(call(), first)
+    torch.cuda.synchronize()
 
 
 def test_row9_zero_rows_launch_nothing(dev):

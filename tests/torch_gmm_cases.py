@@ -49,6 +49,14 @@ def offsets_case(name):
     if name == "moe":
         # a ragged MoE layer: 4096 token slots over 8 experts, uneven
         return 4096, 8, moe_offsets(4096, 8, seed=6)
+    if name == "straddle":
+        # segments that start and end inside 128-row tiles, an empty
+        # group between them, rows outside on both sides
+        return 700, 5, _offsets(20, [100, 150, 0, 200, 130])
+    if name == "skewed":
+        # one expert holds every row but one (capacity-free routing at
+        # init can come close)
+        return 1025, 8, _offsets(0, [0, 0, 1024, 0, 0, 1, 0, 0])
     if name == "moe_small":
         # fewer rows than one 64-row tile per expert, one expert empty
         return 50, 4, _offsets(0, [13, 0, 30, 7])
@@ -66,3 +74,5 @@ def moe_offsets(n, g, seed=0):
 ADVERSARIAL = ("empty_groups", "window", "one_group", "all_outside",
                "ragged_300", "many_groups")
 MOE = ("moe", "moe_small")
+# the 128-row tiles of the tensor-core branches against segment edges
+TILE_EDGES = ("straddle", "skewed")
