@@ -14,35 +14,68 @@
 // sk, and the lse > -1e30/2 guard that zeroes fully masked rows
 // (flash_attention.py:608-611).
 //
-// Grid.  The TPU kernel walks (b*n, q-block) in order and carries fp32
-// dk/dv accumulators of [skp, d] in VMEM across its q-blocks; Hopper
-// blocks run in no order, and at skp = 512, d = 64 the two accumulators
-// (256 KB) exceed one SM's shared memory.  So each CTA owns one (64-key
-// tile, batch*kv-group) pair, keeps that tile's dk and dv in WMMA
-// accumulator fragments in registers, and loops over the group's rep
-// query heads and their query tiles (from the diagonal on when causal).
-// For each query tile it writes that tile's dq contribution, ds k, as an
-// fp32 partial [key tile, b*n, sqp, d]; a second kernel sums the
-// partials of each query row over the key tiles in fixed order and
-// rounds once.  Every output has one writer and no atomics are used, so
-// the result is deterministic, as with K5 and row 10.
+// The TPU kernel keeps the group's whole K/V (<= 512 keys) in VMEM, walks
+// the query blocks in order, emits each block's dq complete and carries
+// only dk and dv across blocks.  A Hopper SM holds 227 KB of shared
+// memory, not the fp32 dk/dv of 512 keys beside the tiles, and its blocks
+// run in no order.
+//
+// 16-bit inputs: a thread-block cluster stands in for the resident K/V.
+// The R = ceil(sk / 128) CTAs of one (batch, kv-group) form a cluster (up
+// to 8 ranks: 1024 keys).  The keys come in 2R tiles of 64; rank r's two
+// consumer warpgroups hold tiles r and 2R - 1 - r, so that under
+// causality every rank has one early key tile (many query tiles) and one
+// late one (few).  Each CTA is K7's Hopper work item
+// (flash_attention_bwd.cu): 384 threads, a producer warp feeding a TMA
+// ring of Q, dO and the lse/delta rows, the consumer warpgroups issuing
+// wgmma into fp32 registers under setmaxnreg, the transposed products
+// S^T = K Q^T and dP^T = V dO^T, and dV += P^T dO, dK += dS^T Q held in
+// registers across the group's rep heads and query tiles (64 queries; 32
+// at d = 128).  K and V stay in shared memory for the whole item (the dq
+// product reads K there).
+// The dq: each warpgroup writes its dS^T tile to shared memory (rounded to
+// T; two tiles each, by step parity), and warpgroup 1, which issues second,
+// forms the rank's contribution over both tiles' 128 keys, dS K (at d =
+// 128 the transpose K^T dS^T, whose M is d: wgmma needs 64 rows), into
+// an fp32 partial in its CTA's shared memory.  The ranks step through the
+// same sequence of (head, query tile) steps; after a step warpgroup 1
+// arrives on every rank's "full" mbarrier of that step's partial buffer.
+// The producer warpgroup's three idle warps are the reducers: on rank r
+// they add the rank's slice of the tile over ranks 0 .. R-1, in that
+// order, through distributed shared memory, round it and store it, and
+// arrive on every rank's "empty" barrier.  Two partial buffers alternate,
+// so the consumers run the next step's products while the reducers sum
+// this one.  Every dq element has one writer and a
+// fixed order of addition; no fp32 partial reaches device memory and no
+// second kernel runs.  Causal calls: a key tile sees the query tiles
+// from its first key on; a warpgroup with nothing for a step keeps its
+// turn and still arrives (its partial is not read), so the ranks stay in
+// step.
 //
 // Numbers.  As K6/K7: p and ds are rounded to the input type before the
-// tensor-core products (WMMA 16x16x16, fp32 accumulators); scores, dp,
-// lse, delta, the partials and their sum stay fp32.  fp32 inputs take a
-// CUDA-core product and round nothing.
+// tensor-core products; scores, dp, lse, delta and the dq partials stay
+// fp32.
+//
+// fp32 inputs (no main path) keep the CUDA-core design of
+// flash_bwd_tile.cuh: one CTA per (64-key tile, batch*kv-group), the
+// tiles loaded synchronously, each key tile's dq contribution written as
+// an fp32 partial [key tile, b*n, sqp, d] and summed over the key tiles in
+// fixed order by a second kernel.
 //
 // Bound on the H100 at b8 s512 n16 d64 bf16 (BERT-large), key padding:
 // about even between operations (5 products of 2*d flops per open
 // (query, key) pair, ~0.02 ms at 989 TFLOP/s) and bytes (q, k, v, do,
-// dq, dk, dv, lse, delta: ~59 MB, ~0.018 ms).  This design adds the fp32
-// partials (written once, read once: 2 * nkt * b*n * sqp * d * 4 bytes,
-// 268 MB at that shape) and loads its tiles synchronously; a TMA ring
-// with wgmma and a dq sum held in shared memory across key tiles are the
-// next steps.
+// dq, dk, dv, lse, delta: ~59 MB, ~0.018 ms).
+#include <cooperative_groups.h>
+
 #include "flash_bwd_tile.cuh"
+#include "sm90_tile.cuh"
 
 namespace {
+
+// ---------------------------------------------------------------------------
+// fp32 inputs
+// ---------------------------------------------------------------------------
 
 // dk and dv for one (64-key tile, batch*kv-group), summed over the
 // group's rep query heads, and each visited query tile's dq partial.
@@ -180,35 +213,607 @@ __global__ void __launch_bounds__(256)
   out[3] = apex_from_float<T>(acc.w);
 }
 
+template <int D>
+int launch_fp32(const void* q, const void* k, const void* v,
+                const void* dout, const void* lse, const void* delta,
+                const void* kpm, void* dq_part, void* dq, void* dk, void* dv,
+                int b, int sq, int sk, int n, int g, float scale, int causal,
+                cudaStream_t stream) {
+  if (dq_part == nullptr) return (int)cudaErrorInvalidValue;
+  const int bytes = Smem<float, D>::bytes;
+  int err = prepare(flash_bwd_short_kernel<float, D>, bytes);
+  if (err != 0) return err;
+  const dim3 grid((sk + kB - 1) / kB, b * g);
+  flash_bwd_short_kernel<float, D><<<grid, kThreads, bytes, stream>>>(
+      (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
+      (const float*)lse, (const float*)delta, (const float*)kpm,
+      (float*)dq_part, (float*)dk, (float*)dv, b, sq, sk, n, g, scale,
+      causal);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const long long total = (long long)b * n * sq * (D / 4);
+  flash_bwd_short_dq_sum<float, D><<<(unsigned)((total + 255) / 256), 256,
+                                     0, stream>>>(
+      (const float*)dq_part, (float*)dq, b, sq, sk, n, causal);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// 16-bit inputs: the Hopper kernel, one cluster of R CTAs per
+// (batch, kv-group).
+// ---------------------------------------------------------------------------
+
+constexpr int kMaxRanks = 8;  // the portable cluster size: up to 1024 keys
+// Threads 288-383 (the producer warpgroup's last three warps) sum dq
+// across the cluster.  Registers move from the producer warpgroup (56) to
+// the consumers (224): 128 * 56 + 256 * 224 <= 65536, the launch's whole
+// file.
+constexpr int kReducerThreads = 96;
+constexpr int kShortProducerRegs = 56;
+constexpr int kShortConsumerRegs = 224;
+
+template <int D>
+struct Short {
+  static constexpr int BK = 64;                  // keys per warpgroup
+  static constexpr int BQ = D == 128 ? 32 : 64;  // queries per ring tile
+  static constexpr int STAGES = D == 128 ? 3 : 4;
+  // dq^T = K^T dS^T where 32 query rows are too few for wgmma's M
+  static constexpr bool kSwap = BQ < 64;
+  static constexpr int RP = D + 8;  // fp32 pitch of a dq partial row
+  static constexpr int RED = BQ * RP;  // floats of one rank's partial
+  using KT = sm90::Tile<D, BK>;   // one warpgroup's K or V
+  using QT = sm90::Tile<D, BQ>;
+  using ST = sm90::Tile<BQ, BK>;  // a warpgroup's dS^T: 64 keys x BQ queries
+  // K of warpgroups 0 and 1, then V of both
+  static constexpr int k_off = 0;
+  static constexpr int v_off = k_off + 2 * KT::BYTES;
+  static constexpr int q_off = v_off + 2 * KT::BYTES;
+  static constexpr int do_off = q_off + STAGES * QT::BYTES;
+  // dS^T tiles [step parity][warpgroup]
+  static constexpr int ds_off = do_off + STAGES * QT::BYTES;
+  // the rank's dq partial [step parity][BQ][RP] fp32
+  static constexpr int red_off = ds_off + 4 * ST::BYTES;
+  static constexpr int lse_off = red_off + 2 * RED * 4;
+  static constexpr int dl_off = lse_off + STAGES * BQ * 4;
+  static constexpr int bar_off = dl_off + STAGES * BQ * 4;
+  // kv_full, full[S], empty[S], rfull[2], rempty[2], ds_free[2]; 1024
+  // bytes of alignment slack
+  static constexpr int bytes = bar_off + (7 + 2 * STAGES) * 8 + 1024;
+};
+
+// The first key of warpgroup w of rank r among 2R tiles of 64 keys: tile
+// r for warpgroup 0, tile 2R - 1 - r for warpgroup 1, so that under
+// causality every rank holds one early key tile (many query tiles) and
+// one late one (few) and the ranks' work evens out.
+__device__ __forceinline__ int short_key0(int r, int w, int R) {
+  return (w == 0 ? r : 2 * R - 1 - r) * 64;
+}
+
+// The first query tile (of bq rows) that keys from kw on can see.
+__device__ __forceinline__ int short_first_tile(int kw, int bq, int nqt,
+                                                int causal) {
+  return causal ? min(kw / bq, nqt) : 0;
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(sm90::kThreads, 1)
+    flash_bwd_short_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                                const __grid_constant__ CUtensorMap tk,
+                                const __grid_constant__ CUtensorMap tv,
+                                const __grid_constant__ CUtensorMap tdo,
+                                const float* __restrict__ lse,
+                                const float* __restrict__ delta,
+                                const float* __restrict__ kpm,
+                                T* __restrict__ dq, T* __restrict__ dk,
+                                T* __restrict__ dv, int sq, int sk, int n,
+                                int g, float scale, int causal) {
+  using C = Short<D>;
+  constexpr int BQ = C::BQ, BK = C::BK, S = C::STAGES;
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int R = (int)cluster.dim_blocks().x;
+  const int rank = (int)cluster.block_rank();
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = sm90::align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + C::bar_off);
+  uint64_t* full = kv_full + 1;
+  uint64_t* empty = full + S;
+  uint64_t* rfull = empty + S;
+  uint64_t* rempty = rfull + 2;
+  uint64_t* ds_free = rempty + 2;
+  float* slse = reinterpret_cast<float*>(smem + C::lse_off);
+  float* sdl = reinterpret_cast<float*>(smem + C::dl_off);
+  float* red = reinterpret_cast<float*>(smem + C::red_off);
+
+  const int rep = n / g;
+  const int bg = blockIdx.y, b = bg / g, kvh = bg % g;
+  const int nqt = (sq + BQ - 1) / BQ;
+  const int steps = rep * nqt;  // (head, query tile), the same on every rank
+  // the ring carries the query tiles warpgroup 0's keys (the rank's
+  // earlier tile) see; warpgroup 1's are a suffix of them
+  const int qt_begin =
+      short_first_tile(short_key0(rank, 0, R), BQ, nqt, causal);
+  const int nq = nqt - qt_begin;
+  const int nopen = rep * nq;
+
+  if (threadIdx.x == 0) {
+    sm90::bar_init(kv_full, 1);
+    for (int s = 0; s < S; ++s) {
+      sm90::bar_init(&full[s], 32);  // every producer lane's copies
+      sm90::bar_init(&empty[s], sm90::kConsumerWarps);
+    }
+    for (int i = 0; i < 2; ++i) {
+      sm90::bar_init(&rfull[i], R);   // each rank's warpgroup 1
+      sm90::bar_init(&rempty[i], R);  // each rank's reducer warps
+      sm90::bar_init(&ds_free[i], 1);
+    }
+    sm90::bar_init_fence();
+  }
+  cluster.sync();  // every rank's barriers exist before a peer arrives
+
+  if (threadIdx.x >= 256) {
+    sm90::reg_dealloc<kShortProducerRegs>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x & 31;
+      if (lane == 0) {
+        sm90::bar_arrive_tx(kv_full, 4 * C::KT::BYTES);
+        for (int w = 0; w < 2; ++w) {
+          const int kw = short_key0(rank, w, R);
+          sm90::tma_tile<D, BK>(smem + C::k_off + w * C::KT::BYTES, &tk,
+                                kv_full, kvh, kw, b);
+          sm90::tma_tile<D, BK>(smem + C::v_off + w * C::KT::BYTES, &tv,
+                                kv_full, kvh, kw, b);
+        }
+      }
+      for (int u = 0; u < nopen; ++u) {
+        const int s = u % S;
+        const int h = kvh * rep + u / nq;
+        const int q0 = (qt_begin + u % nq) * BQ;
+        const size_t bh = (size_t)b * n + h;
+        sm90::bar_wait(&empty[s], ((u / S) & 1) ^ 1);
+        if (lane == 0) {
+          sm90::bar_expect_tx(&full[s], 2 * C::QT::BYTES);
+          sm90::tma_tile<D, BQ>(smem + C::q_off + s * C::QT::BYTES, &tq,
+                                &full[s], h, q0, b);
+          sm90::tma_tile<D, BQ>(smem + C::do_off + s * C::QT::BYTES, &tdo,
+                                &full[s], h, q0, b);
+        }
+        // rows past sq read 0: their Q and dO rows are 0 too, so their
+        // p is 1 and every product they enter adds 0
+        for (int c = lane; c < BQ; c += 32) {
+          const int row = q0 + c;
+          const bool in = row < sq;
+          const size_t at = bh * sq + (in ? row : 0);
+          sm90::cp_async4(&slse[s * BQ + c], lse + at, in);
+          sm90::cp_async4(&sdl[s * BQ + c], delta + at, in);
+        }
+        sm90::cp_async_arrive(&full[s]);
+      }
+    } else {
+      // The reducer warps.  Step t's dq: this rank's slice of the tile,
+      // the ranks' partials whose keys see the tile added in rank order,
+      // rounded to T and stored; then every rank is told that this rank
+      // is done reading the step's buffer.
+      const int rtid = threadIdx.x - 288;
+      constexpr int E4 = BQ * D / 4;  // float4s of a tile
+      const int lo = rank * E4 / R, hi = (rank + 1) * E4 / R;
+      for (int t = 0; t < steps; ++t) {
+        const int buf = t & 1;
+        sm90::bar_wait(&rfull[buf], (t >> 1) & 1);
+        sm90::fence_cluster();  // acquire: the peers' partials are visible
+        const int qt = t % nqt;
+        const int h = kvh * rep + t / nqt;
+        // ranks with a partial: those whose warpgroup 0 sees the tile
+        int nr = 0;
+        while (nr < R && qt >= short_first_tile(short_key0(nr, 0, R), BQ,
+                                                nqt, causal))
+          ++nr;
+        for (int e = lo + rtid; e < hi; e += kReducerThreads) {
+          const int row = e / (D / 4), col = (e % (D / 4)) * 4;
+          const uint32_t at =
+              sm90::smem_addr(red + buf * C::RED + row * C::RP + col);
+          float4 sum = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+          for (int j0 = 0; j0 < nr; j0 += 4) {
+            // four ranks' partials in flight at once, then added
+            float4 v[4];
+#pragma unroll
+            for (int i = 0; i < 4; ++i)
+              v[i] = j0 + i < nr
+                         ? sm90::ld_cluster4(sm90::map_rank(red, j0 + i) -
+                                             sm90::smem_addr(red) + at)
+                         : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              sum.x += v[i].x;
+              sum.y += v[i].y;
+              sum.z += v[i].z;
+              sum.w += v[i].w;
+            }
+          }
+          const int q = qt * BQ + row;
+          if (q < sq) {
+            const uint2 packed = make_uint2(sm90::pack2<T>(sum.x, sum.y),
+                                            sm90::pack2<T>(sum.z, sum.w));
+            *reinterpret_cast<uint2*>(
+                dq + (((size_t)b * sq + q) * n + h) * D + col) = packed;
+          }
+        }
+        // every read has returned its value (the sums are stored): lane
+        // j of the first reducer warp tells rank j
+        sm90::named_sync(5, kReducerThreads);
+        if (rtid < R) sm90::bar_arrive_rank(&rempty[buf], rtid);
+      }
+    }
+  } else {
+    sm90::reg_alloc<kShortConsumerRegs>();
+    // the warpgroup, from lane 0: the compiler then knows it is the same
+    // across the warp, and does not serialize the wgmma of a branch on it
+    const int wg = __shfl_sync(0xffffffffu, (int)(threadIdx.x >> 7), 0);
+    const int warp = (threadIdx.x >> 5) & 3;
+    const int lane = threadIdx.x & 31;
+    const int wtid = threadIdx.x & 127;
+    const float sl2 = scale * sm90::kLog2e;
+    const int wg_key = short_key0(rank, wg, R);
+    // this warpgroup's first query tile
+    const int qt_w = short_first_tile(wg_key, BQ, nqt, causal);
+    const int key0 = wg_key + warp * 16 + (lane >> 2);  // and key0 + 8
+    // the key's padding in log2 units; -1e30 past sk, so that no key of
+    // the tail (K and V rows of zeros) enters a product
+    float kp2[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int key = key0 + 8 * i;
+      kp2[i] = key >= sk ? APEX_NEG_INF
+               : kpm != nullptr ? kpm[(size_t)b * sk + key] * sm90::kLog2e
+                                : 0.0f;
+    }
+    const uint32_t sK = sm90::smem_addr(smem + C::k_off + wg * C::KT::BYTES);
+    const uint32_t sV = sm90::smem_addr(smem + C::v_off + wg * C::KT::BYTES);
+    // warpgroup w's K, and its dS^T tile of steps of parity par
+    auto k_of = [&](int w) {
+      return sm90::smem_addr(smem + C::k_off + w * C::KT::BYTES);
+    };
+    auto ds_of = [&](int par, int w) {
+      return sm90::smem_addr(smem + C::ds_off + (2 * par + w) * C::ST::BYTES);
+    };
+    float acc_dk[D / 2], acc_dv[D / 2];
+#pragma unroll
+    for (int r = 0; r < D / 2; ++r) {
+      acc_dk[r] = 0.0f;
+      acc_dv[r] = 0.0f;
+    }
+    // whether ring tile u's query tile is one this warpgroup's keys see
+    auto sees = [&](int u) { return qt_begin + u % nq >= qt_w; };
+
+    // S^T = K Q^T and dP^T = V dO^T of ring tile u, issued and committed
+    auto issue_s_dp = [&](float (&s_acc)[BQ / 2], float (&dp_acc)[BQ / 2],
+                          int u) {
+      const int s = u % S;
+      const uint32_t sQ = sm90::smem_addr(smem + C::q_off + s * C::QT::BYTES);
+      const uint32_t sdO =
+          sm90::smem_addr(smem + C::do_off + s * C::QT::BYTES);
+      sm90::bar_wait(&full[s], (u / S) & 1);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        sm90::mma_ss<T, BQ, 0>(s_acc, sm90::desc_k<D, BK>(sK, 0, kk),
+                               sm90::desc_k<D, BQ>(sQ, 0, kk), kk > 0);
+        sm90::mma_ss<T, BQ, 0>(dp_acc, sm90::desc_k<D, BK>(sV, 0, kk),
+                               sm90::desc_k<D, BQ>(sdO, 0, kk), kk > 0);
+      }
+      sm90::mma_commit();
+    };
+
+    // The rank's dq contribution of step parity par over both warpgroups'
+    // keys, into red[par] ([BQ][RP] fp32, query rows): issued by
+    // warpgroup 1, after both dS^T tiles are in.
+    auto dq_partial = [&](int par) {
+      float* dst = red + par * C::RED;
+      if constexpr (!C::kSwap) {
+        // dQ[64 q x D] = dS[64 q x 128 keys] K[128 keys x D]: dS^T is the
+        // transposed (MN-major) A, K the MN-major B, 16 keys a step
+        float acc_q[D / 2];
+        sm90::mma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::mma_ss<T, D, 1, 1>(acc_q, sm90::desc_mn<BQ, BK>(ds_of(par, 0),
+                                                                kk),
+                                   sm90::desc_mn<D, BK>(k_of(0), kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          sm90::mma_ss<T, D, 1, 1>(acc_q,
+                                   sm90::desc_mn<BQ, BK>(ds_of(par, 1), kk),
+                                   sm90::desc_mn<D, BK>(k_of(1), kk), 1);
+        sm90::mma_commit();
+        sm90::mma_wait<0>();
+        sm90::fence_regs(acc_q);
+#pragma unroll
+        for (int r = 0; r < D / 2; r += 2) {
+          const int row = warp * 16 + (lane >> 2) + 8 * sm90::frag_row(r);
+          *reinterpret_cast<float2*>(dst + row * C::RP +
+                                     sm90::frag_col(r, lane)) =
+              make_float2(acc_q[r], acc_q[r + 1]);
+        }
+      } else {
+        // dQ^T[64 d x BQ] = K^T[64 d x 128 keys] dS^T[128 keys x BQ],
+        // one 64-column panel of K at a time: K^T the MN-major A, dS^T the
+        // MN-major B
+#pragma unroll
+        for (int p = 0; p < D / 64; ++p) {
+          float acc_q[BQ / 2];
+          sm90::mma_fence();
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            sm90::mma_ss<T, BQ, 1, 1>(
+                acc_q,
+                sm90::desc_mn<64, BK>(k_of(0) + p * C::KT::PANEL_BYTES, kk),
+                sm90::desc_mn<BQ, BK>(ds_of(par, 0), kk), kk > 0);
+#pragma unroll
+          for (int kk = 0; kk < 4; ++kk)
+            sm90::mma_ss<T, BQ, 1, 1>(
+                acc_q,
+                sm90::desc_mn<64, BK>(k_of(1) + p * C::KT::PANEL_BYTES, kk),
+                sm90::desc_mn<BQ, BK>(ds_of(par, 1), kk), 1);
+          sm90::mma_commit();
+          sm90::mma_wait<0>();
+          sm90::fence_regs(acc_q);
+#pragma unroll
+          for (int r = 0; r < BQ / 2; ++r) {
+            const int d =
+                p * 64 + warp * 16 + (lane >> 2) + 8 * sm90::frag_row(r);
+            dst[sm90::frag_col(r, lane) * C::RP + d] = acc_q[r];
+          }
+        }
+      }
+    };
+
+    // The warpgroups take turns (sm90::turn_begin): one issues this
+    // tile's dV and dK products and the next tile's S^T and dP^T while
+    // the other forms its p^T and ds^T.  A warpgroup whose keys a ring
+    // tile's queries cannot see (causal) skips its products but keeps
+    // its turn.
+    float acc_s[BQ / 2], acc_dp[BQ / 2];
+    sm90::bar_wait(kv_full, 0);
+    if (wg == 1) sm90::turn_end(wg);  // warpgroup 0 issues first
+    sm90::turn_begin(wg);
+    if (nopen > 0 && sees(0)) {
+      sm90::mma_fence();
+      issue_s_dp(acc_s, acc_dp, 0);
+    }
+    sm90::turn_end(wg);
+    sm90::mma_wait<0>();
+    sm90::fence_regs(acc_s);
+    sm90::fence_regs(acc_dp);
+    int u = 0;  // ring tiles consumed
+    for (int t = 0; t < steps; ++t) {
+      const int buf = t & 1;
+      const int qt = t % nqt;
+      const bool mine = qt >= qt_w;  // this warpgroup has products
+      // warpgroup 0's dS^T tile of this parity is free once warpgroup 1's
+      // dq product of step t - 2 has read it.  Waited at every step, ring
+      // tile or not: a wait that skipped a phase could match the parity
+      // of the phase before it.
+      if (wg == 0 && t >= 2)
+        sm90::bar_wait(&ds_free[buf], ((t >> 1) - 1) & 1);
+      if (qt >= qt_begin) {          // a ring tile
+        const int s = u % S;
+        const int q0 = qt * BQ;
+        uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // p^T, ds^T rounded to T
+        if (mine) {
+          const uint32_t dsw = ds_of(buf, wg);
+          // p^T and ds^T (rows are keys, columns queries), packed into A
+          // fragments pair by pair; masked scores get -1e30
+          const float* sl = slse + s * BQ + 2 * (lane & 3);
+          const float* sd = sdl + s * BQ + 2 * (lane & 3);
+          const bool edge = causal && wg_key + 63 > q0;
+#pragma unroll
+          for (int cc = 0; cc < BQ / 8; ++cc) {
+            // per query column: -lse in log2 units (-1e30 on fully
+            // masked rows) and delta * scale
+            const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * cc);
+            const float2 d2 = *reinterpret_cast<const float2*>(sd + 8 * cc);
+            const float nl[2] = {
+                l2.x > APEX_NEG_INF / 2 ? -l2.x * sm90::kLog2e : APEX_NEG_INF,
+                l2.y > APEX_NEG_INF / 2 ? -l2.y * sm90::kLog2e
+                                        : APEX_NEG_INF};
+            const float dls[2] = {d2.x * scale, d2.y * scale};
+#pragma unroll
+            for (int i = 0; i < 2; ++i) {
+              float p[2], ds[2];
+#pragma unroll
+              for (int e = 0; e < 2; ++e) {
+                const int r = 4 * cc + 2 * i + e;
+                float x = fmaf(acc_s[r], sl2, nl[e]) + kp2[i];
+                if (edge && key0 + 8 * i > q0 + sm90::frag_col(r, lane))
+                  x = APEX_NEG_INF;
+                p[e] = sm90::ex2(x);
+                ds[e] = p[e] * fmaf(acc_dp[r], scale, -dls[e]);
+              }
+              pa[cc / 2][2 * (cc % 2) + i] = sm90::pack2<T>(p[0], p[1]);
+              da[cc / 2][2 * (cc % 2) + i] = sm90::pack2<T>(ds[0], ds[1]);
+              // ds^T into this warpgroup's tile, the dq product's operand
+              sm90::st_shared4(
+                  sm90::swz_addr<BQ, BK>(dsw,
+                                         warp * 16 + (lane >> 2) + 8 * i,
+                                         8 * cc + 2 * (lane & 3)),
+                  da[cc / 2][2 * (cc % 2) + i]);
+            }
+          }
+          sm90::fence_proxy_async();
+          sm90::named_sync(3 + wg, 128);  // the whole dS^T tile is written
+        } else if (wg == 1) {
+          // no key of warpgroup 1 sees this tile: its dS^T is zero, so
+          // that the rank's dq product runs over both tiles unbranched
+          const uint32_t dsw = ds_of(buf, wg);
+#pragma unroll
+          for (int cc = 0; cc < BQ / 8; ++cc)
+#pragma unroll
+            for (int i = 0; i < 2; ++i)
+              sm90::st_shared4(
+                  sm90::swz_addr<BQ, BK>(dsw,
+                                         warp * 16 + (lane >> 2) + 8 * i,
+                                         8 * cc + 2 * (lane & 3)),
+                  0u);
+          sm90::fence_proxy_async();
+          sm90::named_sync(3 + wg, 128);
+        }
+
+        const uint32_t sQ =
+            sm90::smem_addr(smem + C::q_off + s * C::QT::BYTES);
+        const uint32_t sdO =
+            sm90::smem_addr(smem + C::do_off + s * C::QT::BYTES);
+        sm90::turn_begin(wg);
+        if (mine) {
+          sm90::mma_fence();
+#pragma unroll
+          for (int kk = 0; kk < BQ / 16; ++kk) {
+            sm90::mma_rs<T, D, 1>(acc_dv, pa[kk],
+                                  sm90::desc_mn<D, BQ>(sdO, kk), 1);
+            sm90::mma_rs<T, D, 1>(acc_dk, da[kk],
+                                  sm90::desc_mn<D, BQ>(sQ, kk), 1);
+          }
+          sm90::mma_commit();
+        }
+        if (u + 1 < nopen && sees(u + 1)) {
+          if (!mine) sm90::mma_fence();
+          issue_s_dp(acc_s, acc_dp, u + 1);
+        }
+        sm90::turn_end(wg);
+        sm90::mma_wait<0>();
+        sm90::fence_regs(acc_dv);
+        sm90::fence_regs(acc_dk);
+        sm90::fence_regs(acc_s);
+        sm90::fence_regs(acc_dp);
+        __syncwarp();
+        if (lane == 0) sm90::bar_arrive(&empty[s]);
+        ++u;
+      }
+      // warpgroup 1 publishes step t's partial (a rank with none only
+      // arrives): first every rank must be done reading step t - 2's
+      // from this buffer
+      if (wg == 1) {
+        if (t >= 2) sm90::bar_wait(&rempty[buf], ((t >> 1) - 1) & 1);
+        if (qt >= qt_begin) dq_partial(buf);
+        sm90::named_sync(4, 128);
+        if (wtid == 0) sm90::bar_arrive(&ds_free[buf]);
+        if (wtid < R) {  // release: the partial is visible to rank wtid
+          sm90::fence_cluster();
+          sm90::bar_arrive_rank(&rfull[buf], wtid);
+        }
+      }
+    }
+    if (wg == 0) sm90::turn_begin(wg);  // the last hand-over
+    const float one[2] = {1.0f, 1.0f};
+    const size_t off = ((size_t)b * sk * g + kvh) * D;
+    sm90::store_rows<T>(acc_dk, one, dk + off, (size_t)g * D, key0, sk);
+    sm90::store_rows<T>(acc_dv, one, dv + off, (size_t)g * D, key0, sk);
+  }
+  // no CTA leaves while a peer may still read its partials or arrive on
+  // its barriers
+  cluster.sync();
+}
+
+template <typename T, int D>
+int launch_sm90(const void* q, const void* k, const void* v, const void* dout,
+                const void* lse, const void* delta, const void* kpm, void* dq,
+                void* dk, void* dv, int b, int sq, int sk, int n, int g,
+                float scale, int causal, cudaStream_t stream) {
+  using C = Short<D>;
+  const int ranks = (sk + 2 * C::BK - 1) / (2 * C::BK);
+  if (ranks > kMaxRanks || (long long)b * g > 65535)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = sm90::encode_bsnd<T>(&tq, q, b, sq, n, D, C::BQ);
+  if (err == 0) err = sm90::encode_bsnd<T>(&tdo, dout, b, sq, n, D, C::BQ);
+  if (err == 0) err = sm90::encode_bsnd<T>(&tk, k, b, sk, g, D, C::BK);
+  if (err == 0) err = sm90::encode_bsnd<T>(&tv, v, b, sk, g, D, C::BK);
+  if (err == 0)
+    err = sm90::set_smem(flash_bwd_short_sm90_kernel<T, D>, C::bytes);
+  if (err != 0) return err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, b * g, 1);
+  cfg.blockDim = dim3(sm90::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = C::bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const float* lp = (const float*)lse;
+  const float* dp = (const float*)delta;
+  const float* kp = (const float*)kpm;
+  T* dqp = (T*)dq;
+  T* dkp = (T*)dk;
+  T* dvp = (T*)dv;
+  void* args[] = {&tq, &tk, &tv, &tdo, &lp, &dp, &kp, &dqp, &dkp, &dvp,
+                  &sq, &sk, &n, &g, &scale, &causal};
+  err = (int)cudaLaunchKernelExC(
+      &cfg, (const void*)flash_bwd_short_sm90_kernel<T, D>, args);
+  if (err != 0) return err;
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_short(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  const void* kpm, void* dq_part, void* dq, void* dk,
                  void* dv, int b, int sq, int sk, int n, int g, float scale,
                  int causal, cudaStream_t stream) {
-  const int bytes = Smem<T, D>::bytes;
-  int err = prepare(flash_bwd_short_kernel<T, D>, bytes);
+  if constexpr (sizeof(T) == 2)
+    return launch_sm90<T, D>(q, k, v, dout, lse, delta, kpm, dq, dk, dv, b,
+                             sq, sk, n, g, scale, causal, stream);
+  else
+    return launch_fp32<D>(q, k, v, dout, lse, delta, kpm, dq_part, dq, dk,
+                          dv, b, sq, sk, n, g, scale, causal, stream);
+}
+
+template <typename T, int D>
+int short_attrs_d(int* out) {
+  return sm90::kernel_attrs(flash_bwd_short_sm90_kernel<T, D>,
+                            Short<D>::bytes, sm90::kThreads, out);
+}
+
+template <typename T>
+int short_attrs(int d, int* out) {
+  APEX_DISPATCH_HEAD_DIM(d, D, (short_attrs_d<T, D>(out)));
+}
+
+// How many clusters of `ranks` CTAs the device holds at once.
+template <typename T, int D>
+int short_clusters_d(int ranks, int* out) {
+  using C = Short<D>;
+  int err = sm90::set_smem(flash_bwd_short_sm90_kernel<T, D>, C::bytes);
   if (err != 0) return err;
-  const dim3 grid((sk + kB - 1) / kB, b * g);
-  flash_bwd_short_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-      (const float*)lse, (const float*)delta, (const float*)kpm,
-      (float*)dq_part, (T*)dk, (T*)dv, b, sq, sk, n, g, scale, causal);
-  err = (int)cudaGetLastError();
-  if (err != 0) return err;
-  const long long total = (long long)b * n * sq * (D / 4);
-  flash_bwd_short_dq_sum<T, D><<<(unsigned)((total + 255) / 256), 256, 0,
-                                 stream>>>((const float*)dq_part, (T*)dq, b,
-                                           sq, sk, n, causal);
-  return (int)cudaGetLastError();
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(ranks, 1, 1);
+  cfg.blockDim = dim3(sm90::kThreads, 1, 1);
+  cfg.dynamicSmemBytes = C::bytes;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ranks;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaOccupancyMaxActiveClusters(
+      out, (const void*)flash_bwd_short_sm90_kernel<T, D>, &cfg);
+}
+
+template <typename T>
+int short_clusters(int d, int ranks, int* out) {
+  APEX_DISPATCH_HEAD_DIM(d, D, (short_clusters_d<T, D>(ranks, out)));
 }
 
 }  // namespace
 
 // q, do [b, sq, n, d] and k, v [b, sk, g, d] of dtype; lse, delta
-// [b*n, sq] fp32; kpm [b, sk] fp32 additive or NULL; dq_part fp32
-// scratch of [ceil(sk/64), b*n, ceil(sq/64)*64, d]; dq like q, dk and dv
-// like k (summed over each group's heads).
+// [b*n, sq] fp32; kpm [b, sk] fp32 additive or NULL; dq like q, dk and dv
+// like k (summed over each group's heads).  bf16 and fp16 take the
+// cluster kernel (sk <= 1024, b * g <= 65535; dq_part unused, may be
+// NULL); fp32 takes dq_part, fp32 scratch of [ceil(sk/64), b*n,
+// ceil(sq/64)*64, d].
 extern "C" int apex_flash_bwd_short(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
@@ -225,5 +830,23 @@ extern "C" int apex_flash_bwd_short(const void* q, const void* k,
                                      dq, dk, dv, b, sq, sk, n, g, scale,
                                      causal, stream)));
   });
+  return (int)cudaErrorInvalidValue;
+}
+
+// The 16-bit cluster kernel's {registers, shared memory per CTA, CTAs per
+// SM, spill bytes} for head size d.
+extern "C" int apex_flash_bwd_short_attrs(int dtype, int d, int* out) {
+  if (dtype == APEX_BF16) return short_attrs<__nv_bfloat16>(d, out);
+  if (dtype == APEX_F16) return short_attrs<__half>(d, out);
+  return (int)cudaErrorInvalidValue;
+}
+
+// How many clusters of `ranks` CTAs (1 ..= 8) of the 16-bit cluster
+// kernel at head size d fit on the device at once.
+extern "C" int apex_flash_bwd_short_clusters(int dtype, int d, int ranks,
+                                             int* out) {
+  if (ranks < 1 || ranks > kMaxRanks) return (int)cudaErrorInvalidValue;
+  if (dtype == APEX_BF16) return short_clusters<__nv_bfloat16>(d, ranks, out);
+  if (dtype == APEX_F16) return short_clusters<__half>(d, ranks, out);
   return (int)cudaErrorInvalidValue;
 }

@@ -22,23 +22,26 @@
 // Three branches, one entry point each:
 //
 // * apex_grouped_matmul, the fp32 branch (LoRA's slabs; also 16-bit
-//   operands of shapes the tensor-core tile does not take).  Bound on the
-//   H100: bytes.  The LoRA delta runs at rank r = 8: the A side (K = 768
-//   or 3072, P = 8) and the B side (K = 8, P = 768..3072) do 2 flops per
-//   weight element for each row of its group, and a decode batch holds
-//   one or two rows per group, so the weights of the live groups are the
-//   bytes.  Design: fp32 FMA on the CUDA cores (the slabs are fp32 and
-//   the merged-weights oracle is fp32; TF32 would break it), 16-bit
-//   operands widened to fp32 on load.  A CTA of 256 threads holds a tile
-//   of up to kBM rows x bn columns (bn = P rounded up to a power of two,
-//   at most 256); the 256 / bn thread slices split the contraction and a
-//   fixed-order sum in shared memory adds them (P = 8 gives 32 slices).
-//   x's rows stage in shared memory kKC columns at a time, k major, so a
-//   thread reads four rows with one 16-byte load.  When the tiles are
-//   few and K is long (the A side at decode), the contraction also splits
-//   across blockIdx.z in whole kKC chunks: each split writes an fp32
-//   partial [N, P] and a second kernel adds the splits in order.  No
-//   atomics: the result does not depend on scheduling.
+//   operands of shapes the tensor-core tile does not take, and more than
+//   2048 groups).  Bound on the H100: bytes.  The LoRA delta runs at rank
+//   r = 8: the A side (K = 768 or 3072, P = 8) and the B side (K = 8, P =
+//   768..3072) do 2 flops per weight element for each row of its group,
+//   and a decode batch holds one or two rows per group, so the weights of
+//   the live groups are the bytes; at ~0.35 us of bytes a call the kernel
+//   is bound by latency.  Design: fp32 FMA on the CUDA cores (the slabs
+//   are fp32 and the merged-weights oracle is fp32; TF32 would break it),
+//   16-bit operands widened to fp32 on load.  A CTA of 256 threads holds a
+//   tile of up to BM rows (4, a decode batch's one or two rows per group,
+//   or 16 for the B side of a prefill) x bn columns (bn = P rounded up to
+//   a power of two, at most 256); the 256 / bn thread slices split the
+//   contraction; x's rows are staged in shared memory, k major, 1024 or
+//   256 k rows at a time, and a thread keeps 8 weight loads in flight.  The slices are added in a
+//   fixed order: across the lanes of a warp by shuffles, then across warps
+//   in shared memory.  When the tiles are few and K is long (the A side at
+//   decode) the contraction also splits across the CTAs of one
+//   thread-block cluster (up to 8), whose partials are added in rank order
+//   through distributed shared memory: one launch, no partial in device
+//   memory, no atomics, so the result does not depend on scheduling.
 //
 // * apex_grouped_matmul_mma, the 16-bit branch (the MoE experts: bf16 x
 //   and w, y in their dtype).  Bound on the H100: at the ragged MoE step
@@ -65,14 +68,14 @@
 //   |q| <= 127) and each k block's fp32 partial multiplied by its scale
 //   row in registers before it joins the accumulator, as row 10 does; y in
 //   x's dtype.  Needs 16-bit x, K % kb == 0, kb % 32 == 0, P % 16 == 0.
+#include <cooperative_groups.h>
+
 #include "sm90_gemm.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kBM = 16;         // rows of one tile (one segment's)
-constexpr int kKC = 256;        // contraction chunk staged in shared memory
-constexpr int kXs = kBM + 4;    // padded k row of the staged chunk
+constexpr int kMaxSplits = 8;  // the portable cluster size
 
 // Warp 0: the tile of index t, tiles of at most bm rows — (segment,
 // first row, rows); rows = 0 when t is past the last tile.  Segment
@@ -120,47 +123,54 @@ __device__ void find_tile(const int* __restrict__ off, int G, int N, int t,
   if (lane == 0) s_tile[2] = 0;
 }
 
-template <typename T>
+template <typename T, int BM>
 __global__ void __launch_bounds__(kThreads) gmm_kernel(
     const T* __restrict__ x, const T* __restrict__ w,
-    const int* __restrict__ off, T* __restrict__ y,
-    float* __restrict__ partial, int N, int K, int P, int G, int bn,
-    int splits) {
-  __shared__ __align__(16) float xs[kKC][kXs];
-  __shared__ float red[kBM][kThreads];
+    const int* __restrict__ off, T* __restrict__ y, int N, int K, int P,
+    int G, int bn) {
+  constexpr int KC = BM == 4 ? 1024 : 256;  // contraction rows staged
+  constexpr int XS = BM == 4 ? 4 : BM + 4;   // padded k row of the chunk
+  __shared__ __align__(16) float xs[KC][XS];
+  __shared__ float red[BM][kThreads];
   __shared__ int s_tile[3];
+  namespace cg = cooperative_groups;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int splits = (int)cluster.dim_blocks().x;
+  const int rank = (int)cluster.block_rank();
 
-  if (threadIdx.x < 32) find_tile(off, G, N, blockIdx.x, kBM, s_tile);
+  // every rank of a cluster finds the same tile, so all or none return
+  if (threadIdx.x < 32) find_tile(off, G, N, blockIdx.x / splits, BM, s_tile);
   __syncthreads();
   const int seg = s_tile[0], row0 = s_tile[1], R = s_tile[2];
   if (R <= 0) return;
 
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int c = tid % bn, slice = tid / bn, nsl = kThreads / bn;
   const int col = blockIdx.y * bn + c;
-  float acc[kBM];
+  float acc[BM];
 #pragma unroll
-  for (int r = 0; r < kBM; ++r) acc[r] = 0.0f;
+  for (int r = 0; r < BM; ++r) acc[r] = 0.0f;
 
   // segments 0 and G + 1 lie outside the window: their tiles write zeros
   if (seg >= 1 && seg <= G) {
     const T* __restrict__ wg = w + (size_t)(seg - 1) * K * P;
-    const int nch = (K + kKC - 1) / kKC;
-    const int ch_lo = (int)((long long)blockIdx.z * nch / splits);
-    const int ch_hi = (int)((long long)(blockIdx.z + 1) * nch / splits);
-    for (int ch = ch_lo; ch < ch_hi; ++ch) {
-      const int k0 = ch * kKC, kc = min(kKC, K - k0);
+    const int k_lo = (int)((long long)rank * K / splits);
+    const int k_hi = (int)((long long)(rank + 1) * K / splits);
+    for (int k0 = k_lo; k0 < k_hi; k0 += KC) {
+      const int kc = min(KC, k_hi - k0);
+#pragma unroll 4
       for (int e = tid; e < R * kc; e += kThreads) {
         const int r = e / kc, kk = e - r * kc;
         xs[kk][r] = apex_to_float(x[(size_t)(row0 + r) * K + k0 + kk]);
       }
       __syncthreads();
       if (col < P) {
-#pragma unroll 4
+        // unrolled so that eight weight loads are in flight at once
+#pragma unroll 8
         for (int kk = slice; kk < kc; kk += nsl) {
           const float wv = apex_to_float(wg[(size_t)(k0 + kk) * P + col]);
 #pragma unroll
-          for (int r4 = 0; r4 < kBM; r4 += 4) {
+          for (int r4 = 0; r4 < BM; r4 += 4) {
             if (r4 < R) {
               const float4 xv = *reinterpret_cast<const float4*>(&xs[kk][r4]);
               acc[r4] = fmaf(xv.x, wv, acc[r4]);
@@ -175,48 +185,61 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(
     }
   }
 
-  float* __restrict__ part =
-      splits > 1 ? partial + (size_t)blockIdx.z * N * P : nullptr;
-  auto store = [&](int r, int cl, float v) {
-    const size_t i = (size_t)(row0 + r) * P + cl;
-    if (part)
-      part[i] = v;
-    else
-      y[i] = apex_from_float<T>(v);
-  };
-  if (nsl == 1) {
+  if (nsl == 1 && splits == 1) {  // one slice, one CTA: the sums are done
     if (col < P) {
 #pragma unroll
-      for (int r = 0; r < kBM; ++r)
-        if (r < R) store(r, col, acc[r]);
+      for (int r = 0; r < BM; ++r)
+        if (r < R) y[(size_t)(row0 + r) * P + col] = apex_from_float<T>(acc[r]);
     }
     return;
   }
-  // the contraction slices' sums, added in slice order
+  // the contraction slices, added in a fixed order: a warp's lanes of one
+  // column by a shuffle tree (bn < 32), then the warps' or slices' sums
+  // in index order; the CTA's partial lands in red[r][column]
+  int nes = nsl, es = slice;
+  bool writer = true;
+  if (bn < 32) {
 #pragma unroll
-  for (int r = 0; r < kBM; ++r)
-    if (r < R) red[r][tid] = acc[r];
+    for (int r = 0; r < BM; ++r)
+      for (int o = bn; o < 32; o <<= 1)
+        acc[r] += __shfl_xor_sync(0xffffffffu, acc[r], o);
+    nes = kThreads / 32;
+    es = warp;
+    writer = lane < bn;
+  }
+  if (writer) {
+#pragma unroll
+    for (int r = 0; r < BM; ++r)
+      if (r < R) red[r][es * bn + c] = acc[r];
+  }
   __syncthreads();
-  for (int e = tid; e < R * bn; e += kThreads) {
+  const int E = R * bn;
+  for (int e = tid; e < E; e += kThreads) {
+    const int r = e / bn, cc = e - r * bn;
+    float s = 0.0f;
+    for (int z = 0; z < nes; ++z) s += red[r][z * bn + cc];
+    const int cl = blockIdx.y * bn + cc;
+    if (splits == 1) {
+      if (cl < P) y[(size_t)(row0 + r) * P + cl] = apex_from_float<T>(s);
+    } else {
+      red[r][cc] = s;  // read before by this thread alone
+    }
+  }
+  if (splits == 1) return;
+  // the cluster's partials, added in rank order; each rank stores its
+  // share of the tile
+  cluster.sync();
+  const int e_hi = (rank + 1) * E / splits;
+  for (int e = rank * E / splits + tid; e < e_hi; e += kThreads) {
     const int r = e / bn, cc = e - r * bn;
     const int cl = blockIdx.y * bn + cc;
     if (cl >= P) continue;
     float s = 0.0f;
-    for (int z = 0; z < nsl; ++z) s += red[r][z * bn + cc];
-    store(r, cl, s);
+    for (int j = 0; j < splits; ++j)
+      s += cluster.map_shared_rank(&red[0][0], j)[r * kThreads + cc];
+    y[(size_t)(row0 + r) * P + cl] = apex_from_float<T>(s);
   }
-}
-
-// y = the splits' partials added in split order, rounded once.
-template <typename T>
-__global__ void gmm_sum_splits_kernel(const float* __restrict__ partial,
-                                      T* __restrict__ y, size_t np,
-                                      int splits) {
-  const size_t e = (size_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (e >= np) return;
-  float s = 0.0f;
-  for (int z = 0; z < splits; ++z) s += partial[(size_t)z * np + e];
-  y[e] = apex_from_float<T>(s);
+  cluster.sync();  // no CTA leaves while a peer reads its partial
 }
 
 int column_tile(int P) {
@@ -225,40 +248,60 @@ int column_tile(int P) {
   return bn;
 }
 
-template <typename T>
-int launch(const void* x, const void* w, const void* off, void* y,
-           void* partial, int N, int K, int P, int G, int splits,
-           cudaStream_t stream) {
+template <typename T, int BM>
+int launch(const void* x, const void* w, const void* off, void* y, int N,
+           int K, int P, int G, int splits, cudaStream_t stream) {
   const int bn = column_tile(P);
-  dim3 grid((N + kBM - 1) / kBM + G + 2, (P + bn - 1) / bn, splits);
-  gmm_kernel<T><<<grid, kThreads, 0, stream>>>(
-      (const T*)x, (const T*)w, (const int*)off, (T*)y, (float*)partial, N, K,
-      P, G, bn, splits);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess || splits == 1) return (int)err;
-  const size_t np = (size_t)N * P;
-  gmm_sum_splits_kernel<T><<<(unsigned)((np + 255) / 256), 256, 0, stream>>>(
-      (const float*)partial, (T*)y, np, splits);
+  const long long tiles = (N + BM - 1) / BM + (long long)G + 2;
+  if (tiles * splits > 0x7fffffffLL || (P + bn - 1) / bn > 65535)
+    return (int)cudaErrorInvalidValue;
+  const dim3 grid((unsigned)(tiles * splits), (P + bn - 1) / bn, 1);
+  if (splits == 1) {  // no cluster to launch: a plain launch starts sooner
+    gmm_kernel<T, BM><<<grid, kThreads, 0, stream>>>(
+        (const T*)x, (const T*)w, (const int*)off, (T*)y, N, K, P, G, bn);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = 0;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const T* xp = (const T*)x;
+  const T* wp = (const T*)w;
+  const int* op = (const int*)off;
+  T* yp = (T*)y;
+  int bnv = bn;
+  void* args[] = {&xp, &wp, &op, &yp, &N, &K, &P, &G, &bnv};
+  int err = (int)cudaLaunchKernelExC(&cfg, (const void*)gmm_kernel<T, BM>,
+                                     args);
+  if (err != 0) return err;
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x [N, K], w [G, K, P] and y [N, P] of one dtype; offsets [G + 1] int32
-// on the device; partial [splits, N, P] fp32 scratch (NULL when splits is
-// 1).  splits (1 ..= ceil(K / 256), 1 when K is 0) cuts the contraction
-// into whole 256-wide chunks across CTAs.
+// on the device.  rows (4 or 16) is the row tile; splits (1 ..= 8, at
+// most max(K, 1)) the CTAs of one cluster that share the contraction.
 extern "C" int apex_grouped_matmul(const void* x, const void* w,
-                                   const void* offsets, void* y,
-                                   void* partial, int N, int K, int P, int G,
-                                   int splits, int dtype,
-                                   cudaStream_t stream) {
-  const int nch = (K + kKC - 1) / kKC;
+                                   const void* offsets, void* y, int N,
+                                   int K, int P, int G, int splits, int rows,
+                                   int dtype, cudaStream_t stream) {
   if (N <= 0 || K < 0 || P <= 0 || G < 0 || splits < 1 ||
-      splits > (nch > 1 ? nch : 1) || (splits > 1 && partial == nullptr))
+      splits > kMaxSplits || splits > (K > 1 ? K : 1) ||
+      (rows != 4 && rows != 16))
     return (int)cudaErrorInvalidValue;
   APEX_DISPATCH_FLOAT(dtype, T, {
-    return launch<T>(x, w, offsets, y, partial, N, K, P, G, splits, stream);
+    return rows == 4
+               ? launch<T, 4>(x, w, offsets, y, N, K, P, G, splits, stream)
+               : launch<T, 16>(x, w, offsets, y, N, K, P, G, splits, stream);
   });
   return (int)cudaErrorInvalidValue;
 }
@@ -343,5 +386,17 @@ extern "C" int apex_grouped_matmul_attrs(int mode, int dtype, int* out) {
     APEX_GMM_ATTRS(gemm::kInt8N64)
   }
 #undef APEX_GMM_ATTRS
+  return (int)cudaErrorInvalidValue;
+}
+
+// {registers, shared memory per CTA, CTAs per SM, spill bytes} of the
+// fp32 branch's kernel at row tile `rows` (4 or 16) for dtype.
+extern "C" int apex_grouped_matmul_fp32_attrs(int rows, int dtype, int* out) {
+  if (rows != 4 && rows != 16) return (int)cudaErrorInvalidValue;
+  APEX_DISPATCH_FLOAT(dtype, T, {
+    return rows == 4 ? sm90::kernel_attrs(gmm_kernel<T, 4>, 0, kThreads, out)
+                     : sm90::kernel_attrs(gmm_kernel<T, 16>, 0, kThreads,
+                                          out);
+  });
   return (int)cudaErrorInvalidValue;
 }

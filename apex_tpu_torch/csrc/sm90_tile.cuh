@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks of the port's attention kernels: TMA
-// tensor maps over BSND tensors, mbarrier rings, wgmma products and
-// register rebalancing.  K2 (flash_attention.cu) and K6 / K7
-// (flash_attention_bwd.cu) are built from these.
+// tensor maps over BSND tensors, mbarrier rings, wgmma products, register
+// rebalancing and signalling within a thread-block cluster.  K2
+// (flash_attention.cu), K6 / K7 (flash_attention_bwd.cu) and row 5
+// (flash_attention_bwd_short.cu) are built from these.
 //
 // Tiles.  A tile of `rows` x D 16-bit values sits in shared memory as D / W
 // panels of rows x W (W = min(D, 64)), each row W * 2 bytes, swizzled over
@@ -255,6 +256,60 @@ __device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
         : "r"(a), "r"(parity)
         : "memory");
   } while (!done);
+}
+
+// ------------------------------------------------------------ cluster --
+// Signalling between the CTAs of one thread-block cluster through each
+// other's mbarriers (distributed shared memory).  The threads of a
+// writer store into their own shared memory and meet at a barrier; one
+// thread per reader fences at cluster scope and arrives on that reader's
+// barrier.  A reader waits on its own barrier, fences, and reads the
+// writers' shared memory through cluster-mapped pointers.  One fence per
+// arrival, not a release on every remote arrive: each cluster-scope
+// release waits for the thread's memory operations to complete.
+
+// The cluster address of p's offset in the shared memory of cluster CTA
+// `rank`.
+__device__ __forceinline__ uint32_t map_rank(const void* p, int rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(remote)
+               : "r"(smem_addr(p)), "r"(rank));
+  return remote;
+}
+
+// A 16-byte load from a cluster address (another CTA's shared memory).
+__device__ __forceinline__ float4 ld_cluster4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// Arrive on the barrier at bar's offset in the shared memory of cluster
+// CTA `rank` (after a fence_cluster that orders what it announces).
+__device__ __forceinline__ void bar_arrive_rank(uint64_t* bar, int rank) {
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(
+                   map_rank(bar, rank))
+               : "memory");
+}
+
+// Orders this thread's earlier accesses of shared memory, its own or a
+// peer's, before its later ones as the whole cluster sees them.
+__device__ __forceinline__ void fence_cluster() {
+  asm volatile("fence.acq_rel.cluster;\n" ::: "memory");
+}
+
+// A barrier of the `threads` threads of named barrier `id` (a warpgroup's
+// 128, say), which must all call it.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void st_shared4(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
 }
 
 // A 4-byte asynchronous copy from global to shared memory (zeros when

@@ -11,10 +11,10 @@ first use it is compiled with
 into the repository's ``build/apex_tpu_torch/`` directory (git-ignored),
 keyed on a hash of the source, every ``csrc/*.cuh`` header and the
 flags, and loaded with ``ctypes``.  :func:`build_all` starts one
-``nvcc`` per source at once.  The Hopper kernels (K2, K6, K7 and rows 9
-and 10's tensor-core routes) find the CUDA driver's
-``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``, so no
-library links ``-lcuda``.
+``nvcc`` per source at once.  The Hopper kernels (K2, K6, K7, row 5's
+16-bit kernel and rows 9 and 10's tensor-core routes) find the CUDA
+driver's ``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``,
+so no library links ``-lcuda``.
 
 Every pointer and the stream pass as ``c_void_p`` (a bare Python int
 would be cut to 32 bits).  The C entry returns ``cudaGetLastError()``
@@ -26,7 +26,7 @@ by one per launch and nowhere else.
     python -m apex_tpu_torch.ops._kernel_utils [source.cu ...]
 
 compiles each source (default: the Hopper kernels' sources: K2's,
-K6/K7's, row 9's and row 10's) once more with the
+K6/K7's, row 5's, row 9's and row 10's) once more with the
 build's flags plus ``-Xptxas -v`` into ``build/apex_tpu_torch/report/``,
 prints what ``ptxas`` says of every kernel (registers, shared memory,
 spills), and beside it how many ``HGMMA`` (``wgmma``) and ``UTMALDG``
@@ -278,7 +278,8 @@ def launch_counts() -> Dict[str, int]:
 # ---- what ptxas and cuobjdump say of the built kernels ----
 
 REPORT_SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu",
-                  "grouped_matmul.cu", "dense_int8.cu")
+                  "flash_attention_bwd_short.cu", "grouped_matmul.cu",
+                  "dense_int8.cu")
 SASS_OPS = ("HGMMA", "UTMALDG")
 
 

@@ -10,10 +10,12 @@ The backward, after ``delta = rowsum(do·o)`` in fp32 (XLA in JAX, a
 torch op here), routes by the key length as the JAX ``auto`` route does:
 up to
 :data:`SHORT_KEYS_MAX` (512) keys it is row 5, the one-pass dq/dk/dv of
-``csrc/flash_attention_bwd_short.cu``; above, the split pair K6 (dq) and
-K7 (dk/dv) of ``csrc/flash_attention_bwd.cu`` (Hopper kernels for bf16
-and fp16, as K2).  The route depends on the shape only (no environment
-variable).
+``csrc/flash_attention_bwd_short.cu`` (for bf16 and fp16 one Hopper
+thread-block cluster per batch row and K/V group, :func:`short_cluster`,
+that sums dq in the cluster's shared memory); above, the split pair K6
+(dq) and K7 (dk/dv) of ``csrc/flash_attention_bwd.cu`` (Hopper kernels
+for bf16 and fp16, as K2).  The route depends on the shape only (no
+environment variable).
 For CPU tensors, and under ``backend="reference"``, the forward is
 :func:`flash_attention_fwd_ref` (the materialized softmax of
 :func:`mha_reference`, plus its lse) and the backward
@@ -40,7 +42,9 @@ from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_bwd_operands", "flash_bwd_dq", "flash_bwd_dkv",
-           "flash_bwd_fused", "SHORT_KEYS_MAX", "hopper_attributes",
+           "flash_bwd_fused", "SHORT_KEYS_MAX", "SHORT_CLUSTER_KEYS",
+           "short_cluster", "short_rank_steps", "short_resident_clusters",
+           "hopper_attributes",
            "flash_attention_fwd_ref", "flash_attention_bwd_ref",
            "mha_reference"]
 
@@ -71,21 +75,74 @@ FLASH_BWD_SHORT = ku.register(ku.Kernel(
 
 # the JAX auto route's crossover (APEX_TPU_FLASH_BWD_FUSED_MAX default)
 SHORT_KEYS_MAX = 512
+# row 5's 16-bit kernel: keys per cluster rank, and the most keys its
+# largest (portable) cluster of 8 ranks holds
+_SHORT_RANK_KEYS = 128
+SHORT_CLUSTER_KEYS = 8 * _SHORT_RANK_KEYS
+
+
+def short_cluster(sk: int, d: int) -> Tuple[int, int]:
+    """``(cluster ranks, query tile rows)`` of row 5's 16-bit kernel: one
+    rank per 128 keys (two consumer warpgroups of 64 keys each), query
+    tiles of 64 rows, or 32 at ``d`` = 128 where the fp32 dK and dV
+    accumulators of 64 keys take 128 registers a thread.  Causality
+    changes neither (:func:`short_rank_steps`)."""
+    if not 0 < sk <= SHORT_CLUSTER_KEYS:
+        raise ValueError(f"row 5's cluster holds 1 to {SHORT_CLUSTER_KEYS} "
+                         f"keys, got {sk}")
+    return -(-sk // _SHORT_RANK_KEYS), 32 if d == 128 else 64
+
+
+def short_rank_steps(sq: int, sk: int, n: int, g: int, d: int,
+                     causal: bool) -> list:
+    """Per cluster rank of row 5's 16-bit kernel, ``[warpgroup 0,
+    warpgroup 1]``: the (head, query tile) steps whose products each runs.
+    The keys come in ``2R`` tiles of 64; rank ``r``'s warpgroup 0 holds
+    tile ``r`` and warpgroup 1 tile ``2R - 1 - r``, so that under
+    causality (a key tile sees the query tiles from its first key on)
+    every rank has one early and one late tile and the ranks' work evens
+    out.  Every rank takes part in all ``n / g · ceil(sq / tile)`` steps'
+    dq sums."""
+    ranks, bq = short_cluster(sk, d)
+    nqt = -(-sq // bq)
+    half = _SHORT_RANK_KEYS // 2
+
+    def seen(tile):
+        return nqt - (min(tile * half // bq, nqt) if causal else 0)
+
+    return [[(n // g) * seen(r), (n // g) * seen(2 * ranks - 1 - r)]
+            for r in range(ranks)]
 
 
 def hopper_attributes(dtype: torch.dtype = torch.bfloat16,
                       d: int = 64) -> dict:
-    """What the driver reports for the 16-bit Hopper kernels of K2, K6
-    and K7 at head size ``d``: ``{kernel: {"registers", "smem_bytes",
-    "ctas_per_sm", "spill_bytes"}}`` (registers per thread at launch,
-    dynamic plus static shared memory per CTA, resident CTAs per SM,
-    local memory per thread).  Needs the card."""
+    """What the driver reports for the 16-bit Hopper kernels of K2, K6,
+    K7 and row 5 at head size ``d``: ``{kernel: {"registers",
+    "smem_bytes", "ctas_per_sm", "spill_bytes"}}`` (registers per thread
+    at launch, dynamic plus static shared memory per CTA, resident CTAs
+    per SM, local memory per thread).  Needs the card."""
     code = ku.dtype_code(torch.empty((), dtype=dtype))
     return {kern.name: ku.hopper_attrs(kern.source, symbol, *lead, code, d)
             for kern, symbol, lead in (
                 (FLASH_FWD, "apex_flash_fwd_attrs", ()),
                 (FLASH_BWD_DQ, "apex_flash_bwd_attrs", (0,)),
-                (FLASH_BWD_DKV, "apex_flash_bwd_attrs", (1,)))}
+                (FLASH_BWD_DKV, "apex_flash_bwd_attrs", (1,)),
+                (FLASH_BWD_SHORT, "apex_flash_bwd_short_attrs", ()))}
+
+
+def short_resident_clusters(sk: int, d: int,
+                            dtype: torch.dtype = torch.bfloat16) -> int:
+    """How many of row 5's clusters (:func:`short_cluster` ranks for
+    ``sk`` keys) the card holds at once, as the CUDA runtime reports: the
+    width of one wave of the launch.  Needs the card."""
+    ranks, _ = short_cluster(sk, d)
+    out = ctypes.c_int(0)
+    err = ku.library(FLASH_BWD_SHORT.source).apex_flash_bwd_short_clusters(
+        ctypes.c_int(ku.dtype_code(torch.empty((), dtype=dtype))),
+        ctypes.c_int(d), ctypes.c_int(ranks), ctypes.byref(out))
+    if err != 0:
+        raise RuntimeError(f"apex_flash_bwd_short_clusters: cudaError {err}")
+    return out.value
 
 
 def _additive_kpm(key_padding_mask: torch.Tensor) -> torch.Tensor:
@@ -294,14 +351,20 @@ def flash_bwd_dkv(ops: dict, *, causal: bool):
 
 def flash_bwd_fused(ops: dict, *, causal: bool):
     """Kernel row 5 on :func:`flash_bwd_operands` → ``(dq, dk, dv)``: one
-    pass over the (key tile, query tile) pairs, dq summed from fp32
+    pass over the (key tile, query tile) pairs.  bf16/fp16: one launch of
+    the cluster kernel (up to :data:`SHORT_CLUSTER_KEYS` keys), dq summed
+    across the cluster in shared memory.  fp32: dq summed from fp32
     per-key-tile partials in a second fixed-order pass."""
     q, k = ops["q"], ops["k"]
     b, sq, n, d = q.shape
-    # one fp32 dq partial per 64-key tile (the kernel's tile rows)
-    nkt, sqp = -(-k.shape[1] // 64), -(-sq // 64) * 64
-    part = torch.empty(nkt, b * n, sqp, d, dtype=torch.float32,
-                       device=q.device)
+    part = None
+    if q.dtype == torch.float32:
+        # one fp32 dq partial per 64-key tile (the kernel's tile rows)
+        nkt, sqp = -(-k.shape[1] // 64), -(-sq // 64) * 64
+        part = torch.empty(nkt, b * n, sqp, d, dtype=torch.float32,
+                           device=q.device)
+    else:
+        short_cluster(k.shape[1], d)   # raises past the largest cluster
     dq = torch.empty_like(q)
     dk, dv = torch.empty_like(k), torch.empty_like(ops["v"])
     FLASH_BWD_SHORT(dq.device, *(ku.ptr(ops[name]) for name in (

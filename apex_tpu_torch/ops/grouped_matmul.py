@@ -15,8 +15,10 @@ launch count:
 
 - fp32 operands (LoRA's slabs), and 16-bit operands of a shape the
   tensor-core tile does not take: :data:`GROUPED_MATMUL`, fp32 FMA on
-  the CUDA cores over tiles of 16 rows, the contraction split across
-  CTAs with a fixed-order second pass when the tiles are few;
+  the CUDA cores over tiles of 4 or 16 rows, the contraction split
+  across the CTAs of one thread-block cluster when the tiles are few
+  (:func:`fp32_tiles`), their partials added in rank order in the
+  cluster's shared memory: one launch per call;
 - bf16/fp16 operands with ``k`` and ``p`` multiples of 8 (the MoE
   experts): :data:`GROUPED_MATMUL_MMA`, the Hopper GEMM
   (``csrc/sm90_gemm.cuh``: persistent CTAs, a TMA ring, ``wgmma`` into
@@ -45,7 +47,7 @@ fp32-dequantized slab, no gradient for the wire, zeros for the scales.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -55,13 +57,14 @@ from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["group_ids", "grouped_matmul", "grouped_matmul_quantized",
            "grouped_matmul_reference", "quantize_group_weights",
-           "hopper_attributes", "mma_column_tile", "MAX_TILE_GROUPS"]
+           "hopper_attributes", "mma_column_tile", "fp32_tiles",
+           "MAX_TILE_GROUPS"]
 
 _REPLACES = "apex_tpu/ops/grouped_matmul.py:113"
 
 GROUPED_MATMUL = ku.register(ku.Kernel(
     "grouped_matmul", "grouped_matmul.cu", "apex_grouped_matmul",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6, replaces=_REPLACES))
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7, replaces=_REPLACES))
 
 _MMA_ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
 GROUPED_MATMUL_MMA = ku.register(ku.Kernel(
@@ -76,9 +79,9 @@ GROUPED_MATMUL_INT8 = ku.register(ku.Kernel(
     "grouped_matmul_int8", "grouped_matmul.cu", "apex_grouped_matmul_int8",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7, replaces=_REPLACES))
 
-# csrc/grouped_matmul.cu's fp32-branch tile rows, contraction chunk and
-# CTA width, and the H100's SM count
-_BM, _KC, _THREADS, _SMS = 16, 256, 256, 132
+# csrc/grouped_matmul.cu's fp32-branch CTA width and largest cluster, and
+# the H100's SM count
+_THREADS, _MAX_SPLITS, _SMS = 256, 8, 132
 _HALF = (torch.bfloat16, torch.float16)
 # the tensor-core GEMM keeps its segment table in shared memory
 MAX_TILE_GROUPS = 2048
@@ -135,18 +138,29 @@ def _column_tile(p: int) -> int:
     return bn
 
 
-def _splits(n: int, k: int, p: int, g: int) -> int:
-    """Contraction splits: whole 256-wide chunks, enough for ~2 CTAs per
-    SM when the tile grid is small (the LoRA A side at decode)."""
-    chunks = -(-k // _KC)
-    ctas = (-(-n // _BM) + g + 2) * -(-p // _column_tile(p))
-    if chunks <= 1 or ctas >= _SMS:
-        return 1
-    return min(chunks, -(-2 * _SMS // ctas))
+def fp32_tiles(n: int, k: int, p: int, g: int) -> Tuple[int, int]:
+    """``(row tile, cluster size)`` of row 9's fp32 branch for ``n`` rows
+    and a ``[g, k, p]`` slab.  Rows: 16 when the contraction is short
+    (``k`` < 256, the LoRA B side: a CTA's weights are a few rows of its
+    columns, re-read by every row tile) and the rows average 16 or more
+    per segment (``g`` groups and the two outer segments: an adapter
+    prefill); else 4 (a decode batch holds one or two rows per group, and
+    the A side's long contraction wants more CTAs).  Cluster: 1 when the
+    tiles fill the card's 132 SMs, else enough CTAs for ~2 per SM, each
+    keeping at least 768 ``k`` rows, at most 8 (the LoRA A side at
+    decode: 4 for k = 3072, 1 for 768)."""
+    rows = 16 if k < 256 and n >= 16 * (g + 2) else 4
+    ctas = (-(-n // rows) + g + 2) * -(-p // _column_tile(p))
+    if ctas >= _SMS:
+        return rows, 1
+    return rows, max(1, min(_MAX_SPLITS, -(-k // 768), -(-2 * _SMS // ctas)))
 
 
-def _gmm_fp32_kernel(x, w, offsets, splits: Optional[int] = None):
-    """Row 9's fp32 branch (any float dtype, widened on load)."""
+def _gmm_fp32_kernel(x, w, offsets, splits: Optional[int] = None,
+                     rows: Optional[int] = None):
+    """Row 9's fp32 branch (any float dtype, widened on load); ``splits``
+    (the cluster size) and ``rows`` (4 or 16) override
+    :func:`fp32_tiles`."""
     dtype = torch.promote_types(x.dtype, w.dtype)
     x = x.to(dtype).contiguous()
     w = w.to(dtype).contiguous()
@@ -155,13 +169,10 @@ def _gmm_fp32_kernel(x, w, offsets, splits: Optional[int] = None):
     n, k = x.shape
     g, _, p = w.shape
     out = torch.empty(n, p, dtype=dtype, device=x.device)
-    if splits is None:
-        splits = _splits(n, k, p, g)
-    partial = (None if splits == 1 else
-               torch.empty(splits, n, p, dtype=torch.float32,
-                           device=x.device))
+    plan_rows, plan_splits = fp32_tiles(n, k, p, g)
     GROUPED_MATMUL(x.device, ku.ptr(x), ku.ptr(w), ku.ptr(off), ku.ptr(out),
-                   ku.ptr(partial), n, k, p, g, splits, ku.dtype_code(x))
+                   n, k, p, g, splits or plan_splits, rows or plan_rows,
+                   ku.dtype_code(x))
     return out
 
 
@@ -216,17 +227,24 @@ def _gmm_kernel(x, w, offsets, *, trans: bool = False,
 def hopper_attributes(dtype: torch.dtype = torch.bfloat16) -> dict:
     """What the CUDA runtime reports for row 9's Hopper GEMM in each
     tensor-core branch: the 16-bit ones at both column tiles, the int8
-    slab at both stage depths and at 64 columns (``{name:
-    {"registers", "smem_bytes", "ctas_per_sm", "spill_bytes"}}``, the
-    segment table sized for 8 groups).  Needs the card."""
+    slab at both stage depths and at 64 columns (the segment table sized
+    for 8 groups); and for the fp32 branch's cluster kernel at both row
+    tiles, in fp32 (LoRA's slabs): ``{name: {"registers", "smem_bytes",
+    "ctas_per_sm", "spill_bytes"}}``.  Needs the card."""
     code = ku.dtype_code(torch.empty((), dtype=dtype))
     mma, mma_t = GROUPED_MATMUL_MMA.name, GROUPED_MATMUL_MMA_T.name
     q = GROUPED_MATMUL_INT8.name
     names = (mma, mma_t, q, q + " k32", mma + " n256", mma_t + " n256",
              q + " n64")
-    return {name: ku.hopper_attrs(GROUPED_MATMUL_MMA.source,
-                                  "apex_grouped_matmul_attrs", mode, code)
-            for mode, name in enumerate(names)}
+    attrs = {name: ku.hopper_attrs(GROUPED_MATMUL_MMA.source,
+                                   "apex_grouped_matmul_attrs", mode, code)
+             for mode, name in enumerate(names)}
+    f32 = ku.dtype_code(torch.empty((), dtype=torch.float32))
+    for rows in (4, 16):
+        attrs[f"{GROUPED_MATMUL.name} fp32 r{rows}"] = ku.hopper_attrs(
+            GROUPED_MATMUL.source, "apex_grouped_matmul_fp32_attrs", rows,
+            f32)
+    return attrs
 
 
 def _gmm_route(x, w, offsets, reference: bool, trans: bool = False):

@@ -8,9 +8,10 @@
 2. Builds the port's CUDA kernels from ``apex_tpu_torch/csrc`` (one
    ``nvcc`` per source, all at once) and prints the build time; prints
    the registers, shared memory per CTA, CTAs per SM and spill bytes of
-   the Hopper kernels of K2, K6 and K7 (bf16, fp16; d 32/64/128) and of
-   rows 9 and 10's tensor-core routes (which must not spill), and checks
-   that each one's machine code holds ``HGMMA`` and ``UTMALDG``
+   the Hopper kernels of K2, K6, K7 and row 5 (bf16, fp16; d 32/64/128),
+   of rows 9 and 10's tensor-core routes and of row 9's fp32 cluster
+   kernel (row 5 and rows 9 and 10 must not spill), and checks that each
+   Hopper kernel's machine code holds ``HGMMA`` and ``UTMALDG``
    instructions.
 3. Holds each kernel (K1 LayerNorm, K2 flash attention, K3 fused decode
    layer with a bf16 and an int8 pool, K4 fused sampler, row 6 ragged
@@ -47,10 +48,13 @@
 5. Holds the backward kernels (K5 LayerNorm backward, K6 flash dq, K7
    flash dK/dV) against autograd of their plain forward at the train
    step's shapes, timed like the others; row 5 (the short-key one-pass
-   flash backward) against its plain version at BERT-large's shape (b8
-   s512 n16 d64, ragged key padding, one fully masked batch row; also
-   causal and GQA), beside K6 + K7 on the same inputs and SDPA's
-   backward; row 11 (the scaled masked softmax) at BERT's fused_softmax
+   flash backward, one thread-block cluster per batch row and K/V group)
+   against its plain version at BERT-large's shape (b8 s512 n16 d64,
+   ragged key padding, one fully masked batch row; also causal and GQA)
+   and at the GPT-MoE steps' (b8 s512 n12 d64 causal), beside K6 + K7 on
+   the same inputs and SDPA's backward, one launch a call, bitwise equal
+   repeats, and the row 5 versus K6 + K7 crossover from 256 to 1024 keys;
+   row 11 (the scaled masked softmax) at BERT's fused_softmax
    scores [8, 16, 512, 512] fp32 with a [8, 1, 1, 512] mask (also bf16,
    causal, a full-shape mask); K2 at BERT's forward shape and at the GPT
    step's (b16 s1024 n12 d64 causal, beside SDPA's forward) as variants;
@@ -95,7 +99,7 @@ result line; it never falls back to the CPU.
 
     python3 chip_smoke.py --matmul-times ROOT
 
-times only rows 9 and 10 of the port under ROOT (a ``git archive`` of
+times only rows 5, 9 and 10 of the port under ROOT (a ``git archive`` of
 another commit, say) at the main paths' shapes and prints one JSON line,
 so that two commits compare in one chip call (parent, change, change,
 parent).
@@ -427,16 +431,18 @@ def kernel_flash_gpt_shape(dev, gen):
 # same three int8 GEMMs, the decode kernel at n = 16, 32, 64 x chunks of
 # 128 or 32 k rows)
 HOPPER_SOURCES = {"flash_attention.cu": 6, "flash_attention_bwd.cu": 12,
+                  "flash_attention_bwd_short.cu": 6,
                   "grouped_matmul.cu": 14, "dense_int8.cu": 18}
 
 
 def hopper_kernels():
     """The Hopper kernels as built and as the CUDA runtime sees them:
     registers, shared memory per CTA, CTAs per SM and spill bytes of each
-    (bf16 and fp16; K2, K6, K7 at d 32/64/128; rows 9 and 10's tensor-core
-    routes), and the HGMMA (wgmma) and UTMALDG (TMA load) instructions in
-    each one's machine code, which must both be there.  Rows 9 and 10
-    must not spill."""
+    (bf16 and fp16; K2, K6, K7 and row 5 at d 32/64/128; rows 9 and 10's
+    tensor-core routes and row 9's fp32 cluster kernel), and the HGMMA
+    (wgmma) and UTMALDG (TMA load) instructions in each one's machine
+    code, which must both be there.  Row 5 and rows 9 and 10 must not
+    spill."""
     import re
 
     from apex_tpu_torch.ops import _kernel_utils as ku
@@ -447,6 +453,9 @@ def hopper_kernels():
     attrs = {f"{str(dt)[6:]} d{d}": tfa.hopper_attributes(dt, d)
              for dt in (torch.bfloat16, torch.float16)
              for d in (32, 64, 128)}
+    short = {k: a[tfa.FLASH_BWD_SHORT.name] for k, a in attrs.items()}
+    check(all(a["spill_bytes"] == 0 for a in short.values()),
+          f"row 5 spills: {short}")
     for dt in (torch.bfloat16, torch.float16):
         rows = {**tgm.hopper_attributes(dt), **td.hopper_attributes(dt)}
         check(all(a["spill_bytes"] == 0 for a in rows.values()),
@@ -744,7 +753,8 @@ GMM_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 def kernel_grouped_matmul(dev, gen):
     """Row 9 against its plain version (one masked fp32 product per group)
     at the LoRA decode and prefill shapes and adversarial offsets, fp32
-    and bf16; rows outside the window must be exact zeros.  The library
+    and bf16, one launch a call; rows outside the window must be exact
+    zeros.  The library
     point is ``torch.bmm`` of each row against its own group's weight,
     gathered per row beforehand (the gather not timed): no single PyTorch
     call computes this function."""
@@ -772,9 +782,13 @@ def kernel_grouped_matmul(dev, gen):
         x = torch.randn(n, k, device=dev, generator=gen).to(dtype)
         w = (torch.randn(g, k, p, device=dev, generator=gen) * 0.1).to(dtype)
         offs = torch.tensor(off, dtype=torch.int32, device=dev)
-        got = tgm.grouped_matmul(x, w, offs)
-        want = tgm.grouped_matmul(x, w, offs, backend="reference")
         name = f"{lay} {site} N={n} k={k} p={p} {str(dtype)[6:]}"
+        row9 = (tgm.GROUPED_MATMUL, tgm.GROUPED_MATMUL_MMA)
+        before = sum(kern.launches for kern in row9)
+        got = tgm.grouped_matmul(x, w, offs)
+        check(sum(kern.launches for kern in row9) == before + 1,
+              f"row 9 {name}: not one launch a call")
+        want = tgm.grouped_matmul(x, w, offs, backend="reference")
         check(int(torch.count_nonzero(got[:off[0]]))
               + int(torch.count_nonzero(got[off[-1]:])) == 0,
               f"row 9 {name}: rows outside the window are not zero")
@@ -1797,12 +1811,48 @@ def train_check(dev):
             "grad_norm_rel_err": norm_err}
 
 
+def _flash_bwd_case(dev, gen, b, s, n, g, d, causal, kpm):
+    q = torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+    k = torch.randn(b, s, g, d, device=dev, generator=gen).bfloat16()
+    v = torch.randn(b, s, g, d, device=dev, generator=gen).bfloat16()
+    do = torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal,
+                                     key_padding_mask=kpm)
+    ops = tfa.flash_bwd_operands(q, k, v, o, lse, do, key_padding_mask=kpm)
+    return q, k, v, o, lse, do, ops
+
+
+def _sdpa_bwd_ms(q, k, v, do, causal, add=None):
+    """SDPA's backward alone: its forward and backward timed together,
+    less its forward."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add,
+                                              is_causal=causal)
+
+    return (time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
+            - time_ms(sdpa))
+
+
+# keys of the crossover sweep between row 5 and K6 + K7 (flash_bwd_fused
+# takes up to 1024: a cluster of 8 ranks)
+CROSSOVER_KEYS = (256, 384, 512, 640, 768, 1024)
+
+
 def kernel_flash_bwd_short(dev, gen):
     """Row 5 against flash_attention_bwd_ref at BERT-large's shape (b8
     s512 n16 d64 bf16, non-causal, ragged key padding with one fully
     masked batch row), and causal and GQA g=4 variants; K6 + K7 on the
     same inputs (the split pair the JAX route chose against) and SDPA's
-    backward with the same additive mask beside it."""
+    backward with the same additive mask beside it.  Then the GPT-MoE
+    steps' shape (b8 s512 n12 d64 causal, no padding) against the plain
+    version, K6 + K7 and SDPA, and the crossover sweep: row 5 and K6 + K7
+    at CROSSOVER_KEYS keys, b8 n12 d64 causal and b8 n16 non-causal."""
     from apex_tpu_torch.ops import flash_attention as tfa
 
     b, s, n, d = BERT_BATCH, BERT_SEQ, 16, 64
@@ -1813,14 +1863,8 @@ def kernel_flash_bwd_short(dev, gen):
     for name, g, causal in (("non-causal+pad", 16, False),
                             ("causal+pad", 16, True),
                             ("gqa g=4 non-causal+pad", 4, False)):
-        q = torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
-        k = torch.randn(b, s, g, d, device=dev, generator=gen).bfloat16()
-        v = torch.randn(b, s, g, d, device=dev, generator=gen).bfloat16()
-        do = torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
-        o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal,
-                                         key_padding_mask=kpm)
-        ops = tfa.flash_bwd_operands(q, k, v, o, lse, do,
-                                     key_padding_mask=kpm)
+        q, k, v, o, lse, do, ops = _flash_bwd_case(dev, gen, b, s, n, g, d,
+                                                   causal, kpm)
         got = tfa.flash_bwd_fused(ops, causal=causal)
         want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do,
                                            causal=causal,
@@ -1842,6 +1886,13 @@ def kernel_flash_bwd_short(dev, gen):
     errs["row 5 vs K6+K7"] = max(rel_err(a, e) for a, e in zip(fused, split))
     check(errs["row 5 vs K6+K7"] <= FLASH_BWD_TOL,
           f"row 5 against K6 + K7: {errs}")
+    # one launch a call, the same bits on every call
+    before = tfa.FLASH_BWD_SHORT.launches
+    again = tfa.flash_bwd_fused(ops, causal=False)
+    check(tfa.FLASH_BWD_SHORT.launches == before + 1,
+          "row 5: more than one launch a call")
+    check(all(torch.equal(a, e) for a, e in zip(again, fused)),
+          "row 5: two calls on the same inputs differ")
     # open (query, key) pairs: every query row against its batch row's
     # valid keys; 5 products of 2*d flops each
     pairs = int(lens.sum()) * s * n
@@ -1852,31 +1903,74 @@ def kernel_flash_bwd_short(dev, gen):
                               PEAK_BF16_FLOPS)
     plain_ms = time_ms(lambda: tfa.flash_attention_bwd_ref(
         q, k, v, o, lse, do, key_padding_mask=kpm), iters=2, reps=2)
-    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
-                  for t in (q, k, v))
-    dot = do.transpose(1, 2)
     add = torch.where(kpm, -1e30, 0.0).bfloat16()[:, None, None, :]
-
-    def sdpa():
-        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=add)
-
-    lib_ms = (time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
-              - time_ms(sdpa))
+    lib_ms = _sdpa_bwd_ms(q, k, v, do, False, add)
     split_ms = time_ms(lambda: (tfa.flash_bwd_dq(ops, causal=False),
                                 tfa.flash_bwd_dkv(ops, causal=False)))
+    variants = {"K6+K7 on the same inputs": {
+        "ms": split_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+        "bound_ms": split_b, "bound_by": split_by}}
+
+    # the GPT-MoE steps' attention: b8 s512 n12 d64 causal, no padding
+    mb, ms_, mn = MOE_BATCH, MOE_SEQ, 12
+    q, k, v, o, lse, do, mops = _flash_bwd_case(dev, gen, mb, ms_, mn, mn, d,
+                                                True, None)
+    got = tfa.flash_bwd_fused(mops, causal=True)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    for gname, a, e in zip(("dq", "dk", "dv"), got, want):
+        errs[f"moe causal {gname}"] = rel_err(a, e)
+        abs_err = max(abs_err, max_err(a, e))
+    del want
+    check(max(errs.values()) <= FLASH_BWD_TOL, f"row 5 moe error {errs}")
+    mpairs = mb * mn * ms_ * (ms_ + 1) // 2     # causal, no padding
+    mio = 7 * mb * ms_ * mn * d * 2
+    mstats = 2 * mb * mn * ms_ * 4
+    m_plain = time_ms(lambda: tfa.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, causal=True), iters=2, reps=2)
+    m_lib = _sdpa_bwd_ms(q, k, v, do, True)
+    mb_ms, m_by = bound(mio + mstats, 10 * d * mpairs, PEAK_BF16_FLOPS)
+    ms_b, ms_by = bound(mio + 2 * mstats, 14 * d * mpairs, PEAK_BF16_FLOPS)
+    variants[f"MoE shape b{mb} s{ms_} n{mn} d{d} causal"] = {
+        "ms": time_ms(lambda: tfa.flash_bwd_fused(mops, causal=True)),
+        "plain_ms": m_plain, "library_ms": m_lib, "bound_ms": mb_ms,
+        "bound_by": m_by}
+    variants["K6+K7 at the MoE shape"] = {
+        "ms": time_ms(lambda: (tfa.flash_bwd_dq(mops, causal=True),
+                               tfa.flash_bwd_dkv(mops, causal=True))),
+        "plain_ms": m_plain, "library_ms": m_lib, "bound_ms": ms_b,
+        "bound_by": ms_by}
+    del mops, q, k, v, o, lse, do
+
+    crossover = {}
+    for causal, cn in ((True, 12), (False, 16)):
+        for sk in CROSSOVER_KEYS:
+            *_, cops = _flash_bwd_case(dev, gen, 8, sk, cn, cn, d, causal,
+                                       None)
+            crossover[f"{'causal' if causal else 'non-causal'} n{cn} "
+                      f"s{sk}"] = {
+                "row5_ms": time_ms(lambda: tfa.flash_bwd_fused(
+                    cops, causal=causal)),
+                "k6_k7_ms": time_ms(lambda: (
+                    tfa.flash_bwd_dq(cops, causal=causal),
+                    tfa.flash_bwd_dkv(cops, causal=causal)))}
+            del cops
     return {
         "err": abs_err, "rel_err": max(errs.values()),
         "tol": FLASH_BWD_TOL, "detail": errs,
         "ms": time_ms(lambda: tfa.flash_bwd_fused(ops, causal=False)),
         "plain_ms": plain_ms, "library_ms": lib_ms,
         "bound_ms": bms, "bound_by": by,
-        "variants": {"K6+K7 on the same inputs": {
-            "ms": split_ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": split_b, "bound_by": split_by}},
+        "variants": variants, "crossover": crossover,
+        "rank_steps": {
+            "bert": tfa.short_rank_steps(s, s, n, n, d, False),
+            "moe": tfa.short_rank_steps(ms_, ms_, mn, mn, d, True)},
+        # clusters the card holds at once: one wave of the launch
+        "resident_clusters": {sk: tfa.short_resident_clusters(sk, d)
+                              for sk in CROSSOVER_KEYS},
         "shape": f"b={b} s={s} n={n} d={d} bf16 non-causal, key lengths "
-                 f"{lens.tolist()} (checked also causal and GQA g=4); plain "
-                 "= flash_attention_bwd_ref, library = SDPA backward with "
-                 "the same additive mask",
+                 f"{lens.tolist()} (checked also causal and GQA g=4, and "
+                 "at the MoE shape); plain = flash_attention_bwd_ref, "
+                 "library = SDPA backward with the same additive mask",
     }
 
 
@@ -2740,19 +2834,24 @@ def generic_mask_phase(dev):
 
 
 def matmul_times(root: str) -> dict:
-    """Rows 9 and 10 of the ``apex_tpu_torch`` found under ``root`` (this
-    checkout, or a ``git archive`` of another commit unpacked elsewhere),
-    built from that tree's sources and timed as CUDA-graph replays at the
-    main paths' shapes: row 10 at the four GPT-2 125M matmuls for M = 32,
-    1024 and 4096 (bf16), row 9's forward, transposed read and int8 slab
-    (kb 128) at the ragged MoE step's fc1 and fc2 over the ``moe`` offsets
-    of tests/torch_gmm_cases.py (4096 rows, 8 uneven experts).  It calls
-    only entry points both this tree and its parent have, so that parent
-    and change run the same measurement in one chip call."""
+    """Rows 5, 9 and 10 of the ``apex_tpu_torch`` found under ``root``
+    (this checkout, or a ``git archive`` of another commit unpacked
+    elsewhere), built from that tree's sources and timed as CUDA-graph
+    replays at the main paths' shapes: row 10 at the four GPT-2 125M
+    matmuls for M = 32, 1024 and 4096 (bf16), row 9's forward, transposed
+    read and int8 slab (kb 128) at the ragged MoE step's fc1 and fc2 over
+    the ``moe`` offsets of tests/torch_gmm_cases.py (4096 rows, 8 uneven
+    experts), row 9's fp32 branch at one layer's 8 LoRA calls at decode
+    (32 rows over 20 live groups of 24) and at an adapter prefill (1024
+    rows), and row 5 with K6 + K7 beside it at BERT's shape (b8 s512 n16
+    d64, key padding) and the MoE steps' (b8 s512 n12 d64 causal).  It
+    calls only entry points both this tree and its parent have, so that
+    parent and change run the same measurement in one chip call."""
     sys.path.insert(0, str(Path(root).resolve()))
     import apex_tpu_torch
     from apex_tpu_torch.ops import _kernel_utils as ku
     from apex_tpu_torch.ops import dense as td
+    from apex_tpu_torch.ops import flash_attention as tfa
     from apex_tpu_torch.ops import grouped_matmul as tgm
 
     pkg = Path(apex_tpu_torch.__file__).resolve().parent
@@ -2762,7 +2861,8 @@ def matmul_times(root: str) -> dict:
     from torch_gmm_cases import offsets_case
 
     t0 = time.perf_counter()
-    ku.build_all(["dense_int8.cu", "grouped_matmul.cu"])
+    ku.build_all(["dense_int8.cu", "grouped_matmul.cu", "flash_attention.cu",
+                  "flash_attention_bwd.cu", "flash_attention_bwd_short.cu"])
     build_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -2795,8 +2895,42 @@ def matmul_times(root: str) -> dict:
             row9[f"{site} int8"] = time_ms(
                 lambda: tgm.grouped_matmul_quantized(x, q["wire"],
                                                      q["scale"], offs))
+        lora = {}
+        for lay in ("decode", "prefill"):
+            ln, lg, loff = offsets_case(lay)
+            loffs = torch.as_tensor(loff, device="cuda")
+            per = {}
+            for site, h_in, h_out in LORA_SITES:
+                for side, k, p in (("A", h_in, LORA_RANK),
+                                   ("B", LORA_RANK, h_out)):
+                    x = torch.randn(ln, k, device="cuda", generator=gen)
+                    w = torch.randn(lg, k, p, device="cuda",
+                                    generator=gen) * 0.1
+                    per[f"{site} {side}"] = time_ms(
+                        lambda: tgm.grouped_matmul(x, w, loffs))
+            lora[lay] = {"sum_ms": sum(per.values()), "per_call_ms": per}
+    row5 = {}
+    for name, (n, causal, pad) in (("bert b8 s512 n16 padded", (16, False,
+                                                              True)),
+                                   ("moe b8 s512 n12 causal", (12, True,
+                                                              False))):
+        kpm = None
+        if pad:
+            lens = bert_lens(BERT_BATCH, BERT_SEQ,
+                             torch.Generator().manual_seed(4)).cuda()
+            lens[-1] = 0
+            kpm = torch.arange(BERT_SEQ, device="cuda")[None] >= lens[:, None]
+        *_, ops = _flash_bwd_case("cuda", gen, BERT_BATCH, BERT_SEQ, n, n, 64,
+                                  causal, kpm)
+        row5[name] = {
+            "row5_ms": time_ms(lambda: tfa.flash_bwd_fused(ops,
+                                                           causal=causal)),
+            "k6_k7_ms": time_ms(lambda: (tfa.flash_bwd_dq(ops, causal=causal),
+                                         tfa.flash_bwd_dkv(ops,
+                                                           causal=causal)))}
     return {"root": str(root), "device": nvidia_smi(),
             "build_s": build_s, "row10_ms": row10, "row9_ms": row9,
+            "row9_lora_fp32": lora, "row5": row5,
             "moe_loads": [int(b - a) for a, b in zip(off, off[1:])]}
 
 
@@ -2804,7 +2938,7 @@ def main() -> int:
     check(torch.cuda.is_available(),
           "no CUDA device: chip_smoke.py runs only on the card")
     if sys.argv[1:2] == ["--matmul-times"]:
-        # python3 chip_smoke.py --matmul-times ROOT: rows 9 and 10 only
+        # python3 chip_smoke.py --matmul-times ROOT: rows 5, 9 and 10 only
         print(json.dumps(matmul_times(sys.argv[2])))
         return 0
     dev = torch.device("cuda")
@@ -2827,8 +2961,9 @@ def main() -> int:
           f"source, in parallel), compiled now: {built}")
 
     attrs, sass = hopper_kernels()
-    print(f"hopper kernels (16-bit K2, K6, K7; rows 9 and 10's tensor-core "
-          f"routes) on {smi}: registers, shared memory per CTA, CTAs per "
+    print(f"hopper kernels (16-bit K2, K6, K7, row 5; rows 9 and 10's "
+          f"tensor-core routes, row 9's fp32 cluster kernel) on {smi}: "
+          f"registers, shared memory per CTA, CTAs per "
           f"SM and spill bytes {json.dumps(attrs)}; SASS HGMMA / UTMALDG "
           f"per kernel {json.dumps(sass)}")
 
@@ -2893,7 +3028,15 @@ def main() -> int:
     report("layer_norm_bwd", kernel_layer_norm_bwd(dev, gen))
     for kname, r in kernel_flash_bwd(dev, gen).items():
         report(kname, r)
-    report("flash_attention_bwd_short", kernel_flash_bwd_short(dev, gen))
+    short = kernel_flash_bwd_short(dev, gen)
+    report("flash_attention_bwd_short", short)
+    print(f"row 5 vs K6 + K7 crossover (b8, d64, bf16; flash_attention_bwd "
+          f"sends up to {flash_attention.SHORT_KEYS_MAX} keys to row 5) on "
+          f"{smi}: "
+          f"{json.dumps(short['crossover'])}; row 5's (head, query tile) "
+          f"steps with products per rank [warpgroup 0, 1]: "
+          f"{json.dumps(short['rank_steps'])}; resident clusters by keys "
+          f"(d64 bf16): {json.dumps(short['resident_clusters'])}")
     with torch.inference_mode():
         report("scaled_softmax_fwd", kernel_softmax(dev, gen))
     torch.cuda.empty_cache()
@@ -3062,6 +3205,7 @@ def main() -> int:
         "moe_train_check": moe_checks,
         "moe_int8_forward": {k: v for k, v in mq.items() if k != "counts"},
         "grouped_dw": grouped_dw,
+        "flash_bwd_crossover": short["crossover"],
         "generic_mask": {k: v for k, v in gm.items() if k != "counts"}}
     print(json.dumps(line))
     print(smi)

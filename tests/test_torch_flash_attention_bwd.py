@@ -142,3 +142,38 @@ def test_lse_layout_and_sentinel():
     assert lse.shape == (2 * 2, 8) and lse.dtype == torch.float32
     assert (lse[2:] == -1e30).all() and torch.isfinite(lse[:2]).all()
     assert torch.count_nonzero(o[1]) == 0
+
+
+@pytest.mark.parametrize("sk, d, plan", [
+    (1, 64, (1, 64)), (77, 128, (1, 32)), (128, 64, (1, 64)),
+    (129, 64, (2, 64)), (200, 32, (2, 64)), (300, 128, (3, 32)),
+    (384, 64, (3, 64)), (512, 64, (4, 64)), (640, 64, (5, 64)),
+    (1000, 128, (8, 32)), (1024, 64, (8, 64))])
+def test_short_cluster(sk, d, plan):
+    """Row 5's 16-bit cluster: one rank per 128 keys (BERT's and the MoE
+    steps' 512 keys are 4 ranks), query tiles of 64 rows, 32 at d = 128."""
+    assert tfa.short_cluster(sk, d) == plan
+
+
+@pytest.mark.parametrize("sk", [0, 1025, 4096])
+def test_short_cluster_bounds(sk):
+    """The largest portable cluster (8 ranks) holds 1024 keys; longer
+    keys are refused (flash_attention_bwd sends them to K6 + K7)."""
+    with pytest.raises(ValueError):
+        tfa.short_cluster(sk, 64)
+
+
+@pytest.mark.parametrize("sq, sk, n, g, d, causal, steps", [
+    (512, 512, 16, 16, 64, False, [[8, 8]] * 4),     # BERT-large
+    (512, 512, 12, 12, 64, True,                     # the MoE steps
+     [[8, 1], [7, 2], [6, 3], [5, 4]]),
+    (512, 512, 16, 4, 64, False, [[32, 32]] * 4),    # GQA: 4 heads a group
+    (130, 130, 4, 4, 64, True, [[3, 0], [2, 1]]),
+    (300, 300, 4, 2, 128, True, [[20, 0], [16, 4], [12, 8]]),
+    (100, 300, 4, 4, 64, True, [[2, 0], [1, 0], [0, 0]])])  # keys past sq
+def test_short_rank_steps(sq, sk, n, g, d, causal, steps):
+    """The (head, query tile) steps each rank's two warpgroups run
+    products for: all of them without causality; with it, those from the
+    warpgroup's first key on, key tiles r and 2R - 1 - r paired on rank r
+    so that every rank's work is about the same."""
+    assert tfa.short_rank_steps(sq, sk, n, g, d, causal) == steps

@@ -161,3 +161,23 @@ def test_mma_column_tile(n, p, g, cols):
     """The 16-bit GEMM takes 256-column tiles only when they fit in one
     wave of the 132 persistent CTAs (no tail to lose), else 128."""
     assert tgm.mma_column_tile(n, p, g) == cols
+
+
+@pytest.mark.parametrize("n, k, p, g, plan", [
+    (32, 768, 8, 24, (4, 1)),      # LoRA decode, A side of qkv/proj/fc1
+    (32, 3072, 8, 24, (4, 4)),     # decode fc2 A: 34 CTAs, 768 k rows each
+    (32, 8, 2304, 24, (4, 1)),     # decode B sides: 306 CTAs fill the card
+    (32, 8, 768, 24, (4, 1)),
+    (1024, 768, 8, 24, (4, 1)),    # adapter prefill A: 282 row tiles
+    (1024, 3072, 8, 24, (4, 1)),
+    (1024, 8, 3072, 24, (16, 1)),  # prefill B: short k, 16-row tiles
+    (77, 100, 24, 5, (4, 1)),
+    (40, 0, 5, 6, (4, 1)),         # k = 0
+    (16, 100000, 4, 1, (4, 8)),    # a long contraction: the largest cluster
+    (8192, 8, 64, 2, (16, 1))])
+def test_fp32_tiles(n, k, p, g, plan):
+    """Row 9's fp32 branch: 4-row tiles unless a short contraction meets
+    16 or more rows per segment; a cluster splits the contraction only
+    when the tiles leave SMs idle, each CTA keeping 768 k rows or more,
+    at most 8 CTAs."""
+    assert tgm.fp32_tiles(n, k, p, g) == plan

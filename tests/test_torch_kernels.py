@@ -293,14 +293,17 @@ def test_hopper_flash_kernels_in_a_cuda_graph(dev):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("d", [32, 64, 128])
 def test_hopper_flash_kernels_fit_the_sm(dev, dtype, d):
-    """The 16-bit K2, K6 and K7 kernels launch one 384-thread CTA per SM
-    within the 227 KB of shared memory a block may use."""
+    """The 16-bit K2, K6, K7 and row 5 kernels launch one 384-thread CTA
+    per SM within the 227 KB of shared memory a block may use; row 5's
+    cluster kernel does not spill."""
     attrs = tfa.hopper_attributes(dtype, d)
     assert set(attrs) == {"flash_attention_fwd", "flash_attention_bwd_dq",
-                          "flash_attention_bwd_dkv"}
+                          "flash_attention_bwd_dkv",
+                          "flash_attention_bwd_short"}
     for a in attrs.values():
         assert a["ctas_per_sm"] >= 1 and a["smem_bytes"] <= 232448
         assert 0 < a["registers"] <= 168
+    assert attrs["flash_attention_bwd_short"]["spill_bytes"] == 0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -309,11 +312,15 @@ def test_hopper_flash_kernels_fit_the_sm(dev, dtype, d):
     (512, 4, 4, False, True, 64), (200, 4, 4, False, False, 64),
     (130, 4, 4, True, True, 64), (130, 12, 4, False, True, 64),
     (512, 8, 1, True, True, 64), (77, 4, 2, False, True, 128),
-    (130, 4, 4, True, True, 32)])
+    (130, 4, 4, True, True, 32), (384, 8, 2, True, True, 64),
+    (300, 4, 4, False, True, 32), (257, 4, 1, True, True, 128),
+    (511, 12, 12, True, False, 64), (450, 8, 4, False, True, 128)])
 def test_row5_flash_bwd_short(dev, dtype, s, n, g, causal, padded, d):
     """Row 5 (the route of flash_attention_bwd up to 512 keys) against
-    flash_attention_bwd_ref and against K6 + K7 on the same o and lse;
-    batch row 2 is fully masked when padded."""
+    flash_attention_bwd_ref and against K6 + K7 on the same o and lse:
+    clusters of 1 to 4 ranks (77 .. 512 keys), key tails inside a rank's
+    128 keys, every head size, MQA and GQA; batch row 2 is fully masked
+    when padded."""
     b = 3
     q, k, v, do = _flash_inputs(dtype, b, s, n, g, d, seed=7)
     kpm = None
@@ -344,6 +351,67 @@ def test_row5_flash_bwd_short(dev, dtype, s, n, g, causal, padded, d):
         assert _rel_err(a, sp) <= _BWD_TOL[dtype], name
     if padded:
         assert all(torch.count_nonzero(t[2]) == 0 for t in got)
+
+
+@pytest.mark.parametrize("s, causal, d", [(640, True, 64), (1000, False, 64),
+                                          (1024, True, 128), (896, False, 32)])
+def test_row5_cluster_up_to_eight_ranks(dev, s, causal, d):
+    """flash_bwd_fused launched directly past SHORT_KEYS_MAX: clusters of
+    5 to 8 ranks (the crossover sweep's key lengths) against
+    flash_attention_bwd_ref and K6 + K7, one launch; above 1024 keys the
+    cluster would exceed 8 ranks and the call is refused."""
+    q, k, v, do = _flash_inputs(torch.bfloat16, 2, s, 4, 2, d, seed=14)
+    kpm = torch.arange(s, device=dev)[None] >= torch.tensor(
+        [[s], [s // 3]], device=dev)
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal,
+                                     key_padding_mask=kpm)
+    ops = tfa.flash_bwd_operands(q, k, v, o, lse, do, key_padding_mask=kpm)
+    before = tfa.FLASH_BWD_SHORT.launches
+    got = tfa.flash_bwd_fused(ops, causal=causal)
+    torch.cuda.synchronize()
+    assert tfa.FLASH_BWD_SHORT.launches == before + 1
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=causal,
+                                       key_padding_mask=kpm)
+    split = (tfa.flash_bwd_dq(ops, causal=causal),
+             *tfa.flash_bwd_dkv(ops, causal=causal))
+    for a, e, sp in zip(got, want, split):
+        assert _rel_err(a, e) <= _BWD_TOL[torch.bfloat16]
+        assert _rel_err(a, sp) <= _BWD_TOL[torch.bfloat16]
+    q, k, v, do = _flash_inputs(torch.bfloat16, 1, 1030, 4, 4, 64, seed=15)
+    o, lse = tfa.flash_attention_fwd(q, k, v)
+    with pytest.raises(ValueError):
+        tfa.flash_bwd_fused(tfa.flash_bwd_operands(q, k, v, o, lse, do),
+                            causal=False)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_row5_repeats_bitwise_and_captures(dev, dtype):
+    """Twenty launches of row 5's cluster kernel at BERT's shape (b8 s512
+    n16 d64, key padding) give the same bits (one writer per element, a
+    fixed order of addition across the cluster), and a launch captured in
+    a CUDA graph replays on new inputs as the eager call does."""
+    s = 512
+    q, k, v, do = _flash_inputs(dtype, 8, s, 16, 16, 64, seed=16)
+    lens = torch.tensor([512, 400, 387, 500, 450, 420, 460, 0], device=dev)
+    kpm = torch.arange(s, device=dev)[None] >= lens[:, None]
+    o, lse = tfa.flash_attention_fwd(q, k, v, key_padding_mask=kpm)
+    ops = tfa.flash_bwd_operands(q, k, v, o, lse, do, key_padding_mask=kpm)
+    first = tfa.flash_bwd_fused(ops, causal=False)
+    for _ in range(20):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(tfa.flash_bwd_fused(ops, causal=False),
+                                   first))
+    assert all(int(torch.count_nonzero(t[-1])) == 0 for t in first)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tfa.flash_bwd_fused(ops, causal=False)
+    fresh = _flash_inputs(dtype, 8, s, 16, 16, 64, seed=17)
+    for name, src in zip(("q", "k", "v", "do"), fresh):
+        ops[name].copy_(src)
+    graph.replay()
+    eager = tfa.flash_bwd_fused(ops, causal=False)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(captured, eager))
 
 
 def test_row5_is_deterministic_and_long_keys_take_k6_k7(dev):
@@ -712,19 +780,29 @@ def test_row9_grouped_matmul_adversarial(dev, dtype, tol, k, p, case):
     _check_gmm(x, w, offs, off_np, out, tol)
 
 
-@pytest.mark.parametrize("k, p", [(768, 8), (3072, 8), (1000, 40)])
-def test_row9_contraction_splits_agree(dev, k, p):
-    """Every split count of the contraction gives the plain result, and
-    the fixed-order second pass makes each split count deterministic."""
+@pytest.mark.parametrize("k, p", [(768, 8), (3072, 8), (1000, 40),
+                                  (8, 2304), (5, 3)])
+@pytest.mark.parametrize("case", ["decode", "prefill", "window",
+                                  "many_groups"])
+@pytest.mark.parametrize("rows", [4, 16])
+def test_row9_contraction_splits_agree(dev, k, p, case, rows):
+    """Every cluster size (1 to 8 CTAs sharing the contraction, at most
+    one per k row) and both row tiles give the plain result with zeros
+    outside the window, each in one launch and bitwise the same over 20
+    launches (the partials are added in rank order through distributed
+    shared memory)."""
     from apex_tpu_torch.ops import grouped_matmul as tgm
 
-    x, w, offs, off_np = _gmm_inputs("decode", k, p, torch.float32, 22)
-    chunks = -(-k // 256)
-    for splits in sorted({1, 2, chunks}):
-        out = tgm._gmm_fp32_kernel(x, w, offs, splits=splits)
-        again = tgm._gmm_fp32_kernel(x, w, offs, splits=splits)
+    x, w, offs, off_np = _gmm_inputs(case, k, p, torch.float32, 22)
+    for splits in range(1, min(8, k) + 1):
+        before = tgm.GROUPED_MATMUL.launches
+        out = tgm._gmm_fp32_kernel(x, w, offs, splits=splits, rows=rows)
+        assert tgm.GROUPED_MATMUL.launches == before + 1
+        for _ in range(20):
+            again = tgm._gmm_fp32_kernel(x, w, offs, splits=splits,
+                                         rows=rows)
+            assert torch.equal(out, again)
         torch.cuda.synchronize()
-        assert torch.equal(out, again)
         _check_gmm(x, w, offs, off_np, out, 1e-5)
 
 
