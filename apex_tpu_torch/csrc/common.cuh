@@ -79,3 +79,31 @@ __device__ __forceinline__ float apex_warp_max(float v) {
   }
 
 #define APEX_NEG_INF (-1e30f)
+
+// What the runtime reports of one kernel launched with `threads` threads
+// and no dynamic shared memory: out = {registers per thread, static
+// shared memory per CTA, resident CTAs per SM, local (spill) bytes per
+// thread}.  Returns a cudaError_t.
+template <typename Kern>
+inline int apex_kernel_attrs(Kern kern, int threads, int* out) {
+  cudaFuncAttributes a;
+  int ctas = 0;
+  int err = (int)cudaFuncGetAttributes(&a, kern);
+  if (err == 0)
+    err = (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kern,
+                                                             threads, 0);
+  if (err != 0) return err;
+  out[0] = a.numRegs;
+  out[1] = (int)a.sharedSizeBytes;
+  out[2] = ctas;
+  out[3] = (int)a.localSizeBytes;
+  return 0;
+}
+
+// 2^x on the special-function unit (ex2.approx.ftz: ~2 ulp, subnormal
+// results flushed to 0)
+__device__ __forceinline__ float apex_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}

@@ -16,7 +16,8 @@ JAX.  ``memory_efficient=True`` (save y, rebuild x) is not ported.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -24,13 +25,67 @@ from apex_tpu_torch.ops import _kernel_utils as ku
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["fused_layer_norm", "fused_rms_norm", "layer_norm_ref",
-           "rms_norm_ref", "layer_norm_fwd_stats", "layer_norm_bwd"]
+           "rms_norm_ref", "layer_norm_fwd_stats", "layer_norm_bwd",
+           "ln_plan", "LnPlan", "kernel_attributes"]
 
 LN_FWD = ku.register(ku.Kernel(
     "layer_norm_fwd", "layer_norm.cu", "apex_layer_norm_fwd",
-    [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                             ctypes.c_int, ctypes.c_int],
+    [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_int, ctypes.c_float]
+    + [ctypes.c_int] * 5,
     replaces="apex_tpu/ops/layer_norm.py:87"))
+
+# K1's register kernel (csrc/layer_norm.cu): 16-byte vectors a lane, at
+# most; warps a CTA; CTAs an SM its launch bound holds registers to
+LN_MAX_VECTORS, LN_WARPS, LN_CTAS_PER_SM = 8, 4, 3
+
+
+class LnPlan(NamedTuple):
+    """K1's launch: ``vectors`` 16-byte vectors a lane in the register
+    kernel (one warp per row, persistent over rows ``warps * grid``
+    apart), or 0 for the scalar kernel (which sizes its own grid)."""
+    vectors: int
+    warps: int
+    grid: int
+
+
+def ln_plan(rows: int, hidden: int, itemsize: int, aligned: bool,
+            sms: int) -> LnPlan:
+    """The K1 variant for ``rows`` rows of ``hidden`` elements of
+    ``itemsize`` bytes (``aligned``: x, y, γ and β start at multiples of
+    16 bytes) on a card of ``sms`` SMs: a pure function.  Rows that are a
+    whole number of 16-byte vectors, at most ``LN_MAX_VECTORS`` a lane,
+    take the register kernel: up to ``sms`` rows one 1-warp CTA each
+    (decode: each row its own SM); more rows ``LN_WARPS``-warp CTAs,
+    at most ``LN_CTAS_PER_SM`` an SM, each warp walking
+    ``ceil(rows / (warps * grid))`` rows."""
+    vec = 16 // itemsize
+    nvec = hidden // vec
+    if not aligned or hidden % vec or nvec > 32 * LN_MAX_VECTORS:
+        return LnPlan(0, 0, 0)
+    vectors = -(-nvec // 32)
+    if rows <= sms:
+        return LnPlan(vectors, 1, rows)
+    return LnPlan(vectors, LN_WARPS,
+                  min(-(-rows // LN_WARPS), LN_CTAS_PER_SM * sms))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def kernel_attributes(dtype: torch.dtype = torch.bfloat16,
+                      vectors=(3, 4, 8)) -> dict:
+    """What the CUDA runtime reports for K1's register kernel at each
+    count of vectors a lane (bf16 3, 4, 8: h = 768, 1024, 2048; fp32 6,
+    8: h = 768, 1024) and for the scalar kernel: ``{name: {"registers",
+    "smem_bytes", "ctas_per_sm", "spill_bytes"}}``.  Needs the card."""
+    code = ku.dtype_code(torch.empty((), dtype=dtype))
+    names = {f"rows nv{nv}": nv for nv in vectors}
+    names["scalar"] = 0
+    return {name: ku.hopper_attrs(LN_FWD.source, "apex_layer_norm_fwd_attrs",
+                                  code, nv)
+            for name, nv in names.items()}
 
 LN_BWD = ku.register(ku.Kernel(
     "layer_norm_bwd", "layer_norm_bwd.cu", "apex_layer_norm_bwd",
@@ -69,9 +124,12 @@ def _fwd_kernel(x2, weight, bias, eps, rms):
     y = torch.empty_like(x2)
     mu = torch.empty(rows, dtype=torch.float32, device=x2.device)
     rs = torch.empty(rows, dtype=torch.float32, device=x2.device)
+    aligned = all(t is None or t.data_ptr() % 16 == 0 for t in (x2, y, w, b))
+    plan = ln_plan(rows, hidden, x2.element_size(), aligned,
+                   _sm_count(x2.device))
     LN_FWD(x2.device, ku.ptr(x2), ku.ptr(w), ku.ptr(b), ku.ptr(y),
            ku.ptr(mu), ku.ptr(rs), rows, hidden, float(eps), int(rms),
-           ku.dtype_code(x2))
+           ku.dtype_code(x2), *plan)
     return y, mu, rs
 
 

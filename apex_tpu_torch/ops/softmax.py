@@ -14,9 +14,12 @@ Semantics, as in the JAX package:
 
 For CUDA tensors the forward is kernel row 11 (``csrc/softmax.cu``) on
 every call: the mask is read through its broadcast strides, any row
-length works, and autograd runs the torch backward around it.  The JAX
-package's routing away from its Pallas kernel (broadcast masks, sk >
-512, differentiation) rested on TPU measurements and is not carried
+length works, and autograd runs the torch backward around it.
+:func:`softmax_plan` chooses the kernel's variant from the row length,
+the element size and the alignment: rows that fit in registers are read
+once by a group of lanes, longer or unaligned rows take a looped kernel.
+The JAX package's routing away from its Pallas kernel (broadcast masks,
+sk > 512, differentiation) rested on TPU measurements and is not carried
 over; the function computed is the same on every route.  For CPU
 tensors, and under ``backend="reference"``, the forward is
 :func:`_softmax_fwd_ref`.
@@ -25,7 +28,7 @@ tensors, and under ``backend="reference"``, the forward is
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -34,16 +37,83 @@ from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["scaled_softmax", "scaled_masked_softmax",
            "scaled_upper_triang_masked_softmax",
-           "generic_scaled_masked_softmax", "softmax_fwd"]
+           "generic_scaled_masked_softmax", "softmax_fwd", "softmax_plan",
+           "SoftmaxPlan", "kernel_attributes"]
 
 _MASK_FILL = -10000.0
 
 SOFTMAX_FWD = ku.register(ku.Kernel(
     "scaled_softmax_fwd", "softmax.cu", "apex_scaled_softmax_fwd",
     [ctypes.c_void_p] * 3 + [ctypes.c_longlong] + [ctypes.c_int] * 3
-    + [ctypes.c_longlong] * 4 + [ctypes.c_float, ctypes.c_int,
-                                 ctypes.c_int],
+    + [ctypes.c_longlong] * 4 + [ctypes.c_float] + [ctypes.c_int] * 6,
     replaces="apex_tpu/ops/softmax.py:79"))
+
+# how row 11 reads the mask (csrc/softmax.cu MaskMode): none, one vector
+# load covering a step's elements, or element by element through the
+# strides
+MASK_NONE, MASK_VECTOR, MASK_STRIDED = 0, 1, 2
+# 16-byte vectors a lane holds in the one-read kernel, at most
+ROW_MAX_VECTORS = 8
+
+
+class SoftmaxPlan(NamedTuple):
+    """Row 11's launch: ``lanes`` > 0 is the one-read kernel, a group of
+    ``lanes`` lanes per row holding ``vectors`` 16-byte vectors each;
+    ``lanes`` == 0 the looped kernel (one warp per row) stepping ``vec``
+    elements at a time.  ``vec`` is the elements of one step (16 bytes,
+    or 1 when the row is not aligned); ``mask`` how the mask is read."""
+    lanes: int
+    vectors: int
+    vec: int
+    mask: int
+
+
+def softmax_plan(sk: int, itemsize: int, x_ptr: int, y_ptr: int,
+                 mask_ptr: Optional[int] = None,
+                 mask_strides: Optional[tuple] = None) -> SoftmaxPlan:
+    """The row 11 variant for rows of ``sk`` elements of ``itemsize``
+    bytes at ``x_ptr``/``y_ptr``, and a mask (``None``, or its byte
+    address and 4-D strides): a pure function of shape, element size and
+    alignment.  Rows whose start is 16-byte aligned and that fit in
+    ``ROW_MAX_VECTORS`` vectors a lane (1024 fp32 or 2048 16-bit values)
+    are read once; a row of at most 16 vectors takes 8 or 16 lanes (two
+    or four rows a warp).  The mask is read in vectors when its last
+    stride is 1 and every row of it starts at a multiple of the step."""
+    vec = 16 // itemsize
+    aligned = sk % vec == 0 and x_ptr % 16 == 0 and y_ptr % 16 == 0
+    step = vec if aligned else 1
+    mode = MASK_NONE
+    if mask_strides is not None:
+        *lead, last = mask_strides
+        mode = (MASK_VECTOR if last == 1 and all(
+            s % step == 0 for s in [mask_ptr, *lead]) else MASK_STRIDED)
+    nvec = sk // vec
+    if not aligned or nvec > 32 * ROW_MAX_VECTORS:
+        return SoftmaxPlan(0, 0, step, mode)
+    if nvec <= 16:
+        return SoftmaxPlan(8 if nvec <= 8 else 16, 1, vec, mode)
+    vectors = 1
+    while 32 * vectors < nvec:
+        vectors *= 2
+    return SoftmaxPlan(32, vectors, vec, mode)
+
+
+def kernel_attributes(dtype: torch.dtype = torch.float32) -> dict:
+    """What the CUDA runtime reports for row 11's instantiations of one
+    element type (``{name: {"registers", "smem_bytes", "ctas_per_sm",
+    "spill_bytes"}}``): the one-read kernel at every lane and vector
+    count with a vector mask, and the looped kernel in vectors and one
+    element at a time with a strided mask.  Needs the card."""
+    vec = 16 // torch.empty((), dtype=dtype).element_size()
+    plans = {f"row {lanes}x{nv}": SoftmaxPlan(lanes, nv, vec, MASK_VECTOR)
+             for lanes, nv in ((8, 1), (16, 1), (32, 1), (32, 2), (32, 4),
+                               (32, 8))}
+    plans["loop"] = SoftmaxPlan(0, 0, vec, MASK_STRIDED)
+    plans["loop scalar"] = SoftmaxPlan(0, 0, 1, MASK_STRIDED)
+    code = ku.dtype_code(torch.empty((), dtype=dtype))
+    return {name: ku.hopper_attrs(SOFTMAX_FWD.source,
+                                  "apex_scaled_softmax_attrs", code, *p)
+            for name, p in plans.items()}
 
 
 def _softmax_fwd_ref(x, scale, mask=None, causal=False):
@@ -96,8 +166,12 @@ def softmax_fwd(x, scale: float, mask=None, causal: bool = False):
     rows = x.numel() // sk
     d1 = 1 if x.ndim < 3 else x.shape[-3]
     strides = (0, 0, 0, 0) if m is None else m.stride()
+    plan = softmax_plan(sk, x.element_size(), x.data_ptr(), y.data_ptr(),
+                        None if m is None else m.data_ptr(),
+                        None if m is None else strides)
     SOFTMAX_FWD(x.device, ku.ptr(x), ku.ptr(m), ku.ptr(y), rows, sk, sq,
-                d1, *strides, float(scale), int(causal), ku.dtype_code(x))
+                d1, *strides, float(scale), int(causal), ku.dtype_code(x),
+                *plan)
     return y
 
 

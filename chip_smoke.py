@@ -9,11 +9,14 @@
    ``nvcc`` per source, all at once) and prints the build time; prints
    the registers, shared memory per CTA, CTAs per SM and spill bytes of
    the Hopper kernels of K2, K6, K7 and row 5 (bf16, fp16; d 32/64/128),
-   of rows 9 and 10's tensor-core routes and of row 9's fp32 cluster
-   kernel (row 5 and rows 9 and 10 must not spill), and checks that each
-   Hopper kernel's machine code holds ``HGMMA`` and ``UTMALDG``
-   instructions.
-3. Holds each kernel (K1 LayerNorm, K2 flash attention, K3 fused decode
+   of rows 9 and 10's tensor-core routes, of row 9's fp32 cluster
+   kernel and of row 11's and K1's row kernels (row 5, rows 9 and 10,
+   row 11 and K1 must not spill), and checks that each kernel of
+   HOPPER_SOURCES holds ``HGMMA`` and ``UTMALDG`` instructions in its
+   machine code.
+3. Holds each kernel (K1 LayerNorm at the five main paths' shapes, from
+   decode's [8, 768] to the GPT step's [16384, 768], plus RMSNorm and
+   fp32; K2 flash attention, K3 fused decode
    layer with a bf16 and an int8 pool, K4 fused sampler, row 6 ragged
    paged attention, row 9 ragged grouped matmul (LoRA's fp32 branch),
    row 10 int8-weight matmul on each of its three routes: the decode
@@ -56,7 +59,8 @@
    repeats, and the row 5 versus K6 + K7 crossover from 256 to 1024 keys;
    row 11 (the scaled masked softmax) at BERT's fused_softmax
    scores [8, 16, 512, 512] fp32 with a [8, 1, 1, 512] mask (also bf16,
-   causal, a full-shape mask); K2 at BERT's forward shape and at the GPT
+   causal, a full-shape mask), and the torch backward composition around
+   it; K2 at BERT's forward shape and at the GPT
    step's (b16 s1024 n12 d64 causal, beside SDPA's forward) as variants;
    K6 + K7 also timed as one pair, the backward function, with its own
    bound.
@@ -71,8 +75,9 @@
    s512 on a seeded batch with ragged padding and MLM/NSP labels, under
    both attention backends: exact launch counts per step (flash: K1 and
    K5 51 each, K2 24, row 5 24; fused_softmax: K1 and K5 51, row 11 24),
-   step time, tokens/s, MFU, idle share, peak memory; then 3 kernel-vs-
-   plain steps at b4 from one state.
+   step time, tokens/s, MFU, idle share, peak memory (fused_softmax:
+   also row 11's forward and the softmax backward composition's device
+   ms in one step); then 3 kernel-vs-plain steps at b4 from one state.
 6c. Drives the GPT-MoE AMP-O2 train step of bench.py's bench_gpt_moe (12
    layers, h=768, 8 experts, 520M parameters, ``fused_adam(lr=1e-4)``) at
    b8 x s512 on seeded tokens under ``moe_routing="capacity"`` (the bench
@@ -99,10 +104,10 @@ result line; it never falls back to the CPU.
 
     python3 chip_smoke.py --matmul-times ROOT
 
-times only rows 5, 9 and 10 of the port under ROOT (a ``git archive`` of
-another commit, say) at the main paths' shapes and prints one JSON line,
-so that two commits compare in one chip call (parent, change, change,
-parent).
+times only rows 5, 9, 10 and 11 and K1 of the port under ROOT (a ``git
+archive`` of another commit, say) at the main paths' shapes and prints
+one JSON line, so that two commits compare in one chip call (parent,
+change, change, parent).
 """
 
 from __future__ import annotations
@@ -276,32 +281,124 @@ def profile_busy(fn):
             {k: round(v, 3) for k, v in by_cat.items()}, top(by_op))
 
 
-def kernel_layer_norm(dev, gen):
+def profile_spans(fn, kernels, ops):
+    """Device ms of parts of one ``fn()`` under torch.profiler: for each
+    ``kernels`` label, the summed time of the device kernels whose name
+    holds its needle; for each ``ops`` label, the device time of the CPU
+    op whose name ends with its needle, its children's kernels included
+    (the autograd engine's ``evaluate_function: <Node>`` wraps the node's
+    own event, so the larger of the two is the node's)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = dict.fromkeys([*kernels, *ops], 0.0)
+    for ev in prof.key_averages():
+        on_device = ev.device_type == DeviceType.CUDA
+        for label, needle in kernels.items():
+            if on_device and needle in ev.key:
+                out[label] += ev.self_device_time_total / 1e3
+        for label, needle in ops.items():
+            if not on_device and ev.key.endswith(needle):
+                out[label] = max(out[label], ev.device_time_total / 1e3)
+    return {k: (v if v > 0 else "not measured") for k, v in out.items()}
+
+
+# K1 at every main path's shape (PERF.md §6 launches): generate's decode,
+# the engine and LoRA engine's decode, the MoE steps / quantized MoE
+# forward / prefill, the GPT-2 125M O2 step (b16 x s1024), BERT-large
+LN_SHAPES = (("generate decode", 8, 768), ("engine decode", 32, 768),
+             ("moe step, prefill", 4096, 768), ("gpt step", 16384, 768),
+             ("bert step", 4096, 1024))
+LN_MAIN = "moe step, prefill"
+# K1's tolerances (tests/test_torch_kernels.py): y within tol + tol * |plain|
+# (one bf16 step is 2**-5 at |y| in [4, 8), which the larger shapes
+# reach), mu and rstd within 1e-5 + 1e-5 * |plain|; the main row
+# ([4096, 768] bf16) keeps its absolute 2e-2 besides
+LN_TOL = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+LN_STATS_TOL = 1e-5
+
+
+def _ln_case(dev, gen, rows, h, dtype, rms):
+    """K1 on one [rows, h] input against its plain version (y, mu and
+    rstd), timed beside the plain version, one PyTorch call
+    (``F.layer_norm``, ``F.rms_norm``; 16-bit inputs with 16-bit γ/β, as
+    the library takes them) and the bound."""
     from apex_tpu_torch.ops import layer_norm as tln
 
-    rows, h = 4096, 768
     w = torch.randn(h, device=dev, generator=gen)
-    b = torch.randn(h, device=dev, generator=gen)
-    errs = {}
-    for dtype, tol in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        x = (torch.randn(rows, h, device=dev, generator=gen) * 2).to(dtype)
-        got = tln.fused_layer_norm(x, w, b)
-        want = tln.fused_layer_norm(x, w, b, backend="reference")
-        errs[str(dtype)] = (max_err(got, want), tol)
-        check(errs[str(dtype)][0] <= tol, f"K1 {dtype} error {errs}")
-    x = (torch.randn(rows, h, device=dev, generator=gen)).to(torch.bfloat16)
-    wb, bb = w.to(torch.bfloat16), b.to(torch.bfloat16)
-    nbytes = rows * h * 2 * 2 + 2 * h * 4 + rows * 8
+    b = None if rms else torch.randn(h, device=dev, generator=gen)
+    x = (torch.randn(rows, h, device=dev, generator=gen) * 2).to(dtype)
+    got = tln.layer_norm_fwd_stats(x, w, b, rms=rms)
+    want = tln.layer_norm_fwd_stats(x, w, b, rms=rms, backend="reference")
+    err = max_err(got[0], want[0])
+    rel_err, stats_err = (
+        float(((g.float() - r.float()).abs() / (1 + r.float().abs())).max())
+        for g, r in ((got[0], want[0]), (torch.cat(got[1:]),
+                                         torch.cat(want[1:]))))
+    check(rel_err <= LN_TOL[dtype] and stats_err <= LN_STATS_TOL,
+          f"K1 [{rows}, {h}] {dtype} rms={rms}: y error {err} ({rel_err} "
+          f"of 1 + |plain|), mu/rstd error {stats_err}")
+    if rms:
+        def kern():
+            return tln.fused_rms_norm(x, w)
+
+        def plain():
+            return tln.fused_rms_norm(x, w, backend="reference")
+        wl = w.to(dtype)
+
+        def lib():
+            return F.rms_norm(x, (h,), wl, eps=1e-5)
+    else:
+        def kern():
+            return tln.fused_layer_norm(x, w, b)
+
+        def plain():
+            return tln.fused_layer_norm(x, w, b, backend="reference")
+        wl, bl = w.to(dtype), b.to(dtype)
+
+        def lib():
+            return F.layer_norm(x, (h,), wl, bl)
+    nbytes = (rows * h * x.element_size() * 2 + (1 if rms else 2) * h * 4
+              + rows * 8)
     bms, by = bound(nbytes, rows * h * 8, PEAK_FP32_FLOPS)
-    return {
-        "err": errs["torch.bfloat16"][0], "tol": 2e-2, "detail": errs,
-        "ms": time_ms(lambda: tln.fused_layer_norm(x, w, b)),
-        "plain_ms": time_ms(lambda: tln.fused_layer_norm(
-            x, w, b, backend="reference")),
-        "library_ms": time_ms(lambda: F.layer_norm(x, (h,), wb, bb)),
-        "bound_ms": bms, "bound_by": by,
-        "shape": f"[{rows}, {h}] bf16 (also fp32 checked)",
-    }
+    plan = tln.ln_plan(rows, h, x.element_size(), True,
+                       torch.cuda.get_device_properties(dev)
+                       .multi_processor_count)
+    return {"err": err, "err_of_1_plus_plain": rel_err,
+            "stats_err": stats_err, "tol": LN_TOL[dtype],
+            "ms": time_ms(kern), "plain_ms": time_ms(plain),
+            "library_ms": time_ms(lib), "bound_ms": bms, "bound_by": by,
+            "plan": plan._asdict()}
+
+
+def kernel_layer_norm(dev, gen):
+    """K1 against its plain version at the five main paths' shapes, bf16 x
+    with fp32 γ/β (LN_SHAPES; the MoE/prefill shape [4096, 768] is the
+    main row, the others its variants), and RMSNorm and fp32 x at [4096,
+    768] once for the record."""
+    cases = {f"[{rows}, {h}] bf16 ({name})": (rows, h, torch.bfloat16,
+                                              False)
+             for name, rows, h in LN_SHAPES}
+    cases["[4096, 768] bf16 RMSNorm"] = (4096, 768, torch.bfloat16, True)
+    cases["[4096, 768] fp32"] = (4096, 768, torch.float32, False)
+    runs = {name: _ln_case(dev, gen, *c) for name, c in cases.items()}
+    main_name = next(n for n in runs if LN_MAIN in n)
+    main = runs.pop(main_name)
+    check(main["err"] <= LN_TOL[torch.bfloat16],
+          f"K1 {main_name}: y error {main['err']}")
+    detail = {n: (r["err"], r["err_of_1_plus_plain"], r["stats_err"],
+                  r["tol"])
+              for n, r in [(main_name, main), *runs.items()]}
+    return dict(main, detail=detail, variants=runs,
+                shape=f"{main_name} (also the other main-path shapes, "
+                      "RMSNorm and fp32 as variants; y within tol of 1 + "
+                      f"|plain| (the main row also absolutely), mu/rstd "
+                      f"within {LN_STATS_TOL} of 1 + |plain|)")
 
 
 def kernel_flash(dev, gen):
@@ -439,10 +536,11 @@ def hopper_kernels():
     """The Hopper kernels as built and as the CUDA runtime sees them:
     registers, shared memory per CTA, CTAs per SM and spill bytes of each
     (bf16 and fp16; K2, K6, K7 and row 5 at d 32/64/128; rows 9 and 10's
-    tensor-core routes and row 9's fp32 cluster kernel), and the HGMMA
-    (wgmma) and UTMALDG (TMA load) instructions in each one's machine
-    code, which must both be there.  Row 5 and rows 9 and 10 must not
-    spill."""
+    tensor-core routes and row 9's fp32 cluster kernel; row 11's one-read
+    and looped kernels and K1's register and scalar kernels, fp32 and
+    bf16), and the HGMMA (wgmma) and UTMALDG (TMA load) instructions in
+    the machine code of each kernel of HOPPER_SOURCES, which must both be
+    there.  Row 5, rows 9 and 10, row 11 and K1 must not spill."""
     import re
 
     from apex_tpu_torch.ops import _kernel_utils as ku
@@ -461,6 +559,18 @@ def hopper_kernels():
         check(all(a["spill_bytes"] == 0 for a in rows.values()),
               f"rows 9 and 10 spill: {rows}")
         attrs[f"{str(dt)[6:]} rows 9, 10"] = rows
+    # row 11 and K1: no wgmma or TMA (so not in HOPPER_SOURCES), no spills
+    from apex_tpu_torch.ops import layer_norm as tln
+    from apex_tpu_torch.ops import softmax as tsm
+
+    row_kernels = {
+        **{f"row 11 {str(dt)[6:]}": tsm.kernel_attributes(dt)
+           for dt in (torch.float32, torch.bfloat16)},
+        "K1 bfloat16": tln.kernel_attributes(torch.bfloat16, (3, 4, 8)),
+        "K1 float32": tln.kernel_attributes(torch.float32, (6, 8))}
+    check(all(a["spill_bytes"] == 0 for k in row_kernels.values()
+              for a in k.values()), f"row 11 or K1 spills: {row_kernels}")
+    attrs.update(row_kernels)
     sass = {}
     for src, n in HOPPER_SOURCES.items():
         counts = {k: c
@@ -2012,25 +2122,51 @@ def kernel_softmax(dev, gen):
         elems = x.numel()
         mbytes = 0 if mask is None else (mask.numel() if mask is full
                                          else b * s)
-        bms, by = bound(2 * elems * x.element_size() + mbytes, 5 * elems,
-                        PEAK_FP32_FLOPS)
-        row = {"ms": time_ms(lambda: tsm.softmax_fwd(x, scale, mask,
+        # the function needs x only where it is not masked: count those
+        # reads (this run's data), beside the bound that reads all of x
+        if causal:
+            live = b * n * s * (s + 1) // 2
+        elif mask is full:
+            live = int((~full).sum())
+        else:
+            live = int((~kpm).sum()) * n * s
+        bms, by = bound((elems + live) * x.element_size() + mbytes,
+                        5 * elems, PEAK_FP32_FLOPS)
+        full_ms, _ = bound(2 * elems * x.element_size() + mbytes, 5 * elems,
+                           PEAK_FP32_FLOPS)
+        row = {"err": errs[name],
+               "ms": time_ms(lambda: tsm.softmax_fwd(x, scale, mask,
                                                      causal)),
                "plain_ms": time_ms(lambda: tsm._softmax_fwd_ref(
                    x, scale, mask, causal), iters=4),
                "library_ms": time_ms(lambda: torch.softmax(x_in, -1)),
-               "bound_ms": bms, "bound_by": by}
+               "bound_ms": bms, "bound_by": by,
+               "bound_all_of_x_ms": full_ms,
+               "x_elements_read_by_the_function": live}
         del x_in
         if main is None:
             main = row
         else:
             variants[name] = row
+    # the backward composition (_ScaledSoftmax.backward, a torch
+    # composition here as in the JAX package) on the main variant's y
+    y = tsm.softmax_fwd(x32, scale, kpm)
+    dy = torch.randn(y.shape, device=dev, generator=gen)
+
+    class Ctx:
+        saved_tensors = (y,)
+
+    Ctx.scale = scale
+    bwd_ms = time_ms(lambda: tsm._ScaledSoftmax.backward(Ctx, dy), iters=4)
+    del y, dy
     return dict(main, err=max(errs.values()), tol=SOFTMAX_TOL[torch.float32],
-                detail=errs, variants=variants,
+                detail=errs, variants=variants, backward_composition_ms=bwd_ms,
                 shape=f"[{b}, {n}, {s}, {s}] fp32, [{b}, 1, 1, {s}] bool "
                       f"mask, scale {scale}, key lengths {lens.tolist()}; "
                       "library = torch.softmax of the pre-scaled, "
-                      "pre-masked input; bf16 tolerance "
+                      "pre-masked input; bound = x's unmasked elements read "
+                      "and y written once (bound_all_of_x_ms reads all of "
+                      "x); bf16 tolerance "
                       f"{SOFTMAX_TOL[torch.bfloat16]}")
 
 
@@ -2111,6 +2247,14 @@ def bert_train_phase(dev, backend):
     step_ms = [wall_ms(one) for _ in range(TRAIN_STEPS)]
     q1, med, q3 = quartiles(step_ms)
     t_prof, busy, top, by_cat, by_op = profile_busy(one)
+    softmax_ms = {}
+    if backend == "fused_softmax":
+        # row 11's forward and the torch backward composition around it
+        # (_ScaledSoftmax.backward), device ms of one step
+        softmax_ms = profile_spans(
+            one, {"row11_forward_device_ms": "namespace)::softmax_"},
+            {"softmax_backward_composition_device_ms":
+             "_ScaledSoftmaxBackward"})
     losses = [float(m["loss"]) for m in traj]
     scales = [float(m["loss_scale"]) for m in traj]
     overflow = [bool(m["overflow"]) for m in traj]
@@ -2134,7 +2278,7 @@ def bert_train_phase(dev, backend):
         "device_top_ms": top, "device_ms_by_category": by_cat,
         "device_ms_by_op": by_op, "peak_memory_gb": peak_gb,
         "losses": losses, "loss_scales": scales, "overflow": overflow,
-        "counts": counts,
+        "counts": counts, **softmax_ms,
     }
 
 
@@ -2844,15 +2988,21 @@ def matmul_times(root: str) -> dict:
     experts), row 9's fp32 branch at one layer's 8 LoRA calls at decode
     (32 rows over 20 live groups of 24) and at an adapter prefill (1024
     rows), and row 5 with K6 + K7 beside it at BERT's shape (b8 s512 n16
-    d64, key padding) and the MoE steps' (b8 s512 n12 d64 causal).  It
-    calls only entry points both this tree and its parent have, so that
-    parent and change run the same measurement in one chip call."""
+    d64, key padding) and the MoE steps' (b8 s512 n12 d64 causal); row
+    11 at BERT's fused_softmax scores ([8, 16, 512, 512] fp32 and bf16,
+    [8, 1, 1, 512] key padding) and K1 at the five main paths' shapes
+    (LN_SHAPES, bf16 x, fp32 γ/β).  It calls only entry points both this
+    tree and its parent have (for rows 11 and K1 ``softmax_fwd`` and
+    ``layer_norm_fwd_stats``), so that parent and change run the same
+    measurement in one chip call."""
     sys.path.insert(0, str(Path(root).resolve()))
     import apex_tpu_torch
     from apex_tpu_torch.ops import _kernel_utils as ku
     from apex_tpu_torch.ops import dense as td
     from apex_tpu_torch.ops import flash_attention as tfa
     from apex_tpu_torch.ops import grouped_matmul as tgm
+    from apex_tpu_torch.ops import layer_norm as tln
+    from apex_tpu_torch.ops import softmax as tsm
 
     pkg = Path(apex_tpu_torch.__file__).resolve().parent
     check(pkg.parent == Path(root).resolve(),
@@ -2862,7 +3012,8 @@ def matmul_times(root: str) -> dict:
 
     t0 = time.perf_counter()
     ku.build_all(["dense_int8.cu", "grouped_matmul.cu", "flash_attention.cu",
-                  "flash_attention_bwd.cu", "flash_attention_bwd_short.cu"])
+                  "flash_attention_bwd.cu", "flash_attention_bwd_short.cu",
+                  "softmax.cu", "layer_norm.cu"])
     build_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -2928,9 +3079,29 @@ def matmul_times(root: str) -> dict:
             "k6_k7_ms": time_ms(lambda: (tfa.flash_bwd_dq(ops, causal=causal),
                                          tfa.flash_bwd_dkv(ops,
                                                            causal=causal)))}
+    row11, k1 = {}, {}
+    with torch.inference_mode():
+        lens = bert_lens(BERT_BATCH, BERT_SEQ,
+                         torch.Generator().manual_seed(5)).cuda()
+        lens[-1] = 0
+        kpm = (torch.arange(BERT_SEQ, device="cuda")[None]
+               >= lens[:, None])[:, None, None, :]
+        x = torch.randn(BERT_BATCH, 16, BERT_SEQ, BERT_SEQ, device="cuda",
+                        generator=gen) * 8
+        for name, xt in (("fp32", x), ("bf16", x.bfloat16())):
+            row11[f"bert {name} key padding"] = time_ms(
+                lambda: tsm.softmax_fwd(xt, 0.125, kpm))
+        del x, xt
+        for name, rows, h in LN_SHAPES:
+            w = torch.randn(h, device="cuda", generator=gen)
+            b = torch.randn(h, device="cuda", generator=gen)
+            x = torch.randn(rows, h, device="cuda", generator=gen).to(bf)
+            k1[f"[{rows}, {h}] ({name})"] = time_ms(
+                lambda: tln.layer_norm_fwd_stats(x, w, b))
     return {"root": str(root), "device": nvidia_smi(),
             "build_s": build_s, "row10_ms": row10, "row9_ms": row9,
-            "row9_lora_fp32": lora, "row5": row5,
+            "row9_lora_fp32": lora, "row5": row5, "row11_ms": row11,
+            "k1_ms": k1,
             "moe_loads": [int(b - a) for a, b in zip(off, off[1:])]}
 
 
@@ -2938,7 +3109,7 @@ def main() -> int:
     check(torch.cuda.is_available(),
           "no CUDA device: chip_smoke.py runs only on the card")
     if sys.argv[1:2] == ["--matmul-times"]:
-        # python3 chip_smoke.py --matmul-times ROOT: rows 5, 9 and 10 only
+        # python3 chip_smoke.py --matmul-times ROOT: rows 5, 9, 10, 11, K1
         print(json.dumps(matmul_times(sys.argv[2])))
         return 0
     dev = torch.device("cuda")
@@ -2962,7 +3133,8 @@ def main() -> int:
 
     attrs, sass = hopper_kernels()
     print(f"hopper kernels (16-bit K2, K6, K7, row 5; rows 9 and 10's "
-          f"tensor-core routes, row 9's fp32 cluster kernel) on {smi}: "
+          f"tensor-core routes, row 9's fp32 cluster kernel; row 11 and K1's "
+          f"row kernels) on {smi}: "
           f"registers, shared memory per CTA, CTAs per "
           f"SM and spill bytes {json.dumps(attrs)}; SASS HGMMA / UTMALDG "
           f"per kernel {json.dumps(sass)}")
@@ -2985,7 +3157,8 @@ def main() -> int:
               f"bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
         for vname, v in r.get("variants", {}).items():
             vlib = v["library_ms"]
-            print(f"  {kname} [{vname}]: kernel {v['ms']:.4f} ms, plain "
+            verr = (f"max_abs_err {v['err']:.3g}, " if "err" in v else "")
+            print(f"  {kname} [{vname}]: {verr}kernel {v['ms']:.4f} ms, plain "
                   f"{v['plain_ms']:.4f} ms, library "
                   f"{'none' if vlib is None else f'{vlib:.4f} ms'}, bound "
                   f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
@@ -3039,6 +3212,10 @@ def main() -> int:
           f"(d64 bf16): {json.dumps(short['resident_clusters'])}")
     with torch.inference_mode():
         report("scaled_softmax_fwd", kernel_softmax(dev, gen))
+    print(f"row 11's backward composition (_ScaledSoftmax.backward, torch "
+          f"ops) at its main shape on {smi}: "
+          f"{results['scaled_softmax_fwd']['backward_composition_ms']:.4f} "
+          "ms a call")
     torch.cuda.empty_cache()
     tr = train_phase(dev)
     print(f"train gpt_125m AMP-O2 fused_adam(lr=1e-4) b{TRAIN_BATCH} x "
@@ -3082,6 +3259,11 @@ def main() -> int:
               f"{br['device_ms_by_category']}; top device time "
               f"{br['device_top_ms']}; by launching op "
               f"{br['device_ms_by_op']}")
+        if backend == "fused_softmax":
+            print(f"bert fused_softmax step, softmax device ms on {smi}: "
+                  f"row 11 forward {br['row11_forward_device_ms']}, "
+                  f"backward composition (_ScaledSoftmax.backward) "
+                  f"{br['softmax_backward_composition_device_ms']}")
         torch.cuda.empty_cache()
         bc = bert_checks[backend] = bert_train_check(dev, backend)
         print(f"train bert {backend} kernel vs plain, b{CHECK_BATCH} x "
@@ -3206,6 +3388,8 @@ def main() -> int:
         "moe_int8_forward": {k: v for k, v in mq.items() if k != "counts"},
         "grouped_dw": grouped_dw,
         "flash_bwd_crossover": short["crossover"],
+        "softmax_backward_composition_ms":
+            results["scaled_softmax_fwd"]["backward_composition_ms"],
         "generic_mask": {k: v for k, v in gm.items() if k != "counts"}}
     print(json.dumps(line))
     print(smi)

@@ -36,7 +36,7 @@ def _gen(seed):
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
                                         (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("rms", [False, True])
-@pytest.mark.parametrize("hidden", [768, 100, 4096])   # vector / scalar path
+@pytest.mark.parametrize("hidden", [768, 100, 4096])   # register / scalar
 def test_k1_layer_norm(dev, dtype, tol, rms, hidden):
     g = _gen(0)
     x = (torch.randn(300, hidden, device=dev, generator=g) * 2).to(dtype)
@@ -51,6 +51,79 @@ def test_k1_layer_norm(dev, dtype, tol, rms, hidden):
     torch.testing.assert_close(y.float(), ry.float(), atol=tol, rtol=tol)
     torch.testing.assert_close(mu, rmu, atol=1e-5, rtol=1e-5)
     torch.testing.assert_close(rs, rrs, atol=1e-5, rtol=1e-5)
+
+
+def _k1_check(x, w, b, rms, tol):
+    """One launch of K1 on x, held against the plain version: y within
+    tol, mu and rstd within 1e-5."""
+    before = tln.LN_FWD.launches
+    y, mu, rs = tln.layer_norm_fwd_stats(x, w, b, rms=rms)
+    ry, rmu, rrs = tln.layer_norm_fwd_stats(x, w, b, rms=rms,
+                                            backend="reference")
+    torch.cuda.synchronize()
+    assert tln.LN_FWD.launches == before + 1
+    torch.testing.assert_close(y.float(), ry.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(mu, rmu, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(rs, rrs, atol=1e-5, rtol=1e-5)
+    return y, mu, rs
+
+
+# (hidden, dtype, tolerance): the main paths' widths, the widest
+# register row, fp32, and an odd width (the scalar kernel)
+_K1_WIDTHS = {"bf16 h768": (768, torch.bfloat16, 2e-2),
+              "bf16 h1024": (1024, torch.bfloat16, 2e-2),
+              "bf16 h2048": (2048, torch.bfloat16, 2e-2),
+              "fp32 h1024": (1024, torch.float32, 1e-5),
+              "bf16 h770 odd": (770, torch.bfloat16, 2e-2)}
+
+
+@pytest.mark.parametrize("mode", ["affine", "no affine", "rms"])
+@pytest.mark.parametrize("width", sorted(_K1_WIDTHS))
+@pytest.mark.parametrize("rows", [1, 8, 32, 33, 4096, 16384])
+def test_k1_rows_and_widths(dev, rows, width, mode):
+    """K1 at decode's few rows (one 1-warp CTA a row), just past them and
+    at the training steps' many rows (persistent warps, next row in
+    flight), at every register width and on the scalar kernel; with
+    gamma and beta, with neither, and as RMSNorm."""
+    hidden, dtype, tol = _K1_WIDTHS[width]
+    g = _gen(30)
+    x = (torch.randn(rows, hidden, device=dev, generator=g) * 2
+         + 0.5).to(dtype)
+    w = b = None
+    if mode != "no affine":
+        w = torch.randn(hidden, device=dev, generator=g)
+    if mode == "affine":
+        b = torch.randn(hidden, device=dev, generator=g)
+    plan = tln.ln_plan(rows, hidden, x.element_size(), True,
+                       torch.cuda.get_device_properties(dev)
+                       .multi_processor_count)
+    assert (plan.vectors == 0) == width.endswith("odd")
+    _k1_check(x, w, b, mode == "rms", tol)
+
+
+@pytest.mark.parametrize("rows, hidden", [(8, 768), (4096, 768),
+                                          (16384, 768), (4096, 1024)])
+def test_k1_repeats_bitwise_and_captures(dev, rows, hidden):
+    """Twenty launches give the same bits (one writer per element, a
+    fixed order of addition), and a launch captured in a CUDA graph
+    replays on new inputs as the eager call does."""
+    g = _gen(31)
+    x = torch.randn(rows, hidden, device=dev, generator=g).bfloat16()
+    w = torch.randn(hidden, device=dev, generator=g)
+    b = torch.randn(hidden, device=dev, generator=g)
+    first = tln.layer_norm_fwd_stats(x, w, b)
+    for _ in range(20):
+        again = tln.layer_norm_fwd_stats(x, w, b)
+        assert all(torch.equal(a, e) for a, e in zip(again, first))
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tln.layer_norm_fwd_stats(x, w, b)
+    x.copy_(torch.randn(rows, hidden, device=dev, generator=g))
+    graph.replay()
+    eager = tln.layer_norm_fwd_stats(x, w, b)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, e) for a, e in zip(captured, eager))
+    assert not torch.equal(captured[0], first[0])
 
 
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5),
@@ -490,6 +563,148 @@ def test_row11_scaled_softmax(dev, dtype, kind, sk):
     assert max_abs(got, want) <= _SOFTMAX_TOL[dtype]
     if kind == "key_padding":
         assert torch.count_nonzero(got[1]) == 0
+
+
+def _row11_check(x, mask, causal, scale=0.5):
+    """One launch of row 11, held against the plain version."""
+    before = tsm.SOFTMAX_FWD.launches
+    got = tsm.softmax_fwd(x, scale, mask, causal)
+    torch.cuda.synchronize()
+    assert tsm.SOFTMAX_FWD.launches == before + 1
+    want = tsm._softmax_fwd_ref(x, scale, mask, causal)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    assert max_abs(got, want) <= _SOFTMAX_TOL[x.dtype]
+    return got
+
+
+def _row11_plan(x, mask=None):
+    m = None if mask is None else tsm._mask_view(mask, x.shape)
+    return tsm.softmax_plan(x.shape[-1], x.element_size(), x.data_ptr(),
+                            x.data_ptr(), None if m is None
+                            else m.data_ptr(),
+                            None if m is None else m.stride())
+
+
+@pytest.mark.parametrize("masked", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("sk", [1, 31, 512, 1024, 1025, 2048, 2049])
+def test_row11_variant_boundaries(dev, dtype, sk, masked):
+    """sk on both sides of each variant's edge: 1 and 31 (unaligned
+    rows, looped one element at a time), 512, 1024 and 2048 (read once
+    up to 1024 fp32 / 2048 16-bit values, looped in vectors past them),
+    1025 and 2049 (unaligned again); with a key-padding mask whose batch
+    row 1 is fully masked."""
+    b, n, sq = 3, 2, 8
+    x = (torch.randn(b, n, sq, sk, device=dev, generator=_gen(20))
+         * 4).to(dtype)
+    mask = None
+    if masked:
+        lens = torch.tensor([sk, 0, sk // 2 + 1], device=dev)
+        mask = (torch.arange(sk, device=dev)[None] >= lens[:, None])[
+            :, None, None, :]
+    plan = _row11_plan(x, mask)
+    vec = 16 // x.element_size()
+    fits = sk % vec == 0 and sk // vec <= 32 * tsm.ROW_MAX_VECTORS
+    assert (plan.lanes > 0) == fits
+    got = _row11_check(x, mask, False)
+    if masked:
+        assert torch.count_nonzero(got[1]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sk", [512, 1024])
+def test_row11_unaligned_input(dev, dtype, sk):
+    """x a contiguous view one element into a larger buffer: the rows
+    are not 16-byte aligned, so the looped kernel reads one element at a
+    time."""
+    b, n, sq = 2, 3, 16
+    numel = b * n * sq * sk
+    buf = (torch.randn(numel + 1, device=dev, generator=_gen(21))
+           * 4).to(dtype)
+    x = buf[1:1 + numel].view(b, n, sq, sk)
+    mask = torch.rand(b, 1, sq, sk, device=dev, generator=_gen(22)) < 0.3
+    plan = _row11_plan(x, mask)
+    assert plan.lanes == 0 and plan.vec == 1
+    _row11_check(x, mask, False)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sk", [64, 512, 1100])
+def test_row11_mask_with_last_stride_not_one(dev, dtype, sk):
+    """A transposed mask (last stride sq) is read element by element
+    through its strides."""
+    b, n, sq = 2, 2, 24
+    x = (torch.randn(b, n, sq, sk, device=dev, generator=_gen(23))
+         * 4).to(dtype)
+    mask = (torch.rand(b, 1, sk, sq, device=dev, generator=_gen(24))
+            < 0.4).transpose(-1, -2)
+    mask[0, 0, 5] = True                  # one fully masked row
+    assert mask.stride()[-1] != 1
+    assert _row11_plan(x, mask).mask == tsm.MASK_STRIDED
+    got = _row11_check(x, mask, False)
+    assert torch.count_nonzero(got[0, :, 5]) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("s", [40, 512, 1024, 1100])
+def test_row11_causal_square(dev, dtype, s):
+    """The causal triangle on square inputs: the vectors past the
+    diagonal are not read, and no row is dead."""
+    x = (torch.randn(2, 2, s, s, device=dev, generator=_gen(25))
+         * 4).to(dtype)
+    got = _row11_check(x, None, True)
+    assert torch.count_nonzero(got.float().triu(1)) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sk", [40, 512, 1100, 2048])
+def test_row11_fully_masked_rows_are_exact_zeros(dev, dtype, sk):
+    """Rows with every element masked (a zero key length, a per-query
+    mask row of all True) are exact zeros, whatever x holds (here inf
+    and nan, which a row that read x would carry)."""
+    b, n, sq = 3, 2, 8
+    x = (torch.randn(b, n, sq, sk, device=dev, generator=_gen(26))
+         * 4).to(dtype)
+    x[1] = float("nan")
+    x[2, :, 3] = float("inf")
+    mask = torch.rand(b, 1, sq, sk, device=dev, generator=_gen(27)) < 0.3
+    mask[1] = True
+    mask[2, :, 3] = True
+    got = tsm.softmax_fwd(x, 0.5, mask)
+    torch.cuda.synchronize()
+    assert torch.count_nonzero(got[1]) == 0
+    assert torch.count_nonzero(got[2, :, 3]) == 0
+    want = tsm._softmax_fwd_ref(x[0], 0.5, mask[0])
+    assert max_abs(got[0], want) <= _SOFTMAX_TOL[dtype]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_row11_repeats_bitwise_and_captures(dev, dtype):
+    """At BERT's fused_softmax shape ([8, 16, 512, 512], [8, 1, 1, 512]
+    key padding, one batch row fully masked) twenty launches give the same
+    bits, and a launch captured in a CUDA graph replays on new inputs as
+    the eager call does."""
+    b, n, s = 8, 16, 512
+    x = (torch.randn(b, n, s, s, device=dev, generator=_gen(28))
+         * 8).to(dtype)
+    lens = torch.tensor([512, 400, 387, 500, 450, 420, 460, 0], device=dev)
+    mask = (torch.arange(s, device=dev)[None] >= lens[:, None])[
+        :, None, None, :]
+    first = _row11_check(x, mask, False, scale=0.125)
+    for _ in range(20):
+        assert torch.equal(tsm.softmax_fwd(x, 0.125, mask), first)
+    assert torch.count_nonzero(first[-1]) == 0
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tsm.softmax_fwd(x, 0.125, mask)
+    x.copy_(torch.randn(b, n, s, s, device=dev, generator=_gen(29)) * 8)
+    graph.replay()
+    eager = tsm.softmax_fwd(x, 0.125, mask)
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+    assert not torch.equal(captured, first)
 
 
 def test_row11_through_autograd_and_fused_module(dev):

@@ -78,3 +78,41 @@ def test_reference_backend_and_bad_backend():
     assert torch.equal(ref, got)
     with pytest.raises(ValueError, match="backend"):
         tln.fused_layer_norm(tx, backend="kernel")
+
+
+# (rows, hidden, element size, aligned) -> (vectors, warps, grid) on 132 SMs
+LN_PLAN_CASES = {
+    "generate decode": (8, 768, 2, True, (3, 1, 8)),
+    "engine decode": (32, 768, 2, True, (3, 1, 32)),
+    "one row": (1, 1024, 2, True, (4, 1, 1)),
+    "just past the SMs": (133, 768, 2, True, (3, 4, 34)),
+    "moe step": (4096, 768, 2, True, (3, 4, 396)),
+    "gpt step": (16384, 768, 2, True, (3, 4, 396)),
+    "bert step": (4096, 1024, 2, True, (4, 4, 396)),
+    "bf16 h2048": (300, 2048, 2, True, (8, 4, 75)),
+    "fp32 h768": (300, 768, 4, True, (6, 4, 75)),
+    "fp32 h1024": (300, 1024, 4, True, (8, 4, 75)),
+    "fp32 h100": (300, 100, 4, True, (1, 4, 75)),
+    "bf16 h100 scalar": (300, 100, 2, True, (0, 0, 0)),
+    "bf16 h4096 scalar": (300, 4096, 2, True, (0, 0, 0)),
+    "fp32 h2048 scalar": (300, 2048, 4, True, (0, 0, 0)),
+    "unaligned scalar": (4096, 768, 2, False, (0, 0, 0)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(LN_PLAN_CASES))
+def test_ln_plan_picks_the_variant(case):
+    """K1's variant, vectors a lane, warps a CTA and grid are a pure
+    function of rows, width, element size and alignment: up to one row
+    per SM a 1-warp CTA each, more rows persistent 4-warp CTAs whose
+    warps together cover every row."""
+    rows, hidden, itemsize, aligned, want = LN_PLAN_CASES[case]
+    plan = tln.ln_plan(rows, hidden, itemsize, aligned, 132)
+    assert tuple(plan) == want
+    if plan.vectors:
+        nvec = hidden // (16 // itemsize)
+        assert 32 * (plan.vectors - 1) < nvec <= 32 * plan.vectors
+        assert plan.grid <= tln.LN_CTAS_PER_SM * 132
+        rows_per_warp = -(-rows // (plan.warps * plan.grid))
+        assert rows_per_warp * plan.warps * plan.grid >= rows
+        assert (rows_per_warp - 1) * plan.warps * plan.grid < rows

@@ -192,10 +192,81 @@ def test_kernel_mask_view_indexes_the_broadcast_mask(mname):
     i2, t = r % sq, r // sq
     i1, i0 = t % d1, t // d1
     s0, s1, s2, s3 = m.stride()
-    got = flat[m.storage_offset() + i0 * s0 + i1 * s1 + i2 * s2 + c * s3]
+    base = m.storage_offset() + i0 * s0 + i1 * s1 + i2 * s2
+    got = flat[base + c * s3]
     want = torch.from_numpy(np.ascontiguousarray(
         np.broadcast_to(mask, shape).reshape(rows, sk)))
     assert torch.equal(got, want)
+    # the vector reads: where the plan reads the mask in steps of vec
+    # bytes (fp32 4, 16-bit 8), a step's bytes at base + c0 .. c0 + vec - 1
+    # (c0 a multiple of vec, base a multiple of vec) are the step's mask
+    # elements
+    for itemsize in (4, 2):
+        plan = tsm.softmax_plan(sk, itemsize, 0, 0, m.data_ptr(),
+                                m.stride())
+        assert plan.mask == tsm.MASK_VECTOR
+        vec = plan.vec
+        assert vec == 16 // itemsize and sk % vec == 0
+        assert bool(((flat.data_ptr() + base) % vec == 0).all())
+        c0 = torch.arange(0, sk, vec)[None, :, None]
+        j = torch.arange(vec)[None, None]
+        steps = flat[base[:, :, None] + c0 + j]
+        assert torch.equal(steps.reshape(rows, sk), want)
+
+
+# (sk, element size, x offset in bytes) -> (lanes, vectors, step)
+PLAN_CASES = {
+    "fp32 sk1": (1, 4, 0, (0, 0, 1)),
+    "fp32 sk31": (31, 4, 0, (0, 0, 1)),
+    "fp32 sk32 quarter warp": (32, 4, 0, (8, 1, 4)),
+    "fp32 sk40 half warp": (40, 4, 0, (16, 1, 4)),
+    "fp32 sk64 half warp": (64, 4, 0, (16, 1, 4)),
+    "fp32 sk68 warp": (68, 4, 0, (32, 1, 4)),
+    "fp32 sk512 bert": (512, 4, 0, (32, 4, 4)),
+    "fp32 sk1024": (1024, 4, 0, (32, 8, 4)),
+    "fp32 sk1025": (1025, 4, 0, (0, 0, 1)),
+    "fp32 sk2048 loop vector": (2048, 4, 0, (0, 0, 4)),
+    "fp32 sk512 unaligned": (512, 4, 4, (0, 0, 1)),
+    "bf16 sk512": (512, 2, 0, (32, 2, 8)),
+    "bf16 sk1100": (1100, 2, 0, (0, 0, 1)),
+    "bf16 sk2048": (2048, 2, 0, (32, 8, 8)),
+    "bf16 sk2049": (2049, 2, 0, (0, 0, 1)),
+    "bf16 sk4096 loop vector": (4096, 2, 0, (0, 0, 8)),
+    "bf16 sk512 unaligned": (512, 2, 2, (0, 0, 1)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(PLAN_CASES))
+def test_softmax_plan_picks_the_variant(case):
+    """Row 11's variant is a pure function of the row length, the element
+    size and the alignment: rows of at most 8 16-byte vectors a lane that
+    start aligned are read once by 8, 16 or 32 lanes; others loop, in
+    vectors where aligned."""
+    sk, itemsize, off, want = PLAN_CASES[case]
+    plan = tsm.softmax_plan(sk, itemsize, 4096 + off, 8192)
+    assert (plan.lanes, plan.vectors, plan.vec) == want
+    assert plan.mask == tsm.MASK_NONE
+    if plan.lanes:
+        nvec = sk // plan.vec
+        assert plan.lanes * plan.vectors >= nvec
+        assert plan.vectors == 1 or plan.lanes * plan.vectors < 2 * nvec
+        assert plan.vectors <= tsm.ROW_MAX_VECTORS
+
+
+@pytest.mark.parametrize("strides, ptr, sk, itemsize, want", [
+    ((512, 0, 0, 1), 0, 512, 4, "vector"),       # [b, 1, 1, sk]
+    ((512 * 512, 0, 512, 1), 64, 512, 2, "vector"),  # [b, 1, sq, sk]
+    ((512, 0, 0, 1), 2, 512, 4, "strided"),      # rows not 4-aligned
+    ((516, 0, 0, 1), 0, 512, 2, "strided"),      # 516 % 8 != 0
+    ((512, 0, 1, 512), 0, 512, 4, "strided"),    # transposed mask
+    ((1, 0, 0, 0), 0, 512, 4, "strided"),        # broadcast along sk
+    ((1100, 0, 0, 1), 3, 1100, 2, "vector"),     # looped one at a time
+])
+def test_softmax_plan_reads_the_mask_in_vectors_where_it_can(
+        strides, ptr, sk, itemsize, want):
+    plan = tsm.softmax_plan(sk, itemsize, 0, 0, ptr, strides)
+    assert plan.mask == {"vector": tsm.MASK_VECTOR,
+                         "strided": tsm.MASK_STRIDED}[want]
 
 
 ATTN_CASES = {
