@@ -11,13 +11,11 @@
 // of length 0 gets exact zeros.
 //
 // Bound on the H100: bytes — each sequence's live K/V (and an int8
-// pool's scales) read once, ~4 flops per element.  Design: K3's loop
-// without the projection (paged_tile.cuh): one 128-thread CTA per
-// (sequence, kv group) walks its own block-table row, clamping sentinel
-// entries (>= num_blocks, released or free lanes) into the pool before
-// forming an address and never loading a token at or past the length;
-// 128-token K/V tiles in shared memory, one thread per token scoring,
-// each thread holding rep*dh/128 fp32 accumulators.
+// pool's scales) read once, ~4 flops per element.  Design: the
+// split-key loop of paged_tile.cuh (one cluster of key chunks per
+// sequence and kv group, each chunk's warps streaming pool-dtype tiles
+// through a cp.async ring, the chunks' partials combined in rank order
+// through distributed shared memory), one launch a call.
 #include "paged_tile.cuh"
 
 namespace {
@@ -25,72 +23,77 @@ namespace {
 using namespace apex_paged;
 
 template <typename T, typename P>
-__global__ void __launch_bounds__(kTT) paged_attention_kernel(
-    const T* __restrict__ q, const P* __restrict__ k_pool,
-    const P* __restrict__ v_pool, const float* __restrict__ k_scale,
-    const float* __restrict__ v_scale, const int* __restrict__ tables,
-    const int* __restrict__ lengths, T* __restrict__ out, int nh, int dh,
-    int nb, int bs, int g, int mb, float scale) {
-  extern __shared__ float smem[];
-  const int rep = nh / g;
-  const int rd = rep * dh;
-  const Smem sm = carve(smem, rep, dh);
-  const int i = blockIdx.x;
-  const int grp = blockIdx.y;
-  const size_t head0 = (size_t)i * nh + (size_t)grp * rep;
-  for (int e = threadIdx.x; e < rd; e += kTT)
-    sm.q[e] = apex_to_float(q[head0 * dh + e]);
-  __syncthreads();
-  attend<P>(sm, k_pool, v_pool, k_scale, v_scale, tables, i, grp, lengths[i],
-            rep, dh, nb, bs, g, mb, scale);
-  for (int e = threadIdx.x; e < rd; e += kTT)
-    out[head0 * dh + e] = apex_from_float<T>(sm.ctx[e]);
-}
-
-template <typename T, typename P>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* k_scale, const void* v_scale, const void* tables,
-           const void* lengths, void* out, int b, int nh, int dh, int nb,
-           int bs, int g, int mb, float scale, cudaStream_t stream) {
-  const int bytes = smem_floats(nh / g, dh) * (int)sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_attention_kernel<T, P>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  paged_attention_kernel<T, P><<<dim3(b, g), kTT, bytes, stream>>>(
-      (const T*)q, (const P*)k_pool, (const P*)v_pool, (const float*)k_scale,
-      (const float*)v_scale, (const int*)tables, (const int*)lengths, (T*)out,
-      nh, dh, nb, bs, g, mb, scale);
-  return (int)cudaGetLastError();
+int launch(const Args& a, int b, int splits, int heads, int epl, int smem,
+           cudaStream_t stream) {
+  int err = (int)cudaErrorInvalidValue;
+  APEX_PAGED_VARIANT(heads, epl, {
+    err = launch_split<T, P, H, EPL>(a, b, splits, smem, true, stream);
+  });
+  return err;
 }
 
 }  // namespace
 
 // q [b, nh, dh] (dtype); pools [nb, bs, g, dh] in dtype, or int8
 // (quant = 1) with k_scale/v_scale [nb, bs, g] fp32 (NULL otherwise);
-// tables [b, mb] int32; lengths [b] int32; out [b, nh, dh] (dtype).
-// Needs dh a multiple of 16 bytes' worth of pool elements, nh / g <= 8
-// and (nh / g) * dh <= 1024.
-extern "C" int apex_paged_attention(const void* q, const void* k_pool,
-                                    const void* v_pool, const void* k_scale,
-                                    const void* v_scale, const void* tables,
-                                    const void* lengths, void* out, int b,
-                                    int nh, int dh, int nb, int bs, int g,
-                                    int mb, float scale, int dtype, int quant,
-                                    cudaStream_t stream) {
-  if (quant && (k_scale == nullptr || v_scale == nullptr))
+// tables [b, mb] int32; lengths [b] int32; out [b, nh, dh] (dtype); part
+// fp32 scratch for the chunks' partials (splits x rc x (dn_max + 2) floats
+// a sequence and group block; NULL when splits = 1).  The
+// plan (ops/paged_attention.paged_plan): splits, chunk, heads (the
+// kernel's head capacity, 4 or 16), rc (heads a CTA), head_chunks, epl (P
+// V dims a lane, 2 or 4), dim_chunks, tile, stages and the dynamic shared
+// memory; the entry only checks that it fits.  Needs dh a multiple of 16
+// bytes' worth of pool elements.
+extern "C" int apex_paged_attention(
+    const void* q, const void* k_pool, const void* v_pool,
+    const void* k_scale, const void* v_scale, const void* tables,
+    const void* lengths, void* out, void* part, int b, int nh, int dh,
+    int nb, int bs, int g, int mb, float scale, int dtype, int quant,
+    int splits, int chunk, int heads, int rc, int head_chunks, int epl,
+    int dim_chunks, int tile, int stages, int smem, cudaStream_t stream) {
+  if ((quant && (k_scale == nullptr || v_scale == nullptr)) ||
+      (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
+  Args a = {};
+  a.q = q;
+  a.k_pool = k_pool;
+  a.v_pool = v_pool;
+  a.k_scale = (const float*)k_scale;
+  a.v_scale = (const float*)v_scale;
+  a.tables = (const int*)tables;
+  a.lengths = (const int*)lengths;
+  a.out = out;
+  a.part = (float*)part;
+  a.nh = nh;
+  a.dh = dh;
+  a.nb = nb;
+  a.bs = bs;
+  a.g = g;
+  a.mb = mb;
+  a.scale_log2 = scale * 1.4426950408889634f;
+  set_plan(a, chunk, rc, head_chunks, epl, dim_chunks, tile, stages);
   APEX_DISPATCH_FLOAT(dtype, T, {
-    if (quant) {
-      if (!shapes_ok(b, nh, dh, g, 1)) return (int)cudaErrorInvalidValue;
-      return launch<T, int8_t>(q, k_pool, v_pool, k_scale, v_scale, tables,
-                               lengths, out, b, nh, dh, nb, bs, g, mb, scale,
-                               stream);
-    }
-    if (!shapes_ok(b, nh, dh, g, (int)sizeof(T)))
+    const int eb = quant ? 1 : (int)sizeof(T);
+    if (!plan_ok(b, nh, dh, g, eb, mb, bs, splits, a, heads, epl, smem))
       return (int)cudaErrorInvalidValue;
-    return launch<T, T>(q, k_pool, v_pool, k_scale, v_scale, tables, lengths,
-                        out, b, nh, dh, nb, bs, g, mb, scale, stream);
+    if (quant) return launch<T, int8_t>(a, b, splits, heads, epl, smem, stream);
+    return launch<T, T>(a, b, splits, heads, epl, smem, stream);
   });
   return (int)cudaErrorInvalidValue;
+}
+
+// Registers, shared memory per CTA, CTAs per SM and spill bytes of one
+// variant at `smem` bytes of dynamic shared memory (see kernel_attrs).
+extern "C" int apex_paged_attention_attrs(int dtype, int quant, int heads,
+                                          int epl, int smem, int* out) {
+  int err = (int)cudaErrorInvalidValue;
+  APEX_DISPATCH_FLOAT(dtype, T, {
+    APEX_PAGED_VARIANT(heads, epl, {
+      err = quant ? kernel_attrs(paged_split_kernel<T, int8_t, H, EPL>, smem,
+                                 kThreads, out)
+                  : kernel_attrs(paged_split_kernel<T, T, H, EPL>, smem,
+                                 kThreads, out);
+    });
+  });
+  return err;
 }

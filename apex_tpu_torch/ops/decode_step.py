@@ -2,7 +2,11 @@
 (``apex_tpu/ops/decode_step.py``).
 
 For CUDA tensors :func:`fused_decode_layer` is one call of kernel K3
-(``csrc/decode_step.cu``); for CPU tensors, and under
+(``csrc/decode_step.cu``): row 6's split-key loop with the rope folded
+into its query load, writing the context in the compute dtype to a
+per-call buffer, then a projection that reads ``w_proj`` once in the
+dtype the caller passes and rounds it to the compute dtype in registers
+(two launches, one count).  For CPU tensors, and under
 ``backend="reference"``, it is :func:`decode_layer_reference`, the
 composition of rope, :func:`~apex_tpu_torch.ops.paged_attention.
 paged_attention_reference` and a matmul with the same dtype edges.
@@ -12,7 +16,8 @@ block_size, kv_groups, dh]`` in q's dtype, or int8 with ``k_scale``/
 ``v_scale`` ``[num_blocks, block_size, kv_groups]`` fp32
 (``cache_wire="int8"``); ``block_tables`` ``[b, max_blocks]``
 (entries ``>= num_blocks`` unmapped); ``lengths`` ``[b]`` live tokens
-(query included); ``w_proj`` ``[num_heads·dh, h_out]`` float;
+(query included); ``w_proj`` ``[num_heads·dh, h_out]`` fp32, bf16 or
+fp16;
 ``rope_cos``/``rope_sin`` ``[b, d2]`` per-sequence angle rows or
 ``None`` → ``[b, h_out]`` in ``q``'s dtype.
 """
@@ -26,17 +31,44 @@ import torch
 
 from apex_tpu_torch.ops import _kernel_utils as ku
 from apex_tpu_torch.ops.paged_attention import (
-    _check_paged_shapes, check_kernel_geometry, paged_attention_reference)
+    PagedPlan, _check_paged_shapes, check_kernel_geometry,
+    paged_attention_reference, partials, plan_args, plan_for)
 from apex_tpu_torch.ops.rope import _rope
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
-__all__ = ["fused_decode_layer", "decode_layer_reference"]
+__all__ = ["fused_decode_layer", "decode_layer_reference",
+           "kernel_attributes", "projection_vectorized"]
 
 DECODE_LAYER = ku.register(ku.Kernel(
     "fused_decode_layer", "decode_step.cu", "apex_decode_layer",
-    [ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_int],
+    [ctypes.c_void_p] * 13 + [ctypes.c_int] * 9
+    + [ctypes.c_float] + [ctypes.c_int] * 14,
     replaces="apex_tpu/ops/decode_step.py:157"))
+
+def projection_vectorized(w: torch.Tensor) -> bool:
+    """Whether the projection reads ``w`` in 16-byte vectors: rows that
+    start 16-byte aligned (``h_out`` a multiple of 16 bytes of elements,
+    an aligned base)."""
+    return (w.shape[1] * w.element_size() % 16 == 0
+            and w.data_ptr() % 16 == 0)
+
+
+def kernel_attributes(dtype: torch.dtype, quant: bool, plan: PagedPlan,
+                      w_dtype: torch.dtype, k_in: int,
+                      vec: bool = True) -> dict:
+    """What the CUDA runtime reports of K3's two kernels: ``attention``,
+    the split-key loop's variant under ``plan``, and ``projection`` for a
+    ``w_dtype`` W of ``k_in`` rows (``{"registers", "smem_bytes",
+    "ctas_per_sm", "spill_bytes"}`` each).  Needs the card."""
+    code = ku.dtype_code(torch.empty((), dtype=dtype))
+    wcode = ku.dtype_code(torch.empty((), dtype=w_dtype))
+    return {
+        "attention": ku.hopper_attrs(
+            DECODE_LAYER.source, "apex_decode_attention_attrs", code,
+            int(quant), plan.heads, plan.epl, plan.smem),
+        "projection": ku.hopper_attrs(
+            DECODE_LAYER.source, "apex_decode_projection_attrs", code, wcode,
+            int(vec), k_in)}
 
 
 def _check_fused_shapes(q, w_proj, rope_cos, rope_sin):
@@ -90,10 +122,11 @@ def _fused_kernel(q, k_pool, v_pool, block_tables, lengths, w_proj,
     mb = block_tables.shape[1]
     h_out = w_proj.shape[1]
     check_kernel_geometry("fused_decode_layer", q, k_pool)
+    plan = plan_for(q, k_pool, block_tables)
     q = q.contiguous()
     tables = block_tables.to(torch.int32).contiguous()
     lens = lengths.to(torch.int32).contiguous()
-    w = w_proj.float().contiguous()
+    w = w_proj.contiguous()
     cos = None if rope_cos is None else rope_cos.float().contiguous()
     sin = None if rope_sin is None else rope_sin.float().contiguous()
     d2 = 0 if cos is None else cos.shape[-1]
@@ -101,13 +134,15 @@ def _fused_kernel(q, k_pool, v_pool, block_tables, lengths, w_proj,
                            v_scale, tables, lens, w, cos, sin)
     ku.check_aligned("fused_decode_layer", k_pool, v_pool)
     out = torch.empty(b, h_out, dtype=q.dtype, device=q.device)
-    partial = torch.empty(b, g, h_out, dtype=torch.float32, device=q.device)
+    ctx = torch.empty(b, nh * dh, dtype=q.dtype, device=q.device)
     DECODE_LAYER(q.device, ku.ptr(q), ku.ptr(k_pool), ku.ptr(v_pool),
                  ku.ptr(k_scale), ku.ptr(v_scale), ku.ptr(tables),
                  ku.ptr(lens), ku.ptr(w), ku.ptr(cos), ku.ptr(sin),
-                 ku.ptr(out), ku.ptr(partial), b, nh, dh, nb, bs, g, mb,
+                 ku.ptr(out), ku.ptr(ctx), ku.ptr(partials(q, k_pool, plan)),
+                 b, nh, dh, nb, bs, g, mb,
                  h_out, d2, scale, ku.dtype_code(q),
-                 int(k_scale is not None))
+                 int(k_scale is not None), ku.dtype_code(w),
+                 int(projection_vectorized(w)), *plan_args(plan))
     return out
 
 

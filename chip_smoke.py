@@ -10,15 +10,20 @@
    the registers, shared memory per CTA, CTAs per SM and spill bytes of
    the Hopper kernels of K2, K6, K7 and row 5 (bf16, fp16; d 32/64/128),
    of rows 9 and 10's tensor-core routes, of row 9's fp32 cluster
-   kernel and of row 11's and K1's row kernels (row 5, rows 9 and 10,
-   row 11 and K1 must not spill), and checks that each kernel of
+   kernel, of row 11's and K1's row kernels and of rows 6 and 7's
+   split-key kernel (its four variants at the main paths' plans and the
+   wide groups') and K3's projection (row 5, rows 6, 7, 9 and 10, row 11
+   and K1 must not spill), and checks that each kernel of
    HOPPER_SOURCES holds ``HGMMA`` and ``UTMALDG`` instructions in its
    machine code.
 3. Holds each kernel (K1 LayerNorm at the five main paths' shapes, from
    decode's [8, 768] to the GPT step's [16384, 768], plus RMSNorm and
-   fp32; K2 flash attention, K3 fused decode
-   layer with a bf16 and an int8 pool, K4 fused sampler, row 6 ragged
-   paged attention, row 9 ragged grouped matmul (LoRA's fp32 branch),
+   fp32; K2 flash attention, K3 fused decode layer (bf16 and int8 pools,
+   fp32 and bf16 W, MHA, GQA, MQA and 16 and 32 query heads a group at
+   dh 128), K4 fused sampler, row 6 ragged paged attention (the same
+   groups and pools; rows 6 and 7 also as bitwise repeats, a CUDA-graph
+   replay with other lengths, length-0 lanes as exact zeros), row 9
+   ragged grouped matmul (LoRA's fp32 branch),
    row 10 int8-weight matmul on each of its three routes: the decode
    kernel at M=32, the tensor-core GEMM at M=1024 and 4096, the CUDA
    cores at fp32) against its plain PyTorch version at the
@@ -30,7 +35,10 @@
    from a seeded generator, bf16 compute) for 8 ragged requests, greedy
    and sampled, counting every kernel launch; then replays the greedy
    tokens teacher-forced through the kernel path and the plain path
-   (``backend="reference"``) and compares their logits.
+   (``backend="reference"``) and compares their logits.  Then a greedy
+   ``generate`` of ``gpt_125m(num_query_groups=1)`` (MQA, 12 query heads
+   on one kv group), +16 tokens: K3's launches exact, tokens identical to
+   the plain run's or bf16 near-ties.
 4b. Drives the paged ``ServingEngine`` on GPT-2 125M (32 lanes, 512
    blocks of 16 tokens) under bench.py's long_prompt_starvation mix, with
    float and ``quantize_params`` weights and native and int8 pools: exact
@@ -104,10 +112,15 @@ result line; it never falls back to the CPU.
 
     python3 chip_smoke.py --matmul-times ROOT
 
-times only rows 5, 9, 10 and 11 and K1 of the port under ROOT (a ``git
-archive`` of another commit, say) at the main paths' shapes and prints
-one JSON line, so that two commits compare in one chip call (parent,
-change, change, parent).
+times only rows 5, 6, 7 (K3), 9, 10 and 11 and K1 of the port under ROOT
+(a ``git archive`` of another commit, say) at the main paths' shapes and
+prints one JSON line, so that two commits compare in one chip call
+(parent, change, change, parent).
+
+    python3 chip_smoke.py --paged-probe
+
+times rows 6 and 7 under forced split counts and uniform lengths (one
+JSON line): where their time goes.
 """
 
 from __future__ import annotations
@@ -538,9 +551,11 @@ def hopper_kernels():
     (bf16 and fp16; K2, K6, K7 and row 5 at d 32/64/128; rows 9 and 10's
     tensor-core routes and row 9's fp32 cluster kernel; row 11's one-read
     and looped kernels and K1's register and scalar kernels, fp32 and
-    bf16), and the HGMMA (wgmma) and UTMALDG (TMA load) instructions in
-    the machine code of each kernel of HOPPER_SOURCES, which must both be
-    there.  Row 5, rows 9 and 10, row 11 and K1 must not spill."""
+    bf16; rows 6 and 7's split-key kernel at PAGED_PLANS and K3's
+    projection), and the HGMMA (wgmma) and UTMALDG (TMA load) instructions
+    in the machine code of each kernel of HOPPER_SOURCES, which must both
+    be there.  Row 5, rows 6, 7, 9 and 10, row 11 and K1 must not
+    spill."""
     import re
 
     from apex_tpu_torch.ops import _kernel_utils as ku
@@ -571,6 +586,13 @@ def hopper_kernels():
     check(all(a["spill_bytes"] == 0 for k in row_kernels.values()
               for a in k.values()), f"row 11 or K1 spills: {row_kernels}")
     attrs.update(row_kernels)
+    # rows 6 and 7 (K3): no wgmma or TMA either; the split-key kernel's
+    # four variants at the plans of the main paths' shapes and the wide
+    # groups, bf16 and fp32, native and int8 pools, and K3's projection
+    paged = paged_kernel_attributes()
+    check(all(a["spill_bytes"] == 0 for a in paged.values()),
+          f"row 6 or K3 spills: {paged}")
+    attrs["rows 6, 7"] = paged
     sass = {}
     for src, n in HOPPER_SOURCES.items():
         counts = {k: c
@@ -588,77 +610,184 @@ def hopper_kernels():
     return attrs, sass
 
 
+def _mapped_tokens(tables, nb, bs):
+    """Tokens each lane's table maps (entries below nb), [b] on the card."""
+    return (tables < nb).sum(1) * bs
+
+
+def repeat_and_replay(call, lens, mapped, what):
+    """Five more calls give the first call's bits (the rank-order combine),
+    and the call captured in a CUDA graph, replayed after other lengths
+    are written into the captured lengths tensor, equals an eager call on
+    those lengths: the launch grid follows the tables' reach, not the
+    lengths.  The lengths are put back after."""
+    first = call()
+    for _ in range(5):
+        check(torch.equal(call(), first), f"{what}: a repeat differs")
+    saved = lens.clone()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    new = (saved.long() * 7 + 13) % (mapped.long() + 1)
+    lens.copy_(torch.where(saved > 0, new, 0).to(lens.dtype))
+    graph.replay()
+    eager = call()
+    torch.cuda.synchronize()
+    check(torch.equal(captured, eager),
+          f"{what}: a graph replay with other lengths differs from an eager "
+          "call")
+    check(not torch.equal(captured, first), f"{what}: the replay ignored "
+          "the new lengths")
+    lens.copy_(saved)
+    del graph
+    return True
+
+
+# K3 at generate's decode shape (b8, lengths 17-576, 36 blocks of 16 a
+# lane): MHA with learned positions is the main row; rope, GQA g=4, an int8
+# pool and a bf16 W beside it; the wide groups the split-key kernel takes
+# (MQA on gpt_125m's 12 heads, 16 and 32 query heads a group at dh 128)
+# with bf16 and int8 pools, and in those variants a 9th lane of length 0
+# whose table holds only sentinels.  (name, nh, g, dh, rope, int8 pool,
+# W dtype, empty lane)
+DECODE_LENS = [17, 64, 128, 200, 256, 333, 400, 576]
+DECODE_VARIANTS = (
+    ("mha learned", 12, 12, 64, False, False, torch.float32, False),
+    ("mha rope", 12, 12, 64, True, False, torch.float32, False),
+    ("gqa g=4 rope", 12, 4, 64, True, False, torch.float32, False),
+    ("int8 pool", 12, 12, 64, False, True, torch.float32, False),
+    ("bf16 W", 12, 12, 64, False, False, torch.bfloat16, False),
+    ("mqa rope", 12, 1, 64, True, False, torch.float32, True),
+    ("mqa rope, int8 pool", 12, 1, 64, True, True, torch.float32, True),
+    ("mqa rope, bf16 W", 12, 1, 64, True, False, torch.bfloat16, True),
+    ("rep 16 dh 128", 16, 1, 128, True, False, torch.float32, True),
+    ("rep 16 dh 128, int8 pool", 16, 1, 128, True, True, torch.bfloat16,
+     True),
+    ("rep 32 dh 128", 32, 1, 128, True, False, torch.float32, True),
+    ("rep 32 dh 128, int8 pool", 32, 1, 128, True, True, torch.float32,
+     True))
+DECODE_TOL = 2e-2                # bf16 compute
+
+
+def _decode_inputs(dev, gen, nh, g, dh, rope, quant, w_dtype, empty,
+                   bs=16, mb=36, h_out=768):
+    from apex_tpu_torch.serving.paged_cache import quantize_kv
+
+    lens_l = DECODE_LENS + ([0] if empty else [])
+    b = len(lens_l)
+    lens = torch.tensor(lens_l, device=dev, dtype=torch.int32)
+    nb = b * mb + 7
+    tables = torch.randperm(nb, device=dev, generator=gen)[:b * mb]
+    tables = tables.view(b, mb).to(torch.int32)
+    for i, n in enumerate(lens_l):
+        tables[i, -(-n // bs):] = nb + 1 + i              # sentinel tails
+    q = torch.randn(b, nh, dh, device=dev, generator=gen).bfloat16()
+    kp = torch.randn(nb, bs, g, dh, device=dev, generator=gen)
+    vp = torch.randn(nb, bs, g, dh, device=dev, generator=gen)
+    sc = {}
+    if quant:
+        kp, ks = quantize_kv(kp)
+        vp, vs = quantize_kv(vp)
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = kp.bfloat16(), vp.bfloat16()
+    w = (torch.randn(nh * dh, h_out, device=dev, generator=gen)
+         * 0.02).to(w_dtype)
+    if rope:
+        ang = torch.rand(b, dh // 2, device=dev, generator=gen) * 6
+        ang = torch.cat([ang, ang], -1)
+        sc.update(rope_cos=ang.cos(), rope_sin=ang.sin())
+    return (q, kp, vp, tables, lens, w), sc
+
+
+# (b, nh, g, dh, reach) of the plans whose kernels the Hopper line reports:
+# the engine's and generate's decode (MHA), MHA at dh 128, GQA rep 3 and
+# rep 4 at dh 128, MQA, 16 and 32 query heads a group at dh 128 (the six
+# kernel variants)
+PAGED_PLANS = {"engine b32 mha": (32, 12, 12, 64, 1024),
+               "generate b8 mha": (8, 12, 12, 64, 576),
+               "mha dh 128": (8, 8, 8, 128, 576),
+               "gqa g=4 rep 3": (8, 12, 4, 64, 576),
+               "rep 4 dh 128": (8, 8, 2, 128, 576),
+               "mqa": (8, 12, 1, 64, 576),
+               "rep 16 dh 128": (8, 16, 1, 128, 576),
+               "rep 32 dh 128": (8, 32, 1, 128, 576)}
+
+
+def paged_kernel_attributes():
+    """Registers, shared memory per CTA, CTAs per SM and spill bytes of
+    row 6's and K3's split-key kernel under each plan of PAGED_PLANS (bf16
+    and fp32 compute, native and int8 pools) and of K3's projection (fp32
+    and bf16 W, in vectors and one element at a time)."""
+    from apex_tpu_torch.ops import decode_step as tds
+    from apex_tpu_torch.ops import paged_attention as tpa
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for name, (b, nh, g, dh, reach) in PAGED_PLANS.items():
+        for dt in (torch.bfloat16, torch.float32):
+            for quant in (False, True):
+                isz = 1 if quant else dt.itemsize
+                plan = tpa.paged_plan(b, g, nh // g, dh, reach, isz, sms)
+                key = (f"{name} {str(dt)[6:]} {'int8' if quant else 'native'}"
+                       f" pool (H{plan.heads} EPL{plan.epl})")
+                out[f"row 6 {key}"] = tpa.kernel_attributes(dt, quant, plan)
+                out[f"K3 {key}"] = tds.kernel_attributes(
+                    dt, quant, plan, torch.float32, nh * dh)["attention"]
+    plan = tpa.paged_plan(8, 12, 1, 64, 576, 2, sms)
+    for w_dt in (torch.float32, torch.bfloat16):
+        for vec in (True, False):
+            out[f"K3 projection {str(w_dt)[6:]} W"
+                f"{'' if vec else ' scalar'}"] = tds.kernel_attributes(
+                torch.bfloat16, False, plan, w_dt, 768, vec)["projection"]
+    return out
+
+
 def kernel_decode(dev, gen):
+    """K3 against its plain version at every variant of DECODE_VARIANTS
+    (within DECODE_TOL; the empty lane exact zeros), bitwise repeats and a
+    CUDA-graph replay with other lengths, each variant timed beside its
+    bound (bytes: live K/V and scales once, W once in its dtype, q, out,
+    tables; flops 4 per K/V element and head, 2 per W element and row)."""
     from apex_tpu_torch.ops import decode_step as tds
 
-    b, nh, dh, bs, h_out = 8, 12, 64, 16, 768
-    lens = torch.tensor([17, 64, 128, 200, 256, 333, 400, 576],
-                        device=dev, dtype=torch.int32)
-    mb = 36
-    errs = {}
-    tol = 2e-2
-    main = None
-    for name, g, rope in (("mha learned", 12, False), ("mha rope", 12, True),
-                          ("gqa g=4 rope", 4, True)):
-        nb = b * mb + 7
-        tables = torch.randperm(nb, device=dev, generator=gen)[:b * mb]
-        tables = tables.view(b, mb).to(torch.int32)
-        for i in range(b):
-            tables[i, -(-int(lens[i]) // bs):] = nb + 1   # unmapped tails
-        q = torch.randn(b, nh, dh, device=dev, generator=gen).bfloat16()
-        kp = torch.randn(nb, bs, g, dh, device=dev, generator=gen).bfloat16()
-        vp = torch.randn(nb, bs, g, dh, device=dev, generator=gen).bfloat16()
-        w = torch.randn(nh * dh, h_out, device=dev, generator=gen) * 0.02
-        cos = sin = None
-        if rope:
-            ang = torch.rand(b, dh // 2, device=dev, generator=gen) * 6
-            ang = torch.cat([ang, ang], -1)
-            cos, sin = ang.cos(), ang.sin()
-        args = (q, kp, vp, tables, lens, w)
-        got = tds.fused_decode_layer(*args, rope_cos=cos, rope_sin=sin)
-        want = tds.fused_decode_layer(*args, rope_cos=cos, rope_sin=sin,
-                                      backend="reference")
+    errs, timed = {}, {}
+    for (name, nh, g, dh, rope, quant, w_dtype,
+         empty) in DECODE_VARIANTS:
+        args, sc = _decode_inputs(dev, gen, nh, g, dh, rope, quant, w_dtype,
+                                  empty)
+        q, kp, vp, tables, lens, w = args
+        got = tds.fused_decode_layer(*args, **sc)
+        want = tds.fused_decode_layer(*args, backend="reference", **sc)
         errs[name] = max_err(got, want)
-        check(errs[name] <= tol, f"K3 {name} error {errs[name]}")
-        if main is None:
-            main = (args, g)
-    args, g = main
-    live = int(lens.sum())
-
-    def decode_bound(kv_bytes_per_elem, scale_bytes):
-        nbytes = (live * g * (dh * kv_bytes_per_elem + scale_bytes) * 2
-                  + nh * dh * h_out * 4 + b * nh * dh * 2 + b * h_out * 2
-                  + args[3].numel() * 4)
-        flops = 4 * live * nh * dh + 2 * b * nh * dh * h_out
-        return bound(nbytes, flops, PEAK_FP32_FLOPS)
-
-    bms, by = decode_bound(2, 0)
-    # the int8 branch: the same tables and lengths over a block-scaled
-    # int8 pool (one fp32 scale per token and kv group)
-    from apex_tpu_torch.serving.paged_cache import quantize_kv
-    kq, ks = quantize_kv(args[1].float())
-    vq, vs = quantize_kv(args[2].float())
-    qargs = (args[0], kq, vq, args[3], args[4], args[5])
-    sc = dict(k_scale=ks, v_scale=vs)
-    got = tds.fused_decode_layer(*qargs, **sc)
-    want = tds.fused_decode_layer(*qargs, backend="reference", **sc)
-    errs["mha learned, int8 pool"] = max_err(got, want)
-    check(errs["mha learned, int8 pool"] <= tol,
-          f"K3 int8 pool error {errs['mha learned, int8 pool']}")
-    qbms, qby = decode_bound(1, 4)
-    return {
-        "err": max(errs.values()), "tol": tol, "detail": errs,
-        "ms": time_ms(lambda: tds.fused_decode_layer(*args)),
-        "plain_ms": time_ms(lambda: tds.fused_decode_layer(
-            *args, backend="reference")),
-        "library_ms": None, "bound_ms": bms, "bound_by": by,
-        "shape": f"b={b} nh={nh} dh={dh} block={bs} lengths 17-576 bf16",
-        "variants": {"int8 pool": {
-            "ms": time_ms(lambda: tds.fused_decode_layer(*qargs, **sc)),
+        check(errs[name] <= DECODE_TOL, f"K3 {name} error {errs[name]}")
+        if empty:
+            check(int(torch.count_nonzero(got[-1])) == 0,
+                  f"K3 {name}: the length-0 lane is not exact zeros")
+        repeat_and_replay(lambda: tds.fused_decode_layer(*args, **sc), lens,
+                          _mapped_tokens(tables, kp.shape[0], kp.shape[1]),
+                          f"K3 {name}")
+        b, h_out = q.shape[0], w.shape[1]
+        live = int(lens.sum())
+        per_elem, per_scale = (1, 4) if quant else (2, 0)
+        nbytes = (live * g * (dh * per_elem + per_scale) * 2
+                  + w.numel() * w.element_size() + q.numel() * 2
+                  + b * h_out * 2 + tables.numel() * 4 + b * 4)
+        bms, by = bound(nbytes, 4 * live * nh * dh + 2 * b * nh * dh * h_out,
+                        PEAK_FP32_FLOPS)
+        timed[name] = {
+            "err": errs[name],
+            "ms": time_ms(lambda: tds.fused_decode_layer(*args, **sc)),
             "plain_ms": time_ms(lambda: tds.fused_decode_layer(
-                *qargs, backend="reference", **sc)),
-            "library_ms": None, "bound_ms": qbms, "bound_by": qby}},
-    }
+                *args, backend="reference", **sc)),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+    main = timed.pop("mha learned")
+    return dict(main, err=max(errs.values()), tol=DECODE_TOL, detail=errs,
+                variants=timed,
+                shape="b=8 nh=12 g=12 dh=64 block=16 lengths 17-576 bf16 "
+                      "pool, W fp32 [768, 768] (variants: rope, GQA g=4, "
+                      "int8 pool, bf16 W, MQA g=1, 16 and 32 heads a group "
+                      "at dh 128, the wide ones with a length-0 lane)")
 
 
 # row 6 at the engine's decode shape: 32 lanes, lengths 1-1024 with
@@ -667,6 +796,16 @@ def kernel_decode(dev, gen):
 PAGED_LENS = [1, 15, 16, 17, 31, 32, 33, 63, 64, 65, 100, 128, 129, 200,
               255, 256, 257, 300, 383, 384, 385, 500, 511, 512, 513, 640,
               767, 768, 769, 1000, 1024, 0]
+# (name, nh, g, dh, int8 pool); MHA with a bf16 pool is the main row
+PAGED_VARIANTS = (
+    ("mha bf16 pool", 12, 12, 64, False),
+    ("mha int8 pool", 12, 12, 64, True),
+    ("gqa g=4 int8 pool", 12, 4, 64, True),
+    ("mqa bf16 pool", 12, 1, 64, False),
+    ("mqa int8 pool", 12, 1, 64, True),
+    ("rep 16 dh 128 bf16 pool", 16, 1, 128, False),
+    ("rep 16 dh 128 int8 pool", 16, 1, 128, True),
+    ("rep 32 dh 128 bf16 pool", 32, 1, 128, False))
 
 
 def _paged_inputs(dev, gen, g, quant, nh=12, dh=64, bs=16, mb=64):
@@ -690,40 +829,44 @@ def _paged_inputs(dev, gen, g, quant, nh=12, dh=64, bs=16, mb=64):
 
 
 def kernel_paged(dev, gen):
+    """Row 6 against its plain version at every variant of PAGED_VARIANTS
+    (the length-0 lane exact zeros), bitwise repeats and a CUDA-graph
+    replay with other lengths, each variant timed beside its bound."""
     from apex_tpu_torch.ops import paged_attention as tpa
 
-    nh, dh = 12, 64
     tol = 2e-2
     errs, timed = {}, {}
-    for name, g, quant in (("mha bf16 pool", 12, False),
-                           ("mha int8 pool", 12, True),
-                           ("gqa g=4 int8 pool", 4, True)):
-        args, sc = _paged_inputs(dev, gen, g, quant)
+    for name, nh, g, dh, quant in PAGED_VARIANTS:
+        args, sc = _paged_inputs(dev, gen, g, quant, nh=nh, dh=dh)
+        q, kp, vp, tables, lens = args
         got = tpa.ragged_paged_attention(*args, **sc)
         want = tpa.ragged_paged_attention(*args, backend="reference", **sc)
         errs[name] = max_err(got, want)
         check(errs[name] <= tol, f"row 6 {name} error {errs[name]}")
         check(int(torch.count_nonzero(got[-1])) == 0,
               f"row 6 {name}: the length-0 lane is not exact zeros")
-        if g == 12:
-            live = sum(PAGED_LENS)
-            per_elem, per_scale = (1, 4) if quant else (2, 0)
-            b = len(PAGED_LENS)
-            nbytes = (live * g * (dh * per_elem + per_scale) * 2
-                      + 2 * b * nh * dh * 2 + args[3].numel() * 4 + b * 4)
-            bms, by = bound(nbytes, 4 * live * nh * dh, PEAK_FP32_FLOPS)
-            timed[name] = {
-                "ms": time_ms(lambda: tpa.ragged_paged_attention(
-                    *args, **sc)),
-                "plain_ms": time_ms(lambda: tpa.ragged_paged_attention(
-                    *args, backend="reference", **sc)),
-                "library_ms": None, "bound_ms": bms, "bound_by": by}
+        repeat_and_replay(lambda: tpa.ragged_paged_attention(*args, **sc),
+                          lens, _mapped_tokens(tables, kp.shape[0],
+                                               kp.shape[1]), f"row 6 {name}")
+        live = sum(PAGED_LENS)
+        per_elem, per_scale = (1, 4) if quant else (2, 0)
+        b = len(PAGED_LENS)
+        nbytes = (live * g * (dh * per_elem + per_scale) * 2
+                  + 2 * b * nh * dh * 2 + tables.numel() * 4 + b * 4)
+        bms, by = bound(nbytes, 4 * live * nh * dh, PEAK_FP32_FLOPS)
+        timed[name] = {
+            "err": errs[name],
+            "ms": time_ms(lambda: tpa.ragged_paged_attention(*args, **sc)),
+            "plain_ms": time_ms(lambda: tpa.ragged_paged_attention(
+                *args, backend="reference", **sc)),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
     main = timed.pop("mha bf16 pool")
     return dict(main, err=max(errs.values()), tol=tol, detail=errs,
-                variants={"int8 pool": timed["mha int8 pool"]},
-                shape=f"b={len(PAGED_LENS)} nh={nh} g=12 dh={dh} block=16 "
-                      "max_blocks=64 lengths 0-1024 bf16 pool (also int8 "
-                      "pool, and GQA g=4 int8 checked)")
+                variants=timed,
+                shape=f"b={len(PAGED_LENS)} nh=12 g=12 dh=64 block=16 "
+                      "max_blocks=64 lengths 0-1024 bf16 pool (variants: "
+                      "int8 pool, GQA g=4, MQA g=1, 16 and 32 heads a group "
+                      "at dh 128)")
 
 
 # row 10 at GPT-2 125M's four per-layer matmuls: (in, out)
@@ -1072,6 +1215,88 @@ def slice_phase(dev):
         "counts": counts, "logit_err": logit_err, "token_gap": gap,
         "argmax_agree": agree,
     }
+
+
+MQA_NEW_TOKENS = 16
+
+
+def mqa_generate_phase(dev):
+    """Greedy ``generate`` of ``gpt_125m(num_query_groups=1)`` at full
+    width (12 query heads on one kv group: a geometry rows 6 and 7 refused
+    before their split-key redesign): PROMPT_LENS's 8 ragged prompts, +16
+    tokens, paged bf16.  K3 launches exactly layers x decode steps.  The
+    tokens equal a ``backend="reference"`` run's, or where a row first
+    differs the position is a bf16 near-tie (``tie_verdict`` on the
+    teacher-forced kernel and plain logits over the kernel run's tokens),
+    and every teacher-forced logit agrees within LOGIT_TOL."""
+    from apex_tpu_torch.models import generate as tgen
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.transformer_lm import init_gpt_params
+    from apex_tpu_torch.ops import _kernel_utils as ku
+
+    cfg = gpt_125m(num_query_groups=1)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0), dev)
+    gen = torch.Generator().manual_seed(1)
+    b, s = len(PROMPT_LENS), max(PROMPT_LENS)
+    prompt = torch.zeros(b, s, dtype=torch.long)
+    for i, n in enumerate(PROMPT_LENS):
+        prompt[i, :n] = torch.randint(0, VOCAB_LIMIT, (n,), generator=gen)
+    prompt = prompt.to(dev)
+    lens = torch.tensor(PROMPT_LENS, device=dev)
+    kw = dict(max_new_tokens=MQA_NEW_TOKENS, prompt_lens=lens,
+              cache_layout="paged", block_size=16, device=dev)
+    tgen.generate(params, prompt, cfg, **dict(kw, max_new_tokens=2))
+    torch.cuda.synchronize()
+
+    ku.reset_launch_counts()
+    toks = tgen.generate(params, prompt, cfg, **kw)
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    steps, L = MQA_NEW_TOKENS - 1, cfg.num_layers
+    want = {name: 0 for name in ku.KERNELS}
+    want.update({"layer_norm_fwd": (2 * L + 1) * (1 + steps),
+                 "flash_attention_fwd": L, "fused_decode_layer": L * steps})
+    check(counts == want, f"mqa generate launches {counts} != {want}")
+    plain = tgen.generate(params, prompt, cfg, backend="reference", **kw)
+
+    rows = torch.arange(b, device=dev)
+    tok_k = torch.stack([toks[rows, lens + j]
+                         for j in range(MQA_NEW_TOKENS)], 1)
+    tok_p = torch.stack([plain[rows, lens + j]
+                         for j in range(MQA_NEW_TOKENS)], 1)
+
+    def forced(backend):
+        cache = tgen.init_kv_cache(cfg, b, s + MQA_NEW_TOKENS,
+                                   cache_layout="paged", block_size=16,
+                                   device=dev)
+        logits, cache = tgen.prefill(params, prompt, cfg, prompt_lens=lens,
+                                     cache=cache, device=dev,
+                                     backend=backend)
+        out = [logits]
+        for j in range(steps):
+            logits, cache = tgen.decode_step(params, tok_k[:, j], cache, cfg,
+                                             device=dev, backend=backend)
+            out.append(logits)
+        return torch.stack(out, 1)[..., :VOCAB_LIMIT]
+
+    lk, lp = forced(None), forced("reference")
+    logit_err = max_err(lk, lp)
+    check(logit_err <= LOGIT_TOL,
+          f"mqa kernel vs plain logits differ by {logit_err}")
+    ties = []
+    for i in range(b):
+        diff = (tok_k[i] != tok_p[i]).nonzero()
+        if diff.numel():
+            j = int(diff[0])
+            v = tie_verdict(lk[i, j], lp[i, j], int(tok_k[i, j]),
+                            int(tok_p[i, j]))
+            ties.append(dict(v, row=i, step=j))
+            check(v["near_tie"], f"mqa generate row {i} step {j}: not a "
+                  f"near-tie {v}")
+    return {"counts": counts, "logit_err": logit_err,
+            "rows_identical": b - len(ties), "near_ties": ties,
+            "shape": f"gpt_125m(num_query_groups=1) b={b} prompts "
+                     f"{PROMPT_LENS} +{MQA_NEW_TOKENS} greedy, paged bf16"}
 
 
 # the serving engine at bench.py's paged geometry and its
@@ -2990,18 +3215,23 @@ def matmul_times(root: str) -> dict:
     rows), and row 5 with K6 + K7 beside it at BERT's shape (b8 s512 n16
     d64, key padding) and the MoE steps' (b8 s512 n12 d64 causal); row
     11 at BERT's fused_softmax scores ([8, 16, 512, 512] fp32 and bf16,
-    [8, 1, 1, 512] key padding) and K1 at the five main paths' shapes
-    (LN_SHAPES, bf16 x, fp32 γ/β).  It calls only entry points both this
-    tree and its parent have (for rows 11 and K1 ``softmax_fwd`` and
-    ``layer_norm_fwd_stats``), so that parent and change run the same
-    measurement in one chip call."""
+    [8, 1, 1, 512] key padding), K1 at the five main paths' shapes
+    (LN_SHAPES, bf16 x, fp32 γ/β), row 6 at the engine's decode (b32 MHA,
+    PAGED_LENS, bf16 and int8 pools) and K3 at generate's (b8 MHA,
+    DECODE_LENS, fp32 W, bf16 and int8 pools).  It calls only entry points
+    both this tree and its parent have (for rows 11 and K1 ``softmax_fwd``
+    and ``layer_norm_fwd_stats``, for rows 6 and 7
+    ``ragged_paged_attention`` and ``fused_decode_layer``), so that parent
+    and change run the same measurement in one chip call."""
     sys.path.insert(0, str(Path(root).resolve()))
     import apex_tpu_torch
     from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import decode_step as tds
     from apex_tpu_torch.ops import dense as td
     from apex_tpu_torch.ops import flash_attention as tfa
     from apex_tpu_torch.ops import grouped_matmul as tgm
     from apex_tpu_torch.ops import layer_norm as tln
+    from apex_tpu_torch.ops import paged_attention as tpa
     from apex_tpu_torch.ops import softmax as tsm
 
     pkg = Path(apex_tpu_torch.__file__).resolve().parent
@@ -3013,7 +3243,8 @@ def matmul_times(root: str) -> dict:
     t0 = time.perf_counter()
     ku.build_all(["dense_int8.cu", "grouped_matmul.cu", "flash_attention.cu",
                   "flash_attention_bwd.cu", "flash_attention_bwd_short.cu",
-                  "softmax.cu", "layer_norm.cu"])
+                  "softmax.cu", "layer_norm.cu", "paged_attention.cu",
+                  "decode_step.cu"])
     build_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -3098,18 +3329,104 @@ def matmul_times(root: str) -> dict:
             x = torch.randn(rows, h, device="cuda", generator=gen).to(bf)
             k1[f"[{rows}, {h}] ({name})"] = time_ms(
                 lambda: tln.layer_norm_fwd_stats(x, w, b))
+    paged = {}
+    with torch.inference_mode():
+        for quant in (False, True):
+            pool = "int8" if quant else "bf16"
+            args, sc = _paged_inputs("cuda", gen, 12, quant)
+            paged[f"row 6 b32 mha {pool} pool"] = time_ms(
+                lambda: tpa.ragged_paged_attention(*args, **sc))
+            args, sc = _decode_inputs("cuda", gen, 12, 12, 64, False, quant,
+                                      torch.float32, False)
+            paged[f"K3 b8 mha {pool} pool"] = time_ms(
+                lambda: tds.fused_decode_layer(*args, **sc))
     return {"root": str(root), "device": nvidia_smi(),
             "build_s": build_s, "row10_ms": row10, "row9_ms": row9,
             "row9_lora_fp32": lora, "row5": row5, "row11_ms": row11,
-            "k1_ms": k1,
+            "k1_ms": k1, "paged_ms": paged,
             "moe_loads": [int(b - a) for a, b in zip(off, off[1:])]}
+
+
+def paged_probe() -> dict:
+    """Rows 6 and 7 (K3) under forced plans and uniform lengths, CUDA-graph
+    replays in µs: row 6 at the engine's decode shape (b32, PAGED_LENS) and
+    at generate's (b8, DECODE_LENS), each with the planner's split count and
+    others; every lane of one length (0, 1, 128, 129, 256: launch and exit
+    alone, one token, one full chunk, a second chunk of one token, two
+    chunks); K3 with all lengths 0 (the attention's launch and the whole
+    projection) and with a bf16 W."""
+    from apex_tpu_torch.ops import decode_step as tds
+    from apex_tpu_torch.ops import paged_attention as tpa
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    res = {}
+
+    def us(fn, plan=None):
+        real = tpa.plan_for
+        if plan is not None:
+            tpa.plan_for = tds.plan_for = lambda *a: plan
+        try:
+            return round(time_ms(fn) * 1e3, 2)
+        finally:
+            tpa.plan_for = tds.plan_for = real
+
+    with torch.inference_mode():
+        for shape in ("row6 b32", "k3 b8"):
+            if shape == "k3 b8":
+                (q, kp, vp, tab, lens, w), sc = _decode_inputs(
+                    "cuda", gen, 12, 12, 64, False, False, torch.float32,
+                    False)
+            else:
+                (q, kp, vp, tab, lens), sc = _paged_inputs("cuda", gen, 12,
+                                                           False)
+            reach = tab.shape[1] * kp.shape[1]
+            plan = tpa.plan_for(q, kp, tab)
+            res[f"{shape} plan"] = list(plan)
+            res[f"{shape} row 6"] = us(
+                lambda: tpa.ragged_paged_attention(q, kp, vp, tab, lens))
+            for splits in (1, 2, 4, 8, 16):
+                per = -(-reach // splits)
+                chunk = -(-per // 64) * 64
+                forced = plan._replace(splits=-(-reach // chunk),
+                                       chunk=chunk)
+                res[f"{shape} row 6, {forced.splits} splits"] = us(
+                    lambda: tpa.ragged_paged_attention(q, kp, vp, tab, lens),
+                    forced)
+            dn_max = min(q.shape[2], 32 * plan.epl)
+            for stages in (3, 4):
+                deeper = plan._replace(stages=stages, smem=tpa.paged_smem(
+                    q.shape[2], kp.element_size(), plan.rc, dn_max,
+                    plan.tile, stages))
+                res[f"{shape} row 6, ring of {stages}"] = us(
+                    lambda: tpa.ragged_paged_attention(q, kp, vp, tab, lens),
+                    deeper)
+            mapped = ((tab < kp.shape[0]).sum(1) * kp.shape[1]).int()
+            for n in (0, 1, 128, 129, 256):
+                ln = torch.minimum(torch.full_like(lens, n), mapped)
+                res[f"{shape} row 6, every length {n}"] = us(
+                    lambda: tpa.ragged_paged_attention(q, kp, vp, tab, ln))
+            if shape == "k3 b8":
+                res["k3 b8"] = us(
+                    lambda: tds.fused_decode_layer(q, kp, vp, tab, lens, w))
+                wb = w.bfloat16()
+                res["k3 b8, bf16 W"] = us(
+                    lambda: tds.fused_decode_layer(q, kp, vp, tab, lens, wb))
+                z = torch.zeros_like(lens)
+                res["k3 b8, every length 0"] = us(
+                    lambda: tds.fused_decode_layer(q, kp, vp, tab, z, w))
+    return {"device": nvidia_smi(), "us": res}
 
 
 def main() -> int:
     check(torch.cuda.is_available(),
           "no CUDA device: chip_smoke.py runs only on the card")
+    if sys.argv[1:2] == ["--paged-probe"]:
+        # python3 chip_smoke.py --paged-probe: rows 6 and 7 under forced
+        # plans and lengths
+        print(json.dumps(paged_probe()))
+        return 0
     if sys.argv[1:2] == ["--matmul-times"]:
-        # python3 chip_smoke.py --matmul-times ROOT: rows 5, 9, 10, 11, K1
+        # python3 chip_smoke.py --matmul-times ROOT: rows 5-7, 9-11, K1
         print(json.dumps(matmul_times(sys.argv[2])))
         return 0
     dev = torch.device("cuda")
@@ -3134,7 +3451,8 @@ def main() -> int:
     attrs, sass = hopper_kernels()
     print(f"hopper kernels (16-bit K2, K6, K7, row 5; rows 9 and 10's "
           f"tensor-core routes, row 9's fp32 cluster kernel; row 11 and K1's "
-          f"row kernels) on {smi}: "
+          f"row kernels; rows 6 and 7's split-key kernel and K3's "
+          f"projection) on {smi}: "
           f"registers, shared memory per CTA, CTAs per "
           f"SM and spill bytes {json.dumps(attrs)}; SASS HGMMA / UTMALDG "
           f"per kernel {json.dumps(sass)}")
@@ -3175,6 +3493,7 @@ def main() -> int:
         for kname, r in kernel_dense_int8(dev, gen).items():
             report(kname, r)
         sl = slice_phase(dev)
+        mqa = mqa_generate_phase(dev)
         eng = engine_phase(dev)
         lora = lora_engine_phase(dev)
         oracle = lora_oracle_phase(dev)
@@ -3185,6 +3504,11 @@ def main() -> int:
           f"{ORACLE_TENANTS} tenants, {ORACLE_NEW} new tokens): "
           f"{oracle['identical']} of {ORACLE_TENANTS} streams identical; "
           f"{json.dumps(oracle)}")
+    print(f"mqa generate: {mqa['shape']} on {smi}: launches "
+          f"{mqa['counts']}; rows identical to plain "
+          f"{mqa['rows_identical']} of {len(PROMPT_LENS)}, near-ties "
+          f"{json.dumps(mqa['near_ties'])}; teacher-forced logits max "
+          f"|kernel - plain| {mqa['logit_err']:.5f} (tol {LOGIT_TOL})")
     print(f"serving gpt_125m b=8 prompts {PROMPT_LENS} +{NEW_TOKENS} tokens "
           f"paged bf16 on {smi}: prefill median {sl['prefill_ms']:.2f} ms "
           f"(q1-q3 {sl['prefill_ms_q1_q3']}, {PREFILL_RUNS} runs), generate "
@@ -3347,7 +3671,8 @@ def main() -> int:
     print(f"generic mask: {gm['shape']}: launches {gm['counts']}; logits "
           f"kernel vs plain {gm['logit_err']:.5f} (tol {LOGIT_TOL})")
 
-    paths = {"serving": sl["counts"], "train_step": tr["counts"]}
+    paths = {"serving": sl["counts"], "mqa generate": mqa["counts"],
+             "train_step": tr["counts"]}
     paths.update({f"bert {b}": row["counts"] for b, row in bert.items()})
     paths.update({f"moe {r}": row["counts"] for r, row in moe.items()})
     paths["moe int8 forward"] = mq["counts"]
@@ -3371,6 +3696,7 @@ def main() -> int:
          "variants": r.get("variants", {})}
         for k, r in results.items()],
         "slice": {k: v for k, v in sl.items() if k != "counts"},
+        "mqa_generate": {k: v for k, v in mqa.items() if k != "counts"},
         "engine": {n: {k: v for k, v in row.items() if k != "counts"}
                    for n, row in eng.items()},
         "lora_engine": {n: ({k: v for k, v in row.items() if k != "counts"}

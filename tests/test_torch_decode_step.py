@@ -1,8 +1,10 @@
 """The port's fused decode layer (apex_tpu_torch.ops.decode_step) against
 the JAX package's fused_decode_layer: its Pallas kernel in interpret mode
-and its reference composition.  MHA and GQA, rope and none, ragged
-lengths with unmapped table tails.  Tolerance 2e-5 at fp32
-(tests/test_decode_fused.py)."""
+and its reference composition.  MHA, GQA and MQA, wide groups (12 query
+heads on one kv group at dh 64, 16 at dh 128), rope and none, ragged
+lengths with unmapped table tails, lengths at the split-key kernel's
+chunk edges and an empty lane whose table holds only sentinels.
+Tolerance 2e-5 at fp32 (tests/test_decode_fused.py)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,6 +13,7 @@ import torch
 
 from apex_tpu.ops import decode_step as jds
 from apex_tpu_torch.ops import decode_step as tds
+from apex_tpu_torch.ops import paged_attention as tpa
 
 TOL = 2e-5
 
@@ -34,12 +37,22 @@ def _case(b, nh, g, dh, bs, mb, lens, rope, seed=0):
     return q, kp, vp, tables, lengths, w, cos, sin
 
 
+def _edge_case(nh, g, dh, rope, bs=16, mb=12):
+    """Five lanes at the card's plan's chunk - 1, chunk, chunk + 1, one over
+    three chunks and an empty (all-sentinel) lane, fp32 operands."""
+    chunk = tpa.paged_plan(5, g, nh // g, dh, bs * mb, 4, 132).chunk
+    lens = [chunk - 1, chunk, chunk + 1, min(3 * chunk - 5, bs * mb), 0]
+    return (5, nh, g, dh, bs, mb, lens, rope)
+
+
 CASES = [
     # (b, nh, g, dh, bs, mb, lens, rope)
     (3, 4, 4, 16, 4, 5, [1, 9, 20], False),
     (3, 4, 4, 16, 4, 5, [3, 16, 7], True),
     (2, 8, 2, 16, 8, 3, [5, 24], True),       # GQA rep 4
     (2, 6, 1, 32, 4, 4, [13, 2], False),       # MQA
+    _edge_case(12, 1, 64, True),               # MQA rep 12 (gpt_125m's)
+    _edge_case(16, 1, 128, False),             # rep 16, rep * dh 2048
 ]
 
 

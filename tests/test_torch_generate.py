@@ -118,3 +118,33 @@ def test_unported_options_raise(kw, match):
     with pytest.raises(NotImplementedError, match=match):
         tgen.generate(tp, torch.zeros(1, 3, dtype=torch.long), tcfg,
                       max_new_tokens=2, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("layout, wire", [("paged", None), ("paged", "int8"),
+                                          ("contiguous", None)])
+def test_mqa_greedy_generate_token_identical(layout, wire):
+    """MQA (``num_query_groups=1``) with 12 query heads on the one kv group,
+    as ``gpt_125m(num_query_groups=1)`` has: the rep the paged decode
+    kernels refused before their split-key redesign.  Greedy tokens equal
+    the JAX package's on both cache layouts and an int8 pool."""
+    from apex_tpu.models.config import TransformerConfig as JConfig
+    from apex_tpu.models.transformer_lm import init_gpt_params as j_init
+    from apex_tpu_torch.models.config import TransformerConfig as TConfig
+    from apex_tpu_torch.models.convert import params_from_numpy
+
+    kw = dict(num_layers=2, hidden_size=192, num_attention_heads=12,
+              num_query_groups=1, vocab_size=256, max_position_embeddings=64)
+    jcfg = JConfig(compute_dtype=jnp.float32, **kw)
+    tcfg = TConfig(compute_dtype=torch.float32, **kw)
+    jp = j_init(jax.random.PRNGKey(3), jcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    lens = [5, 19, 12, 1]
+    prompt = _prompt(jcfg.vocab_size, lens, seed=7)
+    jl = np.asarray(lens, np.int32)
+    want = jgen.generate(jp, jnp.asarray(prompt), jcfg, max_new_tokens=8,
+                         prompt_lens=jnp.asarray(jl), cache_layout=layout,
+                         block_size=4, cache_wire=wire)
+    got = tgen.generate(tp, torch.from_numpy(prompt), tcfg, max_new_tokens=8,
+                        prompt_lens=torch.from_numpy(jl), cache_layout=layout,
+                        block_size=4, cache_wire=wire, device="cpu")
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))

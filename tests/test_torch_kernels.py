@@ -168,33 +168,80 @@ def test_k2_flash_attention(dev, dtype, tol, n, g, causal, padded, d, sq,
         assert bool((lse.reshape(b, n, sq)[2] == -1e30).all())
 
 
-@pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5),
-                                        (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("nh, g, rope", [(12, 12, False), (12, 12, True),
-                                         (12, 4, True), (8, 1, False)])
-def test_k3_fused_decode_layer(dev, dtype, tol, nh, g, rope):
-    gen = _gen(2)
-    b, dh, bs, mb = 4, 64, 16, 12
+# (nh, g, dh): MHA and GQA at GPT-2's dh and at dh 128 (every kernel
+# variant: 1, 4 or 16 heads a CTA, 64 or 128 dims), and the wide groups
+# the split-key kernel takes since its redesign: MQA on 12 heads
+# (gpt_125m's), 16 query heads a group at dh 128, 32 (rep * dh = 4096)
+PAGED_GEOMETRIES = [(12, 12, 64), (12, 4, 64), (8, 1, 64), (12, 1, 64),
+                    (8, 8, 128), (8, 2, 128), (16, 1, 128), (32, 1, 128)]
+
+
+def _decode_operands(dev, dtype, nh, g, dh, seed, bs=16, mb=12, quant=False,
+                     w_dtype=torch.float32):
+    """q, pools, tables with sentinel tails (>= num_blocks) sized to each
+    lane's length, w_proj [nh*dh, 256] and rope rows over the whole head.
+    The lengths sit at every edge (k*step - 1, k*step, k*step + 1) of the
+    plan's chunk granularity (step = warps x warp tile, so at every chunk
+    edge whatever the split count), one token, the full reach, and an
+    empty lane, last, whose table holds only sentinels."""
+    from apex_tpu_torch.ops import paged_attention as tpa
+
+    gen = _gen(seed)
+    reach = mb * bs
+    isz = 1 if quant else torch.empty((), dtype=dtype).element_size()
+    step = tpa.WARPS * tpa.paged_plan(1, g, nh // g, dh, reach, isz,
+                                      132).tile
+    lens = {1, reach}
+    for c in range(step, reach, step):
+        lens.update((c - 1, c, c + 1))
+    lens = sorted(lens) + [0]
+    b = len(lens)
     nb = b * mb + 3
-    lens = torch.tensor([1, 17, 150, 192], device=dev, dtype=torch.int32)
     tables = torch.randperm(nb, device=dev, generator=gen)[:b * mb]
     tables = tables.view(b, mb).to(torch.int32)
-    for i in range(b):
-        tables[i, -(-int(lens[i]) // bs):] = nb + 5
+    for i, n in enumerate(lens):
+        tables[i, -(-n // bs):] = nb + 5 + i
     q = torch.randn(b, nh, dh, device=dev, generator=gen).to(dtype)
-    kp = torch.randn(nb, bs, g, dh, device=dev, generator=gen).to(dtype)
-    vp = torch.randn(nb, bs, g, dh, device=dev, generator=gen).to(dtype)
-    w = torch.randn(nh * dh, 256, device=dev, generator=gen) * 0.03
-    cos = sin = None
-    if rope:
-        ang = torch.rand(b, dh // 2, device=dev, generator=gen) * 6
-        ang = torch.cat([ang, ang], -1)
-        cos, sin = ang.cos(), ang.sin()
-    out = tds.fused_decode_layer(q, kp, vp, tables, lens, w, rope_cos=cos,
-                                 rope_sin=sin)
-    ref = tds.fused_decode_layer(q, kp, vp, tables, lens, w, rope_cos=cos,
-                                 rope_sin=sin, backend="reference")
+    kp = torch.randn(nb, bs, g, dh, device=dev, generator=gen)
+    vp = torch.randn(nb, bs, g, dh, device=dev, generator=gen)
+    sc = {}
+    if quant:
+        from apex_tpu_torch.serving.paged_cache import quantize_kv
+        kp, ks = quantize_kv(kp)
+        vp, vs = quantize_kv(vp)
+        sc = dict(k_scale=ks, v_scale=vs)
+    else:
+        kp, vp = kp.to(dtype), vp.to(dtype)
+    w = (torch.randn(nh * dh, 256, device=dev, generator=gen)
+         * 0.03).to(w_dtype)
+    ang = torch.rand(b, dh // 2, device=dev, generator=gen) * 6
+    ang = torch.cat([ang, ang], -1)
+    lens = torch.tensor(lens, device=dev, dtype=torch.int32)
+    return (q, kp, vp, tables, lens), sc, w, ang.cos(), ang.sin()
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("nh, g, dh", PAGED_GEOMETRIES)
+@pytest.mark.parametrize("rope", [False, True])
+@pytest.mark.parametrize("w_dtype", [torch.float32, torch.bfloat16])
+def test_k3_fused_decode_layer(dev, dtype, tol, nh, g, dh, rope, w_dtype):
+    """K3 against its plain version: every chunk edge of the plan, an
+    all-sentinel empty lane (exact zeros), W in fp32 or bf16 (rounded to
+    the compute dtype either way), one launch count a call."""
+    args, _, w, cos, sin = _decode_operands(dev, dtype, nh, g, dh, 2,
+                                            w_dtype=w_dtype)
+    if not rope:
+        cos = sin = None
+    before = tds.DECODE_LAYER.launches
+    out = tds.fused_decode_layer(*args, w, rope_cos=cos, rope_sin=sin)
+    ref = tds.fused_decode_layer(*args, w, rope_cos=cos, rope_sin=sin,
+                                 backend="reference")
+    torch.cuda.synchronize()
+    assert tds.DECODE_LAYER.launches == before + 1
+    assert out.dtype == dtype
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.count_nonzero(out[-1]) == 0
 
 
 @pytest.mark.parametrize("top_k, top_p", [(None, None), (50, None),
@@ -735,44 +782,20 @@ def max_abs(a, b):
     return float((a.float() - b.float()).abs().max())
 
 
-def _paged_case(dtype, nh, g, quant, seed, dh=64, bs=16):
-    """A pool with shuffled tables, sentinel tails (>= num_blocks) and
-    lengths with len % bs in {0, 1, bs - 1}, one of them an empty lane."""
-    gen = _gen(seed)
-    lens = torch.tensor([1, 16, 17, 47, 192, 0], device="cuda",
-                        dtype=torch.int32)
-    b, mb = lens.numel(), 13
-    nb = b * mb + 3
-    tables = torch.randperm(nb, device="cuda", generator=gen)[:b * mb]
-    tables = tables.view(b, mb).to(torch.int32)
-    for i in range(b):
-        tables[i, -(-int(lens[i]) // bs):] = nb + 5 + i
-    q = torch.randn(b, nh, dh, device="cuda", generator=gen).to(dtype)
-    kp = torch.randn(nb, bs, g, dh, device="cuda", generator=gen)
-    vp = torch.randn(nb, bs, g, dh, device="cuda", generator=gen)
-    sc = {}
-    if quant:
-        from apex_tpu_torch.serving.paged_cache import quantize_kv
-        kp, ks = quantize_kv(kp)
-        vp, vs = quantize_kv(vp)
-        sc = dict(k_scale=ks, v_scale=vs)
-    else:
-        kp, vp = kp.to(dtype), vp.to(dtype)
-    return q, kp, vp, tables, lens, sc
-
-
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("nh, g", [(12, 12), (12, 4), (8, 1)])
+@pytest.mark.parametrize("nh, g, dh", PAGED_GEOMETRIES)
 @pytest.mark.parametrize("quant", [False, True])
-def test_row6_ragged_paged_attention(dev, dtype, tol, nh, g, quant):
+def test_row6_ragged_paged_attention(dev, dtype, tol, nh, g, dh, quant):
+    """Row 6 against its plain version at every chunk edge of the plan,
+    native and int8 pools, an all-sentinel empty lane (exact zeros), one
+    launch count a call."""
     from apex_tpu_torch.ops import paged_attention as tpa
 
-    q, kp, vp, tables, lens, sc = _paged_case(dtype, nh, g, quant, seed=7)
+    args, sc, *_ = _decode_operands(dev, dtype, nh, g, dh, 7, quant=quant)
     before = tpa.PAGED_ATTENTION.launches
-    out = tpa.ragged_paged_attention(q, kp, vp, tables, lens, **sc)
-    ref = tpa.ragged_paged_attention(q, kp, vp, tables, lens,
-                                     backend="reference", **sc)
+    out = tpa.ragged_paged_attention(*args, **sc)
+    ref = tpa.ragged_paged_attention(*args, backend="reference", **sc)
     torch.cuda.synchronize()
     assert tpa.PAGED_ATTENTION.launches == before + 1
     assert out.dtype == dtype
@@ -782,25 +805,77 @@ def test_row6_ragged_paged_attention(dev, dtype, tol, nh, g, quant):
 
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("nh, g, rope", [(12, 12, False), (12, 4, True)])
-def test_k3_fused_decode_layer_int8_pool(dev, dtype, tol, nh, g, rope):
-    q, kp, vp, tables, lens, sc = _paged_case(dtype, nh, g, True, seed=8)
-    b, dh = q.shape[0], q.shape[2]
-    gen = _gen(9)
-    w = torch.randn(nh * dh, 256, device=dev, generator=gen) * 0.03
-    cos = sin = None
-    if rope:
-        ang = torch.rand(b, dh // 2, device=dev, generator=gen) * 6
-        ang = torch.cat([ang, ang], -1)
-        cos, sin = ang.cos(), ang.sin()
+@pytest.mark.parametrize("nh, g, dh", PAGED_GEOMETRIES)
+@pytest.mark.parametrize("rope", [False, True])
+def test_k3_fused_decode_layer_int8_pool(dev, dtype, tol, nh, g, dh, rope):
+    args, sc, w, cos, sin = _decode_operands(dev, dtype, nh, g, dh, 8,
+                                             quant=True)
+    if not rope:
+        cos = sin = None
     before = tds.DECODE_LAYER.launches
-    out = tds.fused_decode_layer(q, kp, vp, tables, lens, w, rope_cos=cos,
-                                 rope_sin=sin, **sc)
-    ref = tds.fused_decode_layer(q, kp, vp, tables, lens, w, rope_cos=cos,
-                                 rope_sin=sin, backend="reference", **sc)
+    out = tds.fused_decode_layer(*args, w, rope_cos=cos, rope_sin=sin, **sc)
+    ref = tds.fused_decode_layer(*args, w, rope_cos=cos, rope_sin=sin,
+                                 backend="reference", **sc)
     torch.cuda.synchronize()
     assert tds.DECODE_LAYER.launches == before + 1
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.count_nonzero(out[-1]) == 0
+
+
+@pytest.mark.parametrize("kernel", ["row6", "k3"])
+@pytest.mark.parametrize("nh, g, dh, quant", [(12, 12, 64, False),
+                                              (12, 12, 64, True),
+                                              (12, 1, 64, False),
+                                              (32, 1, 128, True)])
+def test_paged_decode_repeats_bitwise_and_captures(dev, kernel, nh, g, dh,
+                                                   quant):
+    """Twenty calls give the same bits (the rank-order combine), and a call
+    captured in a CUDA graph replays with other lengths written into the
+    captured lengths tensor exactly as an eager call with those lengths:
+    the grid depends on the tables' reach, not on the lengths."""
+    from apex_tpu_torch.ops import paged_attention as tpa
+
+    args, sc, w, cos, sin = _decode_operands(dev, torch.bfloat16, nh, g, dh,
+                                             11, quant=quant)
+    q, kp, vp, tables, lens = args
+    reach = tables.shape[1] * kp.shape[1]
+
+    def call():
+        if kernel == "row6":
+            return tpa.ragged_paged_attention(q, kp, vp, tables, lens, **sc)
+        return tds.fused_decode_layer(q, kp, vp, tables, lens, w,
+                                      rope_cos=cos, rope_sin=sin, **sc)
+
+    first = call()
+    for _ in range(20):
+        assert torch.equal(call(), first)
+    counter = tpa.PAGED_ATTENTION if kernel == "row6" else tds.DECODE_LAYER
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = call()
+    before = counter.launches
+    for shift in (37, 101):
+        # other lengths, inside the reach the tables map (an empty lane
+        # stays empty: its table holds only sentinels)
+        new = (lens.long() * 0 + torch.arange(lens.numel(), device=dev)
+               * shift % reach)
+        new[-1] = 0
+        mapped = (tables < kp.shape[0]).sum(1) * kp.shape[1]
+        lens.copy_(torch.minimum(new, mapped).to(torch.int32))
+        graph.replay()
+        eager = call()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, eager)
+        ref = (tpa.ragged_paged_attention(q, kp, vp, tables, lens,
+                                          backend="reference", **sc)
+               if kernel == "row6" else
+               tds.fused_decode_layer(q, kp, vp, tables, lens, w,
+                                      rope_cos=cos, rope_sin=sin,
+                                      backend="reference", **sc))
+        torch.testing.assert_close(captured.float(), ref.float(), atol=2e-2,
+                                   rtol=2e-2)
+    assert counter.launches == before + 2          # the two eager calls
+    assert not torch.equal(captured, first)
 
 
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4),
