@@ -39,7 +39,7 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ kpm,
                      T* __restrict__ o, float* __restrict__ lse, int sq,
-                     int sk, int n, int g, float scale, int causal) {
+                     int sk, int n, int g, int dr, float scale, int causal) {
   constexpr int LD = D + 1;
   constexpr int LP = kBK + 1;
   constexpr int NA = D / 4;           // output dims per thread
@@ -64,8 +64,9 @@ __global__ void __launch_bounds__(kThreads)
     const int rr = i / D, dd = i % D;
     const int qs = q0 + rr;
     sQ[rr * LD + dd] =
-        qs < sq ? apex_to_float(q[(((size_t)b * sq + qs) * n + h) * D + dd])
-                : 0.0f;
+        qs < sq && dd < dr
+            ? apex_to_float(q[(((size_t)b * sq + qs) * n + h) * dr + dd])
+            : 0.0f;
   }
 
   __syncthreads();
@@ -86,8 +87,8 @@ __global__ void __launch_bounds__(kThreads)
       const int t = i / D, dd = i % D;
       const int ks = k0 + t;
       float kval = 0.0f, vval = 0.0f;
-      if (ks < sk) {
-        const size_t off = (((size_t)b * sk + ks) * g + kvh) * D + dd;
+      if (ks < sk && dd < dr) {
+        const size_t off = (((size_t)b * sk + ks) * g + kvh) * dr + dd;
         kval = apex_to_float(k[off]);
         vval = apex_to_float(v[off]);
       }
@@ -141,10 +142,11 @@ __global__ void __launch_bounds__(kThreads)
 
   if (row < sq) {
     const float safe_l = l == 0.0f ? 1.0f : l;
-    T* orow = o + (((size_t)b * sq + row) * n + h) * D;
+    T* orow = o + (((size_t)b * sq + row) * n + h) * dr;
 #pragma unroll
     for (int i = 0; i < NA; ++i)
-      orow[sub + 4 * i] = apex_from_float<T>(acc[i] / safe_l);
+      if (sub + 4 * i < dr)
+        orow[sub + 4 * i] = apex_from_float<T>(acc[i] / safe_l);
     if (sub == 0)
       lse[(size_t)bh * sq + row] =
           l == 0.0f ? APEX_NEG_INF : m + logf(safe_l);
@@ -196,7 +198,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                           const __grid_constant__ CUtensorMap tv,
                           const float* __restrict__ kpm, T* __restrict__ o,
                           float* __restrict__ lse, int nb, int sq, int sk,
-                          int n, int g, float scale, int causal) {
+                          int n, int g, int dr, float scale, int causal) {
   using C = Fwd<D>;
   constexpr int BQ = C::BQ, BK = C::BK, S = C::STAGES;
   constexpr bool kQRegs = sm90::kStationaryInRegs<D>;
@@ -448,8 +450,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
               l == 0.0f ? APEX_NEG_INF
                         : (m_i[i] + log2f(safe_l)) * sm90::kLn2;
       }
-      sm90::store_rows<T>(acc_o, inv, o + ((size_t)b * sq * n + h) * D,
-                          (size_t)n * D, row0, sq);
+      sm90::store_rows<T>(acc_o, inv, o + ((size_t)b * sq * n + h) * dr,
+                          (size_t)n * dr, row0, sq, dr);
     }
     if (wg == 0) sm90::turn_begin(wg);  // the last hand-over
   }
@@ -458,30 +460,30 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
 template <typename T, int D>
 int launch_sm90(const void* q, const void* k, const void* v, const void* kpm,
                 void* o, void* lse, int b, int sq, int sk, int n, int g,
-                float scale, int causal, cudaStream_t stream) {
+                int dr, float scale, int causal, cudaStream_t stream) {
   using C = Fwd<D>;
   CUtensorMap tq, tk, tv;
-  int err = sm90::encode_bsnd<T>(&tq, q, b, sq, n, D, C::BQ);
-  if (err == 0) err = sm90::encode_bsnd<T>(&tk, k, b, sk, g, D, C::BK);
-  if (err == 0) err = sm90::encode_bsnd<T>(&tv, v, b, sk, g, D, C::BK);
+  int err = sm90::encode_bsnd<T>(&tq, q, b, sq, n, dr, C::BQ);
+  if (err == 0) err = sm90::encode_bsnd<T>(&tk, k, b, sk, g, dr, C::BK);
+  if (err == 0) err = sm90::encode_bsnd<T>(&tv, v, b, sk, g, dr, C::BK);
   if (err == 0) err = sm90::set_smem(flash_fwd_sm90_kernel<T, D>, C::bytes);
   int grid = 0;
   if (err == 0) err = sm90::persistent_grid((sq + C::BQ - 1) / C::BQ * b * n,
                                             &grid);
   if (err != 0) return err;
   flash_fwd_sm90_kernel<T, D><<<grid, sm90::kThreads, C::bytes, stream>>>(
-      tq, tk, tv, (const float*)kpm, (T*)o, (float*)lse, b, sq, sk, n, g,
+      tq, tk, tv, (const float*)kpm, (T*)o, (float*)lse, b, sq, sk, n, g, dr,
       scale, causal);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kpm,
-           void* o, void* lse, int b, int sq, int sk, int n, int g,
+           void* o, void* lse, int b, int sq, int sk, int n, int g, int dr,
            float scale, int causal, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    return launch_sm90<T, D>(q, k, v, kpm, o, lse, b, sq, sk, n, g, scale,
-                             causal, stream);
+    return launch_sm90<T, D>(q, k, v, kpm, o, lse, b, sq, sk, n, g, dr,
+                             scale, causal, stream);
   } else {
     const dim3 grid((sq + kBQ - 1) / kBQ, b * n);
     const int bytes = smem_floats<D>() * (int)sizeof(float);
@@ -491,7 +493,7 @@ int launch(const void* q, const void* k, const void* v, const void* kpm,
     if (err != cudaSuccess) return (int)err;
     flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)kpm, (T*)o,
-        (float*)lse, sq, sk, n, g, scale, causal);
+        (float*)lse, sq, sk, n, g, dr, scale, causal);
     return (int)cudaGetLastError();
   }
 }
@@ -499,7 +501,10 @@ int launch(const void* q, const void* k, const void* v, const void* kpm,
 }  // namespace
 
 // q [b, sq, n, d], k/v [b, sk, g, d], o like q (dtype), kpm [b, sk] fp32
-// additive or NULL, lse [b·n, sq] fp32.  d in {32, 64, 128}.
+// additive or NULL, lse [b·n, sq] fp32.  d a multiple of 8 up to 128: the
+// kernels of the next of 32, 64 and 128 (sm90::head_panel) run on tiles
+// whose columns past d are zeros (TMA's fill, or guarded loads in fp32)
+// and store only the first d columns.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               const void* kpm, void* o, void* lse, int b,
                               int sq, int sk, int n, int g, int d,
@@ -508,16 +513,16 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
   if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0)
     return (int)cudaErrorInvalidValue;
   APEX_DISPATCH_FLOAT(dtype, T, {
-    switch (d) {
+    switch (sm90::head_panel(d)) {
       case 32:
-        return launch<T, 32>(q, k, v, kpm, o, lse, b, sq, sk, n, g, scale,
+        return launch<T, 32>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d, scale,
                              causal, stream);
       case 64:
-        return launch<T, 64>(q, k, v, kpm, o, lse, b, sq, sk, n, g, scale,
+        return launch<T, 64>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d, scale,
                              causal, stream);
       case 128:
-        return launch<T, 128>(q, k, v, kpm, o, lse, b, sq, sk, n, g, scale,
-                              causal, stream);
+        return launch<T, 128>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d,
+                              scale, causal, stream);
       default:
         return (int)cudaErrorInvalidValue;
     }
@@ -529,7 +534,7 @@ namespace {
 
 template <typename T>
 int fwd_attrs(int d, int* out) {
-  switch (d) {
+  switch (sm90::head_panel(d)) {
     case 32:
       return sm90::kernel_attrs(flash_fwd_sm90_kernel<T, 32>, Fwd<32>::bytes,
                                 sm90::kThreads, out);

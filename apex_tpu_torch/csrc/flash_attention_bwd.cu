@@ -55,7 +55,7 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         const float* __restrict__ kpm, T* __restrict__ dq,
-                        int sq, int sk, int n, int g, float scale,
+                        int sq, int sk, int n, int g, int dr, float scale,
                         int causal) {
   using L = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -73,11 +73,11 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bh / n, h = bh % n;
   const int kvh = h / (n / g);
   const int q0 = blockIdx.x * kB;
-  const int qstride = n * D, kstride = g * D;
+  const int qstride = n * dr, kstride = g * dr;
 
-  const size_t qbase = (((size_t)b * sq + q0) * n + h) * D;
-  load_tile<T, D>(sQ, q + qbase, q0, sq, qstride);
-  load_tile<T, D>(sdO, dout + qbase, q0, sq, qstride);
+  const size_t qbase = (((size_t)b * sq + q0) * n + h) * dr;
+  load_tile<T, D>(sQ, q + qbase, q0, sq, qstride, dr);
+  load_tile<T, D>(sdO, dout + qbase, q0, sq, qstride, dr);
   load_row_stats(sL, sDl, lse, delta, bh, q0, sq);
 
   Acc<T> acc[D / 16];
@@ -87,9 +87,9 @@ __global__ void __launch_bounds__(kThreads)
   const int kv_end = causal ? min(sk, q0 + kB) : sk;
   for (int k0 = 0; k0 < kv_end; k0 += kB) {
     __syncthreads();  // the previous tile's readers of sK/sV are done
-    const size_t kbase = (((size_t)b * sk + k0) * g + kvh) * D;
-    load_tile<T, D>(sK, k + kbase, k0, sk, kstride);
-    load_tile<T, D>(sV, v + kbase, k0, sk, kstride);
+    const size_t kbase = (((size_t)b * sk + k0) * g + kvh) * dr;
+    load_tile<T, D>(sK, k + kbase, k0, sk, kstride, dr);
+    load_tile<T, D>(sV, v + kbase, k0, sk, kstride, dr);
     __syncthreads();
     probs_and_ds<T, D>(smem, kpm, b, sk, q0, k0, scale, causal);
     // dq[16 x D] += ds[16 x 64] k[64 x D]
@@ -102,11 +102,11 @@ __global__ void __launch_bounds__(kThreads)
   }
 
   float* stage = sS + warp * 16 * L::LDS;
-  T* out = dq + (((size_t)b * sq) * n + h) * D;
+  T* out = dq + (((size_t)b * sq) * n + h) * dr;
 #pragma unroll
   for (int nb = 0; nb < D / 16; ++nb)
     store_acc<T>(acc[nb], stage, L::LDS, out, q0 + warp * 16, sq,
-                 (size_t)qstride, nb * 16);
+                 (size_t)qstride, nb * 16, dr);
 }
 
 // K7: dk and dv for one (64-key tile, batch*kv-group), summed over the
@@ -119,7 +119,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ delta,
                          const float* __restrict__ kpm, T* __restrict__ dk,
                          T* __restrict__ dv, int sq, int sk, int n, int g,
-                         float scale, int causal) {
+                         int dr, float scale, int causal) {
   using L = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + L::q_off);
@@ -137,11 +137,11 @@ __global__ void __launch_bounds__(kThreads)
   const int b = bg / g, kvh = bg % g;
   const int rep = n / g;
   const int k0 = blockIdx.x * kB;
-  const int qstride = n * D, kstride = g * D;
+  const int qstride = n * dr, kstride = g * dr;
 
-  const size_t kbase = (((size_t)b * sk + k0) * g + kvh) * D;
-  load_tile<T, D>(sK, k + kbase, k0, sk, kstride);
-  load_tile<T, D>(sV, v + kbase, k0, sk, kstride);
+  const size_t kbase = (((size_t)b * sk + k0) * g + kvh) * dr;
+  load_tile<T, D>(sK, k + kbase, k0, sk, kstride, dr);
+  load_tile<T, D>(sV, v + kbase, k0, sk, kstride, dr);
 
   Acc<T> dk_acc[D / 16], dv_acc[D / 16];
 #pragma unroll
@@ -157,9 +157,9 @@ __global__ void __launch_bounds__(kThreads)
     const int bh = b * n + h;
     for (int q0 = q_begin; q0 < sq; q0 += kB) {
       __syncthreads();  // the previous tile's readers are done
-      const size_t qbase = (((size_t)b * sq + q0) * n + h) * D;
-      load_tile<T, D>(sQ, q + qbase, q0, sq, qstride);
-      load_tile<T, D>(sdO, dout + qbase, q0, sq, qstride);
+      const size_t qbase = (((size_t)b * sq + q0) * n + h) * dr;
+      load_tile<T, D>(sQ, q + qbase, q0, sq, qstride, dr);
+      load_tile<T, D>(sdO, dout + qbase, q0, sq, qstride, dr);
       load_row_stats(sL, sDl, lse, delta, bh, q0, sq);
       __syncthreads();
       probs_and_ds<T, D>(smem, kpm, b, sk, q0, k0, scale, causal);
@@ -181,13 +181,13 @@ __global__ void __launch_bounds__(kThreads)
 
   __syncthreads();  // every warp is done with sS before it becomes staging
   float* stage = sS + warp * 16 * L::LDS;
-  const size_t off = (((size_t)b * sk) * g + kvh) * D;
+  const size_t off = (((size_t)b * sk) * g + kvh) * dr;
 #pragma unroll
   for (int nb = 0; nb < D / 16; ++nb) {
     store_acc<T>(dk_acc[nb], stage, L::LDS, dk + off, k0 + warp * 16, sk,
-                 (size_t)kstride, nb * 16);
+                 (size_t)kstride, nb * 16, dr);
     store_acc<T>(dv_acc[nb], stage, L::LDS, dv + off, k0 + warp * 16, sk,
-                 (size_t)kstride, nb * 16);
+                 (size_t)kstride, nb * 16, dr);
   }
 }
 
@@ -240,7 +240,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                              const float* __restrict__ delta,
                              const float* __restrict__ kpm,
                              T* __restrict__ dq, int nb, int sq, int sk,
-                             int n, int g, float scale, int causal) {
+                             int n, int g, int dr, float scale, int causal) {
   using C = BwdDq<D>;
   constexpr int BQ = C::BQ, BK = C::BK, S = C::STAGES;
   constexpr bool kRegs = sm90::kStationaryInRegs<D>;
@@ -458,8 +458,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       }
       ring += ntiles;
       const float one[2] = {1.0f, 1.0f};
-      sm90::store_rows<T>(acc_dq, one, dq + ((size_t)b * sq * n + h) * D,
-                          (size_t)n * D, row0, sq);
+      sm90::store_rows<T>(acc_dq, one, dq + ((size_t)b * sq * n + h) * dr,
+                          (size_t)n * dr, row0, sq, dr);
     }
     if (wg == 0) sm90::turn_begin(wg);  // the last hand-over
   }
@@ -517,8 +517,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                               const float* __restrict__ delta,
                               const float* __restrict__ kpm,
                               T* __restrict__ dk, T* __restrict__ dv, int nb,
-                              int sq, int sk, int n, int g, float scale,
-                              int causal) {
+                              int sq, int sk, int n, int g, int dr,
+                              float scale, int causal) {
   using C = BwdDkv<D>;
   constexpr int BQ = C::BQ, BK = C::BK, S = C::STAGES;
   constexpr bool kRegs = sm90::kStationaryInRegs<D>;
@@ -751,9 +751,11 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       }
       ring += ntiles;
       const float one[2] = {1.0f, 1.0f};
-      const size_t off = ((size_t)b * sk * g + kvh) * D;
-      sm90::store_rows<T>(acc_dk, one, dk + off, (size_t)g * D, key0, sk);
-      sm90::store_rows<T>(acc_dv, one, dv + off, (size_t)g * D, key0, sk);
+      const size_t off = ((size_t)b * sk * g + kvh) * dr;
+      sm90::store_rows<T>(acc_dk, one, dk + off, (size_t)g * dr, key0, sk,
+                          dr);
+      sm90::store_rows<T>(acc_dv, one, dv + off, (size_t)g * dr, key0, sk,
+                          dr);
     }
     if (wg == 0) sm90::turn_begin(wg);  // the last hand-over
   }
@@ -762,25 +764,25 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
 template <typename T, int D>
 int bwd_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
              CUtensorMap* tdo, const void* q, const void* k, const void* v,
-             const void* dout, int b, int sq, int sk, int n, int g, int qrows,
-             int krows) {
-  int err = sm90::encode_bsnd<T>(tq, q, b, sq, n, D, qrows);
-  if (err == 0) err = sm90::encode_bsnd<T>(tdo, dout, b, sq, n, D, qrows);
-  if (err == 0) err = sm90::encode_bsnd<T>(tk, k, b, sk, g, D, krows);
-  if (err == 0) err = sm90::encode_bsnd<T>(tv, v, b, sk, g, D, krows);
+             const void* dout, int b, int sq, int sk, int n, int g, int dr,
+             int qrows, int krows) {
+  int err = sm90::encode_bsnd<T>(tq, q, b, sq, n, dr, qrows);
+  if (err == 0) err = sm90::encode_bsnd<T>(tdo, dout, b, sq, n, dr, qrows);
+  if (err == 0) err = sm90::encode_bsnd<T>(tk, k, b, sk, g, dr, krows);
+  if (err == 0) err = sm90::encode_bsnd<T>(tv, v, b, sk, g, dr, krows);
   return err;
 }
 
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* kpm, void* dq,
-              int b, int sq, int sk, int n, int g, float scale, int causal,
-              cudaStream_t stream) {
+              int b, int sq, int sk, int n, int g, int dr, float scale,
+              int causal, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     using C = BwdDq<D>;
     CUtensorMap tq, tk, tv, tdo;
     int err = bwd_maps<T, D>(&tq, &tk, &tv, &tdo, q, k, v, dout, b, sq, sk,
-                             n, g, C::BQ, C::BK);
+                             n, g, dr, C::BQ, C::BK);
     if (err == 0)
       err = sm90::set_smem(flash_bwd_dq_sm90_kernel<T, D>, C::bytes);
     int grid = 0;
@@ -790,7 +792,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     flash_bwd_dq_sm90_kernel<T, D><<<grid, sm90::kThreads, C::bytes,
                                      stream>>>(
         tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-        (const float*)kpm, (T*)dq, b, sq, sk, n, g, scale, causal);
+        (const float*)kpm, (T*)dq, b, sq, sk, n, g, dr, scale, causal);
   } else {
     const int bytes = Smem<T, D>::bytes;
     int err = prepare(flash_bwd_dq_kernel<T, D>, bytes);
@@ -799,7 +801,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
         (const float*)lse, (const float*)delta, (const float*)kpm, (T*)dq,
-        sq, sk, n, g, scale, causal);
+        sq, sk, n, g, dr, scale, causal);
   }
   return (int)cudaGetLastError();
 }
@@ -807,13 +809,13 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
 template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const void* kpm, void* dk,
-               void* dv, int b, int sq, int sk, int n, int g, float scale,
-               int causal, cudaStream_t stream) {
+               void* dv, int b, int sq, int sk, int n, int g, int dr,
+               float scale, int causal, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
     using C = BwdDkv<D>;
     CUtensorMap tq, tk, tv, tdo;
     int err = bwd_maps<T, D>(&tq, &tk, &tv, &tdo, q, k, v, dout, b, sq, sk,
-                             n, g, C::BQ, C::BK);
+                             n, g, dr, C::BQ, C::BK);
     if (err == 0)
       err = sm90::set_smem(flash_bwd_dkv_sm90_kernel<T, D>, C::bytes);
     int grid = 0;
@@ -823,7 +825,8 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     flash_bwd_dkv_sm90_kernel<T, D><<<grid, sm90::kThreads, C::bytes,
                                       stream>>>(
         tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-        (const float*)kpm, (T*)dk, (T*)dv, b, sq, sk, n, g, scale, causal);
+        (const float*)kpm, (T*)dk, (T*)dv, b, sq, sk, n, g, dr, scale,
+        causal);
   } else {
     const int bytes = Smem<T, D>::bytes;
     int err = prepare(flash_bwd_dkv_kernel<T, D>, bytes);
@@ -832,7 +835,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
         (const float*)lse, (const float*)delta, (const float*)kpm, (T*)dk,
-        (T*)dv, sq, sk, n, g, scale, causal);
+        (T*)dv, sq, sk, n, g, dr, scale, causal);
   }
   return (int)cudaGetLastError();
 }
@@ -840,7 +843,9 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q, do [b, sq, n, d] and k, v [b, sk, g, d] of dtype; lse, delta
-// [b*n, sq] fp32; kpm [b, sk] fp32 additive or NULL; dq like q.
+// [b*n, sq] fp32; kpm [b, sk] fp32 additive or NULL; dq like q.  d a
+// multiple of 8 up to 128, on the tiles of the next of 32, 64 and 128
+// (APEX_DISPATCH_HEAD_DIM), their columns past d zeros and not stored.
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, const void* kpm, void* dq,
@@ -851,7 +856,7 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
     return (int)cudaErrorInvalidValue;
   APEX_DISPATCH_FLOAT(dtype, T, {
     APEX_DISPATCH_HEAD_DIM(d, D, (launch_dq<T, D>(q, k, v, dout, lse, delta,
-                                                  kpm, dq, b, sq, sk, n, g,
+                                                  kpm, dq, b, sq, sk, n, g, d,
                                                   scale, causal, stream)));
   });
   return (int)cudaErrorInvalidValue;
@@ -870,7 +875,7 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
   APEX_DISPATCH_FLOAT(dtype, T, {
     APEX_DISPATCH_HEAD_DIM(d, D, (launch_dkv<T, D>(q, k, v, dout, lse, delta,
                                                    kpm, dk, dv, b, sq, sk, n,
-                                                   g, scale, causal,
+                                                   g, d, scale, causal,
                                                    stream)));
   });
   return (int)cudaErrorInvalidValue;

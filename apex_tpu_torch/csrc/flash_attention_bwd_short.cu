@@ -89,7 +89,7 @@ __global__ void __launch_bounds__(kThreads)
                            const float* __restrict__ kpm,
                            float* __restrict__ dq_part, T* __restrict__ dk,
                            T* __restrict__ dv, int b_total, int sq, int sk,
-                           int n, int g, float scale, int causal) {
+                           int n, int g, int dr, float scale, int causal) {
   using L = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + L::q_off);
@@ -108,12 +108,12 @@ __global__ void __launch_bounds__(kThreads)
   const int rep = n / g;
   const int kt = blockIdx.x;
   const int k0 = kt * kB;
-  const int qstride = n * D, kstride = g * D;
+  const int qstride = n * dr, kstride = g * dr;
   const int sqp = (sq + kB - 1) / kB * kB;
 
-  const size_t kbase = (((size_t)b * sk + k0) * g + kvh) * D;
-  load_tile<T, D>(sK, k + kbase, k0, sk, kstride);
-  load_tile<T, D>(sV, v + kbase, k0, sk, kstride);
+  const size_t kbase = (((size_t)b * sk + k0) * g + kvh) * dr;
+  load_tile<T, D>(sK, k + kbase, k0, sk, kstride, dr);
+  load_tile<T, D>(sV, v + kbase, k0, sk, kstride, dr);
 
   Acc<T> dk_acc[D / 16], dv_acc[D / 16];
 #pragma unroll
@@ -129,9 +129,9 @@ __global__ void __launch_bounds__(kThreads)
     const int bh = b * n + h;
     for (int q0 = q_begin; q0 < sq; q0 += kB) {
       __syncthreads();  // the previous tile's readers are done
-      const size_t qbase = (((size_t)b * sq + q0) * n + h) * D;
-      load_tile<T, D>(sQ, q + qbase, q0, sq, qstride);
-      load_tile<T, D>(sdO, dout + qbase, q0, sq, qstride);
+      const size_t qbase = (((size_t)b * sq + q0) * n + h) * dr;
+      load_tile<T, D>(sQ, q + qbase, q0, sq, qstride, dr);
+      load_tile<T, D>(sdO, dout + qbase, q0, sq, qstride, dr);
       load_row_stats(sL, sDl, lse, delta, bh, q0, sq);
       __syncthreads();
       probs_and_ds<T, D>(smem, kpm, b, sk, q0, k0, scale, causal);
@@ -167,24 +167,25 @@ __global__ void __launch_bounds__(kThreads)
 
   __syncthreads();  // every warp is done with sS before it becomes staging
   float* stage = sS + warp * 16 * L::LDS;
-  const size_t off = (((size_t)b * sk) * g + kvh) * D;
+  const size_t off = (((size_t)b * sk) * g + kvh) * dr;
 #pragma unroll
   for (int nb = 0; nb < D / 16; ++nb) {
     store_acc<T>(dk_acc[nb], stage, L::LDS, dk + off, k0 + warp * 16, sk,
-                 (size_t)kstride, nb * 16);
+                 (size_t)kstride, nb * 16, dr);
     store_acc<T>(dv_acc[nb], stage, L::LDS, dv + off, k0 + warp * 16, sk,
-                 (size_t)kstride, nb * 16);
+                 (size_t)kstride, nb * 16, dr);
   }
 }
 
 // dq[b, row, h, :] = sum over the key tiles that visited the row's query
 // tile (all of them, or those up to the diagonal when causal) of the
-// partials, in key-tile order; four columns per thread.
+// partials (D columns a row), in key-tile order; four columns per thread,
+// the first dr stored.
 template <typename T, int D>
 __global__ void __launch_bounds__(256)
     flash_bwd_short_dq_sum(const float* __restrict__ dq_part,
                            T* __restrict__ dq, int b_total, int sq, int sk,
-                           int n, int causal) {
+                           int n, int dr, int causal) {
   const int sqp = (sq + kB - 1) / kB * kB;
   const long long total = (long long)b_total * n * sq * (D / 4);
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -205,8 +206,9 @@ __global__ void __launch_bounds__(256)
     acc.z += p.z;
     acc.w += p.w;
   }
+  if (c >= dr) return;
   const int b = bh / n, h = bh % n;
-  T* out = dq + (((size_t)b * sq + row) * n + h) * D + c;
+  T* out = dq + (((size_t)b * sq + row) * n + h) * dr + c;
   out[0] = apex_from_float<T>(acc.x);
   out[1] = apex_from_float<T>(acc.y);
   out[2] = apex_from_float<T>(acc.z);
@@ -217,8 +219,8 @@ template <int D>
 int launch_fp32(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 const void* kpm, void* dq_part, void* dq, void* dk, void* dv,
-                int b, int sq, int sk, int n, int g, float scale, int causal,
-                cudaStream_t stream) {
+                int b, int sq, int sk, int n, int g, int dr, float scale,
+                int causal, cudaStream_t stream) {
   if (dq_part == nullptr) return (int)cudaErrorInvalidValue;
   const int bytes = Smem<float, D>::bytes;
   int err = prepare(flash_bwd_short_kernel<float, D>, bytes);
@@ -227,14 +229,14 @@ int launch_fp32(const void* q, const void* k, const void* v,
   flash_bwd_short_kernel<float, D><<<grid, kThreads, bytes, stream>>>(
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       (const float*)lse, (const float*)delta, (const float*)kpm,
-      (float*)dq_part, (float*)dk, (float*)dv, b, sq, sk, n, g, scale,
+      (float*)dq_part, (float*)dk, (float*)dv, b, sq, sk, n, g, dr, scale,
       causal);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const long long total = (long long)b * n * sq * (D / 4);
   flash_bwd_short_dq_sum<float, D><<<(unsigned)((total + 255) / 256), 256,
                                      0, stream>>>(
-      (const float*)dq_part, (float*)dq, b, sq, sk, n, causal);
+      (const float*)dq_part, (float*)dq, b, sq, sk, n, dr, causal);
   return (int)cudaGetLastError();
 }
 
@@ -306,7 +308,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                                 const float* __restrict__ kpm,
                                 T* __restrict__ dq, T* __restrict__ dk,
                                 T* __restrict__ dv, int sq, int sk, int n,
-                                int g, float scale, int causal) {
+                                int g, int dr, float scale, int causal) {
   using C = Short<D>;
   constexpr int BQ = C::BQ, BK = C::BK, S = C::STAGES;
   namespace cg = cooperative_groups;
@@ -431,11 +433,11 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
             }
           }
           const int q = qt * BQ + row;
-          if (q < sq) {
+          if (q < sq && col < dr) {
             const uint2 packed = make_uint2(sm90::pack2<T>(sum.x, sum.y),
                                             sm90::pack2<T>(sum.z, sum.w));
             *reinterpret_cast<uint2*>(
-                dq + (((size_t)b * sq + q) * n + h) * D + col) = packed;
+                dq + (((size_t)b * sq + q) * n + h) * dr + col) = packed;
           }
         }
         // every read has returned its value (the sums are stored): lane
@@ -703,9 +705,9 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     }
     if (wg == 0) sm90::turn_begin(wg);  // the last hand-over
     const float one[2] = {1.0f, 1.0f};
-    const size_t off = ((size_t)b * sk * g + kvh) * D;
-    sm90::store_rows<T>(acc_dk, one, dk + off, (size_t)g * D, key0, sk);
-    sm90::store_rows<T>(acc_dv, one, dv + off, (size_t)g * D, key0, sk);
+    const size_t off = ((size_t)b * sk * g + kvh) * dr;
+    sm90::store_rows<T>(acc_dk, one, dk + off, (size_t)g * dr, key0, sk, dr);
+    sm90::store_rows<T>(acc_dv, one, dv + off, (size_t)g * dr, key0, sk, dr);
   }
   // no CTA leaves while a peer may still read its partials or arrive on
   // its barriers
@@ -716,16 +718,16 @@ template <typename T, int D>
 int launch_sm90(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, const void* kpm, void* dq,
                 void* dk, void* dv, int b, int sq, int sk, int n, int g,
-                float scale, int causal, cudaStream_t stream) {
+                int dr, float scale, int causal, cudaStream_t stream) {
   using C = Short<D>;
   const int ranks = (sk + 2 * C::BK - 1) / (2 * C::BK);
   if (ranks > kMaxRanks || (long long)b * g > 65535)
     return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv, tdo;
-  int err = sm90::encode_bsnd<T>(&tq, q, b, sq, n, D, C::BQ);
-  if (err == 0) err = sm90::encode_bsnd<T>(&tdo, dout, b, sq, n, D, C::BQ);
-  if (err == 0) err = sm90::encode_bsnd<T>(&tk, k, b, sk, g, D, C::BK);
-  if (err == 0) err = sm90::encode_bsnd<T>(&tv, v, b, sk, g, D, C::BK);
+  int err = sm90::encode_bsnd<T>(&tq, q, b, sq, n, dr, C::BQ);
+  if (err == 0) err = sm90::encode_bsnd<T>(&tdo, dout, b, sq, n, dr, C::BQ);
+  if (err == 0) err = sm90::encode_bsnd<T>(&tk, k, b, sk, g, dr, C::BK);
+  if (err == 0) err = sm90::encode_bsnd<T>(&tv, v, b, sk, g, dr, C::BK);
   if (err == 0)
     err = sm90::set_smem(flash_bwd_short_sm90_kernel<T, D>, C::bytes);
   if (err != 0) return err;
@@ -748,7 +750,7 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* dout,
   T* dkp = (T*)dk;
   T* dvp = (T*)dv;
   void* args[] = {&tq, &tk, &tv, &tdo, &lp, &dp, &kp, &dqp, &dkp, &dvp,
-                  &sq, &sk, &n, &g, &scale, &causal};
+                  &sq, &sk, &n, &g, &dr, &scale, &causal};
   err = (int)cudaLaunchKernelExC(
       &cfg, (const void*)flash_bwd_short_sm90_kernel<T, D>, args);
   if (err != 0) return err;
@@ -759,14 +761,14 @@ template <typename T, int D>
 int launch_short(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  const void* kpm, void* dq_part, void* dq, void* dk,
-                 void* dv, int b, int sq, int sk, int n, int g, float scale,
-                 int causal, cudaStream_t stream) {
+                 void* dv, int b, int sq, int sk, int n, int g, int dr,
+                 float scale, int causal, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2)
     return launch_sm90<T, D>(q, k, v, dout, lse, delta, kpm, dq, dk, dv, b,
-                             sq, sk, n, g, scale, causal, stream);
+                             sq, sk, n, g, dr, scale, causal, stream);
   else
     return launch_fp32<D>(q, k, v, dout, lse, delta, kpm, dq_part, dq, dk,
-                          dv, b, sq, sk, n, g, scale, causal, stream);
+                          dv, b, sq, sk, n, g, dr, scale, causal, stream);
 }
 
 template <typename T, int D>
@@ -813,7 +815,8 @@ int short_clusters(int d, int ranks, int* out) {
 // like k (summed over each group's heads).  bf16 and fp16 take the
 // cluster kernel (sk <= 1024, b * g <= 65535; dq_part unused, may be
 // NULL); fp32 takes dq_part, fp32 scratch of [ceil(sk/64), b*n,
-// ceil(sq/64)*64, d].
+// ceil(sq/64)*64, D] with D = sm90::head_panel(d) (d a multiple of 8 up
+// to 128).
 extern "C" int apex_flash_bwd_short(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
@@ -827,7 +830,7 @@ extern "C" int apex_flash_bwd_short(const void* q, const void* k,
   APEX_DISPATCH_FLOAT(dtype, T, {
     APEX_DISPATCH_HEAD_DIM(d, D, (launch_short<T, D>(
                                      q, k, v, dout, lse, delta, kpm, dq_part,
-                                     dq, dk, dv, b, sq, sk, n, g, scale,
+                                     dq, dk, dv, b, sq, sk, n, g, d, scale,
                                      causal, stream)));
   });
   return (int)cudaErrorInvalidValue;

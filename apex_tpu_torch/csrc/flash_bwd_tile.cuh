@@ -13,6 +13,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "sm90_tile.cuh"
 
 namespace {
 
@@ -98,16 +99,17 @@ struct Smem {
 };
 
 // kB rows x D of T from src (row r at src + r * stride) into dst with
-// leading dimension D + 8, 16 bytes per access; rows at or past nrows are 0.
+// leading dimension D + 8, 16 bytes per access; rows at or past nrows and
+// columns at or past dr (a multiple of 8) are 0.
 template <typename T, int D>
 __device__ __forceinline__ void load_tile(T* dst, const T* src, int row0,
-                                          int nrows, int stride) {
+                                          int nrows, int stride, int dr) {
   constexpr int kVec = 16 / (int)sizeof(T);
   constexpr int LDT = D + 8;
   for (int i = threadIdx.x; i < kB * (D / kVec); i += kThreads) {
     const int r = i / (D / kVec), c = (i % (D / kVec)) * kVec;
     uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < nrows)
+    if (row0 + r < nrows && c < dr)
       val = *reinterpret_cast<const uint4*>(src + (size_t)r * stride + c);
     *reinterpret_cast<uint4*>(dst + r * LDT + c) = val;
   }
@@ -187,18 +189,20 @@ __device__ __forceinline__ void probs_and_ds(
 
 // Writes one 16x16 fp32 accumulator of this warp to rows row0.. of out
 // (row r at out + r * stride, columns col0..col0+15), staged through the
-// warp's 16 x LDS slice of stage; rows at or past nrows are skipped.
+// warp's 16 x LDS slice of stage; rows at or past nrows and columns at or
+// past ncols are skipped.
 template <typename T>
 __device__ __forceinline__ void store_acc(Acc<T>& acc, float* stage, int lds,
                                           T* out, int row0, int nrows,
-                                          size_t stride, int col0) {
+                                          size_t stride, int col0,
+                                          int ncols) {
   const int lane = threadIdx.x & 31;
   __syncwarp();
   acc.store(stage, lds);
   __syncwarp();
   for (int e = lane; e < 256; e += 32) {
     const int r = e >> 4, c = e & 15;
-    if (row0 + r < nrows)
+    if (row0 + r < nrows && col0 + c < ncols)
       out[(size_t)(row0 + r) * stride + col0 + c] =
           apex_from_float<T>(stage[r * lds + c]);
   }
@@ -210,8 +214,10 @@ int prepare(Kern kern, int bytes) {
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// Runs the statements with D bound to the tile width of head size d
+// (sm90::head_panel: 32, 64 or 128 for a multiple of 8 up to 128).
 #define APEX_DISPATCH_HEAD_DIM(d, D, ...)  \
-  switch (d) {                             \
+  switch (sm90::head_panel(d)) {           \
     case 32: {                             \
       constexpr int D = 32;                \
       return __VA_ARGS__;                  \

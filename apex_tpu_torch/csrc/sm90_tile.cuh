@@ -74,16 +74,27 @@ inline int bind_context() {
   return (int)err;
 }
 
+// The attention kernels' tile width for a head size d: the smallest of
+// 32, 64 and 128 that holds it; 0 unless d is a multiple of 8 (TMA needs
+// 16-byte row strides) in 8 ..= 128.
+inline int head_panel(int d) {
+  if (d <= 0 || d > 128 || d % 8 != 0) return 0;
+  return d <= 32 ? 32 : d <= 64 ? 64 : 128;
+}
+
 // The map of a [batch, seq, heads, d] tensor of T (16-bit) as the 4-D
-// (d, heads, seq, batch), box (W, 1, rows, 1) with W = min(d, 64) and the
-// W * 2-byte swizzle.  Rows past seq read as zeros.  Returns 0 or an error.
+// (d, heads, seq, batch), box (W, 1, rows, 1) with W = min(D, 64) and the
+// W * 2-byte swizzle, D = head_panel(d).  Rows past seq, and columns past
+// d of a box (d < D), read as zeros.  Returns 0 or an error.
 template <typename T>
 int encode_bsnd(CUtensorMap* map, const void* base, int batch, int seq,
                 int heads, int d, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kTensorMapError;
   if (int err = bind_context()) return err;
-  const int w = d < 64 ? d : 64;
+  const int D = head_panel(d);
+  if (D == 0) return (int)cudaErrorInvalidValue;
+  const int w = D < 64 ? D : 64;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
   const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
@@ -962,12 +973,12 @@ __device__ __forceinline__ float quad_max(float v) {
 
 // Rows row0, row0 + 8 of an m64nD accumulator (this thread's two rows),
 // scaled by mul[i], rounded to T and stored to out + row * stride if the
-// row is below nrows.
+// row is below nrows; columns from ncols (even) on are not stored.
 template <typename T, int R>
 __device__ __forceinline__ void store_rows(const float (&acc)[R],
                                            const float (&mul)[2], T* out,
                                            size_t stride, int row0,
-                                           int nrows) {
+                                           int nrows, int ncols) {
   const int lane = threadIdx.x & 31;
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -976,8 +987,9 @@ __device__ __forceinline__ void store_rows(const float (&acc)[R],
     T* dst = out + (size_t)row * stride;
 #pragma unroll
     for (int r = 2 * i; r < R; r += 4) {
-      *reinterpret_cast<uint32_t*>(dst + frag_col(r, lane)) =
-          pack2<T>(acc[r] * mul[i], acc[r + 1] * mul[i]);
+      if (frag_col(r, lane) < ncols)
+        *reinterpret_cast<uint32_t*>(dst + frag_col(r, lane)) =
+            pack2<T>(acc[r] * mul[i], acc[r + 1] * mul[i]);
     }
   }
 }

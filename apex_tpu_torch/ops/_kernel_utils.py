@@ -37,6 +37,7 @@ Needs the CUDA toolkit; no card.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import re
@@ -53,7 +54,7 @@ __all__ = ["Kernel", "KERNELS", "register", "build_all", "library",
            "lib_path", "ptxas_report", "sass_counts", "demangle",
            "reset_launch_counts", "launch_counts", "ptr", "stream_ptr",
            "dtype_code", "check_cuda_operands", "check_aligned", "aligned",
-           "tma_strides_ok", "ATTR_KEYS", "hopper_attrs", "CSRC",
+           "tma_strides_ok", "ATTR_KEYS", "hopper_attrs", "sm_count", "CSRC",
            "BUILD_DIR"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -211,6 +212,12 @@ def hopper_attrs(source: str, symbol: str, *args: int) -> dict:
     if err != 0:
         raise RuntimeError(f"{symbol}{args}: cudaError {err}")
     return dict(zip(ATTR_KEYS, vals))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device (the launch planners' card size)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def ptr(t: Optional[torch.Tensor]) -> ctypes.c_void_p:

@@ -22,6 +22,13 @@ For CPU tensors, and under ``backend="reference"``, the forward is
 :func:`flash_attention_bwd_ref` (``p = exp(s − lse)``,
 ``ds = p·(dp − delta)·scale``).
 
+Head sizes: the kernels run on tiles 32, 64 or 128 columns wide
+(:func:`head_panel`); a head size that is a multiple of 8 up to 128 is
+read with its real row stride, the tile's columns past it zero-filled
+(by TMA for 16 bits, by guarded loads for fp32), and only its own columns
+are stored; any other size up to 128 runs on a copy zero-padded to the
+next multiple of 8.  Above 128 the wrappers raise (:func:`check_head_dim`).
+
 Not on the kernels: segment ids and attention dropout (they raise).  A
 call with a generic ``mask=`` or ``bias=`` runs :func:`mha_reference`, a
 torch composition that autograd differentiates, on every device, CUDA
@@ -36,6 +43,7 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from apex_tpu_torch.ops import _kernel_utils as ku
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
@@ -44,7 +52,8 @@ __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_bwd_operands", "flash_bwd_dq", "flash_bwd_dkv",
            "flash_bwd_fused", "SHORT_KEYS_MAX", "SHORT_CLUSTER_KEYS",
            "short_cluster", "short_rank_steps", "short_resident_clusters",
-           "hopper_attributes",
+           "hopper_attributes", "MAX_HEAD_DIM", "head_panel",
+           "check_head_dim",
            "flash_attention_fwd_ref", "flash_attention_bwd_ref",
            "mha_reference"]
 
@@ -81,16 +90,41 @@ _SHORT_RANK_KEYS = 128
 SHORT_CLUSTER_KEYS = 8 * _SHORT_RANK_KEYS
 
 
+# the largest head size the kernels take: their tiles are 32, 64 or 128
+# columns wide (HEAD_PANELS), a head padded up to the next one
+MAX_HEAD_DIM = 128
+HEAD_PANELS = (32, 64, 128)
+
+
+def head_panel(d: int) -> int:
+    """The tile width the kernels run head size ``d`` on: the smallest of
+    :data:`HEAD_PANELS` that holds it (``sm90::head_panel``); columns past
+    ``d`` are zeros the kernels never store."""
+    check_head_dim(d)
+    return next(p for p in HEAD_PANELS if d <= p)
+
+
+def check_head_dim(d: int) -> None:
+    """Raises for a head size the kernels do not take (above
+    :data:`MAX_HEAD_DIM`)."""
+    if not 0 < d <= MAX_HEAD_DIM:
+        raise ValueError(
+            f"flash kernel head dim {d}: the kernels take 1 to "
+            f"{MAX_HEAD_DIM} (tiles of 32, 64 or 128 columns); a wider "
+            "head needs another tile shape (ROADMAP.md, C2: head dims "
+            "above 128)")
+
+
 def short_cluster(sk: int, d: int) -> Tuple[int, int]:
     """``(cluster ranks, query tile rows)`` of row 5's 16-bit kernel: one
     rank per 128 keys (two consumer warpgroups of 64 keys each), query
-    tiles of 64 rows, or 32 at ``d`` = 128 where the fp32 dK and dV
-    accumulators of 64 keys take 128 registers a thread.  Causality
-    changes neither (:func:`short_rank_steps`)."""
+    tiles of 64 rows, or 32 on 128-column tiles (``d`` above 64) where the
+    fp32 dK and dV accumulators of 64 keys take 128 registers a thread.
+    Causality changes neither (:func:`short_rank_steps`)."""
     if not 0 < sk <= SHORT_CLUSTER_KEYS:
         raise ValueError(f"row 5's cluster holds 1 to {SHORT_CLUSTER_KEYS} "
                          f"keys, got {sk}")
-    return -(-sk // _SHORT_RANK_KEYS), 32 if d == 128 else 64
+    return -(-sk // _SHORT_RANK_KEYS), 32 if head_panel(d) == 128 else 64
 
 
 def short_rank_steps(sq: int, sk: int, n: int, g: int, d: int,
@@ -265,12 +299,12 @@ def _check(q, k, v):
 
 
 def _kernel_operands(q, k, v, key_padding_mask, scale):
-    """Checks shared by K2, K6, K7 and row 5; returns (kpm, scale)."""
+    """Checks shared by K2, K6, K7 and row 5; returns (kpm, scale), the
+    scale 1/sqrt(d) of the real head size ``d``."""
     _check(q, k, v)
     b, sq, n, d = q.shape
     sk = k.shape[1]
-    if d not in (32, 64, 128):
-        raise ValueError(f"flash kernel head dim {d}: expected 32, 64 or 128")
+    check_head_dim(d)
     if k.dtype != q.dtype:
         raise TypeError(f"q is {q.dtype} but K/V are {k.dtype}")
     scale = (1.0 / d ** 0.5) if scale is None else float(scale)
@@ -282,6 +316,18 @@ def _kernel_operands(q, k, v, key_padding_mask, scale):
     return kpm, scale
 
 
+def _pad_head(*ts):
+    """The operands with their head dim zero-padded to a multiple of 8
+    (a TMA row stride is a multiple of 16 bytes): a copy only where ``d``
+    is not one already.  Zero columns add nothing to a score, and the
+    output's extra columns are sliced off."""
+    d = ts[0].shape[-1]
+    pad = -d % 8
+    return tuple(None if t is None
+                 else F.pad(t, (0, pad)) if pad else t.contiguous()
+                 for t in ts)
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
                         key_padding_mask=None,
                         scale: Optional[float] = None
@@ -291,27 +337,29 @@ def flash_attention_fwd(q, k, v, *, causal: bool = False,
     kpm, scale = _kernel_operands(q, k, v, key_padding_mask, scale)
     b, sq, n, d = q.shape
     sk, g = k.shape[1], k.shape[2]
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    q, k, v = _pad_head(q, k, v)
     ku.check_cuda_operands("flash_attention", q, k, v, kpm)
     ku.check_aligned("flash_attention", q, k, v)
     o = torch.empty_like(q)
     lse = torch.empty(b * n, sq, dtype=torch.float32, device=q.device)
     FLASH_FWD(q.device, ku.ptr(q), ku.ptr(k), ku.ptr(v), ku.ptr(kpm),
-              ku.ptr(o), ku.ptr(lse), b, sq, sk, n, g, d, scale,
+              ku.ptr(o), ku.ptr(lse), b, sq, sk, n, g, q.shape[-1], scale,
               int(causal), ku.dtype_code(q))
-    return o, lse
+    return o[..., :d], lse
 
 
 def flash_bwd_operands(q, k, v, o, lse, do, *, key_padding_mask=None,
                        scale: Optional[float] = None) -> dict:
     """Checked, contiguous operands of K6, K7 and row 5, with ``delta =
-    rowsum(do·o)`` ``[b·n, sq]`` fp32 (XLA in JAX, a torch op here)."""
+    rowsum(do·o)`` ``[b·n, sq]`` fp32 (XLA in JAX, a torch op here); a
+    head size that is not a multiple of 8 is zero-padded to one (``d``
+    keeps the real size, and the gradients are sliced back to it)."""
     kpm, scale = _kernel_operands(q, k, v, key_padding_mask, scale)
-    b, sq, n, _ = q.shape
-    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
-    do = do.to(q.dtype).contiguous()
+    b, sq, n, d = q.shape
+    do = do.to(q.dtype)
     delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
         b * n, sq).contiguous()
+    q, k, v, do = _pad_head(q, k, v, do)
     lse = lse.contiguous()
     ku.check_cuda_operands("flash_attention backward", q, k, v, do, lse,
                            delta, kpm)
@@ -320,7 +368,7 @@ def flash_bwd_operands(q, k, v, o, lse, do, *, key_padding_mask=None,
         raise ValueError(f"lse {tuple(lse.shape)} {lse.dtype}, want "
                          f"{(b * n, sq)} float32")
     return dict(q=q, k=k, v=v, do=do, lse=lse, delta=delta, kpm=kpm,
-                scale=scale)
+                scale=scale, d=d)
 
 
 def _bwd_tail(ops, causal):
@@ -336,7 +384,7 @@ def flash_bwd_dq(ops: dict, *, causal: bool) -> torch.Tensor:
     FLASH_BWD_DQ(dq.device, *(ku.ptr(ops[n]) for n in (
         "q", "k", "v", "do", "lse", "delta", "kpm")), ku.ptr(dq),
         *_bwd_tail(ops, causal))
-    return dq
+    return dq[..., :ops["d"]]
 
 
 def flash_bwd_dkv(ops: dict, *, causal: bool):
@@ -346,7 +394,7 @@ def flash_bwd_dkv(ops: dict, *, causal: bool):
     FLASH_BWD_DKV(dk.device, *(ku.ptr(ops[n]) for n in (
         "q", "k", "v", "do", "lse", "delta", "kpm")), ku.ptr(dk), ku.ptr(dv),
         *_bwd_tail(ops, causal))
-    return dk, dv
+    return dk[..., :ops["d"]], dv[..., :ops["d"]]
 
 
 def flash_bwd_fused(ops: dict, *, causal: bool):
@@ -359,10 +407,11 @@ def flash_bwd_fused(ops: dict, *, causal: bool):
     b, sq, n, d = q.shape
     part = None
     if q.dtype == torch.float32:
-        # one fp32 dq partial per 64-key tile (the kernel's tile rows)
+        # one fp32 dq partial per 64-key tile (the kernel's tile rows), as
+        # wide as the kernel's tiles
         nkt, sqp = -(-k.shape[1] // 64), -(-sq // 64) * 64
-        part = torch.empty(nkt, b * n, sqp, d, dtype=torch.float32,
-                           device=q.device)
+        part = torch.empty(nkt, b * n, sqp, head_panel(d),
+                           dtype=torch.float32, device=q.device)
     else:
         short_cluster(k.shape[1], d)   # raises past the largest cluster
     dq = torch.empty_like(q)
@@ -370,7 +419,8 @@ def flash_bwd_fused(ops: dict, *, causal: bool):
     FLASH_BWD_SHORT(dq.device, *(ku.ptr(ops[name]) for name in (
         "q", "k", "v", "do", "lse", "delta", "kpm")), ku.ptr(part),
         ku.ptr(dq), ku.ptr(dk), ku.ptr(dv), *_bwd_tail(ops, causal))
-    return dq, dk, dv
+    d = ops["d"]
+    return dq[..., :d], dk[..., :d], dv[..., :d]
 
 
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = False,

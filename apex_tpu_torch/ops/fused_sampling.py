@@ -9,6 +9,15 @@ and under ``backend="reference"``, it runs :func:`_sampling_plain`, a
 transcription of the same arithmetic: with the same key words both give
 the same tokens, and so does the JAX kernel.
 
+K4 spreads each row over a thread-block cluster (:func:`sample_plan`
+chooses its size and each CTA's slice), reads the logits in their own
+dtype once, finds the greedy token and a histogram of the scaled row in
+that pass, bisects over the few candidates the histogram leaves in one
+CTA, and draws over the kept ones; any vocabulary width runs.  The key
+words and temperatures reach the kernel in device memory: pass
+``seed_words`` as a ``[2]`` int64 CUDA tensor and a CUDA graph that
+captured the call replays new draws after new words are copied into it.
+
 :func:`sample_reference` is the independent oracle: the sort-based
 :func:`filter_logits` and a draw from a ``torch.Generator`` — the same
 distribution, other random numbers.
@@ -20,7 +29,7 @@ A static ``temperature == 0`` is an argmax with no kernel launch; a
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence
+from typing import NamedTuple, Optional, Sequence
 
 import torch
 
@@ -28,7 +37,8 @@ from apex_tpu_torch.ops import _kernel_utils as ku
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["fused_sample", "filter_logits", "sample_reference",
-           "apply_token_mask"]
+           "apply_token_mask", "sample_plan", "SamplePlan",
+           "kernel_attributes"]
 
 _NEG_INF = -1e30
 _BISECT_ITERS = 64
@@ -36,9 +46,72 @@ _M32 = 0xFFFFFFFF
 
 FUSED_SAMPLE = ku.register(ku.Kernel(
     "fused_sample", "fused_sampling.cu", "apex_fused_sample",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
-    + [ctypes.c_float, ctypes.c_int, ctypes.c_uint, ctypes.c_uint],
+    [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 3
+    + [ctypes.c_int] * 4 + [ctypes.c_float] + [ctypes.c_int] * 7,
     replaces="apex_tpu/ops/fused_sampling.py:187"))
+
+# K4's geometry (csrc/fused_sampling.cu): threads a CTA, histogram buckets,
+# the portable cluster size, the dynamic shared memory a CTA may take and
+# the part of it a staged slice (fp32 y, 4 bytes a logit) may
+SAMPLE_THREADS = 512
+SAMPLE_BINS = 2 * SAMPLE_THREADS
+SAMPLE_MAX_CLUSTER = 8
+SAMPLE_SMEM = 200 * 1024
+SAMPLE_STAGE_MAX = 128 * 1024
+# the fewest bytes of logits worth a CTA of their own
+SAMPLE_MIN_BYTES = 4096
+
+
+class SamplePlan(NamedTuple):
+    cluster: int   # CTAs a row (a thread-block cluster)
+    slice: int     # logits each CTA reads (a multiple of 8)
+    staged: bool   # slices kept in shared memory as fp32 y (else re-read)
+    cap: int       # candidates rank 0 holds (0: no filter)
+    smem: int      # dynamic shared memory of a CTA, bytes
+
+
+def sample_plan(b: int, V: int, itemsize: int, top_k: int, use_top_p: bool,
+                sms: int) -> SamplePlan:
+    """K4's launch for ``b`` rows of ``V`` logits of ``itemsize`` bytes
+    (``top_k`` 0: no top-k) on a card of ``sms`` SMs: a pure function.
+    The cluster is the largest power of two up to 8 with ``b`` clusters
+    fitting the card and at least :data:`SAMPLE_MIN_BYTES` of logits a
+    CTA; larger if a slice staged as fp32 would pass
+    :data:`SAMPLE_STAGE_MAX`, and a slice still larger is re-read from L2
+    in each pass.  With a filter the rest of :data:`SAMPLE_SMEM` after
+    the slice and the histogram (12 bytes a bucket: a count and a
+    fixed-point mass) holds candidates of 12 bytes."""
+    fill = max(1, sms // max(1, b))
+    per_cta = max(1, SAMPLE_MIN_BYTES // itemsize)
+    c = 1
+    while 2 * c <= min(fill, SAMPLE_MAX_CLUSTER) and V >= 2 * c * per_cta:
+        c *= 2
+
+    def slice_of(c):
+        return -(-(-(-V // c)) // 8) * 8
+
+    while c < SAMPLE_MAX_CLUSTER and slice_of(c) * 4 > SAMPLE_STAGE_MAX:
+        c *= 2
+    sl = slice_of(c)
+    staged = sl * 4 <= SAMPLE_STAGE_MAX
+    stage = sl * 4 if staged else 0
+    if not (top_k > 0 or use_top_p):
+        return SamplePlan(c, sl, staged, 0, stage)
+    hist = 12 * SAMPLE_BINS
+    cap = (SAMPLE_SMEM - stage - hist) // 12
+    return SamplePlan(c, sl, staged, cap, stage + hist + 12 * cap)
+
+
+def kernel_attributes() -> dict:
+    """What the CUDA runtime reports of K4's instantiations (fp32, bf16
+    and fp16; slices staged or read from L2): ``{name: {"registers",
+    "smem_bytes", "ctas_per_sm", "spill_bytes"}}`` (static shared
+    memory).  Needs the card."""
+    return {f"{str(dt)[6:]} {'staged' if st else 'from L2'}": ku.hopper_attrs(
+        FUSED_SAMPLE.source, "apex_fused_sample_attrs",
+        ku.DTYPE_CODES[dt], int(st))
+        for dt in (torch.float32, torch.bfloat16, torch.float16)
+        for st in (True, False)}
 
 
 def filter_logits(logits, *, top_k: Optional[int] = None,
@@ -191,21 +264,40 @@ def _sampling_plain(logits, seed_words: Sequence[int], temps,
     return torch.where(temps > 0, sampled, greedy).to(torch.int32)
 
 
+def _word_buffer(seed_words, device) -> torch.Tensor:
+    """The two key words as the ``[2]`` int64 device tensor K4 reads (its
+    low 32 bits each): a CUDA tensor passes as it is, so a captured graph
+    reads whatever words are copied into it before a replay; Python words
+    are written by two fills (a host-to-device copy could not be
+    captured)."""
+    if isinstance(seed_words, torch.Tensor):
+        if seed_words.shape != (2,) or seed_words.is_floating_point():
+            raise ValueError(f"seed_words: want 2 integer words, got "
+                             f"{seed_words.dtype} {tuple(seed_words.shape)}")
+        return seed_words.to(device=device, dtype=torch.int64).contiguous()
+    s0, s1 = (int(w) & _M32 for w in seed_words)
+    words = torch.full((2,), s0, dtype=torch.int64, device=device)
+    words[1:].fill_(s1)
+    return words
+
+
 def _sample_kernel(logits, seed_words, temps, top_k, top_p, vocab_limit):
     b, V = logits.shape
     n_valid = V if vocab_limit is None else min(int(vocab_limit), V)
-    if V * 4 > 226 * 1024:
-        raise ValueError(
-            f"vocab {V} exceeds the sampler kernel's shared-memory row "
-            "(56k fp32 logits); a tiled sampler is queued in ROADMAP.md")
-    x = logits.float().contiguous()
-    temps = temps.contiguous()
-    ku.check_cuda_operands("fused_sample", x, temps)
+    x = logits if logits.stride(-1) == 1 else logits.contiguous()
+    code = ku.dtype_code(x)
+    ld = x.stride(0) if b > 1 else V
+    temps = temps.to(device=x.device, dtype=torch.float32).contiguous()
+    words = _word_buffer(seed_words, x.device)
+    ku.check_cuda_operands("fused_sample", x[:1], temps, words)
     k = 0 if top_k is None or int(top_k) >= n_valid else int(top_k)
+    plan = sample_plan(b, V, x.element_size(), k, top_p is not None,
+                       ku.sm_count(x.device))
     out = torch.empty(b, dtype=torch.int32, device=x.device)
-    FUSED_SAMPLE(x.device, ku.ptr(x), ku.ptr(temps), ku.ptr(out), b, V,
-                 n_valid, k, float(top_p or 0.0), int(top_p is not None),
-                 int(seed_words[0]) & _M32, int(seed_words[1]) & _M32)
+    FUSED_SAMPLE(x.device, ku.ptr(x), ld, ku.ptr(temps), ku.ptr(words),
+                 ku.ptr(out), b, V, n_valid, k, float(top_p or 0.0),
+                 int(top_p is not None), plan.cluster, plan.slice,
+                 int(plan.staged), plan.cap, plan.smem, code)
     return out
 
 
@@ -226,8 +318,10 @@ def fused_sample(logits, *, seed_words: Optional[Sequence[int]] = None,
     """Next tokens ``[b]`` int32 from ``logits`` ``[b, v]``.
 
     ``seed_words``: two uint32 key words for the draw (else drawn from
-    ``generator``).  ``temperature``: a float (0 = greedy, no filter, no
-    launch) or a ``[b]`` tensor of per-row temperatures."""
+    ``generator``), or a ``[2]`` integer tensor holding them (on the card
+    the kernel reads it in place: graph-safe).  ``temperature``: a float
+    (0 = greedy, no filter, no launch) or a ``[b]`` tensor of per-row
+    temperatures."""
     check_backend(backend)
     if top_k is not None and top_k < 1:
         raise ValueError(
@@ -247,5 +341,7 @@ def fused_sample(logits, *, seed_words: Optional[Sequence[int]] = None,
     if on_cuda(logits) and backend is None:
         return _sample_kernel(logits, seed_words, temps, top_k, top_p,
                               vocab_limit)
+    if isinstance(seed_words, torch.Tensor):
+        seed_words = seed_words.tolist()
     return _sampling_plain(logits, seed_words, temps, top_k, top_p,
                            vocab_limit)

@@ -16,7 +16,6 @@ JAX.  ``memory_efficient=True`` (save y, rebuild x) is not ported.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -67,11 +66,6 @@ def ln_plan(rows: int, hidden: int, itemsize: int, aligned: bool,
         return LnPlan(vectors, 1, rows)
     return LnPlan(vectors, LN_WARPS,
                   min(-(-rows // LN_WARPS), LN_CTAS_PER_SM * sms))
-
-
-@functools.lru_cache(maxsize=None)
-def _sm_count(device: torch.device) -> int:
-    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def kernel_attributes(dtype: torch.dtype = torch.bfloat16,
@@ -126,7 +120,7 @@ def _fwd_kernel(x2, weight, bias, eps, rms):
     rs = torch.empty(rows, dtype=torch.float32, device=x2.device)
     aligned = all(t is None or t.data_ptr() % 16 == 0 for t in (x2, y, w, b))
     plan = ln_plan(rows, hidden, x2.element_size(), aligned,
-                   _sm_count(x2.device))
+                   ku.sm_count(x2.device))
     LN_FWD(x2.device, ku.ptr(x2), ku.ptr(w), ku.ptr(b), ku.ptr(y),
            ku.ptr(mu), ku.ptr(rs), rows, hidden, float(eps), int(rms),
            ku.dtype_code(x2), *plan)

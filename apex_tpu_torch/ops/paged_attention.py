@@ -26,7 +26,6 @@ kv_groups]`` fp32 (``cache_wire="int8"``), ``block_tables``
 from __future__ import annotations
 
 import ctypes
-from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import torch
@@ -162,17 +161,12 @@ def paged_plan(b: int, g: int, rep: int, dh: int, reach: int,
                      paged_smem(dh, itemsize, rc, dn_max, tile, stages))
 
 
-@lru_cache(maxsize=None)
-def _sm_count(index: int) -> int:
-    return torch.cuda.get_device_properties(index).multi_processor_count
-
-
 def plan_for(q, k_pool, block_tables) -> PagedPlan:
     """:func:`paged_plan` for these operands on their card."""
     b, nh, dh = q.shape
     _, bs, g, _ = k_pool.shape
     return paged_plan(b, g, nh // g, dh, block_tables.shape[1] * bs,
-                      k_pool.element_size(), _sm_count(q.device.index or 0))
+                      k_pool.element_size(), ku.sm_count(q.device))
 
 
 def kernel_attributes(dtype: torch.dtype, quant: bool,

@@ -12,15 +12,22 @@
    of rows 9 and 10's tensor-core routes, of row 9's fp32 cluster
    kernel, of row 11's and K1's row kernels and of rows 6 and 7's
    split-key kernel (its four variants at the main paths' plans and the
-   wide groups') and K3's projection (row 5, rows 6, 7, 9 and 10, row 11
-   and K1 must not spill), and checks that each kernel of
+   wide groups'), K3's projection and row 8's cluster sampler (all six
+   instantiations, with the cluster and shared memory its plan gives
+   every sampler variant; row 5, rows 6, 7, 8, 9 and 10, row 11 and K1
+   must not spill), and checks that each kernel of
    HOPPER_SOURCES holds ``HGMMA`` and ``UTMALDG`` instructions in its
    machine code.
 3. Holds each kernel (K1 LayerNorm at the five main paths' shapes, from
    decode's [8, 768] to the GPT step's [16384, 768], plus RMSNorm and
    fp32; K2 flash attention, K3 fused decode layer (bf16 and int8 pools,
    fp32 and bf16 W, MHA, GQA, MQA and 16 and 32 query heads a group at
-   dh 128), K4 fused sampler, row 6 ragged paged attention (the same
+   dh 128), K4 fused sampler (13 variants: b 1, 8 and 32; V 50304,
+   152064 and 262144; fp32 and bf16; top-k and/or top-p or neither;
+   token-mask holes, all greedy, flat rows (a nucleus of most of the row);
+   0 token mismatches each over
+   three key-word pairs, one launch a call; bitwise repeats and a
+   CUDA-graph replay with new key words), row 6 ragged paged attention (the same
    groups and pools; rows 6 and 7 also as bitwise repeats, a CUDA-graph
    replay with other lengths, length-0 lanes as exact zeros), row 9
    ragged grouped matmul (LoRA's fp32 branch),
@@ -35,7 +42,9 @@
    from a seeded generator, bf16 compute) for 8 ragged requests, greedy
    and sampled, counting every kernel launch; then replays the greedy
    tokens teacher-forced through the kernel path and the plain path
-   (``backend="reference"``) and compares their logits.  Then a greedy
+   (``backend="reference"``) and compares their logits; profiles one
+   greedy and one sampled ``generate`` (device busy ms, K4's share of the
+   sampled one: the greedy one launches no K4).  Then a greedy
    ``generate`` of ``gpt_125m(num_query_groups=1)`` (MQA, 12 query heads
    on one kv group), +16 tokens: K3's launches exact, tokens identical to
    the plain run's or bf16 near-ties.
@@ -71,7 +80,8 @@
    it; K2 at BERT's forward shape and at the GPT
    step's (b16 s1024 n12 d64 causal, beside SDPA's forward) as variants;
    K6 + K7 also timed as one pair, the backward function, with its own
-   bound.
+   bound; K2 and row 5 at head size 80 (b8 s512 n32 causal bf16, beside
+   SDPA), and K2 at head size 78 on its zero-padded copy.
 6. Drives the training path: the GPT-2 125M AMP-O2 train step
    (``make_gpt_train_step``, ``fused_adam(lr=1e-4)``, fused head+CE) at
    b16 x s1024 on random tokens, counting every kernel launch of one
@@ -112,7 +122,8 @@ result line; it never falls back to the CPU.
 
     python3 chip_smoke.py --matmul-times ROOT
 
-times only rows 5, 6, 7 (K3), 9, 10 and 11 and K1 of the port under ROOT
+times only rows 5, 6, 7 (K3), 8 (K4), 9, 10 and 11, K1 and K2 at head
+size 64 of the port under ROOT
 (a ``git archive`` of another commit, say) at the main paths' shapes and
 prints one JSON line, so that two commits compare in one chip call
 (parent, change, change, parent).
@@ -267,6 +278,19 @@ def profile_busy(fn):
     it launched (the hand-written kernels would count twice, under their
     own name and under ``_Flash``/``_Norm``).  The top ops are the CPU
     ops ranked by that self device time: which op launched the time."""
+    t, by_name, by_cat, by_op = _profile(fn)
+
+    def top(d):
+        return {k: round(v, 3)
+                for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:12]}
+
+    return (t, sum(by_name.values()), top(by_name),
+            {k: round(v, 3) for k, v in by_cat.items()}, top(by_op))
+
+
+def _profile(fn):
+    """(wall ms, device ms by kernel name (60 characters), by category,
+    by launching CPU op) of one ``fn()`` under torch.profiler."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -285,13 +309,7 @@ def profile_busy(fn):
         by_name[ev.key[:60]] = by_name.get(ev.key[:60], 0.0) + ms
         cat = _category(ev.key)
         by_cat[cat] = by_cat.get(cat, 0.0) + ms
-
-    def top(d):
-        return {k: round(v, 3)
-                for k, v in sorted(d.items(), key=lambda kv: -kv[1])[:12]}
-
-    return (t, sum(by_name.values()), top(by_name),
-            {k: round(v, 3) for k, v in by_cat.items()}, top(by_op))
+    return t, by_name, by_cat, by_op
 
 
 def profile_spans(fn, kernels, ops):
@@ -593,6 +611,22 @@ def hopper_kernels():
     check(all(a["spill_bytes"] == 0 for a in paged.values()),
           f"row 6 or K3 spills: {paged}")
     attrs["rows 6, 7"] = paged
+    # row 8 (K4): no wgmma or TMA either; every instantiation, no spills,
+    # and the cluster and dynamic shared memory the plan gives each shape
+    from apex_tpu_torch.ops import fused_sampling as tfs
+
+    k4 = tfs.kernel_attributes()
+    check(all(a["spill_bytes"] == 0 for a in k4.values()),
+          f"K4 spills: {k4}")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    k4["plans (cluster, dynamic smem bytes)"] = {
+        name: [p.cluster, p.smem] for name, p in (
+            (name, tfs.sample_plan(b, V, torch.empty((), dtype=dt)
+                                   .element_size(), top_k or 0,
+                                   top_p is not None, sms))
+            for name, (b, V, dt, top_k, top_p, _) in
+            SAMPLER_VARIANTS.items())}
+    attrs["row 8 (K4)"] = k4
     sass = {}
     for src, n in HOPPER_SOURCES.items():
         counts = {k: c
@@ -965,7 +999,95 @@ def kernel_dense_int8(dev, gen):
     return results
 
 
-def kernel_sampler(dev, gen):
+# K4's variants: name -> (b, V, dtype, top_k, top_p, mode); the main row
+# is generate's decode ([8, 50304] fp32, top-k 50, top-p 0.95, greedy
+# rows among sampled ones); the engine samples its 32 lanes; Qwen2's and
+# Gemma's vocabularies passed the first version's one-SM row
+SAMPLER_MAIN = "[8, 50304] fp32 top_k=50 top_p=0.95"
+SAMPLER_VARIANTS = {
+    SAMPLER_MAIN: (8, 50304, torch.float32, 50, 0.95, "mixed"),
+    "[32, 50304] fp32 top_k=50 top_p=0.95 (engine lanes)":
+        (32, 50304, torch.float32, 50, 0.95, "mixed"),
+    "[1, 50304] fp32 top_k=50 top_p=0.95":
+        (1, 50304, torch.float32, 50, 0.95, "mixed"),
+    "[8, 50304] fp32 top_p=0.95": (8, 50304, torch.float32, None, 0.95,
+                                   "mixed"),
+    "[8, 50304] fp32 top_k=50": (8, 50304, torch.float32, 50, None, "mixed"),
+    "[8, 50304] fp32 no filter": (8, 50304, torch.float32, None, None,
+                                  "mixed"),
+    "[8, 50304] bf16 top_k=50 top_p=0.95":
+        (8, 50304, torch.bfloat16, 50, 0.95, "mixed"),
+    "[8, 50304] fp32 top_k=50 top_p=0.95, token-mask holes":
+        (8, 50304, torch.float32, 50, 0.95, "holes"),
+    "[8, 50304] fp32 top_k=50 top_p=0.95, all greedy":
+        (8, 50304, torch.float32, 50, 0.95, "greedy"),
+    "[8, 50304] fp32 top_p=0.95, flat rows":
+        (8, 50304, torch.float32, None, 0.95, "flat"),
+    "[8, 152064] fp32 top_k=50 top_p=0.95":
+        (8, 152064, torch.float32, 50, 0.95, "mixed"),
+    "[8, 262144] fp32 top_k=50 top_p=0.95":
+        (8, 262144, torch.float32, 50, 0.95, "mixed"),
+    "[8, 262144] bf16 top_k=50 top_p=0.95":
+        (8, 262144, torch.bfloat16, 50, 0.95, "mixed"),
+}
+SAMPLER_WORDS = ((1, 2), (0xDEADBEEF, 0x12345678), (7, 7))
+
+
+def _sampler_case(dev, gen, b, V, dtype, top_k, top_p, mode):
+    """One K4 variant: x = randn * 4 in dtype (flat rows: uniform in [0,
+    0.05)), vocab limit V - 47 (GPT-2's 50257 of 50304); mismatching
+    tokens against _sampling_plain over SAMPLER_WORDS, one launch a call;
+    kernel and plain times of the fused_sample call with its key words
+    in a device tensor, as a captured decode step passes them (Python
+    words add two fills a call; with a token mask its torch.where is
+    timed too), and the bound: each logit read once, the temperatures,
+    words and tokens; 4 operations a logit at the fp32 rate."""
+    from apex_tpu_torch.ops import fused_sampling as tfs
+
+    x = torch.randn(b, V, device=dev, generator=gen) * 4
+    if mode == "flat":
+        x = torch.rand(b, V, device=dev, generator=gen) * 0.05
+    x = x.to(dtype)
+    base = torch.tensor([0.8, 1.0, 0.0, 0.5, 1.5, 0.8, 0.0, 2.0])
+    temps = (torch.zeros(b) if mode == "greedy"
+             else base.repeat(-(-b // 8))[:b]).to(dev)
+    mask = (torch.rand(b, V, device=dev, generator=gen) > 0.3
+            if mode == "holes" else None)
+    limit = V - 47
+    kw = dict(temperature=temps, top_k=top_k, top_p=top_p,
+              vocab_limit=limit, token_mask=mask)
+    xm = x if mask is None else tfs.apply_token_mask(x, mask)
+    mismatches = 0
+    for words in SAMPLER_WORDS:
+        before = tfs.FUSED_SAMPLE.launches
+        got = tfs.fused_sample(x, seed_words=words, **kw)
+        torch.cuda.synchronize()
+        check(tfs.FUSED_SAMPLE.launches == before + 1,
+              "K4: not one launch a call")
+        want = tfs._sampling_plain(xm, words, temps, top_k, top_p, limit)
+        mismatches += int((got != want).sum())
+        check(int(got.max()) < limit, "K4 token past the vocab limit")
+    plan = tfs.sample_plan(b, V, x.element_size(),
+                           0 if top_k is None else top_k, top_p is not None,
+                           torch.cuda.get_device_properties(dev)
+                           .multi_processor_count)
+    bms, by = bound(b * V * x.element_size() + b * 8 + 16, b * V * 4,
+                    PEAK_FP32_FLOPS)
+    words = torch.tensor([1, 2], dtype=torch.int64, device=dev)
+    return {
+        "err": float(mismatches), "token_mismatches": mismatches,
+        "plan": plan._asdict(),
+        "ms": time_ms(lambda: tfs.fused_sample(x, seed_words=words, **kw)),
+        "plain_ms": time_ms(lambda: tfs._sampling_plain(
+            xm, (1, 2), temps, top_k, top_p, limit), iters=2),
+        "library_ms": None, "bound_ms": bms, "bound_by": by,
+    }
+
+
+def _sampler_replays(dev, gen):
+    """At the main shape: twenty calls give the same tokens, and a call
+    captured in a CUDA graph with its key words in a device tensor replays
+    new words copied into it as eager calls with them do."""
     from apex_tpu_torch.ops import fused_sampling as tfs
 
     b, V = 8, 50304
@@ -974,24 +1096,46 @@ def kernel_sampler(dev, gen):
                          device=dev)
     kw = dict(temperature=temps, top_k=50, top_p=0.95,
               vocab_limit=VOCAB_LIMIT)
-    mismatches = 0
-    for words in ((1, 2), (0xDEADBEEF, 0x12345678), (7, 7)):
-        got = tfs.fused_sample(x, seed_words=words, **kw)
-        want = tfs._sampling_plain(x, words, temps, 50, 0.95, VOCAB_LIMIT)
-        mismatches += int((got != want).sum())
-        check(int(got.max()) < VOCAB_LIMIT, "K4 token past the vocab limit")
-    check(mismatches == 0, f"K4 differs from _sampling_plain on "
-                           f"{mismatches} rows")
-    bms, by = bound(b * V * 4 + b * 8, b * V * 4, PEAK_FP32_FLOPS)
-    return {
-        "err": float(mismatches), "tol": 0.0,
-        "detail": {"token_mismatches": mismatches},
-        "ms": time_ms(lambda: tfs.fused_sample(x, seed_words=(1, 2), **kw)),
-        "plain_ms": time_ms(lambda: tfs._sampling_plain(
-            x, (1, 2), temps, 50, 0.95, VOCAB_LIMIT), iters=2),
-        "library_ms": None, "bound_ms": bms, "bound_by": by,
-        "shape": f"[{b}, {V}] fp32 top_k=50 top_p=0.95",
-    }
+    first = tfs.fused_sample(x, seed_words=(3, 4), **kw)
+    repeats = sum(int(torch.equal(tfs.fused_sample(x, seed_words=(3, 4),
+                                                   **kw), first))
+                  for _ in range(20))
+    words = torch.tensor([3, 4], dtype=torch.int64, device=dev)
+    tfs.fused_sample(x, seed_words=words, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tfs.fused_sample(x, seed_words=words, **kw)
+    replays = 0
+    for pair in ((5, 6), (0xFFFFFFFF, 1), (77, 0x9E3779B9)):
+        words.copy_(torch.tensor(pair, dtype=torch.int64))
+        graph.replay()
+        eager = tfs.fused_sample(x, seed_words=pair, **kw)
+        torch.cuda.synchronize()
+        replays += int(torch.equal(captured, eager))
+    check(repeats == 20, f"K4 repeats differ: {repeats} of 20 equal")
+    check(replays == 3, f"K4 graph replays with new words: {replays} of 3 "
+                        "equal the eager calls")
+    return {"bitwise_repeats": repeats, "graph_replays_equal": replays}
+
+
+def kernel_sampler(dev, gen):
+    """K4 at SAMPLER_VARIANTS (the main row and the others as variants),
+    every one token-identical to _sampling_plain; bitwise repeats and
+    graph replays with new key words at the main shape."""
+    runs = {name: _sampler_case(dev, gen, *c)
+            for name, c in SAMPLER_VARIANTS.items()}
+    bad = {n: r["token_mismatches"] for n, r in runs.items()
+           if r["token_mismatches"]}
+    check(not bad, f"K4 differs from _sampling_plain: {bad}")
+    main = runs.pop(SAMPLER_MAIN)
+    return dict(main, tol=0.0, variants=runs,
+                detail={"token_mismatches": main["token_mismatches"],
+                        **_sampler_replays(dev, gen)},
+                shape=f"{SAMPLER_MAIN}, vocab limit 50257, temperatures "
+                      "[0.8, 1.0, 0.0, 0.5, 1.5, 0.8, 0.0, 2.0] (the other "
+                      "rows as variants, every one 0 token mismatches "
+                      f"over {len(SAMPLER_WORDS)} key-word pairs)")
 
 
 # row 9 at the LoRA path of GPT-2 125M: rank 8 over a 24-slot pool; each
@@ -1198,7 +1342,14 @@ def slice_phase(dev):
 
     # --- device busy share of one greedy generate (torch.profiler) -------
     t_prof, busy, top, by_cat, by_op = profile_busy(do_generate)
+    # and of one sampled generate: the greedy one launches no K4
+    # (temperature 0 is an argmax), the sampled one 64 times
+    _, s_names, _, _ = _profile(lambda: tgen.generate(params, prompt, cfg,
+                                                      **sample_kw))
     return {
+        "sampled_device_busy_ms": sum(s_names.values()),
+        "sampled_k4_device_ms": sum(v for k, v in s_names.items()
+                                    if "sampling_kernel" in k),
         "prefill_ms": prefill[1], "prefill_ms_q1_q3": [prefill[0],
                                                        prefill[2]],
         "generate_ms": gen_ms[1], "generate_ms_q1_q3": [gen_ms[0],
@@ -2172,6 +2323,64 @@ def _sdpa_bwd_ms(q, k, v, do, causal, add=None):
 
     return (time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt), dot))
             - time_ms(sdpa))
+
+
+# a head size between the kernels' tile widths: Phi-2's 80 (128-column
+# tiles, the last 48 columns zero-filled by TMA), 32 heads, at the smoke's
+# serving batch and length
+D80 = (8, 512, 32, 80)
+
+
+def kernel_flash_d80(dev, gen):
+    """K2 and row 5 (flash_attention_bwd's route at 512 keys) at head size
+    80, b8 s512 n32 causal bf16, against the plain forward and backward;
+    SDPA's forward and backward beside them; and K2 at head size 78,
+    which runs on a copy zero-padded to 80 (the copy's cost)."""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    b, s, n, d = D80
+    q, k, v, o, lse, do, ops = _flash_bwd_case(dev, gen, b, s, n, n, d,
+                                               True, None)
+    ref_o, _ = tfa.flash_attention_fwd_ref(q, k, v, causal=True)
+    fwd_err = max_err(o, ref_o)
+    del ref_o
+    before = ku.launch_counts()
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, causal=True)
+    torch.cuda.synchronize()
+    check(ku.launch_counts()["flash_attention_bwd_short"]
+          == before["flash_attention_bwd_short"] + 1,
+          "d80 backward did not take row 5")
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, causal=True)
+    bwd_rel = max(rel_err(a, e) for a, e in zip(got, want))
+    bwd_abs = max(max_err(a, e) for a, e in zip(got, want))
+    del got, want
+    check(fwd_err <= 2e-2, f"K2 d80 error {fwd_err}")
+    check(bwd_rel <= FLASH_BWD_TOL, f"row 5 d80 relative error {bwd_rel}")
+    pairs = n * b * s * (s + 1) // 2
+    fb, fby = bound(4 * b * s * n * d * 2 + b * n * s * 4, 4 * d * pairs,
+                    PEAK_BF16_FLOPS)
+    bb, bby = bound(7 * b * s * n * d * 2 + 2 * b * n * s * 4,
+                    10 * d * pairs, PEAK_BF16_FLOPS)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    q78, k78, v78 = (t[..., :78].contiguous() for t in (q, k, v))
+    fwd = {"err": fwd_err,
+           "ms": time_ms(lambda: tfa.flash_attention_fwd(q, k, v,
+                                                         causal=True)),
+           "plain_ms": time_ms(lambda: tfa.flash_attention_fwd_ref(
+               q, k, v, causal=True), iters=2),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, is_causal=True)),
+           "bound_ms": fb, "bound_by": fby,
+           "d78_padded_copy_ms": time_ms(lambda: tfa.flash_attention_fwd(
+               q78, k78, v78, causal=True))}
+    bwd = {"err": bwd_abs, "rel_err": bwd_rel,
+           "ms": time_ms(lambda: tfa.flash_bwd_fused(ops, causal=True)),
+           "plain_ms": time_ms(lambda: tfa.flash_attention_bwd_ref(
+               q, k, v, o, lse, do, causal=True), iters=2),
+           "library_ms": _sdpa_bwd_ms(q, k, v, do, True),
+           "bound_ms": bb, "bound_by": bby}
+    return fwd, bwd
 
 
 # keys of the crossover sweep between row 5 and K6 + K7 (flash_bwd_fused
@@ -3218,17 +3427,22 @@ def matmul_times(root: str) -> dict:
     [8, 1, 1, 512] key padding), K1 at the five main paths' shapes
     (LN_SHAPES, bf16 x, fp32 γ/β), row 6 at the engine's decode (b32 MHA,
     PAGED_LENS, bf16 and int8 pools) and K3 at generate's (b8 MHA,
-    DECODE_LENS, fp32 W, bf16 and int8 pools).  It calls only entry points
-    both this tree and its parent have (for rows 11 and K1 ``softmax_fwd``
-    and ``layer_norm_fwd_stats``, for rows 6 and 7
-    ``ragged_paged_attention`` and ``fused_decode_layer``), so that parent
-    and change run the same measurement in one chip call."""
+    DECODE_LENS, fp32 W, bf16 and int8 pools), row 8 (K4) at generate's
+    [8, 50304] and the engine's [32, 50304] (fp32, top-k 50, top-p 0.95)
+    and K2 at head size 64 (the smoke's serving shape b8 s512 n12 causal
+    with padding, and the GPT step's b16 s1024 n12 causal).  It calls only
+    entry points both this tree and its parent have (for rows 11 and K1
+    ``softmax_fwd`` and ``layer_norm_fwd_stats``, for rows 6 and 7
+    ``ragged_paged_attention`` and ``fused_decode_layer``, for row 8
+    ``fused_sample``, for K2 ``flash_attention_fwd``), so that parent and
+    change run the same measurement in one chip call."""
     sys.path.insert(0, str(Path(root).resolve()))
     import apex_tpu_torch
     from apex_tpu_torch.ops import _kernel_utils as ku
     from apex_tpu_torch.ops import decode_step as tds
     from apex_tpu_torch.ops import dense as td
     from apex_tpu_torch.ops import flash_attention as tfa
+    from apex_tpu_torch.ops import fused_sampling as tfs
     from apex_tpu_torch.ops import grouped_matmul as tgm
     from apex_tpu_torch.ops import layer_norm as tln
     from apex_tpu_torch.ops import paged_attention as tpa
@@ -3244,7 +3458,7 @@ def matmul_times(root: str) -> dict:
     ku.build_all(["dense_int8.cu", "grouped_matmul.cu", "flash_attention.cu",
                   "flash_attention_bwd.cu", "flash_attention_bwd_short.cu",
                   "softmax.cu", "layer_norm.cu", "paged_attention.cu",
-                  "decode_step.cu"])
+                  "decode_step.cu", "fused_sampling.cu"])
     build_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(0)
     bf = torch.bfloat16
@@ -3340,8 +3554,37 @@ def matmul_times(root: str) -> dict:
                                       torch.float32, False)
             paged[f"K3 b8 mha {pool} pool"] = time_ms(
                 lambda: tds.fused_decode_layer(*args, **sc))
+    row8, k2 = {}, {}
+    with torch.inference_mode():
+        # a tree whose K4 reads its key words from device memory takes
+        # them as a device tensor (a captured decode step's form); an older
+        # one as Python words, which it passes as kernel arguments
+        words = (torch.tensor([1, 2], dtype=torch.int64, device="cuda")
+                 if hasattr(tfs, "sample_plan") else (1, 2))
+        for b in (8, 32):
+            x = torch.randn(b, 50304, device="cuda", generator=gen) * 4
+            temps = torch.tensor([0.8, 1.0, 0.0, 0.5, 1.5, 0.8, 0.0, 2.0]
+                                 * (b // 8), device="cuda")
+            row8[f"[{b}, 50304] fp32 top_k=50 top_p=0.95"] = time_ms(
+                lambda: tfs.fused_sample(x, seed_words=words,
+                                         temperature=temps, top_k=50,
+                                         top_p=0.95,
+                                         vocab_limit=VOCAB_LIMIT))
+        lens = torch.tensor(PROMPT_LENS, device="cuda")
+        kpm = torch.arange(512, device="cuda")[None] >= lens[:, None]
+        for name, (b, s_, pad) in (("b8 s512 n12 d64 causal+pad",
+                                    (8, 512, True)),
+                                   ("b16 s1024 n12 d64 causal",
+                                    (TRAIN_BATCH, TRAIN_SEQ, False))):
+            q, k, v = (torch.randn(b, s_, 12, 64, device="cuda",
+                                   generator=gen).bfloat16()
+                       for _ in range(3))
+            m = kpm if pad else None
+            k2[name] = time_ms(lambda: tfa.flash_attention_fwd(
+                q, k, v, causal=True, key_padding_mask=m))
     return {"root": str(root), "device": nvidia_smi(),
             "build_s": build_s, "row10_ms": row10, "row9_ms": row9,
+            "row8_ms": row8, "k2_ms": k2,
             "row9_lora_fp32": lora, "row5": row5, "row11_ms": row11,
             "k1_ms": k1, "paged_ms": paged,
             "moe_loads": [int(b - a) for a, b in zip(off, off[1:])]}
@@ -3452,7 +3695,7 @@ def main() -> int:
     print(f"hopper kernels (16-bit K2, K6, K7, row 5; rows 9 and 10's "
           f"tensor-core routes, row 9's fp32 cluster kernel; row 11 and K1's "
           f"row kernels; rows 6 and 7's split-key kernel and K3's "
-          f"projection) on {smi}: "
+          f"projection; row 8's cluster sampler) on {smi}: "
           f"registers, shared memory per CTA, CTAs per "
           f"SM and spill bytes {json.dumps(attrs)}; SASS HGMMA / UTMALDG "
           f"per kernel {json.dumps(sass)}")
@@ -3520,12 +3763,21 @@ def main() -> int:
           f"{sl['device_busy_ms']} ms, idle share "
           f"{sl['device_idle_share']}; device ms by category "
           f"{sl['device_ms_by_category']}; top device time "
-          f"{sl['device_top_ms']}")
+          f"{sl['device_top_ms']}; profiled sampled generate (top-k 50, "
+          f"top-p 0.95, temperature 0.8): device busy "
+          f"{sl['sampled_device_busy_ms']:.3f} ms, K4 "
+          f"{sl['sampled_k4_device_ms']:.3f} ms")
 
     report("layer_norm_bwd", kernel_layer_norm_bwd(dev, gen))
     for kname, r in kernel_flash_bwd(dev, gen).items():
         report(kname, r)
     short = kernel_flash_bwd_short(dev, gen)
+    d80_fwd, d80_bwd = kernel_flash_d80(dev, gen)
+    d80 = "b8 s512 n32 d80 causal (head size between tile widths)"
+    results["flash_attention_fwd"]["variants"][d80] = d80_fwd
+    short["variants"][d80] = d80_bwd
+    print(f"K2 and row 5 at head size 80, {d80}, bf16, on {smi}: forward "
+          f"{json.dumps(d80_fwd)}; backward {json.dumps(d80_bwd)}")
     report("flash_attention_bwd_short", short)
     print(f"row 5 vs K6 + K7 crossover (b8, d64, bf16; flash_attention_bwd "
           f"sends up to {flash_attention.SHORT_KEYS_MAX} keys to row 5) on "

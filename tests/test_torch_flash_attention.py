@@ -60,6 +60,63 @@ def test_matches_jax_flash_bf16():
                                rtol=2e-2)
 
 
+# head sizes the kernels take on padded tiles (40 and 80 on the 64- and
+# 128-column tiles' second halves, 96 Phi-3-mini's, 80 Phi-2's)
+WIDE_HEADS = [40, 80, 96]
+
+
+@pytest.mark.parametrize("d", WIDE_HEADS)
+@pytest.mark.parametrize("dtype, tol", [("float32", 2e-5),
+                                        ("bfloat16", 2e-2)])
+@pytest.mark.parametrize("causal, padded", [(True, False), (True, True),
+                                            (False, True)])
+def test_matches_jax_flash_head_dims(d, dtype, tol, causal, padded):
+    """The plain forward against the JAX flash_attention (Pallas in
+    interpret mode) at head sizes that are not a tile width."""
+    b, s = 2, 24
+    q, k, v = _qkv(b, s, s, 4, 2, d, seed=d)
+    kpm = np.arange(s)[None] >= np.asarray([s, 13])[:, None]
+    jkpm = jnp.asarray(kpm) if padded else None
+    tkpm = torch.from_numpy(kpm) if padded else None
+    want = j_flash(*(jnp.asarray(a, getattr(jnp, dtype)) for a in (q, k, v)),
+                   causal=causal, key_padding_mask=jkpm)
+    got = tfa.flash_attention(
+        *(torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, k, v)),
+        causal=causal, key_padding_mask=tkpm)
+    assert got.shape == (b, s, 4, d)
+    np.testing.assert_allclose(got.float().numpy(),
+                               np.asarray(want, np.float32), atol=tol,
+                               rtol=tol)
+
+
+@pytest.mark.parametrize("d", [129, 256])
+def test_head_dims_past_the_tiles_raise(d):
+    """Above 128 the kernel path refuses the call, naming the limit and
+    ROADMAP's item; the check runs before any device operand check."""
+    with pytest.raises(ValueError, match=r"1 to 128.*ROADMAP"):
+        tfa.check_head_dim(d)
+    q = torch.zeros(1, 4, 2, d)
+    with pytest.raises(ValueError, match=r"1 to 128.*ROADMAP"):
+        tfa._kernel_operands(q, q, q, None, None)
+
+
+@pytest.mark.parametrize("d, panel", [(8, 32), (32, 32), (40, 64), (64, 64),
+                                      (80, 128), (96, 128), (112, 128),
+                                      (128, 128), (36, 64), (1, 32)])
+def test_head_panel(d, panel):
+    """The tile width each head size runs on (sm90::head_panel)."""
+    assert tfa.head_panel(d) == panel
+
+
+def test_pad_head_pads_to_a_multiple_of_8_only_when_needed():
+    x = torch.randn(2, 3, 4, 36)
+    (p,) = tfa._pad_head(x)
+    assert p.shape == (2, 3, 4, 40)
+    assert torch.equal(p[..., :36], x) and not p[..., 36:].any()
+    y = torch.randn(2, 3, 4, 40)
+    assert tfa._pad_head(y)[0].data_ptr() == y.data_ptr()
+
+
 def test_additive_and_bool_padding_agree():
     q, k, v = _qkv(2, 12, 12, 2, 2, 16, seed=2)
     kpm = np.arange(12)[None] >= np.asarray([12, 7])[:, None]

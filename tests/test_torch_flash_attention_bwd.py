@@ -112,6 +112,37 @@ class TestShortKeys:
                        for t in leaves)
 
 
+@pytest.mark.parametrize("mode", ["split", "fused"])
+@pytest.mark.parametrize("d", [40, 80, 96])
+@pytest.mark.parametrize("dtype, tol", [("float32", TOL), ("bfloat16", 3e-2)])
+@pytest.mark.parametrize("causal, lens", [(True, None), (True, [24, 13]),
+                                          (False, [24, 0])])
+def test_grads_match_jax_head_dims(monkeypatch, mode, d, dtype, tol, causal,
+                                   lens):
+    """The plain backward against jax.vjp of the JAX flash_attention at
+    head sizes that are not a tile width, both JAX routes, fp32 and bf16
+    (bf16 relative to each gradient's largest element)."""
+    monkeypatch.setenv("APEX_TPU_FLASH_BWD", mode)
+    b, s, n, g = 2, 24, 4, 2
+    q, k, v, do, kpm = _inputs(b, s, n, g, d, lens, seed=d)
+    jkpm = None if kpm is None else jnp.asarray(kpm)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    _, vjp = jax.vjp(lambda q_, k_, v_: j_flash(
+        q_, k_, v_, causal=causal, key_padding_mask=jkpm),
+        *(jnp.asarray(a, jdt) for a in (q, k, v)))
+    want = vjp(jnp.asarray(do, jdt))
+    leaves = [torch.from_numpy(a).to(tdt).requires_grad_()
+              for a in (q, k, v)]
+    tfa.flash_attention(
+        *leaves, causal=causal,
+        key_padding_mask=None if kpm is None else torch.from_numpy(kpm)
+    ).backward(torch.from_numpy(do).to(tdt))
+    for t, e, name in zip(leaves, want, ("dq", "dk", "dv")):
+        assert t.grad.shape == e.shape and t.grad.dtype == tdt, name
+        assert _rel(t.grad.float().numpy(), np.asarray(e, np.float32)) \
+            <= tol, name
+
+
 def test_reference_bwd_matches_autograd_of_the_materialized_softmax():
     """flash_attention_bwd_ref (from lse and delta) equals autograd
     through mha_reference's softmax, bf16 inputs included."""
@@ -148,7 +179,8 @@ def test_lse_layout_and_sentinel():
     (1, 64, (1, 64)), (77, 128, (1, 32)), (128, 64, (1, 64)),
     (129, 64, (2, 64)), (200, 32, (2, 64)), (300, 128, (3, 32)),
     (384, 64, (3, 64)), (512, 64, (4, 64)), (640, 64, (5, 64)),
-    (1000, 128, (8, 32)), (1024, 64, (8, 64))])
+    (1000, 128, (8, 32)), (1024, 64, (8, 64)), (512, 80, (4, 32)),
+    (512, 40, (4, 64)), (300, 96, (3, 32))])
 def test_short_cluster(sk, d, plan):
     """Row 5's 16-bit cluster: one rank per 128 keys (BERT's and the MoE
     steps' 512 keys are 4 ranks), query tiles of 64 rows, 32 at d = 128."""

@@ -133,14 +133,16 @@ def test_k1_repeats_bitwise_and_captures(dev, rows, hidden):
     (4, 4, True, False, 64), (4, 4, True, True, 64), (4, 4, False, True, 64),
     (12, 4, True, True, 64), (4, 2, True, True, 128), (4, 4, True, True, 32),
     (8, 1, True, True, 64), (4, 1, False, True, 128),
-    (8, 2, False, False, 32)])
+    (8, 2, False, False, 32), (4, 2, True, True, 40), (4, 4, True, True, 80),
+    (4, 1, False, True, 96), (8, 2, True, False, 112)])
 @pytest.mark.parametrize("sq, sk", [(130, 130), (1030, 1030), (130, 300),
                                     (300, 130)])
 def test_k2_flash_attention(dev, dtype, tol, n, g, causal, padded, d, sq,
                             sk):
     """K2 against mha_reference: tails past a 128-row tile (130, 1030),
-    sq != sk, MQA and GQA, every head size; when padded, batch row 2 is
-    fully masked (o = 0, lse = -1e30)."""
+    sq != sk, MQA and GQA, every tile width and head sizes between them
+    (40, 80, 96, 112: the tile's columns past d zero-filled, o clipped at
+    d); when padded, batch row 2 is fully masked (o = 0, lse = -1e30)."""
     gen = _gen(1)
     b = 3
     q = torch.randn(b, sq, n, d, device=dev, generator=gen).to(dtype)
@@ -244,19 +246,113 @@ def test_k3_fused_decode_layer(dev, dtype, tol, nh, g, dh, rope, w_dtype):
     assert torch.count_nonzero(out[-1]) == 0
 
 
+def _k4_temps(b, dev, mode="mixed"):
+    """Per-row temperatures: greedy rows (0) among sampled ones, or all
+    greedy."""
+    base = torch.tensor([0.8, 1.0, 0.0, 0.5, 1.5, 0.8, 0.0, 2.0])
+    if mode == "greedy":
+        base = torch.zeros(8)
+    return base.repeat(-(-b // 8))[:b].to(dev)
+
+
+def _k4_check(x, temps, top_k, top_p, limit, words, mask=None):
+    """One call of K4 (one launch count) against _sampling_plain on the
+    same inputs: token for token."""
+    before = tfs.FUSED_SAMPLE.launches
+    got = tfs.fused_sample(x, seed_words=words, temperature=temps,
+                           top_k=top_k, top_p=top_p, vocab_limit=limit,
+                           token_mask=mask)
+    torch.cuda.synchronize()
+    assert tfs.FUSED_SAMPLE.launches == before + 1
+    xm = x if mask is None else tfs.apply_token_mask(x, mask)
+    want = tfs._sampling_plain(xm, words, temps, top_k, top_p, limit)
+    assert torch.equal(got.cpu(), want.cpu())
+    assert int(got.max()) < limit
+    return got
+
+
 @pytest.mark.parametrize("top_k, top_p", [(None, None), (50, None),
                                           (None, 0.95), (50, 0.95)])
-def test_k4_fused_sample_token_exact(dev, top_k, top_p):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 8, 32])
+@pytest.mark.parametrize("V", [50304, 152064, 262144])
+def test_k4_fused_sample_token_exact(dev, top_k, top_p, dtype, b, V):
+    """K4 against _sampling_plain at one and eight rows and the engine's
+    32 lanes, GPT-2's, Qwen2's and Gemma's vocabularies (the latter two
+    past the first version's one-SM row), fp32 and bf16 logits read in
+    their own dtype, greedy rows among sampled ones."""
     gen = _gen(3)
-    x = torch.randn(8, 50304, device=dev, generator=gen) * 4
-    temps = torch.tensor([0.8, 1.0, 0.0, 0.5, 1.5, 0.8, 0.0, 2.0],
-                         device=dev)
+    x = (torch.randn(b, V, device=dev, generator=gen) * 4).to(dtype)
+    temps = _k4_temps(b, dev)
     for words in [(1, 2), (0xDEADBEEF, 0x12345678)]:
-        got = tfs.fused_sample(x, seed_words=words, temperature=temps,
-                               top_k=top_k, top_p=top_p, vocab_limit=50257)
-        want = tfs._sampling_plain(x, words, temps, top_k, top_p, 50257)
-        assert torch.equal(got.cpu(), want.cpu())
-        assert int(got.max()) < 50257
+        _k4_check(x, temps, top_k, top_p, V - 47, words)
+
+
+# (dtype, mode): fp16 logits cannot hold the mask's -1e30 (apply_token_mask
+# overflows), so their holes come from bf16's and fp32's cases alone
+_K4_EDGES = [(dt, mode) for dt in (torch.float32, torch.bfloat16,
+                                   torch.float16)
+             for mode in ("holes", "greedy", "flat", "ties")
+             if not (dt == torch.float16 and mode == "holes")]
+
+
+@pytest.mark.parametrize("top_k, top_p", [(None, None), (50, None),
+                                          (None, 0.95), (50, 0.95)])
+@pytest.mark.parametrize("dtype, mode", _K4_EDGES)
+def test_k4_fused_sample_edges(dev, top_k, top_p, dtype, mode):
+    """K4 with a token mask's holes (30% of the row), all-greedy rows,
+    flat rows (a nucleus of most of the row: committed elements above a
+    few candidate buckets), and rows tied at the 50th value and one all
+    equal (more candidates than places: the row pass)."""
+    gen = _gen(4)
+    b, V = 8, 50304
+    x = torch.randn(b, V, device=dev, generator=gen) * 4
+    mask = None
+    temps = _k4_temps(b, dev, "greedy" if mode == "greedy" else "mixed")
+    if mode == "holes":
+        mask = torch.rand(b, V, device=dev, generator=gen) > 0.3
+    elif mode == "flat":
+        x = torch.rand(b, V, device=dev, generator=gen) * 0.05
+    elif mode == "ties":
+        kth = x.topk(50, dim=-1).values[:, 45:46]
+        x = torch.where((x - kth).abs() < 0.05, kth, x)
+        x[0] = 1.5
+    _k4_check(x.to(dtype), temps, top_k, top_p, V - 47, (9, 10), mask)
+
+
+@pytest.mark.parametrize("b, V", [(8, 50304), (32, 262144)])
+def test_k4_repeats_bitwise_and_replays_new_words(dev, b, V):
+    """Twenty calls give the same tokens; a call captured in a CUDA graph
+    with its key words in a device tensor replays each new pair of words
+    copied into that tensor as an eager call with them does, one launch
+    count per call."""
+    gen = _gen(5)
+    x = torch.randn(b, V, device=dev, generator=gen) * 4
+    temps = _k4_temps(b, dev)
+    kw = dict(temperature=temps, top_k=50, top_p=0.95, vocab_limit=V - 47)
+    first = tfs.fused_sample(x, seed_words=(3, 4), **kw)
+    for _ in range(20):
+        assert torch.equal(tfs.fused_sample(x, seed_words=(3, 4), **kw),
+                           first)
+    words = torch.tensor([3, 4], dtype=torch.int64, device=dev)
+    tfs.fused_sample(x, seed_words=words, **kw)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tfs.fused_sample(x, seed_words=words, **kw)
+    draws = set()
+    for pair in [(5, 6), (0xFFFFFFFF, 1), (77, 0x9E3779B9)]:
+        words.copy_(torch.tensor(pair, dtype=torch.int64))
+        before = tfs.FUSED_SAMPLE.launches
+        graph.replay()
+        eager = tfs.fused_sample(x, seed_words=pair, **kw)
+        torch.cuda.synchronize()
+        assert tfs.FUSED_SAMPLE.launches == before + 1
+        assert torch.equal(captured, eager)
+        assert torch.equal(eager.cpu(), tfs._sampling_plain(
+            x, pair, temps, 50, 0.95, V - 47).cpu())
+        draws.add(tuple(captured.tolist()))
+    assert len(draws) > 1
 
 
 def _rel_err(got, want):
@@ -326,7 +422,8 @@ _BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2, torch.float16: 4e-3}
     (4, 4, True, False, 64), (4, 4, True, True, 64), (4, 4, False, True, 64),
     (12, 4, True, True, 64), (8, 1, True, True, 64), (4, 2, True, True, 128),
     (4, 4, True, True, 32), (4, 1, False, True, 128),
-    (8, 2, False, False, 32)])
+    (8, 2, False, False, 32), (4, 2, True, True, 40), (4, 4, True, True, 80),
+    (4, 1, False, True, 96), (8, 2, True, False, 112)])
 @pytest.mark.parametrize("s", [130, 1030])
 def test_k6_k7_flash_attention_bwd(dev, dtype, n, g, causal, padded, d, s):
     """K6 dq and K7 dk/dv, launched directly, against
@@ -434,7 +531,9 @@ def test_hopper_flash_kernels_fit_the_sm(dev, dtype, d):
     (512, 8, 1, True, True, 64), (77, 4, 2, False, True, 128),
     (130, 4, 4, True, True, 32), (384, 8, 2, True, True, 64),
     (300, 4, 4, False, True, 32), (257, 4, 1, True, True, 128),
-    (511, 12, 12, True, False, 64), (450, 8, 4, False, True, 128)])
+    (511, 12, 12, True, False, 64), (450, 8, 4, False, True, 128),
+    (512, 8, 2, True, True, 40), (384, 4, 4, True, True, 80),
+    (300, 4, 1, False, True, 96), (200, 8, 2, True, False, 112)])
 def test_row5_flash_bwd_short(dev, dtype, s, n, g, causal, padded, d):
     """Row 5 (the route of flash_attention_bwd up to 512 keys) against
     flash_attention_bwd_ref and against K6 + K7 on the same o and lse:
