@@ -11,6 +11,11 @@
 - :func:`decode_verify` appends ``m`` tokens per sequence in one forward
   (dense attention over the gathered cache); the serving engine
   prefills adapter prompts through it;
+- :func:`prefill_chunked` consumes a prompt in fixed-size chunks, each
+  chunk one :func:`decode_verify` (the serving engine's
+  ``chunk_tokens=``);
+- :func:`extract_kv` / :func:`inject_kv` read a sequence's per-token
+  K/V out of a cache of either layout and write it into another;
 - :func:`sample_logits` picks next tokens (kernel K4 when the
   temperature is not a static 0);
 - :func:`generate` is prefill plus a Python decode loop that stops when
@@ -52,11 +57,13 @@ from apex_tpu_torch.ops.fused_sampling import fused_sample
 from apex_tpu_torch.ops.paged_attention import ragged_paged_attention
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_ragged
 from apex_tpu_torch.serving.paged_cache import (
-    blocks_for, dequantize_kv, init_paged_pool, scatter_kv_quantized)
+    blocks_for, dequantize_kv, gather_block_kv, gather_block_scales,
+    init_paged_pool, plan_cells, scatter_kv_quantized, write_cells)
 from apex_tpu_torch.utils.registry import check_backend, resolve_device
 
-__all__ = ["init_kv_cache", "prefill", "decode_step", "decode_verify",
-           "sample_logits", "generate"]
+__all__ = ["init_kv_cache", "prefill", "prefill_chunked", "decode_step",
+           "decode_verify", "extract_kv", "inject_kv", "sample_logits",
+           "generate"]
 
 DEFAULT_BLOCK_SIZE = 16
 
@@ -96,6 +103,126 @@ def init_kv_cache(cfg: TransformerConfig, batch: int, max_len: int,
     pool["block_tables"] = (torch.arange(batch, dtype=torch.int32,
                                          device=dev)[:, None] * mb + ar[None])
     return pool
+
+
+def _row_blocks(cache: dict, n: int, row: int, what: str):
+    """The first ``blocks_for(n)`` table entries of ``row`` (host ints),
+    refusing an unmapped sentinel among them."""
+    bs, nb = cache["k"].shape[2], cache["k"].shape[1]
+    tables = cache["block_tables"]
+    need = blocks_for(int(n), bs)
+    if need > tables.shape[1]:
+        raise ValueError(f"{what} {n} needs {need} blocks but the table "
+                         f"holds {tables.shape[1]}")
+    ids = tables[row, :need].cpu().numpy()
+    if (ids >= nb).any() or (ids < 0).any():
+        raise ValueError(
+            f"{what} {n} reaches unmapped table entries for row {row} "
+            f"(sentinel >= {nb}); it exceeds the row's mapped blocks")
+    return ids
+
+
+def extract_kv(cache: dict, length: int, *, row: int = 0):
+    """Sequence ``row``'s first ``length`` tokens of K/V → ``(k, v)``
+    ``[L, length, kv_groups, dh]`` from a cache of either layout: paged
+    caches dereference the row's block table (an int8 pool dequantizes
+    to fp32), contiguous ones slice the row's stripe.  Inverted by
+    :func:`inject_kv`."""
+    if length < 1:
+        raise ValueError(f"length={length} must be >= 1")
+    if "block_tables" in cache:
+        ids = _row_blocks(cache, length, row, "length")
+        k, v = gather_block_kv(cache["k"], cache["v"], ids)
+        if "k_scale" in cache:
+            k = dequantize_kv(k, gather_block_scales(cache["k_scale"], ids))
+            v = dequantize_kv(v, gather_block_scales(cache["v_scale"], ids))
+        return k[:, :length], v[:, :length]
+    if length > cache["k"].shape[2]:
+        raise ValueError(f"length {length} exceeds the cache max_len "
+                         f"{cache['k'].shape[2]}")
+    return cache["k"][:, row, :length], cache["v"][:, row, :length]
+
+
+def inject_kv(cache: dict, k, v, *, row: int = 0) -> dict:
+    """Write per-token K/V ``[L, n, kv_groups, dh]`` into positions
+    ``[0, n)`` of sequence ``row`` (in place) → the cache with
+    ``pos[row] = n``.  Paged caches scatter through the row's table (an
+    int8 pool quantizes at the write edge), contiguous ones overwrite the
+    stripe head; values are cast to the cache dtype, so a round trip
+    between same-dtype caches is exact."""
+    dev = cache["k"].device
+    k = torch.as_tensor(k, device=dev)
+    v = torch.as_tensor(v, device=dev)
+    if k.ndim != 4 or k.shape != v.shape:
+        raise ValueError(f"expected matching [L, n, g, dh] K/V, got "
+                         f"{tuple(k.shape)} / {tuple(v.shape)}")
+    n = k.shape[1]
+    if "block_tables" in cache:
+        _row_blocks(cache, n, row, "handoff tokens")
+        bs = cache["k"].shape[2]
+        t = torch.arange(n, device=dev)
+        idx = (slice(None), cache["block_tables"][row].long()[t // bs],
+               t % bs)
+        if "k_scale" in cache:
+            scatter_kv_quantized(cache["k"], cache["v"], cache["k_scale"],
+                                 cache["v_scale"], k, v, idx)
+        else:
+            write_cells((cache["k"], cache["v"]), (k, v), idx)
+    else:
+        if n > cache["k"].shape[2]:
+            raise ValueError(f"{n} handoff tokens exceed the cache max_len "
+                             f"{cache['k'].shape[2]}")
+        cache["k"][:, row, :n] = k.to(cache["k"].dtype)
+        cache["v"][:, row, :n] = v.to(cache["v"].dtype)
+    pos = cache["pos"].clone()
+    pos[row] = n
+    return dict(cache, pos=pos)
+
+
+def prefill_chunked(params: dict, prompt, cfg: TransformerConfig, *,
+                    chunk_tokens: int, prompt_lens=None,
+                    cache: Optional[dict] = None,
+                    max_len: Optional[int] = None,
+                    cache_dtype: Optional[torch.dtype] = None, device=None,
+                    backend: Optional[str] = None):
+    """Chunked prefill: a prompt ``[b, s]`` in ``ceil(s / chunk_tokens)``
+    forwards, each one :func:`decode_verify` appending the chunk at the
+    rows' positions (it attends to the prefix the earlier chunks wrote
+    and to itself causally) → (last real token's logits ``[b, v]``
+    fp32, the filled cache): :func:`prefill`'s contract.  Rows whose
+    prompt ended in an earlier chunk ride later ones parked at their
+    length (their writes land past it, where no read looks); their
+    logits come from the chunk that held their last token.  ``cache``,
+    ``max_len`` and ``cache_dtype`` as in :func:`prefill`."""
+    _check_decode_cfg(cfg)
+    if chunk_tokens < 1:
+        raise ValueError(f"chunk_tokens={chunk_tokens} must be >= 1")
+    dev = resolve_device(device)
+    prompt = torch.as_tensor(prompt, device=dev).long()
+    b, s = prompt.shape
+    if cache is None:
+        cache = init_kv_cache(cfg, b, max_len if max_len else s,
+                              cache_dtype=cache_dtype, device=dev)
+    paged = "block_tables" in cache
+    cache_len = (cache["block_tables"].shape[1] * cache["k"].shape[2]
+                 if paged else cache["k"].shape[2])
+    if s > cache_len:
+        raise ValueError(
+            f"prompt length {s} exceeds the cache max_len {cache_len}")
+    lens = (torch.full((b,), s, dtype=torch.int32, device=dev)
+            if prompt_lens is None
+            else torch.as_tensor(prompt_lens, device=dev).to(torch.int32))
+    last = None
+    for lo in range(0, s, chunk_tokens):
+        hi = min(s, lo + chunk_tokens)
+        cache = dict(cache, pos=lens.clamp(max=lo))
+        logits, cache = decode_verify(params, prompt[:, lo:hi], cache, cfg,
+                                      device=dev, backend=backend)
+        take = (lens.long() - 1 - lo).clamp(0, hi - lo - 1)
+        lg = logits[torch.arange(b, device=dev), take]
+        hit = (lens - 1 >= lo) & (lens - 1 < hi)
+        last = lg if last is None else torch.where(hit[:, None], lg, last)
+    return last, dict(cache, pos=lens)
 
 
 def _check_sampling_args(temperature: float, top_k: Optional[int]) -> None:
@@ -348,8 +475,11 @@ def decode_step(params: dict, token, cache: dict, cfg: TransformerConfig,
         nbl = T // bs
         tables = (torch.arange(b, device=dev)[:, None] * nbl
                   + torch.arange(nbl, device=dev)[None])
-    # one host sync per step (not per layer): rows whose write drops
-    rows = None if bool(ok.all()) else ok.nonzero(as_tuple=True)[0]
+    # rows whose write drops are redirected on the device, planned once
+    # for every layer (plan_cells): no host sync, so a CUDA graph captures
+    # the step
+    cell = plan_cells((blk, off) if paged
+                      else (torch.arange(b, device=dev), pos), ok)
     rope_cos = rope_sin = rope = None
     if cfg.position_embedding_type == "rope":
         rope = rope_cos_sin(max_pos, cfg.kv_channels, device=dev)
@@ -372,20 +502,14 @@ def decode_step(params: dict, token, cache: dict, cfg: TransformerConfig,
                                                       pos)
         ck, cv = cache["k"][layer], cache["v"][layer]
         sk = sv = None
+        if quant:
+            sk, sv = cache["k_scale"][layer], cache["v_scale"][layer]
+            scatter_kv_quantized(ck, cv, sk, sv, k[:, 0], v[:, 0], cell)
+        else:
+            write_cells((ck, cv), (k[:, 0], v[:, 0]), cell)
         if paged:
-            sel = slice(None) if rows is None else rows
-            if quant:
-                sk, sv = cache["k_scale"][layer], cache["v_scale"][layer]
-                scatter_kv_quantized(ck, cv, sk, sv, k[sel, 0], v[sel, 0],
-                                     (blk[sel], off[sel]))
-            else:
-                ck[blk[sel], off[sel]] = k[sel, 0].to(ck.dtype)
-                cv[blk[sel], off[sel]] = v[sel, 0].to(cv.dtype)
             pool_k, pool_v = ck, cv
         else:
-            sel = torch.arange(b, device=dev) if rows is None else rows
-            ck[sel, pos[sel]] = k[sel, 0].to(ck.dtype)
-            cv[sel, pos[sel]] = v[sel, 0].to(cv.dtype)
             g, dh = ck.shape[2], ck.shape[3]
             pool_k = ck.view(b * nbl, bs, g, dh)
             pool_v = cv.view(b * nbl, bs, g, dh)
@@ -470,12 +594,15 @@ def decode_verify(params: dict, tokens, cache: dict,
     else:
         max_pos = cache["k"].shape[2]
         keep = wpos < max_pos
-    # one host sync per call: the cells whose write drops
-    rows, cols = keep.nonzero(as_tuple=True)
+    # the b·m cells row-major; dropped ones are redirected on the device,
+    # planned once for every layer (plan_cells): no host sync, so a CUDA
+    # graph captures the call
     if paged:
-        cell = (blk[rows, cols], wpos[rows, cols] % bs)
+        cell = (blk.reshape(-1), (wpos % bs).reshape(-1))
     else:
-        cell = (rows, wpos[rows, cols])
+        cell = (torch.arange(b, device=dev).repeat_interleave(m),
+                wpos.reshape(-1))
+    cell = plan_cells(cell, keep.reshape(-1))
     rope = None
     if cfg.position_embedding_type == "rope":
         rope = rope_cos_sin(max_pos, cfg.kv_channels, device=dev)
@@ -489,13 +616,13 @@ def decode_verify(params: dict, tokens, cache: dict,
             q = fused_apply_rotary_pos_emb_ragged(q, rope[0], rope[1], pos)
             k = fused_apply_rotary_pos_emb_ragged(k, rope[0], rope[1], pos)
         ck, cv = cache["k"][layer], cache["v"][layer]
+        kf, vf = k.reshape((b * m,) + k.shape[2:]), v.reshape(
+            (b * m,) + v.shape[2:])
         if quant:
             sk, sv = cache["k_scale"][layer], cache["v_scale"][layer]
-            scatter_kv_quantized(ck, cv, sk, sv, k[rows, cols],
-                                 v[rows, cols], cell)
+            scatter_kv_quantized(ck, cv, sk, sv, kf, vf, cell)
         else:
-            ck[cell] = k[rows, cols].to(ck.dtype)
-            cv[cell] = v[rows, cols].to(cv.dtype)
+            write_cells((ck, cv), (kf, vf), cell)
         if paged:
             g, dh = ck.shape[2], ck.shape[3]
             kk = ck[tbl].reshape(b, mb * bs, g, dh)

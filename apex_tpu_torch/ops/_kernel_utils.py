@@ -10,8 +10,12 @@ first use it is compiled with
 
 into the repository's ``build/apex_tpu_torch/`` directory (git-ignored),
 keyed on a hash of the source, every ``csrc/*.cuh`` header and the
-flags, and loaded with ``ctypes``.  :func:`build_all` starts one
-``nvcc`` per source at once.  The Hopper kernels (K2, K6, K7, row 5's
+flags, and loaded with ``ctypes``.  :func:`build_all`, :func:`lib_path`
+and :func:`load_built` take another directory (the serving engine's
+``compile_cache_dir=`` keeps its kernel libraries in its own, so a
+primed directory starts with no ``nvcc`` run), and :data:`NVCC_RUNS`
+lists every source this process handed to ``nvcc``.
+:func:`build_all` starts one ``nvcc`` per source at once.  The Hopper kernels (K2, K6, K7, row 5's
 16-bit kernel and rows 9 and 10's tensor-core routes) find the CUDA
 driver's ``cuTensorMapEncodeTiled`` through ``cudaGetDriverEntryPoint``,
 so no library links ``-lcuda``.
@@ -55,7 +59,7 @@ __all__ = ["Kernel", "KERNELS", "register", "build_all", "library",
            "reset_launch_counts", "launch_counts", "ptr", "stream_ptr",
            "dtype_code", "check_cuda_operands", "check_aligned", "aligned",
            "tma_strides_ok", "ATTR_KEYS", "hopper_attrs", "sm_count", "CSRC",
-           "BUILD_DIR"]
+           "BUILD_DIR", "load_built", "NVCC_RUNS"]
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / \
@@ -65,6 +69,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# source -> the file its loaded library came from
+_lib_files: Dict[str, Path] = {}
+# every source this process started nvcc on, in order
+NVCC_RUNS: List[str] = []
 
 
 def _cuda_tool(name: str) -> str:
@@ -76,9 +84,9 @@ def _cuda_tool(name: str) -> str:
         "kernels are built from apex_tpu_torch/csrc at first use")
 
 
-def lib_path(source: str) -> Path:
-    """Where the library of one source is built (its name carries the
-    build key)."""
+def lib_path(source: str, directory=None) -> Path:
+    """Where the library of one source is built under ``directory``
+    (default :data:`BUILD_DIR`); its name carries the build key."""
     h = hashlib.sha256()
     # every header, whether the source includes it or not: a header added
     # later cannot leave a stale library behind
@@ -88,17 +96,25 @@ def lib_path(source: str) -> Path:
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     stem = source.rsplit(".", 1)[0]
-    return BUILD_DIR / f"{stem}-{h.hexdigest()[:16]}.so"
+    return Path(directory or BUILD_DIR) / f"{stem}-{h.hexdigest()[:16]}.so"
 
 
-def _start_build(source: str):
-    """Start ``nvcc`` on one source unless its library is already built;
-    returns ``(process, temporary path, final path)`` or ``None``."""
-    out = lib_path(source)
+def _start_build(source: str, directory: Path):
+    """Start ``nvcc`` on one source unless its library is already built
+    in ``directory``; returns ``(process, temporary path, final path)`` or
+    ``None``."""
+    out = lib_path(source, directory)
     if out.exists():
         return None
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    directory.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp.so")
+    have = _lib_files.get(source)
+    if have is not None and have.name == out.name and have.is_file():
+        # the same build key is loaded from another directory: copy it
+        shutil.copyfile(have, tmp)
+        os.replace(tmp, out)
+        return None
+    NVCC_RUNS.append(source)
     cmd = [_cuda_tool("nvcc"), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
            str(CSRC / source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
@@ -106,16 +122,21 @@ def _start_build(source: str):
     return proc, tmp, out
 
 
-def build_all(sources: Optional[Iterable[str]] = None) -> List[str]:
+def build_all(sources: Optional[Iterable[str]] = None,
+              directory=None) -> List[str]:
     """Compile every listed source (default: all kernels' sources) with
-    one ``nvcc`` each, started together, and load them.  Returns the
+    one ``nvcc`` each, started together, into ``directory`` (default
+    :data:`BUILD_DIR`), and load them.  A source whose library is loaded
+    already is built only if ``directory`` lacks its file.  Returns the
     sources compiled now (not found already built).  Every ``nvcc`` is
     waited for before a failure is raised."""
     if sources is None:
         sources = sorted({k.source for k in KERNELS.values()})
+    directory = Path(directory or BUILD_DIR)
     with _lock:
-        todo = [s for s in sources if s not in _libs]
-        started = [(s, _start_build(s)) for s in todo]
+        todo = [s for s in sources
+                if s not in _libs or not lib_path(s, directory).exists()]
+        started = [(s, _start_build(s, directory)) for s in todo]
         logs = {s: b[0].communicate()[0] for s, b in started if b}
         for s, b in started:
             if b is not None:
@@ -127,8 +148,35 @@ def build_all(sources: Optional[Iterable[str]] = None) -> List[str]:
                 # atomic: a concurrent build in another process sees all
                 # or none of the library
                 os.replace(tmp, out)
-            _libs[s] = ctypes.CDLL(str(lib_path(s)))
+            if s not in _libs:
+                _load(s, lib_path(s, directory))
     return [s for s, b in started if b is not None]
+
+
+def _load(source: str, path: Path) -> None:
+    _libs[source] = ctypes.CDLL(str(path))
+    _lib_files[source] = path
+
+
+def load_built(source: str, directory) -> bool:
+    """Whether ``directory`` holds a loadable library of ``source`` at the
+    current build key; loads it (no ``nvcc``) unless one is loaded
+    already, in which case the file counts when its name (which carries
+    the build key) is the loaded one's.  A missing file, or one that does
+    not load, is ``False``."""
+    path = lib_path(source, directory)
+    if not path.is_file():
+        return False
+    with _lock:
+        have = _lib_files.get(source)
+        if have is not None:
+            # the file name carries the build key
+            return have.name == path.name
+        try:
+            _load(source, path)
+        except OSError:
+            return False
+    return True
 
 
 def library(source: str) -> ctypes.CDLL:

@@ -1,6 +1,7 @@
 """Serving pieces of the port (``apex_tpu/serving``): the paged KV pool
-and its block ledger, bucketing, SLO classes, the LoRA adapter pool, and
-the continuous-batching :class:`ServingEngine`.
+and its block ledger, bucketing, SLO classes, the LoRA adapter pool, the
+compiled ladder (:class:`CompileCache`, :func:`warmup_ladder`), and the
+continuous-batching :class:`ServingEngine`.
 
 The names load on first use: ``models/generate.py`` imports
 ``serving.paged_cache``, and the engine imports ``models/generate.py``.
@@ -10,6 +11,7 @@ import importlib
 
 _EXPORTS = {
     "AdapterPool": "adapter_pool",
+    "CompileCache": "compile_cache", "warmup_ladder": "compile_cache",
     "ServingEngine": "engine", "Request": "engine", "Response": "engine",
     "BlockManager": "paged_cache", "dequantize_kv": "paged_cache",
     "init_paged_pool": "paged_cache", "quantize_kv": "paged_cache",

@@ -48,14 +48,43 @@ tenant's own), and every decode step passes the per-lane slot ids, so
 the whole batch runs the grouped matmul (kernel row 9) at the four
 target matmuls.  Completion and preemption unpin.
 
+Chunked prefill: with ``chunk_tokens=``, a prompt longer than one chunk
+claims its lane and blocks at admission and then streams its prefill one
+``chunk_tokens`` forward per :meth:`ServingEngine.step` (each chunk one
+:func:`~apex_tpu_torch.models.generate.decode_verify` against the lane's
+cache), interleaved with the other lanes' decode; its first token comes
+from the final chunk.  Chunk-written blocks publish under the chunk
+digest namespace (``paged_cache.chunk_salt``) and share only whole
+leading chunks.
+
+Constrained decoding: with ``token_masks=True``,
+``submit(token_mask_fn=)`` gives a request a boolean vocabulary mask
+applied before temperature, top-k and top-p at every sampling site (the
+first token, and kernel K4 or the argmax at every decode step).
+
+The compiled ladder: with ``compile_cache_dir=``, every ladder entry —
+``prefill[bucket]`` and ``insert[bucket]`` per prompt bucket,
+``decode``, ``sample`` and ``chunk`` — runs through
+:class:`~apex_tpu_torch.serving.compile_cache.CompileCache`: on the card
+each is captured once as a CUDA graph and replayed, over kernel libraries
+kept in the directory (a primed directory starts with no ``nvcc`` run).
+Each step's inputs (tokens, block tables, lanes, temperatures, key words)
+are copied into the graphs' static buffers; the one host sync a step is
+the read of the sampled tokens.  Without a directory the same entry
+functions run eagerly, so the two engines launch the same kernels in the
+same order.  :func:`~apex_tpu_torch.serving.compile_cache.warmup_ladder`
+primes every entry.  The first token of a request is drawn eagerly (one
+b=1 call per admission, outside the ladder), and so is a LoRA prompt's
+prefill.
+
 Differences from the JAX engine: pools are updated in place; sampling
 draws its key words from a ``torch.Generator`` (``generator=``), so
 sampled lanes are reproducible per seed but not the JAX tokens (greedy
-lanes are the identity contract); there is nothing to compile, so the
-buckets bound the shapes a per-bucket CUDA-graph capture would need.
-Not ported yet (raise ``NotImplementedError``): ``spec``,
-``chunk_tokens``, ``host_tier_bytes``, ``compile_cache_dir``,
-``token_masks``, ``submit_prefilled`` and ``drain``.
+lanes are the identity contract); no environment variable overrides
+``chunk_tokens``; a capture or replay failure raises instead of falling
+back.  Not ported yet (raise ``NotImplementedError``): ``spec``,
+``host_tier_bytes``, ``host_tier_wire``, ``submit_prefilled`` and
+``drain``.
 
 Telemetry (no-op unless :func:`~apex_tpu_torch.observability.configure`
 ran) uses the JAX engine's names: ``serving.{requests,prefill_calls,
@@ -68,6 +97,7 @@ missed}`` and ``serving.adapter.requests{adapter=}``.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import time
 from collections import deque
 from typing import List, Optional, Sequence
@@ -83,12 +113,19 @@ from apex_tpu_torch.observability import metrics as _telemetry
 from apex_tpu_torch.observability import span
 from apex_tpu_torch.observability.device import (
     compile_label, sample_device_memory)
-from apex_tpu_torch.ops.fused_sampling import fused_sample
+from apex_tpu_torch.models.quantized import is_quantized_tree
+from apex_tpu_torch.ops import (
+    decode_step as _k3, dense as _k10, flash_attention as _k2,
+    fused_sampling as _k4, grouped_matmul as _k9, layer_norm as _k1,
+    paged_attention as _k6)
+from apex_tpu_torch.ops.fused_sampling import _seed_words, fused_sample
 from apex_tpu_torch.serving.batching import (
     SlotPool, default_buckets, pad_prompt, pick_bucket)
+from apex_tpu_torch.serving.compile_cache import CompileCache
 from apex_tpu_torch.serving.paged_cache import (
-    BlockManager, blocks_for, init_paged_pool, paged_insert_prefill,
-    paged_insert_prefill_q, prefix_block_hashes, resolve_cache_wire)
+    BlockManager, blocks_for, chunk_salt, init_paged_pool,
+    paged_insert_prefill, paged_insert_prefill_q, prefix_block_hashes,
+    resolve_cache_wire)
 from apex_tpu_torch.serving.slo import judge as _judge_slo
 from apex_tpu_torch.serving.slo import resolve_slo_targets
 from apex_tpu_torch.serving.slo import tpot_ms as _tpot_ms
@@ -111,6 +148,10 @@ class Request:
     slo_class: str = "default"
     # the LoRA adapter this request decodes through, 0 = base model
     adapter_id: int = 0
+    # constrained decoding: boolean [vocab] mask, True = allowed, applied
+    # before temperature / top-k / top-p at every sampling site
+    token_mask: Optional[np.ndarray] = dataclasses.field(
+        default=None, repr=False)
     # lifecycle stamps (perf_counter seconds; 0.0 = not yet)
     submitted_t: float = 0.0
     admitted_t: float = 0.0
@@ -147,6 +188,12 @@ class Request:
         if self.adapter_id < 0:
             raise ValueError(
                 f"adapter_id={self.adapter_id} must be >= 0 (0 = base)")
+        if self.token_mask is not None:
+            self.token_mask = np.asarray(self.token_mask, bool).reshape(-1)
+            if not self.token_mask.any():
+                raise ValueError(
+                    "token_mask allows no tokens — sampling would "
+                    "degenerate to argmax over -inf")
 
 
 @dataclasses.dataclass
@@ -181,10 +228,31 @@ class _Slot:
     cache_len: int = 0            # tokens materialized in the KV cache
     shared_blocks: int = 0        # prefix blocks mapped, not allocated
     decode_polls: int = 0
+    # chunked prefill: a lane admitted for a long prompt streams its
+    # prefill one chunk per step and joins the decode batch after the
+    # last; while prefilling, cache_len is the tokens written so far
+    prefilling: bool = False
+    chunks_done: int = 0
+    chunks_total: int = 0
+    prefill_tokens: Optional[np.ndarray] = None
+    # the prompt's chunk-namespace digests and how many leading blocks
+    # are published (shared blocks count as published at admission)
+    digests: Optional[List[bytes]] = None
+    published_upto: int = 0
 
 
-_UNPORTED = ("spec", "chunk_tokens", "host_tier_bytes", "host_tier_wire",
-             "compile_cache_dir")
+_UNPORTED = ("spec", "host_tier_bytes", "host_tier_wire")
+
+
+def _resolve_chunk_tokens(value: Optional[int]) -> Optional[int]:
+    """The chunked-prefill knob: a positive chunk size, or None for
+    monolithic prefill (the JAX engine's environment override is not
+    ported: nothing in the port routes by environment)."""
+    if value is not None and int(value) < 1:
+        raise ValueError(
+            f"chunk_tokens={value} must be >= 1 (or None for "
+            "monolithic prefill)")
+    return None if value is None else int(value)
 
 
 def _dtype_name(dt: torch.dtype) -> str:
@@ -203,9 +271,12 @@ class ServingEngine:
     paged admission margin.  ``top_k`` / ``top_p`` / ``vocab_limit`` are
     engine-wide sampling knobs; temperature is per request.
     ``generator`` (a CPU ``torch.Generator``, default seeded 0) keys the
-    sampled lanes.  ``adapter_pool`` serves LoRA adapters (module doc).
-    ``device`` defaults to ``cuda``; ``backend="reference"`` pins every
-    op to its plain version (tests and ``chip_smoke.py``)."""
+    sampled lanes.  ``adapter_pool`` serves LoRA adapters,
+    ``chunk_tokens`` turns on chunked prefill, ``token_masks=True``
+    constrained decoding, and ``compile_cache_dir`` the compiled ladder
+    (module doc).  ``device`` defaults to ``cuda``;
+    ``backend="reference"`` pins every op to its plain version (tests and
+    ``chip_smoke.py``)."""
 
     def __init__(self, params: dict, cfg: TransformerConfig, *,
                  max_slots: int = 8, max_len: Optional[int] = None,
@@ -224,20 +295,15 @@ class ServingEngine:
                  adapter_pool=None, token_masks: bool = False,
                  generator: Optional[torch.Generator] = None,
                  device=None, backend: Optional[str] = None):
-        given = dict(spec=spec, chunk_tokens=chunk_tokens,
-                     host_tier_bytes=host_tier_bytes,
-                     host_tier_wire=host_tier_wire,
-                     compile_cache_dir=compile_cache_dir)
+        given = dict(spec=spec, host_tier_bytes=host_tier_bytes,
+                     host_tier_wire=host_tier_wire)
         for name in _UNPORTED:
             if given[name] not in (None, "off"):
                 raise NotImplementedError(
                     f"ServingEngine({name}=...) is not ported yet; it "
                     "comes with a later slice of the port (ROADMAP.md)")
-        if token_masks:
-            raise NotImplementedError(
-                "ServingEngine(token_masks=True) (constrained decoding) "
-                "comes with a later slice of the port")
         _check_decode_cfg(cfg)
+        self.chunk_tokens = _resolve_chunk_tokens(chunk_tokens)
         if cache_layout not in ("contiguous", "paged"):
             raise ValueError(
                 f"cache_layout={cache_layout!r}: expected 'contiguous' "
@@ -328,12 +394,31 @@ class ServingEngine:
         self._adapters = adapter_pool
         self._lane_slab = np.zeros((self.max_slots,), np.int32)
         self._next_id = 0
+        # the latest decode step's logits [max_slots, v] (on the card under
+        # a compile cache: the decode graph's output, valid until the next
+        # step)
+        self.last_logits: Optional[torch.Tensor] = None
         self._decode_count = 0
         self._prefill_count = 0
         self._preempt_count = 0
         self._sampling = dict(top_k=top_k, top_p=top_p,
                               vocab_limit=vocab_limit)
         self._slo_targets = resolve_slo_targets(slo_targets)
+        # constrained decoding: per-lane allow rows, a host mirror and the
+        # device copy the decode and sample entries read (rows are
+        # rewritten at slot handoff only)
+        self._masks = self._mask_dev = None
+        if token_masks:
+            self._masks = np.ones((self.max_slots, cfg.vocab_size), bool)
+            self._mask_dev = torch.ones((self.max_slots, cfg.vocab_size),
+                                        dtype=torch.bool, device=dev)
+        # the compiled ladder; its kernel libraries live in the directory
+        self._compile_cache = None
+        # each ladder entry after its first lookup: the engine's bound
+        # state never changes, so a step calls its entry directly
+        self._entries: dict = {}
+        if compile_cache_dir:
+            self._compile_cache = CompileCache(compile_cache_dir, device=dev)
 
     # -- public API --------------------------------------------------------
 
@@ -344,11 +429,10 @@ class ServingEngine:
                token_mask_fn=None) -> int:
         """Queue one request; returns its request id.  ``adapter_id``
         selects an adapter registered on the engine's pool (0 = base
-        model)."""
-        if token_mask_fn is not None:
-            raise NotImplementedError(
-                "token_mask_fn (constrained decoding) comes with a later "
-                "slice of the port")
+        model).  ``token_mask_fn`` (an engine built with
+        ``token_masks=True``) is called once with the vocabulary size and
+        returns a boolean ``[vocab]`` allow mask or the allowed token
+        ids."""
         if adapter_id:
             if self._adapters is None:
                 raise ValueError(
@@ -358,10 +442,26 @@ class ServingEngine:
                 raise ValueError(
                     f"adapter_id={adapter_id} is not registered on the "
                     "engine's adapter pool")
+        token_mask = None
+        if token_mask_fn is not None:
+            if self._masks is None:
+                raise ValueError(
+                    "token_mask_fn= needs token_masks=True at engine "
+                    "construction (the step gains a mask operand)")
+            m = np.asarray(token_mask_fn(self.cfg.vocab_size))
+            if m.dtype != np.bool_:
+                ids = m.astype(np.int64).reshape(-1)
+                m = np.zeros((self.cfg.vocab_size,), bool)
+                m[ids] = True
+            if m.shape != (self.cfg.vocab_size,):
+                raise ValueError(
+                    f"token_mask_fn returned shape {m.shape}; expected "
+                    f"({self.cfg.vocab_size},) or a list of token ids")
+            token_mask = m
         req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
                       temperature=temperature, eos_token_id=eos_token_id,
                       request_id=self._next_id, slo_class=str(slo_class),
-                      adapter_id=int(adapter_id))
+                      adapter_id=int(adapter_id), token_mask=token_mask)
         if req.prompt.size + req.max_new_tokens > self.max_len:
             raise ValueError(
                 f"prompt ({req.prompt.size}) + max_new_tokens "
@@ -417,10 +517,13 @@ class ServingEngine:
         return not self._queue and self._pool.n_active == 0
 
     def step(self) -> List[Response]:
-        """Admit what fits, decode one token for every live lane; returns
-        the requests completed by this step."""
+        """Admit what fits, run one prefill chunk if a lane is mid-prefill,
+        decode one token for every live lane; returns the requests
+        completed by this step."""
         completed = self._admit()
-        if any(st is not None for st in self._slots):
+        if self.chunk_tokens:
+            completed.extend(self._prefill_chunk_once())
+        if any(st is not None and not st.prefilling for st in self._slots):
             completed.extend(self._decode_once())
         self._set_gauges()
         return completed
@@ -460,8 +563,11 @@ class ServingEngine:
             "cache_bytes": self._cache_bytes,
             "sampling": dict(self._sampling),
             "spec_k": None,
-            "chunk_tokens": None,
-            "prefilling": 0,
+            "chunk_tokens": self.chunk_tokens,
+            "prefilling": sum(1 for st in self._slots
+                              if st is not None and st.prefilling),
+            "compile_cache": (None if self._compile_cache is None
+                              else self._compile_cache.stats()),
             "decode_steps": self._decode_count,
             "prefill_calls": self._prefill_count,
         }
@@ -479,7 +585,7 @@ class ServingEngine:
                 "headroom_tokens": free_blocks * self.block_size,
                 "digest_inventory": {
                     "block_size": self.block_size,
-                    "chunk_tokens": None,
+                    "chunk_tokens": self.chunk_tokens,
                     "hbm": [h.hex()[:16] for h in
                             self._mgr.newest_digests(DIGEST_INVENTORY_N)],
                     "host": [],
@@ -516,21 +622,56 @@ class ServingEngine:
 
     def _admission_state(self, req: Request):
         """(full token array, prefix digests) of the request's current
-        resume state, memoized on the Request."""
+        resume state, memoized on the Request; a chunked admission's
+        digests live in the chunk namespace."""
         n = req.prompt.size + len(req.resume_tokens)
-        if req._hash_cache is None or req._hash_cache[0] != n:
+        salt = chunk_salt(self.chunk_tokens) if self._chunked(req) else b""
+        if (req._hash_cache is None or req._hash_cache[0] != n
+                or req._hash_cache[1] != salt):
             tokens = self._full_tokens(req)
             full = n // self.block_size
-            req._hash_cache = (n, tokens, prefix_block_hashes(
-                tokens[: full * self.block_size], self.block_size))
-        return req._hash_cache[1], req._hash_cache[2]
+            req._hash_cache = (n, salt, tokens, prefix_block_hashes(
+                tokens[: full * self.block_size], self.block_size,
+                salt=salt))
+        return req._hash_cache[2], req._hash_cache[3]
+
+    def _chunked(self, req: Request) -> bool:
+        """Whether the request admits through chunked prefill: a prompt
+        longer than one chunk, not an adapter request (its prefill is one
+        LoRA verify forward)."""
+        if not self.chunk_tokens or req.adapter_id:
+            return False
+        return req.prompt.size + len(req.resume_tokens) > self.chunk_tokens
+
+    def _chunk_share_plan(self, n: int, hashes: List[bytes]) -> int:
+        """How many leading full blocks of a chunked admission map
+        published chunk-namespace digests instead of running their
+        chunks: whole chunks only (a sharer starts its chunk grid where
+        the producer did), none unless ``chunk_tokens % block_size ==
+        0``, and never the final chunk (it samples the first token)."""
+        ct, bs = self.chunk_tokens, self.block_size
+        if ct % bs:
+            return 0
+        bpc = ct // bs
+        lead = 0
+        for c in range(min(n // ct, -(-n // ct) - 1)):
+            chunk_hashes = hashes[c * bpc:(c + 1) * bpc]
+            if len(chunk_hashes) < bpc or not all(
+                    self._mgr.lookup_prefix(h) is not None
+                    for h in chunk_hashes):
+                break
+            lead += bpc
+        return lead
 
     def _blocks_needed(self, req: Request) -> int:
         """NEW blocks the request must allocate at admission (published
-        prefix hits map, they do not allocate)."""
+        prefix hits map, they do not allocate; a chunked admission maps
+        only its leading shared chunks)."""
         n = req.prompt.size + len(req.resume_tokens)
         _tokens, hashes = self._admission_state(req)
         need = blocks_for(n, self.block_size)
+        if self._chunked(req):
+            hashes = hashes[: self._chunk_share_plan(n, hashes)]
         for h in hashes:
             if self._mgr.lookup_prefix(h) is not None:
                 need -= 1
@@ -588,9 +729,23 @@ class ServingEngine:
             req._lane = 0
 
     def _bind_slot_lane(self, req: Request, slot: int) -> None:
-        """Stamp the lane's slab index at slot handoff; every teardown
-        edge resets it."""
+        """Stamp the lane-local operands at slot handoff: the adapter slab
+        index (every teardown edge resets it) and, with constrained
+        decoding, the request's mask row."""
         self._lane_slab[slot] = req._lane
+        if self._masks is not None:
+            row = (req.token_mask if req.token_mask is not None
+                   else np.ones((self.cfg.vocab_size,), bool))
+            if not np.array_equal(self._masks[slot], row):
+                self._masks[slot] = row
+                self._mask_dev[slot].copy_(torch.from_numpy(row))
+
+    def _mask_arg(self, req: Request):
+        """The request's mask for its first-token draw: None when it has
+        none (an all-True row changes nothing)."""
+        if self._masks is None or req.token_mask is None:
+            return None
+        return torch.from_numpy(req.token_mask).to(self.device)
 
     def _claim_blocks(self, tokens: np.ndarray, hashes: List[bytes]):
         """Map/allocate the block list for ``tokens``: published full
@@ -641,47 +796,189 @@ class ServingEngine:
             raise
         return blocks
 
+    # -- the ladder: every entry runs through _cc ---------------------------
+
+    def _cc_parts(self, **extra) -> dict:
+        """The static identity every ladder entry's key carries (the shapes
+        and the code digest are added by the cache)."""
+        return dict(cache_wire=self.cache_wire,
+                    cache_layout=self.cache_layout,
+                    chunk_tokens=self.chunk_tokens,
+                    sampling=tuple(sorted(self._sampling.items())),
+                    lora=self._adapters is not None,
+                    masked=self._masks is not None, backend=self.backend,
+                    **extra)
+
+    def _cc(self, name: str, fn, args: tuple, bound, **parts):
+        """One ladder call: through the compile cache when the engine has
+        one (on the card a captured graph; a capture or replay failure
+        raises), else ``fn`` eagerly on the same inputs.  ``bound`` is a
+        function returning the entry's bound state, called at the entry's
+        first lookup only (and at every eager call)."""
+        if self._compile_cache is None:
+            return fn(*(a.to(self.device) for a in args), **bound())
+        key = (name, tuple(sorted(parts.items())),
+               tuple((a.shape, a.dtype) for a in args))
+        entry = self._entries.get(key)
+        if entry is None:
+            entry = self._entries[key] = self._compile_cache.load_or_compile(
+                name, fn, args, bound(), key_parts=self._cc_parts(**parts))
+        return entry(*args)
+
+    def _ladder_sources(self) -> List[str]:
+        """The kernel sources this engine's ladder entries launch: K1 and
+        K2 (prefill), K4 (sample), K3 on float weights without LoRA else
+        row 6 (decode), row 10 on quantized weights, row 9 with LoRA."""
+        ks = [_k1.LN_FWD, _k2.FLASH_FWD, _k4.FUSED_SAMPLE]
+        quant = is_quantized_tree(self.params)
+        if quant or self._adapters is not None:
+            ks.append(_k6.PAGED_ATTENTION)
+        else:
+            ks.append(_k3.DECODE_LAYER)
+        if quant:
+            ks.append(_k10.DENSE_INT8)
+        if self._adapters is not None:
+            ks.append(_k9.GROUPED_MATMUL)
+        return sorted({k.source for k in ks})
+
+    def _pools(self) -> dict:
+        return {k: v for k, v in self.cache.items() if k != "pos"}
+
+    def _prefill_call(self, tokens: np.ndarray, n: int, bucket: int):
+        """``prefill[bucket]``: → (last-token logits ``[1, v]``, the bucket
+        cache's K and V ``[L, 1, bucket, g, dh]``)."""
+        args = (torch.from_numpy(pad_prompt(tokens, bucket)[None]).long(),
+                torch.tensor([n], dtype=torch.int32))
+        return self._cc("prefill", _prefill_entry, args, lambda: dict(
+            params=self.params, cfg=self.cfg, bucket=bucket,
+            cache_dtype=self._cache_dtype, backend=self.backend),
+            bucket=bucket)
+
     def _insert_prefill_kv(self, slot: int, bucket: int,
                            write_ids: List[int], ks, vs, n: int) -> None:
-        """Write a bucket-sized prefill cache ``[L, 1, bucket, g, dh]``
-        into the lane's storage and set its position to ``n``."""
+        """``insert[bucket]``: write a bucket-sized prefill cache ``[L, 1,
+        bucket, g, dh]`` into the lane's storage; then set its position
+        to ``n``."""
         if self._mgr is not None:
-            wid = np.full((blocks_for(bucket, self.block_size),),
-                          self.num_blocks, np.int32)
-            wid[: len(write_ids)] = write_ids
-            c = self.cache
-            if self.cache_wire == "int8":
-                paged_insert_prefill_q(c["k"], c["v"], c["k_scale"],
-                                       c["v_scale"], ks, vs, wid, n,
-                                       block_size=self.block_size)
-            else:
-                paged_insert_prefill(c["k"], c["v"], ks, vs, wid, n,
-                                     block_size=self.block_size)
+            where = np.full((blocks_for(bucket, self.block_size),),
+                            self.num_blocks, np.int32)
+            where[: len(write_ids)] = write_ids
+            where = torch.from_numpy(where)
         else:
-            self.cache["k"][:, slot, :bucket] = ks[:, 0].to(
-                self.cache["k"].dtype)
-            self.cache["v"][:, slot, :bucket] = vs[:, 0].to(
-                self.cache["v"].dtype)
+            where = torch.tensor([slot], dtype=torch.long)
+        self._cc("insert", _insert_entry,
+                 (ks, vs, where, torch.tensor([n], dtype=torch.int32)),
+                 lambda: dict(cache=self._pools(), layout=self.cache_layout,
+                              bucket=bucket,
+                              block_size=getattr(self, "block_size", None)),
+                 bucket=bucket)
         self.cache["pos"][slot] = n
 
-    def _sample(self, logits, temps: np.ndarray) -> torch.Tensor:
-        """Per-row temperatures: all-greedy rows take the masked argmax
-        (no launch); otherwise one fused sampler call whose greedy rows
-        (temperature 0) take the same argmax."""
+    def _decode_bound(self) -> dict:
+        return dict(params=self.params, cache=self.cache, cfg=self.cfg,
+                    paged=self._mgr is not None,
+                    slabs=(None if self._adapters is None
+                           else self._adapters.slabs()),
+                    masks=self._mask_dev,
+                    vocab_limit=self._sampling["vocab_limit"],
+                    backend=self.backend)
+
+    def _sample_bound(self) -> dict:
+        return dict(masks=self._mask_dev, backend=self.backend,
+                    **self._sampling)
+
+    def _chunk_call(self, where: torch.Tensor, chunk: np.ndarray, lo: int):
+        """``chunk``: one ``chunk_tokens`` verify forward at position
+        ``lo`` of the lane that ``where`` names (paged: its table row;
+        contiguous: its slot) → logits ``[1, chunk_tokens, v]``."""
+        return self._cc(
+            "chunk", _chunk_entry,
+            (torch.from_numpy(chunk), where,
+             torch.tensor([lo], dtype=torch.int32)),
+            lambda: dict(params=self.params, cache=self._pools(),
+                         cfg=self.cfg, paged=self._mgr is not None,
+                         backend=self.backend))
+
+    def _ladder(self):
+        """(label, call) for every ladder entry, on placeholder inputs that
+        change nothing an idle engine holds: inserts drop every write
+        (sentinel blocks, length 0) or land in a free stripe's head, the
+        decode step's lanes are all inactive with sentinel tables, the
+        chunk writes through sentinel blocks or a free stripe, and the
+        sampler's key words are fixed (the engine's generator is not
+        drawn)."""
+        S = self.max_slots
+
+        def prefill_and_insert(bucket, insert):
+            _lg, ks, vs = self._prefill_call(np.zeros(1, np.int32), 1,
+                                             bucket)
+            if insert:
+                pos = self.cache["pos"][0].clone()
+                self._insert_prefill_kv(0, bucket, [], ks, vs, 0)
+                self.cache["pos"][0] = pos
+
+        def decode():
+            args = [torch.zeros(S, dtype=torch.int32),
+                    torch.zeros(S, dtype=torch.bool)]
+            if self._mgr is not None:
+                args.append(torch.full(self._tables.shape, self.num_blocks,
+                                       dtype=torch.int32))
+            if self._adapters is not None:
+                args.append(torch.zeros(S, dtype=torch.int32))
+            return self._cc("decode", _decode_entry, tuple(args),
+                            self._decode_bound)
+
+        def sample():
+            # over the decode entry's logits, as a step feeds it
+            logits, _greedy = decode()
+            self._cc("sample", _sample_entry,
+                     (logits, torch.ones(S), torch.zeros(2, dtype=torch.long)),
+                     self._sample_bound)
+
+        def chunk():
+            where = (torch.full(self._tables.shape[1:], self.num_blocks,
+                                dtype=torch.int32) if self._mgr is not None
+                     else torch.tensor([0], dtype=torch.long))
+            self._chunk_call(where, np.zeros(self.chunk_tokens, np.int32), 0)
+
+        for b in self.buckets:
+            yield f"prefill[{b}]", functools.partial(prefill_and_insert, b,
+                                                     False)
+            yield f"insert[{b}]", functools.partial(prefill_and_insert, b,
+                                                    True)
+        yield "decode", decode
+        yield "sample", sample
+        if self.chunk_tokens:
+            yield "chunk", chunk
+
+    def _ladder_skip(self, label: str) -> Optional[str]:
+        """Why this engine cannot call a ladder entry now, or None."""
+        if (label == "decode" and self._adapters is not None
+                and not self._adapters._registry):
+            return ("the adapter pool has no registered adapter, so the "
+                    "decode step's slabs do not exist yet")
+        return None
+
+    def _sample(self, logits, temps: np.ndarray,
+                token_mask=None) -> torch.Tensor:
+        """A first token (b=1, eagerly, outside the ladder): greedy is the
+        masked argmax (no launch); otherwise one fused sampler call."""
         kw = self._sampling
         if not (temps > 0).any():
             return fused_sample(logits, temperature=0.0,
                                 vocab_limit=kw["vocab_limit"],
-                                backend=self.backend)
+                                token_mask=token_mask, backend=self.backend)
         t = torch.as_tensor(temps, dtype=torch.float32, device=self.device)
         return fused_sample(logits, generator=self._gen, temperature=t,
                             top_k=kw["top_k"], top_p=kw["top_p"],
                             vocab_limit=kw["vocab_limit"],
-                            backend=self.backend)
+                            token_mask=token_mask, backend=self.backend)
 
     def _admit_one(self, req: Request, slot: int) -> List[Response]:
         """Prefill one claimed request into its lane (block allocations
         unwind here on failure)."""
+        if self._chunked(req):
+            return self._admit_one_chunked(req, slot)
         if req.adapter_id:
             return self._admit_one_adapter(req, slot)
         completed: List[Response] = []
@@ -703,19 +1000,11 @@ class ServingEngine:
             req.queue_wait_s = t0 - req.submitted_t
         try:
             with span("serving.prefill"), compile_label("serving.prefill"):
-                padded = torch.as_tensor(pad_prompt(tokens, bucket)[None],
-                                         dtype=torch.long,
-                                         device=self.device)
-                lens = torch.tensor([n], dtype=torch.int32,
-                                    device=self.device)
-                logits, small = prefill(
-                    self.params, padded, self.cfg, prompt_lens=lens,
-                    max_len=bucket, cache_dtype=self._cache_dtype,
-                    device=self.device, backend=self.backend)
-                self._insert_prefill_kv(slot, bucket, write_ids,
-                                        small["k"], small["v"], n)
+                logits, ks, vs = self._prefill_call(tokens, n, bucket)
+                self._insert_prefill_kv(slot, bucket, write_ids, ks, vs, n)
                 first = self._sample(
-                    logits, np.asarray([req.temperature], np.float32))
+                    logits, np.asarray([req.temperature], np.float32),
+                    self._mask_arg(req))
                 tok = int(first[0])                      # host sync
             self._prefill_count += 1
             if self._mgr is not None:
@@ -831,7 +1120,8 @@ class ServingEngine:
                 logits = self._lora_prefill(tokens, slot, req._lane)
                 first = self._sample(
                     logits[:, n - 1],
-                    np.asarray([req.temperature], np.float32))
+                    np.asarray([req.temperature], np.float32),
+                    self._mask_arg(req))
                 tok = int(first[0])                      # host sync
             self._prefill_count += 1
             now = time.perf_counter()
@@ -864,6 +1154,158 @@ class ServingEngine:
         if done:
             completed.append(self._complete(slot, done))
         return completed
+
+    # -- chunked prefill ---------------------------------------------------
+
+    def _claim_blocks_chunked(self, n: int, hashes: List[bytes]):
+        """Block claim of a chunked admission: the leading shared chunks
+        (:meth:`_chunk_share_plan`) map their published blocks, every other
+        block allocates fresh and publishes as its chunk lands
+        (:meth:`_publish_chunk_blocks`).  Returns (blocks, shared, lo),
+        ``lo`` the chunk-aligned prefill start; raises on exhaustion with
+        everything unwound."""
+        lead = self._chunk_share_plan(n, hashes)
+        blocks: List[int] = []
+        try:
+            for h in hashes[:lead]:
+                blk = self._mgr.share_prefix(h)
+                if blk is None:
+                    # the plan saw it published; nothing runs in between
+                    raise RuntimeError("shared chunk digest vanished "
+                                       "mid-claim")
+                blocks.append(blk)
+            for _ in range(len(blocks), blocks_for(n, self.block_size)):
+                blk = self._mgr.alloc()
+                if blk is None:
+                    raise RuntimeError("block pool exhausted mid-admit")
+                blocks.append(blk)
+        except Exception:
+            self._mgr.free_all(blocks)
+            raise
+        return blocks, lead, lead * self.block_size
+
+    def _admit_one_chunked(self, req: Request, slot: int) -> List[Response]:
+        """Admit a long prompt without running its prefill: claim the lane
+        and (paged) every block the prompt needs, park the lane's position
+        at the shared boundary, and mark it ``prefilling``; the chunks run
+        one a step (:meth:`_prefill_chunk_once`)."""
+        tokens = self._full_tokens(req)
+        n = int(tokens.size)
+        blocks: List[int] = []
+        hashes: List[bytes] = []
+        shared = lo = 0
+        if self._mgr is not None:
+            _tok, hashes = self._admission_state(req)
+            blocks, shared, lo = self._claim_blocks_chunked(n, hashes)
+        t0 = time.perf_counter()
+        if req.admitted_t == 0.0:
+            req.admitted_t = t0
+            req.queue_wait_s = t0 - req.submitted_t
+        try:
+            if self._mgr is not None:
+                self._tables[slot, :] = self.num_blocks
+                self._tables[slot, : len(blocks)] = blocks
+                self._blocks_hw = max(self._blocks_hw, self._mgr.n_in_use)
+            # a stale position of the lane's last occupant must not outlive
+            # the handover (the lane rides the decode batch masked)
+            self.cache["pos"][slot] = lo
+            chunks = -(-(n - lo) // self.chunk_tokens)
+            _telemetry.event("serving.request.chunk_admit",
+                             id=req.request_id, prompt_tokens=n,
+                             chunks=chunks, shared_blocks=shared,
+                             paged_in_blocks=0)
+        except Exception:
+            if self._mgr is not None:
+                self._mgr.free_all(blocks)
+                self._tables[slot, :] = self.num_blocks
+            raise
+        self._slots[slot] = _Slot(
+            request=req, tokens=[], prefill_ms=0.0, blocks=blocks,
+            cache_len=lo, shared_blocks=shared,
+            decode_polls=req.resume_polls, prefilling=True, chunks_done=0,
+            chunks_total=chunks, prefill_tokens=tokens,
+            digests=hashes if self._mgr is not None else None,
+            published_upto=(lo // self.block_size
+                            if self._mgr is not None else 0))
+        self._pending[slot] = 0
+        self._temps[slot] = 0.0
+        self._bind_slot_lane(req, slot)
+        return []
+
+    def _prefill_chunk_once(self) -> List[Response]:
+        """Run one prefill chunk for the oldest prefilling lane; on its
+        final chunk the lane samples its first token from the chunk's
+        last real token and joins the decode batch."""
+        slots = [s for s in self._pool.active
+                 if self._slots[s] is not None and self._slots[s].prefilling]
+        if not slots:
+            return []
+        slot = min(slots, key=lambda s: self._slots[s].request.request_id)
+        st = self._slots[slot]
+        req = st.request
+        tokens = st.prefill_tokens
+        n = int(tokens.size)
+        lo = st.cache_len
+        hi = min(n, lo + self.chunk_tokens)
+        # one chunk shape for the engine's life: a tail chunk pads, and its
+        # padding writes land past the lane's length or drop
+        chunk = pad_prompt(tokens[lo:hi], self.chunk_tokens)
+        where = (torch.from_numpy(self._tables[slot].copy())
+                 if self._mgr is not None
+                 else torch.tensor([slot], dtype=torch.long))
+        t0 = time.perf_counter()
+        with span("serving.prefill_chunk"), \
+                compile_label("serving.prefill_chunk"):
+            logits = self._chunk_call(where, chunk, lo)
+            self.cache["pos"][slot] = hi
+            if hi >= n:
+                first = self._sample(
+                    logits[:, n - 1 - lo],
+                    np.asarray([req.temperature], np.float32),
+                    self._mask_arg(req))
+                tok = int(first[0])                      # host sync
+        now = time.perf_counter()
+        st.prefill_ms += (now - t0) * 1e3
+        st.cache_len = hi
+        st.chunks_done += 1
+        if self._mgr is not None and st.digests is not None:
+            self._publish_chunk_blocks(st, hi)
+        _telemetry.counter("serving.prefill_chunks").inc()
+        if hi < n:
+            return []
+        if req.first_token_t == 0.0:
+            req.first_token_t = now
+            _telemetry.event("serving.request.first_token",
+                             id=req.request_id, slo_class=req.slo_class)
+        if req.preempted_t:
+            req.preempt_overhead_s += now - req.preempted_t
+            req.preempted_t = 0.0
+        self._prefill_count += 1
+        _telemetry.counter("serving.prefill_calls").inc()
+        _telemetry.histogram("serving.prefill_ms").observe(st.prefill_ms)
+        _telemetry.counter("serving.tokens_generated").inc()
+        if _telemetry.enabled():
+            sample_device_memory()
+        st.prefilling = False
+        st.prefill_tokens = None
+        st.tokens = list(req.resume_tokens) + [tok]
+        self._pending[slot] = tok
+        self._temps[slot] = req.temperature
+        done = self._finish_reason(st, tok)
+        if done:
+            return [self._complete(slot, done)]
+        return []
+
+    def _publish_chunk_blocks(self, st: _Slot, hi: int) -> None:
+        """Publish every newly full block's chunk-namespace digest once its
+        chunk has written it; the first publisher wins (a digest already
+        published keeps its block, and this lane's copy stays
+        private)."""
+        full = min(hi // self.block_size, len(st.digests))
+        for b in range(st.published_upto, full):
+            if self._mgr.lookup_prefix(st.digests[b]) is None:
+                self._mgr.publish_prefix(st.digests[b], st.blocks[b])
+        st.published_upto = max(st.published_upto, full)
 
     # -- decode ------------------------------------------------------------
 
@@ -906,8 +1348,8 @@ class ServingEngine:
         mb = self._tables.shape[1]
         for slot in list(self._pool.active):
             st = self._slots[slot]
-            if st is None:                      # preempted this pass
-                continue
+            if st is None or st.prefilling:     # preempted this pass, or
+                continue                        # blocks claimed at admit
             need = min(-(-(st.cache_len + 1) // self.block_size), mb)
             while self._slots[slot] is st and len(st.blocks) < need:
                 blk = self._mgr.alloc()
@@ -920,34 +1362,39 @@ class ServingEngine:
                 self._preempt(self._youngest_slot())
 
     def _decode_once(self) -> List[Response]:
-        """One decode step over every lane (live ones advance, free ones
-        ride along frozen)."""
+        """One decode step over every lane (live ones advance; free and
+        prefilling lanes ride along frozen): the ``decode`` entry (the
+        step and the greedy tokens), then, when a live lane samples, the
+        ``sample`` entry (kernel K4) over the same logits; one host sync
+        reads the tokens."""
         if self._mgr is not None:
             self._ensure_tail_blocks()
             if not self._pool.n_active:        # everything preempted
                 return []
-        active = np.asarray([st is not None for st in self._slots])
+        active = np.asarray([st is not None and not st.prefilling
+                             for st in self._slots])
+        if not active.any():                   # only prefilling lanes
+            return []
         t0 = time.perf_counter()
-        dev = self.device
         with compile_label("serving.decode"):
-            cache = self.cache
+            args = [torch.from_numpy(self._pending.copy()),
+                    torch.from_numpy(active)]
             if self._mgr is not None:
-                cache = dict(cache, block_tables=torch.as_tensor(
-                    self._tables, device=dev))
-            prev_pos = self.cache["pos"]
-            lora = None
+                args.append(torch.from_numpy(self._tables.copy()))
             if self._adapters is not None:
                 # every step of an engine with a pool, whatever the mix:
                 # slot-0 lanes sit outside the grouped matmul's window
-                lora = {"idx": torch.as_tensor(self._lane_slab, device=dev),
-                        "slabs": self._adapters.slabs()}
-            logits, new = decode_step(
-                self.params, torch.as_tensor(self._pending, device=dev),
-                cache, self.cfg, lora=lora, device=dev,
-                backend=self.backend)
-            self.cache["pos"] = torch.where(
-                torch.as_tensor(active, device=dev), new["pos"], prev_pos)
-            nxt_host = self._sample(logits, self._temps).cpu().numpy()
+                args.append(torch.from_numpy(self._lane_slab.copy()))
+            logits, nxt = self._cc("decode", _decode_entry, tuple(args),
+                                   self._decode_bound)
+            self.last_logits = logits
+            if (self._temps > 0).any():
+                words = torch.tensor(_seed_words(self._gen),
+                                     dtype=torch.int64)
+                nxt = self._cc("sample", _sample_entry,
+                               (logits, torch.from_numpy(self._temps.copy()),
+                                words), self._sample_bound)
+            nxt_host = nxt.cpu().numpy()                 # host sync
         dt = time.perf_counter() - t0
         _telemetry.counter("serving.decode_steps").inc()
         self._decode_count += 1
@@ -956,7 +1403,7 @@ class ServingEngine:
         completed = []
         emitted = 0
         for slot, st in enumerate(self._slots):
-            if st is None:
+            if st is None or st.prefilling:
                 continue
             st.decode_polls += 1
             tok = int(nxt_host[slot])
@@ -1031,3 +1478,77 @@ class ServingEngine:
             ttft_ms=ttft_ms, tpot_ms=tpot_ms or 0.0, e2e_ms=latency_ms,
             preemptions=req.preemptions, preempt_overhead_ms=overhead_ms,
             slo_met=met)
+
+
+# -- the ladder's entry functions: tensors in, tensors out, no host sync --
+
+
+def _prefill_entry(padded, lens, *, params, cfg, bucket, cache_dtype,
+                   backend):
+    """``prefill[bucket]``: one padded prompt ``[1, bucket]`` → (its
+    last-token logits ``[1, v]``, the bucket cache's K and V)."""
+    logits, small = prefill(params, padded, cfg, prompt_lens=lens,
+                            max_len=bucket, cache_dtype=cache_dtype,
+                            device=padded.device, backend=backend)
+    return logits, small["k"], small["v"]
+
+
+def _insert_entry(ks, vs, where, n, *, cache, layout, bucket, block_size):
+    """``insert[bucket]``: a bucket cache into the pool through the write
+    ids ``where`` (paged; length ``n``) or into stripe ``where`` [1]
+    (contiguous)."""
+    if layout == "paged":
+        if "k_scale" in cache:
+            paged_insert_prefill_q(cache["k"], cache["v"], cache["k_scale"],
+                                   cache["v_scale"], ks, vs, where, n,
+                                   block_size=block_size)
+        else:
+            paged_insert_prefill(cache["k"], cache["v"], ks, vs, where, n,
+                                 block_size=block_size)
+        return
+    cache["k"][:, where, :bucket] = ks.to(cache["k"].dtype)
+    cache["v"][:, where, :bucket] = vs.to(cache["v"].dtype)
+
+
+def _decode_entry(tokens, active, *lane_args, params, cache, cfg, paged,
+                  slabs, masks, vocab_limit, backend):
+    """``decode``: one step over every lane → (logits ``[slots, v]``, the
+    greedy tokens).  ``lane_args``: the block tables (paged), then the
+    LoRA lane ids (with a pool).  Inactive lanes keep their position (an
+    in-place update: the graph reads and writes the same ``pos``)."""
+    lane_args = list(lane_args)
+    full = dict(cache)
+    if paged:
+        full["block_tables"] = lane_args.pop(0)
+    lora = None if slabs is None else {"idx": lane_args.pop(0),
+                                       "slabs": slabs}
+    prev = cache["pos"]
+    logits, new = decode_step(params, tokens, full, cfg, lora=lora,
+                              device=tokens.device, backend=backend)
+    cache["pos"].copy_(torch.where(active, new["pos"], prev))
+    greedy = fused_sample(logits, temperature=0.0, vocab_limit=vocab_limit,
+                          token_mask=masks, backend=backend)
+    return logits, greedy
+
+
+def _sample_entry(logits, temps, words, *, masks, top_k, top_p,
+                  vocab_limit, backend):
+    """``sample``: kernel K4 over the decode batch, keyed by the two words
+    in ``words`` (read in place, so a replay draws anew)."""
+    return fused_sample(logits, seed_words=words, temperature=temps,
+                        top_k=top_k, top_p=top_p, vocab_limit=vocab_limit,
+                        token_mask=masks, backend=backend)
+
+
+def _chunk_entry(chunk, where, lo, *, params, cache, cfg, paged, backend):
+    """``chunk``: ``chunk_tokens`` tokens of one lane appended at ``lo``
+    through :func:`decode_verify` → logits ``[1, chunk_tokens, v]``.  The
+    lane is named by its table row (paged) or its slot (contiguous: the
+    stripes read as a pool of one ``max_len`` block a lane, so a slot
+    number held in device memory selects it)."""
+    sub = dict(cache)
+    sub["block_tables"] = where[None] if paged else where.view(1, 1)
+    sub["pos"] = lo
+    logits, _ = decode_verify(params, chunk[None], sub, cfg,
+                              device=chunk.device, backend=backend)
+    return logits

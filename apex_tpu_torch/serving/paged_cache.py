@@ -14,27 +14,31 @@
   SHA-256 digests of full prompt blocks, copy-on-write.
 
 The port updates pools in place: the JAX package's ``.at[].set(...,
-mode="drop")`` becomes a masked ``index_put_`` whose dropped rows are
-removed before any index is formed (an out-of-range index would raise
-or corrupt memory).  The pool is never grown by a trash block, so the
-resident bytes equal the JAX package's.
+mode="drop")`` becomes an ``index_put_`` whose dropped cells are
+redirected on the device before any index is formed (an out-of-range
+index would raise or corrupt memory; :func:`plan_cells`), with no host
+sync and no shape set by the data, so a CUDA graph captures it.  The
+pool is never grown by a trash block, so the resident bytes equal the
+JAX package's.
 """
 
 from __future__ import annotations
 
 import hashlib
-from typing import Dict, List, Optional, Sequence, Tuple, Union
+from typing import (Dict, List, NamedTuple, Optional, Sequence, Tuple,
+                    Union)
 
 import numpy as np
 import torch
 
 from apex_tpu_torch.models.config import TransformerConfig
 
-__all__ = ["BlockManager", "CACHE_WIRES", "blocks_for", "chunk_salt",
+__all__ = ["BlockManager", "CACHE_WIRES", "Cells", "blocks_for", "chunk_salt",
            "dequantize_kv", "gather_block_kv", "gather_block_scales",
            "init_paged_pool", "paged_insert_prefill",
-           "paged_insert_prefill_q", "prefix_block_hashes", "quantize_kv",
-           "resolve_cache_wire", "scatter_kv_quantized"]
+           "paged_insert_prefill_q", "plan_cells", "prefix_block_hashes",
+           "quantize_kv",
+           "resolve_cache_wire", "scatter_kv_quantized", "write_cells"]
 
 CACHE_WIRES = ("native", "int8")
 _INT8_MAX = 127.0
@@ -107,19 +111,68 @@ def dequantize_kv(wire, scale, dtype: torch.dtype = torch.float32):
     return (wire.float() * scale[..., None]).to(dtype)
 
 
-def scatter_kv_quantized(pool_k, pool_v, k_scale, v_scale, k, v, idx):
+class Cells(NamedTuple):
+    """The cells of one write, planned once for every pool it writes
+    (:func:`plan_cells`)."""
+    idx: tuple                      # the index tuple, dropped cells redirected
+    src: Optional[torch.Tensor]     # [n] the value row each cell takes
+    live: Optional[torch.Tensor]    # [] bool: any cell kept
+    first: tuple                    # ``idx`` narrowed to its first cell
+
+
+def plan_cells(idx, keep=None) -> Cells:
+    """The capture-safe stand-in for ``keep.nonzero()`` ahead of an index
+    write over ``n`` candidate cells.  ``idx`` is a tuple of ``[n]`` index
+    tensors, optionally led by ``slice(None)``s; ``keep`` ``[n]`` bool
+    (None: every cell is kept).  A dropped cell is redirected to the first
+    kept cell and takes that cell's value row, so the write puts every
+    kept cell's own value and writes each duplicate with that same value:
+    the ``nonzero`` write bit for bit, with no host sync and no shape set
+    by the data.  With nothing kept every cell becomes cell 0, which is
+    rewritten with what it holds.  Plan once per call and pass the plan
+    to every :func:`write_cells` of that call."""
+    idx = tuple(idx)
+    if keep is None or keep.shape[0] == 0:
+        return Cells(idx, None, None, ())
+    n = keep.shape[0]
+    first = torch.argmax(keep.to(torch.int32))       # the first True
+    src = torch.where(keep, torch.arange(n, device=keep.device), first)
+    live = keep.any()
+    sel = tuple(i if isinstance(i, slice) else torch.where(live, i[src], 0)
+                for i in idx)
+    return Cells(sel, src, live,
+                 tuple(i if isinstance(i, slice) else i[:1] for i in sel))
+
+
+def write_cells(pools, values, idx, keep=None) -> None:
+    """``pool[idx] = value`` for each (pool, value) pair, in place, over
+    the cells ``keep`` ``[n]`` marks (every cell when None).  ``idx`` is
+    an index tuple as :func:`plan_cells` takes, or its plan (then
+    ``keep`` is None); each value holds the ``n`` cells on the axis the
+    advanced index takes in ``pool[idx]``."""
+    cells = idx if isinstance(idx, Cells) else plan_cells(idx, keep)
+    ax = sum(isinstance(i, slice) for i in cells.idx)
+    for pool, val in zip(pools, values):
+        val = val.to(pool.dtype)
+        if cells.src is not None:
+            # one cell read back: what cell 0 holds, should nothing be kept
+            val = torch.where(cells.live, val.index_select(ax, cells.src),
+                              pool[cells.first])
+        pool[cells.idx] = val
+
+
+def scatter_kv_quantized(pool_k, pool_v, k_scale, v_scale, k, v, idx,
+                         keep=None):
     """THE quantized write edge, in place: quantize float K/V per (token,
     group) and write wire and scales through the same index tuple, so a
     payload cell and its scale cell never desynchronize.  ``idx`` is an
     advanced-index tuple addressing ``(block, offset)`` cells (with a
-    leading ``slice(None)`` when the pools carry the layer axis); the
-    caller has already removed dropped cells."""
+    leading ``slice(None)`` when the pools carry the layer axis) or its
+    :func:`plan_cells` plan; cells that ``keep`` leaves out drop."""
     qk, sk = quantize_kv(k)
     qv, sv = quantize_kv(v)
-    pool_k[idx] = qk
-    pool_v[idx] = qv
-    k_scale[idx] = sk
-    v_scale[idx] = sv
+    write_cells((pool_k, pool_v, k_scale, v_scale), (qk, qv, sk, sv), idx,
+                keep)
 
 
 def prefix_block_hashes(tokens, block_size: int,
@@ -291,18 +344,22 @@ def gather_block_scales(scale_pool, block_ids):
     return scale_pool[:, ids].reshape(L, ids.shape[0] * bs, g)
 
 
-def _insert_cells(nb: int, write_ids, length: int, s: int,
-                  block_size: int, device):
-    """(time rows kept, their blocks, their offsets) of a bucket of ``s``
-    tokens scattered through ``write_ids`` — rows past ``length`` and
-    rows of unmapped pages removed (the JAX ``mode="drop"``)."""
-    wid = torch.as_tensor(np.asarray(write_ids), dtype=torch.long,
-                          device=device)
+def _insert_cells(nb: int, write_ids, length, s: int, block_size: int,
+                  device):
+    """(kept time rows ``[s]`` bool, blocks, offsets) of a bucket of ``s``
+    tokens scattered through ``write_ids`` — rows past ``length`` and rows
+    of unmapped pages are left out (the JAX ``mode="drop"``).
+    ``write_ids`` and ``length`` may be device tensors (a captured insert
+    reads them in place)."""
+    if isinstance(write_ids, torch.Tensor):
+        wid = write_ids.to(device=device, dtype=torch.long)
+    else:
+        wid = torch.as_tensor(np.asarray(write_ids), dtype=torch.long,
+                              device=device)
     t = torch.arange(s, device=device)
     blk = wid[t // block_size]
-    keep = (t < int(length)) & (blk < nb) & (blk >= 0)
-    rows = keep.nonzero(as_tuple=True)[0]
-    return rows, blk[rows], rows % block_size
+    keep = (t < length) & (blk < nb) & (blk >= 0)
+    return keep, blk, t % block_size
 
 
 def paged_insert_prefill(pool_k, pool_v, ks, vs, write_ids, length, *,
@@ -312,10 +369,10 @@ def paged_insert_prefill(pool_k, pool_v, ks, vs, write_ids, length, *,
     maps each page of the bucket to its block; entries ``>= num_blocks``
     drop that page (prefix-shared blocks, the bucket's padding tail), and
     positions ``>= length`` drop one by one."""
-    rows, blk, off = _insert_cells(pool_k.shape[1], write_ids, length,
+    keep, blk, off = _insert_cells(pool_k.shape[1], write_ids, length,
                                    ks.shape[2], block_size, pool_k.device)
-    pool_k[:, blk, off] = ks[:, 0, rows].to(pool_k.dtype)
-    pool_v[:, blk, off] = vs[:, 0, rows].to(pool_v.dtype)
+    write_cells((pool_k, pool_v), (ks[:, 0], vs[:, 0]),
+                (slice(None), blk, off), keep)
 
 
 def paged_insert_prefill_q(pool_k, pool_v, k_scale, v_scale, ks, vs,
@@ -323,8 +380,7 @@ def paged_insert_prefill_q(pool_k, pool_v, k_scale, v_scale, ks, vs,
     """The int8-pool form of :func:`paged_insert_prefill`: the float
     bucket cache is quantized per (token, group) at the write edge and
     wire and scales land in the same cells, with the same drops."""
-    rows, blk, off = _insert_cells(pool_k.shape[1], write_ids, length,
+    keep, blk, off = _insert_cells(pool_k.shape[1], write_ids, length,
                                    ks.shape[2], block_size, pool_k.device)
-    scatter_kv_quantized(pool_k, pool_v, k_scale, v_scale,
-                         ks[:, 0, rows], vs[:, 0, rows],
-                         (slice(None), blk, off))
+    scatter_kv_quantized(pool_k, pool_v, k_scale, v_scale, ks[:, 0],
+                         vs[:, 0], (slice(None), blk, off), keep)

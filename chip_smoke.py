@@ -55,7 +55,19 @@
    counts, TTFT/TPOT, first tokens against the same engine on the plain
    path, teacher-forced kernel-vs-plain logits, a profiled run's device
    idle share, and a 64-block run that must preempt and still finish.
-4c. Drives multi-tenant LoRA serving on the same engine geometry: 64
+4c. Drives the same engine mix through the compiled ladder
+   (``compile_cache_dir=``: every ladder entry a CUDA graph over kernel
+   libraries kept in the directory), float + native and quantized + int8:
+   tokens, finish reasons and launch counts identical to an eager engine
+   on the same requests and generator, tokens/s, idle share and decode
+   ms a step of both; a fresh process on the primed directory (every
+   entry a hit, no nvcc, first decode-step logits bit for bit the
+   parent's) and one on an empty directory (the cold start); the chunked
+   engine (``chunk_tokens=256``: greedy tokens equal the unchunked
+   engine's or are bf16 near-ties, short-request TPOT p95 beside the
+   unchunked); a masked run (``token_masks=True``: every token allowed,
+   a single-token request emits only it, K4 counted).
+4d. Drives multi-tenant LoRA serving on the same engine geometry: 64
    rank-8 adapters through a 24-slot AdapterPool, 64 requests of mixed
    tenants (every 8th on the base model, 8 sampled), on float weights
    with a bf16 pool and on ``quantize_params`` weights with an int8 pool:
@@ -128,6 +140,14 @@ size 64 of the port under ROOT
 prints one JSON line, so that two commits compare in one chip call
 (parent, change, change, parent).
 
+    python3 chip_smoke.py --serving-times ROOT
+
+times the eager serving paths of the port under ROOT (another commit's
+``git archive``, say): the eager ``ServingEngine`` on the engine mix
+(float + native pool, quantized + int8 pool) and a greedy paged
+``generate``, with one JSON line, so that two commits compare in one
+chip call (parent, change, change, parent).
+
     python3 chip_smoke.py --paged-probe
 
 times rows 6 and 7 under forced split counts and uniform lengths (one
@@ -136,6 +156,7 @@ JSON line): where their time goes.
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import subprocess
@@ -1742,6 +1763,371 @@ def engine_phase(dev):
            "blocks_high_water": st["blocks_high_water"]}
     out["starved quantized weights, int8 pool"] = row
     print(f"engine starved, quantized weights, int8 pool: {json.dumps(row)}")
+    return out
+
+
+# the compiled ladder (ServingEngine(compile_cache_dir=)) on the engine
+# geometry above: every ladder entry a CUDA graph over kernel libraries
+# kept in the directory
+GRAPH_RUNS = (("float", None), ("quantized", "int8"))
+GRAPH_CHUNK = 256
+MASK_SINGLE = 1234              # the one token the single-token request allows
+CACHE_ROOT = Path(__file__).resolve().parent / "build" / "compile_cache"
+
+
+def _engine_weights(dev):
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.quantized import quantize_params
+    from apex_tpu_torch.models.transformer_lm import init_gpt_params
+
+    cfg = gpt_125m()
+    weights = {"float": init_gpt_params(cfg, torch.Generator().manual_seed(0),
+                                        dev)}
+    weights["quantized"] = quantize_params(weights["float"])
+    return cfg, weights
+
+
+def _fresh_dir(name: str) -> Path:
+    import shutil
+
+    d = CACHE_ROOT / name
+    shutil.rmtree(d, ignore_errors=True)
+    return d
+
+
+def _without_counts(row):
+    return {k: (_without_counts(v) if isinstance(v, dict) else v)
+            for k, v in row.items() if k != "counts"}
+
+
+def drive_steps(engine, reqs):
+    """drive_engine, timing every step: → (responses by request id, wall
+    ms, ms of each step that only decoded: no admission, no chunk)."""
+    for kw in reqs:
+        engine.submit(**kw)
+    resps, decode_ms = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    while not engine.idle:
+        # the engine's own counters (no stats() call inside the timing)
+        # (an engine without chunked prefill has no prefilling lanes)
+        busy = (engine._prefill_count, len(engine._queue),
+                any(getattr(s, "prefilling", False) for s in engine._slots))
+        s0 = time.perf_counter()
+        resps.extend(engine.step())
+        dt = (time.perf_counter() - s0) * 1e3
+        if (busy[:2] == (engine._prefill_count, len(engine._queue))
+                and not busy[2]):
+            decode_ms.append(dt)
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    return sorted(resps, key=lambda r: r.request_id), wall, decode_ms
+
+
+def first_step_digest(engine, reqs) -> str:
+    """SHA-256 of the first decode step's logits of ``reqs`` on an idle
+    engine (the step admits them all and decodes once)."""
+    import hashlib
+
+    for kw in reqs:
+        engine.submit(**kw)
+    engine.step()
+    return hashlib.sha256(
+        engine.last_logits.float().cpu().numpy().tobytes()).hexdigest()
+
+
+def graph_child(d: str, wname: str, wire: str, dev=None) -> dict:
+    """``--graph-child``: a fresh process building the graph engine on
+    directory ``d`` → its ladder, hits, misses, nvcc runs, start-up ms and
+    first decode step's digest."""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.serving import ServingEngine, warmup_ladder
+
+    dev = dev or torch.device("cuda")
+    cfg, weights = _engine_weights(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    eng = ServingEngine(weights[wname], cfg,
+                        cache_wire=None if wire == "native" else wire,
+                        generator=torch.Generator().manual_seed(0),
+                        compile_cache_dir=d, device=dev, **ENGINE_KW)
+    ladder = warmup_ladder(eng)
+    torch.cuda.synchronize()
+    start_ms = (time.perf_counter() - t0) * 1e3
+    digest = first_step_digest(eng, engine_requests(cfg.vocab_size))
+    st = eng.stats()["compile_cache"]
+    return {"start_ms": start_ms, "ladder": ladder, "hits": st["hits"],
+            "misses": st["misses"], "entries": st["entries"],
+            "nvcc": list(ku.NVCC_RUNS), "digest": digest}
+
+
+def run_child(d: Path, wname: str, wire) -> dict:
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, str(Path(__file__).resolve()), "--graph-child",
+         str(d), wname, wire or "native"], capture_output=True, text=True,
+        timeout=600, cwd=str(Path(__file__).resolve().parent))
+    check(out.returncode == 0, f"graph child on {d} failed:\n"
+                               f"{out.stderr[-3000:]}")
+    row = json.loads(out.stdout.strip().splitlines()[-1])
+    row["process_ms"] = (time.perf_counter() - t0) * 1e3
+    return row
+
+
+def _forced_row0(params, cfg, wire, prompt, toks, j, chunked, dev):
+    """Logits ``[v]`` (first VOCAB_LIMIT) of the token at generated
+    position ``j`` of a request whose prompt is ``prompt`` and whose first
+    ``j`` generated tokens are ``toks[:j]``, computed as the engine does
+    it: the prompt through the ``prefill[bucket]`` + ``insert`` pair, or
+    (``chunked``, a prompt longer than a chunk) through GRAPH_CHUNK-token
+    verify chunks at b=1, into row 0 of a 32-lane paged pool; then decode
+    steps over all 32 lanes (the engine's batch shape)."""
+    from apex_tpu_torch.models import generate as tgen
+    from apex_tpu_torch.serving.batching import (
+        default_buckets, pad_prompt, pick_bucket)
+    from apex_tpu_torch.serving.engine import _insert_entry, _prefill_entry
+
+    params = tgen._compute_dtype_params(params, cfg)
+    S, n = ENGINE_KW["max_slots"], prompt.size
+    cache = tgen.init_kv_cache(cfg, S, ENGINE_KW["max_len"],
+                               cache_layout="paged", block_size=16,
+                               cache_wire=wire, device=dev)
+    p = torch.as_tensor(prompt, dtype=torch.long, device=dev)[None]
+    if chunked and n > GRAPH_CHUNK:
+        row0 = dict(cache, block_tables=cache["block_tables"][:1],
+                    pos=cache["pos"][:1])
+        lg, _ = tgen.prefill_chunked(params, p, cfg, chunk_tokens=GRAPH_CHUNK,
+                                     cache=row0, device=dev)
+    else:
+        bucket = pick_bucket(n, default_buckets(ENGINE_KW["max_len"]))
+        padded = torch.as_tensor(pad_prompt(prompt, bucket)[None],
+                                 dtype=torch.long, device=dev)
+        lens = torch.tensor([n], dtype=torch.int32, device=dev)
+        lg, ks, vs = _prefill_entry(padded, lens, params=params, cfg=cfg,
+                                    bucket=bucket,
+                                    cache_dtype=cfg.compute_dtype,
+                                    backend=None)
+        wid = torch.full((bucket // 16,), cache["k"].shape[1],
+                         dtype=torch.int32, device=dev)
+        wid[: -(-n // 16)] = cache["block_tables"][0, : -(-n // 16)]
+        pools = {k: v for k, v in cache.items() if k != "pos"}
+        pools.pop("block_tables")
+        _insert_entry(ks, vs, wid, lens, cache=pools, layout="paged",
+                      bucket=bucket, block_size=16)
+    cache["pos"][0] = n
+    for s in range(j):
+        tok = torch.zeros(S, dtype=torch.int32, device=dev)
+        tok[0] = int(toks[s])
+        lg, cache = tgen.decode_step(params, tok, cache, cfg, device=dev)
+    return lg[0, :VOCAB_LIMIT].float()
+
+
+def chunk_tie(params, cfg, wire, prompt, tok_c, tok_p, dev):
+    """A greedy stream that differs between the chunked and the unchunked
+    engine: both paths' logits at the first differing position, teacher
+    forced on the shared tokens before it, judged by the near-tie rule
+    (chunked as the kernel side, unchunked as the plain side)."""
+    j = int((tok_c != tok_p).nonzero()[0][0])
+    lc = _forced_row0(params, cfg, wire, prompt, tok_p, j, True, dev)
+    lp = _forced_row0(params, cfg, wire, prompt, tok_p, j, False, dev)
+    return dict(tie_verdict(lc, lp, int(tok_c[j]), int(tok_p[j])),
+                position=j)
+
+
+def mask_requests(vocab):
+    """The engine mix, each request allowed a seeded random half of the
+    vocabulary's real ids; request 5 (greedy) only MASK_SINGLE."""
+    import numpy as np
+
+    rng = np.random.RandomState(2)
+    reqs = engine_requests(vocab)
+    allowed = []
+    for i, kw in enumerate(reqs):
+        m = np.zeros(vocab, bool)
+        if i == 5:
+            m[MASK_SINGLE] = True
+        else:
+            m[rng.permutation(VOCAB_LIMIT)[: VOCAB_LIMIT // 2]] = True
+        allowed.append(m)
+        kw["token_mask_fn"] = (lambda v, m=m: m)
+    return reqs, allowed
+
+
+def graph_engine_phase(dev):
+    """The compiled ladder on GPT-2 125M under the engine mix: per weight
+    and pool configuration an eager engine and a ``compile_cache_dir=``
+    engine on the same requests and generator (tokens, finish reasons and
+    launch counts identical, a clean ledger; tokens/s, idle share, decode
+    ms a step, the ladder's entries and ms); a fresh process on the primed
+    directory (every entry a hit, no nvcc, the same first-step logits bit
+    for bit) and one on an empty directory (the cold start); the chunked
+    engine (chunk_tokens=256) against the unchunked one; and a masked
+    run."""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.serving import ServingEngine, warmup_ladder
+
+    cfg, weights = _engine_weights(dev)
+    reqs = engine_requests(cfg.vocab_size)
+    greedy = [i for i, kw in enumerate(reqs)
+              if kw.get("temperature", 0.0) == 0.0]
+    shorts = [i for i, kw in enumerate(reqs)
+              if kw["slo_class"] == "interactive"]
+
+    def engine(wname, wire, d=None, **kw):
+        return ServingEngine(weights[wname], cfg, cache_wire=wire,
+                             generator=torch.Generator().manual_seed(0),
+                             compile_cache_dir=d, device=dev,
+                             **dict(ENGINE_KW, **kw))
+
+    def counted(eng, rs):
+        ku.reset_launch_counts()
+        out = drive_steps(eng, rs)
+        torch.cuda.synchronize()
+        return out + (ku.launch_counts(),)
+
+    def same(a, b, what, ids=None):
+        for i in (range(len(a)) if ids is None else ids):
+            check(a[i].tokens.tolist() == b[i].tokens.tolist()
+                  and a[i].finish_reason == b[i].finish_reason,
+                  f"{what}: request {i} differs")
+
+    out = {}
+    for wname, wire in GRAPH_RUNS:
+        name = f"{wname} weights, {wire or 'native'} pool"
+        engine(wname, wire).run([dict(reqs[0], max_new_tokens=2),
+                                 dict(reqs[2], max_new_tokens=2)])
+        ea, e_wall, e_dec, e_counts = counted(engine(wname, wire), reqs)
+        d = _fresh_dir(f"{wname}-{wire or 'native'}")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        g = engine(wname, wire, d)
+        ladder = warmup_ladder(g)
+        torch.cuda.synchronize()
+        cold_in_process_ms = (time.perf_counter() - t0) * 1e3
+        check(ladder["skipped"] == [] and ladder["misses"] == ladder["entries"],
+              f"graph engine {name}: ladder {ladder}")
+        ga, g_wall, g_dec, g_counts = counted(g, reqs)
+        same(ea, ga, f"graph engine {name} vs eager")
+        check(g_counts == e_counts, f"graph engine {name}: launches "
+                                    f"{g_counts} != eager {e_counts}")
+        st = g.stats()
+        check(st["blocks_in_use"] == 0 and g.idle,
+              f"graph engine {name}: {st['blocks_in_use']} blocks in use")
+        check(st["compile_cache"]["misses"] == ladder["entries"],
+              f"graph engine {name}: serving missed {st['compile_cache']}")
+        recorded = sorted({s for e in g._compile_cache._memo.values()
+                           for s in e.record["libraries"]})
+        check(recorded == ladder["sources"],
+              f"graph engine {name}: the entries launched the kernels of "
+              f"{recorded}, the ladder prebuilt {ladder['sources']}")
+        check_responses(g, reqs, ga, f"graph engine {name}")
+        prof = {}
+        for kind, eng in (("eager", engine(wname, wire)), ("graph", g)):
+            for kw in reqs:
+                eng.submit(**kw)
+            t_p, busy, top, by_cat, _ = profile_busy(eng.run)
+            check(eng.idle, f"profiled {kind} engine {name} did not drain")
+            prof[kind] = {"wall_ms": t_p,
+                          "device_busy_ms": busy if busy > 0
+                          else "not measured",
+                          "device_idle_share": (1 - busy / t_p) if busy > 0
+                          else "not measured",
+                          "device_ms_by_category": by_cat,
+                          "device_top_ms": top}
+        child = run_child(d, wname, wire)
+        twin = engine(wname, wire, d)
+        warmup_ladder(twin)
+        parent_digest = first_step_digest(twin, reqs)
+        check(child["nvcc"] == [], f"graph child {name} ran nvcc on "
+                                   f"{child['nvcc']}")
+        check(child["hits"] == child["entries"] and child["misses"] == 0,
+              f"graph child {name}: {child['hits']} hits, "
+              f"{child['misses']} misses, {child['entries']} entries")
+        check(child["digest"] == parent_digest,
+              f"graph child {name}: first-step logits differ bitwise")
+        row = {
+            "gen_tokens_per_s_eager": sum(r.tokens.size for r in ea)
+            / (e_wall / 1e3),
+            "gen_tokens_per_s_graph": sum(r.tokens.size for r in ga)
+            / (g_wall / 1e3),
+            "wall_ms_eager": e_wall, "wall_ms_graph": g_wall,
+            "decode_ms_per_step_eager": pct(e_dec, 0.5),
+            "decode_ms_per_step_graph": pct(g_dec, 0.5),
+            "decode_only_steps": (len(e_dec), len(g_dec)),
+            "decode_steps": st["decode_steps"],
+            "ladder_entries": ladder["entries"], "ladder_ms": ladder["ms"],
+            "ladder_sources": ladder["sources"],
+            "ladder_labels": ladder["labels"],
+            "cold_start_in_process_ms": cold_in_process_ms,
+            "warm_child": {k: child[k] for k in
+                           ("start_ms", "process_ms", "hits", "misses",
+                            "entries")},
+            "profiled": prof, "counts": g_counts,
+        }
+        if wname == "float":
+            cold = run_child(_fresh_dir("cold-float"), wname, wire)
+            check(cold["digest"] == parent_digest,
+                  "cold graph child: first-step logits differ bitwise")
+            check(cold["nvcc"] == ladder["sources"],
+                  f"cold graph child ran nvcc on {cold['nvcc']}, not on "
+                  f"the ladder's sources {ladder['sources']}")
+            row["cold_child"] = {k: cold[k] for k in
+                                 ("start_ms", "process_ms", "hits", "misses",
+                                  "entries", "nvcc")}
+        # -- chunked prefill under graphs, against the unchunked graph run
+        c = engine(wname, wire, _fresh_dir(f"chunk-{wname}"),
+                   chunk_tokens=GRAPH_CHUNK)
+        warmup_ladder(c)
+        ca, c_wall, _, c_counts = counted(c, reqs)
+        check_responses(c, reqs, ca, f"chunked graph engine {name}")
+        ties = {}
+        for i in greedy:
+            if ca[i].tokens.tolist() != ga[i].tokens.tolist():
+                ties[i] = chunk_tie(weights[wname], cfg, wire,
+                                    reqs[i]["prompt"], ca[i].tokens,
+                                    ga[i].tokens, dev)
+        check(all(t["near_tie"] for t in ties.values()),
+              f"chunked graph engine {name}: greedy tokens differ from the "
+              f"unchunked engine's beyond a bf16 near-tie: {ties}")
+        row["chunked"] = {
+            "chunk_tokens": GRAPH_CHUNK, "wall_ms": c_wall,
+            "decode_steps": c.stats()["decode_steps"],
+            "greedy_identical": len(greedy) - len(ties),
+            "greedy": len(greedy), "near_ties": ties,
+            "short_tpot_p95_ms_chunked": pct(
+                [ca[i].tpot_ms for i in shorts], 0.95),
+            "short_tpot_p95_ms_unchunked": pct(
+                [ga[i].tpot_ms for i in shorts], 0.95),
+            "counts": c_counts}
+        out[name] = row
+        print(f"graph engine {name}: {json.dumps(row)}")
+
+    # -- constrained decoding under graphs -------------------------------
+    mreqs, allowed = mask_requests(cfg.vocab_size)
+    me, _, _, me_counts = counted(engine("float", None, token_masks=True),
+                                  mreqs)
+    mg = engine("float", None, _fresh_dir("masked"), token_masks=True)
+    warmup_ladder(mg)
+    ma, m_wall, _, m_counts = counted(mg, mreqs)
+    same(me, ma, "masked graph engine vs eager")
+    check(m_counts == me_counts, f"masked graph engine: launches {m_counts} "
+                                 f"!= eager {me_counts}")
+    check(m_counts["fused_sample"] > 0, "masked run launched no K4")
+    for r, m in zip(ma, allowed):
+        check(bool(m[r.tokens].all()),
+              f"masked request {r.request_id} emitted a disallowed token")
+    check(set(ma[5].tokens.tolist()) == {MASK_SINGLE},
+          f"single-token request emitted {set(ma[5].tokens.tolist())}")
+    check(mg.stats()["blocks_in_use"] == 0, "masked engine ledger not clean")
+    out["masked float weights, native pool"] = {
+        "wall_ms": m_wall, "k4_launches": m_counts["fused_sample"],
+        "tokens": sum(r.tokens.size for r in ma), "counts": m_counts}
+    print(f"masked graph engine: "
+          f"{json.dumps(out['masked float weights, native pool'])}")
+    # release the engines' graphs now, not in a later phase's capture
+    del g, c, mg
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3660,6 +4046,84 @@ def paged_probe() -> dict:
     return {"device": nvidia_smi(), "us": res}
 
 
+SERVING_TIME_RUNS = 5
+
+
+def serving_times(root: str) -> dict:
+    """The eager serving paths of the ``apex_tpu_torch`` found under
+    ``root``, built from that tree's sources: the ``ServingEngine`` without
+    a compile cache on the engine mix (``engine_requests``, ENGINE_KW;
+    float + native and quantized + int8, SERVING_TIME_RUNS runs each after
+    a warm-up: generated tokens/s and the median ms of a step that only
+    decoded) and a greedy paged ``generate`` on the slice phase's batch
+    (PROMPT_LENS, NEW_TOKENS; GENERATE_RUNS runs, and PREFILL_RUNS of its
+    prefill alone: decode ms a step).  It calls only entry points both
+    this tree and its parent have, so parent and change run the same
+    measurement in one chip call."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import apex_tpu_torch
+    from apex_tpu_torch.models import generate as tgen
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.serving import ServingEngine
+
+    pkg = Path(apex_tpu_torch.__file__).resolve().parent
+    check(pkg.parent == Path(root).resolve(),
+          f"imported {pkg}, not the tree under {root}")
+    t0 = time.perf_counter()
+    ku.build_all(["layer_norm.cu", "flash_attention.cu", "fused_sampling.cu",
+                  "decode_step.cu", "paged_attention.cu", "dense_int8.cu"])
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    cfg, weights = _engine_weights(dev)
+    reqs = engine_requests(cfg.vocab_size)
+    res = {}
+    for wname, wire in GRAPH_RUNS:
+        def engine():
+            return ServingEngine(weights[wname], cfg, cache_wire=wire,
+                                 generator=torch.Generator().manual_seed(0),
+                                 device=dev, **ENGINE_KW)
+        engine().run([dict(reqs[0], max_new_tokens=2),
+                      dict(reqs[2], max_new_tokens=2)])
+        tps, dec = [], []
+        for _ in range(SERVING_TIME_RUNS):
+            resps, wall, decode_ms = drive_steps(engine(), reqs)
+            tps.append(sum(r.tokens.size for r in resps) / (wall / 1e3))
+            dec.append(pct(decode_ms, 0.5))
+        res[f"engine {wname} weights, {wire or 'native'} pool"] = {
+            "gen_tokens_per_s": tps, "decode_ms_per_step": dec}
+    params = weights["float"]
+    gen = torch.Generator().manual_seed(1)
+    b, s = len(PROMPT_LENS), max(PROMPT_LENS)
+    prompt = torch.zeros(b, s, dtype=torch.long)
+    for i, n in enumerate(PROMPT_LENS):
+        prompt[i, :n] = torch.randint(0, VOCAB_LIMIT, (n,), generator=gen)
+    prompt = prompt.to(dev)
+    lens = torch.tensor(PROMPT_LENS, device=dev)
+    kw = dict(max_new_tokens=NEW_TOKENS, prompt_lens=lens,
+              cache_layout="paged", block_size=16, device=dev)
+    tgen.generate(params, prompt, cfg, **dict(kw, max_new_tokens=2))
+
+    def do_prefill():
+        cache = tgen.init_kv_cache(cfg, b, s + NEW_TOKENS,
+                                   cache_layout="paged", block_size=16,
+                                   device=dev)
+        tgen.prefill(params, prompt, cfg, prompt_lens=lens, cache=cache,
+                     device=dev)
+
+    prefill = quartiles([wall_ms(do_prefill) for _ in range(PREFILL_RUNS)])
+    gen_ms = quartiles([wall_ms(lambda: tgen.generate(params, prompt, cfg,
+                                                      **kw))
+                        for _ in range(GENERATE_RUNS)])
+    res["generate greedy"] = {
+        "generate_ms": gen_ms[1], "generate_ms_q1_q3": [gen_ms[0],
+                                                        gen_ms[2]],
+        "prefill_ms": prefill[1],
+        "decode_ms_per_step": (gen_ms[1] - prefill[1]) / (NEW_TOKENS - 1),
+        "tokens_per_s": b * NEW_TOKENS / (gen_ms[1] / 1e3)}
+    return {"device": nvidia_smi(), "root": str(root), "build_s": build_s,
+            "runs": SERVING_TIME_RUNS, **res}
+
+
 def main() -> int:
     check(torch.cuda.is_available(),
           "no CUDA device: chip_smoke.py runs only on the card")
@@ -3667,6 +4131,16 @@ def main() -> int:
         # python3 chip_smoke.py --paged-probe: rows 6 and 7 under forced
         # plans and lengths
         print(json.dumps(paged_probe()))
+        return 0
+    if sys.argv[1:2] == ["--graph-child"]:
+        # python3 chip_smoke.py --graph-child DIR WEIGHTS WIRE: one fresh
+        # graph engine on DIR (the graph engine phase starts it)
+        print(json.dumps(graph_child(*sys.argv[2:5])))
+        return 0
+    if sys.argv[1:2] == ["--serving-times"]:
+        # python3 chip_smoke.py --serving-times ROOT: the eager engine and
+        # generate of the port under ROOT
+        print(json.dumps(serving_times(sys.argv[2])))
         return 0
     if sys.argv[1:2] == ["--matmul-times"]:
         # python3 chip_smoke.py --matmul-times ROOT: rows 5-7, 9-11, K1
@@ -3738,8 +4212,33 @@ def main() -> int:
         sl = slice_phase(dev)
         mqa = mqa_generate_phase(dev)
         eng = engine_phase(dev)
+        graphs = graph_engine_phase(dev)
         lora = lora_engine_phase(dev)
         oracle = lora_oracle_phase(dev)
+    for gname, row in graphs.items():
+        if "profiled" not in row:
+            continue
+        idle = {k: v["device_idle_share"] for k, v in row["profiled"].items()}
+        print(f"graph engine {gname} on {smi}: generated tokens/s eager "
+              f"{row['gen_tokens_per_s_eager']:.1f}, graph "
+              f"{row['gen_tokens_per_s_graph']:.1f}; decode ms a step eager "
+              f"{row['decode_ms_per_step_eager']:.3f}, graph "
+              f"{row['decode_ms_per_step_graph']:.3f}; idle share {idle}; "
+              f"ladder {row['ladder_entries']} entries in "
+              f"{row['ladder_ms']:.1f} ms; start-up: fresh process on the "
+              f"primed directory {row['warm_child']['start_ms']:.1f} ms "
+              f"(process {row['warm_child']['process_ms']:.1f} ms)"
+              + (f", on an empty directory "
+                 f"{row['cold_child']['start_ms']:.1f} ms (process "
+                 f"{row['cold_child']['process_ms']:.1f} ms, nvcc on "
+                 f"{len(row['cold_child']['nvcc'])} sources)"
+                 if "cold_child" in row else "")
+              + f"; chunked: short TPOT p95 "
+              f"{row['chunked']['short_tpot_p95_ms_chunked']:.3f} ms vs "
+              f"{row['chunked']['short_tpot_p95_ms_unchunked']:.3f} "
+              f"unchunked, greedy identical "
+              f"{row['chunked']['greedy_identical']} of "
+              f"{row['chunked']['greedy']}")
     prof = lora["profiled lora float weights, native pool"]
     print(f"lora engine phase on {smi}: {lora['phase_wall_s']:.1f}s wall; "
           f"profiled run {json.dumps(prof)}")
@@ -3934,6 +4433,10 @@ def main() -> int:
     paths.update({f"engine {name}": row["counts"]
                   for name, row in lora.items()
                   if isinstance(row, dict) and "counts" in row})
+    for gname, row in graphs.items():
+        paths[f"graph engine {gname}"] = row["counts"]
+        if "chunked" in row:
+            paths[f"chunked graph engine {gname}"] = row["chunked"]["counts"]
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": "apex_tpu_torch/csrc/"
          + ku.KERNELS[k].source, "replaces": ku.KERNELS[k].replaces,
@@ -3954,6 +4457,7 @@ def main() -> int:
         "lora_engine": {n: ({k: v for k, v in row.items() if k != "counts"}
                             if isinstance(row, dict) else row)
                         for n, row in lora.items()},
+        "graph_engine": {n: _without_counts(row) for n, row in graphs.items()},
         "lora_oracle": oracle,
         "train": {k: v for k, v in tr.items() if k != "counts"},
         "train_check": tc,

@@ -67,6 +67,38 @@ def test_scatter_kv_quantized_bitwise():
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+@pytest.mark.parametrize("layered", [False, True])
+@pytest.mark.parametrize("dropped", ["none", "some", "first", "all"])
+def test_write_cells_drops_like_jax(dropped, layered):
+    """A planned write with dropped cells (sentinel blocks past the pool)
+    against the JAX ``.at[].set(mode="drop")``: kept cells take their own
+    values, every other cell keeps what it held (nothing kept included),
+    for every pool of the write through one plan."""
+    rng = np.random.RandomState(5)
+    L, nb, bs, g, dh, n = 2, 6, 4, 2, 8, 5
+    lead = (L,) if layered else ()
+    pools = [rng.randn(*lead, nb, bs, g, dh).astype(np.float32),
+             rng.randn(*lead, nb, bs, g).astype(np.float32)]
+    vals = [rng.randn(*lead, n, g, dh).astype(np.float32),
+            rng.randn(*lead, n, g).astype(np.float32)]
+    blk = np.asarray([4, 0, 3, 5, 1])
+    off = np.asarray([1, 2, 3, 0, 2])
+    drop = {"none": [], "some": [1, 3], "first": [0, 2],
+            "all": list(range(n))}[dropped]
+    blk[drop] = nb                            # the unmapped sentinel
+    jidx = (slice(None),) * len(lead) + (jnp.asarray(blk),
+                                         jnp.asarray(off))
+    want = [jnp.asarray(p).at[jidx].set(jnp.asarray(v), mode="drop")
+            for p, v in zip(pools, vals)]
+    got = [torch.from_numpy(p.copy()) for p in pools]
+    tb = torch.from_numpy(blk)
+    cells = tpc.plan_cells((slice(None),) * len(lead)
+                           + (tb, torch.from_numpy(off)), tb < nb)
+    tpc.write_cells(got, [torch.from_numpy(v) for v in vals], cells)
+    for a, b in zip(got, want):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
 @pytest.mark.parametrize("salt", [b"", b"chunk:8"])
 def test_prefix_block_hashes_byte_equal(salt):
     tokens = np.random.RandomState(5).randint(0, 50304, (70,))

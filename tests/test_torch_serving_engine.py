@@ -137,9 +137,11 @@ def test_quantized_params_bytes_and_stats_keys():
     assert param_bytes(tp) == j_bytes
 
 
-@pytest.mark.parametrize("kw", [dict(spec="ngram"), dict(chunk_tokens=8),
+@pytest.mark.parametrize("kw", [dict(spec="ngram"),
+                                dict(spec="ngram", chunk_tokens=8),
                                 dict(host_tier_bytes=1 << 20),
-                                dict(token_masks=True)])
+                                dict(host_tier_wire="int8",
+                                     token_masks=True)])
 def test_unported_engine_options_raise(kw):
     _, _, tcfg, tp = _model(False)
     with pytest.raises(NotImplementedError):

@@ -69,7 +69,7 @@ def test_submit_validates_adapters():
         te.submit([1, 2], adapter_id=-1)
     with pytest.raises(ValueError):
         je.submit([1, 2], adapter_id=-1)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="token_masks=True"):
         te.submit([1, 2], token_mask_fn=lambda v: [1])
 
 
