@@ -9,8 +9,9 @@
 // inside the length), and the context, rounded to the compute dtype,
 // is multiplied by W_proj rounded to the compute dtype, summed in fp32.
 // Those two round-trips replay the unfused path's dtype edges, so the
-// greedy tokens do not drift from it.  The pool is the compute dtype or,
-// for cache_wire="int8", int8 with one fp32 scale per (token, kv group).
+// greedy tokens do not drift from it.  The pool is any float dtype (the
+// engine's cache_dtype, whatever the compute dtype) or, for
+// cache_wire="int8", int8 with one fp32 scale per (token, kv group).
 //
 // Bound on the H100: bytes.  Per sequence the step reads its live K/V
 // (length x g x dh x 2 sides, plus the scales of an int8 pool) once and
@@ -281,10 +282,10 @@ int launch(const Args& a, int b, int splits, int heads, int epl, int smem,
 
 }  // namespace
 
-// q [b, nh, dh] (dtype, pre-rope); pools [nb, bs, g, dh] in dtype, or
-// int8 (quant = 1) with k_scale/v_scale [nb, bs, g] fp32 (NULL
-// otherwise); tables [b, mb] int32; lengths [b] int32; w [nh*dh, h_out]
-// in w_dtype (fp32, bf16 or fp16; vec = 1 when its rows are 16-byte
+// q [b, nh, dh] (dtype, pre-rope); pools [nb, bs, g, dh] with elements
+// of code `pool`: any float dtype (whatever q's), or int8 (kPoolInt8)
+// with k_scale/v_scale [nb, bs, g] fp32 (NULL otherwise); tables [b, mb]
+// int32; lengths [b] int32; w [nh*dh, h_out] in w_dtype (fp32, bf16 or fp16; vec = 1 when its rows are 16-byte
 // aligned and h_out a multiple of 16 bytes of elements); rope_cos/sin
 // [b, d2] fp32 or NULL with d2 = 0; out [b, h_out] (dtype); ctx
 // [b, nh*dh] (dtype) and part (the attention plan's partials, fp32)
@@ -297,9 +298,10 @@ extern "C" int apex_decode_layer(
     const void* lengths, const void* w, const void* rope_cos,
     const void* rope_sin, void* out, void* ctx, void* part, int b, int nh,
     int dh, int nb, int bs, int g, int mb, int h_out, int d2, float scale,
-    int dtype, int quant, int w_dtype, int vec, int splits, int chunk,
+    int dtype, int pool, int w_dtype, int vec, int splits, int chunk,
     int heads, int rc, int head_chunks, int epl, int dim_chunks, int tile,
     int stages, int smem, cudaStream_t stream) {
+  const bool quant = pool == kPoolInt8;
   if (d2 > dh || d2 % 2 || d2 < 0 || (d2 > 0 && rope_cos == nullptr) ||
       h_out <= 0 || (quant && (k_scale == nullptr || v_scale == nullptr)) ||
       (splits > 1 && part == nullptr))
@@ -326,14 +328,14 @@ extern "C" int apex_decode_layer(
   a.scale_log2 = scale * 1.4426950408889634f;
   set_plan(a, chunk, rc, head_chunks, epl, dim_chunks, tile, stages);
   APEX_DISPATCH_FLOAT(dtype, T, {
-    const int eb = quant ? 1 : (int)sizeof(T);
-    if (!plan_ok(b, nh, dh, g, eb, mb, bs, splits, a, heads, epl, smem) ||
-        (long long)nh * dh > 0x7fffffff / 4)
-      return (int)cudaErrorInvalidValue;
-    const int err = quant ? launch<T, int8_t>(a, b, splits, heads, epl, smem,
-                                              stream)
-                          : launch<T, T>(a, b, splits, heads, epl, smem,
-                                         stream);
+    int err = (int)cudaErrorInvalidValue;
+    APEX_PAGED_POOL(pool, P, {
+      if (!plan_ok(b, nh, dh, g, (int)sizeof(P), mb, bs, splits, a, heads,
+                   epl, smem) ||
+          (long long)nh * dh > 0x7fffffff / 4)
+        return (int)cudaErrorInvalidValue;
+      err = launch<T, P>(a, b, splits, heads, epl, smem, stream);
+    });
     if (err != 0) return err;
     APEX_DISPATCH_FLOAT(w_dtype, W, {
       return launch_proj<T, W>(ctx, w, out, b, nh * dh, h_out, vec, a,
@@ -345,15 +347,15 @@ extern "C" int apex_decode_layer(
 
 // Registers, shared memory per CTA, CTAs per SM and spill bytes of the
 // attention kernel of one variant at `smem` bytes of dynamic shared memory.
-extern "C" int apex_decode_attention_attrs(int dtype, int quant, int heads,
+extern "C" int apex_decode_attention_attrs(int dtype, int pool, int heads,
                                            int epl, int smem, int* out) {
   int err = (int)cudaErrorInvalidValue;
   APEX_DISPATCH_FLOAT(dtype, T, {
-    APEX_PAGED_VARIANT(heads, epl, {
-      err = quant ? kernel_attrs(paged_split_kernel<T, int8_t, H, EPL>, smem,
-                                 kThreads, out)
-                  : kernel_attrs(paged_split_kernel<T, T, H, EPL>, smem,
-                                 kThreads, out);
+    APEX_PAGED_POOL(pool, P, {
+      APEX_PAGED_VARIANT(heads, epl, {
+        err = kernel_attrs(paged_split_kernel<T, P, H, EPL>, smem, kThreads,
+                           out);
+      });
     });
   });
   return err;

@@ -34,8 +34,9 @@ int launch(const Args& a, int b, int splits, int heads, int epl, int smem,
 
 }  // namespace
 
-// q [b, nh, dh] (dtype); pools [nb, bs, g, dh] in dtype, or int8
-// (quant = 1) with k_scale/v_scale [nb, bs, g] fp32 (NULL otherwise);
+// q [b, nh, dh] (dtype); pools [nb, bs, g, dh] with elements of code
+// `pool`: any float dtype (fp32, bf16 or fp16, whatever q's), or int8
+// (kPoolInt8) with k_scale/v_scale [nb, bs, g] fp32 (NULL otherwise);
 // tables [b, mb] int32; lengths [b] int32; out [b, nh, dh] (dtype); part
 // fp32 scratch for the chunks' partials (splits x rc x (dn_max + 2) floats
 // a sequence and group block; NULL when splits = 1).  The
@@ -48,9 +49,10 @@ extern "C" int apex_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* tables,
     const void* lengths, void* out, void* part, int b, int nh, int dh,
-    int nb, int bs, int g, int mb, float scale, int dtype, int quant,
+    int nb, int bs, int g, int mb, float scale, int dtype, int pool,
     int splits, int chunk, int heads, int rc, int head_chunks, int epl,
     int dim_chunks, int tile, int stages, int smem, cudaStream_t stream) {
+  const bool quant = pool == kPoolInt8;
   if ((quant && (k_scale == nullptr || v_scale == nullptr)) ||
       (splits > 1 && part == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -73,26 +75,28 @@ extern "C" int apex_paged_attention(
   a.scale_log2 = scale * 1.4426950408889634f;
   set_plan(a, chunk, rc, head_chunks, epl, dim_chunks, tile, stages);
   APEX_DISPATCH_FLOAT(dtype, T, {
-    const int eb = quant ? 1 : (int)sizeof(T);
-    if (!plan_ok(b, nh, dh, g, eb, mb, bs, splits, a, heads, epl, smem))
-      return (int)cudaErrorInvalidValue;
-    if (quant) return launch<T, int8_t>(a, b, splits, heads, epl, smem, stream);
-    return launch<T, T>(a, b, splits, heads, epl, smem, stream);
+    APEX_PAGED_POOL(pool, P, {
+      if (!plan_ok(b, nh, dh, g, (int)sizeof(P), mb, bs, splits, a, heads,
+                   epl, smem))
+        return (int)cudaErrorInvalidValue;
+      return launch<T, P>(a, b, splits, heads, epl, smem, stream);
+    });
   });
   return (int)cudaErrorInvalidValue;
 }
 
 // Registers, shared memory per CTA, CTAs per SM and spill bytes of one
-// variant at `smem` bytes of dynamic shared memory (see kernel_attrs).
-extern "C" int apex_paged_attention_attrs(int dtype, int quant, int heads,
+// variant (compute dtype, pool code as above) at `smem` bytes of dynamic
+// shared memory (see kernel_attrs).
+extern "C" int apex_paged_attention_attrs(int dtype, int pool, int heads,
                                           int epl, int smem, int* out) {
   int err = (int)cudaErrorInvalidValue;
   APEX_DISPATCH_FLOAT(dtype, T, {
-    APEX_PAGED_VARIANT(heads, epl, {
-      err = quant ? kernel_attrs(paged_split_kernel<T, int8_t, H, EPL>, smem,
-                                 kThreads, out)
-                  : kernel_attrs(paged_split_kernel<T, T, H, EPL>, smem,
-                                 kThreads, out);
+    APEX_PAGED_POOL(pool, P, {
+      APEX_PAGED_VARIANT(heads, epl, {
+        err = kernel_attrs(paged_split_kernel<T, P, H, EPL>, smem, kThreads,
+                           out);
+      });
     });
   });
   return err;

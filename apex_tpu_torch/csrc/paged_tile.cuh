@@ -845,6 +845,39 @@ int kernel_attrs(Kern kern, int smem, int threads, int* out) {
   return 0;
 }
 
+// The pool's element type behind an integer code: the float codes of
+// common.cuh (the pool in any float dtype, whatever the compute dtype T),
+// or kPoolInt8 for the block-scaled int8 pool.
+constexpr int kPoolInt8 = 3;
+
+// Runs the statements with P bound to the pool element type named by
+// code; returns cudaErrorInvalidValue for an unknown code.
+#define APEX_PAGED_POOL(code, P, ...)               \
+  switch (code) {                                   \
+    case APEX_F32: {                                \
+      using P = float;                              \
+      __VA_ARGS__;                                  \
+      break;                                        \
+    }                                               \
+    case APEX_BF16: {                               \
+      using P = __nv_bfloat16;                      \
+      __VA_ARGS__;                                  \
+      break;                                        \
+    }                                               \
+    case APEX_F16: {                                \
+      using P = __half;                             \
+      __VA_ARGS__;                                  \
+      break;                                        \
+    }                                               \
+    case kPoolInt8: {                               \
+      using P = int8_t;                             \
+      __VA_ARGS__;                                  \
+      break;                                        \
+    }                                               \
+    default:                                        \
+      return (int)cudaErrorInvalidValue;            \
+  }
+
 // Runs the statements with H and EPL bound to the plan's kernel variant:
 // heads 1, 4 or 16, P V elements a lane 2 or 4.
 #define APEX_PAGED_VARIANT(heads, epl, ...)            \

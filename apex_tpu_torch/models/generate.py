@@ -35,8 +35,9 @@ matmul site; their decode attention is the stand-alone paged kernel
 (row 6) followed by the quantized projection, as in JAX, instead of K3.
 ``lora=`` on ``decode_step`` and ``decode_verify`` adds per-row adapter
 deltas at the four target matmuls through the grouped matmul (kernel row
-9, ``models/lora.py``) and runs row 6 instead of K3.  Not ported yet:
-``spec=`` (speculative decoding).
+9, ``models/lora.py``) and runs row 6 instead of K3.  ``generate(spec=)``
+decodes speculatively (``models/speculative.py``): each round one
+:func:`decode_verify` over the pending token and k drafts.
 """
 
 from __future__ import annotations
@@ -51,6 +52,7 @@ from apex_tpu_torch.models.lora import (
 from apex_tpu_torch.models.transformer_lm import (
     _attention, _layer_params, _mlp, apply_norm, lm_head_logits,
     rope_cos_sin, split_qkv)
+from apex_tpu_torch.observability import metrics as _telemetry
 from apex_tpu_torch.ops.decode_step import fused_decode_layer
 from apex_tpu_torch.ops.dense import is_quantized, quantized_matmul
 from apex_tpu_torch.ops.fused_sampling import fused_sample
@@ -383,7 +385,9 @@ def _lora_operands(lora, dev, m: int = 1):
     n_slots = next(iter(slabs.values()))["a"].shape[1]
     idx = torch.as_tensor(lora["idx"], device=dev).to(torch.int32)
     if m > 1:
-        idx = idx.repeat_interleave(m)
+        # expand, not repeat_interleave: no output-size read, so a CUDA
+        # graph captures it
+        idx = idx[:, None].expand(idx.shape[0], m).reshape(-1)
     return slabs, lora_plan(idx, n_slots)
 
 
@@ -679,10 +683,29 @@ def generate(params: dict, prompt, cfg: TransformerConfig, *,
     decode step behind it, so a run without early stops takes
     ``max_new_tokens - 1`` decode steps.  Sampling draws two key words
     per token from ``generator`` (default: seeded with ``seed``, else
-    0)."""
-    if spec not in (None, "off"):
-        raise NotImplementedError(
-            "spec= (speculative decoding) comes with a later slice")
+    0).
+
+    ``spec`` (``"ngram"``, a ``models.speculative.SpecConfig``, or
+    ``None``/``"off"``) decodes speculatively: k drafted tokens verified
+    by one :func:`decode_verify` forward a round; greedy output is
+    token-identical to ``spec=None`` and sampling distribution-identical;
+    with telemetry configured it counts ``generate.prefill_calls`` and
+    ``generate.spec.{draft_tokens,accepted_tokens,verify_calls}``."""
+    from apex_tpu_torch.models.speculative import resolve_spec, spec_generate
+
+    if resolve_spec(spec) is not None:
+        tokens, stats = spec_generate(
+            params, prompt, cfg, spec=spec, max_new_tokens=max_new_tokens,
+            temperature=temperature, top_k=top_k, top_p=top_p, seed=seed,
+            generator=generator, vocab_limit=vocab_limit,
+            prompt_lens=prompt_lens, eos_token_id=eos_token_id,
+            cache_dtype=cache_dtype, cache_layout=cache_layout,
+            block_size=block_size, cache_wire=cache_wire, device=device,
+            backend=backend)
+        _telemetry.counter("generate.prefill_calls").inc()
+        for name, n in stats.items():
+            _telemetry.counter(f"generate.spec.{name}").inc(n)
+        return tokens
     dev = resolve_device(device)
     prompt = torch.as_tensor(prompt, device=dev).long()
     b, s = prompt.shape

@@ -12,9 +12,9 @@ composition of rope, :func:`~apex_tpu_torch.ops.paged_attention.
 paged_attention_reference` and a matmul with the same dtype edges.
 
 Layout: ``q`` ``[b, num_heads, dh]`` PRE-rope; pools ``[num_blocks,
-block_size, kv_groups, dh]`` in q's dtype, or int8 with ``k_scale``/
-``v_scale`` ``[num_blocks, block_size, kv_groups]`` fp32
-(``cache_wire="int8"``); ``block_tables`` ``[b, max_blocks]``
+block_size, kv_groups, dh]`` in any float dtype (whatever q's), or int8
+with ``k_scale``/``v_scale`` ``[num_blocks, block_size, kv_groups]``
+fp32 (``cache_wire="int8"``); ``block_tables`` ``[b, max_blocks]``
 (entries ``>= num_blocks`` unmapped); ``lengths`` ``[b]`` live tokens
 (query included); ``w_proj`` ``[num_heads·dh, h_out]`` fp32, bf16 or
 fp16;
@@ -32,7 +32,7 @@ import torch
 from apex_tpu_torch.ops import _kernel_utils as ku
 from apex_tpu_torch.ops.paged_attention import (
     PagedPlan, _check_paged_shapes, check_kernel_geometry,
-    paged_attention_reference, partials, plan_args, plan_for)
+    paged_attention_reference, partials, plan_args, plan_for, pool_code)
 from apex_tpu_torch.ops.rope import _rope
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
@@ -53,11 +53,12 @@ def projection_vectorized(w: torch.Tensor) -> bool:
             and w.data_ptr() % 16 == 0)
 
 
-def kernel_attributes(dtype: torch.dtype, quant: bool, plan: PagedPlan,
-                      w_dtype: torch.dtype, k_in: int,
+def kernel_attributes(dtype: torch.dtype, pool_dtype: torch.dtype,
+                      plan: PagedPlan, w_dtype: torch.dtype, k_in: int,
                       vec: bool = True) -> dict:
     """What the CUDA runtime reports of K3's two kernels: ``attention``,
-    the split-key loop's variant under ``plan``, and ``projection`` for a
+    the split-key loop's variant for a ``dtype`` query over a
+    ``pool_dtype`` pool under ``plan``, and ``projection`` for a
     ``w_dtype`` W of ``k_in`` rows (``{"registers", "smem_bytes",
     "ctas_per_sm", "spill_bytes"}`` each).  Needs the card."""
     code = ku.dtype_code(torch.empty((), dtype=dtype))
@@ -65,7 +66,7 @@ def kernel_attributes(dtype: torch.dtype, quant: bool, plan: PagedPlan,
     return {
         "attention": ku.hopper_attrs(
             DECODE_LAYER.source, "apex_decode_attention_attrs", code,
-            int(quant), plan.heads, plan.epl, plan.smem),
+            pool_code(pool_dtype), plan.heads, plan.epl, plan.smem),
         "projection": ku.hopper_attrs(
             DECODE_LAYER.source, "apex_decode_projection_attrs", code, wcode,
             int(vec), k_in)}
@@ -141,7 +142,7 @@ def _fused_kernel(q, k_pool, v_pool, block_tables, lengths, w_proj,
                  ku.ptr(out), ku.ptr(ctx), ku.ptr(partials(q, k_pool, plan)),
                  b, nh, dh, nb, bs, g, mb,
                  h_out, d2, scale, ku.dtype_code(q),
-                 int(k_scale is not None), ku.dtype_code(w),
+                 pool_code(k_pool.dtype), ku.dtype_code(w),
                  int(projection_vectorized(w)), *plan_args(plan))
     return out
 

@@ -16,7 +16,8 @@ call captures in a CUDA graph.  For CPU tensors, and under
 gather-based oracle.
 
 Layout: ``q`` ``[b, num_heads, dh]`` (one query token per sequence),
-pools ``[num_blocks, block_size, kv_groups, dh]`` in a float dtype, or
+pools ``[num_blocks, block_size, kv_groups, dh]`` in any float dtype
+(fp32, bf16 or fp16, whatever q's: an engine's ``cache_dtype``), or
 int8 with ``k_scale``/``v_scale`` ``[num_blocks, block_size,
 kv_groups]`` fp32 (``cache_wire="int8"``), ``block_tables``
 ``[b, max_blocks]`` (entries ``>= num_blocks`` unmapped), ``lengths``
@@ -34,9 +35,9 @@ from apex_tpu_torch.ops import _kernel_utils as ku
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["ragged_paged_attention", "paged_attention_reference",
-           "_check_paged_shapes", "check_kernel_geometry", "PagedPlan",
-           "paged_plan", "paged_smem", "plan_for", "partials", "plan_args",
-           "kernel_attributes"]
+           "_check_paged_shapes", "check_kernel_geometry", "pool_code",
+           "PagedPlan", "paged_plan", "paged_smem", "plan_for", "partials",
+           "plan_args", "kernel_attributes"]
 
 _NEG_INF = -1e30
 
@@ -55,6 +56,9 @@ MAX_SPLITS = 32
 HEAD_CAPACITIES = (1, 4, 16)
 LANE_DIMS = (2, 4)
 SMEM_MAX = 232448
+# the int8 pool's element code (csrc/paged_tile.cuh kPoolInt8); float pools
+# pass ku.DTYPE_CODES
+POOL_INT8 = 3
 _SMEM_BUDGET = 96 * 1024     # a plan's target: two CTAs an SM or more
 
 
@@ -169,15 +173,25 @@ def plan_for(q, k_pool, block_tables) -> PagedPlan:
                       k_pool.element_size(), ku.sm_count(q.device))
 
 
-def kernel_attributes(dtype: torch.dtype, quant: bool,
+def pool_code(dtype: torch.dtype) -> int:
+    """The C entries' code of a pool element type: a float dtype's
+    ``ku.DTYPE_CODES`` entry, or :data:`POOL_INT8`."""
+    if dtype == torch.int8:
+        return POOL_INT8
+    return ku.dtype_code(torch.empty((), dtype=dtype))
+
+
+def kernel_attributes(dtype: torch.dtype, pool_dtype: torch.dtype,
                       plan: PagedPlan) -> dict:
-    """What the CUDA runtime reports of row 6's kernel variant under
-    ``plan`` (``{"registers", "smem_bytes", "ctas_per_sm",
-    "spill_bytes"}``).  Needs the card."""
+    """What the CUDA runtime reports of row 6's kernel variant for a
+    ``dtype`` query over a ``pool_dtype`` pool under ``plan``
+    (``{"registers", "smem_bytes", "ctas_per_sm", "spill_bytes"}``).
+    Needs the card."""
     code = ku.dtype_code(torch.empty((), dtype=dtype))
     return ku.hopper_attrs(PAGED_ATTENTION.source,
-                           "apex_paged_attention_attrs", code, int(quant),
-                           plan.heads, plan.epl, plan.smem)
+                           "apex_paged_attention_attrs", code,
+                           pool_code(pool_dtype), plan.heads, plan.epl,
+                           plan.smem)
 
 
 def _check_paged_shapes(q, k_pool, v_pool, block_tables, lengths,
@@ -259,9 +273,9 @@ def paged_attention_reference(q, k_pool, v_pool, block_tables, lengths, *,
 
 def check_kernel_geometry(name: str, q, k_pool) -> None:
     """What the split-key loop (``csrc/paged_tile.cuh``) takes: any
-    ``num_heads`` a multiple of ``kv_groups`` (checked with the shapes),
-    ``dh`` a multiple of 16 bytes of pool elements, the pool in q's dtype
-    or int8."""
+    ``num_heads`` a multiple of ``kv_groups`` (checked with the shapes)
+    and ``dh`` a multiple of 16 bytes of pool elements; the pool in any
+    float dtype or int8, whatever q's dtype."""
     dh = q.shape[-1]
     vec = 16 // k_pool.element_size()
     if dh % vec:
@@ -269,10 +283,6 @@ def check_kernel_geometry(name: str, q, k_pool) -> None:
             f"{name}: the kernel reads K/V rows in 16-byte vectors, so dh "
             f"must be a multiple of {vec} for a {k_pool.dtype} pool; got "
             f"dh={dh}")
-    if k_pool.dtype not in (q.dtype, torch.int8):
-        raise NotImplementedError(
-            f"{name}: pool dtype {k_pool.dtype} differs from q's {q.dtype}; "
-            "the kernel reads a native pool in the compute dtype")
 
 
 def partials(q, k_pool, plan: PagedPlan) -> Optional[torch.Tensor]:
@@ -313,7 +323,7 @@ def _paged_kernel(q, k_pool, v_pool, block_tables, lengths, scale,
                     ku.ptr(lens), ku.ptr(out),
                     ku.ptr(partials(q, k_pool, plan)), b, nh, dh, nb, bs, g,
                     mb,
-                    scale, ku.dtype_code(q), int(k_scale is not None),
+                    scale, ku.dtype_code(q), pool_code(k_pool.dtype),
                     *plan_args(plan))
     return out
 

@@ -77,21 +77,42 @@ primes every entry.  The first token of a request is drawn eagerly (one
 b=1 call per admission, outside the ladder), and so is a LoRA prompt's
 prefill.
 
+Speculative decoding: with ``spec=`` (``"ngram"`` or a
+:class:`~apex_tpu_torch.models.speculative.SpecConfig`) each decode step
+is one :func:`~apex_tpu_torch.models.speculative.spec_round` over every
+lane: each live lane drafts k tokens from its own history (kept on the
+device, across preempt → resume), one batched verify forward scores all
+lanes' drafts, and each delivers 1 to k+1 tokens; EOS and budget
+truncation stay on the host, and a truncated lane completes in that
+step.  Paged budgets reserve the k+1-cell write horizon.  Under the
+compiled ladder the round is the ``decode`` entry, one CUDA graph.
+
+The host-DRAM tier: with ``host_tier_bytes=`` (paged only) a
+:class:`~apex_tpu_torch.serving.host_tier.HostTier` parks a preempted
+lane's pages (resume pages them back in through the ``insert[bucket]``
+entry instead of replaying its prefill) and the pages of a published
+block whose last HBM reference drops (raw wire only; a later admission
+whose digest misses HBM pages it back in and republishes it).
+``host_tier_wire="int8"`` parks preempted pages four times denser, at
+the cost of bitwise resumes.
+
 Differences from the JAX engine: pools are updated in place; sampling
 draws its key words from a ``torch.Generator`` (``generator=``), so
 sampled lanes are reproducible per seed but not the JAX tokens (greedy
 lanes are the identity contract); no environment variable overrides
-``chunk_tokens``; a capture or replay failure raises instead of falling
-back.  Not ported yet (raise ``NotImplementedError``): ``spec``,
-``host_tier_bytes``, ``host_tier_wire``, ``submit_prefilled`` and
-``drain``.
+``chunk_tokens``, ``host_tier_bytes`` or ``host_tier_wire``; a capture
+or replay failure raises instead of falling back.  Not ported yet
+(raise ``NotImplementedError``): ``submit_prefilled`` and ``drain``.
 
 Telemetry (no-op unless :func:`~apex_tpu_torch.observability.configure`
 ran) uses the JAX engine's names: ``serving.{requests,prefill_calls,
 decode_steps,tokens_generated,preemptions}`` counters, occupancy, queue
 and block gauges, per-class ``serving.{queue_wait_ms,ttft_ms,tpot_ms,
 e2e_ms,preempt_overhead_ms}`` sketches, ``serving.goodput.{met,
-missed}`` and ``serving.adapter.requests{adapter=}``.
+missed}``, ``serving.adapter.requests{adapter=}``, under ``spec=`` the
+``generate.spec.{draft_tokens,accepted_tokens,verify_calls}`` counters,
+and with the host tier ``serving.host_tier.{page_ins,resumes,replays}``
+beside the tier's own metrics.
 """
 
 from __future__ import annotations
@@ -108,7 +129,8 @@ import torch
 from apex_tpu_torch.models.config import TransformerConfig
 from apex_tpu_torch.models.generate import (
     _check_decode_cfg, _compute_dtype_params, decode_step, decode_verify,
-    init_kv_cache, prefill)
+    extract_kv, init_kv_cache, prefill)
+from apex_tpu_torch.models.speculative import resolve_spec, spec_round
 from apex_tpu_torch.observability import metrics as _telemetry
 from apex_tpu_torch.observability import span
 from apex_tpu_torch.observability.device import (
@@ -122,18 +144,19 @@ from apex_tpu_torch.ops.fused_sampling import _seed_words, fused_sample
 from apex_tpu_torch.serving.batching import (
     SlotPool, default_buckets, pad_prompt, pick_bucket)
 from apex_tpu_torch.serving.compile_cache import CompileCache
+from apex_tpu_torch.serving.host_tier import (
+    DIGEST_INVENTORY_N, HostTier, resolve_host_tier_bytes,
+    resolve_host_tier_wire)
 from apex_tpu_torch.serving.paged_cache import (
-    BlockManager, blocks_for, chunk_salt, init_paged_pool,
-    paged_insert_prefill, paged_insert_prefill_q, prefix_block_hashes,
-    resolve_cache_wire)
+    BlockManager, blocks_for, chunk_salt, dequantize_kv, gather_block_kv,
+    gather_block_scales, init_paged_pool, paged_insert_prefill,
+    paged_insert_prefill_q, prefix_block_hashes, resolve_cache_wire)
 from apex_tpu_torch.serving.slo import judge as _judge_slo
 from apex_tpu_torch.serving.slo import resolve_slo_targets
 from apex_tpu_torch.serving.slo import tpot_ms as _tpot_ms
 from apex_tpu_torch.utils.registry import check_backend, resolve_device
 
 __all__ = ["Request", "Response", "ServingEngine"]
-
-DIGEST_INVENTORY_N = 64
 
 
 @dataclasses.dataclass
@@ -241,9 +264,6 @@ class _Slot:
     published_upto: int = 0
 
 
-_UNPORTED = ("spec", "host_tier_bytes", "host_tier_wire")
-
-
 def _resolve_chunk_tokens(value: Optional[int]) -> Optional[int]:
     """The chunked-prefill knob: a positive chunk size, or None for
     monolithic prefill (the JAX engine's environment override is not
@@ -270,13 +290,16 @@ class ServingEngine:
     that the native pool's bytes would buy).  ``reserve_blocks`` is the
     paged admission margin.  ``top_k`` / ``top_p`` / ``vocab_limit`` are
     engine-wide sampling knobs; temperature is per request.
-    ``generator`` (a CPU ``torch.Generator``, default seeded 0) keys the
-    sampled lanes.  ``adapter_pool`` serves LoRA adapters,
+    ``cache_dtype`` stores a native pool in another float dtype than the
+    compute dtype (e.g. bf16 under fp32 compute); rows 6 and 7 read it as
+    it is.  ``generator`` (a CPU ``torch.Generator``, default seeded 0)
+    keys the sampled lanes.  ``adapter_pool`` serves LoRA adapters,
     ``chunk_tokens`` turns on chunked prefill, ``token_masks=True``
-    constrained decoding, and ``compile_cache_dir`` the compiled ladder
-    (module doc).  ``device`` defaults to ``cuda``;
-    ``backend="reference"`` pins every op to its plain version (tests and
-    ``chip_smoke.py``)."""
+    constrained decoding, ``spec`` speculative decoding,
+    ``host_tier_bytes``/``host_tier_wire`` the host-DRAM tier, and
+    ``compile_cache_dir`` the compiled ladder (module doc).  ``device``
+    defaults to ``cuda``; ``backend="reference"`` pins every op to its
+    plain version (tests and ``chip_smoke.py``)."""
 
     def __init__(self, params: dict, cfg: TransformerConfig, *,
                  max_slots: int = 8, max_len: Optional[int] = None,
@@ -295,14 +318,12 @@ class ServingEngine:
                  adapter_pool=None, token_masks: bool = False,
                  generator: Optional[torch.Generator] = None,
                  device=None, backend: Optional[str] = None):
-        given = dict(spec=spec, host_tier_bytes=host_tier_bytes,
-                     host_tier_wire=host_tier_wire)
-        for name in _UNPORTED:
-            if given[name] not in (None, "off"):
-                raise NotImplementedError(
-                    f"ServingEngine({name}=...) is not ported yet; it "
-                    "comes with a later slice of the port (ROADMAP.md)")
         _check_decode_cfg(cfg)
+        # speculative decoding: _spec_ahead is the KV write horizon a step
+        # may touch past a lane's materialized length (the pending token
+        # plus k drafts), which sizes tail allocation and the solo budget
+        self._spec = resolve_spec(spec)
+        self._spec_ahead = 1 if self._spec is None else self._spec.k + 1
         self.chunk_tokens = _resolve_chunk_tokens(chunk_tokens)
         if cache_layout not in ("contiguous", "paged"):
             raise ValueError(
@@ -368,7 +389,17 @@ class ServingEngine:
             # touches a reassigned block
             self._tables = np.full((self.max_slots, mb), self.num_blocks,
                                    np.int32)
+            # the host-DRAM tier behind the block ledger
+            hb = resolve_host_tier_bytes(host_tier_bytes)
+            self._host = (HostTier(
+                hb, wire=resolve_host_tier_wire(host_tier_wire),
+                block_size=self.block_size) if hb else None)
         else:
+            if resolve_host_tier_bytes(host_tier_bytes):
+                raise ValueError(
+                    "host_tier_bytes needs cache_layout='paged' — the "
+                    "offload tier parks paged blocks")
+            self._host = None
             self.cache = init_kv_cache(cfg, self.max_slots, self.max_len,
                                        cache_dtype=cache_dtype, device=dev)
             self._mgr = None
@@ -389,6 +420,17 @@ class ServingEngine:
                      else torch.Generator().manual_seed(0))
         self._pending = np.zeros((self.max_slots,), np.int32)
         self._temps = np.zeros((self.max_slots,), np.float32)
+        # spec only: each lane's emitted history (prompt + generated,
+        # pending token included), the drafter's haystack, on the device;
+        # the decode step appends its delivered tokens in place, so only
+        # admissions write a row from the host.  One column past max_len
+        # takes the writes that drop.
+        self._history = self._hist_len = None
+        if self._spec is not None:
+            self._history = torch.zeros((self.max_slots, self.max_len + 1),
+                                        dtype=torch.int32, device=dev)
+            self._hist_len = torch.zeros((self.max_slots,), dtype=torch.int32,
+                                         device=dev)
         # the adapter pool and the per-lane slab index (0 = base), a host
         # mirror uploaded each step like _pending and _temps
         self._adapters = adapter_pool
@@ -499,7 +541,11 @@ class ServingEngine:
         """Reject a request that could never complete even alone."""
         if self._mgr is None:
             return
-        horizon = min(req.prompt.size + req.max_new_tokens,
+        # a verify block writes up to k cells past the materialized length
+        # before its rejected tail rolls back: the solo worst case covers
+        # them (clamped to the table's reach)
+        horizon = min(req.prompt.size + req.max_new_tokens
+                      + (self._spec_ahead - 1),
                       blocks_for(self.max_len, self.block_size)
                       * self.block_size)
         worst = blocks_for(horizon, self.block_size) + self.reserve_blocks
@@ -544,9 +590,8 @@ class ServingEngine:
         return sorted(out, key=lambda r: r.request_id)
 
     def stats(self) -> dict:
-        """Engine state snapshot (the JAX engine's keys, minus the
-        features not ported yet, plus ``decode_steps`` and
-        ``prefill_calls``)."""
+        """Engine state snapshot (the JAX engine's keys, plus
+        ``decode_steps`` and ``prefill_calls``)."""
         by_class: dict = {}
         for req in self._queue:
             by_class[req.slo_class] = by_class.get(req.slo_class, 0) + 1
@@ -562,7 +607,7 @@ class ServingEngine:
             "cache_wire": self.cache_wire,
             "cache_bytes": self._cache_bytes,
             "sampling": dict(self._sampling),
-            "spec_k": None,
+            "spec_k": None if self._spec is None else self._spec.k,
             "chunk_tokens": self.chunk_tokens,
             "prefilling": sum(1 for st in self._slots
                               if st is not None and st.prefilling),
@@ -588,9 +633,13 @@ class ServingEngine:
                     "chunk_tokens": self.chunk_tokens,
                     "hbm": [h.hex()[:16] for h in
                             self._mgr.newest_digests(DIGEST_INVENTORY_N)],
-                    "host": [],
+                    "host": ([h.hex()[:16]
+                              for h in self._host.newest_digests()]
+                             if self._host is not None else []),
                 },
             })
+            if self._host is not None:
+                out["host_tier"] = self._host.stats()
         else:
             out["free_block_headroom"] = self._pool.n_free
             out["headroom_tokens"] = self._pool.n_free * self.max_len
@@ -643,12 +692,23 @@ class ServingEngine:
             return False
         return req.prompt.size + len(req.resume_tokens) > self.chunk_tokens
 
+    def _host_resumable(self, req: Request) -> bool:
+        """Whether this admission pages its K/V back in from the host tier
+        instead of running a prefill: a preempted request whose
+        materialized pages (prompt + generated - 1 tokens: the pending
+        token's K/V was never written) are still parked."""
+        return (self._host is not None and bool(req.resume_tokens)
+                and self._host.has_request(
+                    req.request_id,
+                    req.prompt.size + len(req.resume_tokens) - 1))
+
     def _chunk_share_plan(self, n: int, hashes: List[bytes]) -> int:
-        """How many leading full blocks of a chunked admission map
-        published chunk-namespace digests instead of running their
-        chunks: whole chunks only (a sharer starts its chunk grid where
-        the producer did), none unless ``chunk_tokens % block_size ==
-        0``, and never the final chunk (it samples the first token)."""
+        """How many leading full blocks of a chunked admission map (HBM) or
+        page in (host tier) published chunk-namespace digests instead of
+        running their chunks: whole chunks only (a sharer starts its chunk
+        grid where the producer did), none unless ``chunk_tokens %
+        block_size == 0``, and never the final chunk (it samples the first
+        token)."""
         ct, bs = self.chunk_tokens, self.block_size
         if ct % bs:
             return 0
@@ -658,6 +718,7 @@ class ServingEngine:
             chunk_hashes = hashes[c * bpc:(c + 1) * bpc]
             if len(chunk_hashes) < bpc or not all(
                     self._mgr.lookup_prefix(h) is not None
+                    or (self._host is not None and self._host.has_block(h))
                     for h in chunk_hashes):
                 break
             lead += bpc
@@ -665,9 +726,13 @@ class ServingEngine:
 
     def _blocks_needed(self, req: Request) -> int:
         """NEW blocks the request must allocate at admission (published
-        prefix hits map, they do not allocate; a chunked admission maps
-        only its leading shared chunks)."""
+        prefix hits map, they do not allocate; host-tier digest hits
+        allocate and page in; a page-in resume covers its materialized
+        ``n - 1`` tokens fresh; a chunked admission maps only its leading
+        shared chunks)."""
         n = req.prompt.size + len(req.resume_tokens)
+        if self._host_resumable(req):
+            return blocks_for(n - 1, self.block_size)
         _tokens, hashes = self._admission_state(req)
         need = blocks_for(n, self.block_size)
         if self._chunked(req):
@@ -695,7 +760,13 @@ class ServingEngine:
             if (self._mgr is not None
                     and self._mgr.n_free < (self._blocks_needed(req)
                                             + self.reserve_blocks)):
-                break      # wait for completions or a preemption
+                # wait for completions or a preemption; meanwhile decode
+                # the head's parked pages, so its page-in does not wait
+                if self._host is not None and req.resume_tokens:
+                    self._host.prefetch_request(
+                        req.request_id,
+                        req.prompt.size + len(req.resume_tokens) - 1)
+                break
             if req.adapter_id and not req._lane:
                 # pin the adapter's slab slot for the whole residency
                 # before claiming a lane; None = every slot is pinned by
@@ -749,11 +820,16 @@ class ServingEngine:
 
     def _claim_blocks(self, tokens: np.ndarray, hashes: List[bytes]):
         """Map/allocate the block list for ``tokens``: published full
-        blocks are shared (not rewritten), the rest allocate, full ones
-        publish.  Returns (blocks, write_ids, shared_count); raises on
-        exhaustion with everything unwound."""
+        blocks are shared (not rewritten); a digest parked in the host
+        tier allocates, publishes and pages in (not rewritten: the raw
+        host wire restores what the prefill would write); the rest
+        allocate, full ones publish.  Returns (blocks, write_ids,
+        shared_count, page_ins), ``page_ins`` ``[(block, (k, v))]`` for
+        :meth:`_page_in_blocks`; raises on exhaustion with everything
+        unwound."""
         blocks: List[int] = []
         write_ids: List[int] = []
+        page_ins: List[tuple] = []
         shared = 0
         try:
             for h in hashes:
@@ -763,12 +839,20 @@ class ServingEngine:
                     write_ids.append(self.num_blocks)   # don't rewrite
                     shared += 1
                     continue
+                hit = None
+                if self._host is not None and self._host.has_block(h):
+                    # has_block first: only parked digests count a hit
+                    hit = self._host.peek_block(h)
                 blk = self._mgr.alloc()
                 if blk is None:
                     raise RuntimeError("block pool exhausted mid-admit")
                 self._mgr.publish_prefix(h, blk)
                 blocks.append(blk)
-                write_ids.append(blk)
+                if hit is not None:
+                    write_ids.append(self.num_blocks)   # the page-in writes
+                    page_ins.append((blk, hit))
+                else:
+                    write_ids.append(blk)
             if tokens.size % self.block_size:
                 blk = self._mgr.alloc()                 # private tail
                 if blk is None:
@@ -778,7 +862,50 @@ class ServingEngine:
         except Exception:
             self._mgr.free_all(blocks)
             raise
-        return blocks, write_ids, shared
+        return blocks, write_ids, shared, page_ins
+
+    def _page_in_blocks(self, slot: int, page_ins: List[tuple]) -> None:
+        """Scatter host-tier digest pages into their freshly published
+        blocks through one ``insert`` call of a bucket of the next power
+        of two blocks (an int8 pool requantizes on the way, as a prefill
+        write does).  The lane position the insert stamps is re-stamped by
+        every caller."""
+        if not page_ins:
+            return
+        t0 = time.perf_counter()
+        bs = self.block_size
+        L, g, dh = (self.cfg.num_layers, self.cfg.kv_groups,
+                    self.cfg.kv_channels)
+        m = len(page_ins)
+        cap = 1
+        while cap < m:
+            cap *= 2
+        bucket = cap * bs
+        ks = torch.zeros((L, 1, bucket, g, dh), dtype=self._cache_dtype)
+        vs = torch.zeros_like(ks)
+        for i, (_blk, (k, v)) in enumerate(page_ins):
+            ks[:, 0, i * bs:(i + 1) * bs] = k.to(self._cache_dtype)
+            vs[:, 0, i * bs:(i + 1) * bs] = v.to(self._cache_dtype)
+        self._insert_prefill_kv(slot, bucket, [blk for blk, _kv in page_ins],
+                                ks, vs, m * bs)
+        _telemetry.counter("serving.host_tier.page_ins").inc(m)
+        _telemetry.sketch("serving.host_tier.page_in_ms").observe(
+            (time.perf_counter() - t0) * 1e3)
+
+    def _spec_history(self, slot: int, tokens: np.ndarray,
+                      pending: Optional[int]) -> None:
+        """Write lane ``slot``'s drafting history (spec only): ``tokens``,
+        then the pending token when it is not among them."""
+        if self._spec is None:
+            return
+        row = np.zeros((self.max_len + 1,), np.int32)
+        n = int(tokens.size)
+        row[:n] = tokens
+        if pending is not None:
+            row[n] = pending
+            n += 1
+        self._history[slot].copy_(torch.from_numpy(row))
+        self._hist_len[slot] = n
 
     def _claim_blocks_fresh(self, n_tokens: int) -> List[int]:
         """Allocate ``blocks_for(n_tokens)`` fresh blocks, no prefix
@@ -801,9 +928,13 @@ class ServingEngine:
     def _cc_parts(self, **extra) -> dict:
         """The static identity every ladder entry's key carries (the shapes
         and the code digest are added by the cache)."""
+        spec = self._spec
         return dict(cache_wire=self.cache_wire,
                     cache_layout=self.cache_layout,
                     chunk_tokens=self.chunk_tokens,
+                    spec=None if spec is None else (
+                        spec.k, spec.max_ngram, spec.min_ngram,
+                        getattr(spec.draft_fn, "__qualname__", None)),
                     sampling=tuple(sorted(self._sampling.items())),
                     lora=self._adapters is not None,
                     masked=self._masks is not None, backend=self.backend,
@@ -828,13 +959,18 @@ class ServingEngine:
     def _ladder_sources(self) -> List[str]:
         """The kernel sources this engine's ladder entries launch: K1 and
         K2 (prefill), K4 (sample), K3 on float weights without LoRA else
-        row 6 (decode), row 10 on quantized weights, row 9 with LoRA."""
-        ks = [_k1.LN_FWD, _k2.FLASH_FWD, _k4.FUSED_SAMPLE]
+        row 6 (decode), row 10 on quantized weights, row 9 with LoRA.
+        Under ``spec`` the decode entry is a verify forward (K1 and the
+        matmuls; its attention is torch arithmetic) and there is no
+        ``sample`` entry."""
+        ks = [_k1.LN_FWD, _k2.FLASH_FWD]
         quant = is_quantized_tree(self.params)
-        if quant or self._adapters is not None:
-            ks.append(_k6.PAGED_ATTENTION)
-        else:
-            ks.append(_k3.DECODE_LAYER)
+        if self._spec is None:
+            ks.append(_k4.FUSED_SAMPLE)
+            if quant or self._adapters is not None:
+                ks.append(_k6.PAGED_ATTENTION)
+            else:
+                ks.append(_k3.DECODE_LAYER)
         if quant:
             ks.append(_k10.DENSE_INT8)
         if self._adapters is not None:
@@ -883,6 +1019,31 @@ class ServingEngine:
                     vocab_limit=self._sampling["vocab_limit"],
                     backend=self.backend)
 
+    def _spec_bound(self) -> dict:
+        return dict(params=self.params, cache=self.cache, cfg=self.cfg,
+                    spec=self._spec, history=self._history,
+                    hist_len=self._hist_len, paged=self._mgr is not None,
+                    slabs=(None if self._adapters is None
+                           else self._adapters.slabs()),
+                    masks=self._mask_dev, backend=self.backend,
+                    **self._sampling)
+
+    def _decode_args(self, pending, active) -> list:
+        """The decode entry's per-step inputs: pending tokens and the
+        active mask (with spec, the temperatures and two key words), the
+        block tables (paged), the LoRA lane ids (with a pool)."""
+        args = [pending, active]
+        if self._spec is not None:
+            args += [torch.from_numpy(self._temps.copy()),
+                     torch.tensor(_seed_words(self._gen), dtype=torch.int64)]
+        if self._mgr is not None:
+            args.append(torch.from_numpy(self._tables.copy()))
+        if self._adapters is not None:
+            # every step of an engine with a pool, whatever the mix:
+            # slot-0 lanes sit outside the grouped matmul's window
+            args.append(torch.from_numpy(self._lane_slab.copy()))
+        return args
+
     def _sample_bound(self) -> dict:
         return dict(masks=self._mask_dev, backend=self.backend,
                     **self._sampling)
@@ -920,11 +1081,19 @@ class ServingEngine:
         def decode():
             args = [torch.zeros(S, dtype=torch.int32),
                     torch.zeros(S, dtype=torch.bool)]
+            if self._spec is not None:
+                # no lane active: the history and positions stay, the
+                # verify writes drop (sentinel tables) or land past free
+                # stripes' lengths
+                args += [torch.zeros(S), torch.zeros(2, dtype=torch.long)]
             if self._mgr is not None:
                 args.append(torch.full(self._tables.shape, self.num_blocks,
                                        dtype=torch.int32))
             if self._adapters is not None:
                 args.append(torch.zeros(S, dtype=torch.int32))
+            if self._spec is not None:
+                return self._cc("decode", _spec_entry, tuple(args),
+                                self._spec_bound)
             return self._cc("decode", _decode_entry, tuple(args),
                             self._decode_bound)
 
@@ -957,6 +1126,9 @@ class ServingEngine:
                 and not self._adapters._registry):
             return ("the adapter pool has no registered adapter, so the "
                     "decode step's slabs do not exist yet")
+        if label == "sample" and self._spec is not None:
+            return ("under spec= the decode entry draws inside its round "
+                    "and first tokens are drawn eagerly")
         return None
 
     def _sample(self, logits, temps: np.ndarray,
@@ -976,7 +1148,17 @@ class ServingEngine:
 
     def _admit_one(self, req: Request, slot: int) -> List[Response]:
         """Prefill one claimed request into its lane (block allocations
-        unwind here on failure)."""
+        unwind here on failure).  A preempted request whose pages are
+        still parked in the host tier pages them back in instead
+        (:meth:`_admit_one_paged_in`), even where it would replay
+        chunked."""
+        if self._host is not None and req.resume_tokens:
+            n_kv = req.prompt.size + len(req.resume_tokens) - 1
+            kv = self._host.take_request(req.request_id, n_kv)
+            if kv is not None:
+                return self._admit_one_paged_in(req, slot, *kv)
+            # evicted, or never fit: the replay half of resume-vs-replay
+            _telemetry.counter("serving.host_tier.replays").inc()
         if self._chunked(req):
             return self._admit_one_chunked(req, slot)
         if req.adapter_id:
@@ -991,14 +1173,22 @@ class ServingEngine:
         bucket = pick_bucket(n, self.buckets)
         blocks: List[int] = []
         write_ids: List[int] = []
+        page_ins: List[tuple] = []
         shared = 0
         if self._mgr is not None:
-            blocks, write_ids, shared = self._claim_blocks(tokens, hashes)
+            blocks, write_ids, shared, page_ins = self._claim_blocks(
+                tokens, hashes)
         t0 = time.perf_counter()
         if req.admitted_t == 0.0:
             req.admitted_t = t0
             req.queue_wait_s = t0 - req.submitted_t
         try:
+            if page_ins:
+                # host-parked digest pages first (blocks disjoint from the
+                # prefill's writes; the insert below re-stamps pos)
+                with span("serving.host_page_in"), \
+                        compile_label("serving.prefill"):
+                    self._page_in_blocks(slot, page_ins)
             with span("serving.prefill"), compile_label("serving.prefill"):
                 logits, ks, vs = self._prefill_call(tokens, n, bucket)
                 self._insert_prefill_kv(slot, bucket, write_ids, ks, vs, n)
@@ -1037,10 +1227,60 @@ class ServingEngine:
         self._pending[slot] = tok
         self._temps[slot] = req.temperature
         self._bind_slot_lane(req, slot)
+        self._spec_history(slot, tokens, tok)
         done = self._finish_reason(st, tok)
         if done:
             completed.append(self._complete(slot, done))
         return completed
+
+    def _admit_one_paged_in(self, req: Request, slot: int, k, v
+                            ) -> List[Response]:
+        """Re-admit a preempted request from its parked pages: fresh blocks
+        (the pages hold decode-written tokens, never digest-shared), the
+        K/V scattered back through the ``insert[bucket]`` entry, and the
+        lane straight back into decode behind its pending token
+        (``resume_tokens[-1]``, whose K/V the next step writes).  No
+        prefill runs and no token is drawn; on the raw wire the round trip
+        is bitwise, so greedy continuation is token-identical."""
+        n_kv = req.prompt.size + len(req.resume_tokens) - 1
+        bucket = pick_bucket(n_kv, self.buckets)
+        blocks = self._claim_blocks_fresh(n_kv)
+        t0 = time.perf_counter()
+        try:
+            with span("serving.host_page_in"), \
+                    compile_label("serving.prefill"):
+                shape = (self.cfg.num_layers, 1, bucket, self.cfg.kv_groups,
+                         self.cfg.kv_channels)
+                ks = torch.zeros(shape, dtype=self._cache_dtype)
+                vs = torch.zeros(shape, dtype=self._cache_dtype)
+                ks[:, 0, :n_kv] = k.to(self._cache_dtype)
+                vs[:, 0, :n_kv] = v.to(self._cache_dtype)
+                self._insert_prefill_kv(slot, bucket, blocks, ks, vs, n_kv)
+            self._tables[slot, :] = self.num_blocks
+            self._tables[slot, : len(blocks)] = blocks
+            self._blocks_hw = max(self._blocks_hw, self._mgr.n_in_use)
+            now = time.perf_counter()
+            ms = (now - t0) * 1e3
+            if req.preempted_t:
+                req.preempt_overhead_s += now - req.preempted_t
+                req.preempted_t = 0.0
+            _telemetry.counter("serving.host_tier.resumes").inc()
+            _telemetry.sketch("serving.host_tier.page_in_ms").observe(ms)
+            if _telemetry.enabled():
+                sample_device_memory()
+            st = _Slot(request=req, tokens=list(req.resume_tokens),
+                       prefill_ms=ms, blocks=blocks, cache_len=n_kv,
+                       decode_polls=req.resume_polls)
+        except Exception:
+            self._mgr.free_all(blocks)
+            self._tables[slot, :] = self.num_blocks
+            raise
+        self._slots[slot] = st
+        self._pending[slot] = int(req.resume_tokens[-1])
+        self._temps[slot] = req.temperature
+        self._bind_slot_lane(req, slot)
+        self._spec_history(slot, self._full_tokens(req), None)
+        return []
 
     def _lora_prefill(self, tokens: np.ndarray, slot: int, lane: int):
         """The prompt, padded to its bucket, through one b=1
@@ -1150,6 +1390,7 @@ class ServingEngine:
         self._pending[slot] = tok
         self._temps[slot] = req.temperature
         self._bind_slot_lane(req, slot)
+        self._spec_history(slot, tokens, tok)
         done = self._finish_reason(st, tok)
         if done:
             completed.append(self._complete(slot, done))
@@ -1159,21 +1400,35 @@ class ServingEngine:
 
     def _claim_blocks_chunked(self, n: int, hashes: List[bytes]):
         """Block claim of a chunked admission: the leading shared chunks
-        (:meth:`_chunk_share_plan`) map their published blocks, every other
-        block allocates fresh and publishes as its chunk lands
-        (:meth:`_publish_chunk_blocks`).  Returns (blocks, shared, lo),
-        ``lo`` the chunk-aligned prefill start; raises on exhaustion with
-        everything unwound."""
+        (:meth:`_chunk_share_plan`) map their published blocks (HBM) or
+        allocate, publish and page in (host tier); every other block
+        allocates fresh and publishes as its chunk lands
+        (:meth:`_publish_chunk_blocks`).  Returns (blocks, shared,
+        page_ins, lo), ``lo`` the chunk-aligned prefill start; raises on
+        exhaustion with everything unwound."""
         lead = self._chunk_share_plan(n, hashes)
         blocks: List[int] = []
+        page_ins: List[tuple] = []
+        shared = 0
         try:
             for h in hashes[:lead]:
                 blk = self._mgr.share_prefix(h)
-                if blk is None:
-                    # the plan saw it published; nothing runs in between
+                if blk is not None:
+                    blocks.append(blk)
+                    shared += 1
+                    continue
+                hit = (self._host.peek_block(h)
+                       if self._host is not None else None)
+                if hit is None:
+                    # the plan saw it in a tier; nothing runs in between
                     raise RuntimeError("shared chunk digest vanished "
                                        "mid-claim")
+                blk = self._mgr.alloc()
+                if blk is None:
+                    raise RuntimeError("block pool exhausted mid-admit")
+                self._mgr.publish_prefix(h, blk)
                 blocks.append(blk)
+                page_ins.append((blk, hit))
             for _ in range(len(blocks), blocks_for(n, self.block_size)):
                 blk = self._mgr.alloc()
                 if blk is None:
@@ -1182,7 +1437,7 @@ class ServingEngine:
         except Exception:
             self._mgr.free_all(blocks)
             raise
-        return blocks, lead, lead * self.block_size
+        return blocks, shared, page_ins, lead * self.block_size
 
     def _admit_one_chunked(self, req: Request, slot: int) -> List[Response]:
         """Admit a long prompt without running its prefill: claim the lane
@@ -1193,10 +1448,12 @@ class ServingEngine:
         n = int(tokens.size)
         blocks: List[int] = []
         hashes: List[bytes] = []
+        page_ins: List[tuple] = []
         shared = lo = 0
         if self._mgr is not None:
             _tok, hashes = self._admission_state(req)
-            blocks, shared, lo = self._claim_blocks_chunked(n, hashes)
+            blocks, shared, page_ins, lo = self._claim_blocks_chunked(
+                n, hashes)
         t0 = time.perf_counter()
         if req.admitted_t == 0.0:
             req.admitted_t = t0
@@ -1206,6 +1463,7 @@ class ServingEngine:
                 self._tables[slot, :] = self.num_blocks
                 self._tables[slot, : len(blocks)] = blocks
                 self._blocks_hw = max(self._blocks_hw, self._mgr.n_in_use)
+                self._page_in_blocks(slot, page_ins)
             # a stale position of the lane's last occupant must not outlive
             # the handover (the lane rides the decode batch masked)
             self.cache["pos"][slot] = lo
@@ -1213,7 +1471,7 @@ class ServingEngine:
             _telemetry.event("serving.request.chunk_admit",
                              id=req.request_id, prompt_tokens=n,
                              chunks=chunks, shared_blocks=shared,
-                             paged_in_blocks=0)
+                             paged_in_blocks=len(page_ins))
         except Exception:
             if self._mgr is not None:
                 self._mgr.free_all(blocks)
@@ -1291,6 +1549,7 @@ class ServingEngine:
         st.tokens = list(req.resume_tokens) + [tok]
         self._pending[slot] = tok
         self._temps[slot] = req.temperature
+        self._spec_history(slot, tokens, tok)
         done = self._finish_reason(st, tok)
         if done:
             return [self._complete(slot, done)]
@@ -1315,11 +1574,60 @@ class ServingEngine:
         return max(self._pool.active,
                    key=lambda s: self._slots[s].request.request_id)
 
+    def _host_park_digests(self, blocks: List[int]) -> None:
+        """Cold-prefix eviction: park, under their chain digests, the
+        published blocks of ``blocks`` this release would free (refcount
+        1; blocks other tables still share stay in HBM), gathered in one
+        call (an int8 pool dequantized: the page-in requantizes).  Raw
+        wire only.  Runs before ``free_all``: it reads the refcounts and
+        the pages."""
+        if self._host is None or self._host.wire != "raw":
+            return
+        victims = []
+        for blk in blocks:
+            h = self._mgr.digest_of(blk)
+            if (h is None or self._mgr.refcount(blk) != 1
+                    or self._host.has_block(h)):
+                continue
+            victims.append((h, blk))
+        if not victims:
+            return
+        ids = [blk for _h, blk in victims]
+        k, v = gather_block_kv(self.cache["k"], self.cache["v"], ids)
+        if "k_scale" in self.cache:
+            k = dequantize_kv(k, gather_block_scales(self.cache["k_scale"],
+                                                     ids))
+            v = dequantize_kv(v, gather_block_scales(self.cache["v_scale"],
+                                                     ids))
+        k, v = k.cpu(), v.cpu()
+        bs = self.block_size
+        for i, (h, _blk) in enumerate(victims):
+            self._host.put_block(h, k[:, i * bs:(i + 1) * bs],
+                                 v[:, i * bs:(i + 1) * bs])
+
+    def _host_park(self, slot: int, st: _Slot) -> None:
+        """Page a preemption victim out before its blocks free: its dying
+        published blocks by digest, and, for a decoding lane, its
+        materialized tokens under (request, token count), so that its
+        re-admission is a page-in.  A mid-prefill lane has no pending
+        token to resume behind: it restarts its chunks, and the digests
+        parked here page its finished chunks back in."""
+        self._host_park_digests(st.blocks)
+        if st.prefilling or st.cache_len < 1:
+            return
+        tables = torch.from_numpy(self._tables).to(self.device)
+        k, v = extract_kv(dict(self.cache, block_tables=tables),
+                          st.cache_len, row=slot)
+        self._host.put_request(st.request.request_id, st.cache_len, k, v)
+
     def _preempt(self, slot: int) -> None:
-        """Evict one live request: free its blocks (shared prefix blocks
-        survive under their other owners), park its progress on the
-        Request, requeue it at the front, release the lane."""
+        """Evict one live request: park its pages in the host tier when
+        there is one, free its blocks (shared prefix blocks survive under
+        their other owners), park its progress on the Request, requeue it
+        at the front, release the lane."""
         st = self._slots[slot]
+        if self._host is not None:
+            self._host_park(slot, st)
         self._slots[slot] = None
         self._pending[slot] = 0
         self._temps[slot] = 0.0
@@ -1342,15 +1650,18 @@ class ServingEngine:
                          tokens=len(st.tokens), blocks_freed=len(st.blocks))
 
     def _ensure_tail_blocks(self) -> None:
-        """Map a block for every live lane's next write now; on pool
-        exhaustion preempt the youngest live request, repeatedly, until
-        the allocation succeeds or the needy lane itself was evicted."""
+        """Map blocks for every live lane's next write horizon now (one
+        token, or the pending token plus k drafts under spec; writes past
+        the table's reach drop); on pool exhaustion preempt the youngest
+        live request, repeatedly, until the allocation succeeds or the
+        needy lane itself was evicted."""
         mb = self._tables.shape[1]
         for slot in list(self._pool.active):
             st = self._slots[slot]
             if st is None or st.prefilling:     # preempted this pass, or
                 continue                        # blocks claimed at admit
-            need = min(-(-(st.cache_len + 1) // self.block_size), mb)
+            need = min(-(-(st.cache_len + self._spec_ahead)
+                         // self.block_size), mb)
             while self._slots[slot] is st and len(st.blocks) < need:
                 blk = self._mgr.alloc()
                 if blk is not None:
@@ -1366,7 +1677,9 @@ class ServingEngine:
         prefilling lanes ride along frozen): the ``decode`` entry (the
         step and the greedy tokens), then, when a live lane samples, the
         ``sample`` entry (kernel K4) over the same logits; one host sync
-        reads the tokens."""
+        reads the tokens.  Under ``spec`` the ``decode`` entry is one
+        speculative round, and the host sync reads each lane's candidate
+        emission and accepted count."""
         if self._mgr is not None:
             self._ensure_tail_blocks()
             if not self._pool.n_active:        # everything preempted
@@ -1377,44 +1690,65 @@ class ServingEngine:
             return []
         t0 = time.perf_counter()
         with compile_label("serving.decode"):
-            args = [torch.from_numpy(self._pending.copy()),
-                    torch.from_numpy(active)]
-            if self._mgr is not None:
-                args.append(torch.from_numpy(self._tables.copy()))
-            if self._adapters is not None:
-                # every step of an engine with a pool, whatever the mix:
-                # slot-0 lanes sit outside the grouped matmul's window
-                args.append(torch.from_numpy(self._lane_slab.copy()))
-            logits, nxt = self._cc("decode", _decode_entry, tuple(args),
-                                   self._decode_bound)
-            self.last_logits = logits
-            if (self._temps > 0).any():
-                words = torch.tensor(_seed_words(self._gen),
-                                     dtype=torch.int64)
-                nxt = self._cc("sample", _sample_entry,
-                               (logits, torch.from_numpy(self._temps.copy()),
-                                words), self._sample_bound)
-            nxt_host = nxt.cpu().numpy()                 # host sync
+            args = self._decode_args(torch.from_numpy(self._pending.copy()),
+                                     torch.from_numpy(active))
+            if self._spec is not None:
+                out = self._cc("decode", _spec_entry, tuple(args),
+                               self._spec_bound)
+                out_host = out.cpu().numpy()             # host sync
+                em_host, acc_host = out_host[:, :-1], out_host[:, -1]
+            else:
+                logits, nxt = self._cc("decode", _decode_entry, tuple(args),
+                                       self._decode_bound)
+                self.last_logits = logits
+                if (self._temps > 0).any():
+                    words = torch.tensor(_seed_words(self._gen),
+                                         dtype=torch.int64)
+                    nxt = self._cc("sample", _sample_entry,
+                                   (logits,
+                                    torch.from_numpy(self._temps.copy()),
+                                    words), self._sample_bound)
+                nxt_host = nxt.cpu().numpy()             # host sync
         dt = time.perf_counter() - t0
         _telemetry.counter("serving.decode_steps").inc()
         self._decode_count += 1
         if self._decode_count % 64 == 0 and _telemetry.enabled():
             sample_device_memory()
         completed = []
-        emitted = 0
+        emitted = accepted = live = 0
         for slot, st in enumerate(self._slots):
             if st is None or st.prefilling:
                 continue
+            live += 1
             st.decode_polls += 1
-            tok = int(nxt_host[slot])
-            st.cache_len += 1
-            st.tokens.append(tok)
-            self._pending[slot] = tok
-            emitted += 1
-            done = self._finish_reason(st, tok)
+            if self._spec is None:
+                n_raw = 1
+                toks = [int(nxt_host[slot])]
+            else:
+                n_raw = int(acc_host[slot]) + 1
+                accepted += n_raw - 1
+                toks = [int(t) for t in em_host[slot, :n_raw]]
+            # the device committed n_raw entries; the host delivers them in
+            # order up to EOS or the budget, and a lane that stops short
+            # completes now (its cache_len drifts only on release)
+            st.cache_len += n_raw
+            done = None
+            for tok in toks:
+                st.tokens.append(tok)
+                self._pending[slot] = tok
+                emitted += 1
+                done = self._finish_reason(st, tok)
+                if done:
+                    break
             if done:
                 completed.append(self._complete(slot, done))
         _telemetry.counter("serving.tokens_generated").inc(emitted)
+        if self._spec is not None and live:
+            # verify_calls counts per-lane verify passes, as generate does
+            _telemetry.counter("generate.spec.draft_tokens").inc(
+                self._spec.k * live)
+            _telemetry.counter("generate.spec.accepted_tokens").inc(accepted)
+            _telemetry.counter("generate.spec.verify_calls").inc(live)
         if dt > 0:
             _telemetry.gauge("serving.decode_tokens_per_sec").set(
                 emitted / dt)
@@ -1434,6 +1768,8 @@ class ServingEngine:
         self._temps[slot] = 0.0
         self._lane_slab[slot] = 0
         if self._mgr is not None:
+            # completion is the other cold-prefix eviction edge
+            self._host_park_digests(st.blocks)
             self._tables[slot, :] = self.num_blocks
             self._mgr.free_all(st.blocks)
         self._pool.release(slot)
@@ -1529,6 +1865,42 @@ def _decode_entry(tokens, active, *lane_args, params, cache, cfg, paged,
     greedy = fused_sample(logits, temperature=0.0, vocab_limit=vocab_limit,
                           token_mask=masks, backend=backend)
     return logits, greedy
+
+
+def _spec_entry(tokens, active, temps, words, *lane_args, params, cache, cfg,
+                spec, history, hist_len, paged, slabs, masks, top_k, top_p,
+                vocab_limit, backend):
+    """``decode`` under ``spec``: one speculative round over every lane →
+    ``[slots, k+2]`` int32, each lane's candidate emission ``[k+1]`` then
+    its accepted count.  Live lanes commit ``pos += n_acc + 1`` and append
+    those tokens to their history, in place; inactive lanes keep both (a
+    free lane's verify writes drop through its sentinel table row).  No
+    host read: a CUDA graph captures the round, and a replay reads the
+    key words copied into ``words``."""
+    lane_args = list(lane_args)
+    full = dict(cache)
+    if paged:
+        full["block_tables"] = lane_args.pop(0)
+    lora = None if slabs is None else {"idx": lane_args.pop(0),
+                                       "slabs": slabs}
+    max_len = history.shape[1] - 1
+    prev = cache["pos"]
+    em, n_acc, _y, _new, _prev = spec_round(
+        params, cfg, full, tokens, history[:, :max_len], hist_len, words,
+        spec=spec, temperature=temps, top_k=top_k, top_p=top_p,
+        vocab_limit=vocab_limit, token_mask=masks, lora=lora,
+        backend=backend)
+    n_raw = n_acc + 1
+    cache["pos"].copy_(torch.where(active, prev + n_raw, prev))
+    # the delivered tokens at each live lane's length; the others and
+    # the cells past max_len land in the scratch column
+    col = torch.arange(em.shape[1], device=em.device)[None]
+    keep = (col < n_raw[:, None]) & active[:, None]
+    cols = torch.where(keep, hist_len[:, None].long() + col, max_len)
+    history.scatter_(1, cols.clamp(max=max_len), em)
+    hist_len.copy_(torch.where(active, (hist_len + n_raw).clamp(max=max_len),
+                               hist_len))
+    return torch.cat([em, n_acc[:, None]], dim=1)
 
 
 def _sample_entry(logits, temps, words, *, masks, top_k, top_p,

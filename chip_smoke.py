@@ -21,15 +21,17 @@
 3. Holds each kernel (K1 LayerNorm at the five main paths' shapes, from
    decode's [8, 768] to the GPT step's [16384, 768], plus RMSNorm and
    fp32; K2 flash attention, K3 fused decode layer (bf16 and int8 pools,
-   fp32 and bf16 W, MHA, GQA, MQA and 16 and 32 query heads a group at
-   dh 128), K4 fused sampler (13 variants: b 1, 8 and 32; V 50304,
+   each compute dtype over each other float pool dtype, fp32 and bf16 W,
+   MHA, GQA, MQA and 16 and 32 query heads a group at dh 128), K4 fused
+   sampler (13 variants: b 1, 8 and 32; V 50304,
    152064 and 262144; fp32 and bf16; top-k and/or top-p or neither;
    token-mask holes, all greedy, flat rows (a nucleus of most of the row);
    0 token mismatches each over
    three key-word pairs, one launch a call; bitwise repeats and a
    CUDA-graph replay with new key words), row 6 ragged paged attention (the same
-   groups and pools; rows 6 and 7 also as bitwise repeats, a CUDA-graph
-   replay with other lengths, length-0 lanes as exact zeros), row 9
+   groups and pools, and the foreign pool dtypes; rows 6 and 7 also as
+   bitwise repeats, a CUDA-graph replay with other lengths, length-0
+   lanes as exact zeros), row 9
    ragged grouped matmul (LoRA's fp32 branch),
    row 10 int8-weight matmul on each of its three routes: the decode
    kernel at M=32, the tensor-core GEMM at M=1024 and 4096, the CUDA
@@ -67,16 +69,36 @@
    engine's or are bf16 near-ties, short-request TPOT p95 beside the
    unchunked); a masked run (``token_masks=True``: every token allowed,
    a single-token request emits only it, K4 counted).
-4d. Drives multi-tenant LoRA serving on the same engine geometry: 64
-   rank-8 adapters through a 24-slot AdapterPool, 64 requests of mixed
-   tenants (every 8th on the base model, 8 sampled), on float weights
-   with a bf16 pool and on ``quantize_params`` weights with an int8 pool:
-   exact launch identities (row 9 at 96 per decode step and adapter
+4d. Drives multi-tenant LoRA serving on the same engine geometry, at
+   GPT-2 125M's widths and 4 of its layers (LORA_LAYERS): 64 rank-8
+   adapters through a 24-slot AdapterPool, 64 requests of mixed tenants
+   (every 8th on the base model, 8 sampled), on float weights with a
+   bf16 pool and on ``quantize_params`` weights with an int8 pool: exact
+   launch identities (row 9 at 8 a layer per decode step and adapter
    prefill), a clean block ledger and adapter pool, LRU churn, first
    tokens against the plain engine, teacher-forced kernel-vs-plain
    logits; beside it a merged single-adapter engine on the same requests,
    a profiled run's idle share, and at fp32 (2 layers, full width) each
    tenant's stream against its merged-weights ``generate``.
+4e. Drives speculative ``generate`` (``spec=SpecConfig(k=8)``) on GPT-2
+   125M at bench_spec_ablation's geometry (b8, prompt 64, +128, paged):
+   repetition prompts greedy and random prompts at temperature 1; exact
+   launches (K1 2L+1 a round, no paged kernel), greedy tokens equal to
+   spec-off greedy on the kernel path (or a near-tie at the first
+   difference), accept rate, tokens per verify, decode tokens/s spec
+   against off.
+4f. Drives the speculative engine (``spec``, k 8) on the engine mix,
+   float + native and quantized + int8, eager against the graph engine
+   (the round as the captured ``decode`` entry): identical tokens,
+   finish reasons, launches and spec counters; a clean ledger; profiled
+   eager and graph runs (the verify gathers' device time).
+4g. Drives the host-DRAM tier on the starved pool (raw wire, float +
+   native, greedy): resumes by page-in, no replay, tokens equal to an
+   unstarved engine's bit for bit; page-in ms against the replay's
+   prefill ms; the shared-system-prompt trace's digest hits.
+4h. Drives fp32 compute over a bf16 pool (``cache_dtype``): ``generate``
+   (K3 over the foreign pool, teacher-forced logits kernel vs plain) and
+   the engine (K3 every step, tokens against the plain engine).
 5. Holds the backward kernels (K5 LayerNorm backward, K6 flash dq, K7
    flash dK/dV) against autograd of their plain forward at the train
    step's shapes, timed like the others; row 5 (the short-key one-pass
@@ -626,8 +648,8 @@ def hopper_kernels():
               for a in k.values()), f"row 11 or K1 spills: {row_kernels}")
     attrs.update(row_kernels)
     # rows 6 and 7 (K3): no wgmma or TMA either; the split-key kernel's
-    # four variants at the plans of the main paths' shapes and the wide
-    # groups, bf16 and fp32, native and int8 pools, and K3's projection
+    # variants at the plans of the main paths' shapes and the wide groups,
+    # every compute dtype over every pool dtype, and K3's projection
     paged = paged_kernel_attributes()
     check(all(a["spill_bytes"] == 0 for a in paged.values()),
           f"row 6 or K3 spills: {paged}")
@@ -722,10 +744,21 @@ DECODE_VARIANTS = (
     ("rep 32 dh 128, int8 pool", 32, 1, 128, True, True, torch.float32,
      True))
 DECODE_TOL = 2e-2                # bf16 compute
+# rows 6 and 7 over a pool whose dtype differs from the compute dtype (an
+# engine's or generate's cache_dtype): every (q dtype, pool dtype) pair of
+# two different float dtypes, at the MHA main rows' shapes
+FLOATS = (torch.float32, torch.bfloat16, torch.float16)
+FOREIGN_POOLS = tuple((qd, pd) for qd in FLOATS for pd in FLOATS
+                      if qd != pd)
+
+
+def _dt(d: torch.dtype) -> str:
+    return str(d)[6:]
 
 
 def _decode_inputs(dev, gen, nh, g, dh, rope, quant, w_dtype, empty,
-                   bs=16, mb=36, h_out=768):
+                   bs=16, mb=36, h_out=768, q_dtype=torch.bfloat16,
+                   pool_dtype=torch.bfloat16):
     from apex_tpu_torch.serving.paged_cache import quantize_kv
 
     lens_l = DECODE_LENS + ([0] if empty else [])
@@ -736,7 +769,7 @@ def _decode_inputs(dev, gen, nh, g, dh, rope, quant, w_dtype, empty,
     tables = tables.view(b, mb).to(torch.int32)
     for i, n in enumerate(lens_l):
         tables[i, -(-n // bs):] = nb + 1 + i              # sentinel tails
-    q = torch.randn(b, nh, dh, device=dev, generator=gen).bfloat16()
+    q = torch.randn(b, nh, dh, device=dev, generator=gen).to(q_dtype)
     kp = torch.randn(nb, bs, g, dh, device=dev, generator=gen)
     vp = torch.randn(nb, bs, g, dh, device=dev, generator=gen)
     sc = {}
@@ -745,7 +778,7 @@ def _decode_inputs(dev, gen, nh, g, dh, rope, quant, w_dtype, empty,
         vp, vs = quantize_kv(vp)
         sc = dict(k_scale=ks, v_scale=vs)
     else:
-        kp, vp = kp.bfloat16(), vp.bfloat16()
+        kp, vp = kp.to(pool_dtype), vp.to(pool_dtype)
     w = (torch.randn(nh * dh, h_out, device=dev, generator=gen)
          * 0.02).to(w_dtype)
     if rope:
@@ -771,30 +804,33 @@ PAGED_PLANS = {"engine b32 mha": (32, 12, 12, 64, 1024),
 
 def paged_kernel_attributes():
     """Registers, shared memory per CTA, CTAs per SM and spill bytes of
-    row 6's and K3's split-key kernel under each plan of PAGED_PLANS (bf16
-    and fp32 compute, native and int8 pools) and of K3's projection (fp32
-    and bf16 W, in vectors and one element at a time)."""
+    row 6's and K3's split-key kernel under each plan of PAGED_PLANS (every
+    compute dtype over every float pool dtype, and over an int8 pool) and
+    of K3's projection (fp32 and bf16 W, in vectors and one element at a
+    time)."""
     from apex_tpu_torch.ops import decode_step as tds
     from apex_tpu_torch.ops import paged_attention as tpa
 
     sms = torch.cuda.get_device_properties(0).multi_processor_count
+    floats = (torch.float32, torch.bfloat16, torch.float16)
     out = {}
     for name, (b, nh, g, dh, reach) in PAGED_PLANS.items():
-        for dt in (torch.bfloat16, torch.float32):
-            for quant in (False, True):
-                isz = 1 if quant else dt.itemsize
-                plan = tpa.paged_plan(b, g, nh // g, dh, reach, isz, sms)
-                key = (f"{name} {str(dt)[6:]} {'int8' if quant else 'native'}"
-                       f" pool (H{plan.heads} EPL{plan.epl})")
-                out[f"row 6 {key}"] = tpa.kernel_attributes(dt, quant, plan)
+        for dt in floats:
+            for pool in floats + (torch.int8,):
+                plan = tpa.paged_plan(b, g, nh // g, dh, reach,
+                                      pool.itemsize, sms)
+                key = (f"{name} {str(dt)[6:]} q, {str(pool)[6:]} pool "
+                       f"(H{plan.heads} EPL{plan.epl})")
+                out[f"row 6 {key}"] = tpa.kernel_attributes(dt, pool, plan)
                 out[f"K3 {key}"] = tds.kernel_attributes(
-                    dt, quant, plan, torch.float32, nh * dh)["attention"]
+                    dt, pool, plan, torch.float32, nh * dh)["attention"]
     plan = tpa.paged_plan(8, 12, 1, 64, 576, 2, sms)
     for w_dt in (torch.float32, torch.bfloat16):
         for vec in (True, False):
             out[f"K3 projection {str(w_dt)[6:]} W"
                 f"{'' if vec else ' scalar'}"] = tds.kernel_attributes(
-                torch.bfloat16, False, plan, w_dt, 768, vec)["projection"]
+                torch.bfloat16, torch.bfloat16, plan, w_dt, 768,
+                vec)["projection"]
     return out
 
 
@@ -807,10 +843,15 @@ def kernel_decode(dev, gen):
     from apex_tpu_torch.ops import decode_step as tds
 
     errs, timed = {}, {}
-    for (name, nh, g, dh, rope, quant, w_dtype,
-         empty) in DECODE_VARIANTS:
+    cases = [v + (torch.bfloat16, torch.bfloat16) for v in DECODE_VARIANTS]
+    cases += [(f"mha learned, {_dt(qd)} q, {_dt(pd)} pool", 12, 12, 64,
+               False, False, torch.float32, False, qd, pd)
+              for qd, pd in FOREIGN_POOLS]
+    for (name, nh, g, dh, rope, quant, w_dtype, empty, q_dtype,
+         pool_dtype) in cases:
         args, sc = _decode_inputs(dev, gen, nh, g, dh, rope, quant, w_dtype,
-                                  empty)
+                                  empty, q_dtype=q_dtype,
+                                  pool_dtype=pool_dtype)
         q, kp, vp, tables, lens, w = args
         got = tds.fused_decode_layer(*args, **sc)
         want = tds.fused_decode_layer(*args, backend="reference", **sc)
@@ -824,10 +865,11 @@ def kernel_decode(dev, gen):
                           f"K3 {name}")
         b, h_out = q.shape[0], w.shape[1]
         live = int(lens.sum())
-        per_elem, per_scale = (1, 4) if quant else (2, 0)
+        per_elem, per_scale = (1, 4) if quant else (kp.element_size(), 0)
+        qs = q.element_size()
         nbytes = (live * g * (dh * per_elem + per_scale) * 2
-                  + w.numel() * w.element_size() + q.numel() * 2
-                  + b * h_out * 2 + tables.numel() * 4 + b * 4)
+                  + w.numel() * w.element_size() + q.numel() * qs
+                  + b * h_out * qs + tables.numel() * 4 + b * 4)
         bms, by = bound(nbytes, 4 * live * nh * dh + 2 * b * nh * dh * h_out,
                         PEAK_FP32_FLOPS)
         timed[name] = {
@@ -842,7 +884,8 @@ def kernel_decode(dev, gen):
                 shape="b=8 nh=12 g=12 dh=64 block=16 lengths 17-576 bf16 "
                       "pool, W fp32 [768, 768] (variants: rope, GQA g=4, "
                       "int8 pool, bf16 W, MQA g=1, 16 and 32 heads a group "
-                      "at dh 128, the wide ones with a length-0 lane)")
+                      "at dh 128, the wide ones with a length-0 lane; each "
+                      "compute dtype over each other float pool dtype)")
 
 
 # row 6 at the engine's decode shape: 32 lanes, lengths 1-1024 with
@@ -863,7 +906,8 @@ PAGED_VARIANTS = (
     ("rep 32 dh 128 bf16 pool", 32, 1, 128, False))
 
 
-def _paged_inputs(dev, gen, g, quant, nh=12, dh=64, bs=16, mb=64):
+def _paged_inputs(dev, gen, g, quant, nh=12, dh=64, bs=16, mb=64,
+                  q_dtype=torch.bfloat16, pool_dtype=torch.bfloat16):
     from apex_tpu_torch.serving.paged_cache import quantize_kv
 
     b = len(PAGED_LENS)
@@ -873,11 +917,11 @@ def _paged_inputs(dev, gen, g, quant, nh=12, dh=64, bs=16, mb=64):
     tables = tables.view(b, mb).to(torch.int32)
     for i, n in enumerate(PAGED_LENS):
         tables[i, -(-n // bs):] = nb + 1 + i          # sentinel tails
-    q = torch.randn(b, nh, dh, device=dev, generator=gen).bfloat16()
+    q = torch.randn(b, nh, dh, device=dev, generator=gen).to(q_dtype)
     kp = torch.randn(nb, bs, g, dh, device=dev, generator=gen)
     vp = torch.randn(nb, bs, g, dh, device=dev, generator=gen)
     if not quant:
-        return (q, kp.bfloat16(), vp.bfloat16(), tables, lens), {}
+        return (q, kp.to(pool_dtype), vp.to(pool_dtype), tables, lens), {}
     kq, ks = quantize_kv(kp)
     vq, vs = quantize_kv(vp)
     return (q, kq, vq, tables, lens), dict(k_scale=ks, v_scale=vs)
@@ -891,8 +935,12 @@ def kernel_paged(dev, gen):
 
     tol = 2e-2
     errs, timed = {}, {}
-    for name, nh, g, dh, quant in PAGED_VARIANTS:
-        args, sc = _paged_inputs(dev, gen, g, quant, nh=nh, dh=dh)
+    cases = [v + (torch.bfloat16, torch.bfloat16) for v in PAGED_VARIANTS]
+    cases += [(f"mha {_dt(qd)} q, {_dt(pd)} pool", 12, 12, 64, False, qd,
+               pd) for qd, pd in FOREIGN_POOLS]
+    for name, nh, g, dh, quant, q_dtype, pool_dtype in cases:
+        args, sc = _paged_inputs(dev, gen, g, quant, nh=nh, dh=dh,
+                                 q_dtype=q_dtype, pool_dtype=pool_dtype)
         q, kp, vp, tables, lens = args
         got = tpa.ragged_paged_attention(*args, **sc)
         want = tpa.ragged_paged_attention(*args, backend="reference", **sc)
@@ -904,10 +952,11 @@ def kernel_paged(dev, gen):
                           lens, _mapped_tokens(tables, kp.shape[0],
                                                kp.shape[1]), f"row 6 {name}")
         live = sum(PAGED_LENS)
-        per_elem, per_scale = (1, 4) if quant else (2, 0)
+        per_elem, per_scale = (1, 4) if quant else (kp.element_size(), 0)
         b = len(PAGED_LENS)
         nbytes = (live * g * (dh * per_elem + per_scale) * 2
-                  + 2 * b * nh * dh * 2 + tables.numel() * 4 + b * 4)
+                  + 2 * b * nh * dh * q.element_size() + tables.numel() * 4
+                  + b * 4)
         bms, by = bound(nbytes, 4 * live * nh * dh, PEAK_FP32_FLOPS)
         timed[name] = {
             "err": errs[name],
@@ -921,7 +970,8 @@ def kernel_paged(dev, gen):
                 shape=f"b={len(PAGED_LENS)} nh=12 g=12 dh=64 block=16 "
                       "max_blocks=64 lengths 0-1024 bf16 pool (variants: "
                       "int8 pool, GQA g=4, MQA g=1, 16 and 32 heads a group "
-                      "at dh 128)")
+                      "at dh 128; each compute dtype over each other float "
+                      "pool dtype)")
 
 
 # row 10 at GPT-2 125M's four per-layer matmuls: (in, out)
@@ -2135,9 +2185,534 @@ def graph_engine_phase(dev):
 # bench_adapter_ablation (64 tenants, rank 8, every 8th request on the
 # base model) at GPT-2 125M widths
 LORA_ADAPTERS, LORA_REQUESTS, LORA_NEW = 64, 64, 32
+# the LoRA engine phase runs GPT-2 125M's widths at 4 of its 12 layers:
+# its plain twin and teacher-forced checks made it the script's longest
+# phase (243 s of 930 at full depth, run CM), and the script's time limit
+# is shared with the spec and host-tier phases
+LORA_LAYERS = 4
 LORA_RUNS = (("float", None), ("quantized", "int8"))
 ORACLE_LAYERS, ORACLE_TENANTS, ORACLE_NEW, ORACLE_SLOTS = 2, 8, 16, 4
 ORACLE_TIE = 1e-3               # |logit gap| of an fp32 near-tie
+
+
+# speculative decoding: generate at bench_spec_ablation's geometry
+# (bench.py:918-921: b8, prompt 64, +128, k 8, gpt_125m with 512
+# positions, paged), under its two sweeps (bench.py:930-933)
+SPEC_K = 8
+SPEC_BATCH, SPEC_PROMPT, SPEC_NEW = 8, 64, 128
+SPEC_TIMED_RUNS = 3
+SPEC_COUNTERS = ("draft_tokens", "accepted_tokens", "verify_calls")
+
+
+class CountCalls:
+    """Counts the calls of ``module.name`` while active (the spec rounds
+    a ``generate`` runs: ``speculative.spec_generate`` looks the round up
+    in its module at each call)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.n = module, name, 0
+
+    def __enter__(self):
+        self.orig = getattr(self.module, self.name)
+
+        def counted(*a, **kw):
+            self.n += 1
+            return self.orig(*a, **kw)
+
+        setattr(self.module, self.name, counted)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.orig)
+
+
+def spec_tie(params, cfg, prompt_row, gen_row, j, tok_spec, tok_off, dev):
+    """Greedy spec and spec-off tokens that first differ at new token
+    ``j``: the logits predicting it after the prompt and ``gen_row[:j]``
+    through the verify forward (spec's path) and through decode steps
+    (spec-off's).  A near-tie when the two paths agree within LOGIT_TOL
+    and both tokens lie within LOGIT_TOL of the top logit on both."""
+    from apex_tpu_torch.models import generate as tgen
+
+    n = prompt_row.numel()
+
+    def prefilled():
+        cache = tgen.init_kv_cache(cfg, 1, n + j + 1, cache_layout="paged",
+                                   block_size=16, device=dev)
+        return tgen.prefill(params, prompt_row[None], cfg, cache=cache,
+                            device=dev)
+
+    lg, cache = prefilled()
+    lv = lg[0]
+    if j:
+        lv = tgen.decode_verify(params, gen_row[None, :j], cache, cfg,
+                                device=dev)[0][0, -1]
+    ls, cache = prefilled()
+    for t in range(j):
+        ls, cache = tgen.decode_step(params, gen_row[t:t + 1], cache, cfg,
+                                     device=dev)
+    lv, ls = lv[:VOCAB_LIMIT], ls[0][:VOCAB_LIMIT]
+    err = max_err(lv, ls)
+    gaps = [float(x.max() - min(x[tok_spec], x[tok_off])) for x in (lv, ls)]
+    return {"step": j, "spec_token": tok_spec, "off_token": tok_off,
+            "logit_err": err, "gaps": gaps,
+            "near_tie": err <= LOGIT_TOL and max(gaps) <= LOGIT_TOL}
+
+
+def spec_generate_phase(dev):
+    """``generate(spec=SpecConfig(k=8))`` on GPT-2 125M at
+    bench_spec_ablation's geometry, repetition prompts greedy and random
+    prompts at temperature 1: exact launches a round (K1 2L+1, no paged
+    kernel: the verify attention is torch arithmetic; K2 and, sampled, K4
+    once for the first tokens), greedy tokens equal spec-off greedy on the
+    kernel path or differ first at a near-tie, the spec counters, and
+    decode tokens/s spec against off (medians of SPEC_TIMED_RUNS)."""
+    import numpy as np
+
+    from apex_tpu_torch.models import generate as tgen
+    from apex_tpu_torch.models import speculative as tspec
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.transformer_lm import init_gpt_params
+    from apex_tpu_torch.observability import metrics as tel
+    from apex_tpu_torch.ops import _kernel_utils as ku
+
+    cfg = gpt_125m(max_position_embeddings=512)
+    L = cfg.num_layers
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0), dev)
+    rng = np.random.RandomState(0)
+    b, s, new = SPEC_BATCH, SPEC_PROMPT, SPEC_NEW
+    pattern = rng.randint(0, VOCAB_LIMIT, (4,))
+    sweeps = {
+        "repetition": (np.tile(pattern, (b, -(-s // 4)))[:, :s], 0.0),
+        "random": (rng.randint(0, VOCAB_LIMIT, (b, s)), 1.0)}
+    spec = tspec.SpecConfig(k=SPEC_K)
+    kw = dict(max_new_tokens=new, cache_layout="paged", block_size=16,
+              vocab_limit=VOCAB_LIMIT, seed=5, device=dev)
+    prompt0 = torch.as_tensor(sweeps["repetition"][0]).to(dev)
+    tgen.generate(params, prompt0, cfg, spec=spec, **dict(kw,
+                                                          max_new_tokens=4))
+    torch.cuda.synchronize()
+    out, paths = {}, {}
+    for sweep, (prompt_np, temp) in sweeps.items():
+        prompt = torch.as_tensor(prompt_np).long().to(dev)
+        skw = dict(kw, temperature=temp)
+        reg = tel.configure()
+        try:
+            # --- the main path: counts reset just before, read just after
+            with CountCalls(tspec, "spec_round") as rounds:
+                ku.reset_launch_counts()
+                toks = tgen.generate(params, prompt, cfg, spec=spec, **skw)
+                torch.cuda.synchronize()
+                counts = ku.launch_counts()
+            stats = {n: reg.counter(f"generate.spec.{n}").value
+                     for n in SPEC_COUNTERS}
+        finally:
+            tel.shutdown()
+        R = rounds.n
+        want = {k: 0 for k in ku.KERNELS}
+        want.update(layer_norm_fwd=(2 * L + 1) * (1 + R),
+                    flash_attention_fwd=L,
+                    fused_sample=1 if temp > 0 else 0)
+        check(counts == want, f"spec generate {sweep}: launches {counts} != "
+                              f"{want} ({R} rounds)")
+        check(-(-(new - 1) // (SPEC_K + 1)) <= R <= new - 1,
+              f"spec generate {sweep}: {R} rounds for {new} tokens")
+        check(tuple(toks.shape) == (b, s + new)
+              and int(toks[:, s:].max()) < VOCAB_LIMIT,
+              f"spec generate {sweep}: shape or vocab")
+        off = tgen.generate(params, prompt, cfg, **skw)
+        ties = []
+        if temp == 0.0:
+            for i in range(b):
+                diff = (toks[i, s:] != off[i, s:]).nonzero()
+                if diff.numel():
+                    j = int(diff[0])
+                    t = spec_tie(params, cfg, prompt[i], off[i, s:], j,
+                                 int(toks[i, s + j]), int(off[i, s + j]),
+                                 dev)
+                    ties.append(dict(t, row=i))
+                    check(t["near_tie"], f"spec generate row {i} step {j}: "
+                                         f"not a near-tie {t}")
+        else:
+            again = tgen.generate(params, prompt, cfg, spec=spec, **skw)
+            check(torch.equal(again, toks), "sampled spec generate is not "
+                                            "reproducible under one seed")
+
+        def prefill_only():
+            cache = tgen.init_kv_cache(cfg, b, s + new + SPEC_K + 1,
+                                       cache_layout="paged", block_size=16,
+                                       device=dev)
+            tgen.prefill(params, prompt, cfg, cache=cache, device=dev)
+
+        pf = quartiles([wall_ms(prefill_only)
+                        for _ in range(SPEC_TIMED_RUNS)])[1]
+        on_ms = quartiles([wall_ms(lambda: tgen.generate(
+            params, prompt, cfg, spec=spec, **skw))
+            for _ in range(SPEC_TIMED_RUNS)])[1]
+        off_ms = quartiles([wall_ms(lambda: tgen.generate(
+            params, prompt, cfg, **skw)) for _ in range(SPEC_TIMED_RUNS)])[1]
+        row = {
+            "temperature": temp, "rounds": R, "counters": stats,
+            "accept_rate": stats["accepted_tokens"] / stats["draft_tokens"],
+            "tokens_per_verify": (stats["accepted_tokens"]
+                                  + stats["verify_calls"])
+            / stats["verify_calls"],
+            "k1_launches_per_round": 2 * L + 1,
+            "prefill_ms": pf, "generate_ms_spec": on_ms,
+            "generate_ms_off": off_ms,
+            "decode_tokens_per_s_spec": b * (new - 1) / ((on_ms - pf) / 1e3),
+            "decode_tokens_per_s_off": b * (new - 1) / ((off_ms - pf) / 1e3),
+            "greedy_rows_identical_to_off": (b - len(ties) if temp == 0.0
+                                             else None),
+            "near_ties": ties}
+        out[sweep] = row
+        paths[f"spec generate {sweep}"] = counts
+        print(f"spec generate {sweep}: {json.dumps(row)}")
+    return out, paths
+
+
+# the spec engine and the host tier on the engine geometry and mix
+SPEC_ENGINE_RUNS = (("float", None), ("quantized", "int8"))
+HOST_TIER_BYTES = 1 << 30
+
+
+def spec_engine_phase(dev):
+    """``ServingEngine(spec="ngram")`` (k 8) on GPT-2 125M under the engine
+    mix, float + native and quantized + int8: the eager engine and the
+    graph engine (the spec round as the captured ``decode`` entry) on the
+    same requests and generator, with identical tokens, finish reasons and
+    launches; exact launches (K1 2L+1 a round and a prefill, K2 L a
+    prefill, row 10 four a layer on every round and prefill by route, no
+    paged kernel); a clean ledger; the spec counters; a profiled graph run
+    with the verify gather's device time (``aten::index``)."""
+    from apex_tpu_torch.models.speculative import SpecConfig
+    from apex_tpu_torch.observability import metrics as tel
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops.dense import DECODE_ROWS
+    from apex_tpu_torch.serving import ServingEngine, warmup_ladder
+
+    cfg, weights = _engine_weights(dev)
+    L = cfg.num_layers
+    reqs = engine_requests(cfg.vocab_size)
+    sampled = sum(1 for kw in reqs if kw.get("temperature", 0.0) > 0)
+
+    def engine(wname, wire, d=None, **kw):
+        return ServingEngine(weights[wname], cfg, cache_wire=wire,
+                             spec=SpecConfig(k=SPEC_K),
+                             generator=torch.Generator().manual_seed(0),
+                             compile_cache_dir=d, device=dev,
+                             **dict(ENGINE_KW, **kw))
+
+    out, paths = {}, {}
+    for wname, wire in SPEC_ENGINE_RUNS:
+        name = f"{wname} weights, {wire or 'native'} pool"
+        engine(wname, wire).run([dict(reqs[0], max_new_tokens=2),
+                                 dict(reqs[2], max_new_tokens=2)])
+        runs = {}
+        for kind in ("eager", "graph"):
+            eng = engine(wname, wire,
+                         _fresh_dir(f"spec-{wname}") if kind == "graph"
+                         else None)
+            ladder = warmup_ladder(eng) if kind == "graph" else None
+            reg = tel.configure()
+            try:
+                with PrefillBuckets() as pb:
+                    ku.reset_launch_counts()
+                    resps, wall, dec = drive_steps(eng, reqs)
+                    counts = ku.launch_counts()
+                stats = {n: reg.counter(f"generate.spec.{n}").value
+                         for n in SPEC_COUNTERS}
+            finally:
+                tel.shutdown()
+            check_responses(eng, reqs, resps, f"spec engine {name} {kind}")
+            st = eng.stats()
+            D, P = st["decode_steps"], st["prefill_calls"]
+            want = {k: 0 for k in ku.KERNELS}
+            want.update(layer_norm_fwd=(D + P) * (2 * L + 1),
+                        flash_attention_fwd=P * L, fused_sample=sampled)
+            if wname == "quantized":
+                short = sum(1 for bk in pb.buckets if bk <= DECODE_ROWS)
+                want.update(dense_int8_decode=short * 4 * L,
+                            dense_int8=(D + P - short) * 4 * L)
+            check(counts == want, f"spec engine {name} {kind}: launches "
+                                  f"{counts} != {want} ({D} rounds, {P} "
+                                  "prefills)")
+            runs[kind] = dict(resps=resps, wall=wall, dec=dec, counts=counts,
+                              stats=stats, eng=eng, ladder=ladder, D=D)
+        e, g = runs["eager"], runs["graph"]
+        for a, c in zip(e["resps"], g["resps"]):
+            check(a.tokens.tolist() == c.tokens.tolist()
+                  and a.finish_reason == c.finish_reason,
+                  f"spec graph engine {name}: request {a.request_id} "
+                  "differs from the eager engine's")
+        check(g["counts"] == e["counts"] and g["stats"] == e["stats"],
+              f"spec graph engine {name}: launches or counters differ")
+        check(g["ladder"]["labels"][-1] == "decode"
+              and [x for x, _ in g["ladder"]["skipped"]] == ["sample"],
+              f"spec graph engine {name}: ladder {g['ladder']}")
+        check(g["eng"].stats()["compile_cache"]["replays"] > 0,
+              f"spec graph engine {name}: nothing replayed")
+        stats = g["stats"]
+        row = {
+            "gen_tokens_per_s_eager": sum(r.tokens.size for r in e["resps"])
+            / (e["wall"] / 1e3),
+            "gen_tokens_per_s_graph": sum(r.tokens.size for r in g["resps"])
+            / (g["wall"] / 1e3),
+            "decode_ms_per_step_eager": pct(e["dec"], 0.5),
+            "decode_ms_per_step_graph": pct(g["dec"], 0.5),
+            "decode_steps": g["D"], "counters": stats,
+            "accept_rate": stats["accepted_tokens"] / stats["draft_tokens"],
+            "tokens_per_verify": (stats["accepted_tokens"]
+                                  + stats["verify_calls"])
+            / stats["verify_calls"],
+            "ladder_labels": g["ladder"]["labels"]}
+        if wname == "float":
+            # the eager run names the ops that launched the device time
+            # (the verify gathers are aten::index); the graph run's replays
+            # show kernels only
+            for kind, d in (("eager", None),
+                            ("graph", _fresh_dir(f"spec-{wname}"))):
+                eng = engine(wname, wire, d)
+                if d is not None:
+                    warmup_ladder(eng)
+                for kw in reqs:
+                    eng.submit(**kw)
+                t_p, busy, top, by_cat, by_op = profile_busy(eng.run)
+                check(eng.idle, f"profiled spec engine {name} {kind} did "
+                                "not drain")
+                row[f"profiled_{kind}"] = {
+                    "wall_ms": t_p, "decode_steps": eng.stats()[
+                        "decode_steps"],
+                    "device_busy_ms": busy if busy > 0 else "not measured",
+                    "device_idle_share": (1 - busy / t_p) if busy > 0
+                    else "not measured",
+                    "verify_gather_device_ms": (
+                        by_op.get("aten::index", "not measured")
+                        if kind == "eager" else "not measured"),
+                    "device_ms_by_category": by_cat, "device_top_ms": top,
+                    "device_ms_by_op": by_op}
+                del eng
+        out[name] = row
+        paths[f"spec engine {name}"] = e["counts"]
+        paths[f"spec graph engine {name}"] = g["counts"]
+        print(f"spec engine {name}: {json.dumps(row)}")
+        del runs, e, g
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out, paths
+
+
+def tier_requests(vocab):
+    """The starved run's requests (one 768-token prompt and eight 32-token
+    ones), all greedy, so that tokens compare bit for bit."""
+    reqs = engine_requests(vocab)
+    return [dict(kw, temperature=0.0) for kw in [reqs[0]] + reqs[2:10]]
+
+
+def shared_prefix_requests(vocab):
+    """bench.py:1468-1471's shared-system-prompt trace at gpt_125m's
+    vocabulary: four sequential arrivals sharing a 64-token system prefix
+    with 8 private tokens each, 8 new tokens."""
+    import numpy as np
+
+    rng = np.random.RandomState(18)
+    system = rng.randint(0, vocab, (64,))
+    return [dict(prompt=np.concatenate([system, rng.randint(0, vocab, (8,))]),
+                 max_new_tokens=8) for _ in range(4)]
+
+
+def host_tier_phase(dev):
+    """The host-DRAM tier on GPT-2 125M, float weights, native bf16 pool,
+    raw wire: the starved pool (STARVED_BLOCKS blocks) preempts; with the
+    tier the resumes page in (no replay) and the greedy tokens equal an
+    unstarved engine's bit for bit (decode-written K/V kept), where the
+    tier-off engine replays the prefill (K/V recomputed; near-ties may
+    flip); page-in ms per resume against the replay's prefill ms; then the
+    shared-system-prompt trace (chunked, 32-token chunks), where the
+    tier's digest hits page the cold prefix back in."""
+    from apex_tpu_torch.observability import metrics as tel
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.serving import ServingEngine
+
+    cfg, weights = _engine_weights(dev)
+    reqs = tier_requests(cfg.vocab_size)
+
+    def engine(**kw):
+        return ServingEngine(weights["float"], cfg,
+                             generator=torch.Generator().manual_seed(0),
+                             device=dev, **dict(ENGINE_KW, **kw))
+
+    base, _, _ = drive_engine(engine(), reqs)
+    runs = {}
+    for mode, kw in (("off", {}), ("on", dict(host_tier_bytes=HOST_TIER_BYTES,
+                                               host_tier_wire="raw"))):
+        reg = tel.configure()
+        try:
+            eng = engine(num_blocks=STARVED_BLOCKS, **kw)
+            ku.reset_launch_counts()
+            resps, wall, hw = drive_engine(eng, reqs)
+            counts = ku.launch_counts()
+            tier = {n: reg.counter(f"serving.host_tier.{n}").value
+                    for n in ("page_ins", "resumes", "replays")}
+        finally:
+            tel.shutdown()
+        check_responses(eng, reqs, resps, f"starved engine, tier {mode}")
+        check(eng.stats()["preemptions"] >= 1,
+              f"starved engine, tier {mode}: never preempted")
+        runs[mode] = dict(resps=resps, wall=wall, counts=counts, tier=tier,
+                          st=eng.stats())
+    on, off = runs["on"], runs["off"]
+    check(on["tier"]["resumes"] >= 1 and on["tier"]["replays"] == 0,
+          f"tier on: resumes {on['tier']}")
+    for a, c in zip(on["resps"], base):
+        check(a.tokens.tolist() == c.tokens.tolist(),
+              f"tier on: request {a.request_id} differs from the unstarved "
+              "engine's (a page-in resume keeps the K/V bit for bit)")
+    same_off = sum(a.tokens.tolist() == c.tokens.tolist()
+                   for a, c in zip(on["resps"], off["resps"]))
+    paged = [r.prefill_ms for r in on["resps"] if r.preemptions]
+    replayed = [r.prefill_ms for r in off["resps"] if r.preemptions]
+    row = {
+        "preemptions_on": on["st"]["preemptions"],
+        "preemptions_off": off["st"]["preemptions"],
+        "tier_counters": on["tier"], "tier_stats": on["st"]["host_tier"],
+        "requests_identical_to_unstarved": len(reqs),
+        "requests_identical_tier_on_vs_off": same_off,
+        "page_in_ms_per_resume_p50": pct(paged, 0.5),
+        "replay_prefill_ms_p50": pct(replayed, 0.5),
+        "wall_ms_on": on["wall"], "wall_ms_off": off["wall"]}
+    # --- the shared-system-prompt trace: sequential arrivals ------------
+    shared = shared_prefix_requests(cfg.vocab_size)
+    trace = {}
+    for mode, kw in (("off", {}), ("on", dict(host_tier_bytes=HOST_TIER_BYTES))):
+        eng = ServingEngine(weights["float"], cfg, max_slots=2, max_len=128,
+                            prompt_buckets=(96,), cache_layout="paged",
+                            block_size=16, chunk_tokens=32, device=dev,
+                            generator=torch.Generator().manual_seed(0), **kw)
+        toks, ttft = [], []
+        for r in shared:
+            resps, _, _ = drive_engine(eng, [r])
+            toks += [x.tokens.tolist() for x in resps]
+            ttft += [x.ttft_ms for x in resps]
+        check(eng.stats()["blocks_in_use"] == 0,
+              f"shared-prefix trace, tier {mode}: ledger not clean")
+        trace[mode] = dict(tokens=toks, ttft_ms_p95=pct(ttft, 0.95),
+                           host=eng.stats().get("host_tier"))
+    check(trace["on"]["host"]["hits"] >= 1,
+          f"shared-prefix trace: no host-tier digest hit {trace['on']}")
+    check(trace["on"]["tokens"] == trace["off"]["tokens"],
+          "shared-prefix trace: tokens differ with the tier on")
+    row["shared_prefix"] = {
+        "host_hits": trace["on"]["host"]["hits"],
+        "host_pages": trace["on"]["host"]["pages"],
+        "ttft_ms_p95_on": trace["on"]["ttft_ms_p95"],
+        "ttft_ms_p95_off": trace["off"]["ttft_ms_p95"]}
+    print(f"host tier: {json.dumps(row)}")
+    return row, {"host tier engine": on["counts"]}
+
+
+def foreign_pool_phase(dev):
+    """fp32 compute over a bf16 pool (``cache_dtype``): ``generate`` on
+    GPT-2 125M (K3 with an fp32 query over the bf16 pool, exact launches,
+    teacher-forced logits kernel vs plain) and the engine on the mix's
+    short requests (K3 every step, a clean ledger, greedy tokens against
+    the plain engine's or a near-tie at the first difference)."""
+    from apex_tpu_torch.models import generate as tgen
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.transformer_lm import init_gpt_params
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.serving import ServingEngine
+
+    cfg = gpt_125m(compute_dtype=torch.float32)
+    L = cfg.num_layers
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0), dev)
+    b, new = 4, 16
+    lens = PROMPT_LENS[:b]
+    gen = torch.Generator().manual_seed(1)
+    prompt = torch.zeros(b, max(lens), dtype=torch.long)
+    for i, n in enumerate(lens):
+        prompt[i, :n] = torch.randint(0, VOCAB_LIMIT, (n,), generator=gen)
+    prompt = prompt.to(dev)
+    plens = torch.tensor(lens, device=dev)
+    kw = dict(max_new_tokens=new, prompt_lens=plens, cache_layout="paged",
+              block_size=16, cache_dtype=torch.bfloat16, device=dev)
+    tgen.generate(params, prompt, cfg, **dict(kw, max_new_tokens=2))
+    ku.reset_launch_counts()
+    toks = tgen.generate(params, prompt, cfg, **kw)
+    torch.cuda.synchronize()
+    g_counts = ku.launch_counts()
+    want = {k: 0 for k in ku.KERNELS}
+    want.update(layer_norm_fwd=(2 * L + 1) * new, flash_attention_fwd=L,
+                fused_decode_layer=L * (new - 1))
+    check(g_counts == want, f"fp32 over bf16 generate: launches {g_counts} "
+                            f"!= {want}")
+    plain = tgen.generate(params, prompt, cfg, backend="reference", **kw)
+
+    def forced(backend):
+        cache = tgen.init_kv_cache(cfg, b, max(lens) + new,
+                                   cache_dtype=torch.bfloat16,
+                                   cache_layout="paged", block_size=16,
+                                   device=dev)
+        lg, cache = tgen.prefill(params, prompt, cfg, prompt_lens=plens,
+                                 cache=cache, device=dev, backend=backend)
+        outs = [lg]
+        for j in range(new - 1):
+            tok = toks[torch.arange(b, device=dev), plens + j]
+            lg, cache = tgen.decode_step(params, tok, cache, cfg, device=dev,
+                                         backend=backend)
+            outs.append(lg)
+        return torch.stack(outs, 1)[..., :VOCAB_LIMIT]
+
+    logit_err = max_err(forced(None), forced("reference"))
+    check(logit_err <= LOGIT_TOL, f"fp32 over bf16 generate: kernel vs "
+                                  f"plain logits {logit_err}")
+    rows_same = sum(torch.equal(toks[i], plain[i]) for i in range(b))
+    # the engine: 32 lanes over a bf16 pool, fp32 compute
+    reqs = [dict(kw2, temperature=0.0)
+            for kw2 in engine_requests(cfg.vocab_size)[2:10]]
+    eng = ServingEngine(params, cfg, cache_dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0),
+                        device=dev, **ENGINE_KW)
+    eng.run([dict(reqs[0], max_new_tokens=2)])
+    eng = ServingEngine(params, cfg, cache_dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0),
+                        device=dev, **ENGINE_KW)
+    ku.reset_launch_counts()
+    resps, wall, _ = drive_engine(eng, reqs)
+    e_counts = ku.launch_counts()
+    check_responses(eng, reqs, resps, "fp32 over bf16 engine")
+    check(eng.cache["k"].dtype == torch.bfloat16, "engine pool not bf16")
+    st = eng.stats()
+    D, P = st["decode_steps"], st["prefill_calls"]
+    want = {k: 0 for k in ku.KERNELS}
+    want.update(layer_norm_fwd=(D + P) * (2 * L + 1),
+                flash_attention_fwd=P * L, fused_decode_layer=D * L)
+    check(e_counts == want, f"fp32 over bf16 engine: launches {e_counts} "
+                            f"!= {want}")
+    ref = ServingEngine(params, cfg, cache_dtype=torch.bfloat16,
+                        generator=torch.Generator().manual_seed(0),
+                        device=dev, backend="reference", **ENGINE_KW)
+    rresps = ref.run(reqs)
+    same = sum(a.tokens.tolist() == c.tokens.tolist()
+               for a, c in zip(resps, rresps))
+    flips = {}
+    for a, c in zip(resps, rresps):
+        if int(a.tokens[0]) != int(c.tokens[0]):
+            flips[a.request_id] = first_token_tie(
+                eng, reqs[a.request_id]["prompt"], int(a.tokens[0]),
+                int(c.tokens[0]), dev)
+    check(all(f["near_tie"] for f in flips.values()),
+          f"fp32 over bf16 engine: first tokens differ beyond a near-tie "
+          f"{flips}")
+    row = {"generate_logit_err": logit_err,
+           "generate_rows_identical_to_plain": (rows_same, b),
+           "engine_requests_identical_to_plain": (same, len(reqs)),
+           "engine_first_token_near_ties": flips,
+           "engine_gen_tokens_per_s": sum(r.tokens.size for r in resps)
+           / (wall / 1e3)}
+    print(f"fp32 compute over a bf16 pool: {json.dumps(row)}")
+    return row, {"fp32 over bf16 generate": g_counts,
+                 "fp32 over bf16 engine": e_counts}
 
 
 def adapter_suite(cfg, n, dev, seed=0):
@@ -2206,12 +2781,12 @@ def lora_forced_logits(params, cfg, suite, reqs, resps, wire, backend, dev):
 
 
 def lora_engine_phase(dev):
-    """Multi-tenant LoRA on the paged ServingEngine, GPT-2 125M: float
-    weights + bf16 pool and quantize_params weights + int8 pool, each with
-    exact launch identities, a clean block ledger and adapter pool, LRU
-    churn, first tokens against the plain engine and teacher-forced
-    kernel-vs-plain logits; a merged single-adapter engine on the same
-    requests; one profiled run."""
+    """Multi-tenant LoRA on the paged ServingEngine, GPT-2 125M's widths
+    at LORA_LAYERS layers: float weights + bf16 pool and quantize_params
+    weights + int8 pool, each with exact launch identities, a clean block
+    ledger and adapter pool, LRU churn, first tokens against the plain
+    engine and teacher-forced kernel-vs-plain logits; a merged
+    single-adapter engine on the same requests; one profiled run."""
     from apex_tpu_torch.models.config import gpt_125m
     from apex_tpu_torch.models.lora import merge_lora
     from apex_tpu_torch.models.quantized import quantize_params
@@ -2220,7 +2795,7 @@ def lora_engine_phase(dev):
     from apex_tpu_torch.serving import AdapterPool, ServingEngine
 
     t_phase = time.perf_counter()
-    cfg = gpt_125m()
+    cfg = gpt_125m(num_layers=LORA_LAYERS)
     L = cfg.num_layers
     weights = {"float": init_gpt_params(cfg, torch.Generator().manual_seed(0),
                                         dev)}
@@ -4147,11 +4722,21 @@ def main() -> int:
         print(json.dumps(matmul_times(sys.argv[2])))
         return 0
     dev = torch.device("cuda")
+    # wall seconds of each phase, printed at the end (the script's time
+    # limit is shared by all of them)
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def mark(label):
+        now = time.perf_counter()
+        phase_s[label] = round(now - t_mark[0], 1)
+        t_mark[0] = now
+
     cap = torch.cuda.get_device_capability(0)
     check(cap == (9, 0), f"compute capability {cap}, need (9, 0) (Hopper)")
-    name = torch.cuda.get_device_name(0)
+    device_name = torch.cuda.get_device_name(0)
     smi = nvidia_smi()
-    print(f"device: {name} x{torch.cuda.device_count()} capability {cap}; "
+    print(f"device: {device_name} x{torch.cuda.device_count()} capability "
+          f"{cap}; "
           f"nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
@@ -4198,6 +4783,7 @@ def main() -> int:
                   f"{'none' if vlib is None else f'{vlib:.4f} ms'}, bound "
                   f"{v['bound_ms']:.4f} ms ({v['bound_by']})")
 
+    mark("build and hopper line")
     gen = torch.Generator(device="cuda").manual_seed(0)
     with torch.inference_mode():
         for kname, fn in (("layer_norm_fwd", kernel_layer_norm),
@@ -4209,12 +4795,25 @@ def main() -> int:
             report(kname, fn(dev, gen))
         for kname, r in kernel_dense_int8(dev, gen).items():
             report(kname, r)
+        mark("serving kernels")
         sl = slice_phase(dev)
         mqa = mqa_generate_phase(dev)
+        mark("generate")
         eng = engine_phase(dev)
+        mark("engine")
         graphs = graph_engine_phase(dev)
+        mark("graph engine")
         lora = lora_engine_phase(dev)
         oracle = lora_oracle_phase(dev)
+        mark("lora")
+        spec_gen, spec_gen_paths = spec_generate_phase(dev)
+        mark("spec generate")
+        spec_eng, spec_eng_paths = spec_engine_phase(dev)
+        mark("spec engine")
+        tier, tier_paths = host_tier_phase(dev)
+        mark("host tier")
+        foreign, foreign_paths = foreign_pool_phase(dev)
+        mark("fp32 over bf16 pool")
     for gname, row in graphs.items():
         if "profiled" not in row:
             continue
@@ -4239,6 +4838,36 @@ def main() -> int:
               f"unchunked, greedy identical "
               f"{row['chunked']['greedy_identical']} of "
               f"{row['chunked']['greedy']}")
+    for sweep, row in spec_gen.items():
+        print(f"spec generate {sweep} (gpt_125m b{SPEC_BATCH} prompt "
+              f"{SPEC_PROMPT} +{SPEC_NEW}, k {SPEC_K}, paged bf16) on {smi}: "
+              f"accept rate {row['accept_rate']:.4f}, tokens per verify "
+              f"{row['tokens_per_verify']:.3f}, {row['rounds']} rounds, K1 "
+              f"{row['k1_launches_per_round']} a round; decode tokens/s spec "
+              f"{row['decode_tokens_per_s_spec']:.1f} vs off "
+              f"{row['decode_tokens_per_s_off']:.1f}; greedy rows identical "
+              f"to spec-off {row['greedy_rows_identical_to_off']}")
+    for ename, row in spec_eng.items():
+        print(f"spec engine {ename} on {smi}: generated tokens/s eager "
+              f"{row['gen_tokens_per_s_eager']:.1f}, graph "
+              f"{row['gen_tokens_per_s_graph']:.1f}; decode ms a step eager "
+              f"{row['decode_ms_per_step_eager']:.3f}, graph "
+              f"{row['decode_ms_per_step_graph']:.3f}; accept rate "
+              f"{row['accept_rate']:.4f}, tokens per verify "
+              f"{row['tokens_per_verify']:.3f}"
+              + (f"; verify gathers (aten::index, eager) "
+                 f"{row['profiled_eager']['verify_gather_device_ms']} ms of "
+                 f"{row['profiled_eager']['device_busy_ms']} busy; graph idle "
+                 f"share {row['profiled_graph']['device_idle_share']}"
+                 if "profiled_eager" in row else ""))
+    print(f"host tier on {smi}: resumes {tier['tier_counters']}, page-in "
+          f"ms per resume p50 {tier['page_in_ms_per_resume_p50']:.3f} vs "
+          f"replay prefill ms p50 {tier['replay_prefill_ms_p50']:.3f}; "
+          f"tier-on tokens identical to tier-off on "
+          f"{tier['requests_identical_tier_on_vs_off']} of "
+          f"{tier['requests_identical_to_unstarved']} requests; shared "
+          f"prefix: {json.dumps(tier['shared_prefix'])}")
+    print(f"fp32 compute over a bf16 pool on {smi}: {json.dumps(foreign)}")
     prof = lora["profiled lora float weights, native pool"]
     print(f"lora engine phase on {smi}: {lora['phase_wall_s']:.1f}s wall; "
           f"profiled run {json.dumps(prof)}")
@@ -4267,6 +4896,7 @@ def main() -> int:
           f"{sl['sampled_device_busy_ms']:.3f} ms, K4 "
           f"{sl['sampled_k4_device_ms']:.3f} ms")
 
+    mark("serving prints")
     report("layer_norm_bwd", kernel_layer_norm_bwd(dev, gen))
     for kname, r in kernel_flash_bwd(dev, gen).items():
         report(kname, r)
@@ -4291,6 +4921,7 @@ def main() -> int:
           f"ops) at its main shape on {smi}: "
           f"{results['scaled_softmax_fwd']['backward_composition_ms']:.4f} "
           "ms a call")
+    mark("training kernels")
     torch.cuda.empty_cache()
     tr = train_phase(dev)
     print(f"train gpt_125m AMP-O2 fused_adam(lr=1e-4) b{TRAIN_BATCH} x "
@@ -4314,6 +4945,7 @@ def main() -> int:
           f"{tc['grad_norm_kernel']} plain {tc['grad_norm_plain']}, max "
           f"rel diff {tc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL})")
 
+    mark("gpt train")
     bert, bert_checks = {}, {}
     for backend in BERT_BACKENDS:
         torch.cuda.empty_cache()
@@ -4349,6 +4981,7 @@ def main() -> int:
               f"{bc['grad_norm_plain']}, max rel diff "
               f"{bc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL})")
 
+    mark("bert train")
     moe, moe_checks, moe_master = {}, {}, None
     for routing in MOE_ROUTINGS:
         torch.cuda.empty_cache()
@@ -4422,12 +5055,16 @@ def main() -> int:
     print(f"generic mask: {gm['shape']}: launches {gm['counts']}; logits "
           f"kernel vs plain {gm['logit_err']:.5f} (tol {LOGIT_TOL})")
 
+    mark("moe and masks")
+    print(f"phase seconds: {json.dumps(phase_s)}")
     paths = {"serving": sl["counts"], "mqa generate": mqa["counts"],
              "train_step": tr["counts"]}
     paths.update({f"bert {b}": row["counts"] for b, row in bert.items()})
     paths.update({f"moe {r}": row["counts"] for r, row in moe.items()})
     paths["moe int8 forward"] = mq["counts"]
     paths["generic mask"] = gm["counts"]
+    for extra in (spec_gen_paths, spec_eng_paths, tier_paths, foreign_paths):
+        paths.update(extra)
     paths.update({f"engine {name}": row["counts"]
                   for name, row in eng.items() if "counts" in row})
     paths.update({f"engine {name}": row["counts"]
@@ -4472,11 +5109,14 @@ def main() -> int:
         "flash_bwd_crossover": short["crossover"],
         "softmax_backward_composition_ms":
             results["scaled_softmax_fwd"]["backward_composition_ms"],
-        "generic_mask": {k: v for k, v in gm.items() if k != "counts"}}
+        "generic_mask": {k: v for k, v in gm.items() if k != "counts"},
+        "spec_generate": spec_gen, "spec_engine": spec_eng,
+        "host_tier": tier, "fp32_over_bf16_pool": foreign,
+        "phase_s": phase_s}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": name,
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
 

@@ -113,11 +113,18 @@ def test_sampled_generate_is_seeded_and_in_vocab():
     (dict(spec="ngram"), "speculative"),
 ])
 def test_unported_options_raise(kw, match):
+    """``spec=`` is ported now (tests/test_torch_speculative.py); what it
+    still refuses is the JAX package's refusal: learned positions without
+    room for the k+1 cells a verify block writes past the budget."""
     _, tcfg = _cfgs("learned_mha_gelu")
     _, _, tp = _params("learned_mha_gelu")
-    with pytest.raises(NotImplementedError, match=match):
+    out = tgen.generate(tp, torch.zeros(1, 3, dtype=torch.long), tcfg,
+                        max_new_tokens=2, device="cpu", **kw)
+    assert out.shape == (1, 5)
+    with pytest.raises(ValueError, match=match):
         tgen.generate(tp, torch.zeros(1, 3, dtype=torch.long), tcfg,
-                      max_new_tokens=2, device="cpu", **kw)
+                      max_new_tokens=tcfg.max_position_embeddings - 3,
+                      device="cpu", **kw)
 
 
 @pytest.mark.parametrize("layout, wire", [("paged", None), ("paged", "int8"),

@@ -174,3 +174,24 @@ def test_lora_graph_engine_is_the_eager_engine(dev, tmp_path):
     assert got == want and got_counts == want_counts
     assert got_counts["grouped_matmul"] > 0
     assert eng.stats()["compile_cache"]["replays"] > 0
+
+
+@pytest.mark.parametrize("layout, wire, quant", CASES)
+def test_spec_graph_engine_is_the_eager_engine(dev, tmp_path, layout, wire,
+                                               quant):
+    """Under ``spec=`` the ``decode`` entry is one speculative round,
+    captured and replayed with new key words each step: tokens, finish
+    reasons and launches equal the eager spec engine's, and the greedy
+    streams equal the spec-off engine's."""
+    from apex_tpu_torch.models.speculative import SpecConfig
+
+    spec = SpecConfig(k=4)
+    want, want_counts = _run(_engine(dev, layout, wire, quant, spec=spec))
+    eng = _engine(dev, layout, wire, quant, tmp_path, spec=spec)
+    got, got_counts = _run(eng)
+    assert got == want and got_counts == want_counts
+    st = eng.stats()
+    assert st["compile_cache"]["replays"] > 0 and st["spec_k"] == 4
+    assert st.get("blocks_in_use", 0) == 0
+    w = warmup_ladder(_engine(dev, layout, wire, quant, tmp_path, spec=spec))
+    assert [label for label, _ in w["skipped"]] == ["sample"]

@@ -179,18 +179,20 @@ PAGED_GEOMETRIES = [(12, 12, 64), (12, 4, 64), (8, 1, 64), (12, 1, 64),
 
 
 def _decode_operands(dev, dtype, nh, g, dh, seed, bs=16, mb=12, quant=False,
-                     w_dtype=torch.float32):
+                     w_dtype=torch.float32, pool_dtype=None):
     """q, pools, tables with sentinel tails (>= num_blocks) sized to each
     lane's length, w_proj [nh*dh, 256] and rope rows over the whole head.
     The lengths sit at every edge (k*step - 1, k*step, k*step + 1) of the
     plan's chunk granularity (step = warps x warp tile, so at every chunk
     edge whatever the split count), one token, the full reach, and an
-    empty lane, last, whose table holds only sentinels."""
+    empty lane, last, whose table holds only sentinels.  A float pool is
+    in ``pool_dtype`` (default: the compute dtype)."""
     from apex_tpu_torch.ops import paged_attention as tpa
 
     gen = _gen(seed)
     reach = mb * bs
-    isz = 1 if quant else torch.empty((), dtype=dtype).element_size()
+    pool_dtype = dtype if pool_dtype is None else pool_dtype
+    isz = 1 if quant else torch.empty((), dtype=pool_dtype).element_size()
     step = tpa.WARPS * tpa.paged_plan(1, g, nh // g, dh, reach, isz,
                                       132).tile
     lens = {1, reach}
@@ -213,7 +215,7 @@ def _decode_operands(dev, dtype, nh, g, dh, seed, bs=16, mb=12, quant=False,
         vp, vs = quantize_kv(vp)
         sc = dict(k_scale=ks, v_scale=vs)
     else:
-        kp, vp = kp.to(dtype), vp.to(dtype)
+        kp, vp = kp.to(pool_dtype), vp.to(pool_dtype)
     w = (torch.randn(nh * dh, 256, device=dev, generator=gen)
          * 0.03).to(w_dtype)
     ang = torch.rand(b, dh // 2, device=dev, generator=gen) * 6
@@ -921,6 +923,44 @@ def test_k3_fused_decode_layer_int8_pool(dev, dtype, tol, nh, g, dh, rope):
     assert torch.count_nonzero(out[-1]) == 0
 
 
+# rows 6 and 7 over a pool whose dtype differs from the compute dtype (the
+# engine's and generate's cache_dtype): every pair of two float dtypes,
+# the tolerance of the coarser compute dtype
+FLOAT_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+FOREIGN_POOLS = [(q, p) for q in FLOAT_TOL for p in FLOAT_TOL if q != p]
+
+
+@pytest.mark.parametrize("dtype, pool_dtype", FOREIGN_POOLS)
+@pytest.mark.parametrize("nh, g, dh", [(12, 12, 64), (12, 4, 64),
+                                       (12, 1, 64), (16, 1, 128)])
+@pytest.mark.parametrize("kernel", ["row6", "k3"])
+def test_paged_decode_foreign_pool_dtype(dev, dtype, pool_dtype, nh, g, dh,
+                                         kernel):
+    """Rows 6 and 7 read a pool of another float dtype than q's (widened
+    in registers as it streams) and agree with the plain versions, which
+    cast; one launch count a call, the output in q's dtype, the empty lane
+    exact zeros."""
+    from apex_tpu_torch.ops import paged_attention as tpa
+
+    args, _, w, cos, sin = _decode_operands(dev, dtype, nh, g, dh, 13,
+                                            pool_dtype=pool_dtype)
+    tol = max(FLOAT_TOL[dtype], FLOAT_TOL[pool_dtype])
+    if kernel == "row6":
+        counter, fn, kw = tpa.PAGED_ATTENTION, tpa.ragged_paged_attention, {}
+    else:
+        counter, fn = tds.DECODE_LAYER, tds.fused_decode_layer
+        args = args + (w,)
+        kw = dict(rope_cos=cos, rope_sin=sin)
+    before = counter.launches
+    out = fn(*args, **kw)
+    ref = fn(*args, backend="reference", **kw)
+    torch.cuda.synchronize()
+    assert counter.launches == before + 1
+    assert out.dtype == dtype
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.count_nonzero(out[-1]) == 0
+
+
 @pytest.mark.parametrize("kernel", ["row6", "k3"])
 @pytest.mark.parametrize("nh, g, dh, quant", [(12, 12, 64, False),
                                               (12, 12, 64, True),
@@ -1478,3 +1518,71 @@ def test_launch_counts_reset(dev):
     assert ku.launch_counts()["layer_norm_fwd"] >= 1
     ku.reset_launch_counts()
     assert set(ku.launch_counts().values()) == {0}
+
+
+def test_spec_round_captures_and_replays_new_words(dev):
+    """One speculative round (``models/speculative.spec_round``: n-gram
+    drafts, a verify forward over a paged pool, the accept test and the
+    correction draw) captured in a CUDA graph: replayed with other key
+    words copied into the captured words tensor, it gives what an eager
+    round on those words gives, bit for bit.  Mixed temperatures, so the
+    draws matter."""
+    from apex_tpu_torch.models.config import gpt_tiny
+    from apex_tpu_torch.models.generate import init_kv_cache, prefill
+    from apex_tpu_torch.models.speculative import SpecConfig, spec_round
+    from apex_tpu_torch.models.transformer_lm import init_gpt_params
+
+    cfg = gpt_tiny(num_layers=2, hidden_size=256, num_attention_heads=4,
+                   vocab_size=512, max_position_embeddings=128,
+                   init_method_std=0.2)
+    params = init_gpt_params(cfg, torch.Generator().manual_seed(0), dev)
+    spec = SpecConfig(k=4)
+    b, s = 4, 24
+    gen = _gen(3)
+    prompt = torch.randint(0, 512, (b, s), device=dev, generator=gen)
+    prompt[:, s // 2:] = prompt[:, :s - s // 2]        # a repeated motif
+    hist = torch.zeros(b, 64, dtype=torch.long, device=dev)
+    hist[:, :s] = prompt
+    lens = torch.full((b,), s, dtype=torch.int32, device=dev)
+    temps = torch.tensor([0.0, 0.8, 1.2, 0.0], device=dev)
+
+    def fresh():
+        cache = init_kv_cache(cfg, b, 64, cache_layout="paged", block_size=16,
+                              device=dev)
+        logits, cache = prefill(params, prompt, cfg, cache=cache, device=dev)
+        return logits.argmax(-1), cache
+
+    def one(cache, nxt, words):
+        em, n_acc, y, new, _ = spec_round(params, cfg, cache, nxt, hist,
+                                          lens, words, spec=spec,
+                                          temperature=temps, top_k=50)
+        return em, n_acc, y, new["pos"]
+
+    nxt, cache = fresh()
+    words = torch.tensor([11, 12], dtype=torch.int64, device=dev)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        one(dict(cache), nxt, words)                  # warm up
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = one(dict(cache), nxt, words)
+    for w in ((11, 12), (0xDEADBEEF, 5), (7, 7)):
+        words.copy_(torch.tensor(w, dtype=torch.int64))
+        graph.replay()
+        got = [t.clone() for t in captured]
+        _, cache_e = fresh()
+        want = one(cache_e, nxt, torch.tensor(w, dtype=torch.int64,
+                                             device=dev))
+        torch.cuda.synchronize(dev)
+        for g_, w_ in zip(got, want):
+            assert torch.equal(g_, w_), w
+        # greedy rows accept only the target argmax: their emission is
+        # the same under every key
+        if w == (11, 12):
+            greedy = got[0][[0, 3]]
+        else:
+            assert torch.equal(got[0][[0, 3]], greedy)
+

@@ -327,7 +327,8 @@ def test_paged_plan_refuses_rows_past_shared_memory():
 
 
 def test_kernel_geometry_takes_any_group_and_aligned_dh():
-    """Only the pool dtype and dh's 16-byte alignment are refused now."""
+    """Only dh's 16-byte alignment is refused now: any group, and a pool in
+    any float dtype whatever q's (the engine's ``cache_dtype``)."""
     for nh, g, dh in [(12, 1, 64), (32, 1, 128), (64, 2, 256), (8, 8, 8)]:
         tpa.check_kernel_geometry("t", torch.zeros(2, nh, dh,
                                                    dtype=torch.bfloat16),
@@ -337,10 +338,18 @@ def test_kernel_geometry_takes_any_group_and_aligned_dh():
         tpa.check_kernel_geometry("t", torch.zeros(2, 4, 12),
                                   torch.zeros(3, 4, 4, 12,
                                               dtype=torch.int8))
-    with pytest.raises(NotImplementedError, match="pool dtype"):
-        tpa.check_kernel_geometry("t", torch.zeros(2, 4, 16),
-                                  torch.zeros(3, 4, 4, 16,
+    for q_dt, pool_dt in [(torch.float32, torch.bfloat16),
+                          (torch.bfloat16, torch.float32),
+                          (torch.float16, torch.bfloat16)]:
+        tpa.check_kernel_geometry("t", torch.zeros(2, 4, 16, dtype=q_dt),
+                                  torch.zeros(3, 4, 4, 16, dtype=pool_dt))
+    with pytest.raises(ValueError, match="16-byte"):
+        tpa.check_kernel_geometry("t", torch.zeros(2, 4, 12),
+                                  torch.zeros(3, 4, 4, 12,
                                               dtype=torch.bfloat16))
+    assert [tpa.pool_code(d) for d in (torch.float32, torch.bfloat16,
+                                       torch.float16, torch.int8)] == [
+        0, 1, 2, 3]
 
 
 # ---- the split and its chunk-order combine, emulated in torch ----------

@@ -143,9 +143,19 @@ def test_quantized_params_bytes_and_stats_keys():
                                 dict(host_tier_wire="int8",
                                      token_masks=True)])
 def test_unported_engine_options_raise(kw):
+    """``spec``, ``host_tier_bytes`` and ``host_tier_wire`` are ported now
+    (tests/test_torch_serving_spec.py, tests/test_torch_host_tier.py): the
+    engine builds under them and serves; what stays unported is the
+    cluster tier's ``submit_prefilled`` and ``drain``."""
     _, _, tcfg, tp = _model(False)
+    te = TEngine(tp, tcfg, device="cpu",
+                 **dict(ENGINE, cache_layout="paged", **kw))
+    out = te.run([dict(prompt=np.arange(5) + 1, max_new_tokens=4)])
+    assert len(out) == 1 and out[0].tokens.size == 4
     with pytest.raises(NotImplementedError):
-        TEngine(tp, tcfg, device="cpu", **dict(ENGINE, **kw))
+        te.submit_prefilled(np.arange(3))
+    with pytest.raises(NotImplementedError):
+        te.drain()
 
 
 def test_sampled_lanes_are_seeded_and_in_vocab():
