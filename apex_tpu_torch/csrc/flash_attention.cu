@@ -9,6 +9,14 @@
 // are rounded to V's dtype only for the PV product, as the TPU kernel
 // does, and the m_new > -1e30/2 guard keeps fully masked rows at 0.
 //
+// Attention dropout and segment ids (keep_mask.cuh) are runtime arguments
+// of both kernels (the Hopper kernel runs an instantiation of its own,
+// kExt, when either is on), following _fwd_kernel's dropout_p and has_seg branches
+// (:228-234, :246-250, :261-270): l sums the un-dropped probabilities and
+// the accumulator takes keep ? p / (1 - p) : 0, lse unchanged; a key of
+// another segment (or of a negative id) is masked, and a key tile whose
+// ids cannot meet the query tile's is skipped.
+//
 // Bound on the H100: at the serving shapes (b=8, s<=512, d=64) bytes —
 // q, k, v and o are read and written once and the causal, padded pairs
 // need fewer flops than the ~295 flop/byte ridge; longer sequences turn
@@ -20,7 +28,10 @@
 // tiles (tiles wholly above the diagonal never loaded), Q, K and V tiles
 // in shared memory as fp32 (rows padded one word), four threads per query
 // row, each scoring 16 keys and owning d/4 output dims.
+#include <type_traits>
+
 #include "common.cuh"
+#include "keep_mask.cuh"
 #include "sm90_tile.cuh"
 
 namespace {
@@ -39,7 +50,8 @@ __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const float* __restrict__ kpm,
                      T* __restrict__ o, float* __restrict__ lse, int sq,
-                     int sk, int n, int g, int dr, float scale, int causal) {
+                     int sk, int n, int g, int dr, float scale, int causal,
+                     FlashExtras ex) {
   constexpr int LD = D + 1;
   constexpr int LP = kBK + 1;
   constexpr int NA = D / 4;           // output dims per thread
@@ -59,6 +71,8 @@ __global__ void __launch_bounds__(kThreads)
   const int kvh = h / (n / g);
   const int q0 = blockIdx.x * kBQ;
   const int row = q0 + r;
+  const Dropout drop(ex);
+  const int qs = ex.seg != nullptr ? seg_at(ex, b, sq, row) : 0;
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int rr = i / D, dd = i % D;
@@ -82,6 +96,8 @@ __global__ void __launch_bounds__(kThreads)
   // causal: kv tiles starting past the tile's last query row add nothing
   const int kv_end = causal ? min(sk, q0 + kBQ) : sk;
   for (int k0 = 0; k0 < kv_end; k0 += kBK) {
+    // segments: a key tile no query of the tile can see adds nothing
+    if (!seg_tile_live(ex, b, sq, q0, kBQ, k0, kBK)) continue;
     __syncthreads();  // the previous tile's readers are done
     for (int i = tid; i < kBK * D; i += kThreads) {
       const int t = i / D, dd = i % D;
@@ -108,7 +124,9 @@ __global__ void __launch_bounds__(kThreads)
       for (int d = 0; d < D; ++d) dot += qr[d] * sK[c * LD + d];
       float sv = dot * scale;
       if (kpm != nullptr && col < sk) sv += kpm[(size_t)b * sk + col];
-      const bool pred = col < sk && (!causal || col <= row);
+      const bool pred =
+          col < sk && (!causal || col <= row) &&
+          (ex.seg == nullptr || seg_open(qs, seg_at(ex, b, sk, col)));
       sv = pred ? sv : APEX_NEG_INF;
       s[j] = sv;
       mx = fmaxf(mx, sv);
@@ -122,8 +140,9 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int j = 0; j < NS; ++j) {
       const float p = live ? expf(s[j] - m_new) : 0.0f;
-      ps += p;
-      sP[r * LP + sub + 4 * j] = apex_round<T>(p);
+      ps += p;  // l sums the un-dropped p
+      sP[r * LP + sub + 4 * j] = apex_round<T>(
+          drop.on ? drop.apply(p, bh, row, k0 + sub + 4 * j) : p);
     }
     ps += __shfl_xor_sync(0xffffffffu, ps, 1);
     ps += __shfl_xor_sync(0xffffffffu, ps, 2);
@@ -191,14 +210,19 @@ struct Fwd {
   static constexpr int bytes = bar_off + (4 + 3 * STAGES) * 8 + 1024;
 };
 
-template <typename T, int D>
+// kExt: the instantiation that takes segment ids or dropout.  It is a
+// kernel of its own: compiled into the same kernel as a branch, its code
+// cost the calls without either 5-12% on an H100 (a variant with the
+// branch compiled out timed as the kernel without it).
+template <typename T, int D, bool kExt>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
                           const float* __restrict__ kpm, T* __restrict__ o,
                           float* __restrict__ lse, int nb, int sq, int sk,
-                          int n, int g, int dr, float scale, int causal) {
+                          int n, int g, int dr, float scale, int causal,
+                          FlashExtras ex) {
   using C = Fwd<D>;
   constexpr int BQ = C::BQ, BK = C::BK, S = C::STAGES;
   constexpr bool kQRegs = sm90::kStationaryInRegs<D>;
@@ -246,7 +270,21 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
           sm90::tma_tile<D, BQ>(smem + C::q_off + qb * C::QT::BYTES, &tq,
                                 &q_full[qb], h, w.q0, b);
         }
-        for (int t = 0; t < w.ntiles; ++t, ++ring) {
+        // the live key tiles, in order (the consumers walk the same ones)
+        const SegSpan qspan = kExt && ex.seg != nullptr
+                                  ? seg_span(ex, b, sq, w.q0, w.q0 + BQ)
+                                  : SegSpan{0, 0, 0};
+        auto next_live = [&](int t) {
+          if constexpr (!kExt) return t;  // no segment ids: every tile
+          if (ex.seg == nullptr) return t;
+          while (t < w.ntiles &&
+                 !seg_meet(qspan, seg_span(ex, b, sq, t * BK, t * BK + BK)))
+            ++t;
+          return t;
+        };
+        int t0 = next_live(0);
+        if (t0 >= w.ntiles) t0 = 0;  // none live: tile 0, wholly masked
+        for (int t = t0; t < w.ntiles; t = next_live(t + 1), ++ring) {
           const int s = ring % S;
           const int k0 = t * BK;
           sm90::bar_wait(&empty[s], ((ring / S) & 1) ^ 1);
@@ -288,6 +326,18 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       const int row0 = wg_row + warp * 16 + (lane >> 2);  // and row0 + 8
       const int qb = j & 1;
       const uint32_t sQ = sm90::smem_addr(smem + C::q_off + qb * C::QT::BYTES);
+      // the query tile's ids (segment ids only)
+      const SegSpan qspan = kExt && ex.seg != nullptr
+                                ? seg_span(ex, b, sq, w.q0, w.q0 + BQ)
+                                : SegSpan{0, 0, 0};
+      auto next_live = [&](int t) {
+        if constexpr (!kExt) return t;  // no segment ids: every tile
+        if (ex.seg == nullptr) return warp_uniform(t);
+        while (t < ntiles &&
+               !seg_meet(qspan, seg_span(ex, b, sq, t * BK, t * BK + BK)))
+          ++t;
+        return warp_uniform(t);
+      };
       float acc_o[D / 2];
 #pragma unroll
       for (int r = 0; r < D / 2; ++r) acc_o[r] = 0.0f;
@@ -297,9 +347,10 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       uint32_t pa[BK / 16][4];  // the previous tile's p, rounded to V's dtype
       uint32_t qf[kQRegs ? D / 16 : 1][4];  // Q as the A operand of S
 
-      // S = Q K^T of key tile t into acc, issued and committed, not waited
-      auto issue_s = [&](float (&acc)[BK / 2], int t) {
-        const int r = ring + t;
+      // S = Q K^T of the u-th live key tile into acc, issued and committed,
+      // not waited
+      auto issue_s = [&](float (&acc)[BK / 2], int u) {
+        const int r = ring + u;
         const uint32_t sK =
             sm90::smem_addr(smem + C::k_off + (r % S) * C::KT::BYTES);
         sm90::bar_wait(&k_full[r % S], (r / S) & 1);
@@ -314,9 +365,9 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
         }
         sm90::mma_commit();
       };
-      // O += P V of key tile t (P in pa), issued and committed
-      auto issue_pv = [&](int t) {
-        const int r = ring + t;
+      // O += P V of the u-th live key tile (P in pa), issued and committed
+      auto issue_pv = [&](int u) {
+        const int r = ring + u;
         const uint32_t sV =
             sm90::smem_addr(smem + C::v_off + (r % S) * C::KT::BYTES);
         sm90::bar_wait(&v_full[r % S], (r / S) & 1);
@@ -330,12 +381,27 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
         __syncwarp();
         if (lane == 0) sm90::bar_arrive(bar);
       };
-      // scale, padding row and masks of key tile t, then its probabilities
-      // in place; folds the row maxima into m_i, l_i and sets alpha
-      auto softmax = [&](float (&acc)[BK / 2], int t) {
+      // scale, padding row and masks of key tile t (the u-th live one),
+      // then its probabilities in place, dropped under dropout; folds the
+      // row maxima into m_i, the un-dropped row sums into l_i and sets alpha.
+      float acc_s[BK / 2];  // S of the tile in flight, then its p
+      auto softmax = [&](int t, int u) {
+        float(&acc)[BK / 2] = acc_s;
         const int k0 = t * BK;
-        const float* kp = skpm + ((ring + t) % S) * BK + 2 * (lane & 3);
-        const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > wg_row);
+        // segment ids: a tile whose rows and keys all hold one id is open
+        // throughout; others test each element
+        bool seg_test = false;
+        int qs[2] = {0, 0};  // this thread's two rows' segment ids
+        if constexpr (kExt) {
+          if (ex.seg != nullptr) {
+            seg_test = !seg_inside(qspan, seg_span(ex, b, sq, k0, k0 + BK));
+            qs[0] = seg_at(ex, b, sq, row0);
+            qs[1] = seg_at(ex, b, sq, row0 + 8);
+          }
+        }
+        const float* kp = skpm + ((ring + u) % S) * BK + 2 * (lane & 3);
+        const bool edge =
+            k0 + BK > sk || (causal && k0 + BK - 1 > wg_row) || seg_test;
         // inner tiles without padding: the raw maxima scaled once, and p
         // in one FMA and one exp2 per score
         const bool plain = !edge && kpm == nullptr && sl2 > 0.0f;
@@ -355,6 +421,15 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
               kv.x *= sm90::kLog2e;
               kv.y *= sm90::kLog2e;
             }
+            // the segment ids of this thread's two columns
+            int ks[2] = {0, 0};
+            if constexpr (kExt) {
+              if (seg_test) {
+                const int c0 = k0 + sm90::frag_col(4 * cc, lane);
+                ks[0] = seg_at(ex, b, sk, c0);
+                ks[1] = seg_at(ex, b, sk, c0 + 1);
+              }
+            }
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int r = 4 * cc + e;
@@ -364,6 +439,10 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                 const int col = k0 + sm90::frag_col(r, lane);
                 if (col >= sk || (causal && col > row0 + 8 * i))
                   v = APEX_NEG_INF;
+                if constexpr (kExt) {
+                  if (seg_test && !seg_open(qs[i], ks[e & 1]))
+                    v = APEX_NEG_INF;
+                }
               }
               acc[r] = v;
               mx[i] = fmaxf(mx[i], v);
@@ -388,6 +467,16 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
           l_i[i] += p;
           acc[r] = p;
         }
+        if constexpr (kExt) {
+          const Dropout drop(ex);
+          if (drop.on) {
+            // the accumulator takes keep ? p / (1 - p) : 0
+#pragma unroll
+            for (int r = 0; r < BK / 2; ++r)
+              acc[r] = drop.apply(acc[r], bh, row0 + 8 * sm90::frag_row(r),
+                                  k0 + sm90::frag_col(r, lane));
+          }
+        }
       };
 
       // Software pipeline: key tile t's S = Q K^T runs while tile t-1's
@@ -399,30 +488,33 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
         sm90::load_a_frags<D, BQ>(sQ, wg * 64, qf);
         release(&q_empty[qb]);  // Q is in registers: the next one may come
       }
+      // the live key tiles, as the producer walks them (all of them
+      // without segment ids: u == t)
+      int t = next_live(0);
+      if (t >= ntiles) t = 0;  // none live: tile 0, wholly masked
       {
-        float acc_s[BK / 2];
         sm90::turn_begin(wg);
         sm90::mma_fence();
         issue_s(acc_s, 0);
         sm90::turn_end(wg);
         sm90::mma_wait<0>();
         sm90::fence_regs(acc_s);
-        softmax(acc_s, 0);
+        softmax(t, 0);
         sm90::to_a_frags<T>(acc_s, pa);
       }
-      for (int t = 1; t < ntiles; ++t) {
-        float acc_s[BK / 2];
+      int u = 1;  // live tiles so far
+      for (t = next_live(t + 1); t < ntiles; t = next_live(t + 1), ++u) {
         sm90::turn_begin(wg);
         sm90::mma_fence();
-        issue_s(acc_s, t);
-        issue_pv(t - 1);
+        issue_s(acc_s, u);
+        issue_pv(u - 1);
         sm90::turn_end(wg);
         sm90::mma_wait<1>();  // S of tile t
         sm90::fence_regs(acc_s);
-        softmax(acc_s, t);
-        sm90::mma_wait<0>();  // P V of tile t-1
+        softmax(t, u);
+        sm90::mma_wait<0>();  // P V of the previous live tile
         sm90::fence_regs(acc_o);
-        release(&empty[(ring + t - 1) % S]);
+        release(&empty[(ring + u - 1) % S]);
 #pragma unroll
         for (int r = 0; r < D / 2; ++r) acc_o[r] *= alpha[sm90::frag_row(r)];
         sm90::to_a_frags<T>(acc_s, pa);
@@ -431,12 +523,12 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
         release(&q_empty[qb]);  // every S of the item is done: the next Q
       sm90::turn_begin(wg);
       sm90::mma_fence();
-      issue_pv(ntiles - 1);
+      issue_pv(u - 1);
       sm90::turn_end(wg);
       sm90::mma_wait<0>();
       sm90::fence_regs(acc_o);
-      release(&empty[(ring + ntiles - 1) % S]);
-      ring += ntiles;
+      release(&empty[(ring + u - 1) % S]);
+      ring += u;
 
       float inv[2];
 #pragma unroll
@@ -457,33 +549,40 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   }
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kExt>
 int launch_sm90(const void* q, const void* k, const void* v, const void* kpm,
                 void* o, void* lse, int b, int sq, int sk, int n, int g,
-                int dr, float scale, int causal, cudaStream_t stream) {
+                int dr, float scale, int causal, const FlashExtras& ex,
+                cudaStream_t stream) {
   using C = Fwd<D>;
   CUtensorMap tq, tk, tv;
   int err = sm90::encode_bsnd<T>(&tq, q, b, sq, n, dr, C::BQ);
   if (err == 0) err = sm90::encode_bsnd<T>(&tk, k, b, sk, g, dr, C::BK);
   if (err == 0) err = sm90::encode_bsnd<T>(&tv, v, b, sk, g, dr, C::BK);
-  if (err == 0) err = sm90::set_smem(flash_fwd_sm90_kernel<T, D>, C::bytes);
+  if (err == 0)
+    err = sm90::set_smem(flash_fwd_sm90_kernel<T, D, kExt>, C::bytes);
   int grid = 0;
   if (err == 0) err = sm90::persistent_grid((sq + C::BQ - 1) / C::BQ * b * n,
                                             &grid);
   if (err != 0) return err;
-  flash_fwd_sm90_kernel<T, D><<<grid, sm90::kThreads, C::bytes, stream>>>(
+  flash_fwd_sm90_kernel<T, D, kExt><<<grid, sm90::kThreads, C::bytes,
+                                      stream>>>(
       tq, tk, tv, (const float*)kpm, (T*)o, (float*)lse, b, sq, sk, n, g, dr,
-      scale, causal);
+      scale, causal, ex);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kpm,
            void* o, void* lse, int b, int sq, int sk, int n, int g, int dr,
-           float scale, int causal, cudaStream_t stream) {
+           float scale, int causal, const FlashExtras& ex,
+           cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    return launch_sm90<T, D>(q, k, v, kpm, o, lse, b, sq, sk, n, g, dr,
-                             scale, causal, stream);
+    return has_extras(ex)
+               ? launch_sm90<T, D, true>(q, k, v, kpm, o, lse, b, sq, sk, n,
+                                         g, dr, scale, causal, ex, stream)
+               : launch_sm90<T, D, false>(q, k, v, kpm, o, lse, b, sq, sk, n,
+                                          g, dr, scale, causal, ex, stream);
   } else {
     const dim3 grid((sq + kBQ - 1) / kBQ, b * n);
     const int bytes = smem_floats<D>() * (int)sizeof(float);
@@ -493,7 +592,7 @@ int launch(const void* q, const void* k, const void* v, const void* kpm,
     if (err != cudaSuccess) return (int)err;
     flash_fwd_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const float*)kpm, (T*)o,
-        (float*)lse, sq, sk, n, g, dr, scale, causal);
+        (float*)lse, sq, sk, n, g, dr, scale, causal, ex);
     return (int)cudaGetLastError();
   }
 }
@@ -504,25 +603,31 @@ int launch(const void* q, const void* k, const void* v, const void* kpm,
 // additive or NULL, lse [b·n, sq] fp32.  d a multiple of 8 up to 128: the
 // kernels of the next of 32, 64 and 128 (sm90::head_panel) run on tiles
 // whose columns past d are zeros (TMA's fill, or guarded loads in fp32)
-// and store only the first d columns.
+// and store only the first d columns.  seed ([1] int32 on the device, or
+// NULL), threshold and inv_keep turn dropout on; seg ([b, s] int32, sq ==
+// sk, or NULL) and seg_rng (keep_mask.cuh) the segment ids.
 extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               const void* kpm, void* o, void* lse, int b,
                               int sq, int sk, int n, int g, int d,
                               float scale, int causal, int dtype,
-                              cudaStream_t stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0)
+                              const void* seed, unsigned threshold,
+                              float inv_keep, const void* seg,
+                              const void* seg_rng, cudaStream_t stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0 ||
+      (seg != nullptr && (seg_rng == nullptr || sq != sk)))
     return (int)cudaErrorInvalidValue;
+  const FlashExtras ex = make_extras(seed, threshold, inv_keep, seg, seg_rng);
   APEX_DISPATCH_FLOAT(dtype, T, {
     switch (sm90::head_panel(d)) {
       case 32:
         return launch<T, 32>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d, scale,
-                             causal, stream);
+                             causal, ex, stream);
       case 64:
         return launch<T, 64>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d, scale,
-                             causal, stream);
+                             causal, ex, stream);
       case 128:
         return launch<T, 128>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d,
-                              scale, causal, stream);
+                              scale, causal, ex, stream);
       default:
         return (int)cudaErrorInvalidValue;
     }
@@ -532,17 +637,17 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
 
 namespace {
 
-template <typename T>
+template <typename T, bool kExt>
 int fwd_attrs(int d, int* out) {
   switch (sm90::head_panel(d)) {
     case 32:
-      return sm90::kernel_attrs(flash_fwd_sm90_kernel<T, 32>, Fwd<32>::bytes,
-                                sm90::kThreads, out);
+      return sm90::kernel_attrs(flash_fwd_sm90_kernel<T, 32, kExt>,
+                                Fwd<32>::bytes, sm90::kThreads, out);
     case 64:
-      return sm90::kernel_attrs(flash_fwd_sm90_kernel<T, 64>, Fwd<64>::bytes,
-                                sm90::kThreads, out);
+      return sm90::kernel_attrs(flash_fwd_sm90_kernel<T, 64, kExt>,
+                                Fwd<64>::bytes, sm90::kThreads, out);
     case 128:
-      return sm90::kernel_attrs(flash_fwd_sm90_kernel<T, 128>,
+      return sm90::kernel_attrs(flash_fwd_sm90_kernel<T, 128, kExt>,
                                 Fwd<128>::bytes, sm90::kThreads, out);
     default:
       return (int)cudaErrorInvalidValue;
@@ -552,9 +657,14 @@ int fwd_attrs(int d, int* out) {
 }  // namespace
 
 // The 16-bit kernel's {registers, shared memory per CTA, CTAs per SM,
-// spill bytes} for head size d (sm90::kernel_attrs).
-extern "C" int apex_flash_fwd_attrs(int dtype, int d, int* out) {
-  if (dtype == APEX_BF16) return fwd_attrs<__nv_bfloat16>(d, out);
-  if (dtype == APEX_F16) return fwd_attrs<__half>(d, out);
+// spill bytes} for head size d, without (ext = 0) or with (ext = 1)
+// segment ids or dropout (sm90::kernel_attrs).
+extern "C" int apex_flash_fwd_attrs(int dtype, int d, int ext, int* out) {
+  if (dtype == APEX_BF16)
+    return ext ? fwd_attrs<__nv_bfloat16, true>(d, out)
+               : fwd_attrs<__nv_bfloat16, false>(d, out);
+  if (dtype == APEX_F16)
+    return ext ? fwd_attrs<__half, true>(d, out)
+               : fwd_attrs<__half, false>(d, out);
   return (int)cudaErrorInvalidValue;
 }

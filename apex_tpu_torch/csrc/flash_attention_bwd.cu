@@ -27,6 +27,13 @@
 // _bwd_dkv_kernel (:464-474).  No atomics: every output tile has one
 // writer, so the result is deterministic.
 //
+// Dropout and segment ids (keep_mask.cuh) are runtime arguments of every
+// entry here, as in _bwd_dq_kernel and _bwd_dkv_kernel (the Hopper
+// kernels run an instantiation of their own, kExt, when either is on): K6 drops and
+// scales dp (:424-427); K7 feeds dV the dropped p and dS the dropped dp
+// (:511-527); keys of another segment are masked, and tile pairs whose
+// ids cannot meet are skipped (both sides walk the same live tiles).
+//
 // Numbers.  The TPU kernels keep p and ds in fp32.  Here 16-bit inputs
 // run all four products on the tensor cores with fp32 accumulators, so p
 // and ds are rounded to the input type before the dv, dk and dq products;
@@ -42,6 +49,8 @@
 // each owning 16 rows of a 64-row tile, through flash_bwd_tile.cuh: the
 // input tiles in shared memory, scores and dp in fp32 shared memory (two
 // lanes per row do the masked elementwise step), loaded synchronously.
+#include <type_traits>
+
 #include "flash_bwd_tile.cuh"
 #include "sm90_tile.cuh"
 
@@ -56,7 +65,7 @@ __global__ void __launch_bounds__(kThreads)
                         const float* __restrict__ delta,
                         const float* __restrict__ kpm, T* __restrict__ dq,
                         int sq, int sk, int n, int g, int dr, float scale,
-                        int causal) {
+                        int causal, FlashExtras ex) {
   using L = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + L::q_off);
@@ -74,6 +83,7 @@ __global__ void __launch_bounds__(kThreads)
   const int kvh = h / (n / g);
   const int q0 = blockIdx.x * kB;
   const int qstride = n * dr, kstride = g * dr;
+  const Dropout drop(ex);
 
   const size_t qbase = (((size_t)b * sq + q0) * n + h) * dr;
   load_tile<T, D>(sQ, q + qbase, q0, sq, qstride, dr);
@@ -86,12 +96,14 @@ __global__ void __launch_bounds__(kThreads)
 
   const int kv_end = causal ? min(sk, q0 + kB) : sk;
   for (int k0 = 0; k0 < kv_end; k0 += kB) {
+    if (!seg_tile_live(ex, b, sq, q0, kB, k0, kB)) continue;
     __syncthreads();  // the previous tile's readers of sK/sV are done
     const size_t kbase = (((size_t)b * sk + k0) * g + kvh) * dr;
     load_tile<T, D>(sK, k + kbase, k0, sk, kstride, dr);
     load_tile<T, D>(sV, v + kbase, k0, sk, kstride, dr);
     __syncthreads();
-    probs_and_ds<T, D>(smem, kpm, b, sk, q0, k0, scale, causal);
+    probs_and_ds<T, D>(smem, kpm, b, sk, q0, k0, scale, causal, ex, drop,
+                       bh);
     // dq[16 x D] += ds[16 x 64] k[64 x D]
 #pragma unroll
     for (int nb = 0; nb < D / 16; ++nb)
@@ -119,7 +131,7 @@ __global__ void __launch_bounds__(kThreads)
                          const float* __restrict__ delta,
                          const float* __restrict__ kpm, T* __restrict__ dk,
                          T* __restrict__ dv, int sq, int sk, int n, int g,
-                         int dr, float scale, int causal) {
+                         int dr, float scale, int causal, FlashExtras ex) {
   using L = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + L::q_off);
@@ -138,6 +150,7 @@ __global__ void __launch_bounds__(kThreads)
   const int rep = n / g;
   const int k0 = blockIdx.x * kB;
   const int qstride = n * dr, kstride = g * dr;
+  const Dropout drop(ex);
 
   const size_t kbase = (((size_t)b * sk + k0) * g + kvh) * dr;
   load_tile<T, D>(sK, k + kbase, k0, sk, kstride, dr);
@@ -156,13 +169,15 @@ __global__ void __launch_bounds__(kThreads)
     const int h = kvh * rep + r;
     const int bh = b * n + h;
     for (int q0 = q_begin; q0 < sq; q0 += kB) {
+      if (!seg_tile_live(ex, b, sq, q0, kB, k0, kB)) continue;
       __syncthreads();  // the previous tile's readers are done
       const size_t qbase = (((size_t)b * sq + q0) * n + h) * dr;
       load_tile<T, D>(sQ, q + qbase, q0, sq, qstride, dr);
       load_tile<T, D>(sdO, dout + qbase, q0, sq, qstride, dr);
       load_row_stats(sL, sDl, lse, delta, bh, q0, sq);
       __syncthreads();
-      probs_and_ds<T, D>(smem, kpm, b, sk, q0, k0, scale, causal);
+      probs_and_ds<T, D>(smem, kpm, b, sk, q0, k0, scale, causal, ex, drop,
+                         bh);
       __syncthreads();  // p and ds of every query row are in place
       // dv[16 x D] += p^T[16 x 64] do[64 x D]; dk likewise with ds and q
 #pragma unroll
@@ -230,7 +245,7 @@ struct BwdDq {
   static constexpr int bytes = bar_off + (4 + 2 * STAGES) * 8 + 1024;
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kExt>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -240,7 +255,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                              const float* __restrict__ delta,
                              const float* __restrict__ kpm,
                              T* __restrict__ dq, int nb, int sq, int sk,
-                             int n, int g, int dr, float scale, int causal) {
+                             int n, int g, int dr, float scale, int causal,
+                             FlashExtras ex) {
   using C = BwdDq<D>;
   constexpr int BQ = C::BQ, BK = C::BK, S = C::STAGES;
   constexpr bool kRegs = sm90::kStationaryInRegs<D>;
@@ -286,7 +302,21 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
           sm90::tma_tile<D, BQ>(smem + C::do_off + qb * C::QT::BYTES, &tdo,
                                 &qdo_full[qb], h, w.q0, b);
         }
-        for (int t = 0; t < w.ntiles; ++t, ++ring) {
+        // the live key tiles, in order (the consumers walk the same ones)
+        const SegSpan qspan = kExt && ex.seg != nullptr
+                                  ? seg_span(ex, b, sq, w.q0, w.q0 + BQ)
+                                  : SegSpan{0, 0, 0};
+        auto next_live = [&](int t) {
+          if constexpr (!kExt) return t;  // no segment ids: every tile
+          if (ex.seg == nullptr) return t;
+          while (t < w.ntiles &&
+                 !seg_meet(qspan, seg_span(ex, b, sq, t * BK, t * BK + BK)))
+            ++t;
+          return t;
+        };
+        int t0 = next_live(0);
+        if (t0 >= w.ntiles) t0 = 0;  // none live: tile 0, wholly masked
+        for (int t = t0; t < w.ntiles; t = next_live(t + 1), ++ring) {
           const int s = ring % S;
           const int k0 = t * BK;
           sm90::bar_wait(&empty[s], ((ring / S) & 1) ^ 1);
@@ -325,6 +355,18 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       const int wg_row = w.q0 + wg * 64;
       const int row0 = wg_row + warp * 16 + (lane >> 2);  // and row0 + 8
       const int qb = j & 1;
+      // the query tile's ids (segment ids only)
+      const SegSpan qspan = kExt && ex.seg != nullptr
+                                ? seg_span(ex, b, sq, w.q0, w.q0 + BQ)
+                                : SegSpan{0, 0, 0};
+      auto next_live = [&](int t) {
+        if constexpr (!kExt) return t;  // no segment ids: every tile
+        if (ex.seg == nullptr) return warp_uniform(t);
+        while (t < ntiles &&
+               !seg_meet(qspan, seg_span(ex, b, sq, t * BK, t * BK + BK)))
+          ++t;
+        return warp_uniform(t);
+      };
       // -lse in log2 units (-1e30 on fully masked rows and rows past sq,
       // so that their p is exp2(-1e30) = 0) and delta * scale
       float nl[2], dls[2];
@@ -345,15 +387,16 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       // Q and dO as the A operands of S and dP
       uint32_t qf[kRegs ? D / 16 : 1][4], dof[kRegs ? D / 16 : 1][4];
 
-      // S = Q K^T and dP = dO V^T of key tile t, issued and committed
+      // S = Q K^T and dP = dO V^T of the u-th live key tile, issued and
+      // committed
       auto issue_s_dp = [&](float (&s_acc)[BK / 2],
-                            float (&dp_acc)[BK / 2], int t) {
-        const int s = (ring + t) % S;
+                            float (&dp_acc)[BK / 2], int u) {
+        const int s = (ring + u) % S;
         const uint32_t sK =
             sm90::smem_addr(smem + C::k_off + s * C::KT::BYTES);
         const uint32_t sV =
             sm90::smem_addr(smem + C::v_off + s * C::KT::BYTES);
-        sm90::bar_wait(&full[s], ((ring + t) / S) & 1);
+        sm90::bar_wait(&full[s], ((ring + u) / S) & 1);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           if constexpr (kRegs) {
@@ -384,6 +427,10 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
         __syncwarp();
         if (lane == 0) sm90::bar_arrive(&qdo_empty[qb]);
       }
+      // the live key tiles, as the producer walks them (all of them
+      // without segment ids: u == t)
+      int t = next_live(0);
+      if (t >= ntiles) t = 0;  // none live: tile 0, wholly masked
       sm90::turn_begin(wg);
       sm90::mma_fence();
       issue_s_dp(acc_s, acc_dp, 0);
@@ -391,17 +438,33 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       sm90::mma_wait<0>();
       sm90::fence_regs(acc_s);
       sm90::fence_regs(acc_dp);
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = (ring + t) % S;
+      int u = 0;  // live tiles consumed
+      while (t < ntiles) {
+        const int s = (ring + u) % S;
         const int k0 = t * BK;
+        const int t_next = next_live(t + 1);
 
         // p = exp(s * scale + kpm - lse), ds = p * (dp - delta) * scale,
-        // packed into A fragments pair by pair; masked scores get -1e30
+        // packed into A fragments pair by pair; masked scores get -1e30;
+        // under dropout dp is dropped and scaled first
         const float* kp = skpm + s * BK + 2 * (lane & 3);
         const bool edge = k0 + BK > sk || (causal && k0 + BK - 1 > wg_row);
         uint32_t da[BK / 16][4];  // ds rounded to T
         auto form_ds = [&](auto with_kpm) {
           constexpr bool kKpm = decltype(with_kpm)::value;
+          // segment ids: a tile whose rows and keys all hold one id is
+          // open throughout; others test each element
+          bool seg_test = false;
+          int qs[2] = {0, 0};  // this thread's two rows' segment ids
+          if constexpr (kExt) {
+            if (ex.seg != nullptr) {
+              seg_test = !seg_inside(qspan, seg_span(ex, b, sq, k0, k0 + BK));
+              qs[0] = seg_at(ex, b, sq, row0);
+              qs[1] = seg_at(ex, b, sq, row0 + 8);
+            }
+          }
+          const bool masked = edge || seg_test;
+          const Dropout drop(ex);
 #pragma unroll
           for (int cc = 0; cc < BK / 8; ++cc) {
             float2 kv = make_float2(0.0f, 0.0f);
@@ -409,6 +472,15 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
               kv = *reinterpret_cast<const float2*>(kp + 8 * cc);
               kv.x *= sm90::kLog2e;
               kv.y *= sm90::kLog2e;
+            }
+            // the segment ids of this thread's two columns
+            int ks[2] = {0, 0};
+            if constexpr (kExt) {
+              if (seg_test) {
+                const int c0 = k0 + sm90::frag_col(4 * cc, lane);
+                ks[0] = seg_at(ex, b, sk, c0);
+                ks[1] = seg_at(ex, b, sk, c0 + 1);
+              }
             }
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
@@ -418,12 +490,22 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                 const int r = 4 * cc + 2 * i + e;
                 float x = fmaf(acc_s[r], sl2, nl[i]);
                 if constexpr (kKpm) x += e ? kv.y : kv.x;
-                if (edge) {
+                if (masked) {
                   const int col = k0 + sm90::frag_col(r, lane);
                   if (col >= sk || (causal && col > row0 + 8 * i))
                     x = APEX_NEG_INF;
+                  if constexpr (kExt) {
+                    if (seg_test && !seg_open(qs[i], ks[e]))
+                      x = APEX_NEG_INF;
+                  }
                 }
-                ds[e] = sm90::ex2(x) * fmaf(acc_dp[r], scale, -dls[i]);
+                float dpv = acc_dp[r];
+                if constexpr (kExt) {
+                  if (drop.on)
+                    dpv = drop.apply(dpv, bh, row0 + 8 * i,
+                                     k0 + sm90::frag_col(r, lane));
+                }
+                ds[e] = sm90::ex2(x) * fmaf(dpv, scale, -dls[i]);
               }
               da[cc / 2][2 * (cc % 2) + i] = sm90::pack2<T>(ds[0], ds[1]);
             }
@@ -443,7 +525,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
           sm90::mma_rs<T, D, 1>(acc_dq, da[kk],
                                 sm90::desc_mn<D, BK>(sK, kk), 1);
         sm90::mma_commit();
-        if (t + 1 < ntiles) issue_s_dp(acc_s, acc_dp, t + 1);
+        if (t_next < ntiles) issue_s_dp(acc_s, acc_dp, u + 1);
         sm90::turn_end(wg);
         sm90::mma_wait<0>();
         sm90::fence_regs(acc_dq);
@@ -451,12 +533,14 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
         sm90::fence_regs(acc_dp);
         __syncwarp();
         if (lane == 0) sm90::bar_arrive(&empty[s]);
+        ++u;
+        t = t_next;
       }
       if constexpr (!kRegs) {
         __syncwarp();
         if (lane == 0) sm90::bar_arrive(&qdo_empty[qb]);
       }
-      ring += ntiles;
+      ring += u;
       const float one[2] = {1.0f, 1.0f};
       sm90::store_rows<T>(acc_dq, one, dq + ((size_t)b * sq * n + h) * dr,
                           (size_t)n * dr, row0, sq, dr);
@@ -507,7 +591,7 @@ struct DkvItem {
   }
 };
 
-template <typename T, int D>
+template <typename T, int D, bool kExt>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -518,7 +602,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                               const float* __restrict__ kpm,
                               T* __restrict__ dk, T* __restrict__ dv, int nb,
                               int sq, int sk, int n, int g, int dr,
-                              float scale, int causal) {
+                              float scale, int causal, FlashExtras ex) {
   using C = BwdDkv<D>;
   constexpr int BQ = C::BQ, BK = C::BK, S = C::STAGES;
   constexpr bool kRegs = sm90::kStationaryInRegs<D>;
@@ -565,7 +649,23 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
           sm90::tma_tile<D, BK>(smem + C::v_off + kb * C::KT::BYTES, &tv,
                                 &kv_full[kb], kvh, w.k0, b);
         }
-        for (int t = 0; t < w.ntiles; ++t, ++ring) {
+        // the live (head, query tile) tiles, in order (the consumers walk
+        // the same ones); none may be live
+        const SegSpan kspan = kExt && ex.seg != nullptr
+                                  ? seg_span(ex, b, sk, w.k0, w.k0 + BK)
+                                  : SegSpan{0, 0, 0};
+        auto next_live = [&](int t) {
+          if constexpr (!kExt) return t;  // no segment ids: every tile
+          if (ex.seg == nullptr) return t;
+          while (t < w.ntiles) {
+            const int q0 = w.q_begin + (t % w.nqt) * BQ;
+            if (seg_meet(seg_span(ex, b, sq, q0, q0 + BQ), kspan)) break;
+            ++t;
+          }
+          return t;
+        };
+        for (int t = next_live(0); t < w.ntiles;
+             t = next_live(t + 1), ++ring) {
           const int s = ring % S;
           const int h = kvh * rep + t / w.nqt;
           const int q0 = w.q_begin + (t % w.nqt) * BQ;
@@ -606,6 +706,20 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       const int wg_key = w.k0 + wg * 64;
       const int key0 = wg_key + warp * 16 + (lane >> 2);  // and key0 + 8
       const int kb = j & 1;
+      // the key tile's ids (segment ids only)
+      const SegSpan kspan = kExt && ex.seg != nullptr
+                                ? seg_span(ex, b, sk, w.k0, w.k0 + BK)
+                                : SegSpan{0, 0, 0};
+      auto next_live = [&](int t) {
+        if constexpr (!kExt) return t;  // no segment ids: every tile
+        if (ex.seg == nullptr) return warp_uniform(t);
+        while (t < ntiles) {
+          const int q0 = w.q_begin + (t % w.nqt) * BQ;
+          if (seg_meet(seg_span(ex, b, sq, q0, q0 + BQ), kspan)) break;
+          ++t;
+        }
+        return warp_uniform(t);
+      };
       float kp2[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
@@ -627,15 +741,16 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       // K and V as the A operands of S^T and dP^T
       uint32_t kf[kRegs ? D / 16 : 1][4], vf[kRegs ? D / 16 : 1][4];
 
-      // S^T = K Q^T and dP^T = V dO^T of query tile t, issued, committed
+      // S^T = K Q^T and dP^T = V dO^T of the u-th live query tile, issued,
+      // committed
       auto issue_s_dp = [&](float (&s_acc)[BQ / 2],
-                            float (&dp_acc)[BQ / 2], int t) {
-        const int s = (ring + t) % S;
+                            float (&dp_acc)[BQ / 2], int u) {
+        const int s = (ring + u) % S;
         const uint32_t sQ =
             sm90::smem_addr(smem + C::q_off + s * C::QT::BYTES);
         const uint32_t sdO =
             sm90::smem_addr(smem + C::do_off + s * C::QT::BYTES);
-        sm90::bar_wait(&full[s], ((ring + t) / S) & 1);
+        sm90::bar_wait(&full[s], ((ring + u) / S) & 1);
 #pragma unroll
         for (int kk = 0; kk < D / 16; ++kk) {
           if constexpr (kRegs) {
@@ -666,8 +781,11 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
         __syncwarp();
         if (lane == 0) sm90::bar_arrive(&kv_empty[kb]);
       }
+      // the live tiles, as the producer walks them (all of them without
+      // segment ids: u == t)
+      int t = next_live(0);
       sm90::turn_begin(wg);
-      if (ntiles > 0) {
+      if (t < ntiles) {
         sm90::mma_fence();
         issue_s_dp(acc_s, acc_dp, 0);
       }
@@ -675,18 +793,34 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       sm90::mma_wait<0>();
       sm90::fence_regs(acc_s);
       sm90::fence_regs(acc_dp);
-      for (int t = 0; t < ntiles; ++t) {
-        const int s = (ring + t) % S;
+      int u = 0;  // live tiles consumed
+      while (t < ntiles) {
+        const int s = (ring + u) % S;
         const int q0 = w.q_begin + (t % w.nqt) * BQ;
+        const int bh = b * n + kvh * rep + t / w.nqt;
+        const int t_next = next_live(t + 1);
 
         // p^T and ds^T (rows are keys, columns queries), packed into A
-        // fragments pair by pair; masked scores get -1e30
+        // fragments pair by pair; masked scores get -1e30; under dropout
+        // dV's p and ds's dp are dropped and scaled
         const float* sl = slse + s * BQ + 2 * (lane & 3);
         const float* sd = sdl + s * BQ + 2 * (lane & 3);
         const bool edge = causal && wg_key + 63 > q0;
         uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // p^T, ds^T rounded to T
         auto form_p_ds = [&](auto with_kpm) {
           constexpr bool kKpm = decltype(with_kpm)::value;
+          // segment ids: a tile whose queries and keys all hold one id is
+          // open throughout; others test each element
+          bool seg_test = false;
+          int ksg[2] = {0, 0};  // this thread's two keys' segment ids
+          if constexpr (kExt) {
+            if (ex.seg != nullptr) {
+              seg_test = !seg_inside(seg_span(ex, b, sq, q0, q0 + BQ), kspan);
+              ksg[0] = seg_at(ex, b, sk, key0);
+              ksg[1] = seg_at(ex, b, sk, key0 + 8);
+            }
+          }
+          const Dropout drop(ex);
 #pragma unroll
           for (int cc = 0; cc < BQ / 8; ++cc) {
             // per query column: -lse in log2 units (-1e30 on fully masked
@@ -698,6 +832,15 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                 l2.y > APEX_NEG_INF / 2 ? -l2.y * sm90::kLog2e
                                         : APEX_NEG_INF};
             const float dls[2] = {d2.x * scale, d2.y * scale};
+            // the segment ids of this thread's two query columns
+            int qsg[2] = {0, 0};
+            if constexpr (kExt) {
+              if (seg_test) {
+                const int c0 = q0 + sm90::frag_col(4 * cc, lane);
+                qsg[0] = seg_at(ex, b, sq, c0);
+                qsg[1] = seg_at(ex, b, sq, c0 + 1);
+              }
+            }
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
               float p[2], ds[2];
@@ -708,8 +851,25 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                 if constexpr (kKpm) x += kp2[i];
                 if (edge && key0 + 8 * i > q0 + sm90::frag_col(r, lane))
                   x = APEX_NEG_INF;
+                if constexpr (kExt) {
+                  if (seg_test && !seg_open(qsg[e], ksg[i]))
+                    x = APEX_NEG_INF;
+                }
                 p[e] = sm90::ex2(x);
-                ds[e] = p[e] * fmaf(acc_dp[r], scale, -dls[e]);
+                float dpv = acc_dp[r];
+                bool kept = true;
+                if constexpr (kExt) {
+                  if (drop.on) {
+                    kept = drop.keep(bh, q0 + sm90::frag_col(r, lane),
+                                     key0 + 8 * i);
+                    dpv = kept ? dpv * drop.inv : 0.0f;
+                  }
+                }
+                ds[e] = p[e] * fmaf(dpv, scale, -dls[e]);
+                // dV takes the dropped p
+                if constexpr (kExt) {
+                  if (drop.on) p[e] = kept ? p[e] * drop.inv : 0.0f;
+                }
               }
               pa[cc / 2][2 * (cc % 2) + i] = sm90::pack2<T>(p[0], p[1]);
               da[cc / 2][2 * (cc % 2) + i] = sm90::pack2<T>(ds[0], ds[1]);
@@ -735,7 +895,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                                 1);
         }
         sm90::mma_commit();
-        if (t + 1 < ntiles) issue_s_dp(acc_s, acc_dp, t + 1);
+        if (t_next < ntiles) issue_s_dp(acc_s, acc_dp, u + 1);
         sm90::turn_end(wg);
         sm90::mma_wait<0>();
         sm90::fence_regs(acc_dv);
@@ -744,12 +904,14 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
         sm90::fence_regs(acc_dp);
         __syncwarp();
         if (lane == 0) sm90::bar_arrive(&empty[s]);
+        ++u;
+        t = t_next;
       }
       if constexpr (!kRegs) {
         __syncwarp();
         if (lane == 0) sm90::bar_arrive(&kv_empty[kb]);
       }
-      ring += ntiles;
+      ring += u;
       const float one[2] = {1.0f, 1.0f};
       const size_t off = ((size_t)b * sk * g + kvh) * dr;
       sm90::store_rows<T>(acc_dk, one, dk + off, (size_t)g * dr, key0, sk,
@@ -773,26 +935,66 @@ int bwd_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
   return err;
 }
 
+template <typename T, int D, bool kExt>
+int launch_dq_sm90(const void* q, const void* k, const void* v,
+                   const void* dout, const void* lse, const void* delta,
+                   const void* kpm, void* dq, int b, int sq, int sk, int n,
+                   int g, int dr, float scale, int causal,
+                   const FlashExtras& ex, cudaStream_t stream) {
+  using C = BwdDq<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = bwd_maps<T, D>(&tq, &tk, &tv, &tdo, q, k, v, dout, b, sq, sk, n,
+                           g, dr, C::BQ, C::BK);
+  if (err == 0)
+    err = sm90::set_smem(flash_bwd_dq_sm90_kernel<T, D, kExt>, C::bytes);
+  int grid = 0;
+  if (err == 0)
+    err = sm90::persistent_grid((sq + C::BQ - 1) / C::BQ * b * n, &grid);
+  if (err != 0) return err;
+  flash_bwd_dq_sm90_kernel<T, D, kExt><<<grid, sm90::kThreads, C::bytes,
+                                         stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+      (const float*)kpm, (T*)dq, b, sq, sk, n, g, dr, scale, causal, ex);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D, bool kExt>
+int launch_dkv_sm90(const void* q, const void* k, const void* v,
+                    const void* dout, const void* lse, const void* delta,
+                    const void* kpm, void* dk, void* dv, int b, int sq,
+                    int sk, int n, int g, int dr, float scale, int causal,
+                    const FlashExtras& ex, cudaStream_t stream) {
+  using C = BwdDkv<D>;
+  CUtensorMap tq, tk, tv, tdo;
+  int err = bwd_maps<T, D>(&tq, &tk, &tv, &tdo, q, k, v, dout, b, sq, sk, n,
+                           g, dr, C::BQ, C::BK);
+  if (err == 0)
+    err = sm90::set_smem(flash_bwd_dkv_sm90_kernel<T, D, kExt>, C::bytes);
+  int grid = 0;
+  if (err == 0)
+    err = sm90::persistent_grid((sk + C::BK - 1) / C::BK * b * g, &grid);
+  if (err != 0) return err;
+  flash_bwd_dkv_sm90_kernel<T, D, kExt><<<grid, sm90::kThreads, C::bytes,
+                                          stream>>>(
+      tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
+      (const float*)kpm, (T*)dk, (T*)dv, b, sq, sk, n, g, dr, scale, causal,
+      ex);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* kpm, void* dq,
               int b, int sq, int sk, int n, int g, int dr, float scale,
-              int causal, cudaStream_t stream) {
+              int causal, const FlashExtras& ex, cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    using C = BwdDq<D>;
-    CUtensorMap tq, tk, tv, tdo;
-    int err = bwd_maps<T, D>(&tq, &tk, &tv, &tdo, q, k, v, dout, b, sq, sk,
-                             n, g, dr, C::BQ, C::BK);
-    if (err == 0)
-      err = sm90::set_smem(flash_bwd_dq_sm90_kernel<T, D>, C::bytes);
-    int grid = 0;
-    if (err == 0)
-      err = sm90::persistent_grid((sq + C::BQ - 1) / C::BQ * b * n, &grid);
-    if (err != 0) return err;
-    flash_bwd_dq_sm90_kernel<T, D><<<grid, sm90::kThreads, C::bytes,
-                                     stream>>>(
-        tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-        (const float*)kpm, (T*)dq, b, sq, sk, n, g, dr, scale, causal);
+    return has_extras(ex)
+               ? launch_dq_sm90<T, D, true>(q, k, v, dout, lse, delta, kpm,
+                                            dq, b, sq, sk, n, g, dr, scale,
+                                            causal, ex, stream)
+               : launch_dq_sm90<T, D, false>(q, k, v, dout, lse, delta, kpm,
+                                             dq, b, sq, sk, n, g, dr, scale,
+                                             causal, ex, stream);
   } else {
     const int bytes = Smem<T, D>::bytes;
     int err = prepare(flash_bwd_dq_kernel<T, D>, bytes);
@@ -801,7 +1003,7 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
     flash_bwd_dq_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
         (const float*)lse, (const float*)delta, (const float*)kpm, (T*)dq,
-        sq, sk, n, g, dr, scale, causal);
+        sq, sk, n, g, dr, scale, causal, ex);
   }
   return (int)cudaGetLastError();
 }
@@ -810,23 +1012,16 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const void* kpm, void* dk,
                void* dv, int b, int sq, int sk, int n, int g, int dr,
-               float scale, int causal, cudaStream_t stream) {
+               float scale, int causal, const FlashExtras& ex,
+               cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
-    using C = BwdDkv<D>;
-    CUtensorMap tq, tk, tv, tdo;
-    int err = bwd_maps<T, D>(&tq, &tk, &tv, &tdo, q, k, v, dout, b, sq, sk,
-                             n, g, dr, C::BQ, C::BK);
-    if (err == 0)
-      err = sm90::set_smem(flash_bwd_dkv_sm90_kernel<T, D>, C::bytes);
-    int grid = 0;
-    if (err == 0)
-      err = sm90::persistent_grid((sk + C::BK - 1) / C::BK * b * g, &grid);
-    if (err != 0) return err;
-    flash_bwd_dkv_sm90_kernel<T, D><<<grid, sm90::kThreads, C::bytes,
-                                      stream>>>(
-        tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-        (const float*)kpm, (T*)dk, (T*)dv, b, sq, sk, n, g, dr, scale,
-        causal);
+    return has_extras(ex)
+               ? launch_dkv_sm90<T, D, true>(q, k, v, dout, lse, delta, kpm,
+                                             dk, dv, b, sq, sk, n, g, dr,
+                                             scale, causal, ex, stream)
+               : launch_dkv_sm90<T, D, false>(q, k, v, dout, lse, delta, kpm,
+                                              dk, dv, b, sq, sk, n, g, dr,
+                                              scale, causal, ex, stream);
   } else {
     const int bytes = Smem<T, D>::bytes;
     int err = prepare(flash_bwd_dkv_kernel<T, D>, bytes);
@@ -835,7 +1030,7 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
     flash_bwd_dkv_kernel<T, D><<<grid, kThreads, bytes, stream>>>(
         (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
         (const float*)lse, (const float*)delta, (const float*)kpm, (T*)dk,
-        (T*)dv, sq, sk, n, g, dr, scale, causal);
+        (T*)dv, sq, sk, n, g, dr, scale, causal, ex);
   }
   return (int)cudaGetLastError();
 }
@@ -846,18 +1041,23 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 // [b*n, sq] fp32; kpm [b, sk] fp32 additive or NULL; dq like q.  d a
 // multiple of 8 up to 128, on the tiles of the next of 32, 64 and 128
 // (APEX_DISPATCH_HEAD_DIM), their columns past d zeros and not stored.
+// seed, threshold, inv_keep, seg and seg_rng as apex_flash_fwd's.
 extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* dout, const void* lse,
                                  const void* delta, const void* kpm, void* dq,
                                  int b, int sq, int sk, int n, int g, int d,
                                  float scale, int causal, int dtype,
-                                 cudaStream_t stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0)
+                                 const void* seed, unsigned threshold,
+                                 float inv_keep, const void* seg,
+                                 const void* seg_rng, cudaStream_t stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0 ||
+      (seg != nullptr && (seg_rng == nullptr || sq != sk)))
     return (int)cudaErrorInvalidValue;
+  const FlashExtras ex = make_extras(seed, threshold, inv_keep, seg, seg_rng);
   APEX_DISPATCH_FLOAT(dtype, T, {
     APEX_DISPATCH_HEAD_DIM(d, D, (launch_dq<T, D>(q, k, v, dout, lse, delta,
                                                   kpm, dq, b, sq, sk, n, g, d,
-                                                  scale, causal, stream)));
+                                                  scale, causal, ex, stream)));
   });
   return (int)cudaErrorInvalidValue;
 }
@@ -869,13 +1069,17 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
                                   const void* kpm, void* dk, void* dv, int b,
                                   int sq, int sk, int n, int g, int d,
                                   float scale, int causal, int dtype,
-                                  cudaStream_t stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0)
+                                  const void* seed, unsigned threshold,
+                                  float inv_keep, const void* seg,
+                                  const void* seg_rng, cudaStream_t stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0 ||
+      (seg != nullptr && (seg_rng == nullptr || sq != sk)))
     return (int)cudaErrorInvalidValue;
+  const FlashExtras ex = make_extras(seed, threshold, inv_keep, seg, seg_rng);
   APEX_DISPATCH_FLOAT(dtype, T, {
     APEX_DISPATCH_HEAD_DIM(d, D, (launch_dkv<T, D>(q, k, v, dout, lse, delta,
                                                    kpm, dk, dv, b, sq, sk, n,
-                                                   g, d, scale, causal,
+                                                   g, d, scale, causal, ex,
                                                    stream)));
   });
   return (int)cudaErrorInvalidValue;
@@ -883,26 +1087,32 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
 
 namespace {
 
-template <typename T, int D>
+template <typename T, int D, bool kExt>
 int bwd_attrs_d(int which, int* out) {
   if (which == 0)
-    return sm90::kernel_attrs(flash_bwd_dq_sm90_kernel<T, D>,
+    return sm90::kernel_attrs(flash_bwd_dq_sm90_kernel<T, D, kExt>,
                               BwdDq<D>::bytes, sm90::kThreads, out);
-  return sm90::kernel_attrs(flash_bwd_dkv_sm90_kernel<T, D>, BwdDkv<D>::bytes,
-                            sm90::kThreads, out);
+  return sm90::kernel_attrs(flash_bwd_dkv_sm90_kernel<T, D, kExt>,
+                            BwdDkv<D>::bytes, sm90::kThreads, out);
 }
 
-template <typename T>
+template <typename T, bool kExt>
 int bwd_attrs(int which, int d, int* out) {
-  APEX_DISPATCH_HEAD_DIM(d, D, (bwd_attrs_d<T, D>(which, out)));
+  APEX_DISPATCH_HEAD_DIM(d, D, (bwd_attrs_d<T, D, kExt>(which, out)));
 }
 
 }  // namespace
 
 // The 16-bit K6 (which = 0) or K7 (which = 1) kernel's {registers, shared
-// memory per CTA, CTAs per SM, spill bytes} for head size d.
-extern "C" int apex_flash_bwd_attrs(int which, int dtype, int d, int* out) {
-  if (dtype == APEX_BF16) return bwd_attrs<__nv_bfloat16>(which, d, out);
-  if (dtype == APEX_F16) return bwd_attrs<__half>(which, d, out);
+// memory per CTA, CTAs per SM, spill bytes} for head size d, without (ext
+// = 0) or with (ext = 1) segment ids or dropout.
+extern "C" int apex_flash_bwd_attrs(int which, int dtype, int d, int ext,
+                                    int* out) {
+  if (dtype == APEX_BF16)
+    return ext ? bwd_attrs<__nv_bfloat16, true>(which, d, out)
+               : bwd_attrs<__nv_bfloat16, false>(which, d, out);
+  if (dtype == APEX_F16)
+    return ext ? bwd_attrs<__half, true>(which, d, out)
+               : bwd_attrs<__half, false>(which, d, out);
   return (int)cudaErrorInvalidValue;
 }

@@ -52,6 +52,13 @@
 // turn and still arrives (its partial is not read), so the ranks stay in
 // step.
 //
+// Dropout and segment ids (keep_mask.cuh) are runtime arguments, as in
+// _bwd_fused_kernel (:613-627; the 16-bit kernel runs an instantiation of
+// its own, kExt, when either is on): dV takes the dropped p, dS the dropped dp;
+// keys of another segment are masked, and a warpgroup whose key tile no
+// query of a step's tile can see skips that step's products (its dS^T
+// tile is zero), as a causal one does.
+//
 // Numbers.  As K6/K7: p and ds are rounded to the input type before the
 // tensor-core products; scores, dp, lse, delta and the dq partials stay
 // fp32.
@@ -67,6 +74,8 @@
 // (query, key) pair, ~0.02 ms at 989 TFLOP/s) and bytes (q, k, v, do,
 // dq, dk, dv, lse, delta: ~59 MB, ~0.018 ms).
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "flash_bwd_tile.cuh"
 #include "sm90_tile.cuh"
@@ -89,7 +98,8 @@ __global__ void __launch_bounds__(kThreads)
                            const float* __restrict__ kpm,
                            float* __restrict__ dq_part, T* __restrict__ dk,
                            T* __restrict__ dv, int b_total, int sq, int sk,
-                           int n, int g, int dr, float scale, int causal) {
+                           int n, int g, int dr, float scale, int causal,
+                           FlashExtras ex) {
   using L = Smem<T, D>;
   extern __shared__ __align__(128) unsigned char smem[];
   T* sQ = reinterpret_cast<T*>(smem + L::q_off);
@@ -110,6 +120,7 @@ __global__ void __launch_bounds__(kThreads)
   const int k0 = kt * kB;
   const int qstride = n * dr, kstride = g * dr;
   const int sqp = (sq + kB - 1) / kB * kB;
+  const Dropout drop(ex);
 
   const size_t kbase = (((size_t)b * sk + k0) * g + kvh) * dr;
   load_tile<T, D>(sK, k + kbase, k0, sk, kstride, dr);
@@ -128,17 +139,24 @@ __global__ void __launch_bounds__(kThreads)
     const int h = kvh * rep + r;
     const int bh = b * n + h;
     for (int q0 = q_begin; q0 < sq; q0 += kB) {
+      // this warp's 16 rows of the dq partial
+      float* part = dq_part + (((size_t)kt * b_total * n + bh) * sqp + q0 +
+                               warp * 16) * D;
+      if (!seg_tile_live(ex, b, sq, q0, kB, k0, kB)) {
+        // no query of the tile sees these keys: a zero partial
+        const int lane = threadIdx.x & 31;
+        for (int e = lane; e < 16 * D; e += 32) part[e] = 0.0f;
+        continue;
+      }
       __syncthreads();  // the previous tile's readers are done
       const size_t qbase = (((size_t)b * sq + q0) * n + h) * dr;
       load_tile<T, D>(sQ, q + qbase, q0, sq, qstride, dr);
       load_tile<T, D>(sdO, dout + qbase, q0, sq, qstride, dr);
       load_row_stats(sL, sDl, lse, delta, bh, q0, sq);
       __syncthreads();
-      probs_and_ds<T, D>(smem, kpm, b, sk, q0, k0, scale, causal);
-      // this warp's 16 rows of the dq partial: ds[16 x 64] k[64 x D],
-      // stored straight to global memory
-      float* part = dq_part + (((size_t)kt * b_total * n + bh) * sqp + q0 +
-                               warp * 16) * D;
+      probs_and_ds<T, D>(smem, kpm, b, sk, q0, k0, scale, causal, ex, drop,
+                         bh);
+      // ds[16 x 64] k[64 x D], stored straight to global memory
 #pragma unroll
       for (int nb = 0; nb < D / 16; ++nb) {
         Acc<T> acc;
@@ -220,7 +238,7 @@ int launch_fp32(const void* q, const void* k, const void* v,
                 const void* dout, const void* lse, const void* delta,
                 const void* kpm, void* dq_part, void* dq, void* dk, void* dv,
                 int b, int sq, int sk, int n, int g, int dr, float scale,
-                int causal, cudaStream_t stream) {
+                int causal, const FlashExtras& ex, cudaStream_t stream) {
   if (dq_part == nullptr) return (int)cudaErrorInvalidValue;
   const int bytes = Smem<float, D>::bytes;
   int err = prepare(flash_bwd_short_kernel<float, D>, bytes);
@@ -230,7 +248,7 @@ int launch_fp32(const void* q, const void* k, const void* v,
       (const float*)q, (const float*)k, (const float*)v, (const float*)dout,
       (const float*)lse, (const float*)delta, (const float*)kpm,
       (float*)dq_part, (float*)dk, (float*)dv, b, sq, sk, n, g, dr, scale,
-      causal);
+      causal, ex);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
   const long long total = (long long)b * n * sq * (D / 4);
@@ -297,7 +315,10 @@ __device__ __forceinline__ int short_first_tile(int kw, int bq, int nqt,
   return causal ? min(kw / bq, nqt) : 0;
 }
 
-template <typename T, int D>
+// kExt: the instantiation that takes segment ids or dropout (a kernel of
+// its own, as K2's, so that a call with neither runs the code it ran
+// before).
+template <typename T, int D, bool kExt>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     flash_bwd_short_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                                 const __grid_constant__ CUtensorMap tk,
@@ -308,7 +329,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                                 const float* __restrict__ kpm,
                                 T* __restrict__ dq, T* __restrict__ dk,
                                 T* __restrict__ dv, int sq, int sk, int n,
-                                int g, int dr, float scale, int causal) {
+                                int g, int dr, float scale, int causal,
+                                FlashExtras ex) {
   using C = Short<D>;
   constexpr int BQ = C::BQ, BK = C::BK, S = C::STAGES;
   namespace cg = cooperative_groups;
@@ -459,6 +481,22 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     // this warpgroup's first query tile
     const int qt_w = short_first_tile(wg_key, BQ, nqt, causal);
     const int key0 = wg_key + warp * 16 + (lane >> 2);  // and key0 + 8
+    // whether this warpgroup's keys can see query tile qt: causally, and
+    // by segment (warp-uniform, so that the products' branches stay whole)
+    // this warpgroup's keys' ids (segment ids only)
+    const SegSpan wspan = kExt && ex.seg != nullptr
+                              ? seg_span(ex, b, sk, wg_key, wg_key + BK)
+                              : SegSpan{0, 0, 0};
+    auto opens = [&](int qt) {
+      if constexpr (kExt)
+        return warp_uniform(qt >= qt_w &&
+                            (ex.seg == nullptr ||
+                             seg_meet(seg_span(ex, b, sq, qt * BQ,
+                                               qt * BQ + BQ),
+                                      wspan))) != 0;
+      else
+        return qt >= qt_w;
+    };
     // the key's padding in log2 units; -1e30 past sk, so that no key of
     // the tail (K and V rows of zeros) enters a product
     float kp2[2];
@@ -485,7 +523,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       acc_dv[r] = 0.0f;
     }
     // whether ring tile u's query tile is one this warpgroup's keys see
-    auto sees = [&](int u) { return qt_begin + u % nq >= qt_w; };
+    auto sees = [&](int u) { return opens(qt_begin + u % nq); };
 
     // S^T = K Q^T and dP^T = V dO^T of ring tile u, issued and committed
     auto issue_s_dp = [&](float (&s_acc)[BQ / 2], float (&dp_acc)[BQ / 2],
@@ -589,7 +627,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
     for (int t = 0; t < steps; ++t) {
       const int buf = t & 1;
       const int qt = t % nqt;
-      const bool mine = qt >= qt_w;  // this warpgroup has products
+      const bool mine = opens(qt);  // this warpgroup has products
       // warpgroup 0's dS^T tile of this parity is free once warpgroup 1's
       // dq product of step t - 2 has read it.  Waited at every step, ring
       // tile or not: a wait that skipped a phase could match the parity
@@ -599,36 +637,105 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       if (qt >= qt_begin) {          // a ring tile
         const int s = u % S;
         const int q0 = qt * BQ;
+        // whether this warpgroup issues the next ring tile's products:
+        // decided before the fragments below are live (with segment ids
+        // the decision reads the tiles' id ranges)
+        const bool next_sees = u + 1 < nopen && sees(u + 1);
         uint32_t pa[BQ / 16][4], da[BQ / 16][4];  // p^T, ds^T rounded to T
-        if (mine) {
+        // p^T and ds^T (rows are keys, columns queries), packed into A
+        // fragments pair by pair; masked scores get -1e30
+        auto form = [&]() {
           const uint32_t dsw = ds_of(buf, wg);
-          // p^T and ds^T (rows are keys, columns queries), packed into A
-          // fragments pair by pair; masked scores get -1e30
           const float* sl = slse + s * BQ + 2 * (lane & 3);
           const float* sd = sdl + s * BQ + 2 * (lane & 3);
           const bool edge = causal && wg_key + 63 > q0;
+          if constexpr (kExt) {
+            // Segment ids or dropout, in two passes, so that the packed
+            // fragments never live beside the verdicts' inputs (the
+            // accumulators of d = 128 leave no register for both): first
+            // p (dropped for dV) into acc_s and ds into acc_dp, in place
+            // a tile whose queries and keys all hold one id is open
+            // throughout; others test each element
+            const bool segs =
+                ex.seg != nullptr &&
+                !seg_inside(seg_span(ex, b, sq, q0, q0 + BQ), wspan);
+            const bool drops = ex.seed != nullptr;
+            const int ks[2] = {segs ? seg_at(ex, b, sk, key0) : 0,
+                               segs ? seg_at(ex, b, sk, key0 + 8) : 0};
+            // seed + bh * 0x9E3779B1 of this step's head
+            const uint32_t hb =
+                drops ? (uint32_t)__ldg(ex.seed) +
+                            (uint32_t)(b * n + kvh * rep + t / nqt) *
+                                0x9E3779B1u
+                      : 0u;
+#pragma unroll
+            for (int cc = 0; cc < BQ / 8; ++cc) {
+              // per query column: -lse in log2 units (-1e30 on fully
+              // masked rows) and delta * scale
+              const float2 l2 =
+                  *reinterpret_cast<const float2*>(sl + 8 * cc);
+              const float2 d2 =
+                  *reinterpret_cast<const float2*>(sd + 8 * cc);
+              const float nl[2] = {
+                  l2.x > APEX_NEG_INF / 2 ? -l2.x * sm90::kLog2e
+                                          : APEX_NEG_INF,
+                  l2.y > APEX_NEG_INF / 2 ? -l2.y * sm90::kLog2e
+                                          : APEX_NEG_INF};
+              const float dls[2] = {d2.x * scale, d2.y * scale};
+#pragma unroll
+              for (int i = 0; i < 2; ++i)
+#pragma unroll
+                for (int e = 0; e < 2; ++e) {
+                  const int r = 4 * cc + 2 * i + e;
+                  const int qcol = q0 + sm90::frag_col(r, lane);
+                  float x = fmaf(acc_s[r], sl2, nl[e]) + kp2[i];
+                  if ((edge && key0 + 8 * i > qcol) ||
+                      (segs && !seg_open(seg_at(ex, b, sq, qcol), ks[i])))
+                    x = APEX_NEG_INF;
+                  const float pv = sm90::ex2(x);
+                  const bool kept =
+                      !drops || keep_hash_hb(hb, (uint32_t)qcol,
+                                             (uint32_t)(key0 + 8 * i)) <
+                                    ex.threshold;
+                  const float dpv = drops ? (kept ? acc_dp[r] * ex.inv_keep
+                                                  : 0.0f)
+                                          : acc_dp[r];
+                  acc_dp[r] = pv * fmaf(dpv, scale, -dls[e]);
+                  acc_s[r] = drops ? (kept ? pv * ex.inv_keep : 0.0f) : pv;
+                }
+            }
+          }
 #pragma unroll
           for (int cc = 0; cc < BQ / 8; ++cc) {
-            // per query column: -lse in log2 units (-1e30 on fully
-            // masked rows) and delta * scale
-            const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * cc);
-            const float2 d2 = *reinterpret_cast<const float2*>(sd + 8 * cc);
-            const float nl[2] = {
-                l2.x > APEX_NEG_INF / 2 ? -l2.x * sm90::kLog2e : APEX_NEG_INF,
-                l2.y > APEX_NEG_INF / 2 ? -l2.y * sm90::kLog2e
-                                        : APEX_NEG_INF};
-            const float dls[2] = {d2.x * scale, d2.y * scale};
+            // per query column: -lse in log2 units (-1e30 on fully masked
+            // rows) and delta * scale (read again only without extras)
+            float nl[2] = {0.0f, 0.0f}, dls[2] = {0.0f, 0.0f};
+            if constexpr (!kExt) {
+              const float2 l2 = *reinterpret_cast<const float2*>(sl + 8 * cc);
+              const float2 d2 = *reinterpret_cast<const float2*>(sd + 8 * cc);
+              nl[0] = l2.x > APEX_NEG_INF / 2 ? -l2.x * sm90::kLog2e
+                                              : APEX_NEG_INF;
+              nl[1] = l2.y > APEX_NEG_INF / 2 ? -l2.y * sm90::kLog2e
+                                              : APEX_NEG_INF;
+              dls[0] = d2.x * scale;
+              dls[1] = d2.y * scale;
+            }
 #pragma unroll
             for (int i = 0; i < 2; ++i) {
               float p[2], ds[2];
 #pragma unroll
               for (int e = 0; e < 2; ++e) {
                 const int r = 4 * cc + 2 * i + e;
-                float x = fmaf(acc_s[r], sl2, nl[e]) + kp2[i];
-                if (edge && key0 + 8 * i > q0 + sm90::frag_col(r, lane))
-                  x = APEX_NEG_INF;
-                p[e] = sm90::ex2(x);
-                ds[e] = p[e] * fmaf(acc_dp[r], scale, -dls[e]);
+                if constexpr (kExt) {
+                  p[e] = acc_s[r];
+                  ds[e] = acc_dp[r];
+                } else {
+                  float x = fmaf(acc_s[r], sl2, nl[e]) + kp2[i];
+                  if (edge && key0 + 8 * i > q0 + sm90::frag_col(r, lane))
+                    x = APEX_NEG_INF;
+                  p[e] = sm90::ex2(x);
+                  ds[e] = p[e] * fmaf(acc_dp[r], scale, -dls[e]);
+                }
               }
               pa[cc / 2][2 * (cc % 2) + i] = sm90::pack2<T>(p[0], p[1]);
               da[cc / 2][2 * (cc % 2) + i] = sm90::pack2<T>(ds[0], ds[1]);
@@ -642,8 +749,12 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
           }
           sm90::fence_proxy_async();
           sm90::named_sync(3 + wg, 128);  // the whole dS^T tile is written
-        } else if (wg == 1) {
-          // no key of warpgroup 1 sees this tile: its dS^T is zero, so
+        };
+        if (mine) {
+          form();
+        } else if (kExt || wg == 1) {
+          // no key of this warpgroup sees this tile (without segment ids
+          // only warpgroup 1 can meet this): its dS^T is zero, so
           // that the rank's dq product runs over both tiles unbranched
           const uint32_t dsw = ds_of(buf, wg);
 #pragma unroll
@@ -675,7 +786,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
           }
           sm90::mma_commit();
         }
-        if (u + 1 < nopen && sees(u + 1)) {
+        if (next_sees) {
           if (!mine) sm90::mma_fence();
           issue_s_dp(acc_s, acc_dp, u + 1);
         }
@@ -714,11 +825,12 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
   cluster.sync();
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kExt>
 int launch_sm90(const void* q, const void* k, const void* v, const void* dout,
                 const void* lse, const void* delta, const void* kpm, void* dq,
                 void* dk, void* dv, int b, int sq, int sk, int n, int g,
-                int dr, float scale, int causal, cudaStream_t stream) {
+                int dr, float scale, int causal, const FlashExtras& ex,
+                cudaStream_t stream) {
   using C = Short<D>;
   const int ranks = (sk + 2 * C::BK - 1) / (2 * C::BK);
   if (ranks > kMaxRanks || (long long)b * g > 65535)
@@ -729,7 +841,7 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* dout,
   if (err == 0) err = sm90::encode_bsnd<T>(&tk, k, b, sk, g, dr, C::BK);
   if (err == 0) err = sm90::encode_bsnd<T>(&tv, v, b, sk, g, dr, C::BK);
   if (err == 0)
-    err = sm90::set_smem(flash_bwd_short_sm90_kernel<T, D>, C::bytes);
+    err = sm90::set_smem(flash_bwd_short_sm90_kernel<T, D, kExt>, C::bytes);
   if (err != 0) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ranks, b * g, 1);
@@ -749,10 +861,11 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* dout,
   T* dqp = (T*)dq;
   T* dkp = (T*)dk;
   T* dvp = (T*)dv;
+  FlashExtras exv = ex;
   void* args[] = {&tq, &tk, &tv, &tdo, &lp, &dp, &kp, &dqp, &dkp, &dvp,
-                  &sq, &sk, &n, &g, &dr, &scale, &causal};
+                  &sq, &sk, &n, &g, &dr, &scale, &causal, &exv};
   err = (int)cudaLaunchKernelExC(
-      &cfg, (const void*)flash_bwd_short_sm90_kernel<T, D>, args);
+      &cfg, (const void*)flash_bwd_short_sm90_kernel<T, D, kExt>, args);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }
@@ -762,31 +875,37 @@ int launch_short(const void* q, const void* k, const void* v,
                  const void* dout, const void* lse, const void* delta,
                  const void* kpm, void* dq_part, void* dq, void* dk,
                  void* dv, int b, int sq, int sk, int n, int g, int dr,
-                 float scale, int causal, cudaStream_t stream) {
+                 float scale, int causal, const FlashExtras& ex,
+                 cudaStream_t stream) {
   if constexpr (sizeof(T) == 2)
-    return launch_sm90<T, D>(q, k, v, dout, lse, delta, kpm, dq, dk, dv, b,
-                             sq, sk, n, g, dr, scale, causal, stream);
+    return has_extras(ex)
+               ? launch_sm90<T, D, true>(q, k, v, dout, lse, delta, kpm, dq,
+                                         dk, dv, b, sq, sk, n, g, dr, scale,
+                                         causal, ex, stream)
+               : launch_sm90<T, D, false>(q, k, v, dout, lse, delta, kpm, dq,
+                                          dk, dv, b, sq, sk, n, g, dr, scale,
+                                          causal, ex, stream);
   else
     return launch_fp32<D>(q, k, v, dout, lse, delta, kpm, dq_part, dq, dk,
-                          dv, b, sq, sk, n, g, dr, scale, causal, stream);
+                          dv, b, sq, sk, n, g, dr, scale, causal, ex, stream);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool kExt>
 int short_attrs_d(int* out) {
-  return sm90::kernel_attrs(flash_bwd_short_sm90_kernel<T, D>,
+  return sm90::kernel_attrs(flash_bwd_short_sm90_kernel<T, D, kExt>,
                             Short<D>::bytes, sm90::kThreads, out);
 }
 
-template <typename T>
+template <typename T, bool kExt>
 int short_attrs(int d, int* out) {
-  APEX_DISPATCH_HEAD_DIM(d, D, (short_attrs_d<T, D>(out)));
+  APEX_DISPATCH_HEAD_DIM(d, D, (short_attrs_d<T, D, kExt>(out)));
 }
 
 // How many clusters of `ranks` CTAs the device holds at once.
 template <typename T, int D>
 int short_clusters_d(int ranks, int* out) {
   using C = Short<D>;
-  int err = sm90::set_smem(flash_bwd_short_sm90_kernel<T, D>, C::bytes);
+  int err = sm90::set_smem(flash_bwd_short_sm90_kernel<T, D, false>, C::bytes);
   if (err != 0) return err;
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(ranks, 1, 1);
@@ -800,7 +919,7 @@ int short_clusters_d(int ranks, int* out) {
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   return (int)cudaOccupancyMaxActiveClusters(
-      out, (const void*)flash_bwd_short_sm90_kernel<T, D>, &cfg);
+      out, (const void*)flash_bwd_short_sm90_kernel<T, D, false>, &cfg);
 }
 
 template <typename T>
@@ -816,31 +935,41 @@ int short_clusters(int d, int ranks, int* out) {
 // cluster kernel (sk <= 1024, b * g <= 65535; dq_part unused, may be
 // NULL); fp32 takes dq_part, fp32 scratch of [ceil(sk/64), b*n,
 // ceil(sq/64)*64, D] with D = sm90::head_panel(d) (d a multiple of 8 up
-// to 128).
+// to 128).  seed, threshold, inv_keep, seg and seg_rng as apex_flash_fwd's.
 extern "C" int apex_flash_bwd_short(const void* q, const void* k,
                                     const void* v, const void* dout,
                                     const void* lse, const void* delta,
                                     const void* kpm, void* dq_part, void* dq,
                                     void* dk, void* dv, int b, int sq, int sk,
                                     int n, int g, int d, float scale,
-                                    int causal, int dtype,
+                                    int causal, int dtype, const void* seed,
+                                    unsigned threshold, float inv_keep,
+                                    const void* seg, const void* seg_rng,
                                     cudaStream_t stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0)
+  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0 ||
+      (seg != nullptr && (seg_rng == nullptr || sq != sk)))
     return (int)cudaErrorInvalidValue;
+  const FlashExtras ex = make_extras(seed, threshold, inv_keep, seg, seg_rng);
   APEX_DISPATCH_FLOAT(dtype, T, {
     APEX_DISPATCH_HEAD_DIM(d, D, (launch_short<T, D>(
                                      q, k, v, dout, lse, delta, kpm, dq_part,
                                      dq, dk, dv, b, sq, sk, n, g, d, scale,
-                                     causal, stream)));
+                                     causal, ex, stream)));
   });
   return (int)cudaErrorInvalidValue;
 }
 
 // The 16-bit cluster kernel's {registers, shared memory per CTA, CTAs per
-// SM, spill bytes} for head size d.
-extern "C" int apex_flash_bwd_short_attrs(int dtype, int d, int* out) {
-  if (dtype == APEX_BF16) return short_attrs<__nv_bfloat16>(d, out);
-  if (dtype == APEX_F16) return short_attrs<__half>(d, out);
+// SM, spill bytes} for head size d, without (ext = 0) or with (ext = 1)
+// segment ids or dropout.
+extern "C" int apex_flash_bwd_short_attrs(int dtype, int d, int ext,
+                                          int* out) {
+  if (dtype == APEX_BF16)
+    return ext ? short_attrs<__nv_bfloat16, true>(d, out)
+               : short_attrs<__nv_bfloat16, false>(d, out);
+  if (dtype == APEX_F16)
+    return ext ? short_attrs<__half, true>(d, out)
+               : short_attrs<__half, false>(d, out);
   return (int)cudaErrorInvalidValue;
 }
 

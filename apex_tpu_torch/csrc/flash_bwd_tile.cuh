@@ -13,6 +13,7 @@
 #include <type_traits>
 
 #include "common.cuh"
+#include "keep_mask.cuh"
 #include "sm90_tile.cuh"
 
 namespace {
@@ -130,11 +131,15 @@ __device__ __forceinline__ void load_row_stats(float* sL, float* sDl,
 }
 
 // This warp's 16 query rows: S = Q K^T and dP = dO V^T into fp32 shared
-// memory, then p and ds (rounded to T) by two lanes per row.
+// memory, then p and ds (rounded to T) by two lanes per row.  Segment ids
+// mask keys of other segments; under dropout sP holds the dropped p (dv's
+// operand) and ds takes the dropped dp (flash_attention.py:424-427,
+// :511-527), the hash keyed by flat head bh.
 template <typename T, int D>
 __device__ __forceinline__ void probs_and_ds(
     unsigned char* smem, const float* __restrict__ kpm, int b, int sk,
-    int q0, int k0, float scale, int causal) {
+    int q0, int k0, float scale, int causal, const FlashExtras& ex,
+    const Dropout& drop, int bh) {
   using L = Smem<T, D>;
   const T* sQ = reinterpret_cast<const T*>(smem + L::q_off);
   const T* sdO = reinterpret_cast<const T*>(smem + L::do_off);
@@ -173,15 +178,24 @@ __device__ __forceinline__ void probs_and_ds(
   const float lse = sL[lrow];
   const float dl = sDl[lrow];
   const bool live = lse > APEX_NEG_INF / 2;
+  const int qs = ex.seg != nullptr ? seg_at(ex, b, sk, row) : 0;
   for (int c = 0; c < kB / 2; ++c) {
     const int cc = half * (kB / 2) + c;
     const int col = k0 + cc;
     float sv = sS[lrow * L::LDS + cc] * scale;
     if (kpm != nullptr && col < sk) sv += kpm[(size_t)b * sk + col];
-    const bool pred = live && col < sk && (!causal || col <= row);
+    const bool pred =
+        live && col < sk && (!causal || col <= row) &&
+        (ex.seg == nullptr || seg_open(qs, seg_at(ex, b, sk, col)));
     const float p = pred ? expf(sv - lse) : 0.0f;
-    const float ds = p * (sdP[lrow * L::LDS + cc] - dl) * scale;
-    sP[lrow * L::LDP + cc] = apex_from_float<T>(p);
+    float dpv = sdP[lrow * L::LDS + cc], pa = p;
+    if (drop.on) {
+      const bool kept = drop.keep(bh, row, col);
+      dpv = kept ? dpv * drop.inv : 0.0f;
+      pa = kept ? p * drop.inv : 0.0f;
+    }
+    const float ds = p * (dpv - dl) * scale;
+    sP[lrow * L::LDP + cc] = apex_from_float<T>(pa);
     sdS[lrow * L::LDP + cc] = apex_from_float<T>(ds);
   }
   __syncwarp();

@@ -19,7 +19,7 @@
 // tile count return at once.  The two outer segments' tiles write zeros:
 // every element of y is written exactly once, zeros included.
 //
-// Three branches, one entry point each:
+// Four branches, one entry point each:
 //
 // * apex_grouped_matmul, the fp32 branch (LoRA's slabs; also 16-bit
 //   operands of shapes the tensor-core tile does not take, and more than
@@ -68,7 +68,18 @@
 //   |q| <= 127) and each k block's fp32 partial multiplied by its scale
 //   row in registers before it joins the accumulator, as row 10 does; y in
 //   x's dtype.  Needs 16-bit x, K % kb == 0, kb % 32 == 0, P % 16 == 0.
+//
+// * apex_grouped_matmul_int8_simt, the int8 slab where the GEMM's tile
+//   does not take it (fp32 x, a scale block that is not a multiple of 32,
+//   P not a multiple of 16, more than 2048 groups): the fp32 branch's
+//   kernel reading the int8 wire, each weight widened and multiplied by
+//   its (kb-row block, column) scale in registers as it is loaded, which
+//   is _dequantize_group's fp32 weight, bit for bit, with no fp32 copy of
+//   the slab in device memory; y in x's dtype.  Bound: bytes (the int8
+//   weights of the live groups).
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "sm90_gemm.cuh"
 
@@ -123,11 +134,24 @@ __device__ void find_tile(const int* __restrict__ off, int G, int N, int t,
   if (lane == 0) s_tile[2] = 0;
 }
 
-template <typename T, int BM>
+// A weight element as fp32: a float type widened, an int8 as its integer.
+template <typename W>
+__device__ __forceinline__ float weight_to_float(W v) {
+  return apex_to_float(v);
+}
+template <>
+__device__ __forceinline__ float weight_to_float<int8_t>(int8_t v) {
+  return (float)v;
+}
+
+// W = T: y = x @ w.  W = int8_t: y = x @ (wire * scale), scale [G, K / kb,
+// P] fp32 (the int8_simt entry).
+template <typename T, typename W, int BM>
 __global__ void __launch_bounds__(kThreads) gmm_kernel(
-    const T* __restrict__ x, const T* __restrict__ w,
-    const int* __restrict__ off, T* __restrict__ y, int N, int K, int P,
-    int G, int bn) {
+    const T* __restrict__ x, const W* __restrict__ w,
+    const float* __restrict__ scale, int kb, const int* __restrict__ off,
+    T* __restrict__ y, int N, int K, int P, int G, int bn) {
+  constexpr bool kQuant = std::is_same<W, int8_t>::value;
   constexpr int KC = BM == 4 ? 1024 : 256;  // contraction rows staged
   constexpr int XS = BM == 4 ? 4 : BM + 4;   // padded k row of the chunk
   __shared__ __align__(16) float xs[KC][XS];
@@ -153,7 +177,9 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(
 
   // segments 0 and G + 1 lie outside the window: their tiles write zeros
   if (seg >= 1 && seg <= G) {
-    const T* __restrict__ wg = w + (size_t)(seg - 1) * K * P;
+    const W* __restrict__ wg = w + (size_t)(seg - 1) * K * P;
+    const float* __restrict__ sg =
+        kQuant ? scale + (size_t)(seg - 1) * (K / kb) * P : nullptr;
     const int k_lo = (int)((long long)rank * K / splits);
     const int k_hi = (int)((long long)(rank + 1) * K / splits);
     for (int k0 = k_lo; k0 < k_hi; k0 += KC) {
@@ -168,7 +194,8 @@ __global__ void __launch_bounds__(kThreads) gmm_kernel(
         // unrolled so that eight weight loads are in flight at once
 #pragma unroll 8
         for (int kk = slice; kk < kc; kk += nsl) {
-          const float wv = apex_to_float(wg[(size_t)(k0 + kk) * P + col]);
+          float wv = weight_to_float(wg[(size_t)(k0 + kk) * P + col]);
+          if constexpr (kQuant) wv *= sg[(size_t)((k0 + kk) / kb) * P + col];
 #pragma unroll
           for (int r4 = 0; r4 < BM; r4 += 4) {
             if (r4 < R) {
@@ -248,17 +275,19 @@ int column_tile(int P) {
   return bn;
 }
 
-template <typename T, int BM>
-int launch(const void* x, const void* w, const void* off, void* y, int N,
-           int K, int P, int G, int splits, cudaStream_t stream) {
+template <typename T, typename W, int BM>
+int launch(const void* x, const void* w, const void* scale, int kb,
+           const void* off, void* y, int N, int K, int P, int G, int splits,
+           cudaStream_t stream) {
   const int bn = column_tile(P);
   const long long tiles = (N + BM - 1) / BM + (long long)G + 2;
   if (tiles * splits > 0x7fffffffLL || (P + bn - 1) / bn > 65535)
     return (int)cudaErrorInvalidValue;
   const dim3 grid((unsigned)(tiles * splits), (P + bn - 1) / bn, 1);
   if (splits == 1) {  // no cluster to launch: a plain launch starts sooner
-    gmm_kernel<T, BM><<<grid, kThreads, 0, stream>>>(
-        (const T*)x, (const T*)w, (const int*)off, (T*)y, N, K, P, G, bn);
+    gmm_kernel<T, W, BM><<<grid, kThreads, 0, stream>>>(
+        (const T*)x, (const W*)w, (const float*)scale, kb, (const int*)off,
+        (T*)y, N, K, P, G, bn);
     return (int)cudaGetLastError();
   }
   cudaLaunchConfig_t cfg = {};
@@ -274,13 +303,14 @@ int launch(const void* x, const void* w, const void* off, void* y, int N,
   cfg.attrs = attr;
   cfg.numAttrs = 1;
   const T* xp = (const T*)x;
-  const T* wp = (const T*)w;
+  const W* wp = (const W*)w;
+  const float* sp = (const float*)scale;
   const int* op = (const int*)off;
   T* yp = (T*)y;
   int bnv = bn;
-  void* args[] = {&xp, &wp, &op, &yp, &N, &K, &P, &G, &bnv};
-  int err = (int)cudaLaunchKernelExC(&cfg, (const void*)gmm_kernel<T, BM>,
-                                     args);
+  void* args[] = {&xp, &wp, &sp, &kb, &op, &yp, &N, &K, &P, &G, &bnv};
+  int err = (int)cudaLaunchKernelExC(
+      &cfg, (const void*)gmm_kernel<T, W, BM>, args);
   if (err != 0) return err;
   return (int)cudaGetLastError();
 }
@@ -299,9 +329,33 @@ extern "C" int apex_grouped_matmul(const void* x, const void* w,
       (rows != 4 && rows != 16))
     return (int)cudaErrorInvalidValue;
   APEX_DISPATCH_FLOAT(dtype, T, {
-    return rows == 4
-               ? launch<T, 4>(x, w, offsets, y, N, K, P, G, splits, stream)
-               : launch<T, 16>(x, w, offsets, y, N, K, P, G, splits, stream);
+    return rows == 4 ? launch<T, T, 4>(x, w, nullptr, 1, offsets, y, N, K, P,
+                                       G, splits, stream)
+                     : launch<T, T, 16>(x, w, nullptr, 1, offsets, y, N, K,
+                                        P, G, splits, stream);
+  });
+  return (int)cudaErrorInvalidValue;
+}
+
+// x [N, K] and y [N, P] of dtype (fp32, bf16 or fp16); wire [G, K, P]
+// int8; scale [G, K / kb, P] fp32; offsets [G + 1] int32 on the device.
+// rows and splits as apex_grouped_matmul's; any kb dividing K, any P, any
+// G.
+extern "C" int apex_grouped_matmul_int8_simt(const void* x, const void* wire,
+                                             const void* scale,
+                                             const void* offsets, void* y,
+                                             int N, int K, int P, int G,
+                                             int kb, int splits, int rows,
+                                             int dtype, cudaStream_t stream) {
+  if (N <= 0 || K < 0 || P <= 0 || G < 0 || kb <= 0 || K % kb != 0 ||
+      splits < 1 || splits > kMaxSplits || splits > (K > 1 ? K : 1) ||
+      (rows != 4 && rows != 16))
+    return (int)cudaErrorInvalidValue;
+  APEX_DISPATCH_FLOAT(dtype, T, {
+    return rows == 4 ? launch<T, int8_t, 4>(x, wire, scale, kb, offsets, y, N,
+                                            K, P, G, splits, stream)
+                     : launch<T, int8_t, 16>(x, wire, scale, kb, offsets, y,
+                                             N, K, P, G, splits, stream);
   });
   return (int)cudaErrorInvalidValue;
 }
@@ -394,9 +448,9 @@ extern "C" int apex_grouped_matmul_attrs(int mode, int dtype, int* out) {
 extern "C" int apex_grouped_matmul_fp32_attrs(int rows, int dtype, int* out) {
   if (rows != 4 && rows != 16) return (int)cudaErrorInvalidValue;
   APEX_DISPATCH_FLOAT(dtype, T, {
-    return rows == 4 ? sm90::kernel_attrs(gmm_kernel<T, 4>, 0, kThreads, out)
-                     : sm90::kernel_attrs(gmm_kernel<T, 16>, 0, kThreads,
-                                          out);
+    return rows == 4
+               ? sm90::kernel_attrs(gmm_kernel<T, T, 4>, 0, kThreads, out)
+               : sm90::kernel_attrs(gmm_kernel<T, T, 16>, 0, kThreads, out);
   });
   return (int)cudaErrorInvalidValue;
 }

@@ -24,8 +24,9 @@ import torch.nn.functional as F
 from apex_tpu_torch.amp.frontend import make_train_step
 from apex_tpu_torch.models.config import TransformerConfig, bert_large
 from apex_tpu_torch.models.transformer_lm import (
-    _check_training_cfg, apply_norm, embed_tokens, init_gpt_params,
-    transformer_backbone)
+    _check_training_cfg, apply_norm, embed_tokens, has_dropout,
+    init_gpt_params, transformer_backbone)
+from apex_tpu_torch.ops.flash_attention import key_words
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.utils.registry import check_backend, resolve_device
@@ -92,7 +93,7 @@ def _padding_mask(attention_mask):
 
 
 def bert_forward(params: dict, tokens, cfg: TransformerConfig, *,
-                 tokentype_ids=None, attention_mask=None,
+                 tokentype_ids=None, attention_mask=None, dropout_rng=None,
                  backend: Optional[str] = None):
     """→ ``(lm_logits [b, s, v] fp32, binary_logits [b, 2] fp32)``."""
     _check_dense(cfg)
@@ -106,7 +107,7 @@ def bert_forward(params: dict, tokens, cfg: TransformerConfig, *,
                          eps=cfg.layernorm_epsilon, backend=backend)
     h = transformer_backbone(params, h, cfg,
                              attention_mask=_padding_mask(attention_mask),
-                             backend=backend)
+                             dropout_rng=dropout_rng, backend=backend)
 
     lm = params["lm_head"]
     # jax.nn.gelu's default is the tanh approximation
@@ -126,12 +127,14 @@ def bert_forward(params: dict, tokens, cfg: TransformerConfig, *,
 
 def bert_pretrain_loss(params: dict, tokens, mlm_labels, nsp_labels,
                        cfg: TransformerConfig, *, tokentype_ids=None,
-                       attention_mask=None, backend: Optional[str] = None):
+                       attention_mask=None, dropout_rng=None,
+                       backend: Optional[str] = None):
     """MLM cross-entropy over the positions whose label is ≥ 0 (-1 is
     ignored) plus the NSP cross-entropy, an fp32 scalar."""
     lm_logits, bin_logits = bert_forward(
         params, tokens, cfg, tokentype_ids=tokentype_ids,
-        attention_mask=attention_mask, backend=backend)
+        attention_mask=attention_mask, dropout_rng=dropout_rng,
+        backend=backend)
     v = lm_logits.shape[-1]
     flat_labels = mlm_labels.reshape(-1)
     valid = flat_labels >= 0
@@ -152,11 +155,13 @@ def make_bert_train_step(cfg: TransformerConfig, optimizer: Any,
     """Single-device AMP train step → ``(init, step)``: ``init(generator)``
     draws the parameters on the step's device and builds the
     ``TrainState``; ``step(state, tokens, mlm_labels, nsp_labels,
-    tokentype_ids, attention_mask)`` returns ``(new_state, metrics)``
-    (device-tensor ``loss``, ``overflow``, ``loss_scale``, ``step``).
-    Runs on ``device`` (default ``cuda``); ``backend="reference"`` pins
-    every kernel-backed op to its plain version.  The mesh and dropout
-    belong to later slices."""
+    tokentype_ids, attention_mask[, rng])`` returns ``(new_state,
+    metrics)`` (device-tensor ``loss``, ``overflow``, ``loss_scale``,
+    ``step``); ``rng``, the ``[L, 5, 2]`` dropout key words
+    (``transformer_lm.dropout_keys``), whenever a dropout rate is
+    positive, as the JAX step's trailing key.  Runs on ``device``
+    (default ``cuda``); ``backend="reference"`` pins every kernel-backed
+    op to its plain version.  The mesh belongs to a later slice."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh comes with the distributed-training slice of the port")
@@ -164,12 +169,14 @@ def make_bert_train_step(cfg: TransformerConfig, optimizer: Any,
     check_backend(backend)
     dev = resolve_device(device)
 
+    drops = has_dropout(cfg)
+
     def loss_fn(params, tokens, mlm_labels, nsp_labels, tokentype_ids,
-                attention_mask):
+                attention_mask, *rng):
         return bert_pretrain_loss(
             params, tokens, mlm_labels, nsp_labels, cfg,
             tokentype_ids=tokentype_ids, attention_mask=attention_mask,
-            backend=backend)
+            dropout_rng=rng[0] if drops else None, backend=backend)
 
     init_fn, step_fn = make_train_step(
         loss_fn, optimizer, policy_or_amp, grad_postprocess=grad_postprocess,
@@ -179,10 +186,16 @@ def make_bert_train_step(cfg: TransformerConfig, optimizer: Any,
         return init_fn(init_bert_params(cfg, generator, dev))
 
     def step(state, tokens, mlm_labels, nsp_labels, tokentype_ids,
-             attention_mask):
+             attention_mask, *rng):
+        if len(rng) != int(drops):
+            raise TypeError(
+                f"step takes {int(drops)} argument(s) after the attention "
+                f"mask (the dropout key words when a dropout rate is "
+                f"positive); got {len(rng)}")
         batch = [torch.as_tensor(t, device=dev).long()
                  for t in (tokens, mlm_labels, nsp_labels, tokentype_ids)]
+        rest = [key_words(rng[0], dev)] if drops else []
         return step_fn(state, *batch,
-                       torch.as_tensor(attention_mask, device=dev))
+                       torch.as_tensor(attention_mask, device=dev), *rest)
 
     return init, step

@@ -19,6 +19,25 @@ with ``num_experts`` replaces each layer's MLP by the MoE FFN of
 run kernel row 9, int8 slabs its int8 branch) and adds the summed
 load-balance loss, ``moe_aux_loss_coeff · aux / num_layers``, to
 :func:`gpt_loss`.
+
+Dropout (``hidden_dropout``, ``attention_dropout``, ``drop_path_rate``)
+follows the JAX ``_layer``: attention dropout inside ``flash_attention``
+(the kernels' counter hash) or, under ``fused_softmax``, on the
+probabilities; hidden dropout on both branch outputs; drop-path on whole
+samples, scaled by ``1/keep``.  The keys come from the caller, not from a
+port of ``jax.random.split``: ``dropout_rng`` is a ``[L, 5, 2]`` tensor
+of key words (the data words of each layer's five keys, the JAX layer's
+``r1``…``r5``), drawn by :func:`dropout_keys` from an explicit
+``torch.Generator`` or, to reproduce a JAX run, taken from
+``jax.random.key_data`` of JAX's own splits.  Every mask is the counter
+hash ``ops/flash_attention.keep_mask`` keyed by its site's seed
+(``seed_from_key`` of the site's words) over the coordinates (leading
+index, row, column) of the tensor viewed as ``[B, R, C]``
+(``ops/flash_attention.dropout_keep``, the one helper of that layout): attention
+probabilities ``[b, n, sq, sk]`` take the flash kernels' (batch·heads +
+head, query, key), so both backends drop the same probabilities.  The
+masks are drawn on the device from the words there: no global RNG and no
+host read.
 """
 
 from __future__ import annotations
@@ -30,7 +49,8 @@ import torch.nn.functional as F
 
 from apex_tpu_torch.models.config import TransformerConfig
 from apex_tpu_torch.ops.dense import is_quantized, quantized_matmul
-from apex_tpu_torch.ops.flash_attention import flash_attention
+from apex_tpu_torch.ops.flash_attention import (
+    dropout_keep, flash_attention, key_words, seed_from_key)
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm, fused_rms_norm
 from apex_tpu_torch.ops.lm_head_ce import lm_head_cross_entropy
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_cached
@@ -43,7 +63,8 @@ from apex_tpu_torch.utils.registry import resolve_device
 __all__ = ["init_gpt_params", "rope_cos_sin", "apply_norm",
            "split_qkv_gqa", "lm_head_weight", "embed_tokens",
            "transformer_backbone", "gpt_hidden", "gpt_forward",
-           "lm_head_logits", "gpt_loss", "lm_cross_entropy"]
+           "lm_head_logits", "gpt_loss", "lm_cross_entropy",
+           "dropout_keys", "has_dropout"]
 
 
 def init_gpt_params(cfg: TransformerConfig,
@@ -163,8 +184,46 @@ def lm_head_weight(params: dict, cfg: TransformerConfig):
             else params["embedding"]["word"])
 
 
+def has_dropout(cfg: TransformerConfig) -> bool:
+    """Whether a config drops anything (its train steps then take the
+    key words as their last argument)."""
+    return (cfg.hidden_dropout > 0 or cfg.attention_dropout > 0
+            or cfg.drop_path_rate > 0)
+
+
+def dropout_keys(cfg: TransformerConfig, generator: torch.Generator,
+                 device=None):
+    """``[L, 5, 2]`` int64 key words (uint32 values) for one step's
+    dropout, drawn on the CPU from ``generator`` and moved to ``device``
+    (default ``cuda``): the five keys of each layer, the JAX layer's
+    ``r1``…``r5``."""
+    words = torch.randint(0, 2 ** 32, (cfg.num_layers, 5, 2),
+                          generator=generator, dtype=torch.int64)
+    return words.to("cuda" if device is None else device)
+
+
+def _dropout(x, rate: float, words):
+    """``where(keep, x / (1 - rate), 0)`` in x's dtype (the JAX
+    ``_dropout``); the identity at rate 0 or without words."""
+    if rate == 0.0 or words is None:
+        return x
+    keep = dropout_keep(x.shape, seed_from_key(words, x.device), rate,
+                        x.device)
+    return torch.where(keep, x / (1.0 - rate), 0).to(x.dtype)
+
+
+def _drop_path(x, rate: float, words):
+    """Stochastic depth: a sample's whole branch kept (scaled by
+    ``1/keep``) or dropped, a ``[b, 1, …]`` mask (the JAX ``_drop_path``)."""
+    if rate == 0.0 or words is None:
+        return x
+    keep = dropout_keep((x.shape[0],) + (1,) * (x.ndim - 1),
+                        seed_from_key(words, x.device), rate, x.device)
+    return torch.where(keep, x / (1.0 - rate), 0).to(x.dtype)
+
+
 def _core_attention(cfg: TransformerConfig, q, k, v, attention_mask, *,
-                    backend: Optional[str] = None):
+                    dropout_rng=None, backend: Optional[str] = None):
     """softmax(QK^T/sqrt(d))V, routed as the JAX package's
     ``_core_attention`` (``transformer_lm.py:464-502``).
     ``attention_mask`` is bool, True = masked.  A 2-D ``[b, sk]`` mask is
@@ -178,7 +237,9 @@ def _core_attention(cfg: TransformerConfig, q, k, v, attention_mask, *,
     False``), the mask OR-ed with the causal triangle for causal models,
     the scaled-softmax family (kernel row 11 forward), probabilities
     cast to v's dtype before the context product (fp32 products and
-    sums)."""
+    sums).  ``dropout_rng`` (the attention site's key words) drops
+    attention probabilities: in the flash kernels, or on the materialized
+    probabilities before that cast."""
     scale = 1.0 / q.shape[-1] ** 0.5
     causal = cfg.attn_mask_type == "causal"
     if cfg.attention_backend not in ("flash", "fused_softmax"):
@@ -188,9 +249,13 @@ def _core_attention(cfg: TransformerConfig, q, k, v, attention_mask, *,
     kpm = None
     if attention_mask is not None and attention_mask.ndim == 2:
         kpm, attention_mask = attention_mask, None
+    use_dropout = cfg.attention_dropout > 0 and dropout_rng is not None
     if cfg.attention_backend == "flash" and attention_mask is None:
-        return flash_attention(q, k, v, causal=causal, key_padding_mask=kpm,
-                               scale=scale, backend=backend)
+        return flash_attention(
+            q, k, v, causal=causal, key_padding_mask=kpm, scale=scale,
+            dropout_p=cfg.attention_dropout if use_dropout else 0.0,
+            dropout_rng=dropout_rng if use_dropout else None,
+            backend=backend)
     if k.shape[2] != q.shape[2]:
         rep = q.shape[2] // k.shape[2]
         k = k.repeat_interleave(rep, dim=2)
@@ -216,12 +281,13 @@ def _core_attention(cfg: TransformerConfig, q, k, v, attention_mask, *,
                                       backend=backend)
     else:
         probs = scaled_softmax(scores, scale, backend=backend)
+    probs = _dropout(probs, cfg.attention_dropout, dropout_rng)
     return torch.einsum("bnst,btnd->bsnd", probs.to(v.dtype).float(),
                         v.float()).to(v.dtype)
 
 
 def _attention(cfg: TransformerConfig, lp: dict, x, attention_mask,
-               rope, *, return_kv: bool = False,
+               rope, *, return_kv: bool = False, dropout_rng=None,
                backend: Optional[str] = None):
     """Fused QKV projection → split → rope → core attention → output
     projection.  ``return_kv`` also returns the post-rope group-width K/V
@@ -236,7 +302,8 @@ def _attention(cfg: TransformerConfig, lp: dict, x, attention_mask,
                                               sin[None, :, None, :])
         k = fused_apply_rotary_pos_emb_cached(k, cos[None, :, None, :],
                                               sin[None, :, None, :])
-    ctxv = _core_attention(cfg, q, k, v, attention_mask, backend=backend)
+    ctxv = _core_attention(cfg, q, k, v, attention_mask,
+                           dropout_rng=dropout_rng, backend=backend)
     out = quantized_matmul(ctxv.reshape(b, s, -1), lp["proj_kernel"],
                            backend=backend)
     out = out + lp["proj_bias"].to(x.dtype)
@@ -289,29 +356,30 @@ def _check_training_cfg(cfg: TransformerConfig) -> None:
         raise NotImplementedError(
             "remat=True (per-layer activation checkpointing) is not ported "
             "yet; the port keeps every layer's activations")
-    if cfg.hidden_dropout > 0 or cfg.attention_dropout > 0 \
-            or cfg.drop_path_rate > 0:
-        raise NotImplementedError(
-            "dropout (hidden, attention — the in-kernel _keep_mask hash — "
-            "and drop-path) is not ported yet")
 
 
-def _layer(cfg: TransformerConfig, lp: dict, x, attention_mask, rope, *,
-           backend: Optional[str] = None):
+def _layer(cfg: TransformerConfig, lp: dict, x, attention_mask, rope,
+           rngs=None, *, backend: Optional[str] = None):
     """Pre-LN block: LN → attention → residual → LN → MLP (or MoE FFN) →
-    residual.  Returns ``(x, aux)``: the MoE load-balance loss, ``None``
-    for a dense layer."""
+    residual, with the JAX ``_layer``'s dropout sites when ``rngs`` (the
+    layer's ``[5, 2]`` key words r1…r5) is given.  Returns ``(x, aux)``:
+    the MoE load-balance loss, ``None`` for a dense layer."""
+    r1, r2, r3, r4, r5 = (rngs[0], rngs[1], rngs[2], rngs[3], rngs[4]) \
+        if rngs is not None else (None,) * 5
     h = apply_norm(cfg, x, lp["ln1_scale"], lp["ln1_bias"], backend=backend)
-    a = _attention(cfg, lp, h, attention_mask, rope, backend=backend)
+    a = _attention(cfg, lp, h, attention_mask, rope, dropout_rng=r1,
+                   backend=backend)
     res = h if cfg.apply_residual_connection_post_layernorm else x
-    x = res + a
+    x = res + _drop_path(_dropout(a, cfg.hidden_dropout, r2),
+                         cfg.drop_path_rate, r4)
     h = apply_norm(cfg, x, lp["ln2_scale"], lp["ln2_bias"], backend=backend)
     if cfg.num_experts:
         m, aux = _moe_mlp(cfg, lp, h, backend=backend)
     else:
         m, aux = _mlp(cfg, lp, h, backend=backend), None
     res = h if cfg.apply_residual_connection_post_layernorm else x
-    return res + m, aux
+    return res + _drop_path(_dropout(m, cfg.hidden_dropout, r3),
+                            cfg.drop_path_rate, r5), aux
 
 
 def embed_tokens(emb: dict, tokens, cfg: TransformerConfig):
@@ -325,7 +393,8 @@ def embed_tokens(emb: dict, tokens, cfg: TransformerConfig):
 
 
 def transformer_backbone(params: dict, hidden, cfg: TransformerConfig, *,
-                         attention_mask=None, apply_final_norm: bool = True,
+                         attention_mask=None, dropout_rng=None,
+                         apply_final_norm: bool = True,
                          with_aux: bool = False,
                          backend: Optional[str] = None):
     """The decoder stack (a Python loop over the stacked layers) + final
@@ -333,9 +402,14 @@ def transformer_backbone(params: dict, hidden, cfg: TransformerConfig, *,
     masked: ``[b, s]`` key padding or any mask that broadcasts to the
     scores ``[b, n, sq, sk]`` (see :func:`_core_attention`).
     ``with_aux=True`` also returns the per-layer MoE load-balance losses
-    summed (an fp32 scalar, 0 for a dense config)."""
+    summed (an fp32 scalar, 0 for a dense config).  ``dropout_rng``: the
+    ``[L, 5, 2]`` key words of :func:`dropout_keys`; dropout runs when it is
+    given and a rate is positive."""
     _check_training_cfg(cfg)
     s = hidden.shape[1]
+    words = None
+    if dropout_rng is not None and has_dropout(cfg):
+        words = key_words(dropout_rng, hidden.device).reshape(-1, 5, 2)
     rope = None
     if cfg.position_embedding_type == "rope":
         rope = rope_cos_sin(s, cfg.kv_channels, device=hidden.device)
@@ -343,8 +417,9 @@ def transformer_backbone(params: dict, hidden, cfg: TransformerConfig, *,
     aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for i in range(n_layers):
         lp = _layer_params(params, i)
-        hidden, layer_aux = _layer(cfg, lp, hidden, attention_mask, rope,
-                                   backend=backend)
+        hidden, layer_aux = _layer(
+            cfg, lp, hidden, attention_mask, rope,
+            None if words is None else words[i], backend=backend)
         if layer_aux is not None:
             aux = aux + layer_aux
     if apply_final_norm:
@@ -361,13 +436,14 @@ def _layer_params(params: dict, layer: int) -> dict:
 
 
 def gpt_hidden(params: dict, tokens, cfg: TransformerConfig, *,
-               attention_mask=None, with_aux: bool = False,
+               attention_mask=None, dropout_rng=None, with_aux: bool = False,
                backend: Optional[str] = None):
     """Embed + decoder stack + final norm → hidden ``[b, s, h]`` (and the
     summed MoE aux loss under ``with_aux``)."""
     h = embed_tokens(params["embedding"], tokens, cfg)
     return transformer_backbone(params, h, cfg,
                                 attention_mask=attention_mask,
+                                dropout_rng=dropout_rng,
                                 with_aux=with_aux, backend=backend)
 
 
@@ -379,18 +455,20 @@ def lm_head_logits(params: dict, hidden, cfg: TransformerConfig):
 
 
 def gpt_forward(params: dict, tokens, cfg: TransformerConfig, *,
-                attention_mask=None, with_aux: bool = False,
+                attention_mask=None, dropout_rng=None, with_aux: bool = False,
                 backend: Optional[str] = None):
     """Token ids ``[b, s]`` → fp32 logits ``[b, s, v]`` (and the summed
     MoE aux loss under ``with_aux``)."""
     h, aux = gpt_hidden(params, tokens, cfg, attention_mask=attention_mask,
-                        with_aux=True, backend=backend)
+                        dropout_rng=dropout_rng, with_aux=True,
+                        backend=backend)
     logits = lm_head_logits(params, h, cfg)
     return (logits, aux) if with_aux else logits
 
 
 def gpt_loss(params: dict, tokens, labels, cfg: TransformerConfig, *,
-             attention_mask=None, backend: Optional[str] = None):
+             attention_mask=None, dropout_rng=None,
+             backend: Optional[str] = None):
     """Mean next-token CE over labels != -1 (fp32 scalar), plus
     ``moe_aux_loss_coeff · aux / num_layers`` for an MoE config.  With
     ``cfg.fused_head_ce`` the head matmul is chunked into the loss
@@ -398,7 +476,8 @@ def gpt_loss(params: dict, tokens, labels, cfg: TransformerConfig, *,
     :func:`lm_cross_entropy`."""
     if cfg.fused_head_ce:
         h, aux = gpt_hidden(params, tokens, cfg,
-                            attention_mask=attention_mask, with_aux=True,
+                            attention_mask=attention_mask,
+                            dropout_rng=dropout_rng, with_aux=True,
                             backend=backend)
         head = lm_head_weight(params, cfg).to(cfg.compute_dtype)
         losses = lm_head_cross_entropy(h, head, labels,
@@ -409,7 +488,8 @@ def gpt_loss(params: dict, tokens, labels, cfg: TransformerConfig, *,
     else:
         logits, aux = gpt_forward(params, tokens, cfg,
                                   attention_mask=attention_mask,
-                                  with_aux=True, backend=backend)
+                                  dropout_rng=dropout_rng, with_aux=True,
+                                  backend=backend)
         loss = lm_cross_entropy(logits, labels)
     if cfg.num_experts:
         # Switch load-balance term, mean over layers

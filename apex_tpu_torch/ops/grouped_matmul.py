@@ -10,7 +10,7 @@ LoRA path (``models/lora.py``) packs its no-adapter rows before
 For CUDA tensors each call is one launch of kernel row 9
 (``csrc/grouped_matmul.cu``), which reads the offsets on the device (no
 host read, so the launch can sit in a CUDA graph) and cuts the rows into
-tiles of one group each.  It has three branches, each with its own
+tiles of one group each.  It has four branches, each with its own
 launch count:
 
 - fp32 operands (LoRA's slabs), and 16-bit operands of a shape the
@@ -30,7 +30,13 @@ launch count:
   :data:`GROUPED_MATMUL_INT8`, the same GEMM with each int8 tile widened
   to x's 16-bit type in shared memory and each scale block's partial
   scaled in registers (row 10's tensor-core route is this kernel with one
-  group).
+  group);
+- an int8 slab the GEMM does not take (fp32 x, a scale block that is not a
+  multiple of 32, ``p`` not a multiple of 16, more than
+  :data:`MAX_TILE_GROUPS` groups): :data:`GROUPED_MATMUL_INT8_SIMT`, the
+  fp32 branch's kernel reading the int8 wire and scaling each weight by
+  its block's scale as it loads it (``_dequantize_group``'s weight, with
+  no fp32 slab in device memory): one launch per call.
 
 For CPU tensors, and under ``backend="reference"``, the plain version
 :func:`grouped_matmul_reference` runs: one masked fp32 product per group,
@@ -58,7 +64,7 @@ from apex_tpu_torch.utils.registry import check_backend, on_cuda
 __all__ = ["group_ids", "grouped_matmul", "grouped_matmul_quantized",
            "grouped_matmul_reference", "quantize_group_weights",
            "hopper_attributes", "mma_column_tile", "fp32_tiles",
-           "MAX_TILE_GROUPS"]
+           "int8_gemm_takes", "MAX_TILE_GROUPS"]
 
 _REPLACES = "apex_tpu/ops/grouped_matmul.py:113"
 
@@ -78,6 +84,11 @@ GROUPED_MATMUL_MMA_T = ku.register(ku.Kernel(
 GROUPED_MATMUL_INT8 = ku.register(ku.Kernel(
     "grouped_matmul_int8", "grouped_matmul.cu", "apex_grouped_matmul_int8",
     [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7, replaces=_REPLACES))
+
+GROUPED_MATMUL_INT8_SIMT = ku.register(ku.Kernel(
+    "grouped_matmul_int8_simt", "grouped_matmul.cu",
+    "apex_grouped_matmul_int8_simt", [ctypes.c_void_p] * 5
+    + [ctypes.c_int] * 8, replaces=_REPLACES))
 
 # csrc/grouped_matmul.cu's fp32-branch CTA width and largest cluster, and
 # the H100's SM count
@@ -138,7 +149,8 @@ def _column_tile(p: int) -> int:
     return bn
 
 
-def fp32_tiles(n: int, k: int, p: int, g: int) -> Tuple[int, int]:
+def fp32_tiles(n: int, k: int, p: int, g: int,
+               rows: Optional[int] = None) -> Tuple[int, int]:
     """``(row tile, cluster size)`` of row 9's fp32 branch for ``n`` rows
     and a ``[g, k, p]`` slab.  Rows: 16 when the contraction is short
     (``k`` < 256, the LoRA B side: a CTA's weights are a few rows of its
@@ -148,8 +160,9 @@ def fp32_tiles(n: int, k: int, p: int, g: int) -> Tuple[int, int]:
     the A side's long contraction wants more CTAs).  Cluster: 1 when the
     tiles fill the card's 132 SMs, else enough CTAs for ~2 per SM, each
     keeping at least 768 ``k`` rows, at most 8 (the LoRA A side at
-    decode: 4 for k = 3072, 1 for 768)."""
-    rows = 16 if k < 256 and n >= 16 * (g + 2) else 4
+    decode: 4 for k = 3072, 1 for 768).  ``rows`` pins the row tile."""
+    if rows is None:
+        rows = 16 if k < 256 and n >= 16 * (g + 2) else 4
     ctas = (-(-n // rows) + g + 2) * -(-p // _column_tile(p))
     if ctas >= _SMS:
         return rows, 1
@@ -362,17 +375,43 @@ def _dequantize_group(wire, scale):
     return (wf * scale[:, :, None, :]).reshape(g_n, k, p)
 
 
+def int8_gemm_takes(dtype, k: int, p: int, g: int, kb: int) -> bool:
+    """Whether row 9's int8 tensor-core GEMM takes a slab: 16-bit x, the
+    scale block a multiple of 32, ``p`` a multiple of 16 (the wire's TMA
+    row stride) and at most :data:`MAX_TILE_GROUPS` groups; every other
+    geometry takes the CUDA-core int8 branch."""
+    return (dtype in _HALF and kb % 32 == 0 and g <= MAX_TILE_GROUPS
+            and ku.tma_strides_ok((g, k, p), 1))
+
+
+def _gmmq_simt(x, wire, scale, offsets):
+    """Row 9's CUDA-core int8 branch: the fp32 branch's tiles
+    (:func:`fp32_tiles`, 16 rows whenever the rows average 16 or more a
+    segment: its slabs are the MoE experts', not LoRA's short A side) over
+    the int8 wire, scaled as loaded."""
+    n, k = x.shape
+    g, _, p = wire.shape
+    kb = k // scale.shape[1]
+    x = x.contiguous()
+    wire = wire.contiguous()
+    scale = scale.float().contiguous()
+    off = offsets.to(torch.int32).contiguous()
+    ku.check_cuda_operands("grouped_matmul_quantized", x, wire, scale, off)
+    out = torch.empty(n, p, dtype=x.dtype, device=x.device)
+    rows, splits = fp32_tiles(n, k, p, g,
+                              16 if n >= 16 * (g + 2) else None)
+    GROUPED_MATMUL_INT8_SIMT(x.device, ku.ptr(x), ku.ptr(wire),
+                             ku.ptr(scale), ku.ptr(off), ku.ptr(out), n, k,
+                             p, g, kb, splits, rows, ku.dtype_code(x))
+    return out
+
+
 def _gmmq_kernel(x, wire, scale, offsets):
     n, k = x.shape
     g, _, p = wire.shape
     kb = k // scale.shape[1]
-    if (x.dtype not in _HALF or kb % 32 or g > MAX_TILE_GROUPS
-            or not ku.tma_strides_ok((g, k, p), 1)):
-        raise ValueError(
-            f"grouped_matmul_quantized on the card takes bf16/fp16 x with "
-            f"the scale block a multiple of 32, p a multiple of 16 and at "
-            f"most {MAX_TILE_GROUPS} groups; got {x.dtype}, kb={kb}, p={p}, "
-            f"G={g}")
+    if not int8_gemm_takes(x.dtype, k, p, g, kb):
+        return _gmmq_simt(x, wire, scale, offsets)
     x = ku.aligned(x)
     wire = ku.aligned(wire)
     scale = scale.float().contiguous()

@@ -1,6 +1,6 @@
 """Rotary position embeddings (``apex_tpu/ops/rope.py``), the layouts the
-serving path uses, in plain PyTorch (the JAX package wrote these in XLA,
-not Pallas, so there is no kernel to port).
+serving path and packed (THD) attention use, in plain PyTorch (the JAX
+package wrote these in XLA, not Pallas, so there is no kernel to port).
 
 NeoX "rotate_half" rotation with partial rotation: for rotary dim
 ``d2 = cos.shape[-1] <= d``::
@@ -15,7 +15,9 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["_rope", "fused_apply_rotary_pos_emb_cached",
+__all__ = ["_rope", "fused_apply_rotary_pos_emb",
+           "fused_apply_rotary_pos_emb_cached",
+           "fused_apply_rotary_pos_emb_thd",
            "fused_apply_rotary_pos_emb_ragged"]
 
 
@@ -33,6 +35,31 @@ def _rope(t, cos, sin):
     if d2 < t.shape[-1]:
         out = torch.cat([out, t[..., d2:]], dim=-1)
     return out
+
+
+def fused_apply_rotary_pos_emb(t, freqs):
+    """``sbhd`` layout: ``t`` ``[s, b, h, d]``, ``freqs`` ``[s, 1, 1, d2]``
+    angles in radians."""
+    f32 = freqs.float()
+    return _rope(t, torch.cos(f32), torch.sin(f32))
+
+
+def fused_apply_rotary_pos_emb_thd(t, cu_seqlens, freqs):
+    """``thd`` packed layout: ``t`` ``[T, h, d]``, ``cu_seqlens``
+    ``[docs + 1]`` cumulative starts, ``freqs`` ``[max_s, 1, 1, d2]``: token
+    ``i`` of the document whose range holds it rotates by its position in
+    that document, ``i - cu_seqlens[doc(i)]`` (the layout of
+    ``ops/flash_attention.flash_attention_packed``).  Padding tokens past
+    ``cu_seqlens[-1]`` take a row clamped to the table."""
+    total = t.shape[0]
+    cu = torch.as_tensor(cu_seqlens, device=t.device).to(torch.int64)
+    idx = torch.arange(total, device=t.device)
+    doc = torch.searchsorted(cu, idx, right=True) - 1
+    pos = (idx - cu[doc.clamp(0, cu.shape[0] - 1)]).clamp(
+        0, freqs.shape[0] - 1)
+    f32 = freqs.float().reshape(freqs.shape[0], -1)
+    return _rope(t, torch.cos(f32)[pos][:, None, :],
+                 torch.sin(f32)[pos][:, None, :])
 
 
 def fused_apply_rotary_pos_emb_cached(t, cos_, sin_):

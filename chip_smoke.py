@@ -178,6 +178,7 @@ JSON line): where their time goes.
 
 from __future__ import annotations
 
+import dataclasses
 import gc
 import json
 import math
@@ -596,27 +597,37 @@ def kernel_flash_gpt_shape(dev, gen):
 
 
 # csrc sources of the Hopper kernels and how many instantiations each
-# holds, each in bf16 and fp16: K2 and K6/K7 at 3 head sizes; row 9's
+# holds, each in bf16 and fp16: K2, K6/K7 and row 5 at 3 head sizes,
+# without and with segment ids or dropout; row 9's
 # GEMM (forward and transposed read at 128 and 256 columns, the int8
 # slab at stages of 64 and 32 k rows and at 64 columns); row 10's (the
 # same three int8 GEMMs, the decode kernel at n = 16, 32, 64 x chunks of
 # 128 or 32 k rows)
-HOPPER_SOURCES = {"flash_attention.cu": 6, "flash_attention_bwd.cu": 12,
-                  "flash_attention_bwd_short.cu": 6,
+# local memory a thread (the runtime's localSizeBytes) that the flash
+# extras instantiations and the wide-head kernels may not pass: these
+# sources build to 0-184 and 0-32 bytes (nvcc 12.8), so growth past that
+# shows
+EXTRAS_SPILL_MAX = 192
+WIDE_SPILL_MAX = 64
+HOPPER_SOURCES = {"flash_attention.cu": 12, "flash_attention_bwd.cu": 24,
+                  "flash_attention_bwd_short.cu": 12,
                   "grouped_matmul.cu": 14, "dense_int8.cu": 18}
 
 
 def hopper_kernels():
     """The Hopper kernels as built and as the CUDA runtime sees them:
     registers, shared memory per CTA, CTAs per SM and spill bytes of each
-    (bf16 and fp16; K2, K6, K7 and row 5 at d 32/64/128; rows 9 and 10's
+    (bf16 and fp16; K2, K6, K7 and row 5 at d 32/64/128; the wide-head
+    kernels of rows 3, 4a and 4b in fp32, bf16 and fp16; rows 9 and 10's
     tensor-core routes and row 9's fp32 cluster kernel; row 11's one-read
     and looped kernels and K1's register and scalar kernels, fp32 and
     bf16; rows 6 and 7's split-key kernel at PAGED_PLANS and K3's
     projection), and the HGMMA (wgmma) and UTMALDG (TMA load) instructions
     in the machine code of each kernel of HOPPER_SOURCES, which must both
-    be there.  Row 5, rows 6, 7, 9 and 10, row 11 and K1 must not
-    spill."""
+    be there.  K2, K6, K7 and row 5 (their instantiations without segment
+    ids or dropout), rows 6, 7, 9 and 10, row 11 and K1 must not spill;
+    the flash extras stay within EXTRAS_SPILL_MAX local bytes a thread and
+    the wide-head kernels within WIDE_SPILL_MAX."""
     import re
 
     from apex_tpu_torch.ops import _kernel_utils as ku
@@ -624,12 +635,30 @@ def hopper_kernels():
     from apex_tpu_torch.ops import flash_attention as tfa
     from apex_tpu_torch.ops import grouped_matmul as tgm
 
-    attrs = {f"{str(dt)[6:]} d{d}": tfa.hopper_attributes(dt, d)
+    attrs = {f"{str(dt)[6:]} d{d}{' extras' if ext else ''}":
+             tfa.hopper_attributes(dt, d, ext)
              for dt in (torch.bfloat16, torch.float16)
-             for d in (32, 64, 128)}
-    short = {k: a[tfa.FLASH_BWD_SHORT.name] for k, a in attrs.items()}
-    check(all(a["spill_bytes"] == 0 for a in short.values()),
-          f"row 5 spills: {short}")
+             for d in (32, 64, 128) for ext in (False, True)}
+    # K2, K6, K7 and row 5 without segment ids or dropout (the
+    # dropout-free main paths') must not spill; the extras instantiations
+    # (the dropout steps' and packed rows') and the wide-head kernels are
+    # held under a ceiling of local memory a thread
+    plain = {f"{k} {name}": a for k, kern in attrs.items()
+             if not k.endswith("extras") for name, a in kern.items()}
+    check(all(a["spill_bytes"] == 0 for a in plain.values()),
+          f"a flash kernel without extras spills: {plain}")
+    extras = {f"{k} {name}": a["spill_bytes"] for k, kern in attrs.items()
+              if k.endswith("extras") for name, a in kern.items()}
+    check(max(extras.values()) <= EXTRAS_SPILL_MAX,
+          f"flash extras above {EXTRAS_SPILL_MAX} local bytes: {extras}")
+    attrs["wide heads"] = {str(dt)[6:]: tfa.wide_attributes(dt)
+                           for dt in (torch.float32, torch.bfloat16,
+                                      torch.float16)}
+    wide = {f"{k} {name}": a["spill_bytes"]
+            for k, kern in attrs["wide heads"].items()
+            for name, a in kern.items()}
+    check(max(wide.values()) <= WIDE_SPILL_MAX,
+          f"wide-head kernels above {WIDE_SPILL_MAX} local bytes: {wide}")
     for dt in (torch.bfloat16, torch.float16):
         rows = {**tgm.hopper_attributes(dt), **td.hopper_attributes(dt)}
         check(all(a["spill_bytes"] == 0 for a in rows.values()),
@@ -4372,6 +4401,731 @@ def generic_mask_phase(dev):
                      f"[{b}, 1, {s}, {s}] bool mask, flash backend"}
 
 
+# ---------------------------------------------------------------------------
+# slice 15: attention dropout and segment ids in rows 3, 4a, 4b and 5, the
+# wide-head branches of rows 3, 4a and 4b, row 9's CUDA-core int8 branch;
+# the dropout train steps and the packed-attention path
+# ---------------------------------------------------------------------------
+
+DROPOUT_P = 0.1                 # GPT-2's and BERT-large's published rates
+DROPOUT_WORDS = (0x1234, 0xABCD)
+# packed attention at GPT-2 widths: seeded documents of 64-2048 tokens in
+# [16384, 12, 64] (the last document cut at the end)
+PACKED_TOKENS, PACKED_HEADS, PACKED_DIM = 16384, 12, 64
+PACKED_DOC_LENS = (64, 2048)
+PACKED_PREFIX_TOKENS = 4096     # the prefix held by the one-piece plain
+PACKED_PLAIN_ROWS = 1024        # query rows a block of the plain version
+# wide heads: Gemma's 256 and one size above it, b4 s1024 n8 causal bf16
+WIDE_SHAPE, WIDE_DIMS = (4, 1024, 8), (256, 320)
+# the dropout steps are timed over fewer steps, without a profile
+DROPOUT_STEPS = 10
+
+
+def _dropout_seed(dev):
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    return tfa.seed_from_key(torch.tensor(DROPOUT_WORDS, dtype=torch.int64,
+                                          device=dev))
+
+
+def _sdpa_fwd_bwd_ms(q, k, v, do, **kw):
+    """SDPA's forward and its backward alone (forward and backward timed
+    together, less the forward), BSND inputs, ``kw`` SDPA's."""
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(qt, kt, vt, **kw)
+
+    fwd = time_ms(sdpa)
+    return fwd, time_ms(lambda: torch.autograd.grad(sdpa(), (qt, kt, vt),
+                                                    dot)) - fwd
+
+
+def _fwd_bwd_bounds(b, s, n, d, pairs, extra_bytes=0):
+    """Bounds of the forward, K6, K7 and row 5 (the one-pass backward) for
+    ``pairs`` open (query, key) pairs over q, k, v of [b, s, n, d] bf16."""
+    t = b * s * n * d * 2
+    stats = 2 * b * n * s * 4
+    return {"fwd": bound(4 * t + b * n * s * 4 + extra_bytes, 4 * d * pairs,
+                         PEAK_BF16_FLOPS),
+            "dq": bound(5 * t + stats + extra_bytes, 6 * d * pairs,
+                        PEAK_BF16_FLOPS),
+            "dkv": bound(6 * t + stats + extra_bytes, 8 * d * pairs,
+                         PEAK_BF16_FLOPS),
+            "short": bound(7 * t + stats + extra_bytes, 10 * d * pairs,
+                           PEAK_BF16_FLOPS)}
+
+
+def _hold_fwd_bwd(q, k, v, do, kw, what, bwd_route):
+    """K2's forward and the backward route (``"split"``: K6 and K7, or
+    ``"short"``: row 5) with ``kw`` against the plain versions; returns
+    the forward's max abs error and each gradient's relative error.  The
+    masks are the same bits on both sides, so the dropout-free tolerances
+    hold, times 1/(1 - p)."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    scale = 1.0 / (1.0 - kw.get("dropout_p", 0.0))
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    ro, _ = tfa.flash_attention_fwd_ref(q, k, v, **kw)
+    errs = {f"{what} o": max_err(o, ro)}
+    del ro
+    check(errs[f"{what} o"] <= 2e-2 * scale, f"K2 {what}: {errs}")
+    bkw = {key: val for key, val in kw.items() if key != "causal"}
+    ops = tfa.flash_bwd_operands(q, k, v, o, lse, do, **bkw)
+    if bwd_route == "short":
+        got = tfa.flash_bwd_fused(ops, causal=kw["causal"])
+    else:
+        got = (tfa.flash_bwd_dq(ops, causal=kw["causal"]),
+               *tfa.flash_bwd_dkv(ops, causal=kw["causal"]))
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for name, a, e in zip(("dq", "dk", "dv"), got, want):
+        errs[f"{what} {name}"] = rel_err(a, e)
+    del want, got
+    check(max(v_ for k_, v_ in errs.items() if not k_.endswith(" o"))
+          <= FLASH_BWD_TOL * scale, f"{bwd_route} backward {what}: {errs}")
+    return errs, ops
+
+
+def _plain_blocks(q, k, v, o, lse, do, kw):
+    """The plain version of one call computed in blocks of
+    PACKED_PLAIN_ROWS query rows (``q_offset``: global rows for the causal
+    mask and the hash; each block's ids against the row's): with ``o`` None
+    the forward → (o, lse), else the backward from the kernel's ``o``,
+    ``lse`` and ``do`` → (dq, dk, dv), dk and dv summed over the blocks
+    in fp32 (the block's inputs widened to fp32, which the plain backward
+    computes in anyway)."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    b, sq, n, _ = q.shape
+    seg = kw.get("segment_ids")
+    outs, dk, dv = [], 0.0, 0.0
+    for r0 in range(0, sq, PACKED_PLAIN_ROWS):
+        rows = slice(r0, min(sq, r0 + PACKED_PLAIN_ROWS))
+        bkw = dict(kw, q_offset=r0)
+        if seg is not None:
+            bkw["segment_ids"] = (seg[:, rows], seg)
+        if o is None:
+            ob, lb = tfa.flash_attention_fwd_ref(q[:, rows], k, v, **bkw)
+            outs.append((ob, lb.reshape(b, n, -1)))
+            continue
+        lb = lse.reshape(b, n, sq)[:, :, rows].reshape(b * n, -1)
+        gq, gk, gv = tfa.flash_attention_bwd_ref(
+            q[:, rows].float(), k.float(), v.float(), o[:, rows], lb,
+            do[:, rows].float(), **bkw)
+        outs.append(gq.to(q.dtype))
+        dk, dv = dk + gk, dv + gv
+    if o is None:
+        return (torch.cat([x for x, _ in outs], 1),
+                torch.cat([x for _, x in outs], 2).reshape(b * n, sq))
+    return torch.cat(outs, 1), dk.to(k.dtype), dv.to(v.dtype)
+
+
+def _hold_packed(q, k, v, do, kw):
+    """K2, K6 and K7 on one packed call with ``kw`` against the plain
+    version of the whole call computed in query blocks; the same masks on
+    both sides, so the dropout-free tolerances hold, times 1/(1 - p).
+    The forward's error is taken over 1 + |plain|: the whole row holds
+    outputs of 4-8 (a document's first rows average few values, scaled
+    by 1/(1 - p)), where one bf16 step of either side's rounding is
+    2**-5, above the absolute 2e-2 that the smaller shapes hold."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    scale = 1.0 / (1.0 - kw.get("dropout_p", 0.0))
+    what = "packed segments + dropout, whole row"
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    ro, rlse = _plain_blocks(q, k, v, None, None, None, kw)
+    diff = (o.float() - ro.float()).abs()
+    at = int(diff.argmax())
+    errs = {f"{what} o": float((diff / (1 + ro.float().abs())).max()),
+            f"{what} o abs": float(diff.max()),
+            f"{what} |plain o| at the largest abs error": float(
+                ro.float().reshape(-1)[at].abs())}
+    del ro, rlse, diff
+    check(errs[f"{what} o"] <= 2e-2 * scale, f"K2 {what}: {errs}")
+    ops = tfa.flash_bwd_operands(q, k, v, o, lse, do,
+                                 **{a: b for a, b in kw.items()
+                                    if a != "causal"})
+    got = (tfa.flash_bwd_dq(ops, causal=kw["causal"]),
+           *tfa.flash_bwd_dkv(ops, causal=kw["causal"]))
+    want = _plain_blocks(q, k, v, o, lse, do, kw)
+    for name, a, e in zip(("dq", "dk", "dv"), got, want):
+        errs[f"{what} {name}"] = rel_err(a, e)
+    check(max(errs[f"{what} {name}"] for name in ("dq", "dk", "dv"))
+          <= FLASH_BWD_TOL * scale, f"split backward {what}: {errs}")
+    return errs
+
+
+def _packed_docs(total, gen):
+    """Seeded document lengths in PACKED_DOC_LENS filling ``total`` (the
+    last one cut at the end) → cu_seqlens (int32, CPU)."""
+    lens, pos = [], 0
+    while pos < total:
+        n = int(torch.randint(PACKED_DOC_LENS[0], PACKED_DOC_LENS[1] + 1,
+                              (1,), generator=gen))
+        n = min(n, total - pos)
+        lens.append(n)
+        pos += n
+    return torch.tensor([0] + lens, dtype=torch.int64).cumsum(0).to(
+        torch.int32)
+
+
+def _block_diag_mask(cu, total, causal, dev):
+    """The [total, total] bool keep-mask of packed documents (True = the
+    query sees the key), for SDPA."""
+    doc = torch.searchsorted(cu.to(dev).long(), torch.arange(
+        total, device=dev), right=True)
+    m = doc[:, None] == doc[None]
+    if causal:
+        m &= torch.ones(total, total, dtype=torch.bool, device=dev).tril()
+    return m
+
+
+def kernel_flash_branches(dev, gen):
+    """Rows 3, 4a, 4b and 5's dropout and segment branches at the main
+    paths' shapes against their plain versions (the same seed and ids):
+    K2, K6 and K7 with dropout at the GPT step's shape (b16 s1024 n12
+    d64 causal); K2 and row 5 with dropout at BERT-large's (b8 s512 n16
+    d64, ragged key padding); K2 and row 5 with segment ids at BERT's
+    shape (2-4 documents a row); timed beside SDPA with ``dropout_p`` (its
+    masks differ: the same work) and with a materialized block-diagonal
+    mask.  → ``{kernel: {variant: {...}}}`` and the errors."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    p, seed = DROPOUT_P, _dropout_seed(dev)
+    out = {k: {} for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv",
+                           "flash_attention_bwd_short")}
+    errs = {}
+    # --- dropout at the GPT step's shape: K2, K6, K7 ---------------------
+    b, s, n, d = TRAIN_BATCH, TRAIN_SEQ, 12, 64
+    q, k, v, do = (torch.randn(b, s, n, d, device=dev,
+                               generator=gen).bfloat16() for _ in range(4))
+    kw = dict(causal=True, dropout_p=p, seed=seed)
+    e, ops = _hold_fwd_bwd(q, k, v, do, kw, "gpt dropout", "split")
+    errs.update(e)
+    bd = _fwd_bwd_bounds(b, s, n, d, n * b * s * (s + 1) // 2)
+    plain_f = time_ms(lambda: tfa.flash_attention_fwd_ref(q, k, v, **kw),
+                      iters=2, reps=2)
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    plain_b = time_ms(lambda: tfa.flash_attention_bwd_ref(
+        q, k, v, o, lse, do, **kw), iters=2, reps=2)
+    lib_f, lib_b = _sdpa_fwd_bwd_ms(q, k, v, do, is_causal=True,
+                                    dropout_p=p)
+    name = f"dropout {p} gpt step b{b} s{s} n{n} d{d} causal"
+    out["flash_attention_fwd"][name] = {
+        "ms": time_ms(lambda: tfa.flash_attention_fwd(q, k, v, **kw)),
+        "plain_ms": plain_f, "library_ms": lib_f,
+        "bound_ms": bd["fwd"][0], "bound_by": bd["fwd"][1]}
+    for kname, fn, bkey in (
+            ("flash_attention_bwd_dq",
+             lambda: tfa.flash_bwd_dq(ops, causal=True), "dq"),
+            ("flash_attention_bwd_dkv",
+             lambda: tfa.flash_bwd_dkv(ops, causal=True), "dkv")):
+        out[kname][name] = {"ms": time_ms(fn), "plain_ms": plain_b,
+                            "library_ms": lib_b,
+                            "bound_ms": bd[bkey][0], "bound_by": bd[bkey][1]}
+    del q, k, v, do, o, lse, ops
+    # --- dropout and segments at BERT's shape: K2, row 5 -----------------
+    b, s, n, d = BERT_BATCH, BERT_SEQ, 16, 64
+    lens = bert_lens(b, s, torch.Generator().manual_seed(6)).to(dev)
+    kpm = torch.arange(s, device=dev)[None] >= lens[:, None]
+    add = torch.where(kpm, -1e30, 0.0).bfloat16()[:, None, None, :]
+    q, k, v, do = (torch.randn(b, s, n, d, device=dev,
+                               generator=gen).bfloat16() for _ in range(4))
+    sgen = torch.Generator().manual_seed(7)
+    seg = torch.stack([torch.repeat_interleave(
+        torch.arange(4), torch.diff(torch.cat([
+            torch.tensor([0]), torch.sort(torch.randint(
+                1, s, (3,), generator=sgen)).values, torch.tensor([s])])))
+        for _ in range(b)]).to(torch.int32).to(dev)
+    keep = (seg[:, :, None] == seg[:, None, :])[:, None]
+    for what, kw, pairs, lib_kw in (
+            ("dropout", dict(causal=False, key_padding_mask=kpm,
+                             dropout_p=p, seed=seed),
+             int(lens.sum()) * s * n, dict(attn_mask=add, dropout_p=p)),
+            ("segments", dict(causal=False, segment_ids=seg),
+             int(keep.sum()) * n, dict(attn_mask=keep))):
+        e, ops = _hold_fwd_bwd(q, k, v, do, kw, f"bert {what}", "short")
+        errs.update(e)
+        bd = _fwd_bwd_bounds(b, s, n, d, pairs)
+        plain_f = time_ms(lambda: tfa.flash_attention_fwd_ref(q, k, v, **kw),
+                          iters=2, reps=2)
+        o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+        plain_b = time_ms(lambda: tfa.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, **kw), iters=2, reps=2)
+        lib_f, lib_b = _sdpa_fwd_bwd_ms(q, k, v, do, **lib_kw)
+        name = (f"{what}{' ' + str(p) if what == 'dropout' else ''} bert "
+                f"b{b} s{s} n{n} d{d} non-causal"
+                + (", ragged padding" if what == "dropout"
+                   else ", 4 documents a row"))
+        out["flash_attention_fwd"][name] = {
+            "ms": time_ms(lambda: tfa.flash_attention_fwd(q, k, v, **kw)),
+            "plain_ms": plain_f, "library_ms": lib_f,
+            "bound_ms": bd["fwd"][0], "bound_by": bd["fwd"][1]}
+        out["flash_attention_bwd_short"][name] = {
+            "ms": time_ms(lambda: tfa.flash_bwd_fused(ops, causal=False)),
+            "plain_ms": plain_b, "library_ms": lib_b,
+            "bound_ms": bd["short"][0], "bound_by": bd["short"][1]}
+        del ops, o, lse
+    return out, errs
+
+
+def packed_phase(dev, gen):
+    """The packed-attention path at GPT-2 widths: seeded documents of
+    64-2048 tokens packed into [16384, 12, 64] bf16 with cu_seqlens,
+    causal, dropout 0.1, forward and backward through
+    ``flash_attention_packed`` (exact launches: K2, K6 and K7 once each;
+    16384 keys take the split pair).  Held: without dropout, each
+    document's rows and gradients against one ``flash_attention`` call on
+    that document alone (kernel against kernel, bf16 tolerance); with
+    dropout and segments, K2, K6 and K7 against the plain version of the
+    whole row, computed in blocks of query rows.  Timed: the packed forward and backward, K2, K6 and K7 on the
+    packed rows (their segment branches) against a dense causal call over
+    the same 16384 tokens (the tile skip) and SDPA with the materialized
+    block-diagonal mask."""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    total, n, d, p = PACKED_TOKENS, PACKED_HEADS, PACKED_DIM, DROPOUT_P
+    cu = _packed_docs(total, torch.Generator().manual_seed(8))
+    doc_lens = torch.diff(cu).tolist()
+    cu_d = cu.to(dev)
+    q, k, v, do = (torch.randn(total, n, d, device=dev,
+                               generator=gen).bfloat16() for _ in range(4))
+    words = torch.tensor(DROPOUT_WORDS, dtype=torch.int64, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+
+    def packed_step(drop=True):
+        # autograd.grad, not backward(): no gradient accumulates on the
+        # leaves, so the call captures in a CUDA graph
+        out = tfa.flash_attention_packed(
+            *leaves, cu_d, causal=True, dropout_p=p if drop else 0.0,
+            dropout_rng=words if drop else None)
+        return out, torch.autograd.grad(out, leaves, do)
+
+    packed_step()
+    torch.cuda.synchronize()
+    # --- the path: counts reset just before, read just after -------------
+    ku.reset_launch_counts()
+    packed_step()
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    want = {name: 0 for name in ku.KERNELS}
+    want.update({"flash_attention_fwd": 1, "flash_attention_bwd_dq": 1,
+                 "flash_attention_bwd_dkv": 1})
+    check(counts == want, f"packed launches {counts} != {want}")
+    # --- held: per-document kernel calls (no dropout) --------------------
+    out, grads = packed_step(drop=False)
+    errs, start = {}, 0
+    for L in doc_lens:
+        sl = slice(start, start + L)
+        parts = [t[sl][None].clone().requires_grad_() for t in (q, k, v)]
+        one = tfa.flash_attention(*parts, causal=True)
+        one.backward(do[sl][None])
+        errs[f"doc {L} o"] = rel_err(out[sl].detach(), one[0].detach())
+        for name, grad, part in zip(("dq", "dk", "dv"), grads, parts):
+            errs[f"doc {L} {name}"] = rel_err(grad[sl], part.grad[0])
+        start += L
+    check(max(errs.values()) <= FLASH_BWD_TOL,
+          f"packed rows against per-document calls: {errs}")
+    # --- held: dropout, kernel against plain on the first 4096 tokens ----
+    tp = PACKED_PREFIX_TOKENS
+    cu_p = torch.clamp(cu, max=tp).unique().to(torch.int32)
+    seg = tfa.segment_ids_from_cu_seqlens(cu_p.to(dev), tp)[None]
+    kw = dict(causal=True, dropout_p=p, seed=_dropout_seed(dev),
+              segment_ids=seg)
+    perr, _ = _hold_fwd_bwd(*(t[:tp][None] for t in (q, k, v, do)), kw,
+                            "packed dropout 4096", "split")
+    errs.update(perr)
+    # --- held: dropout and segments, kernel against plain, whole row ------
+    q4, k4, v4, do4 = (t[None] for t in (q, k, v, do))
+    seg_all = tfa.segment_ids_from_cu_seqlens(cu_d, total)[None]
+    pkw = dict(causal=True, dropout_p=p, seed=_dropout_seed(dev),
+               segment_ids=seg_all)
+    perr = _hold_packed(q4, k4, v4, do4, pkw)
+    errs.update(perr)
+    # --- timed -------------------------------------------------------------
+    # --- timed -------------------------------------------------------------
+    o, lse = tfa.flash_attention_fwd(q4, k4, v4, **pkw)
+    ops = tfa.flash_bwd_operands(q4, k4, v4, o, lse, do4,
+                                 **{a: b for a, b in pkw.items()
+                                    if a != "causal"})
+    dense_o, dense_lse = tfa.flash_attention_fwd(q4, k4, v4, causal=True)
+    dops = tfa.flash_bwd_operands(q4, k4, v4, dense_o, dense_lse, do4)
+    pairs = n * sum(L * (L + 1) // 2 for L in doc_lens)
+    dense_pairs = n * total * (total + 1) // 2
+    bd = _fwd_bwd_bounds(1, total, n, d, pairs, extra_bytes=total * 4)
+    mask = _block_diag_mask(cu, total, True, dev)
+    lib_f, lib_b = _sdpa_fwd_bwd_ms(q4, k4, v4, do4, attn_mask=mask)
+    del mask
+    def fwd_bwd(kw):
+        # K2, then K6 and K7 on its o and lse, called directly: the
+        # autograd backward runs on autograd's thread, outside a capture
+        o_, lse_ = tfa.flash_attention_fwd(q4, k4, v4, **kw)
+        ops_ = tfa.flash_bwd_operands(
+            q4, k4, v4, o_, lse_, do4,
+            **{a: b for a, b in kw.items() if a != "causal"})
+        return (tfa.flash_bwd_dq(ops_, causal=True),
+                tfa.flash_bwd_dkv(ops_, causal=True))
+
+    ms = {
+        "packed_fwd_bwd_ms": time_ms(lambda: fwd_bwd(pkw), iters=3),
+        "dense_causal_fwd_bwd_ms": time_ms(
+            lambda: fwd_bwd(dict(causal=True)), iters=3),
+        "packed_fwd_ms": time_ms(lambda: tfa.flash_attention_fwd(
+            q4, k4, v4, **pkw)),
+        "packed_k6_ms": time_ms(lambda: tfa.flash_bwd_dq(ops, causal=True)),
+        "packed_k7_ms": time_ms(lambda: tfa.flash_bwd_dkv(ops, causal=True)),
+        "dense_causal_fwd_ms": time_ms(lambda: tfa.flash_attention_fwd(
+            q4, k4, v4, causal=True)),
+        "dense_causal_k6_ms": time_ms(lambda: tfa.flash_bwd_dq(
+            dops, causal=True)),
+        "dense_causal_k7_ms": time_ms(lambda: tfa.flash_bwd_dkv(
+            dops, causal=True)),
+        "sdpa_block_diagonal_fwd_ms": lib_f,
+        "sdpa_block_diagonal_bwd_ms": lib_b,
+    }
+    variants = {}
+    name = (f"segments + dropout {p}: packed [{total}, {n}, {d}] causal, "
+            f"{len(doc_lens)} documents")
+    plain_note = (f"plain_ms: the plain version of the whole row in "
+                  f"blocks of {PACKED_PLAIN_ROWS} query rows (its "
+                  "materialized scores of all rows do not fit)")
+    plain_f = time_ms(lambda: _plain_blocks(q4, k4, v4, None, None, None,
+                                            pkw), iters=1, reps=2)
+    plain_b = time_ms(lambda: _plain_blocks(q4, k4, v4, o, lse, do4, pkw),
+                      iters=1, reps=2)
+    for kname, key, bkey, lib in (
+            ("flash_attention_fwd", "packed_fwd_ms", "fwd", lib_f),
+            ("flash_attention_bwd_dq", "packed_k6_ms", "dq", lib_b),
+            ("flash_attention_bwd_dkv", "packed_k7_ms", "dkv", lib_b)):
+        variants[kname] = {name: {
+            "ms": ms[key], "plain_ms": plain_b if bkey != "fwd" else plain_f,
+            "library_ms": lib, "bound_ms": bd[bkey][0],
+            "bound_by": bd[bkey][1], "note": plain_note}}
+    return {"counts": counts, "errs": errs, "tol": FLASH_BWD_TOL,
+            "documents": len(doc_lens), "doc_lens": doc_lens,
+            "open_pairs": pairs, "dense_causal_pairs": dense_pairs,
+            "variants": variants, **ms}
+
+
+def kernel_flash_wide(dev, gen):
+    """The wide-head branches of rows 3, 4a and 4b (flash_attention_fwd_
+    wide, flash_attention_bwd_dq_wide, flash_attention_bwd_dkv_wide) at
+    head sizes 256 (Gemma's) and 320, b4 s1024 n8 causal bf16, against the
+    plain forward and backward, beside SDPA (forward and backward) at the
+    same head size; and the wide-head path: one differentiable
+    ``flash_attention`` call with dropout at d256, forward and backward,
+    exact launches.  → (results by kernel, path counts)."""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    b, s, n = WIDE_SHAPE
+    res = {}
+    for d in WIDE_DIMS:
+        q, k, v, do = (torch.randn(b, s, n, d, device=dev,
+                                   generator=gen).bfloat16()
+                       for _ in range(4))
+        kw = dict(causal=True)
+        errs, ops = _hold_fwd_bwd(q, k, v, do, kw, f"wide d{d}", "split")
+        bd = _fwd_bwd_bounds(b, s, n, d, n * b * s * (s + 1) // 2)
+        o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+        plain_f = time_ms(lambda: tfa.flash_attention_fwd_ref(q, k, v, **kw),
+                          iters=2, reps=2)
+        plain_b = time_ms(lambda: tfa.flash_attention_bwd_ref(
+            q, k, v, o, lse, do, **kw), iters=2, reps=2)
+        lib_f, lib_b = _sdpa_fwd_bwd_ms(q, k, v, do, is_causal=True)
+        shape = f"b{b} s{s} n{n} d{d} bf16 causal"
+        for kname, fn, bkey, plain, lib in (
+                ("flash_attention_fwd_wide",
+                 lambda: tfa.flash_attention_fwd(q, k, v, **kw), "fwd",
+                 plain_f, lib_f),
+                ("flash_attention_bwd_dq_wide",
+                 lambda: tfa.flash_bwd_dq(ops, causal=True), "dq", plain_b,
+                 lib_b),
+                ("flash_attention_bwd_dkv_wide",
+                 lambda: tfa.flash_bwd_dkv(ops, causal=True), "dkv", plain_b,
+                 lib_b)):
+            row = {"ms": time_ms(fn), "plain_ms": plain, "library_ms": lib,
+                   "bound_ms": bd[bkey][0], "bound_by": bd[bkey][1]}
+            if d == WIDE_DIMS[0]:
+                err_keys = [e for e in errs if (e.endswith(" o"))
+                            == (bkey == "fwd")]
+                res[kname] = dict(
+                    row, err=max(errs[e] for e in err_keys),
+                    tol=2e-2 if bkey == "fwd" else FLASH_BWD_TOL,
+                    detail=errs, shape=shape + (
+                        "; plain and library = the whole backward"
+                        if bkey != "fwd" else ""), variants={})
+                if bkey != "fwd":
+                    res[kname]["rel_err"] = res[kname]["err"]
+            else:
+                res[kname]["variants"][shape] = dict(row, detail=errs)
+        del q, k, v, do, o, lse, ops
+    # --- the wide-head path ---------------------------------------------
+    d = WIDE_DIMS[0]
+    leaves = [torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+              .requires_grad_() for _ in range(3)]
+    do = torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+    words = torch.tensor(DROPOUT_WORDS, dtype=torch.int64, device=dev)
+    torch.cuda.synchronize()
+    ku.reset_launch_counts()
+    tfa.flash_attention(*leaves, causal=True, dropout_p=DROPOUT_P,
+                        dropout_rng=words).backward(do)
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    want = {name: 0 for name in ku.KERNELS}
+    want.update({"flash_attention_fwd_wide": 1,
+                 "flash_attention_bwd_dq_wide": 1,
+                 "flash_attention_bwd_dkv_wide": 1})
+    check(counts == want, f"wide-head launches {counts} != {want}")
+    check(all(torch.isfinite(t.grad.float()).all() for t in leaves),
+          "wide-head path: non-finite gradients")
+    return res, counts
+
+
+def kernel_gmm_int8_simt(dev, gen):
+    """Row 9's CUDA-core int8 branch (grouped_matmul_int8_simt) at the
+    ragged MoE step's fc1 with fp32 activations ([4096, 768] over 8
+    experts' [768, 3072] int8 slab, kb 128), and at the other geometries
+    the GEMM refuses: bf16 x with kb 48, bf16 x with p 40 (fc1's first 40
+    columns); against the plain version (the slab dequantized to fp32), and
+    the row-9 geometry path: one ``grouped_matmul_quantized`` call with
+    fp32 x, exact launches.  → (result, path counts)."""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "tests"))
+    from torch_gmm_cases import offsets_case
+
+    n, g, off = offsets_case("moe")
+    offs = torch.as_tensor(off, device=dev)
+    k, p = MOE_H, MOE_F
+    w = torch.randn(g, k, p, device=dev, generator=gen) * 0.02
+    x = torch.randn(n, k, device=dev, generator=gen)
+    live = int(off[-1] - off[0])
+    cases = {}
+    for name, xx, ww, kb in (
+            (f"fp32 x [{n}, {k}] x [8, {k}, {p}] kb {QUANT_KB}", x, w,
+             QUANT_KB),
+            (f"bf16 x, kb 48", x.bfloat16(), w, 48),
+            (f"bf16 x, p 40", x.bfloat16(), w[..., :40].contiguous(),
+             QUANT_KB)):
+        q = tgm.quantize_group_weights(ww, kb)
+        check(not tgm.int8_gemm_takes(xx.dtype, k, ww.shape[-1], g, kb),
+              f"row 9 int8 {name}: the GEMM takes it")
+        before = tgm.GROUPED_MATMUL_INT8_SIMT.launches
+        got = tgm.grouped_matmul_quantized(xx, q["wire"], q["scale"], offs)
+        torch.cuda.synchronize()
+        check(tgm.GROUPED_MATMUL_INT8_SIMT.launches == before + 1,
+              f"row 9 int8 {name}: not one launch of the CUDA-core branch")
+        want = tgm.grouped_matmul_quantized(xx, q["wire"], q["scale"], offs,
+                                            backend="reference")
+        tol = 1e-5 if xx.dtype == torch.float32 else 1e-2
+        err = rel_err(got, want)
+        check(err <= tol, f"row 9 int8 {name}: {err} > {tol}")
+        pp = ww.shape[-1]
+        nbytes = (live * k * xx.element_size() + g * k * pp
+                  + q["scale"].numel() * 4 + n * pp * xx.element_size())
+        # fp32 x multiplies on the CUDA cores; 16-bit x times the slab
+        # widened to 16 bits is work the tensor cores take (the GEMM's
+        # route), so its bound is at their rate
+        bms, by = bound(nbytes, 2 * live * k * pp,
+                        PEAK_FP32_FLOPS if xx.dtype == torch.float32
+                        else PEAK_BF16_FLOPS)
+        cases[name] = {
+            "err": err, "tol": tol,
+            "ms": time_ms(lambda: tgm.grouped_matmul_quantized(
+                xx, q["wire"], q["scale"], offs)),
+            "plain_ms": time_ms(lambda: tgm.grouped_matmul_quantized(
+                xx, q["wire"], q["scale"], offs, backend="reference"),
+                iters=2, reps=2),
+            "library_ms": None, "bound_ms": bms, "bound_by": by}
+    # --- the path --------------------------------------------------------
+    q = tgm.quantize_group_weights(w, QUANT_KB)
+    torch.cuda.synchronize()
+    ku.reset_launch_counts()
+    tgm.grouped_matmul_quantized(x, q["wire"], q["scale"], offs)
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    want = {name: 0 for name in ku.KERNELS}
+    want["grouped_matmul_int8_simt"] = 1
+    check(counts == want, f"row 9 int8 geometry launches {counts}")
+    main_name = next(iter(cases))
+    main = cases.pop(main_name)
+    return dict(main, rel_err=main["err"], detail={
+        k_: v_["err"] for k_, v_ in cases.items()},
+        variants=cases, shape=main_name + " (the MoE offsets); "
+        "bounds at 67 TFLOP/s for fp32 x, 989 for bf16 x"), counts
+
+
+def dropout_train_phase(dev, kind, backend=None):
+    """The GPT-2 125M O2 FusedAdam step at b16 x s1024 (``kind="gpt"``) or
+    the BERT-large O2 FusedLAMB step at b8 x s512 under one attention
+    backend (``kind="bert"``) with hidden and attention dropout 0.1:
+    exact launch counts (the dropout-free steps' kernels; the masks of the
+    hidden sites and of fused_softmax's probabilities are torch ops), step
+    ms over DROPOUT_STEPS steps, tokens/s and MFU, one profiled step
+    (device busy, idle share, device ms by category and launching op),
+    and the device ms of one hidden site's forward (mask and scale over
+    [b, s, h] bf16, CUDA-graph replays) and, under fused_softmax, of the
+    probabilities' site ([b, n, s, s] fp32)."""
+    from apex_tpu_torch.models import transformer_lm as ttlm
+    from apex_tpu_torch.models.transformer_lm import dropout_keys
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.optimizers._common import tree_leaves
+
+    cfg, init, step, batch, seq, bsz = _dropout_step(dev, kind, backend)
+    state = init(torch.Generator().manual_seed(0))
+    n_params = sum(p.numel() for p in tree_leaves(state.master_params))
+    words = dropout_keys(cfg, torch.Generator().manual_seed(9), dev)
+    traj = []
+
+    def one():
+        nonlocal state
+        state, m = step(state, *batch, words)
+        traj.append(m)
+
+    for _ in range(TRAIN_WARMUP):
+        one()
+    torch.cuda.synchronize()
+    ku.reset_launch_counts()
+    one()
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    L = cfg.num_layers
+    want = {name: 0 for name in ku.KERNELS}
+    norms = 2 * L + (1 if kind == "gpt" else 3)
+    want.update({"layer_norm_fwd": norms, "layer_norm_bwd": norms})
+    if kind == "gpt":
+        want.update({"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+                     "flash_attention_bwd_dkv": L})
+    elif backend == "flash":
+        want.update({"flash_attention_fwd": L,
+                     "flash_attention_bwd_short": L})
+    else:
+        want["scaled_softmax_fwd"] = L
+    what = kind if kind == "gpt" else f"bert {backend}"
+    check(counts == want, f"{what} dropout launches {counts} != {want}")
+    step_ms = [wall_ms(one) for _ in range(DROPOUT_STEPS)]
+    q1, med, q3 = quartiles(step_ms)
+    t_prof, busy, top, by_cat, by_op = profile_busy(one)
+    losses = [float(m["loss"]) for m in traj]
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    tokens_per_s = bsz * seq / (med / 1e3)
+    flops_per_tok = 6 * n_params + 12 * L * cfg.hidden_size * seq
+    del state
+    site = {}
+    x = torch.randn(bsz, seq, cfg.hidden_size, device=dev).bfloat16()
+    site["hidden site [b, s, h] bf16"] = time_ms(
+        lambda: ttlm._dropout(x, cfg.hidden_dropout, words[0, 1]))
+    if backend == "fused_softmax":
+        pr = torch.rand(bsz, cfg.num_attention_heads, seq, seq, device=dev)
+        site["probabilities [b, n, s, s] fp32"] = time_ms(
+            lambda: ttlm._dropout(pr, cfg.attention_dropout, words[0, 0]))
+        del pr
+    del x
+    return {"step_ms": med, "step_ms_q1_q3": [q1, q3],
+            "step_ms_all": step_ms,
+            "steps_timed": DROPOUT_STEPS, "tokens_per_s": tokens_per_s,
+            "mfu": tokens_per_s * flops_per_tok / PEAK_BF16_FLOPS,
+            "profiled_step_ms": t_prof,
+            "device_busy_ms": busy if busy > 0 else "not measured",
+            "device_idle_share": (1 - busy / t_prof) if busy > 0
+            else "not measured",
+            "device_top_ms": top, "device_ms_by_category": by_cat,
+            "device_ms_by_op": by_op, "site_forward_ms": site,
+            "losses": losses, "counts": counts}
+
+
+def _dropout_profile_text(r):
+    """One dropout step's spread, profile and mask-site times, as text."""
+    return (f"every step's ms {[round(t, 2) for t in r['step_ms_all']]}; "
+            f"profiled step {r['profiled_step_ms']:.1f} ms, device busy "
+            f"{r['device_busy_ms']} ms, idle share "
+            f"{r['device_idle_share']}; device ms by category "
+            f"{r['device_ms_by_category']}; top device time "
+            f"{r['device_top_ms']}; by launching op {r['device_ms_by_op']}; "
+            f"one mask site's forward, device ms {r['site_forward_ms']}")
+
+
+def _dropout_step(dev, kind, backend, batch_size=None, grad_postprocess=None,
+                  plain=False):
+    """(cfg, init, step, batch, seq, batch size) of a dropout train step."""
+    if kind == "gpt":
+        from apex_tpu_torch.models.gpt import make_gpt_train_step
+        from apex_tpu_torch.optimizers import fused_adam
+
+        cfg = dataclasses.replace(_train_cfg(), hidden_dropout=DROPOUT_P,
+                                  attention_dropout=DROPOUT_P)
+        bsz = batch_size or TRAIN_BATCH
+        init, step = make_gpt_train_step(
+            cfg, fused_adam(lr=1e-4), "O2", device=dev,
+            backend="reference" if plain else None,
+            grad_postprocess=grad_postprocess)
+        return cfg, init, step, _batch(cfg, bsz, 0, dev), TRAIN_SEQ, bsz
+    from apex_tpu_torch.models.bert import make_bert_train_step
+    from apex_tpu_torch.optimizers import fused_lamb
+
+    cfg = dataclasses.replace(bert_cfg(backend), hidden_dropout=DROPOUT_P,
+                              attention_dropout=DROPOUT_P)
+    bsz = batch_size or BERT_BATCH
+    init, step = make_bert_train_step(
+        cfg, fused_lamb(lr=1e-4, weight_decay=0.01), "O2", device=dev,
+        backend="reference" if plain else None,
+        grad_postprocess=grad_postprocess)
+    return cfg, init, step, bert_batch(cfg, bsz, 0, dev), BERT_SEQ, bsz
+
+
+def dropout_train_check(dev, kind, backend=None):
+    """3 dropout steps at b4 from one state on the kernel path and on the
+    plain path (backend="reference"), each step's key words the same on
+    both: per-step loss within TRAIN_LOSS_TOL, identical scaler decisions,
+    global grad norm within GRAD_NORM_RTOL (the dropout masks are the same
+    bits on both paths)."""
+    from apex_tpu_torch.models.transformer_lm import dropout_keys
+    from apex_tpu_torch.optimizers import global_norm
+
+    runs, state0 = {}, None
+    for plain in (False, True):
+        norms = []
+
+        def post(grads, norms=norms):
+            norms.append(global_norm(grads))
+            return grads
+
+        cfg, init, step, batch, _, _ = _dropout_step(
+            dev, kind, backend, CHECK_BATCH, post, plain)
+        if state0 is None:
+            state0 = init(torch.Generator().manual_seed(0))
+        state, seq = state0, []
+        for i in range(CHECK_STEPS):
+            words = dropout_keys(cfg, torch.Generator().manual_seed(20 + i),
+                                 dev)
+            state, m = step(state, *batch, words)
+            seq.append((float(m["loss"]), bool(m["overflow"]),
+                        float(m["loss_scale"])))
+        runs["plain" if plain else "kernel"] = (seq,
+                                                [float(x) for x in norms])
+        del state
+    what = kind if kind == "gpt" else f"bert {backend}"
+    (ks, kn), (ps, pn) = runs["kernel"], runs["plain"]
+    loss_err = max(abs(a[0] - b[0]) for a, b in zip(ks, ps))
+    check(loss_err <= TRAIN_LOSS_TOL,
+          f"{what} dropout kernel vs plain losses {ks} {ps}: {loss_err}")
+    check([a[1:] for a in ks] == [b[1:] for b in ps],
+          f"{what} dropout scaler decisions differ: {ks} {ps}")
+    check(not all(x[1] for x in ks), f"{what} dropout: every step overflowed")
+    norm_err = max(abs(a - b) / b for a, b, s in zip(kn, pn, ks) if not s[1])
+    check(norm_err <= GRAD_NORM_RTOL,
+          f"{what} dropout grad norms {kn} {pn}: {norm_err}")
+    return {"kernel": ks, "plain": ps, "grad_norm_kernel": kn,
+            "grad_norm_plain": pn, "loss_err": loss_err,
+            "grad_norm_rel_err": norm_err}
+
+
 def matmul_times(root: str) -> dict:
     """Rows 5, 9 and 10 of the ``apex_tpu_torch`` found under ``root``
     (this checkout, or a ``git archive`` of another commit unpacked
@@ -4383,7 +5137,9 @@ def matmul_times(root: str) -> dict:
     experts), row 9's fp32 branch at one layer's 8 LoRA calls at decode
     (32 rows over 20 live groups of 24) and at an adapter prefill (1024
     rows), and row 5 with K6 + K7 beside it at BERT's shape (b8 s512 n16
-    d64, key padding) and the MoE steps' (b8 s512 n12 d64 causal); row
+    d64, key padding), the MoE steps' (b8 s512 n12 d64 causal) and at d128
+    (b8 s512 n8, key padding), K6 and K7 at the GPT step's (b16 s1024 n12
+    d64 causal); row
     11 at BERT's fused_softmax scores ([8, 16, 512, 512] fp32 and bf16,
     [8, 1, 1, 512] key padding), K1 at the five main paths' shapes
     (LN_SHAPES, bf16 x, fp32 γ/β), row 6 at the engine's decode (b32 MHA,
@@ -4391,8 +5147,9 @@ def matmul_times(root: str) -> dict:
     DECODE_LENS, fp32 W, bf16 and int8 pools), row 8 (K4) at generate's
     [8, 50304] and the engine's [32, 50304] (fp32, top-k 50, top-p 0.95)
     and K2 at head size 64 (the smoke's serving shape b8 s512 n12 causal
-    with padding, and the GPT step's b16 s1024 n12 causal).  It calls only
-    entry points both this tree and its parent have (for rows 11 and K1
+    with padding, and the GPT step's b16 s1024 n12 causal) and 128.  It
+    calls only entry points both this tree and its parent have (for rows
+    11 and K1
     ``softmax_fwd`` and ``layer_norm_fwd_stats``, for rows 6 and 7
     ``ragged_paged_attention`` and ``fused_decode_layer``, for row 8
     ``fused_sample``, for K2 ``flash_attention_fwd``), so that parent and
@@ -4467,17 +5224,17 @@ def matmul_times(root: str) -> dict:
                         lambda: tgm.grouped_matmul(x, w, loffs))
             lora[lay] = {"sum_ms": sum(per.values()), "per_call_ms": per}
     row5 = {}
-    for name, (n, causal, pad) in (("bert b8 s512 n16 padded", (16, False,
-                                                              True)),
-                                   ("moe b8 s512 n12 causal", (12, True,
-                                                              False))):
+    for name, (n, causal, pad, d) in (
+            ("bert b8 s512 n16 padded", (16, False, True, 64)),
+            ("moe b8 s512 n12 causal", (12, True, False, 64)),
+            ("d128 b8 s512 n8 padded", (8, False, True, 128))):
         kpm = None
         if pad:
             lens = bert_lens(BERT_BATCH, BERT_SEQ,
                              torch.Generator().manual_seed(4)).cuda()
             lens[-1] = 0
             kpm = torch.arange(BERT_SEQ, device="cuda")[None] >= lens[:, None]
-        *_, ops = _flash_bwd_case("cuda", gen, BERT_BATCH, BERT_SEQ, n, n, 64,
+        *_, ops = _flash_bwd_case("cuda", gen, BERT_BATCH, BERT_SEQ, n, n, d,
                                   causal, kpm)
         row5[name] = {
             "row5_ms": time_ms(lambda: tfa.flash_bwd_fused(ops,
@@ -4485,6 +5242,13 @@ def matmul_times(root: str) -> dict:
             "k6_k7_ms": time_ms(lambda: (tfa.flash_bwd_dq(ops, causal=causal),
                                          tfa.flash_bwd_dkv(ops,
                                                            causal=causal)))}
+    # K6 + K7 at the GPT step's shape (the split pair's main path)
+    *_, ops = _flash_bwd_case("cuda", gen, TRAIN_BATCH, TRAIN_SEQ, 12, 12, 64,
+                              True, None)
+    row5["gpt b16 s1024 n12 causal"] = {
+        "k6_ms": time_ms(lambda: tfa.flash_bwd_dq(ops, causal=True)),
+        "k7_ms": time_ms(lambda: tfa.flash_bwd_dkv(ops, causal=True))}
+    del ops
     row11, k1 = {}, {}
     with torch.inference_mode():
         lens = bert_lens(BERT_BATCH, BERT_SEQ,
@@ -4533,11 +5297,12 @@ def matmul_times(root: str) -> dict:
                                          vocab_limit=VOCAB_LIMIT))
         lens = torch.tensor(PROMPT_LENS, device="cuda")
         kpm = torch.arange(512, device="cuda")[None] >= lens[:, None]
-        for name, (b, s_, pad) in (("b8 s512 n12 d64 causal+pad",
-                                    (8, 512, True)),
-                                   ("b16 s1024 n12 d64 causal",
-                                    (TRAIN_BATCH, TRAIN_SEQ, False))):
-            q, k, v = (torch.randn(b, s_, 12, 64, device="cuda",
+        for name, (b, s_, pad, d) in (
+                ("b8 s512 n12 d64 causal+pad", (8, 512, True, 64)),
+                ("b16 s1024 n12 d64 causal", (TRAIN_BATCH, TRAIN_SEQ, False,
+                                              64)),
+                ("b8 s512 n12 d128 causal+pad", (8, 512, True, 128))):
+            q, k, v = (torch.randn(b, s_, 12, d, device="cuda",
                                    generator=gen).bfloat16()
                        for _ in range(3))
             m = kpm if pad else None
@@ -4908,6 +5673,47 @@ def main() -> int:
     print(f"K2 and row 5 at head size 80, {d80}, bf16, on {smi}: forward "
           f"{json.dumps(d80_fwd)}; backward {json.dumps(d80_bwd)}")
     report("flash_attention_bwd_short", short)
+    branches, branch_errs = kernel_flash_branches(dev, gen)
+    for kname, rows in branches.items():
+        results[kname]["variants"] = {**results[kname]["variants"], **rows}
+    print(f"rows 3, 4a, 4b and 5: dropout {DROPOUT_P} and segment-id "
+          f"branches against their plain versions on {smi}: errors "
+          f"{json.dumps(branch_errs)}; times {json.dumps(branches)}")
+    wide, wide_counts = kernel_flash_wide(dev, gen)
+    for kname, r in wide.items():
+        report(kname, r)
+    print(f"wide heads (rows 3, 4a, 4b above d128), b{WIDE_SHAPE[0]} "
+          f"s{WIDE_SHAPE[1]} n{WIDE_SHAPE[2]} causal bf16 on {smi}: d256 "
+          + ", ".join(f"{k} {r['ms']:.4f} ms" for k, r in wide.items())
+          + "; d320 " + ", ".join(
+              f"{k} {v['ms']:.4f} ms" for k, r in wide.items()
+              for v in r["variants"].values())
+          + f"; path launches {json.dumps({k: c for k, c in wide_counts.items() if c})}")
+    with torch.inference_mode():
+        simt, simt_counts = kernel_gmm_int8_simt(dev, gen)
+    report("grouped_matmul_int8_simt", simt)
+    packed = packed_phase(dev, gen)
+    for kname, rows in packed.pop("variants").items():
+        results[kname]["variants"] = {**results[kname]["variants"], **rows}
+    print(f"packed attention [{PACKED_TOKENS}, {PACKED_HEADS}, {PACKED_DIM}]"
+          f" bf16 causal, dropout {DROPOUT_P}, {packed['documents']} "
+          f"documents of {PACKED_DOC_LENS[0]}-{PACKED_DOC_LENS[1]} tokens on "
+          f"{smi}: forward + backward {packed['packed_fwd_bwd_ms']:.3f} ms "
+          f"against a dense causal call's {packed['dense_causal_fwd_bwd_ms']:.3f}; "
+          f"K2 {packed['packed_fwd_ms']:.4f} ms vs dense causal "
+          f"{packed['dense_causal_fwd_ms']:.4f} ms, K6 "
+          f"{packed['packed_k6_ms']:.4f} vs {packed['dense_causal_k6_ms']:.4f}"
+          f", K7 {packed['packed_k7_ms']:.4f} vs "
+          f"{packed['dense_causal_k7_ms']:.4f} (open pairs "
+          f"{packed['open_pairs']} of {packed['dense_causal_pairs']}); SDPA "
+          f"with the block-diagonal mask forward "
+          f"{packed['sdpa_block_diagonal_fwd_ms']:.4f} ms, backward "
+          f"{packed['sdpa_block_diagonal_bwd_ms']:.4f} ms; launches "
+          f"{json.dumps({k: c for k, c in packed['counts'].items() if c})}; "
+          f"max error {max(v for k, v in packed['errs'].items() if 'whole' not in k):.4g} (tol "
+          f"{packed['tol']}, relative; o of the 4096-token prefix absolute); "
+          f"whole row against the plain version in query blocks "
+          f"{ {k: v for k, v in packed['errs'].items() if 'whole' in k} }")
     print(f"row 5 vs K6 + K7 crossover (b8, d64, bf16; flash_attention_bwd "
           f"sends up to {flash_attention.SHORT_KEYS_MAX} keys to row 5) on "
           f"{smi}: "
@@ -4945,8 +5751,26 @@ def main() -> int:
           f"{tc['grad_norm_kernel']} plain {tc['grad_norm_plain']}, max "
           f"rel diff {tc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL})")
 
+    torch.cuda.empty_cache()
+    trd = dropout_train_phase(dev, "gpt")
+    print(f"train gpt_125m AMP-O2 with hidden and attention dropout "
+          f"{DROPOUT_P} b{TRAIN_BATCH} x s{TRAIN_SEQ} on {smi}: step median "
+          f"{trd['step_ms']:.2f} ms (q1-q3 {trd['step_ms_q1_q3']}, "
+          f"{DROPOUT_STEPS} steps), {trd['tokens_per_s']:.1f} tokens/s, MFU "
+          f"{trd['mfu']:.4f}; the dropout-free step in this run "
+          f"{tr['step_ms']:.2f} ms, MFU {tr['mfu']:.4f} (PERF.md: 77.34 ms, "
+          f"run BE); launches {json.dumps({k: c for k, c in trd['counts'].items() if c})}"
+          f"; {_dropout_profile_text(trd)}")
+    torch.cuda.empty_cache()
+    tcd = dropout_train_check(dev, "gpt")
+    print(f"train gpt dropout kernel vs plain, b{CHECK_BATCH} x "
+          f"s{TRAIN_SEQ}, {CHECK_STEPS} steps: (loss, overflow, scale) "
+          f"kernel {tcd['kernel']} plain {tcd['plain']}; max loss diff "
+          f"{tcd['loss_err']:.5f} (tol {TRAIN_LOSS_TOL}); grad norms "
+          f"max rel diff {tcd['grad_norm_rel_err']:.5f} (tol "
+          f"{GRAD_NORM_RTOL})")
     mark("gpt train")
-    bert, bert_checks = {}, {}
+    bert, bert_checks, bert_drop = {}, {}, {}
     for backend in BERT_BACKENDS:
         torch.cuda.empty_cache()
         br = bert[backend] = bert_train_phase(dev, backend)
@@ -4980,6 +5804,22 @@ def main() -> int:
               f"kernel {bc['grad_norm_kernel']} plain "
               f"{bc['grad_norm_plain']}, max rel diff "
               f"{bc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL})")
+        torch.cuda.empty_cache()
+        bd = bert_drop[backend] = dropout_train_phase(dev, "bert", backend)
+        torch.cuda.empty_cache()
+        bdc = bd["check"] = dropout_train_check(dev, "bert", backend)
+        print(f"train bert_large {backend} AMP-O2 with hidden and attention "
+              f"dropout {DROPOUT_P} b{BERT_BATCH} x s{BERT_SEQ} on {smi}: "
+              f"step median {bd['step_ms']:.2f} ms (q1-q3 "
+              f"{bd['step_ms_q1_q3']}, {DROPOUT_STEPS} steps), "
+              f"{bd['tokens_per_s']:.1f} tokens/s, MFU {bd['mfu']:.4f}; the "
+              f"dropout-free step in this run {br['step_ms']:.2f} ms, MFU "
+              f"{br['mfu']:.4f}"
+              + (" (PERF.md: 134.80 ms)" if backend == "flash" else "")
+              + f"; kernel vs plain b{CHECK_BATCH}, {CHECK_STEPS} steps: "
+              f"losses {bdc['kernel']} vs {bdc['plain']}, max loss diff "
+              f"{bdc['loss_err']:.5f}, grad norm max rel diff "
+              f"{bdc['grad_norm_rel_err']:.5f}; {_dropout_profile_text(bd)}")
 
     mark("bert train")
     moe, moe_checks, moe_master = {}, {}, None
@@ -5058,7 +5898,12 @@ def main() -> int:
     mark("moe and masks")
     print(f"phase seconds: {json.dumps(phase_s)}")
     paths = {"serving": sl["counts"], "mqa generate": mqa["counts"],
-             "train_step": tr["counts"]}
+             "train_step": tr["counts"], "train_step dropout": trd["counts"],
+             "packed attention": packed["counts"],
+             "wide head attention": wide_counts,
+             "row 9 int8 geometries": simt_counts}
+    paths.update({f"bert {b} dropout": row["counts"]
+                  for b, row in bert_drop.items()})
     paths.update({f"bert {b}": row["counts"] for b, row in bert.items()})
     paths.update({f"moe {r}": row["counts"] for r, row in moe.items()})
     paths["moe int8 forward"] = mq["counts"]
@@ -5098,6 +5943,13 @@ def main() -> int:
         "lora_oracle": oracle,
         "train": {k: v for k, v in tr.items() if k != "counts"},
         "train_check": tc,
+        "train_dropout": {k: v for k, v in trd.items() if k != "counts"},
+        "train_dropout_check": tcd,
+        "bert_train_dropout": {n: {k: v for k, v in row.items()
+                                   if k != "counts"}
+                               for n, row in bert_drop.items()},
+        "packed_attention": {k: v for k, v in packed.items()
+                             if k != "counts"},
         "bert_train": {n: {k: v for k, v in row.items() if k != "counts"}
                        for n, row in bert.items()},
         "bert_train_check": bert_checks,

@@ -143,7 +143,7 @@ def test_padding_mask_and_refusals():
     am = torch.tensor([[1, 1, 0], [1, 0, 0]])
     assert torch.equal(tbert._padding_mask(am), am == 0)
     assert tbert._padding_mask(None) is None
-    cfg = t_bert_large(attention_dropout=0.1, **GEOM)
+    cfg = t_bert_large(remat=True, **GEOM)
     with pytest.raises(NotImplementedError):
         tbert.make_bert_train_step(cfg, t_lamb(), "O2", device="cpu")
     with pytest.raises(NotImplementedError):

@@ -91,13 +91,17 @@ def test_matches_jax_flash_head_dims(d, dtype, tol, causal, padded):
 
 @pytest.mark.parametrize("d", [129, 256])
 def test_head_dims_past_the_tiles_raise(d):
-    """Above 128 the kernel path refuses the call, naming the limit and
-    ROADMAP's item; the check runs before any device operand check."""
-    with pytest.raises(ValueError, match=r"1 to 128.*ROADMAP"):
-        tfa.check_head_dim(d)
+    """Above 128 no tile width takes the head (head_panel raises, naming
+    the wide kernels), and the kernel path takes the call all the same:
+    the operand checks pass and the call routes to the wide kernels."""
+    with pytest.raises(ValueError, match="wide kernels"):
+        tfa.head_panel(d)
+    tfa.check_head_dim(d)
     q = torch.zeros(1, 4, 2, d)
-    with pytest.raises(ValueError, match=r"1 to 128.*ROADMAP"):
-        tfa._kernel_operands(q, q, q, None, None)
+    kpm, scale = tfa._kernel_operands(q, q, q, None, None)
+    assert kpm is None and scale == 1.0 / d ** 0.5 and tfa.wide_head(d)
+    with pytest.raises(ValueError, match="at least 1"):
+        tfa.check_head_dim(0)
 
 
 @pytest.mark.parametrize("d, panel", [(8, 32), (32, 32), (40, 64), (64, 64),
@@ -138,8 +142,14 @@ def test_fully_masked_rows_are_zero():
 
 
 def test_training_only_options_raise():
+    """Dropout and segment ids run (dropout without a key is no dropout,
+    as the JAX wrapper's use_dropout); a single segment_ids array over
+    sq != sk raises, as JAX's does."""
     q, k, v = map(torch.from_numpy, _qkv(1, 4, 4, 2, 2, 16))
-    with pytest.raises(NotImplementedError, match="dropout"):
-        tfa.flash_attention(q, k, v, dropout_p=0.1)
-    with pytest.raises(NotImplementedError, match="segment_ids"):
-        tfa.flash_attention(q, k, v, segment_ids=torch.zeros(1, 4))
+    base = tfa.flash_attention(q, k, v)
+    assert torch.equal(tfa.flash_attention(q, k, v, dropout_p=0.1), base)
+    assert torch.equal(tfa.flash_attention(
+        q, k, v, segment_ids=torch.zeros(1, 4, dtype=torch.int32)), base)
+    with pytest.raises(ValueError, match="sq == sk"):
+        tfa.flash_attention(q[:, :3], k, v,
+                            segment_ids=torch.zeros(1, 3, dtype=torch.int32))

@@ -1379,11 +1379,24 @@ def test_row9_int8_branch(dev, dtype, tol, k, p, block, case):
     (64, 32, 32, torch.float32)])      # fp32 activations
 def test_row9_int8_shapes_the_tile_does_not_take_raise(dev, k, p, block,
                                                        dtype):
+    """The geometries the int8 GEMM refuses no longer raise: they take the
+    CUDA-core int8 branch (its own launch count), the GEMM's none."""
     from apex_tpu_torch.ops import grouped_matmul as tgm
 
-    x, wire, scale, offs, _ = _gmmq_inputs("window", k, p, block, dtype, 28)
-    with pytest.raises(ValueError, match="takes bf16/fp16"):
-        tgm.grouped_matmul_quantized(x, wire, scale, offs)
+    x, wire, scale, offs, off_np = _gmmq_inputs("window", k, p, block, dtype,
+                                                28)
+    assert not tgm.int8_gemm_takes(dtype, k, p, wire.shape[0], block)
+    before = (tgm.GROUPED_MATMUL_INT8.launches,
+              tgm.GROUPED_MATMUL_INT8_SIMT.launches)
+    out = tgm.grouped_matmul_quantized(x, wire, scale, offs)
+    torch.cuda.synchronize()
+    assert (tgm.GROUPED_MATMUL_INT8.launches,
+            tgm.GROUPED_MATMUL_INT8_SIMT.launches) == (before[0],
+                                                       before[1] + 1)
+    ref = tgm.grouped_matmul_quantized(x, wire, scale, offs,
+                                       backend="reference")
+    assert out.dtype == dtype and _rel_err(out, ref) <= (
+        1e-5 if dtype == torch.float32 else 1e-2)
 
 
 @pytest.mark.parametrize("trans", [False, True])
@@ -1586,3 +1599,247 @@ def test_spec_round_captures_and_replays_new_words(dev):
         else:
             assert torch.equal(got[0][[0, 3]], greedy)
 
+
+
+# ---------------------------------------------------------------------------
+# slice 15: row 9's CUDA-core int8 branch, attention dropout and segment ids
+# in rows 3, 4a, 4b and 5, and the wide-head branches
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-5),
+                                        (torch.bfloat16, 1e-2),
+                                        (torch.float16, 2e-3)])
+@pytest.mark.parametrize("k, p, block", [(768, 3072, 128), (96, 40, 48),
+                                         (64, 40, 32), (384, 24, 48)])
+@pytest.mark.parametrize("case", ["moe_small", "empty_groups", "window",
+                                  "all_outside", "many_groups", "straddle"])
+def test_row9_int8_simt_branch(dev, dtype, tol, k, p, block, case):
+    """Row 9's CUDA-core int8 branch against the plain version (the slab
+    dequantized to fp32): fp32 x, scale blocks of 48, p of 40 and 24,
+    windows, empty groups, G = 70; one launch, zeros outside the window."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    x, wire, scale, offs, off_np = _gmmq_inputs(case, k, p, block, dtype, 29)
+    if tgm.int8_gemm_takes(dtype, k, p, wire.shape[0], block):
+        pytest.skip("the tensor-core GEMM takes this geometry")
+    before = tgm.GROUPED_MATMUL_INT8_SIMT.launches
+    out = tgm.grouped_matmul_quantized(x, wire, scale, offs)
+    torch.cuda.synchronize()
+    assert tgm.GROUPED_MATMUL_INT8_SIMT.launches == before + 1
+    ref = tgm.grouped_matmul_quantized(x, wire, scale, offs,
+                                       backend="reference")
+    assert out.dtype == dtype == ref.dtype and out.shape == ref.shape
+    lo, hi = int(off_np[0]), int(off_np[-1])
+    assert int(torch.count_nonzero(out[:lo])) == 0
+    assert int(torch.count_nonzero(out[hi:])) == 0
+    if hi > lo:
+        assert _rel_err(out, ref) <= tol
+
+
+def test_row9_int8_simt_past_the_gemm_groups(dev):
+    """More than MAX_TILE_GROUPS groups of an int8 slab: the CUDA-core
+    branch, one launch."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    gn = tgm.MAX_TILE_GROUPS + 52
+    gen = _gen(31)
+    off = torch.sort(torch.randint(0, 3000, (gn + 1,), device=dev,
+                                   generator=gen)).values.to(torch.int32)
+    x = torch.randn(3000, 64, device=dev, generator=gen).bfloat16()
+    q = tgm.quantize_group_weights(
+        torch.randn(gn, 64, 32, device=dev, generator=gen) * 0.1, 32)
+    before = tgm.GROUPED_MATMUL_INT8_SIMT.launches
+    out = tgm.grouped_matmul_quantized(x, q["wire"], q["scale"], off)
+    torch.cuda.synchronize()
+    assert tgm.GROUPED_MATMUL_INT8_SIMT.launches == before + 1
+    ref = tgm.grouped_matmul_quantized(x, q["wire"], q["scale"], off,
+                                       backend="reference")
+    assert _rel_err(out, ref) <= 1e-2
+
+
+_FWD_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2, torch.float16: 2e-3}
+
+
+def _segments(b, s, seed):
+    """[b, s] int32 ids: documents of random lengths, the last row's tail
+    padding (-1)."""
+    g = torch.Generator().manual_seed(seed)
+    rows = []
+    for i in range(b):
+        ids, pos, doc = [], 0, 0
+        end = s - (s // 5 if i == b - 1 else 0)
+        while pos < end:
+            n = min(int(torch.randint(1, max(2, s // 3), (1,),
+                                      generator=g)), end - pos)
+            ids += [doc] * n
+            pos, doc = pos + n, doc + 1
+        rows.append(ids + [-1] * (s - end))
+    return torch.tensor(rows, dtype=torch.int32)
+
+
+def _seed(words):
+    return tfa.seed_from_key(torch.tensor(words, dtype=torch.int64,
+                                          device="cuda"))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("feature", ["dropout", "segments", "both"])
+@pytest.mark.parametrize("s, n, g, d, causal, padded", [
+    (130, 4, 2, 64, True, True), (300, 4, 4, 64, False, True),
+    (512, 8, 2, 128, True, False), (200, 4, 1, 40, False, False),
+    (600, 4, 2, 64, True, True), (1030, 4, 4, 128, False, True),
+    (700, 8, 1, 32, True, False)])
+def test_flash_dropout_segments(dev, dtype, feature, s, n, g, d, causal,
+                                padded):
+    """K2 forward and the backward route (row 5 up to 512 keys, else K6 +
+    K7) with dropout, segment ids or both, against the plain versions on
+    the same seed and ids: the masks are the same bits, so the tolerance
+    is the dropout-free one times 1 / (1 - p).  Up to 512 keys the split
+    pair, launched directly, agrees too."""
+    b, p = 3, 0.2
+    q, k, v, do = _flash_inputs(dtype, b, s, n, g, d, seed=41)
+    kpm = None
+    if padded:
+        lens = torch.tensor([s, s // 2 + 5, s - 3], device=dev)
+        kpm = torch.arange(s, device=dev)[None] >= lens[:, None]
+    kw = dict(causal=causal, key_padding_mask=kpm)
+    if feature in ("dropout", "both"):
+        kw.update(dropout_p=p, seed=_seed([3, 0xDEADBEEF]))
+    if feature in ("segments", "both"):
+        kw["segment_ids"] = _segments(b, s, s).to(dev)
+    scale = 1.0 / (1.0 - p) if "seed" in kw else 1.0
+    before = ku.launch_counts()
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    after = ku.launch_counts()
+    short = s <= tfa.SHORT_KEYS_MAX
+    assert after["flash_attention_fwd"] == before["flash_attention_fwd"] + 1
+    assert after["flash_attention_bwd_short"] == \
+        before["flash_attention_bwd_short"] + int(short)
+    assert after["flash_attention_bwd_dq"] == \
+        before["flash_attention_bwd_dq"] + int(not short)
+    ref, ref_lse = tfa.flash_attention_fwd_ref(q, k, v, **kw)
+    assert _rel_err(o, ref) <= _FWD_TOL[dtype] * scale * 2
+    live = ref_lse > -1e29
+    assert torch.equal(lse > -1e29, live)
+    torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3,
+                               rtol=1e-4)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for a, e, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == dtype and a.shape == e.shape, name
+        assert torch.isfinite(a.float()).all(), name
+        assert _rel_err(a, e) <= _BWD_TOL[dtype] * scale, name
+    if short:
+        ops = tfa.flash_bwd_operands(q, k, v, o, lse, do, **{
+            key: val for key, val in kw.items() if key != "causal"})
+        split = (tfa.flash_bwd_dq(ops, causal=causal),
+                 *tfa.flash_bwd_dkv(ops, causal=causal))
+        for a, e, name in zip(split, want, ("dq", "dk", "dv")):
+            assert _rel_err(a, e) <= _BWD_TOL[dtype] * scale, name
+
+
+def test_flash_dropout_masks_follow_the_seed_and_replay(dev):
+    """The same seed gives the same bits, another seed other ones; a call
+    captured in a CUDA graph reads its seed on the device, so a copy of
+    new key words replays the new mask, as an eager call draws it."""
+    q, k, v, do = _flash_inputs(torch.bfloat16, 2, 600, 8, 2, 64, seed=43)
+    seed = _seed([1, 2])
+    a = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_p=0.1,
+                                seed=seed)[0]
+    b_ = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_p=0.1,
+                                 seed=seed)[0]
+    c = tfa.flash_attention_fwd(q, k, v, causal=True, dropout_p=0.1,
+                                seed=_seed([1, 3]))[0]
+    assert torch.equal(a, b_) and not torch.equal(a, c)
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        tfa.flash_attention_fwd(q, k, v, causal=True, dropout_p=0.1,
+                                seed=seed)
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = tfa.flash_attention_fwd(q, k, v, causal=True,
+                                           dropout_p=0.1, seed=seed)[0]
+    seed.copy_(_seed([1, 3]))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, c)
+
+
+def test_flash_packed_matches_per_document(dev):
+    """flash_attention_packed (K2 with segment ids; K6 + K7 past 512 keys)
+    against one flash_attention call per document on its own rows,
+    forward and gradients, bf16 causal GQA; padding rows get no
+    gradient."""
+    lens = [300, 700, 64, 400]
+    total = sum(lens) + 36
+    n, g, d = 8, 2, 64
+    gen = _gen(45)
+    q = torch.randn(total, n, d, device=dev, generator=gen).bfloat16()
+    k = torch.randn(total, g, d, device=dev, generator=gen).bfloat16()
+    v = torch.randn(total, g, d, device=dev, generator=gen).bfloat16()
+    do = torch.randn(total, n, d, device=dev, generator=gen).bfloat16()
+    cu = torch.tensor([0] + list(torch.tensor(lens).cumsum(0)),
+                      dtype=torch.int32, device=dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = tfa.flash_attention_packed(*leaves, cu, causal=True)
+    out.backward(do)
+    start = 0
+    for L in lens:
+        sl = slice(start, start + L)
+        parts = [t[sl][None].clone().requires_grad_() for t in (q, k, v)]
+        want = tfa.flash_attention(*parts, causal=True)
+        want.backward(do[sl][None])
+        assert _rel_err(out[sl], want[0]) <= 2e-2
+        for leaf, part in zip(leaves, parts):
+            assert _rel_err(leaf.grad[sl], part.grad[0]) <= 2e-2
+        start += L
+    assert all(torch.count_nonzero(t.grad[start:]) == 0 for t in leaves)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("d", [160, 256, 320])
+@pytest.mark.parametrize("s, n, g, causal, padded, feature", [
+    (130, 4, 2, True, True, None), (300, 4, 4, False, True, None),
+    (600, 4, 1, True, False, "dropout"), (200, 4, 2, True, True, "both")])
+def test_flash_wide_heads(dev, dtype, d, s, n, g, causal, padded, feature):
+    """Head sizes above 128: the wide forward, dq and dk/dv kernels (one
+    launch each, whatever the key length) against the plain versions."""
+    b, p = 2, 0.2
+    q, k, v, do = _flash_inputs(dtype, b, s, n, g, d, seed=47)
+    kpm = None
+    if padded:
+        lens = torch.tensor([s, s // 2 + 1], device=dev)
+        kpm = torch.arange(s, device=dev)[None] >= lens[:, None]
+    kw = dict(causal=causal, key_padding_mask=kpm)
+    if feature in ("dropout", "both"):
+        kw.update(dropout_p=p, seed=_seed([5, 6]))
+    if feature == "both":
+        kw["segment_ids"] = _segments(b, s, 7).to(dev)
+    scale = 1.0 / (1.0 - p) if "seed" in kw else 1.0
+    before = ku.launch_counts()
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    got = tfa.flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    after = ku.launch_counts()
+    for name in ("flash_attention_fwd_wide", "flash_attention_bwd_dq_wide",
+                 "flash_attention_bwd_dkv_wide"):
+        assert after[name] == before[name] + 1, name
+    for name in ("flash_attention_fwd", "flash_attention_bwd_short",
+                 "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert after[name] == before[name], name
+    ref, ref_lse = tfa.flash_attention_fwd_ref(q, k, v, **kw)
+    assert _rel_err(o, ref) <= _FWD_TOL[dtype] * scale * 2
+    live = ref_lse > -1e29
+    assert torch.equal(lse > -1e29, live)
+    torch.testing.assert_close(lse[live], ref_lse[live], atol=1e-3,
+                               rtol=1e-4)
+    want = tfa.flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    for a, e, name in zip(got, want, ("dq", "dk", "dv")):
+        assert a.dtype == dtype and a.shape == e.shape, name
+        assert _rel_err(a, e) <= _BWD_TOL[dtype] * scale, name

@@ -48,11 +48,15 @@ def test_o2_dtype_chain():
     (dict(drop_path_rate=0.1), "dropout"),
 ])
 def test_unported_config_options_raise(kw, match):
+    """remat is not ported (NotImplementedError); a dropout config's step
+    called without its trailing key words raises TypeError (the JAX
+    step's missing rng argument)."""
     cfg = t_tiny(**dict(GEOM, **kw))
     init, step = t_make(cfg, t_adam(lr=1e-3), "O0", device="cpu")
     state = init(torch.Generator().manual_seed(0))
     tok = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match=match):
+    exc = NotImplementedError if match == "remat" else TypeError
+    with pytest.raises(exc, match=match):
         step(state, tok, tok)
 
 
