@@ -26,8 +26,8 @@ fused_lamb``, the short-key flash backward, the scaled masked softmax of
 
 __version__ = "0.1.0"
 
-_LAZY_SUBMODULES = ("amp", "models", "observability", "ops", "optimizers",
-                    "serving", "transformer", "utils")
+_LAZY_SUBMODULES = ("amp", "models", "multi_tensor", "observability", "ops",
+                    "optimizers", "serving", "transformer", "utils")
 
 
 def __getattr__(name):

@@ -9,17 +9,38 @@ the old one as it was.  In order it
 1. differentiates ``loss_scale · loss_fn(policy.cast_params(masters),
    *batch)`` with respect to the fp32 masters (the cast to the
    parameter dtype is inside the graph, so each gradient arrives
-   through the same dtype chain as in JAX);
-2. unscales the gradients to fp32 and checks that all are finite;
+   through the same dtype chain as in JAX); with ``accum_steps > 1``
+   over that many equal microbatches, their scaled gradients added in
+   fp32 (``multi_tensor_axpby``);
+2. unscales the gradients to fp32 (divided by ``accum_steps`` in the
+   same pass) and checks that all are finite (one ``multi_tensor_scale``
+   launch on the card);
 3. updates the loss scale (halve on overflow, double after a clean
    window);
-4. applies the optimizer update to the masters;
-5. on overflow keeps the old masters, optimizer state and step by a
-   device-side ``torch.where`` — no value is read back to the host.
+4. applies the optimizer update to the masters and casts them to the
+   parameter dtype;
+5. on overflow keeps the old masters, optimizer state and step.
+
+An optimizer with a multi-tensor kernel (FusedAdam, FusedLAMB) runs 4
+and 5 as its fused tail (``GradientTransformation.fused_apply``: one M3
+launch, or M2 and M4's two stages), which reads the overflow flag from
+device memory and writes the model-dtype copy in the same pass; any
+other optimizer's updates are applied leaf by leaf with ``torch.where``
+selects.  No value is read back to the host.  ``norm_telemetry=True``
+adds ``grad_norm``, ``update_norm``, ``param_norm`` and
+``update_to_param_ratio`` to the metrics (``optimizers._common.
+norm_metrics``; under a fused tail the update norm comes from the
+kernel's partial sums).  ``backend="reference"`` pins the step's
+multi-tensor ops (the unscale, the accumulation, the tail) to their
+plain versions.  The unscale runs inside ``torch.profiler.
+record_function("amp.unscale")`` and steps 4–5 inside
+``record_function("amp.optimizer_tail")``, for profiles.
 
 Not in this slice (they raise ``NotImplementedError``): ``axis_name``,
-``grad_comm``, ``overlap_comm`` (distributed training), ``accum_steps >
-1``, ``norm_telemetry``, and the per-op-cast levels O1/O4.
+``grad_comm``, ``overlap_comm`` (distributed training), the per-op-cast
+levels O1/O4, and ``accum_steps > 1`` on a step whose last argument is
+the dropout key words (``[L, 5, 2]`` int64): the JAX step splits a
+threefry key per microbatch there, which torch does not reproduce.
 """
 
 from __future__ import annotations
@@ -27,11 +48,15 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.profiler import record_function
 
 from apex_tpu_torch.amp import scaler as scaler_lib
 from apex_tpu_torch.amp.policy import Policy, policy_for_opt_level
+from apex_tpu_torch.multi_tensor.multi_tensor_apply import multi_tensor_axpby
 from apex_tpu_torch.optimizers._common import (
-    is_float_leaf, tree_leaves, tree_map)
+    apply_or_keep, float_leaves, global_norm, is_float_leaf, norm_metrics,
+    rebuild, tree_map)
+from apex_tpu_torch.utils.registry import check_backend
 
 __all__ = ["AmpState", "TrainState", "initialize", "make_train_step"]
 
@@ -74,28 +99,58 @@ def _later_slice(what: str) -> NotImplementedError:
         f"{what} comes with the distributed-training slice of the port")
 
 
+def _is_key_words(x) -> bool:
+    """The dropout key words the model steps take last (``[L, 5, 2]``
+    int64, ``transformer_lm.dropout_keys``)."""
+    return (torch.is_tensor(x) and x.dtype == torch.int64 and x.dim() == 3
+            and tuple(x.shape[1:]) == (5, 2))
+
+
+def _microbatches(batch: tuple, n: int) -> list:
+    """``n`` equal microbatches of every tensor's leading dimension
+    (0-d tensors and other values repeat); ValueError when n does not
+    divide a leading dimension."""
+    def check(v):
+        if torch.is_tensor(v) and v.dim() and v.shape[0] % n:
+            raise ValueError(
+                f"accum_steps={n} does not divide the leading batch "
+                f"dimension {v.shape[0]}; pad or resize the batch so every "
+                f"microbatch is equal.")
+        return v
+
+    tree_map(check, batch)
+
+    def piece(v, i):
+        if torch.is_tensor(v) and v.dim():
+            m = v.shape[0] // n
+            return v[i * m:(i + 1) * m]
+        return v
+
+    return [tree_map(lambda v: piece(v, i), batch) for i in range(n)]
+
+
 def make_train_step(loss_fn: Callable, optimizer: Any,
                     policy_or_amp: Union[str, Policy, AmpState] = "O1", *,
                     axis_name: Optional[str] = None, has_aux: bool = False,
                     grad_postprocess: Optional[Callable[[Any], Any]] = None,
                     accum_steps: int = 1, norm_telemetry: bool = False,
                     grad_comm=None, overlap_comm: Optional[bool] = None,
-                    device=None) -> Tuple[Callable, Callable]:
+                    device=None, backend: Optional[str] = None
+                    ) -> Tuple[Callable, Callable]:
     """Build ``(init_fn, step_fn)`` for the AMP train step (module
     docstring).  ``loss_fn(params, *batch) -> loss`` (or ``(loss, aux)``
-    with ``has_aux``) receives the params cast to the parameter dtype;
-    metrics carry ``loss``, ``overflow``, ``loss_scale`` and ``step``
-    (this step's index) as device tensors."""
+    with ``has_aux``; ``aux`` of the last microbatch under
+    ``accum_steps``) receives the params cast to the parameter dtype;
+    metrics carry ``loss`` (the microbatches' mean), ``overflow``,
+    ``loss_scale`` and ``step`` (this step's index) as device tensors,
+    and the norms under ``norm_telemetry``."""
     if axis_name is not None:
         raise _later_slice("axis_name (data-parallel gradient reduction)")
     if grad_comm is not None:
         raise _later_slice("grad_comm (compressed gradient collectives)")
     if overlap_comm is not None:
         raise _later_slice("overlap_comm (tensor-parallel comm overlap)")
-    if accum_steps != 1:
-        raise _later_slice("accum_steps > 1 (fp32 main-grad accumulation)")
-    if norm_telemetry:
-        raise _later_slice("norm_telemetry")
+    check_backend(backend)
     amp_state = (policy_or_amp if isinstance(policy_or_amp, AmpState)
                  else initialize(policy_or_amp, device=device))
     policy, ls_cfg = amp_state.policy, amp_state.loss_scale_config
@@ -104,6 +159,7 @@ def make_train_step(loss_fn: Callable, optimizer: Any,
             f"opt level {policy.opt_level} casts per op (the JAX "
             "amp_patch_scope); only the parameter-cast levels O0, O2, O3 "
             "and O5 are ported")
+    fused = getattr(optimizer, "fused_apply", None)
 
     def own(tree):
         return tree_map(lambda x: x.detach().clone()
@@ -120,40 +176,70 @@ def make_train_step(loss_fn: Callable, optimizer: Any,
                           opt_state=optimizer.init(master),
                           loss_scale_state=own(amp_state.loss_scale_state))
 
-    def step_fn(state: TrainState, *batch):
-        ls_state = state.loss_scale_state
-        masters = tree_map(lambda p: p.detach().requires_grad_(True)
-                           if is_float_leaf(p) else p, state.master_params)
-        leaves = [p for p in tree_leaves(masters) if is_float_leaf(p)]
+    def scaled_grads(masters, leaves, ls_state, batch):
+        """(one gradient per float master, loss, aux) of one (micro)batch."""
         with torch.enable_grad():
             out = loss_fn(policy.cast_params(masters), *batch)
             loss, aux = out if has_aux else (out, None)
             got = torch.autograd.grad(scaler_lib.scale_loss(loss, ls_state),
                                       leaves, allow_unused=True)
-        by_id = {id(p): (torch.zeros_like(p) if g is None else g)
-                 for p, g in zip(leaves, got)}
-        grads = tree_map(lambda p: by_id.get(id(p), p), masters)
-        grads, finite = scaler_lib.unscale_grads(grads, ls_state)
+        return ([torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, got)], loss.detach(), aux)
+
+    def step_fn(state: TrainState, *batch):
+        ls_state = state.loss_scale_state
+        masters = tree_map(lambda p: p.detach().requires_grad_(True)
+                           if is_float_leaf(p) else p, state.master_params)
+        leaves = float_leaves(masters)
+        if accum_steps <= 1:
+            got, loss, aux = scaled_grads(masters, leaves, ls_state, batch)
+        else:
+            if batch and _is_key_words(batch[-1]):
+                raise NotImplementedError(
+                    "accum_steps > 1 with dropout key words: the JAX step "
+                    "splits a threefry key per microbatch, which torch "
+                    "does not reproduce")
+            # fp32 main-grad accumulation over equal microbatches; the
+            # unscale divides the sum by the count
+            losses, got = [], None
+            for mb in _microbatches(batch, accum_steps):
+                g, mb_loss, aux = scaled_grads(masters, leaves, ls_state, mb)
+                losses.append(mb_loss)
+                got = g if got is None else multi_tensor_axpby(
+                    got, g, 1.0, 1.0, out_dtypes=[torch.float32] * len(g),
+                    backend=backend)[0]
+            loss = torch.stack(losses).mean()
+        grads = rebuild(masters, got)
+        with record_function("amp.unscale"):
+            grads, finite = scaler_lib.unscale_grads(
+                grads, ls_state, divide_by=max(accum_steps, 1),
+                backend=backend)
         if grad_postprocess is not None:
             grads = grad_postprocess(grads)
         new_ls_state, overflow = scaler_lib.update_loss_scale(
             ls_cfg, ls_state, ~finite)
 
-        with torch.no_grad():
-            old_master = state.master_params
-            updates, new_opt_state = optimizer.update(
-                grads, state.opt_state, old_master)
-            new_master = tree_map(lambda p, u: p + u.to(p.dtype),
-                                  old_master, updates)
-
-            # overflow ⇒ keep the old masters and optimizer state
-            def select(new, old):
-                return tree_map(lambda n, o: torch.where(overflow, o, n),
-                                new, old)
-
-            new_master = select(new_master, old_master)
-            new_opt_state = select(new_opt_state, state.opt_state)
-            new_params = policy.cast_params(new_master)
+        old_master = state.master_params
+        with torch.no_grad(), record_function("amp.optimizer_tail"):
+            if fused is not None:
+                new_master, new_opt_state, new_model, usq = fused(
+                    grads, state.opt_state, old_master, overflow=overflow,
+                    model_like=(state.params if policy.master_weights
+                                else None),
+                    update_norm=norm_telemetry, backend=backend)
+                new_params = (new_model if policy.master_weights
+                              else new_master)
+                update_norm = torch.sqrt(usq) if norm_telemetry else None
+            else:
+                updates, new_opt_state = optimizer.update(
+                    grads, state.opt_state, old_master)
+                # overflow ⇒ keep the old masters and optimizer state
+                new_master, new_opt_state = apply_or_keep(
+                    old_master, updates, new_opt_state, state.opt_state,
+                    overflow)
+                new_params = policy.cast_params(new_master)
+                update_norm = (global_norm(updates, backend=backend)
+                               if norm_telemetry else None)
             new_state = TrainState(
                 step=state.step + torch.where(overflow, 0, 1).to(torch.int32),
                 params=new_params,
@@ -161,9 +247,17 @@ def make_train_step(loss_fn: Callable, optimizer: Any,
                                else new_params),
                 opt_state=new_opt_state,
                 loss_scale_state=new_ls_state)
-        metrics = {"loss": loss.detach(), "overflow": overflow,
+        metrics = {"loss": loss, "overflow": overflow,
                    "loss_scale": new_ls_state.loss_scale,
                    "step": state.step}
+        if norm_telemetry:
+            with torch.no_grad():
+                norms = norm_metrics(grads, params=old_master,
+                                     backend=backend)
+                norms["update_norm"] = update_norm
+                norms["update_to_param_ratio"] = update_norm / torch.clamp(
+                    norms["param_norm"], min=1e-12)
+            metrics.update(norms)
         if aux is not None:
             metrics["aux"] = aux
         return new_state, metrics

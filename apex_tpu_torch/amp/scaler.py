@@ -6,20 +6,30 @@ step; after ``scale_window`` clean steps double it.  The finite check,
 the window bookkeeping and the skip decision are tensor arithmetic on
 the device, so a train step never reads a value back to the host; "skip
 the step" is a ``torch.where`` select between old and new state
-(``amp/frontend.py``).
+(``amp/frontend.py``; on the card the optimizer's multi-tensor kernel
+reads the skip flag itself).  The unscale and the finite check are one
+``multi_tensor_scale`` launch (M1) over every gradient on the card.
+:func:`record_scaler_step` is the host-side telemetry at the step
+boundary.
 """
 
 from __future__ import annotations
 
-from typing import Any, NamedTuple, Tuple, Union
+import logging
+from typing import Any, NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from apex_tpu_torch.optimizers._common import tree_leaves, tree_map
+from apex_tpu_torch.multi_tensor.multi_tensor_apply import (
+    all_finite_flag, multi_tensor_scale)
+from apex_tpu_torch.optimizers._common import float_leaves, rebuild
 from apex_tpu_torch.utils.registry import resolve_device
 
 __all__ = ["LossScaleConfig", "LossScaleState", "init_loss_scale",
-           "all_finite", "scale_loss", "unscale_grads", "update_loss_scale"]
+           "all_finite", "scale_loss", "unscale_grads", "update_loss_scale",
+           "record_scaler_step"]
+
+_log = logging.getLogger("apex_tpu_torch.amp")
 
 
 class LossScaleConfig(NamedTuple):
@@ -59,13 +69,13 @@ def init_loss_scale(loss_scale: Union[str, float] = "dynamic", *,
     return cfg, state
 
 
-def all_finite(tree: Any) -> torch.Tensor:
-    """Device-side bool: every float leaf is finite."""
-    leaves = [x for x in tree_leaves(tree)
-              if torch.is_tensor(x) and x.is_floating_point()]
+def all_finite(tree: Any, *, backend: Optional[str] = None) -> torch.Tensor:
+    """Device-side bool: every float leaf is finite (M1's flag, no output
+    written, on the card)."""
+    leaves = float_leaves(tree)
     if not leaves:
         return torch.tensor(True)
-    return torch.stack([torch.isfinite(x).all() for x in leaves]).all()
+    return all_finite_flag(leaves, backend=backend) == 0
 
 
 def scale_loss(loss: torch.Tensor, state: LossScaleState) -> torch.Tensor:
@@ -73,15 +83,25 @@ def scale_loss(loss: torch.Tensor, state: LossScaleState) -> torch.Tensor:
     return loss.float() * state.loss_scale
 
 
-def unscale_grads(grads: Any, state: LossScaleState
-                  ) -> Tuple[Any, torch.Tensor]:
-    """Grads times ``1/scale`` in fp32, and whether they were all finite."""
+def unscale_grads(grads: Any, state: LossScaleState, *,
+                  divide_by: int = 1,
+                  backend: Optional[str] = None) -> Tuple[Any, torch.Tensor]:
+    """Grads times ``1/scale`` in fp32, and whether they were all finite
+    (a device bool): one ``multi_tensor_scale`` (M1) over every float
+    leaf, reading ``1/scale`` from device memory.  ``divide_by`` (the
+    train step's ``accum_steps``) divides them in the same pass, by
+    ``1/scale/divide_by`` as one device scalar."""
+    leaves = float_leaves(grads)
+    if not leaves:
+        return grads, torch.ones((), dtype=torch.bool,
+                                 device=state.loss_scale.device)
     inv = 1.0 / state.loss_scale
-    finite = all_finite(grads)
-    unscaled = tree_map(
-        lambda g: g.float() * inv
-        if torch.is_tensor(g) and g.is_floating_point() else g, grads)
-    return unscaled, finite
+    if divide_by != 1:
+        inv = inv / divide_by
+    outs, flag = multi_tensor_scale(leaves, inv,
+                                    out_dtypes=[torch.float32] * len(leaves),
+                                    backend=backend)
+    return rebuild(grads, outs), flag == 0
 
 
 def update_loss_scale(cfg: LossScaleConfig, state: LossScaleState,
@@ -109,3 +129,45 @@ def update_loss_scale(cfg: LossScaleConfig, state: LossScaleState,
                                 torch.zeros_like(state.unskipped),
                                 unskipped_clean)
     return LossScaleState(new_scale, new_unskipped), overflow
+
+
+def _host_value(x):
+    return x.item() if torch.is_tensor(x) else x
+
+
+def record_scaler_step(metrics) -> None:
+    """Host-side AMP telemetry at the step boundary
+    (``apex_tpu/amp/scaler.py:150``), from the metrics dict a train step
+    returns (``loss_scale``, ``overflow``): the gauge
+    ``amp.loss_scale``; the counters ``amp.overflow_count`` and
+    ``amp.skipped_steps``; on every change of the scale (an overflow's
+    halving or a window's doubling) the event ``amp.loss_scale_change``
+    and an INFO line on the ``apex_tpu_torch.amp`` logger; and the
+    scaler-thrash detector's feed where the registry has detectors.
+    Nothing (one ``registry() is None`` check) when telemetry is off.
+    Reading the metrics syncs with the device, as any per-step logging
+    does."""
+    from apex_tpu_torch.observability import metrics as _telemetry
+
+    reg = _telemetry.registry()
+    if reg is None:
+        return
+    scale = float(_host_value(metrics["loss_scale"]))
+    overflow = bool(_host_value(metrics.get("overflow", False)))
+    g = reg.gauge("amp.loss_scale")
+    prev = g.value
+    g.set(scale)
+    # the anomaly detectors are not ported yet; a registry with them
+    # takes the scaler-thrash feed
+    bank = getattr(reg, "detectors", None)
+    if bank is not None:
+        bank.feed_scaler(metrics.get("step"), overflow)
+    if overflow:
+        reg.counter("amp.overflow_count").inc()
+        reg.counter("amp.skipped_steps").inc()
+    if prev is not None and prev != scale:
+        reg.event("amp.loss_scale_change", old=prev, new=scale,
+                  overflow=overflow)
+        _log.info("loss scale %s -> %s%s", prev, scale,
+                  " (gradient overflow: step skipped)" if overflow else
+                  " (scale window reached)")

@@ -180,7 +180,7 @@ def make_bert_train_step(cfg: TransformerConfig, optimizer: Any,
 
     init_fn, step_fn = make_train_step(
         loss_fn, optimizer, policy_or_amp, grad_postprocess=grad_postprocess,
-        device=dev)
+        device=dev, backend=backend)
 
     def init(generator: Optional[torch.Generator] = None):
         return init_fn(init_bert_params(cfg, generator, dev))

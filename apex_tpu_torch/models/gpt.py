@@ -64,7 +64,7 @@ def make_gpt_train_step(cfg: TransformerConfig, optimizer: Any,
     init_fn, step_fn = make_train_step(
         loss_fn, optimizer, policy_or_amp, grad_postprocess=grad_postprocess,
         norm_telemetry=norm_telemetry, overlap_comm=overlap_comm,
-        device=dev)
+        device=dev, backend=backend)
 
     def init(generator: Optional[torch.Generator] = None):
         return init_fn(init_gpt_params(cfg, generator, dev))

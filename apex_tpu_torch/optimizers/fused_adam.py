@@ -1,5 +1,5 @@
 """FusedAdam — Adam/AdamW as a ``GradientTransformation``
-(``apex_tpu/optimizers/fused_adam.py``, the tree path :117-142).
+(``apex_tpu/optimizers/fused_adam.py``).
 
 - ``adam_w_mode=True`` → decoupled weight decay (AdamW); False → L2-style
   decay added to the gradient (classic Adam).
@@ -7,10 +7,15 @@
 - ``step`` is a device tensor and lr may be a schedule.
 - ``amsgrad`` is rejected as in the reference.
 
-The update is a torch composition over each leaf (fp32 moments whatever
-the parameter dtype): the JAX package computes it in XLA, not Pallas
-(``ops/flat_adam.py``), so there is no TPU kernel to port; a CUDA kernel
-for it comes only after a measurement shows the need.
+The update runs as one multi-tensor kernel over every float leaf on the
+card (M3, ``multi_tensor.multi_tensor_adam``; its plain version, the
+per-leaf torch composition, on the CPU).  ``fused_apply`` is the AMP
+step's tail in the same launch: the update applied to the masters, the
+overflow select and the model-dtype copy.  ``use_flat_buffer=True``
+routes ``update`` through ``ops.flat_adam`` (one flat buffer, the layout
+of a ZeRO-sharded optimizer); ``norm_telemetry=True`` wraps the
+transformation with ``_common.with_norm_telemetry``.  The JAX package's
+deprecated ``use_pallas`` alias names a TPU kernel and is not ported.
 """
 
 from __future__ import annotations
@@ -19,9 +24,10 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from apex_tpu_torch.multi_tensor.multi_tensor_apply import multi_tensor_adam
 from apex_tpu_torch.optimizers._common import (
-    GradientTransformation, ScheduleOrScalar, resolve_lr, tree_leaves,
-    tree_map_float, tree_zeros_like_f32)
+    GradientTransformation, ScheduleOrScalar, bias_corrections, float_leaves,
+    rebuild, resolve_lr, tree_zeros_like_f32, with_norm_telemetry)
 
 __all__ = ["FusedAdam", "fused_adam", "AdamState"]
 
@@ -32,6 +38,15 @@ class AdamState(NamedTuple):
     exp_avg_sq: Any
 
 
+def kernel_lr(lr: ScheduleOrScalar, step: torch.Tensor):
+    """lr as the kernels take it: a Python number as it is (no copy to the
+    device), a schedule's or a tensor's value as a 0-d fp32 device
+    tensor."""
+    if isinstance(lr, (int, float)):
+        return float(lr)
+    return resolve_lr(lr, step)
+
+
 def fused_adam(lr: ScheduleOrScalar = 1e-3,
                betas: Tuple[float, float] = (0.9, 0.999), eps: float = 1e-8,
                weight_decay: float = 0.0, adam_w_mode: bool = True,
@@ -40,14 +55,12 @@ def fused_adam(lr: ScheduleOrScalar = 1e-3,
                norm_telemetry: bool = False) -> GradientTransformation:
     if amsgrad:
         raise RuntimeError("FusedAdam does not support the AMSGrad variant.")
-    if use_flat_buffer or norm_telemetry:
-        raise NotImplementedError(
-            "use_flat_buffer and norm_telemetry come with the distributed "
-            "training slice of the port")
     beta1, beta2 = betas
+    hyper = dict(betas=(beta1, beta2), eps=eps, weight_decay=weight_decay,
+                 adam_w_mode=adam_w_mode)
 
     def init(params) -> AdamState:
-        leaves = tree_leaves(params)
+        leaves = float_leaves(params)
         dev = leaves[0].device if leaves else None
         return AdamState(step=torch.zeros((), dtype=torch.int32, device=dev),
                          exp_avg=tree_zeros_like_f32(params),
@@ -57,40 +70,45 @@ def fused_adam(lr: ScheduleOrScalar = 1e-3,
         if params is None:
             raise ValueError("fused_adam requires params")
         step = state.step + 1
-        lr_t = resolve_lr(lr, step)
-        if bias_correction:
-            t = step.float()
-            bc1 = 1.0 - torch.pow(torch.full_like(t, beta1), t)
-            bc2 = 1.0 - torch.pow(torch.full_like(t, beta2), t)
-        else:
-            bc1 = bc2 = torch.ones((), dtype=torch.float32,
-                                   device=step.device)
+        lr_t = kernel_lr(lr, step)
+        bc1, bc2 = bias_corrections(step, beta1, beta2, bias_correction)
+        if use_flat_buffer:
+            from apex_tpu_torch.ops.flat_adam import flat_adam_update
 
-        def adj_grad(g, p):
-            g32 = g.float()
-            if not adam_w_mode and weight_decay != 0.0:
-                g32 = g32 + weight_decay * p.float()
-            return g32
+            updates, m, v = flat_adam_update(
+                grads, params, state.exp_avg, state.exp_avg_sq, lr_t, beta1,
+                beta2, eps, weight_decay, 1.0 if bc1 is None else bc1,
+                1.0 if bc2 is None else bc2, adam_w_mode)
+            return updates, AdamState(step, m, v)
+        out = multi_tensor_adam(
+            float_leaves(grads), float_leaves(params),
+            float_leaves(state.exp_avg), float_leaves(state.exp_avg_sq),
+            lr=lr_t, bc1=bc1, bc2=bc2, **hyper)
+        return rebuild(params, out.params), AdamState(
+            step, rebuild(state.exp_avg, out.exp_avg),
+            rebuild(state.exp_avg_sq, out.exp_avg_sq))
 
-        m_tree = tree_map_float(
-            lambda g, p, m: beta1 * m + (1.0 - beta1) * adj_grad(g, p),
-            grads, params, state.exp_avg)
-        v_tree = tree_map_float(
-            lambda g, p, v: beta2 * v
-            + (1.0 - beta2) * torch.square(adj_grad(g, p)),
-            grads, params, state.exp_avg_sq)
+    def fused_apply(grads, state: AdamState, params, *, overflow=None,
+                    model_like=None, update_norm=False, backend=None):
+        step = state.step + 1
+        bc1, bc2 = bias_corrections(step, beta1, beta2, bias_correction)
+        out = multi_tensor_adam(
+            float_leaves(grads), float_leaves(params),
+            float_leaves(state.exp_avg), float_leaves(state.exp_avg_sq),
+            lr=kernel_lr(lr, step), bc1=bc1, bc2=bc2, apply=True,
+            overflow=overflow,
+            model_dtypes=(None if model_like is None else
+                          [x.dtype for x in float_leaves(model_like)]),
+            update_norm=update_norm, backend=backend, **hyper)
+        if overflow is not None:
+            step = torch.where(overflow, state.step, step)
+        new_state = AdamState(step, rebuild(state.exp_avg, out.exp_avg),
+                              rebuild(state.exp_avg_sq, out.exp_avg_sq))
+        model = None if model_like is None else rebuild(model_like, out.model)
+        return rebuild(params, out.params), new_state, model, out.update_sq
 
-        def upd_leaf(m, v, p):
-            denom = torch.sqrt(v / bc2) + eps
-            upd = -lr_t * (m / bc1) / denom
-            if adam_w_mode and weight_decay != 0.0:
-                upd = upd - lr_t * weight_decay * p.float()
-            return upd
-
-        updates = tree_map_float(upd_leaf, m_tree, v_tree, params)
-        return updates, AdamState(step, m_tree, v_tree)
-
-    return GradientTransformation(init, update)
+    tx = GradientTransformation(init, update, fused_apply)
+    return with_norm_telemetry(tx) if norm_telemetry else tx
 
 
 # Drop-in-named alias: `FusedAdam(lr=...)` reads like the reference ctor.

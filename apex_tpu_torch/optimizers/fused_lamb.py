@@ -15,8 +15,12 @@ Two phases, as the reference's ``multi_tensor_lamb``:
 The ratio is per leaf, as in the JAX package.  The layer weights are
 stacked on a leading ``L`` axis, so one ratio spans all layers of a
 weight; the reference Apex computes one per parameter tensor (per
-layer).  The JAX package computes this in XLA, not Pallas, so it is a
-torch composition here.
+layer).  On the card the update is the multi-tensor kernels: M2
+(``multi_tensor_l2norm``) for the clip norm, then M4's two stages
+(``multi_tensor.multi_tensor_lamb``); ``fused_apply`` is the AMP step's
+tail in the same launches (the update applied to the masters, the
+overflow select, the model-dtype copy).  ``norm_telemetry=True`` wraps
+the transformation with ``_common.with_norm_telemetry``.
 """
 
 from __future__ import annotations
@@ -25,9 +29,11 @@ from typing import Any, NamedTuple, Tuple
 
 import torch
 
+from apex_tpu_torch.multi_tensor.multi_tensor_apply import multi_tensor_lamb
 from apex_tpu_torch.optimizers._common import (
-    GradientTransformation, ScheduleOrScalar, global_norm, resolve_lr,
-    tree_leaves, tree_map_float, tree_zeros_like_f32)
+    GradientTransformation, ScheduleOrScalar, bias_corrections, float_leaves,
+    global_norm, rebuild, tree_zeros_like_f32, with_norm_telemetry)
+from apex_tpu_torch.optimizers.fused_adam import kernel_lr
 
 __all__ = ["FusedLAMB", "fused_lamb", "LambState"]
 
@@ -44,69 +50,57 @@ def fused_lamb(lr: ScheduleOrScalar = 1e-3,
                adam_w_mode: bool = True, grad_averaging: bool = True,
                max_grad_norm: float = 1.0, use_nvlamb: bool = False,
                norm_telemetry: bool = False) -> GradientTransformation:
-    if norm_telemetry:
-        raise NotImplementedError(
-            "norm_telemetry comes with the distributed training slice of "
-            "the port")
     beta1, beta2 = betas
+    hyper = dict(betas=(beta1, beta2),
+                 beta3=(1.0 - beta1) if grad_averaging else 1.0, eps=eps,
+                 weight_decay=weight_decay, adam_w_mode=adam_w_mode,
+                 use_ratio=weight_decay != 0.0 or use_nvlamb)
 
     def init(params) -> LambState:
-        leaves = tree_leaves(params)
+        leaves = float_leaves(params)
         dev = leaves[0].device if leaves else None
         return LambState(step=torch.zeros((), dtype=torch.int32, device=dev),
                          exp_avg=tree_zeros_like_f32(params),
                          exp_avg_sq=tree_zeros_like_f32(params))
 
+    def run(grads, state: LambState, params, **kw):
+        step = state.step + 1
+        clip = None
+        if max_grad_norm is not None and max_grad_norm > 0:
+            gnorm = global_norm(grads, backend=kw.get("backend"))
+            clip = torch.clamp(gnorm / max_grad_norm, min=1.0)
+        bc1, bc2 = bias_corrections(step, beta1, beta2, bias_correction)
+        out = multi_tensor_lamb(
+            float_leaves(grads), float_leaves(params),
+            float_leaves(state.exp_avg), float_leaves(state.exp_avg_sq),
+            lr=kernel_lr(lr, step), bc1=bc1, bc2=bc2, clip=clip, **hyper,
+            **kw)
+        return step, out
+
     def update(grads, state: LambState, params=None):
         if params is None:
             raise ValueError("fused_lamb requires params")
-        step = state.step + 1
-        lr_t = resolve_lr(lr, step)
-        gnorm = global_norm(grads)
-        if max_grad_norm is not None and max_grad_norm > 0:
-            clip = torch.clamp(gnorm / max_grad_norm, min=1.0)
-        else:
-            clip = torch.ones((), dtype=torch.float32, device=step.device)
-        beta3 = (1.0 - beta1) if grad_averaging else 1.0
-        if bias_correction:
-            t = step.float()
-            bc1 = 1.0 - torch.pow(torch.full_like(t, beta1), t)
-            bc2 = 1.0 - torch.pow(torch.full_like(t, beta2), t)
-        else:
-            bc1 = bc2 = torch.ones((), dtype=torch.float32,
-                                   device=step.device)
+        step, out = run(grads, state, params)
+        return rebuild(params, out.params), LambState(
+            step, rebuild(state.exp_avg, out.exp_avg),
+            rebuild(state.exp_avg_sq, out.exp_avg_sq))
 
-        def scaled_grad(g, p):
-            sg = g.float() / clip
-            if not adam_w_mode and weight_decay != 0.0:
-                sg = sg + weight_decay * p.float()
-            return sg
+    def fused_apply(grads, state: LambState, params, *, overflow=None,
+                    model_like=None, update_norm=False, backend=None):
+        step, out = run(
+            grads, state, params, apply=True, overflow=overflow,
+            model_dtypes=(None if model_like is None else
+                          [x.dtype for x in float_leaves(model_like)]),
+            update_norm=update_norm, backend=backend)
+        if overflow is not None:
+            step = torch.where(overflow, state.step, step)
+        new_state = LambState(step, rebuild(state.exp_avg, out.exp_avg),
+                              rebuild(state.exp_avg_sq, out.exp_avg_sq))
+        model = None if model_like is None else rebuild(model_like, out.model)
+        return rebuild(params, out.params), new_state, model, out.update_sq
 
-        m_tree = tree_map_float(
-            lambda g, p, m: beta1 * m + beta3 * scaled_grad(g, p),
-            grads, params, state.exp_avg)
-        v_tree = tree_map_float(
-            lambda g, p, v: beta2 * v
-            + (1.0 - beta2) * torch.square(scaled_grad(g, p)),
-            grads, params, state.exp_avg_sq)
-
-        def upd_leaf(m, v, p):
-            p32 = p.float()
-            u = (m / bc1) / (torch.sqrt(v / bc2) + eps)
-            if adam_w_mode and weight_decay != 0.0:
-                u = u + weight_decay * p32
-            if weight_decay == 0.0 and not use_nvlamb:
-                return -lr_t * u
-            w_norm = torch.sqrt(torch.sum(torch.square(p32)))
-            u_norm = torch.sqrt(torch.sum(torch.square(u)))
-            ratio = torch.where((w_norm > 0) & (u_norm > 0),
-                                w_norm / u_norm, 1.0)
-            return -lr_t * ratio * u
-
-        updates = tree_map_float(upd_leaf, m_tree, v_tree, params)
-        return updates, LambState(step, m_tree, v_tree)
-
-    return GradientTransformation(init, update)
+    tx = GradientTransformation(init, update, fused_apply)
+    return with_norm_telemetry(tx) if norm_telemetry else tx
 
 
 FusedLAMB = fused_lamb

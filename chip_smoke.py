@@ -70,7 +70,7 @@
    unchunked); a masked run (``token_masks=True``: every token allowed,
    a single-token request emits only it, K4 counted).
 4d. Drives multi-tenant LoRA serving on the same engine geometry, at
-   GPT-2 125M's widths and 4 of its layers (LORA_LAYERS): 64 rank-8
+   GPT-2 125M's widths and 2 of its layers (LORA_LAYERS): 64 rank-8
    adapters through a 24-slot AdapterPool, 64 requests of mixed tenants
    (every 8th on the base model, 8 sampled), on float weights with a
    bf16 pool and on ``quantize_params`` weights with an int8 pool: exact
@@ -116,17 +116,35 @@
    K6 + K7 also timed as one pair, the backward function, with its own
    bound; K2 and row 5 at head size 80 (b8 s512 n32 causal bf16, beside
    SDPA), and K2 at head size 78 on its zero-padded copy.
+5b. Holds the multi-tensor kernels M1-M4 (``csrc/multi_tensor.cu``: the
+   unscale/axpby, the L2 norms, Adam, LAMB's two stages) against their
+   plain versions at the fp32 master trees of the three train steps
+   (GPT-2 125M, BERT-large, GPT-MoE, from each step's init; seeded
+   gradients and moments): within 1e-6 of each tensor's largest plain
+   value, bitwise over a repeat, one launch a call (the trees hold fewer
+   than 320 leaves, one kernel table), timed beside the byte bound and
+   the library calls (``torch._amp_foreach_non_finite_check_and_unscale_``,
+   ``torch._foreach_norm``, ``torch._fused_adamw_``); an inf planted in
+   one gradient sets the flag, halves the scale and keeps every master,
+   moment and model copy bit for bit.  A list of 700 tensors takes three
+   launches a call of each (one a table of 320) and still matches.
 6. Drives the training path: the GPT-2 125M AMP-O2 train step
    (``make_gpt_train_step``, ``fused_adam(lr=1e-4)``, fused head+CE) at
    b16 x s1024 on random tokens, counting every kernel launch of one
-   step; step time, tokens/s, MFU and the device idle share of one
-   profiled step; then 3 steps at b4 x s1024 on the kernel path and on
-   the plain path from one state (loss, scaler decisions, grad norm).
+   step (the tail: M1 and M3 once each); step time, tokens/s, MFU and the
+   device idle share of one profiled step; the device ms of the
+   ``amp.unscale`` and ``amp.optimizer_tail`` spans, and of the same step
+   with the plain tail (``make_train_step(backend="reference")``); then 3
+   steps at b4 x s1024 on the kernel path and on the plain path from one
+   state with ``norm_telemetry=True`` (loss, scaler decisions, grad norm,
+   the grad/update/param norms), and 3 steps with ``accum_steps=4`` (4 x
+   b4) against ``accum_steps=1`` at b16 (losses, scaler decisions).
 6b. Drives the BERT-large AMP-O2 pretrain step (``make_bert_train_step``,
    ``fused_lamb(lr=1e-4, weight_decay=0.01)``, 24 layers, h=1024) at b8 x
    s512 on a seeded batch with ragged padding and MLM/NSP labels, under
    both attention backends: exact launch counts per step (flash: K1 and
-   K5 51 each, K2 24, row 5 24; fused_softmax: K1 and K5 51, row 11 24),
+   K5 51 each, K2 24, row 5 24; fused_softmax: K1 and K5 51, row 11 24;
+   both: M1, M2 and M4 once),
    step time, tokens/s, MFU, idle share, peak memory (fused_softmax:
    also row 11's forward and the softmax backward composition's device
    ms in one step); then 3 kernel-vs-plain steps at b4 from one state.
@@ -134,8 +152,8 @@
    layers, h=768, 8 experts, 520M parameters, ``fused_adam(lr=1e-4)``) at
    b8 x s512 on seeded tokens under ``moe_routing="capacity"`` (the bench
    as configured; no grouped matmul) and ``"ragged"`` (row 9's 16-bit
-   branch: 24 forward and 24 transposed dx launches per step): exact
-   launch counts, step time, tokens/s, MFU over the active parameters,
+   branch: 24 forward and 24 transposed dx launches per step; M1 and M3
+   once): exact launch counts, step time, tokens/s, MFU over the active parameters,
    device time, peak memory, each layer's expert load, aux loss and
    dropped fraction; then 3 kernel-vs-plain steps at b4 in lockstep, with
    every routing difference between the paths checked to be a near-tie.
@@ -146,6 +164,8 @@
    int8 branches are then held against the plain version at that step's
    shapes and expert loads (and adversarial offsets), timed beside their
    bounds and ``torch._grouped_mm``; ``_grouped_dw`` is timed per call.
+   The ragged step with hidden and attention dropout 0.1: exact launches,
+   step ms, and 3 kernel-vs-plain steps at b4 in lockstep.
 6d. A [b, 1, s, s] attention mask through ``gpt_forward`` (GPT-2 widths,
    2 layers): the materialized-score path, row 11 once per layer.
 7. Prints one JSON line describing every kernel, then the card's name and
@@ -169,6 +189,13 @@ times the eager serving paths of the port under ROOT (another commit's
 (float + native pool, quantized + int8 pool) and a greedy paged
 ``generate``, with one JSON line, so that two commits compare in one
 chip call (parent, change, change, parent).
+
+    python3 chip_smoke.py --train-times ROOT
+
+times the GPT-2 125M, BERT-large flash and GPT-MoE ragged train steps of
+the port under ROOT (another commit's ``git archive``, say), with one
+JSON line, so that two commits compare in one chip call (parent, change,
+change, parent).
 
     python3 chip_smoke.py --paged-probe
 
@@ -211,6 +238,13 @@ GRAD_NORM_RTOL = 2e-2
 # before the tensor-core products
 LN_BWD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 FLASH_BWD_TOL = 2e-2
+
+# the optimizer tail of one AMP step, whatever the leaf count: the
+# unscale (M1) and Adam (M3), or the unscale, LAMB's clip norm (M2) and
+# LAMB's two stages (M4)
+ADAM_TAIL = {"multi_tensor_scale": 1, "multi_tensor_adam": 1}
+LAMB_TAIL = {"multi_tensor_scale": 1, "multi_tensor_l2norm": 1,
+             "multi_tensor_lamb": 1}
 
 # BERT-large pretraining at phase 2's length (bench.py:2135-2178)
 BERT_BATCH, BERT_SEQ = 8, 512
@@ -302,10 +336,11 @@ def _category(kernel: str) -> str:
     global _HAND_WRITTEN
     if _HAND_WRITTEN is None:
         _HAND_WRITTEN = _hand_written_names()
-    # ours live in anonymous namespaces (and the shared GEMM in gemm::),
-    # as do some of PyTorch's own (indexing_backward_kernel): match the
-    # function's name within one of those namespaces
-    for ns in ("(anonymous namespace)::", "gemm::"):
+    # ours live in anonymous namespaces (the shared GEMM in gemm::, the
+    # multi-tensor kernels in mt::), as do some of PyTorch's own
+    # (indexing_backward_kernel): match the function's name within one of
+    # those namespaces
+    for ns in ("(anonymous namespace)::", "gemm::", "mt::"):
         tail = kernel.split(ns, 1)
         if (len(tail) == 2
                 and tail[1].split("<")[0].split("(")[0] in _HAND_WRITTEN):
@@ -344,7 +379,8 @@ def _profile(fn):
         t = wall_ms(fn)
     by_name, by_cat, by_op = {}, {}, {}
     for ev in prof.key_averages():
-        if not ev.self_device_time_total:
+        # a record_function span's range on the device is no kernel
+        if not ev.self_device_time_total or ev.key in SPAN_NAMES:
             continue
         ms = ev.self_device_time_total / 1e3
         if ev.device_type != DeviceType.CUDA:
@@ -381,6 +417,45 @@ def profile_spans(fn, kernels, ops):
             if not on_device and ev.key.endswith(needle):
                 out[label] = max(out[label], ev.device_time_total / 1e3)
     return {k: (v if v > 0 else "not measured") for k, v in out.items()}
+
+
+# the AMP step's record_function spans (amp/frontend.py)
+TAIL_SPANS = {"unscale_device_ms": "amp.unscale",
+              "tail_device_ms": "amp.optimizer_tail"}
+SPAN_NAMES = frozenset(TAIL_SPANS.values())
+
+
+def profile_tail(fn):
+    """Device ms of one ``fn()``'s AMP unscale and optimizer tail: the
+    kernels whose device time lies inside each span's range on the device
+    (the profiler's device-side range of a ``record_function``), summed,
+    and the range's own length (``*_span_ms``: from its first kernel's
+    start to its last one's end, the device's waits for the host
+    included)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    kernels = [e for e in evs if e.name not in SPAN_NAMES]
+    out = {}
+    for label, name in TAIL_SPANS.items():
+        spans = [(e.time_range.start, e.time_range.end) for e in evs
+                 if e.name == name]
+        span_label = label.replace("device_ms", "span_ms")
+        if not spans:
+            out[label] = out[span_label] = "not measured"
+            continue
+        out[label] = sum(
+            (k.time_range.end - k.time_range.start) / 1e3 for k in kernels
+            if any(a <= k.time_range.start and k.time_range.end <= b
+                   for a, b in spans))
+        out[span_label] = sum(b - a for a, b in spans) / 1e3
+    return out
 
 
 # K1 at every main path's shape (PERF.md §6 launches): generate's decode,
@@ -699,6 +774,13 @@ def hopper_kernels():
             for name, (b, V, dt, top_k, top_p, _) in
             SAMPLER_VARIANTS.items())}
     attrs["row 8 (K4)"] = k4
+    # M1-M4 (csrc/multi_tensor.cu): CUDA-core streaming kernels, no spills
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+
+    mt = mta.kernel_attributes()
+    check(all(a["spill_bytes"] == 0 for a in mt.values()),
+          f"a multi-tensor kernel spills: {mt}")
+    attrs["M1-M4 (multi-tensor)"] = mt
     sass = {}
     for src, n in HOPPER_SOURCES.items():
         counts = {k: c
@@ -2214,11 +2296,12 @@ def graph_engine_phase(dev):
 # bench_adapter_ablation (64 tenants, rank 8, every 8th request on the
 # base model) at GPT-2 125M widths
 LORA_ADAPTERS, LORA_REQUESTS, LORA_NEW = 64, 64, 32
-# the LoRA engine phase runs GPT-2 125M's widths at 4 of its 12 layers:
+# the LoRA engine phase runs GPT-2 125M's widths at 2 of its 12 layers:
 # its plain twin and teacher-forced checks made it the script's longest
-# phase (243 s of 930 at full depth, run CM), and the script's time limit
-# is shared with the spec and host-tier phases
-LORA_LAYERS = 4
+# phase (243 s of 930 at full depth; 114 s at 4 layers of a 1111 s run),
+# and the script's time limit is shared with the spec, host-tier and
+# training phases
+LORA_LAYERS = 2
 LORA_RUNS = (("float", None), ("quantized", "int8"))
 ORACLE_LAYERS, ORACLE_TENANTS, ORACLE_NEW, ORACLE_SLOTS = 2, 8, 16, 4
 ORACLE_TIE = 1e-3               # |logit gap| of an fp32 near-tie
@@ -3211,13 +3294,39 @@ def train_phase(dev):
     want = {name: 0 for name in ku.KERNELS}
     want.update({"layer_norm_fwd": 2 * L + 1, "layer_norm_bwd": 2 * L + 1,
                  "flash_attention_fwd": L, "flash_attention_bwd_dq": L,
-                 "flash_attention_bwd_dkv": L})
+                 "flash_attention_bwd_dkv": L, **ADAM_TAIL})
     check(counts == want, f"train-step launches {counts} != {want}")
     print(f"launches (one train step): {counts}")
 
     step_ms = [wall_ms(one) for _ in range(TRAIN_STEPS)]
     q1, med, q3 = quartiles(step_ms)
     t_prof, busy, top, by_cat, by_op = profile_busy(one)
+    tail = {"kernels": profile_tail(one)}
+    # the same step with the plain tail (the per-leaf torch composition):
+    # the model on the kernel path, make_train_step(backend="reference")
+    from apex_tpu_torch.amp.frontend import make_train_step
+    from apex_tpu_torch.models.transformer_lm import gpt_loss
+
+    _, plain_step = make_train_step(
+        lambda p, t, lab: gpt_loss(p, t, lab, cfg), fused_adam(lr=1e-4), "O2",
+        device=dev, backend="reference")
+    plain_state = state
+
+    def one_plain():
+        nonlocal plain_state
+        plain_state, _ = plain_step(plain_state, tokens, labels)
+
+    one_plain()
+    tail["plain"] = profile_tail(one_plain)
+    plain_ms = [wall_ms(one_plain) for _ in range(3)]
+    del plain_state
+    # the tail's least bytes: the unscale reads and writes each fp32
+    # gradient; Adam reads g, p, m, v and writes p, m, v and the fp16 copy
+    tail["bound_ms"] = {"unscale_device_ms": 8 * n_params / PEAK_BYTES_PER_S
+                        * 1e3,
+                        "tail_device_ms": 30 * n_params / PEAK_BYTES_PER_S
+                        * 1e3}
+    tail["plain_tail_step_ms"] = plain_ms
     losses = [float(m["loss"]) for m in traj]
     scales = [float(m["loss_scale"]) for m in traj]
     overflow = [bool(m["overflow"]) for m in traj]
@@ -3225,7 +3334,7 @@ def train_phase(dev):
     check(not all(overflow), "every train step overflowed")
     tokens_per_s = TRAIN_BATCH * TRAIN_SEQ / (med / 1e3)
     flops_per_tok = 6 * n_params + 12 * L * cfg.hidden_size * TRAIN_SEQ
-    return {
+    return {"tail": tail,
         "params": n_params, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
         "step_ms": med, "step_ms_q1_q3": [q1, q3], "steps_timed": TRAIN_STEPS,
         "tokens_per_s": tokens_per_s,
@@ -3242,10 +3351,15 @@ def train_phase(dev):
     }
 
 
+NORM_KEYS = ("grad_norm", "update_norm", "param_norm")
+
+
 def train_check(dev):
     """3 steps at b4 x s1024 from one state on the kernel path and on the
-    plain path (backend="reference"): per-step loss, identical scaler
-    decisions, global grad norm within GRAD_NORM_RTOL."""
+    plain path (backend="reference"), both with norm_telemetry=True:
+    per-step loss, identical scaler decisions, global grad norm within
+    GRAD_NORM_RTOL, and the step's grad, update and param norms within
+    GRAD_NORM_RTOL."""
     from apex_tpu_torch.models.gpt import make_gpt_train_step
     from apex_tpu_torch.optimizers import fused_adam, global_norm
 
@@ -3261,18 +3375,25 @@ def train_check(dev):
 
         init, step = make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
                                          device=dev, backend=backend,
-                                         grad_postprocess=post)
+                                         grad_postprocess=post,
+                                         norm_telemetry=True)
         if state0 is None:
             state0 = init(torch.Generator().manual_seed(0))
-        state, seq = state0, []
+        state, seq, step_norms = state0, [], []
         for _ in range(CHECK_STEPS):
             state, m = step(state, tokens, labels)
             seq.append((float(m["loss"]), bool(m["overflow"]),
                         float(m["loss_scale"])))
+            step_norms.append({k: float(m[k]) for k in NORM_KEYS})
         runs["kernel" if backend is None else "plain"] = (
-            seq, [float(x) for x in norms])
+            seq, [float(x) for x in norms], step_norms)
         del state
-    (ks, kn), (ps, pn) = runs["kernel"], runs["plain"]
+    (ks, kn, ksn), (ps, pn, psn) = runs["kernel"], runs["plain"]
+    telemetry_err = max(abs(a[k] - b[k]) / abs(b[k])
+                        for a, b, st in zip(ksn, psn, ks) if not st[1]
+                        for k in NORM_KEYS)
+    check(telemetry_err <= GRAD_NORM_RTOL,
+          f"norm_telemetry kernel {ksn} plain {psn}: {telemetry_err}")
     loss_err = max(abs(a[0] - b[0]) for a, b in zip(ks, ps))
     check(loss_err <= TRAIN_LOSS_TOL,
           f"kernel vs plain losses {ks} {ps} differ by {loss_err}")
@@ -3284,7 +3405,57 @@ def train_check(dev):
           f"grad norms kernel {kn} plain {pn}: {norm_err} > {GRAD_NORM_RTOL}")
     return {"kernel": ks, "plain": ps, "grad_norm_kernel": kn,
             "grad_norm_plain": pn, "loss_err": loss_err,
-            "grad_norm_rel_err": norm_err}
+            "grad_norm_rel_err": norm_err, "norm_telemetry_kernel": ksn,
+            "norm_telemetry_plain": psn,
+            "norm_telemetry_rel_err": telemetry_err}
+
+
+def train_accum_check(dev):
+    """The GPT-2 125M O2 step at b16 x s1024 with accum_steps=4 (four
+    microbatches of 4, fp32 accumulation through M1's axpby mode) against
+    accum_steps=1 on the same batch, 3 steps from one state each: losses
+    within TRAIN_LOSS_TOL, the same scaler decisions; the accumulating
+    step's launches (M1 four times: three adds, and the unscale, which
+    divides by 4 in the same pass)."""
+    from apex_tpu_torch.amp.frontend import make_train_step
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.models.transformer_lm import gpt_loss
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.optimizers import fused_adam
+
+    cfg = _train_cfg()
+    tokens, labels = _batch(cfg, TRAIN_BATCH, 2, dev)
+    state0 = make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
+                                 device=dev)[0](
+        torch.Generator().manual_seed(0))
+    seqs, counts = {}, {}
+    for accum in (1, 4):
+        _, step = make_train_step(
+            lambda p, t, lab: gpt_loss(p, t, lab, cfg), fused_adam(lr=1e-4),
+            "O2", accum_steps=accum, device=dev)
+        state, seq = state0, []
+        for i in range(CHECK_STEPS):
+            if i == CHECK_STEPS - 1:
+                torch.cuda.synchronize()
+                ku.reset_launch_counts()
+            state, m = step(state, tokens, labels)
+            seq.append((float(m["loss"]), bool(m["overflow"]),
+                        float(m["loss_scale"])))
+        counts[accum] = ku.launch_counts()
+        seqs[accum] = seq
+        del state
+    loss_err = max(abs(a[0] - b[0]) for a, b in zip(seqs[4], seqs[1]))
+    check(loss_err <= TRAIN_LOSS_TOL,
+          f"accum_steps=4 vs 1 losses {seqs[4]} {seqs[1]}: {loss_err}")
+    check([a[1:] for a in seqs[4]] == [b[1:] for b in seqs[1]],
+          f"accum_steps=4 vs 1 scaler decisions {seqs[4]} {seqs[1]}")
+    L = cfg.num_layers
+    check(counts[4].get("multi_tensor_scale") == 3 + 1
+          and counts[4].get("multi_tensor_adam") == 1
+          and counts[4].get("layer_norm_fwd") == 4 * (2 * L + 1),
+          f"accum_steps=4 launches {counts[4]}")
+    return {"accum_4": seqs[4], "accum_1": seqs[1], "loss_err": loss_err,
+            "launches_accum_4": counts[4], "launches_accum_1": counts[1]}
 
 
 def _flash_bwd_case(dev, gen, b, s, n, g, d, causal, kpm):
@@ -3659,7 +3830,8 @@ def bert_train_phase(dev, backend):
     counts = ku.launch_counts()
     L = cfg.num_layers
     want = {name: 0 for name in ku.KERNELS}
-    want.update({"layer_norm_fwd": 2 * L + 3, "layer_norm_bwd": 2 * L + 3})
+    want.update({"layer_norm_fwd": 2 * L + 3, "layer_norm_bwd": 2 * L + 3,
+                 **LAMB_TAIL})
     if backend == "flash":
         want.update({"flash_attention_fwd": L,
                      "flash_attention_bwd_short": L})
@@ -3671,6 +3843,7 @@ def bert_train_phase(dev, backend):
     step_ms = [wall_ms(one) for _ in range(TRAIN_STEPS)]
     q1, med, q3 = quartiles(step_ms)
     t_prof, busy, top, by_cat, by_op = profile_busy(one)
+    tail = profile_tail(one)
     softmax_ms = {}
     if backend == "fused_softmax":
         # row 11's forward and the torch backward composition around it
@@ -3702,7 +3875,7 @@ def bert_train_phase(dev, backend):
         "device_top_ms": top, "device_ms_by_category": by_cat,
         "device_ms_by_op": by_op, "peak_memory_gb": peak_gb,
         "losses": losses, "loss_scales": scales, "overflow": overflow,
-        "counts": counts, **softmax_ms,
+        "counts": counts, "tail": tail, **softmax_ms,
     }
 
 
@@ -3947,7 +4120,8 @@ def moe_train_phase(dev, routing):
     L = cfg.num_layers
     want = {name: 0 for name in ku.KERNELS}
     want.update({"layer_norm_fwd": 2 * L + 1, "layer_norm_bwd": 2 * L + 1,
-                 "flash_attention_fwd": L, "flash_attention_bwd_short": L})
+                 "flash_attention_fwd": L, "flash_attention_bwd_short": L,
+                 **ADAM_TAIL})
     if routing == "ragged":
         # fc1 and fc2 forward, and their dx through the transposed read
         want.update({"grouped_matmul_mma": 2 * L,
@@ -3958,6 +4132,7 @@ def moe_train_phase(dev, routing):
     step_ms = [wall_ms(one) for _ in range(TRAIN_STEPS)]
     q1, med, q3 = quartiles(step_ms)
     t_prof, busy, top, by_cat, by_op = profile_busy(one)
+    tail = profile_tail(one)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [float(m["loss"]) for m in traj]
     scales = [float(m["loss_scale"]) for m in traj]
@@ -3993,7 +4168,7 @@ def moe_train_phase(dev, routing):
         "device_top_ms": top, "device_ms_by_category": by_cat,
         "device_ms_by_op": by_op, "peak_memory_gb": peak_gb,
         "losses": losses, "loss_scales": scales, "overflow": overflow,
-        "counts": counts, **routing_stats,
+        "counts": counts, "tail": tail, **routing_stats,
     }, master
 
 
@@ -4962,9 +5137,11 @@ def kernel_gmm_int8_simt(dev, gen):
 
 
 def dropout_train_phase(dev, kind, backend=None):
-    """The GPT-2 125M O2 FusedAdam step at b16 x s1024 (``kind="gpt"``) or
+    """The GPT-2 125M O2 FusedAdam step at b16 x s1024 (``kind="gpt"``),
     the BERT-large O2 FusedLAMB step at b8 x s512 under one attention
-    backend (``kind="bert"``) with hidden and attention dropout 0.1:
+    backend (``kind="bert"``) or the GPT-MoE step at bench_gpt_moe's
+    configuration under ragged routing (``kind="moe"``, b8 x s512) with
+    hidden and attention dropout 0.1:
     exact launch counts (the dropout-free steps' kernels; the masks of the
     hidden sites and of fused_softmax's probabilities are torch ops), step
     ms over DROPOUT_STEPS steps, tokens/s and MFU, one profiled step
@@ -4980,6 +5157,8 @@ def dropout_train_phase(dev, kind, backend=None):
     cfg, init, step, batch, seq, bsz = _dropout_step(dev, kind, backend)
     state = init(torch.Generator().manual_seed(0))
     n_params = sum(p.numel() for p in tree_leaves(state.master_params))
+    if kind == "moe":
+        n_params = moe_active_params(cfg, n_params)
     words = dropout_keys(cfg, torch.Generator().manual_seed(9), dev)
     traj = []
 
@@ -4997,17 +5176,22 @@ def dropout_train_phase(dev, kind, backend=None):
     counts = ku.launch_counts()
     L = cfg.num_layers
     want = {name: 0 for name in ku.KERNELS}
-    norms = 2 * L + (1 if kind == "gpt" else 3)
-    want.update({"layer_norm_fwd": norms, "layer_norm_bwd": norms})
+    norms = 2 * L + (3 if kind == "bert" else 1)
+    want.update({"layer_norm_fwd": norms, "layer_norm_bwd": norms,
+                 **(LAMB_TAIL if kind == "bert" else ADAM_TAIL)})
     if kind == "gpt":
         want.update({"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
                      "flash_attention_bwd_dkv": L})
+    elif kind == "moe":
+        want.update({"flash_attention_fwd": L, "flash_attention_bwd_short": L,
+                     "grouped_matmul_mma": 2 * L,
+                     "grouped_matmul_mma_t": 2 * L})
     elif backend == "flash":
         want.update({"flash_attention_fwd": L,
                      "flash_attention_bwd_short": L})
     else:
         want["scaled_softmax_fwd"] = L
-    what = kind if kind == "gpt" else f"bert {backend}"
+    what = kind if kind != "bert" else f"bert {backend}"
     check(counts == want, f"{what} dropout launches {counts} != {want}")
     step_ms = [wall_ms(one) for _ in range(DROPOUT_STEPS)]
     q1, med, q3 = quartiles(step_ms)
@@ -5066,6 +5250,18 @@ def _dropout_step(dev, kind, backend, batch_size=None, grad_postprocess=None,
             backend="reference" if plain else None,
             grad_postprocess=grad_postprocess)
         return cfg, init, step, _batch(cfg, bsz, 0, dev), TRAIN_SEQ, bsz
+    if kind == "moe":
+        from apex_tpu_torch.models.gpt import make_gpt_train_step
+        from apex_tpu_torch.optimizers import fused_adam
+
+        cfg = dataclasses.replace(moe_cfg("ragged"), hidden_dropout=DROPOUT_P,
+                                  attention_dropout=DROPOUT_P)
+        bsz = batch_size or MOE_BATCH
+        init, step = make_gpt_train_step(
+            cfg, fused_adam(lr=1e-4), "O2", device=dev,
+            backend="reference" if plain else None,
+            grad_postprocess=grad_postprocess)
+        return cfg, init, step, moe_batch(cfg, bsz, 0, dev), MOE_SEQ, bsz
     from apex_tpu_torch.models.bert import make_bert_train_step
     from apex_tpu_torch.optimizers import fused_lamb
 
@@ -5084,34 +5280,39 @@ def dropout_train_check(dev, kind, backend=None):
     plain path (backend="reference"), each step's key words the same on
     both: per-step loss within TRAIN_LOSS_TOL, identical scaler decisions,
     global grad norm within GRAD_NORM_RTOL (the dropout masks are the same
-    bits on both paths)."""
+    bits on both paths).  The MoE step runs in lockstep, as
+    moe_train_check: each step starts both paths from the kernel path's
+    state, so a routing flip does not carry into the next step."""
     from apex_tpu_torch.models.transformer_lm import dropout_keys
     from apex_tpu_torch.optimizers import global_norm
 
-    runs, state0 = {}, None
+    paths, norms = {}, {"kernel": [], "plain": []}
     for plain in (False, True):
-        norms = []
+        name = "plain" if plain else "kernel"
 
-        def post(grads, norms=norms):
-            norms.append(global_norm(grads))
+        def post(grads, out=norms[name]):
+            out.append(global_norm(grads))
             return grads
 
         cfg, init, step, batch, _, _ = _dropout_step(
             dev, kind, backend, CHECK_BATCH, post, plain)
-        if state0 is None:
-            state0 = init(torch.Generator().manual_seed(0))
-        state, seq = state0, []
-        for i in range(CHECK_STEPS):
-            words = dropout_keys(cfg, torch.Generator().manual_seed(20 + i),
-                                 dev)
-            state, m = step(state, *batch, words)
-            seq.append((float(m["loss"]), bool(m["overflow"]),
-                        float(m["loss_scale"])))
-        runs["plain" if plain else "kernel"] = (seq,
-                                                [float(x) for x in norms])
-        del state
-    what = kind if kind == "gpt" else f"bert {backend}"
-    (ks, kn), (ps, pn) = runs["kernel"], runs["plain"]
+        paths[name] = (init, step)
+    state0 = paths["kernel"][0](torch.Generator().manual_seed(0))
+    seq = {"kernel": [], "plain": []}
+    states = {"kernel": state0, "plain": state0}
+    for i in range(CHECK_STEPS):
+        words = dropout_keys(cfg, torch.Generator().manual_seed(20 + i), dev)
+        start = {name: states["kernel" if kind == "moe" else name]
+                 for name in states}
+        for name in ("kernel", "plain"):
+            states[name], m = paths[name][1](start[name], *batch, words)
+            seq[name].append((float(m["loss"]), bool(m["overflow"]),
+                              float(m["loss_scale"])))
+    del states, state0
+    what = kind if kind != "bert" else f"bert {backend}"
+    ks, ps = seq["kernel"], seq["plain"]
+    kn = [float(x) for x in norms["kernel"]]
+    pn = [float(x) for x in norms["plain"]]
     loss_err = max(abs(a[0] - b[0]) for a, b in zip(ks, ps))
     check(loss_err <= TRAIN_LOSS_TOL,
           f"{what} dropout kernel vs plain losses {ks} {ps}: {loss_err}")
@@ -5124,6 +5325,302 @@ def dropout_train_check(dev, kind, backend=None):
     return {"kernel": ks, "plain": ps, "grad_norm_kernel": kn,
             "grad_norm_plain": pn, "loss_err": loss_err,
             "grad_norm_rel_err": norm_err}
+
+
+# ---- M1-M4: the multi-tensor kernels (csrc/multi_tensor.cu) at the
+# master trees of the three train steps (GPT-2 125M, BERT-large, GPT-MoE
+# ragged), from each step's init; errors relative to each tensor's
+# largest plain value (an element that is a near-cancelling sum moves far
+# relative to itself when one operand moves by an ulp)
+MT_TOL = 1e-6
+MT_LOSS_SCALE = 2.0 ** 16
+
+
+def _mt_tree(dev, kind):
+    """(float master leaves, model dtypes, leaf count, seeded fp32
+    gradients, m and v of their shapes) of one train step's init state."""
+    from apex_tpu_torch.models.bert import make_bert_train_step
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.optimizers import fused_adam, fused_lamb
+    from apex_tpu_torch.optimizers._common import float_leaves
+
+    if kind == "bert":
+        init, _ = make_bert_train_step(
+            bert_cfg("flash"), fused_lamb(lr=1e-4, weight_decay=0.01), "O2",
+            device=dev)
+    else:
+        cfg = _train_cfg() if kind == "gpt" else moe_cfg("ragged")
+        init, _ = make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
+                                      device=dev)
+    state = init(torch.Generator().manual_seed(0))
+    masters = float_leaves(state.master_params)
+    dtypes = [x.dtype for x in float_leaves(state.params)]
+    del state
+    gen = torch.Generator(device=dev).manual_seed(31)
+    grads = [torch.randn(p.shape, device=dev, generator=gen) * 1e-3
+             for p in masters]
+    m = [torch.randn(p.shape, device=dev, generator=gen) * 1e-4
+         for p in masters]
+    v = [torch.rand(p.shape, device=dev, generator=gen) * 1e-7
+         for p in masters]
+    return masters, dtypes, grads, m, v
+
+
+def _mt_rel(got, want) -> float:
+    """Largest |got - want| over each tensor's largest |want|."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        if a is None or b.numel() == 0:
+            continue
+        d = float((a.float() - b.float()).abs().max())
+        worst = max(worst, d / max(float(b.float().abs().max()), 1e-30))
+    return worst
+
+
+def _mt_abs(got, want) -> float:
+    return max((max_err(a, b) for a, b in zip(got, want)
+                if a is not None and b.numel()), default=0.0)
+
+
+def _mt_row(kernel, run, library, nbytes, what, leaves):
+    """One kernel at one tree: ``run(backend)`` returns the outputs as one
+    list; held against the plain version (MT_TOL relative), bitwise over
+    a repeat, one launch a call; ms of kernel, plain version and library
+    call (``None``: none) beside the byte bound."""
+    before = kernel.launches
+    got = run(None)
+    torch.cuda.synchronize()
+    launches = kernel.launches - before
+    check(launches == 1, f"{kernel.name} at {what}: {launches} launches")
+    want = run("reference")
+    rel, err = _mt_rel(got, want), _mt_abs(got, want)
+    check(rel <= MT_TOL, f"{kernel.name} at {what}: error {rel} > {MT_TOL}")
+    again = run(None)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)
+              if a is not None), f"{kernel.name} at {what}: repeats differ")
+    del got, want, again
+    bound_ms, bound_by = bound(nbytes, 0, PEAK_FP32_FLOPS)
+    return {"shape": f"{what} master tree, {leaves} float leaves",
+            "rel_err": rel, "err": err, "tol": MT_TOL, "leaves": leaves,
+            "launches_per_call": launches,
+            "ms": time_ms(lambda: run(None)),
+            "plain_ms": time_ms(lambda: run("reference")),
+            "library_ms": None if library is None else time_ms(library),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "detail": "bitwise over a repeat, one launch a call"}
+
+
+MT_WHERE = {"gpt": "gpt_125m", "bert": "bert_large", "moe": "gpt_moe ragged"}
+# each kernel's main path tree (the others are variants): M1 and M3 run
+# in every GPT and MoE step, M2 and M4 in every BERT step (M1 too)
+MT_MAIN = {"multi_tensor_scale": "gpt", "multi_tensor_l2norm": "bert",
+           "multi_tensor_adam": "gpt", "multi_tensor_lamb": "bert"}
+MT_RUNS = {"gpt": ("multi_tensor_scale", "multi_tensor_l2norm",
+                   "multi_tensor_adam"),
+           "bert": ("multi_tensor_scale", "multi_tensor_l2norm",
+                    "multi_tensor_lamb"),
+           "moe": ("multi_tensor_scale", "multi_tensor_adam")}
+
+
+def _mt_cases(dev, kind):
+    """{kernel: row} of the kernels MT_RUNS names at one tree, and the
+    overflow check there (an inf in one gradient: the scale halves, every
+    master and moment comes back bit for bit)."""
+    from apex_tpu_torch.amp import scaler as sl
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+
+    masters, dtypes, grads, m, v = _mt_tree(dev, kind)
+    n = sum(p.numel() for p in masters)
+    leaves = len(masters)
+    what = MT_WHERE[kind]
+    rows = {}
+    step = torch.tensor(3.0, device=dev)
+    bc1 = 1.0 - torch.pow(torch.full_like(step, 0.9), step)
+    bc2 = 1.0 - torch.pow(torch.full_like(step, 0.999), step)
+    no_ov = torch.zeros((), dtype=torch.bool, device=dev)
+    model_bytes = sum(p.numel() * torch.empty((), dtype=dt).element_size()
+                      for p, dt in zip(masters, dtypes))
+    if "multi_tensor_scale" in MT_RUNS[kind]:
+        scaled = [g * MT_LOSS_SCALE for g in grads]
+        inv = torch.tensor(1.0 / MT_LOSS_SCALE, device=dev)
+        f32 = [torch.float32] * leaves
+        lib_in = [g.clone() for g in scaled]
+        found = torch.zeros(1, device=dev)
+
+        def unscale(backend):
+            outs, flag = mta.multi_tensor_scale(scaled, inv, out_dtypes=f32,
+                                                backend=backend)
+            return outs + [flag]
+
+        rows["multi_tensor_scale"] = _mt_row(
+            mta.MT_SCALE, unscale,
+            lambda: torch._amp_foreach_non_finite_check_and_unscale_(
+                lib_in, found, inv), 8 * n, what, leaves)
+        del scaled, lib_in
+    if "multi_tensor_l2norm" in MT_RUNS[kind]:
+        def norms(backend):
+            return list(mta.multi_tensor_l2norm(grads, per_tensor=True,
+                                                backend=backend))
+
+        rows["multi_tensor_l2norm"] = _mt_row(
+            mta.MT_L2NORM, norms, lambda: torch._foreach_norm(grads),
+            4 * n, what, leaves)
+    adam_kw = dict(lr=1e-4, betas=(0.9, 0.999), eps=1e-8, weight_decay=0.0,
+                   adam_w_mode=True, bc1=bc1, bc2=bc2, apply=True)
+    if "multi_tensor_adam" in MT_RUNS[kind]:
+        lib_p = [p.clone() for p in masters]
+        lib_m = [x.clone() for x in m]
+        lib_v = [x.clone() for x in v]
+        steps = [torch.tensor(3.0, device=dev) for _ in masters]
+
+        def adam(backend):
+            out = mta.multi_tensor_adam(grads, masters, m, v, overflow=no_ov,
+                                        model_dtypes=dtypes, backend=backend,
+                                        **adam_kw)
+            return (out.params + out.exp_avg + out.exp_avg_sq
+                    + [x for x in out.model])
+
+        # g, p, m, v read; p, m, v and the model copy written
+        rows["multi_tensor_adam"] = _mt_row(
+            mta.MT_ADAM, adam,
+            lambda: torch._fused_adamw_(
+                lib_p, grads, lib_m, lib_v, [], steps, lr=1e-4, beta1=0.9,
+                beta2=0.999, weight_decay=0.0, eps=1e-8, amsgrad=False,
+                maximize=False), 28 * n + model_bytes, what, leaves)
+        del lib_p, lib_m, lib_v
+    lamb_kw = dict(lr=1e-4, betas=(0.9, 0.999), beta3=0.1, eps=1e-6,
+                   weight_decay=0.01, adam_w_mode=True, use_ratio=True,
+                   bc1=bc1, bc2=bc2, apply=True)
+    if "multi_tensor_lamb" in MT_RUNS[kind]:
+        clip = torch.clamp(mta.multi_tensor_l2norm(grads)[0], min=1.0)
+
+        def lamb(backend):
+            out = mta.multi_tensor_lamb(grads, masters, m, v, clip=clip,
+                                        overflow=no_ov, model_dtypes=dtypes,
+                                        backend=backend, **lamb_kw)
+            return (out.params + out.exp_avg + out.exp_avg_sq
+                    + [x for x in out.model])
+
+        # the function's inputs read once, its outputs written once (as
+        # M3's); the two stages also write and read u and read p again,
+        # 12 B a value more, because the trust ratio needs each tensor's
+        # norms before the update is applied
+        rows["multi_tensor_lamb"] = _mt_row(
+            mta.MT_LAMB, lamb, None, 28 * n + model_bytes, what, leaves)
+    # an overflowed step: an inf planted in one gradient
+    bad = [g * MT_LOSS_SCALE for g in grads]
+    bad[leaves // 2].view(-1)[7] = float("inf")
+    cfg, ls = sl.init_loss_scale("dynamic", device=dev)
+    unscaled, finite = sl.unscale_grads(bad, ls)
+    new_ls, overflow = sl.update_loss_scale(cfg, ls, ~finite)
+    if kind == "bert":
+        out = mta.multi_tensor_lamb(unscaled, masters, m, v,
+                                    overflow=overflow, model_dtypes=dtypes,
+                                    **lamb_kw)
+    else:
+        out = mta.multi_tensor_adam(unscaled, masters, m, v,
+                                    overflow=overflow, model_dtypes=dtypes,
+                                    **adam_kw)
+    torch.cuda.synchronize()
+    kept = (all(torch.equal(a, b) for a, b in zip(out.params, masters))
+            and all(torch.equal(a, b) for a, b in zip(out.exp_avg, m))
+            and all(torch.equal(a, b) for a, b in zip(out.exp_avg_sq, v))
+            and all(torch.equal(a, p.to(a.dtype))
+                    for a, p in zip(out.model, masters)))
+    check(bool(overflow) and kept and float(new_ls.loss_scale)
+          == float(ls.loss_scale) / 2,
+          f"{what}: overflow {bool(overflow)}, kept {kept}, scale "
+          f"{float(ls.loss_scale)} -> {float(new_ls.loss_scale)}")
+    overflow_row = {"flag": bool(overflow), "every_output_kept": kept,
+                    "scale": [float(ls.loss_scale),
+                              float(new_ls.loss_scale)]}
+    del masters, grads, m, v, bad, unscaled, out
+    return rows, overflow_row
+
+
+MT_MANY = 700   # tensors of the many-leaf check: three tables of 320
+
+
+def _mt_many_leaves(dev):
+    """M1-M4 over a list of MT_MANY tensors (odd, empty and multi-chunk;
+    fp32 and bf16 gradients), longer than one kernel table: each call is
+    ceil(MT_MANY / MAX_TENSORS) launches, the outputs within MT_TOL of the
+    plain version (M1 bit for bit) and the norms bitwise over a repeat.
+    {kernel: {"launches_per_call", "rel_err"}}."""
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+
+    want_launches = -(-MT_MANY // mta.MAX_TENSORS)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    sizes = [(0, 1, 3, 4099, 65541)[i % 5] + i for i in range(MT_MANY)]
+    ps = [torch.randn(n, device=dev, generator=gen) * 0.1 for n in sizes]
+    gs = [(torch.randn(n, device=dev, generator=gen) * 0.01).to(
+        (torch.float32, torch.bfloat16)[i % 2]) for i, n in enumerate(sizes)]
+    ms = [torch.randn(n, device=dev, generator=gen) * 1e-3 for n in sizes]
+    vs = [torch.rand(n, device=dev, generator=gen) * 1e-5 for n in sizes]
+    step = torch.tensor(2.0, device=dev)
+    kw = dict(betas=(0.9, 0.999), eps=1e-6, weight_decay=0.01,
+              adam_w_mode=True, lr=1e-3, apply=True,
+              bc1=1.0 - torch.pow(torch.full_like(step, 0.9), step),
+              bc2=1.0 - torch.pow(torch.full_like(step, 0.999), step),
+              overflow=torch.zeros((), dtype=torch.bool, device=dev),
+              model_dtypes=[torch.bfloat16] * MT_MANY)
+    f32 = [torch.float32] * MT_MANY
+    runs = {
+        "multi_tensor_scale": (mta.MT_SCALE, lambda b: mta.multi_tensor_scale(
+            gs, 0.25, out_dtypes=f32, backend=b)[0]),
+        "multi_tensor_l2norm": (mta.MT_L2NORM, lambda b: list(
+            mta.multi_tensor_l2norm(gs, per_tensor=True, backend=b))),
+        "multi_tensor_adam": (mta.MT_ADAM, lambda b: [
+            x for lst in mta.multi_tensor_adam(gs, ps, ms, vs, backend=b,
+                                               **kw)[:4] for x in lst]),
+        "multi_tensor_lamb": (mta.MT_LAMB, lambda b: [
+            x for lst in mta.multi_tensor_lamb(gs, ps, ms, vs, beta3=0.1,
+                                               use_ratio=True, backend=b,
+                                               **kw)[:4] for x in lst]),
+    }
+    out = {}
+    for name, (kernel, run) in runs.items():
+        before = kernel.launches
+        got = run(None)
+        torch.cuda.synchronize()
+        launches = kernel.launches - before
+        want = run("reference")
+        rel = _mt_rel(got, want)
+        exact = all(torch.equal(a, b) for a, b in zip(got, want))
+        check(launches == want_launches,
+              f"{name} over {MT_MANY} tensors: {launches} launches, not "
+              f"{want_launches}")
+        check(exact if name == "multi_tensor_scale" else rel <= MT_TOL,
+              f"{name} over {MT_MANY} tensors: error {rel} (exact {exact})")
+        if name == "multi_tensor_l2norm":
+            check(all(torch.equal(a, b) for a, b in zip(got, run(None))),
+                  f"{name} over {MT_MANY} tensors: repeats differ")
+        out[name] = {"launches_per_call": launches, "rel_err": rel}
+        del got, want
+    return out
+
+
+def multi_tensor_phase(dev):
+    """M1-M4 at the GPT-2 125M, BERT-large and GPT-MoE master trees:
+    ({kernel: row with its other trees as variants}, {tree: overflow
+    check, and "many_leaves": the check of a list of MT_MANY
+    tensors})."""
+    results, overflow = {}, {}
+    for kind in ("gpt", "bert", "moe"):
+        torch.cuda.empty_cache()
+        with torch.inference_mode():
+            rows, overflow[MT_WHERE[kind]] = _mt_cases(dev, kind)
+        for name, row in rows.items():
+            if MT_MAIN[name] == kind:
+                results[name] = {**row, "variants": results.get(
+                    name, {}).get("variants", {})}
+            else:
+                results.setdefault(name, {"variants": {}})[
+                    "variants"][row["shape"]] = row
+    with torch.inference_mode():
+        overflow["many_leaves"] = _mt_many_leaves(dev)
+    torch.cuda.empty_cache()
+    return results, overflow
 
 
 def matmul_times(root: str) -> dict:
@@ -5389,6 +5886,73 @@ def paged_probe() -> dict:
 SERVING_TIME_RUNS = 5
 
 
+TRAIN_TIME_STEPS = 10
+
+
+def train_times(root: str) -> dict:
+    """The train steps of the ``apex_tpu_torch`` found under ``root`` (this
+    checkout, or another commit's ``git archive``), built from that tree's
+    sources: the GPT-2 125M O2 FusedAdam step (b16 x s1024), the BERT-large
+    O2 FusedLAMB step under flash attention (b8 x s512) and the GPT-MoE
+    ragged O2 step (b8 x s512), each TRAIN_TIME_STEPS host-timed steps
+    after TRAIN_WARMUP (median, quartiles, every step) and one profiled
+    step's device busy ms.  It calls only entry points both this tree and
+    its parent have, so parent and change run the same measurement in one
+    chip call (parent, change, change, parent)."""
+    sys.path.insert(0, str(Path(root).resolve()))
+    import apex_tpu_torch
+    from apex_tpu_torch.models.bert import make_bert_train_step
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.optimizers import fused_adam, fused_lamb
+
+    pkg = Path(apex_tpu_torch.__file__).resolve().parent
+    check(pkg.parent == Path(root).resolve(),
+          f"imported {pkg}, not the tree under {root}")
+    t0 = time.perf_counter()
+    built = ku.build_all()
+    build_s = time.perf_counter() - t0
+    dev = torch.device("cuda")
+    steps = {
+        "gpt_125m b16 s1024": lambda: (
+            make_gpt_train_step(_train_cfg(), fused_adam(lr=1e-4), "O2",
+                                device=dev),
+            _batch(_train_cfg(), TRAIN_BATCH, 0, dev)),
+        "bert_large flash b8 s512": lambda: (
+            make_bert_train_step(bert_cfg("flash"),
+                                 fused_lamb(lr=1e-4, weight_decay=0.01),
+                                 "O2", device=dev),
+            bert_batch(bert_cfg("flash"), BERT_BATCH, 0, dev)),
+        "gpt_moe ragged b8 s512": lambda: (
+            make_gpt_train_step(moe_cfg("ragged"), fused_adam(lr=1e-4), "O2",
+                                device=dev),
+            moe_batch(moe_cfg("ragged"), MOE_BATCH, 0, dev)),
+    }
+    res = {}
+    for name, make in steps.items():
+        (init, step), batch = make()
+        state = init(torch.Generator().manual_seed(0))
+
+        def one():
+            nonlocal state
+            state, _ = step(state, *batch)
+
+        for _ in range(TRAIN_WARMUP):
+            one()
+        ms = [wall_ms(one) for _ in range(TRAIN_TIME_STEPS)]
+        q1, med, q3 = quartiles(ms)
+        _, busy, _, by_cat, _ = profile_busy(one)
+        res[name] = {"step_ms": med, "step_ms_q1_q3": [q1, q3],
+                     "step_ms_all": ms, "device_busy_ms": busy,
+                     "device_ms_by_category": by_cat}
+        del state, batch
+        torch.cuda.empty_cache()
+    return {"device": nvidia_smi(), "root": str(root), "build_s": build_s,
+            "compiled": built, "steps": TRAIN_TIME_STEPS, **res}
+
+
+
+
 def serving_times(root: str) -> dict:
     """The eager serving paths of the ``apex_tpu_torch`` found under
     ``root``, built from that tree's sources: the ``ServingEngine`` without
@@ -5482,6 +6046,11 @@ def main() -> int:
         # generate of the port under ROOT
         print(json.dumps(serving_times(sys.argv[2])))
         return 0
+    if sys.argv[1:2] == ["--train-times"]:
+        # python3 chip_smoke.py --train-times ROOT: the GPT, BERT-flash and
+        # MoE train steps of the port under ROOT
+        print(json.dumps(train_times(sys.argv[2])))
+        return 0
     if sys.argv[1:2] == ["--matmul-times"]:
         # python3 chip_smoke.py --matmul-times ROOT: rows 5-7, 9-11, K1
         print(json.dumps(matmul_times(sys.argv[2])))
@@ -5505,6 +6074,8 @@ def main() -> int:
           f"nvidia-smi: {smi}; torch {torch.__version__} "
           f"cuda {torch.version.cuda}")
 
+    from apex_tpu_torch.multi_tensor import (  # noqa: F401
+        multi_tensor_apply)
     from apex_tpu_torch.ops import _kernel_utils as ku
     from apex_tpu_torch.ops import (  # noqa: F401  (register the kernels)
         decode_step, dense, flash_attention, fused_sampling, grouped_matmul,
@@ -5728,6 +6299,18 @@ def main() -> int:
           f"{results['scaled_softmax_fwd']['backward_composition_ms']:.4f} "
           "ms a call")
     mark("training kernels")
+    mt_rows, mt_overflow = multi_tensor_phase(dev)
+    for kname, r in mt_rows.items():
+        report(kname, r)
+    print(f"multi-tensor kernels M1-M4 at the train steps' master trees on "
+          f"{smi}: one launch a call at "
+          + ", ".join(f"{r['leaves']} leaves ({r['shape'].split(' master')[0]})"
+                      for r in [mt_rows["multi_tensor_scale"],
+                                *mt_rows["multi_tensor_scale"]["variants"]
+                                .values()])
+          + f"; an inf planted in one gradient, and {MT_MANY} tensors "
+          f"(launches a call, error): {json.dumps(mt_overflow)}")
+    mark("multi-tensor kernels")
     torch.cuda.empty_cache()
     tr = train_phase(dev)
     print(f"train gpt_125m AMP-O2 fused_adam(lr=1e-4) b{TRAIN_BATCH} x "
@@ -5742,6 +6325,12 @@ def main() -> int:
           f"{tr['overflow']}; device ms by category "
           f"{tr['device_ms_by_category']}; top device time "
           f"{tr['device_top_ms']}; by launching op {tr['device_ms_by_op']}")
+    print(f"train gpt_125m optimizer tail (record_function spans, one "
+          f"profiled step each) on {smi}: kernels {json.dumps(tr['tail']['kernels'])}; "
+          f"plain tail (the per-leaf torch composition, same model path) "
+          f"{json.dumps(tr['tail']['plain'])}, its step ms "
+          f"{tr['tail']['plain_tail_step_ms']}; bounds "
+          f"{json.dumps(tr['tail']['bound_ms'])}")
     torch.cuda.empty_cache()
     tc = train_check(dev)
     print(f"train kernel vs plain, b{CHECK_BATCH} x s{TRAIN_SEQ}, "
@@ -5749,7 +6338,18 @@ def main() -> int:
           f"{tc['kernel']} plain {tc['plain']}; max loss diff "
           f"{tc['loss_err']:.5f} (tol {TRAIN_LOSS_TOL}); grad norms kernel "
           f"{tc['grad_norm_kernel']} plain {tc['grad_norm_plain']}, max "
-          f"rel diff {tc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL})")
+          f"rel diff {tc['grad_norm_rel_err']:.5f} (tol {GRAD_NORM_RTOL}); "
+          f"norm_telemetry grad/update/param norms max rel diff "
+          f"{tc['norm_telemetry_rel_err']:.5f} (kernel "
+          f"{tc['norm_telemetry_kernel']})")
+    torch.cuda.empty_cache()
+    ta = train_accum_check(dev)
+    print(f"train gpt accum_steps=4 (4 x b{TRAIN_BATCH // 4}) vs 1 at "
+          f"b{TRAIN_BATCH} x s{TRAIN_SEQ}, {CHECK_STEPS} steps: (loss, "
+          f"overflow, scale) {ta['accum_4']} vs {ta['accum_1']}; max loss "
+          f"diff {ta['loss_err']:.5f} (tol {TRAIN_LOSS_TOL}); launches of "
+          f"one accumulating step "
+          f"{json.dumps({k: c for k, c in ta['launches_accum_4'].items() if c})}")
 
     torch.cuda.empty_cache()
     trd = dropout_train_phase(dev, "gpt")
@@ -5790,6 +6390,8 @@ def main() -> int:
               f"{br['device_ms_by_category']}; top device time "
               f"{br['device_top_ms']}; by launching op "
               f"{br['device_ms_by_op']}")
+        print(f"train bert {backend} optimizer tail spans on {smi}: "
+              f"{json.dumps(br['tail'])}")
         if backend == "fused_softmax":
             print(f"bert fused_softmax step, softmax device ms on {smi}: "
                   f"row 11 forward {br['row11_forward_device_ms']}, "
@@ -5848,6 +6450,8 @@ def main() -> int:
               f"ms by category {mr['device_ms_by_category']}; top device "
               f"time {mr['device_top_ms']}; by launching op "
               f"{mr['device_ms_by_op']}")
+        print(f"train gpt_moe {routing} optimizer tail spans on {smi}: "
+              f"{json.dumps(mr['tail'])}")
         torch.cuda.empty_cache()
         mc = moe_checks[routing] = moe_train_check(dev, routing)
         print(f"train gpt_moe {routing} kernel vs plain, b{CHECK_BATCH} x "
@@ -5861,6 +6465,20 @@ def main() -> int:
               f"{mc['routing_drift']} (logit tol {LOGIT_TOL}); free running:"
               f" routing flips per step {mc['routing_flips']}, layers with "
               f"unequal expert loads {mc['layers_with_unequal_loads']}")
+    torch.cuda.empty_cache()
+    mdrop = dropout_train_phase(dev, "moe")
+    torch.cuda.empty_cache()
+    mdc = mdrop["check"] = dropout_train_check(dev, "moe")
+    print(f"train gpt_moe ragged AMP-O2 with hidden and attention dropout "
+          f"{DROPOUT_P} b{MOE_BATCH} x s{MOE_SEQ} on {smi}: step median "
+          f"{mdrop['step_ms']:.2f} ms (q1-q3 {mdrop['step_ms_q1_q3']}, "
+          f"{DROPOUT_STEPS} steps), {mdrop['tokens_per_s']:.1f} tokens/s, "
+          f"MFU {mdrop['mfu']:.4f} (active parameters); the dropout-free "
+          f"step in this run {moe['ragged']['step_ms']:.2f} ms; kernel vs "
+          f"plain b{CHECK_BATCH}, {CHECK_STEPS} steps in lockstep: losses "
+          f"{mdc['kernel']} vs {mdc['plain']}, max loss diff "
+          f"{mdc['loss_err']:.5f}, grad norm max rel diff "
+          f"{mdc['grad_norm_rel_err']:.5f}; {_dropout_profile_text(mdrop)}")
     torch.cuda.empty_cache()
     mq = moe_quantized_phase(dev, moe_master)
     del moe_master
@@ -5906,6 +6524,8 @@ def main() -> int:
                   for b, row in bert_drop.items()})
     paths.update({f"bert {b}": row["counts"] for b, row in bert.items()})
     paths.update({f"moe {r}": row["counts"] for r, row in moe.items()})
+    paths["moe ragged dropout"] = mdrop["counts"]
+    paths["train_step accum_steps=4"] = ta["launches_accum_4"]
     paths["moe int8 forward"] = mq["counts"]
     paths["generic mask"] = gm["counts"]
     for extra in (spec_gen_paths, spec_eng_paths, tier_paths, foreign_paths):
@@ -5956,6 +6576,11 @@ def main() -> int:
         "moe_train": {n: {k: v for k, v in row.items() if k != "counts"}
                       for n, row in moe.items()},
         "moe_train_check": moe_checks,
+        "moe_train_dropout": {k: v for k, v in mdrop.items()
+                              if k != "counts"},
+        "train_accum_check": {k: v for k, v in ta.items()
+                              if not k.startswith("launches")},
+        "multi_tensor_overflow": mt_overflow,
         "moe_int8_forward": {k: v for k, v in mq.items() if k != "counts"},
         "grouped_dw": grouped_dw,
         "flash_bwd_crossover": short["crossover"],

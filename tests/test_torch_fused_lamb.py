@@ -111,11 +111,26 @@ def test_trust_ratio_is_per_stacked_leaf():
 
 
 def test_aliases_and_refusals():
+    """The aliases; norm_telemetry=True carries JAX's norms in the state;
+    update without params raises."""
+    from apex_tpu.optimizers._common import latest_norms as j_latest
+    from apex_tpu_torch.optimizers._common import (
+        NormTelemetryState, latest_norms)
+
     assert FusedLAMB is fused_lamb
     assert fused_mixed_precision_lamb is fused_lamb
     assert FusedMixedPrecisionLamb is fused_lamb
-    with pytest.raises(NotImplementedError):
-        fused_lamb(norm_telemetry=True)
+    rng = np.random.RandomState(3)
+    p0, g = _tree(rng), _grads(rng, scale=3.0)
+    jtx = j_lamb(lr=1e-2, norm_telemetry=True)
+    ttx = fused_lamb(lr=1e-2, norm_telemetry=True)
+    _, js = jtx.update(_to_jax(g), jtx.init(_to_jax(p0)), _to_jax(p0))
+    _, ts = ttx.update(_to_torch(g), ttx.init(_to_torch(p0)), _to_torch(p0))
+    assert isinstance(ts, NormTelemetryState)
+    want, got = j_latest(js), latest_norms(ts)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k] == pytest.approx(want[k], rel=1e-5), k
     tx = fused_lamb()
     p = _to_torch(_tree(np.random.RandomState(2)))
     with pytest.raises(ValueError):

@@ -1843,3 +1843,365 @@ def test_flash_wide_heads(dev, dtype, d, s, n, g, causal, padded, feature):
     for a, e, name in zip(got, want, ("dq", "dk", "dv")):
         assert a.dtype == dtype and a.shape == e.shape, name
         assert _rel_err(a, e) <= _BWD_TOL[dtype] * scale, name
+
+
+# ---- M1-M4: the multi-tensor kernels (csrc/multi_tensor.cu) ----
+
+_MT_SIZES = (0, 1, 3, 4099, 65536, 65541, 200003)   # empty, odd, chunk edges
+
+
+def _mt_list(dev, dtype, seed, sizes=_MT_SIZES, scale=1.0):
+    g = _gen(seed)
+    return [(torch.randn(n, device=dev, generator=g) * scale).to(dtype)
+            for n in sizes]
+
+
+def _mt_launches(kernel, fn):
+    before = kernel.launches
+    out = fn()
+    torch.cuda.synchronize()
+    return out, kernel.launches - before
+
+
+@pytest.mark.parametrize("src_dtype", [torch.float32, torch.bfloat16,
+                                       torch.float16])
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_mt_scale_matches_plain(dev, src_dtype, out_dtype):
+    """M1 over odd, empty and multi-chunk tensors, a device scale: one
+    launch, the plain version's values bit for bit, bitwise repeats."""
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+
+    xs = _mt_list(dev, src_dtype, 1, scale=300.0)
+    s = torch.tensor(1.0 / 4096, device=dev)
+    dts = [out_dtype] * len(xs)
+    (outs, flag), n = _mt_launches(
+        mta.MT_SCALE, lambda: mta.multi_tensor_scale(xs, s, out_dtypes=dts))
+    assert n == 1 and int(flag) == 0
+    ref, rflag = mta.multi_tensor_scale(xs, s, out_dtypes=dts,
+                                        backend="reference")
+    again, _ = mta.multi_tensor_scale(xs, s, out_dtypes=dts)
+    for a, b, c in zip(outs, ref, again):
+        assert a.dtype == out_dtype and a.shape == b.shape
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def test_mt_scale_flag_and_noop(dev):
+    """An inf or a nan in any tensor sets the flag; a set incoming flag
+    passes the sources through unscaled and is OR'ed in."""
+    from apex_tpu_torch.multi_tensor import multi_tensor_scale
+
+    for bad in (float("inf"), float("nan"), -float("inf")):
+        xs = _mt_list(dev, torch.float16, 2)
+        xs[5][65540] = bad
+        _, flag = multi_tensor_scale(xs, 0.5)
+        assert int(flag) == 1
+    xs = _mt_list(dev, torch.bfloat16, 3)
+    noop = torch.ones((), dtype=torch.int32, device=dev)
+    outs, flag = multi_tensor_scale(xs, 0.5, noop_flag=noop,
+                                    out_dtypes=[torch.float32] * len(xs))
+    assert int(flag) == 1
+    assert all(torch.equal(o, x.float()) for o, x in zip(outs, xs))
+
+
+def test_mt_axpby_mixed_dtypes(dev):
+    """M1's axpby mode: x bf16, y fp32 (and the reverse), out fp32, one
+    launch, bit for bit the plain version; a nan in y sets the flag."""
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+
+    xs = _mt_list(dev, torch.bfloat16, 4)
+    ys = _mt_list(dev, torch.float32, 5)
+    dts = [torch.float32] * len(xs)
+    for a, b in ((xs, ys), (ys, xs)):
+        (outs, flag), n = _mt_launches(
+            mta.MT_SCALE,
+            lambda: mta.multi_tensor_axpby(a, b, 2.0, 0.5, out_dtypes=dts))
+        ref, _ = mta.multi_tensor_axpby(a, b, 2.0, 0.5, out_dtypes=dts,
+                                        backend="reference")
+        assert n == 1 and int(flag) == 0
+        assert all(torch.equal(o, r) for o, r in zip(outs, ref))
+    ys[3][7] = float("nan")
+    assert int(mta.multi_tensor_axpby(xs, ys, 1.0, 1.0)[1]) == 1
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_mt_l2norm_matches_plain(dev, dtype):
+    """M2: per-tensor and global norms within 1e-6 of the plain version,
+    bitwise repeats, one launch a call whatever the tensor count."""
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+
+    xs = _mt_list(dev, dtype, 6)
+    (total, per), n = _mt_launches(
+        mta.MT_L2NORM, lambda: mta.multi_tensor_l2norm(xs, per_tensor=True))
+    rt, rp = mta.multi_tensor_l2norm(xs, per_tensor=True, backend="reference")
+    assert n == 1
+    torch.testing.assert_close(total, rt, rtol=1e-6, atol=0)
+    torch.testing.assert_close(per, rp, rtol=1e-6, atol=0)
+    t2, p2 = mta.multi_tensor_l2norm(xs, per_tensor=True)
+    assert torch.equal(total, t2) and torch.equal(per, p2)
+    many = _mt_list(dev, dtype, 7, sizes=[5, 70000, 0] * 40)
+    _, n = _mt_launches(mta.MT_L2NORM,
+                        lambda: mta.multi_tensor_l2norm(many))
+    assert n == 1
+    empty, _ = mta.multi_tensor_l2norm([])
+    assert float(empty) == 0.0
+
+
+def _adam_case(dev, p_dtype, g_dtype, seed):
+    sizes = _MT_SIZES
+    g = _gen(seed)
+    ps = [(torch.randn(n, device=dev, generator=g) * 0.1).to(p_dtype)
+          for n in sizes]
+    gs = [(torch.randn(n, device=dev, generator=g) * 0.01).to(g_dtype)
+          for n in sizes]
+    ms = [torch.randn(n, device=dev, generator=g) * 1e-3 for n in sizes]
+    vs = [torch.rand(n, device=dev, generator=g) * 1e-5 for n in sizes]
+    return gs, ps, ms, vs
+
+
+def _bc(dev, beta, step):
+    t = torch.tensor(float(step), device=dev)
+    return 1.0 - torch.pow(torch.full_like(t, beta), t)
+
+
+def _max_rel(a, b) -> float:
+    """max |a - b| over max |b| (0 for empty tensors)."""
+    if b.numel() == 0:
+        return 0.0
+    return float((a.float() - b.float()).abs().max()
+                 / b.float().abs().max().clamp(min=1e-30))
+
+
+def _assert_out_close(out, ref, rtol):
+    """Every output within ``rtol`` of the plain version, relative to the
+    tensor's largest value: an element that is a near-cancelling sum
+    (LAMB's m̂/d + wd·p, a moment near 0) moves far relative to itself
+    when one operand moves by an ulp."""
+    for a_list, b_list in zip(out[:3], ref[:3]):
+        for a, b in zip(a_list, b_list):
+            assert a.dtype == b.dtype and a.shape == b.shape
+            assert _max_rel(a, b) <= rtol
+    for a, b in zip(out.model, ref.model):
+        assert (a is None) == (b is None)
+        if a is not None:
+            assert a.dtype == b.dtype and _max_rel(a, b) <= rtol
+
+
+@pytest.mark.parametrize("adam_w_mode, wd", [(True, 0.01), (False, 0.01),
+                                             (True, 0.0)])
+@pytest.mark.parametrize("p_dtype, g_dtype", [
+    (torch.float32, torch.float32), (torch.float32, torch.bfloat16),
+    (torch.bfloat16, torch.float16)])
+def test_mt_adam_matches_plain(dev, adam_w_mode, wd, p_dtype, g_dtype):
+    """M3 in update and apply mode (with bf16 model copies and a device
+    lr) against the plain version within 1e-6 relative; one launch;
+    bitwise repeats; update_norm from the kernel's partial sums."""
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+
+    gs, ps, ms, vs = _adam_case(dev, p_dtype, g_dtype, 8)
+    kw = dict(betas=(0.9, 0.999), eps=1e-8, weight_decay=wd,
+              adam_w_mode=adam_w_mode, bc1=_bc(dev, 0.9, 3),
+              bc2=_bc(dev, 0.999, 3))
+    for apply, lr in ((False, 1e-3), (True, torch.tensor(2e-3, device=dev))):
+        extra = dict(apply=apply, update_norm=True, lr=lr,
+                     overflow=torch.zeros((), dtype=torch.bool, device=dev),
+                     model_dtypes=[torch.bfloat16] * len(ps)
+                     if apply else None)
+        out, n = _mt_launches(mta.MT_ADAM, lambda: mta.multi_tensor_adam(
+            gs, ps, ms, vs, **kw, **extra))
+        ref = mta.multi_tensor_adam(gs, ps, ms, vs, backend="reference",
+                                    **kw, **extra)
+        assert n == 1
+        _assert_out_close(out, ref, 1e-6)
+        torch.testing.assert_close(out.update_sq, ref.update_sq, rtol=1e-5,
+                                   atol=0)
+        again = mta.multi_tensor_adam(gs, ps, ms, vs, **kw, **extra)
+        for a_list, b_list in zip(out[:3], again[:3]):
+            assert all(torch.equal(a, b) for a, b in zip(a_list, b_list))
+
+
+@pytest.mark.parametrize("which", ["adam", "lamb"])
+def test_mt_overflow_keeps_every_bit(dev, which):
+    """Apply mode with the overflow flag set (an inf planted in one
+    gradient): p, m and v come back bit for bit, the model copy is p
+    cast."""
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+
+    gs, ps, ms, vs = _adam_case(dev, torch.float32, torch.float32, 9)
+    gs[4][3] = float("inf")
+    flag = mta.multi_tensor_scale(gs, 1.0)[1] != 0
+    kw = dict(betas=(0.9, 0.999), eps=1e-6, weight_decay=0.01,
+              adam_w_mode=True, lr=1e-3, apply=True, overflow=flag,
+              model_dtypes=[torch.float16] * len(ps))
+    if which == "adam":
+        out = mta.multi_tensor_adam(gs, ps, ms, vs, **kw)
+    else:
+        out = mta.multi_tensor_lamb(gs, ps, ms, vs, beta3=0.1,
+                                    use_ratio=True, **kw)
+    for new, old in zip(out.params + out.exp_avg + out.exp_avg_sq,
+                        ps + ms + vs):
+        assert torch.equal(new, old)
+    assert all(torch.equal(mo, p.half()) for mo, p in zip(out.model, ps))
+
+
+@pytest.mark.parametrize("use_ratio, clip", [(True, 2.5), (False, None),
+                                             (True, None)])
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_mt_lamb_matches_plain(dev, use_ratio, clip, adam_w_mode):
+    """M4's two stages in update and apply mode against the plain version
+    (the trust ratios' sums in another order: 1e-6 relative); one call of
+    the entry; bitwise repeats."""
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+
+    gs, ps, ms, vs = _adam_case(dev, torch.float32, torch.bfloat16, 10)
+    kw = dict(betas=(0.9, 0.999), beta3=0.1, eps=1e-6, weight_decay=0.01,
+              adam_w_mode=adam_w_mode, use_ratio=use_ratio, lr=1e-3,
+              bc1=_bc(dev, 0.9, 2), bc2=_bc(dev, 0.999, 2),
+              clip=None if clip is None else torch.tensor(clip, device=dev))
+    for apply in (False, True):
+        extra = dict(apply=apply, model_dtypes=[torch.bfloat16] * len(ps)
+                     if apply else None)
+        out, n = _mt_launches(mta.MT_LAMB, lambda: mta.multi_tensor_lamb(
+            gs, ps, ms, vs, **kw, **extra))
+        assert n == 1
+        ref = mta.multi_tensor_lamb(gs, ps, ms, vs, backend="reference",
+                                    **kw, **extra)
+        _assert_out_close(out, ref, 1e-6)
+        again = mta.multi_tensor_lamb(gs, ps, ms, vs, **kw, **extra)
+        for a_list, b_list in zip(out[:3], again[:3]):
+            assert all(torch.equal(a, b) for a, b in zip(a_list, b_list))
+
+
+def test_mt_unaligned_views_and_launch_count(dev):
+    """Tensors at odd element offsets take the element-by-element walk and
+    still match; 3 tensors and 120 take one launch each."""
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+
+    base = torch.randn(300001, device=dev, generator=_gen(11))
+    xs = [base[1:70001], base[70003:70010], base[70011:]]
+    outs, _ = mta.multi_tensor_scale(xs, 3.0)
+    ref, _ = mta.multi_tensor_scale(xs, 3.0, backend="reference")
+    assert all(torch.equal(a, b) for a, b in zip(outs, ref))
+    for count in (3, 120):
+        many = _mt_list(dev, torch.float32, 12, sizes=[1000] * count)
+        _, n = _mt_launches(mta.MT_SCALE,
+                            lambda: mta.multi_tensor_scale(many, 2.0))
+        assert n == 1
+
+
+def test_mt_many_tensors_launch_per_group(dev):
+    """A list of 700 tensors (odd, empty and multi-chunk; mixed dtypes)
+    takes ceil(700 / MAX_TENSORS) = 3 calls of each kernel's entry, and
+    M1-M4 still match their plain versions: M1 and M3 bit for bit, the
+    norms and M4 within 1e-6 relative; the flag of an inf in the last
+    group; bitwise repeats of the norms."""
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+
+    count = 700
+    groups = -(-count // mta.MAX_TENSORS)
+    sizes = [(0, 1, 3, 4099, 65541)[i % 5] + i for i in range(count)]
+    g = _gen(14)
+    ps = [torch.randn(n, device=dev, generator=g) * 0.1 for n in sizes]
+    gs = [(torch.randn(n, device=dev, generator=g) * 0.01).to(
+        (torch.float32, torch.bfloat16)[i % 2]) for i, n in enumerate(sizes)]
+    ms = [torch.randn(n, device=dev, generator=g) * 1e-3 for n in sizes]
+    vs = [torch.rand(n, device=dev, generator=g) * 1e-5 for n in sizes]
+    f32 = [torch.float32] * count
+
+    (outs, flag), n = _mt_launches(
+        mta.MT_SCALE, lambda: mta.multi_tensor_scale(gs, 0.25, out_dtypes=f32))
+    ref, _ = mta.multi_tensor_scale(gs, 0.25, out_dtypes=f32,
+                                    backend="reference")
+    assert n == groups and int(flag) == 0
+    assert all(torch.equal(a, b) for a, b in zip(outs, ref))
+    (sums, _), n = _mt_launches(
+        mta.MT_SCALE, lambda: mta.multi_tensor_axpby(gs, ps, 2.0, 0.5,
+                                                     out_dtypes=f32))
+    ref, _ = mta.multi_tensor_axpby(gs, ps, 2.0, 0.5, out_dtypes=f32,
+                                    backend="reference")
+    assert n == groups and all(torch.equal(a, b) for a, b in zip(sums, ref))
+    bad = [x.clone() for x in gs]
+    bad[count - 2][5] = float("inf")
+    assert int(mta.multi_tensor_scale(bad, 1.0)[1]) == 1
+
+    (total, per), n = _mt_launches(
+        mta.MT_L2NORM, lambda: mta.multi_tensor_l2norm(gs, per_tensor=True))
+    rt, rp = mta.multi_tensor_l2norm(gs, per_tensor=True, backend="reference")
+    assert n == groups and per.shape == (count,)
+    torch.testing.assert_close(total, rt, rtol=1e-6, atol=0)
+    torch.testing.assert_close(per, rp, rtol=1e-6, atol=0)
+    t2, p2 = mta.multi_tensor_l2norm(gs, per_tensor=True)
+    assert torch.equal(total, t2) and torch.equal(per, p2)
+
+    kw = dict(betas=(0.9, 0.999), eps=1e-6, weight_decay=0.01,
+              adam_w_mode=True, lr=1e-3, bc1=_bc(dev, 0.9, 2),
+              bc2=_bc(dev, 0.999, 2), apply=True, update_norm=True,
+              overflow=torch.zeros((), dtype=torch.bool, device=dev),
+              model_dtypes=[torch.bfloat16] * count)
+    out, n = _mt_launches(mta.MT_ADAM,
+                          lambda: mta.multi_tensor_adam(gs, ps, ms, vs, **kw))
+    want = mta.multi_tensor_adam(gs, ps, ms, vs, backend="reference", **kw)
+    assert n == groups
+    _assert_out_close(out, want, 1e-6)
+    torch.testing.assert_close(out.update_sq, want.update_sq, rtol=1e-5,
+                               atol=0)
+    out, n = _mt_launches(mta.MT_LAMB, lambda: mta.multi_tensor_lamb(
+        gs, ps, ms, vs, beta3=0.1, use_ratio=True, **kw))
+    want = mta.multi_tensor_lamb(gs, ps, ms, vs, beta3=0.1, use_ratio=True,
+                                 backend="reference", **kw)
+    assert n == groups
+    _assert_out_close(out, want, 1e-6)
+
+
+@pytest.mark.parametrize("adam_w_mode", [True, False])
+def test_mt_adam_kernel_flat_reads_device_scalars(dev, adam_w_mode):
+    """ops.flat_adam.adam_kernel_flat on the card (M3 reading lr, the
+    bias corrections and mt::Hyper from device memory) against its plain
+    version on the same device, within 1e-6 relative; one launch."""
+    from apex_tpu_torch.multi_tensor import multi_tensor_apply as mta
+    from apex_tpu_torch.ops.flat_adam import adam_kernel_flat
+
+    g = _gen(15)
+    n = 200003
+    gr, p = (torch.randn(n, device=dev, generator=g) * s
+             for s in (0.01, 0.1))
+    m = torch.randn(n, device=dev, generator=g) * 1e-3
+    v = torch.rand(n, device=dev, generator=g) * 1e-5
+    scalars = torch.stack([torch.tensor(x, device=dev) for x in (
+        2e-3, 0.9, 0.999, 1e-8, 0.01)] + [_bc(dev, 0.9, 3),
+                                          _bc(dev, 0.999, 3)]).float()
+    got, launches = _mt_launches(mta.MT_ADAM, lambda: adam_kernel_flat(
+        gr, p, m, v, scalars, adam_w_mode))
+    want = adam_kernel_flat(gr, p, m, v, scalars, adam_w_mode,
+                            backend="reference")
+    assert launches == 1
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and _max_rel(a, b) <= 1e-6
+
+
+def test_mt_fused_optimizers_on_trees(dev):
+    """fused_adam and fused_lamb over a tree with an int leaf and an empty
+    leaf: the update on the card against the CPU's plain version; the int
+    leaf passes through."""
+    from apex_tpu_torch.optimizers import fused_adam, fused_lamb
+
+    g = _gen(13)
+    params = {"w": torch.randn(70001, device=dev, generator=g),
+              "e": torch.zeros(0, device=dev),
+              "i": torch.arange(5, device=dev),
+              "s": {"b": torch.randn(3, 5, device=dev, generator=g)}}
+    grads = {k: (v if not v.is_floating_point() else v * 0.1)
+             for k, v in params.items() if k != "s"}
+    grads["s"] = {"b": params["s"]["b"] * 0.2}
+    cpu = lambda t: {k: cpu(v) if isinstance(v, dict) else v.cpu()  # noqa: E731
+                     for k, v in t.items()}
+    for tx in (fused_adam(lr=1e-3, weight_decay=0.01),
+               fused_lamb(lr=1e-3)):
+        u, s = tx.update(grads, tx.init(params), params)
+        ru, rs = tx.update(cpu(grads), tx.init(cpu(params)), cpu(params))
+        assert torch.equal(u["i"], params["i"])
+        assert u["e"].shape == (0,)
+        for k in ("w",):
+            torch.testing.assert_close(u[k].cpu(), ru[k], rtol=1e-5,
+                                       atol=1e-9)
+        torch.testing.assert_close(u["s"]["b"].cpu(), ru["s"]["b"],
+                                   rtol=1e-5, atol=1e-9)

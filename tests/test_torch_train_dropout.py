@@ -1,6 +1,8 @@
 """Dropout in the port's train steps (apex_tpu_torch.models: the GPT AMP-O2
 step with FusedAdam, the MoE step, the BERT O2 step with FusedLAMB) on
-the CPU; the BERT lockstep against JAX, under both attention backends, is
+the CPU; the GPT and MoE steps in lockstep with JAX here (the MoE step
+under capacity and ragged routing, top-k 1 and 2, routing flips allowed
+only at near-ties as in tests/test_torch_gpt_moe.py); the BERT lockstep against JAX, under both attention backends, is
 tests/test_torch_bert_dropout.py, which shares this file's helpers.
 
 Against the JAX package: the hidden-dropout and drop-path masks are drawn
@@ -180,6 +182,89 @@ def test_gpt_o2_dropout_step_tracks_jax(hashed_jax, rates):
                     _gpt_batches(GPT_GEOM["vocab_size"]),
                     GPT_GEOM["num_layers"])
     _check(seq, j_norms, t_norms)
+
+
+MOE_GEOM = dict(GPT_GEOM, num_experts=4)
+MOE_RATES = dict(hidden_dropout=0.1, attention_dropout=0.1,
+                 drop_path_rate=0.1)
+
+
+@pytest.mark.parametrize("top_k", [1, 2])
+@pytest.mark.parametrize("routing", ["capacity", "ragged"])
+def test_moe_o2_dropout_step_tracks_jax(hashed_jax, routing, top_k):
+    """The GPT-MoE O2 step with every dropout site on, in lockstep with
+    JAX's for 3 steps at the GPT test's tolerances.  After each step a
+    dropout-free probe forward of both states holds every token's top-k
+    expert set to JAX's except at a routing near-tie (the rule of
+    tests/test_torch_gpt_moe.py: in the layer where the sets first
+    differ, JAX's k-th minus (k+1)-th probability below NEAR_TIE)."""
+    from test_torch_gpt_moe import (
+        NEAR_TIE, _kth_gap, _probe_jax, _probe_torch, _topk_sets)
+
+    kw = dict(MOE_GEOM, moe_routing=routing, moe_top_k=top_k, **MOE_RATES)
+    jcfg = j_tiny(compute_dtype=jnp.bfloat16, scan_layers=False, **kw)
+    tcfg = t_tiny(compute_dtype=torch.bfloat16, **kw)
+    j_norms, t_norms, j_post, t_post = _norm_hooks()
+    j_init, j_step = j_make(jcfg, j_adam(lr=1e-3), "O2",
+                            grad_postprocess=j_post)
+    jstate = j_init(jax.random.PRNGKey(0))
+    jstate = jstate._replace(loss_scale_state=JLossScaleState(
+        jnp.float32(2.0 ** 15), jnp.int32(0)))
+    tstate = train_state_from_jax(jax.tree.map(np.asarray, jstate),
+                                  device="cpu")
+    _, t_step = t_make(tcfg, t_adam(lr=1e-3), "O2", device="cpu",
+                       grad_postprocess=t_post)
+    probe_cfg = j_tiny(compute_dtype=jnp.bfloat16, scan_layers=False,
+                       **dict(MOE_GEOM, moe_routing=routing,
+                              moe_top_k=top_k))
+    t_probe_cfg = t_tiny(compute_dtype=torch.bfloat16,
+                         **dict(MOE_GEOM, moe_routing=routing,
+                                moe_top_k=top_k))
+    probe = _probe_jax(probe_cfg)
+    seq = {"j": [], "t": []}
+    for i, (tok, lab) in enumerate(_gpt_batches(GPT_GEOM["vocab_size"])):
+        key = jax.random.PRNGKey(100 + i)
+        jstate, jm = j_step(jstate, jnp.asarray(tok), jnp.asarray(lab), key)
+        tstate, tm = t_step(tstate, torch.from_numpy(tok),
+                            torch.from_numpy(lab),
+                            layer_words(key, GPT_GEOM["num_layers"]))
+        for name, m in (("j", jm), ("t", tm)):
+            seq[name].append((float(m["loss"]), bool(m["overflow"]),
+                              float(m["loss_scale"])))
+        jp = probe(jstate.params, jnp.asarray(tok))
+        tp = _probe_torch(tstate.params, tok, t_probe_cfg)
+        diverged = np.zeros(tok.size, bool)
+        for (_, _, jpr), (_, _, tpr) in zip(jp, tp):
+            jpr = np.asarray(jpr)
+            flip = (_topk_sets(jpr, top_k) != _topk_sets(tpr, top_k)).any(-1)
+            first = flip & ~diverged
+            assert (_kth_gap(jpr, top_k)[first] < NEAR_TIE).all()
+            diverged |= flip
+    _check(seq, j_norms, t_norms)
+
+
+def test_moe_dropout_loss_matches_jax_fp32(hashed_jax):
+    """One fp32 MoE forward (ragged, top-2) with every site dropping: the
+    loss within 1e-5 of JAX's."""
+    from apex_tpu.models.transformer_lm import (
+        gpt_loss as j_loss, init_gpt_params as j_init_params)
+    from apex_tpu_torch.models.convert import params_from_numpy
+
+    kw = dict(MOE_GEOM, moe_routing="ragged", moe_top_k=2, **MOE_RATES)
+    jcfg = j_tiny(compute_dtype=jnp.float32, scan_layers=False, **kw)
+    tcfg = t_tiny(compute_dtype=torch.float32, **kw)
+    jp = j_init_params(jax.random.PRNGKey(0), jcfg)
+    tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
+    tok, lab = _gpt_batches(GPT_GEOM["vocab_size"])[0]
+    key = jax.random.PRNGKey(7)
+    want = float(j_loss(jp, jnp.asarray(tok), jnp.asarray(lab), jcfg,
+                        dropout_rng=key))
+    got = float(ttlm.gpt_loss(tp, torch.from_numpy(tok).long(),
+                              torch.from_numpy(lab).long(), tcfg,
+                              dropout_rng=layer_words(key, 2)))
+    base = float(ttlm.gpt_loss(tp, torch.from_numpy(tok).long(),
+                               torch.from_numpy(lab).long(), tcfg))
+    assert abs(got - want) <= 1e-5 and abs(got - base) > 1e-3
 
 
 @pytest.mark.parametrize("drop_path", [0.0, 0.2])

@@ -60,14 +60,38 @@ def test_unported_config_options_raise(kw, match):
         step(state, tok, tok)
 
 
+def _dropout_step_with_accum():
+    """A GPT dropout step on amp.make_train_step with accum_steps=2, called
+    with its [L, 5, 2] key words."""
+    from apex_tpu_torch.amp import make_train_step
+    from apex_tpu_torch.models.transformer_lm import (
+        dropout_keys, gpt_loss, init_gpt_params)
+
+    cfg = t_tiny(**dict(GEOM, hidden_dropout=0.1))
+    init, step = make_train_step(
+        lambda p, t, lab, w: gpt_loss(p, t, lab, cfg, dropout_rng=w),
+        t_adam(lr=1e-3), "O2", accum_steps=2, device="cpu")
+    state = init(init_gpt_params(cfg, torch.Generator().manual_seed(0),
+                                 "cpu"))
+    tok = torch.zeros(2, 8, dtype=torch.long)
+    step(state, tok, tok, dropout_keys(cfg, torch.Generator().manual_seed(1),
+                                       "cpu"))
+
+
 @pytest.mark.parametrize("kw, match", [
     (dict(mesh=object()), "distributed"),
     (dict(overlap_comm=True), "overlap_comm"),
-    (dict(norm_telemetry=True), "norm_telemetry"),
+    (dict(accum_steps=2), "dropout key words"),
 ])
 def test_unported_step_options_raise(kw, match):
+    """The distributed options raise; so does accum_steps > 1 on a step
+    whose last argument is dropout key words (JAX splits a threefry key
+    there).  norm_telemetry works: tests/test_torch_norm_telemetry.py."""
     with pytest.raises(NotImplementedError, match=match):
-        t_make(t_tiny(**GEOM), t_adam(lr=1e-3), "O2", device="cpu", **kw)
+        if "accum_steps" in kw:
+            _dropout_step_with_accum()
+        else:
+            t_make(t_tiny(**GEOM), t_adam(lr=1e-3), "O2", device="cpu", **kw)
 
 
 @pytest.mark.parametrize("level", ["O1", "O4"])
