@@ -36,11 +36,20 @@ plain versions.  The unscale runs inside ``torch.profiler.
 record_function("amp.unscale")`` and steps 4–5 inside
 ``record_function("amp.optimizer_tail")``, for profiles.
 
+O1 and O4 (``policy.per_op_casts``) cast the params to the compute dtype
+at the step boundary (norm parameters kept fp32 by the policy's
+predicate) and run ``loss_fn`` inside ``amp/patch.amp_patch_scope``; the
+scope is left before ``torch.autograd.grad``, so the backward is the
+transpose of the cast forward, as in JAX.  With ``accum_steps > 1`` a
+raw JAX key as the last argument (``[2]`` ``torch.uint32`` words: the
+model steps' dropout key) is split per microbatch as the JAX step splits it
+(``utils/prng``); ``[L, 5, 2]`` dropout key words raise there.
+:func:`save_train_state` / :func:`restore_train_state` persist a whole
+train state in the JAX package's sharded format (``apex_tpu_torch.
+checkpoint``), :func:`state_dict` / :func:`load_state_dict` the scaler.
+
 Not in this slice (they raise ``NotImplementedError``): ``axis_name``,
-``grad_comm``, ``overlap_comm`` (distributed training), the per-op-cast
-levels O1/O4, and ``accum_steps > 1`` on a step whose last argument is
-the dropout key words (``[L, 5, 2]`` int64): the JAX step splits a
-threefry key per microbatch there, which torch does not reproduce.
+``grad_comm``, ``overlap_comm`` (distributed training).
 """
 
 from __future__ import annotations
@@ -51,14 +60,18 @@ import torch
 from torch.profiler import record_function
 
 from apex_tpu_torch.amp import scaler as scaler_lib
-from apex_tpu_torch.amp.policy import Policy, policy_for_opt_level
+from apex_tpu_torch.amp.patch import amp_patch_scope
+from apex_tpu_torch.amp.policy import Policy, _effective, policy_for_opt_level
 from apex_tpu_torch.multi_tensor.multi_tensor_apply import multi_tensor_axpby
 from apex_tpu_torch.optimizers._common import (
     apply_or_keep, float_leaves, global_norm, is_float_leaf, norm_metrics,
     rebuild, tree_map)
+from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.registry import check_backend
 
-__all__ = ["AmpState", "TrainState", "initialize", "make_train_step"]
+__all__ = ["AmpState", "TrainState", "initialize", "make_train_step",
+           "state_dict", "load_state_dict", "save_train_state",
+           "restore_train_state"]
 
 
 class AmpState(NamedTuple):
@@ -106,10 +119,33 @@ def _is_key_words(x) -> bool:
             and tuple(x.shape[1:]) == (5, 2))
 
 
+def _is_raw_key(x) -> bool:
+    """A raw JAX key: ``[2]`` ``torch.uint32`` words (``jax.random.
+    key_data``), the layout the JAX step recognizes as a key in the
+    trailing argument; an integer tensor of another dtype is batch data,
+    so a ``[2]`` int64 label tensor is split, never re-keyed."""
+    return (torch.is_tensor(x) and x.dtype == torch.uint32
+            and tuple(x.shape) == (2,))
+
+
 def _microbatches(batch: tuple, n: int) -> list:
     """``n`` equal microbatches of every tensor's leading dimension
     (0-d tensors and other values repeat); ValueError when n does not
-    divide a leading dimension."""
+    divide a leading dimension.  A raw key as the last argument (the
+    dropout key of the model steps) is split instead, microbatch ``i``
+    taking ``jax.random.split(key, n)[i]`` (``utils/prng``), as the JAX
+    step does; ``[L, 5, 2]`` key words raise (they fix one step's
+    masks)."""
+    keys = None
+    if batch and _is_raw_key(batch[-1]):
+        keys = prng.split(batch[-1], n).to(torch.uint32)
+        batch = batch[:-1]
+    elif batch and _is_key_words(batch[-1]):
+        raise NotImplementedError(
+            f"accum_steps={n} with [L, 5, 2] dropout key words: they fix "
+            "one step's masks; pass the step's raw key ([2] uint32 words), "
+            "which is split per microbatch as the JAX step splits it")
+
     def check(v):
         if torch.is_tensor(v) and v.dim() and v.shape[0] % n:
             raise ValueError(
@@ -126,7 +162,10 @@ def _microbatches(batch: tuple, n: int) -> list:
             return v[i * m:(i + 1) * m]
         return v
 
-    return [tree_map(lambda v: piece(v, i), batch) for i in range(n)]
+    out = [tree_map(lambda v: piece(v, i), batch) for i in range(n)]
+    if keys is not None:
+        out = [mb + (keys[i],) for i, mb in enumerate(out)]
+    return out
 
 
 def make_train_step(loss_fn: Callable, optimizer: Any,
@@ -154,11 +193,6 @@ def make_train_step(loss_fn: Callable, optimizer: Any,
     amp_state = (policy_or_amp if isinstance(policy_or_amp, AmpState)
                  else initialize(policy_or_amp, device=device))
     policy, ls_cfg = amp_state.policy, amp_state.loss_scale_config
-    if policy.per_op_casts:
-        raise NotImplementedError(
-            f"opt level {policy.opt_level} casts per op (the JAX "
-            "amp_patch_scope); only the parameter-cast levels O0, O2, O3 "
-            "and O5 are ported")
     fused = getattr(optimizer, "fused_apply", None)
 
     def own(tree):
@@ -179,7 +213,16 @@ def make_train_step(loss_fn: Callable, optimizer: Any,
     def scaled_grads(masters, leaves, ls_state, batch):
         """(one gradient per float master, loss, aux) of one (micro)batch."""
         with torch.enable_grad():
-            out = loss_fn(policy.cast_params(masters), *batch)
+            params = policy.cast_params(masters)
+            if policy.per_op_casts:
+                # O1/O4: params in the compute dtype (norms kept fp32 by
+                # the policy's predicate) and the per-op casts while the
+                # forward runs; the backward runs after the scope
+                params = policy.cast_to_compute(params, respect_norms=True)
+                with amp_patch_scope(_effective(policy.compute_dtype)):
+                    out = loss_fn(params, *batch)
+            else:
+                out = loss_fn(params, *batch)
             loss, aux = out if has_aux else (out, None)
             got = torch.autograd.grad(scaler_lib.scale_loss(loss, ls_state),
                                       leaves, allow_unused=True)
@@ -194,11 +237,6 @@ def make_train_step(loss_fn: Callable, optimizer: Any,
         if accum_steps <= 1:
             got, loss, aux = scaled_grads(masters, leaves, ls_state, batch)
         else:
-            if batch and _is_key_words(batch[-1]):
-                raise NotImplementedError(
-                    "accum_steps > 1 with dropout key words: the JAX step "
-                    "splits a threefry key per microbatch, which torch "
-                    "does not reproduce")
             # fp32 main-grad accumulation over equal microbatches; the
             # unscale divides the sum by the count
             losses, got = [], None
@@ -263,3 +301,52 @@ def make_train_step(loss_fn: Callable, optimizer: Any,
         return new_state, metrics
 
     return init_fn, step_fn
+
+
+# ---- checkpoint hooks (the reference's amp.state_dict / load_state_dict,
+# and the full train state through apex_tpu_torch.checkpoint) -------------
+
+
+def state_dict(amp_or_train_state) -> dict:
+    """The loss scaler as ``{"loss_scaler0": {"loss_scale", "unskipped"}}``
+    (host values), from a :class:`TrainState`, an :class:`AmpState` or a
+    ``LossScaleState``."""
+    ls = getattr(amp_or_train_state, "loss_scale_state", amp_or_train_state)
+    return {"loss_scaler0": {"loss_scale": float(ls.loss_scale),
+                             "unskipped": int(ls.unskipped)}}
+
+
+def load_state_dict(d: dict, *, device=None) -> scaler_lib.LossScaleState:
+    """The ``LossScaleState`` of a :func:`state_dict`, on ``device``
+    (default ``cuda``)."""
+    from apex_tpu_torch.utils.registry import resolve_device
+
+    dev = resolve_device(device)
+    entry = d["loss_scaler0"]
+    return scaler_lib.LossScaleState(
+        loss_scale=torch.tensor(float(entry["loss_scale"]),
+                                dtype=torch.float32, device=dev),
+        unskipped=torch.tensor(int(entry["unskipped"]), dtype=torch.int32,
+                               device=dev))
+
+
+def save_train_state(directory: str, step: int, state: TrainState, *,
+                     keep=None, extra=None) -> str:
+    """Snapshot a whole :class:`TrainState` (params, masters, optimizer
+    moments, the scaler's window, the step) as a committed checkpoint,
+    blocking; a training loop prefers ``checkpoint.AsyncCheckpointer``."""
+    from apex_tpu_torch.checkpoint import save_sharded
+
+    return save_sharded(directory, step, state, keep=keep, extra=extra)
+
+
+def restore_train_state(directory: str, state_like: TrainState, *,
+                        step=None, reshard: bool = False) -> TrainState:
+    """Restore a :class:`TrainState` snapshot into the structure, dtypes
+    and devices of ``state_like`` (a fresh ``init_fn`` state), bit for
+    bit: the resumed run repeats the unkilled one.  ``reshard`` comes with
+    the distributed-training slice."""
+    from apex_tpu_torch.checkpoint import restore_sharded
+
+    return restore_sharded(directory, state_like, step=step,
+                           reshard=reshard)

@@ -24,9 +24,8 @@ import torch.nn.functional as F
 from apex_tpu_torch.amp.frontend import make_train_step
 from apex_tpu_torch.models.config import TransformerConfig, bert_large
 from apex_tpu_torch.models.transformer_lm import (
-    _check_training_cfg, apply_norm, embed_tokens, has_dropout,
-    init_gpt_params, transformer_backbone)
-from apex_tpu_torch.ops.flash_attention import key_words
+    apply_norm, embed_tokens, has_dropout, init_gpt_params,
+    step_dropout_key, transformer_backbone)
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.utils.registry import check_backend, resolve_device
@@ -157,15 +156,15 @@ def make_bert_train_step(cfg: TransformerConfig, optimizer: Any,
     ``TrainState``; ``step(state, tokens, mlm_labels, nsp_labels,
     tokentype_ids, attention_mask[, rng])`` returns ``(new_state,
     metrics)`` (device-tensor ``loss``, ``overflow``, ``loss_scale``,
-    ``step``); ``rng``, the ``[L, 5, 2]`` dropout key words
-    (``transformer_lm.dropout_keys``), whenever a dropout rate is
+    ``step``); ``rng``, a raw JAX key (``[2]`` words, split per
+    microbatch under ``accum_steps``) or the ``[L, 5, 2]`` dropout key
+    words (``transformer_lm.dropout_keys``), whenever a dropout rate is
     positive, as the JAX step's trailing key.  Runs on ``device``
     (default ``cuda``); ``backend="reference"`` pins every kernel-backed
     op to its plain version.  The mesh belongs to a later slice."""
     if mesh is not None:
         raise NotImplementedError(
             "mesh comes with the distributed-training slice of the port")
-    _check_training_cfg(cfg)
     check_backend(backend)
     dev = resolve_device(device)
 
@@ -194,7 +193,7 @@ def make_bert_train_step(cfg: TransformerConfig, optimizer: Any,
                 f"positive); got {len(rng)}")
         batch = [torch.as_tensor(t, device=dev).long()
                  for t in (tokens, mlm_labels, nsp_labels, tokentype_ids)]
-        rest = [key_words(rng[0], dev)] if drops else []
+        rest = [step_dropout_key(rng[0], dev)] if drops else []
         return step_fn(state, *batch,
                        torch.as_tensor(attention_mask, device=dev), *rest)
 

@@ -22,8 +22,7 @@ import torch
 from apex_tpu_torch.amp.frontend import make_train_step
 from apex_tpu_torch.models.config import TransformerConfig
 from apex_tpu_torch.models.transformer_lm import (
-    gpt_loss, has_dropout, init_gpt_params)
-from apex_tpu_torch.ops.flash_attention import key_words
+    gpt_loss, has_dropout, init_gpt_params, step_dropout_key)
 from apex_tpu_torch.utils.registry import check_backend, resolve_device
 
 __all__ = ["make_gpt_train_step"]
@@ -40,11 +39,13 @@ def make_gpt_train_step(cfg: TransformerConfig, optimizer: Any,
     """Single-device AMP train step → ``(init, step)``.
 
     ``step(state, tokens, labels[, attention_mask][, rng])`` — the mask
-    only for ``attn_mask_type='padding'`` configs, ``rng`` (the ``[L, 5,
-    2]`` key words of ``transformer_lm.dropout_keys``, best on the step's
-    device) whenever a dropout rate is positive, as the JAX step's
-    trailing key — returns ``(new_state, metrics)`` with device-tensor
-    metrics ``loss``, ``overflow``, ``loss_scale`` and ``step``."""
+    only for ``attn_mask_type='padding'`` configs, ``rng`` whenever a
+    dropout rate is positive, as the JAX step's trailing key: a raw JAX
+    key (``[2]`` words, passed on as ``torch.uint32`` and split per
+    microbatch as the JAX step splits it) or the ``[L, 5, 2]`` key words
+    of ``transformer_lm.dropout_keys``, best on the step's device — returns
+    ``(new_state, metrics)`` with device-tensor metrics ``loss``,
+    ``overflow``, ``loss_scale`` and ``step``."""
     if (mesh is not None or seq_axis is not None or context_parallel
             or fsdp):
         raise NotImplementedError(
@@ -81,7 +82,7 @@ def make_gpt_train_step(cfg: TransformerConfig, optimizer: Any,
         labels = torch.as_tensor(labels, device=dev).long()
         rest = [torch.as_tensor(r, device=dev) for r in rest]
         if drops:
-            rest[-1] = key_words(rest[-1], dev)
+            rest[-1] = step_dropout_key(rest[-1], dev)
         return step_fn(state, tokens, labels, *rest)
 
     return init, step

@@ -28,6 +28,7 @@ import torch.nn.functional as F
 
 from apex_tpu_torch.ops.dense import is_quantized, quantized_matmul
 from apex_tpu_torch.ops.grouped_matmul import grouped_matmul
+from apex_tpu_torch.ops.swiglu import fused_bias_swiglu_paired
 
 __all__ = ["LoRAAdapter", "TARGETS", "target_shapes", "init_lora_adapter",
            "adapter_bytes", "merge_lora", "stack_adapter_slabs",
@@ -203,18 +204,23 @@ def lora_mlp(cfg, lp: dict, x, ll: dict, plan: dict, *,
              backend: Optional[str] = None):
     """The single-device MLP with the fc1/fc2 LoRA deltas at its two
     matmul seams; the fc1 delta lands before the bias and activation."""
-    if cfg.activation == "swiglu":
-        raise NotImplementedError(
-            "lora_mlp with the swiglu activation comes with the port of "
-            "ops/swiglu")
     w1 = lp["fc1_kernel"]
-    y = quantized_matmul(x, w1, backend=backend)
-    if "fc1" in ll:
-        y = y + batched_lora_delta(x, ll["fc1"]["a"], ll["fc1"]["b"], plan,
-                                   backend=backend).reshape(y.shape)
-    y = y + lp["fc1_bias"].to(x.dtype)
-    y = F.gelu(y, approximate="tanh" if cfg.activation == "gelu_tanh"
-               else "none")
+    d1 = (batched_lora_delta(x, ll["fc1"]["a"], ll["fc1"]["b"], plan,
+                             backend=backend) if "fc1" in ll else None)
+    if cfg.activation == "swiglu":
+        # the paired [h, 2, f] fc1; the adapter's B factor is [r, 2f]
+        y = (quantized_matmul(x, w1, backend=backend) if is_quantized(w1)
+             else torch.einsum("bsh,hcf->bscf", x, w1.to(x.dtype)))
+        if d1 is not None:
+            y = y + d1.reshape(y.shape)
+        y = fused_bias_swiglu_paired(y, lp["fc1_bias"].to(x.dtype))
+    else:
+        y = quantized_matmul(x, w1, backend=backend)
+        if d1 is not None:
+            y = y + d1.reshape(y.shape)
+        y = y + lp["fc1_bias"].to(x.dtype)
+        y = F.gelu(y, approximate="tanh" if cfg.activation == "gelu_tanh"
+                   else "none")
     out = quantized_matmul(y, lp["fc2_kernel"], backend=backend)
     if "fc2" in ll:
         out = out + batched_lora_delta(y, ll["fc2"]["a"], ll["fc2"]["b"],

@@ -42,10 +42,14 @@ host read.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
+
+from apex_tpu_torch.amp.patch import checkpoint_contexts, compute_site
 
 from apex_tpu_torch.models.config import TransformerConfig
 from apex_tpu_torch.ops.dense import is_quantized, quantized_matmul
@@ -54,17 +58,20 @@ from apex_tpu_torch.ops.flash_attention import (
 from apex_tpu_torch.ops.layer_norm import fused_layer_norm, fused_rms_norm
 from apex_tpu_torch.ops.lm_head_ce import lm_head_cross_entropy
 from apex_tpu_torch.ops.rope import fused_apply_rotary_pos_emb_cached
+from apex_tpu_torch.ops.swiglu import fused_bias_swiglu_paired, mlp_gelu
 from apex_tpu_torch.ops.softmax import (
     scaled_masked_softmax, scaled_softmax, scaled_upper_triang_masked_softmax)
 from apex_tpu_torch.ops.xentropy import softmax_cross_entropy_loss
 from apex_tpu_torch.transformer import moe as _moe
+from apex_tpu_torch.utils import prng
 from apex_tpu_torch.utils.registry import resolve_device
 
 __all__ = ["init_gpt_params", "rope_cos_sin", "apply_norm",
            "split_qkv_gqa", "lm_head_weight", "embed_tokens",
            "transformer_backbone", "gpt_hidden", "gpt_forward",
            "lm_head_logits", "gpt_loss", "lm_cross_entropy",
-           "dropout_keys", "has_dropout"]
+           "dropout_keys", "has_dropout", "layer_dropout_words",
+           "step_dropout_key"]
 
 
 def init_gpt_params(cfg: TransformerConfig,
@@ -202,6 +209,34 @@ def dropout_keys(cfg: TransformerConfig, generator: torch.Generator,
     return words.to("cuda" if device is None else device)
 
 
+def layer_dropout_words(dropout_rng, num_layers: int, device):
+    """A step's dropout keys as ``[L, 5, 2]`` int64 words on ``device``:
+    the ``[L, 5, 2]`` words of :func:`dropout_keys` as they are, or a raw
+    JAX key (``[2]`` uint32 words) split as the JAX backbone splits it,
+    ``split(key, L)`` then five keys a layer (``utils/prng``)."""
+    w = key_words(dropout_rng, device)
+    if w.numel() == 2:
+        return prng.layer_words(w, num_layers)
+    return w.reshape(-1, 5, 2)
+
+
+def step_dropout_key(dropout_rng, device) -> torch.Tensor:
+    """A train step's trailing dropout argument as ``amp.make_train_step``
+    takes it: a raw JAX key as ``[2]`` ``torch.uint32`` words (the dtype
+    that marks a key, split per microbatch under ``accum_steps``, as the
+    JAX step marks one by ``(2,)`` uint32), else the ``[L, 5, 2]`` int64
+    words of :func:`dropout_keys`."""
+    w = key_words(dropout_rng, device)
+    return w.to(torch.uint32) if w.numel() == 2 else w.reshape(-1, 5, 2)
+
+
+@compute_site
+def _einsum_f32(equation: str, a, b):
+    """JAX's ``jnp.einsum(..., preferred_element_type=float32)``: fp32
+    products and sums of the given operands."""
+    return torch.einsum(equation, a.float(), b.float())
+
+
 def _dropout(x, rate: float, words):
     """``where(keep, x / (1 - rate), 0)`` in x's dtype (the JAX
     ``_dropout``); the identity at rate 0 or without words."""
@@ -262,7 +297,7 @@ def _core_attention(cfg: TransformerConfig, q, k, v, attention_mask, *,
         v = v.repeat_interleave(rep, dim=2)
     if kpm is not None:
         attention_mask = kpm[:, None, None, :]
-    scores = torch.einsum("bsnd,btnd->bnst", q.float(), k.float())
+    scores = _einsum_f32("bsnd,btnd->bnst", q, k)
     if not cfg.softmax_in_fp32:
         scores = scores.to(q.dtype)
     if causal:
@@ -282,8 +317,8 @@ def _core_attention(cfg: TransformerConfig, q, k, v, attention_mask, *,
     else:
         probs = scaled_softmax(scores, scale, backend=backend)
     probs = _dropout(probs, cfg.attention_dropout, dropout_rng)
-    return torch.einsum("bnst,btnd->bsnd", probs.to(v.dtype).float(),
-                        v.float()).to(v.dtype)
+    return _einsum_f32("bnst,btnd->bsnd", probs.to(v.dtype),
+                       v).to(v.dtype)
 
 
 def _attention(cfg: TransformerConfig, lp: dict, x, attention_mask,
@@ -313,21 +348,17 @@ def _attention(cfg: TransformerConfig, lp: dict, x, attention_mask,
 def _mlp(cfg: TransformerConfig, lp: dict, x, *,
          backend: Optional[str] = None):
     """fc1 → bias + activation (gelu / gelu_tanh in fp32, or the paired
-    ``[h, 2, f]`` swiglu) → fc2 + bias."""
+    ``[h, 2, f]`` swiglu of ``ops/swiglu.fused_bias_swiglu_paired``) →
+    fc2 + bias."""
     w1 = lp["fc1_kernel"]
     if cfg.activation == "swiglu":
         y = (quantized_matmul(x, w1, backend=backend) if is_quantized(w1)
              else torch.einsum("bsh,hcf->bscf", x, w1.to(x.dtype)))
-        y = y.float() + lp["fc1_bias"].to(x.dtype).float()
-        y = (F.silu(y[..., 0, :]) * y[..., 1, :]).to(x.dtype)
+        y = fused_bias_swiglu_paired(y, lp["fc1_bias"].to(x.dtype))
     else:
         y = (quantized_matmul(x, w1, backend=backend)
              + lp["fc1_bias"].to(x.dtype))
-        # PyTorch's gelu computes a 16-bit input in fp32 and rounds once,
-        # forward and backward: the JAX package's fp32 round trip, in one
-        # pass each way instead of three
-        y = F.gelu(y, approximate="tanh" if cfg.activation == "gelu_tanh"
-                   else "none")
+        y = mlp_gelu(cfg.activation, y)
     return (quantized_matmul(y, lp["fc2_kernel"], backend=backend)
             + lp["fc2_bias"].to(x.dtype))
 
@@ -351,15 +382,8 @@ def _moe_mlp(cfg: TransformerConfig, lp: dict, x, *,
     return o.out, o.aux_loss
 
 
-def _check_training_cfg(cfg: TransformerConfig) -> None:
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat=True (per-layer activation checkpointing) is not ported "
-            "yet; the port keeps every layer's activations")
-
-
-def _layer(cfg: TransformerConfig, lp: dict, x, attention_mask, rope,
-           rngs=None, *, backend: Optional[str] = None):
+def _layer(cfg: TransformerConfig, lp: dict, x, rngs=None, *,
+           attention_mask=None, rope=None, backend: Optional[str] = None):
     """Pre-LN block: LN → attention → residual → LN → MLP (or MoE FFN) →
     residual, with the JAX ``_layer``'s dropout sites when ``rngs`` (the
     layer's ``[5, 2]`` key words r1…r5) is given.  Returns ``(x, aux)``:
@@ -405,21 +429,29 @@ def transformer_backbone(params: dict, hidden, cfg: TransformerConfig, *,
     summed (an fp32 scalar, 0 for a dense config).  ``dropout_rng``: the
     ``[L, 5, 2]`` key words of :func:`dropout_keys`; dropout runs when it is
     given and a rate is positive."""
-    _check_training_cfg(cfg)
     s = hidden.shape[1]
+    n_layers = params["layers"]["ln1_scale"].shape[0]
     words = None
     if dropout_rng is not None and has_dropout(cfg):
-        words = key_words(dropout_rng, hidden.device).reshape(-1, 5, 2)
+        words = layer_dropout_words(dropout_rng, n_layers, hidden.device)
     rope = None
     if cfg.position_embedding_type == "rope":
         rope = rope_cos_sin(s, cfg.kv_channels, device=hidden.device)
-    n_layers = params["layers"]["ln1_scale"].shape[0]
     aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    layer = functools.partial(_layer, cfg, attention_mask=attention_mask,
+                              rope=rope, backend=backend)
     for i in range(n_layers):
         lp = _layer_params(params, i)
-        hidden, layer_aux = _layer(
-            cfg, lp, hidden, attention_mask, rope,
-            None if words is None else words[i], backend=backend)
+        rngs = None if words is None else words[i]
+        if cfg.remat:
+            # jax.checkpoint(body): keep the layer's input, recompute its
+            # forward in the backward (bit for bit: the kernels sum in a
+            # fixed order and the masks are counter hashes of the words)
+            hidden, layer_aux = checkpoint(
+                layer, lp, hidden, rngs, use_reentrant=False,
+                preserve_rng_state=False, context_fn=checkpoint_contexts)
+        else:
+            hidden, layer_aux = layer(lp, hidden, rngs)
         if layer_aux is not None:
             aux = aux + layer_aux
     if apply_final_norm:
@@ -450,7 +482,14 @@ def gpt_hidden(params: dict, tokens, cfg: TransformerConfig, *,
 def lm_head_logits(params: dict, hidden, cfg: TransformerConfig):
     """Final hidden → fp32 vocab logits ``[b, s, v]`` (both operands in
     the compute dtype, fp32 products and sums)."""
-    head = lm_head_weight(params, cfg).to(cfg.compute_dtype)
+    return _head_product(hidden,
+                         lm_head_weight(params, cfg).to(cfg.compute_dtype))
+
+
+@compute_site
+def _head_product(hidden, head):
+    """JAX's ``jnp.einsum("bsh,vh->bsv", ..., preferred_element_type=
+    float32)``: fp32 products and sums of the given operands."""
     return hidden.float() @ head.float().t()
 
 

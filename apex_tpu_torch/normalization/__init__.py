@@ -1,0 +1,8 @@
+"""Module forms of the fused norms (``apex_tpu/normalization``)."""
+
+from apex_tpu_torch.normalization.fused_layer_norm import (  # noqa: F401
+    FusedLayerNorm,
+    FusedRMSNorm,
+    MixedFusedLayerNorm,
+    MixedFusedRMSNorm,
+)

@@ -66,6 +66,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from apex_tpu_torch.amp.patch import unpatched
 from apex_tpu_torch.ops import _kernel_utils as ku
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
@@ -784,6 +785,7 @@ class _Flash(torch.autograd.Function):
         return dq, dk, dv, None, None, None, None, None, None, None
 
 
+@unpatched
 def flash_attention(q, k, v, *, causal: bool = False,
                     key_padding_mask=None, mask=None, bias=None,
                     scale: Optional[float] = None, dropout_p: float = 0.0,

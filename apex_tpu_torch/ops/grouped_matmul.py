@@ -57,6 +57,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from apex_tpu_torch.amp.patch import unpatched
 from apex_tpu_torch.ops import _kernel_utils as ku
 from apex_tpu_torch.ops.dense import int8_column_tile, quantize_weight
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
@@ -319,6 +320,7 @@ class _GroupedMatmul(torch.autograd.Function):
         return dx, dw, None, None
 
 
+@unpatched
 def grouped_matmul(x, w, offsets, *, backend: Optional[str] = None):
     """``out[r] = x[r] @ w[g]`` for rows ``r`` in group ``g``'s span
     ``[offsets[g], offsets[g+1])``; rows outside every span (including
@@ -461,6 +463,7 @@ class _GroupedMatmulQ(torch.autograd.Function):
         return dx, None, dscale, None, None
 
 
+@unpatched
 def grouped_matmul_quantized(x, wire, scale, offsets, *,
                              backend: Optional[str] = None):
     """:func:`grouped_matmul` off a quantized expert slab

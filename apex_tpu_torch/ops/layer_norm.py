@@ -10,7 +10,9 @@ forward's ``mu`` and ``rstd``.  For CUDA tensors the forward is kernel K1
 ``backend="reference"``, they are :func:`_fwd_plain` and
 :func:`_bwd_plain`, the formulas of the JAX ``_norm_fwd`` / ``_norm_bwd``
 XLA branches.  ``dγ``/``dβ`` come back in the parameters' dtype, as in
-JAX.  ``memory_efficient=True`` (save y, rebuild x) is not ported.
+JAX.  ``memory_efficient=True`` saves y instead of x and rebuilds x in
+the backward (:func:`rebuild_input`, a torch composition in front of
+K5), as the JAX ``_norm_bwd`` does.
 """
 
 from __future__ import annotations
@@ -20,10 +22,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from apex_tpu_torch.amp.patch import unpatched
 from apex_tpu_torch.ops import _kernel_utils as ku
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["fused_layer_norm", "fused_rms_norm", "layer_norm_ref",
+           "rebuild_input",
            "rms_norm_ref", "layer_norm_fwd_stats", "layer_norm_bwd",
            "ln_plan", "LnPlan", "kernel_attributes"]
 
@@ -202,34 +206,53 @@ def layer_norm_bwd(dy, x, weight, mu, rs, *, rms: bool = False,
     return dx.reshape(x.shape), dw, db
 
 
+def rebuild_input(y, weight, bias, mu, rs, eps: float):
+    """x from the norm's output (``memory_efficient``): ``x̂ = (y − β) /
+    γ'`` with γ' the JAX package's guard of zero and tiny scales (the
+    reference's ``clamp_by_magnitude``: ``sign(γ)·max(|γ|, eps)``, ``eps``
+    where γ is 0), then ``x = x̂ / rstd + mu`` in y's dtype.  ``mu`` and
+    ``rs`` are the forward's fp32 ``[rows]`` statistics; a torch
+    composition (XLA in the JAX package), ahead of the unchanged K5."""
+    y32 = y.reshape(-1, y.shape[-1]).float()
+    if weight is not None:
+        w32 = weight.float()
+        w32 = (torch.sign(w32) * torch.clamp(w32.abs(), min=eps)
+               + torch.where(w32 == 0.0, eps, 0.0))
+        if bias is not None:
+            y32 = y32 - bias.float()
+        xhat = y32 / w32
+    else:
+        xhat = y32
+    return (xhat / rs[:, None] + mu[:, None]).to(y.dtype).reshape(y.shape)
+
+
 class _Norm(torch.autograd.Function):
-    """``y = norm(x) * γ + β`` saving ``(x, γ, β, mu, rstd)``; the
-    backward returns ``dγ``/``dβ`` cast to the parameters' dtypes."""
+    """``y = norm(x) * γ + β`` saving ``(x, γ, β, mu, rstd)``, or under
+    ``memory_efficient`` ``y`` in place of ``x`` (rebuilt in the backward
+    by :func:`rebuild_input`); the backward returns ``dγ``/``dβ`` cast to
+    the parameters' dtypes."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, rms, backend):
+    def forward(ctx, x, weight, bias, eps, rms, backend, memory_efficient):
         y, mu, rs = layer_norm_fwd_stats(x, weight, bias, eps, rms=rms,
                                          backend=backend)
-        ctx.save_for_backward(x, weight, bias, mu, rs)
-        ctx.rms, ctx.backend = rms, backend
+        ctx.save_for_backward(y if memory_efficient else x, weight, bias,
+                              mu, rs)
+        ctx.rms, ctx.backend, ctx.eps = rms, backend, eps
+        ctx.memory_efficient = memory_efficient
         return y
 
     @staticmethod
     def backward(ctx, dy):
-        x, weight, bias, mu, rs = ctx.saved_tensors
+        saved, weight, bias, mu, rs = ctx.saved_tensors
+        x = (rebuild_input(saved, weight, bias, mu, rs, ctx.eps)
+             if ctx.memory_efficient else saved)
         dx, dw, db = layer_norm_bwd(dy, x, weight, mu, rs, rms=ctx.rms,
                                     has_bias=bias is not None,
                                     backend=ctx.backend)
         dw = None if dw is None else dw.to(weight.dtype)
         db = None if db is None else db.to(bias.dtype)
-        return dx, dw, db, None, None, None
-
-
-def _no_memory_efficient(memory_efficient: bool) -> None:
-    if memory_efficient:
-        raise NotImplementedError(
-            "memory_efficient=True (save the output, rebuild x in the "
-            "backward) is not ported yet")
+        return dx, dw, db, None, None, None, None
 
 
 def layer_norm_ref(x, weight=None, bias=None, eps: float = 1e-5):
@@ -244,22 +267,23 @@ def rms_norm_ref(x, weight=None, eps: float = 1e-5):
                       True)[0].reshape(x.shape)
 
 
+@unpatched
 def fused_layer_norm(x, weight=None, bias=None, eps: float = 1e-5,
                      memory_efficient: bool = False, *,
                      backend: Optional[str] = None) -> torch.Tensor:
     """LayerNorm over the last dimension (affine when weight/bias given),
     differentiable.  CUDA tensors run kernels K1 and K5; CPU tensors and
-    ``backend="reference"`` run the plain formulas."""
-    _no_memory_efficient(memory_efficient)
+    ``backend="reference"`` run the plain formulas.  ``memory_efficient``
+    saves the output instead of x for the backward."""
     return _Norm.apply(x, weight, bias, float(eps), False,
-                       check_backend(backend))
+                       check_backend(backend), bool(memory_efficient))
 
 
+@unpatched
 def fused_rms_norm(x, weight=None, eps: float = 1e-5,
                    memory_efficient: bool = False, *,
                    backend: Optional[str] = None) -> torch.Tensor:
     """RMSNorm over the last dimension; routed like
     :func:`fused_layer_norm`."""
-    _no_memory_efficient(memory_efficient)
     return _Norm.apply(x, weight, None, float(eps), True,
-                       check_backend(backend))
+                       check_backend(backend), bool(memory_efficient))

@@ -18,6 +18,8 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.amp.patch import unpatched
+
 __all__ = ["lm_head_cross_entropy", "matmul_f32"]
 
 
@@ -83,6 +85,7 @@ class _FusedCE(torch.autograd.Function):
         return dhidden, dhead.to(head.dtype), None, None, None
 
 
+@unpatched
 def lm_head_cross_entropy(hidden: torch.Tensor, head: torch.Tensor,
                           labels: torch.Tensor, *, smoothing: float = 0.0,
                           chunk: int = 2048,

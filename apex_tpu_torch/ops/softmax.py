@@ -32,6 +32,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from apex_tpu_torch.amp.patch import unpatched
 from apex_tpu_torch.ops import _kernel_utils as ku
 from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
@@ -200,12 +201,14 @@ def _scaled_softmax(x, mask, scale, causal, backend):
     return _ScaledSoftmax.apply(x, mask, float(scale), causal, plain)
 
 
+@unpatched
 def scaled_softmax(x: torch.Tensor, scale: float = 1.0, *,
                    backend: Optional[str] = None) -> torch.Tensor:
     """softmax(x·scale) over the last axis (any length)."""
     return _scaled_softmax(x, None, scale, False, backend)
 
 
+@unpatched
 def scaled_masked_softmax(x: torch.Tensor, mask: Optional[torch.Tensor],
                           scale: float = 1.0, *,
                           backend: Optional[str] = None) -> torch.Tensor:
@@ -217,6 +220,7 @@ def scaled_masked_softmax(x: torch.Tensor, mask: Optional[torch.Tensor],
     return _scaled_softmax(x, mask, scale, False, backend)
 
 
+@unpatched
 def scaled_upper_triang_masked_softmax(x: torch.Tensor, scale: float = 1.0,
                                        *, backend: Optional[str] = None
                                        ) -> torch.Tensor:

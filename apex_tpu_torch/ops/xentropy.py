@@ -16,9 +16,12 @@ from typing import Optional
 
 import torch
 
+from apex_tpu_torch.amp.patch import unpatched
+
 __all__ = ["SoftmaxCrossEntropyLoss", "softmax_cross_entropy_loss"]
 
 
+@unpatched
 def softmax_cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
                                smoothing: float = 0.0,
                                padding_idx: Optional[int] = 0,

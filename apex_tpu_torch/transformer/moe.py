@@ -34,6 +34,7 @@ from apex_tpu_torch.observability import metrics as _telemetry
 from apex_tpu_torch.ops.dense import is_quantized
 from apex_tpu_torch.ops.grouped_matmul import (
     group_ids, grouped_matmul, grouped_matmul_quantized)
+from apex_tpu_torch.ops.swiglu import fused_bias_swiglu, mlp_gelu
 from apex_tpu_torch.utils.registry import resolve_device
 
 __all__ = ["init_moe_params", "switch_moe_mlp", "MoEOutput",
@@ -190,18 +191,15 @@ def _grouped_ffn(xs, offsets, fc1, b1, fc2, b2, activation, dtype,
     """Expert FFN over ``xs`` ``[N, h]`` sorted by expert with segment
     ``offsets`` ``[G+1]``; per-row biases gather through a zero-padded
     table, so rows outside the window get none."""
-    if activation == "swiglu":
-        raise NotImplementedError(
-            "swiglu experts (ops/swiglu.py) come with the single-device "
-            "training slice of the port")
     gid = group_ids(offsets, xs.shape[0], _slab_groups(fc1)).long()
-    b1e = _GroupRows.apply(b1.to(dtype), gid)
     b2e = _GroupRows.apply(b2.to(dtype), gid)
-    h1 = _expert_matmul(xs, fc1, offsets, dtype, backend) + b1e
-    # PyTorch's gelu computes a 16-bit input in fp32 and rounds once,
-    # forward and backward: the JAX package's fp32 round trip
-    h1 = F.gelu(h1, approximate="tanh" if activation == "gelu_tanh"
-                else "none")
+    h1 = _expert_matmul(xs, fc1, offsets, dtype, backend)
+    if activation == "swiglu":
+        # fc1 is the concatenated [gate ‖ up] (2f wide); the per-row bias
+        # keeps its own dtype into the op's fp32 sum, as in JAX
+        h1 = fused_bias_swiglu(h1, _GroupRows.apply(b1, gid))
+    else:
+        h1 = mlp_gelu(activation, h1 + _GroupRows.apply(b1.to(dtype), gid))
     h2 = _expert_matmul(h1, fc2, offsets, dtype, backend)
     return h2 + b2e
 
@@ -252,10 +250,6 @@ def _capacity_moe(params, x, *, capacity_factor, top_k, noise_generator,
     b, s, h = x.shape
     e_n = params["router"].shape[-1]
     cap = max(1, math.ceil(top_k * s * capacity_factor / e_n))
-    if activation == "swiglu":
-        raise NotImplementedError(
-            "swiglu experts (ops/swiglu.py) come with the single-device "
-            "training slice of the port")
 
     probs = _router_probs(params["router"], x.reshape(b * s, h),
                           noise_generator).reshape(b, s, e_n)
@@ -291,9 +285,13 @@ def _capacity_moe(params, x, *, capacity_factor, top_k, noise_generator,
     expert_in = torch.einsum("bsec,bsh->ebch", dispatch, x)     # [E,b,cap,h]
     h1 = torch.einsum("ebch,ehf->ebcf", expert_in,
                       params["fc1"].to(x.dtype))
-    h1 = h1 + params["fc1_bias"][:, None, None, :].to(x.dtype)
-    h1 = F.gelu(h1, approximate="tanh" if activation == "gelu_tanh"
-                else "none")
+    if activation == "swiglu":
+        # each expert's [2f] bias in its own dtype into the op's fp32 sum
+        # (the JAX package vmaps fused_bias_swiglu over the experts)
+        h1 = fused_bias_swiglu(h1, params["fc1_bias"][:, None, None, :])
+    else:
+        h1 = mlp_gelu(activation,
+                      h1 + params["fc1_bias"][:, None, None, :].to(x.dtype))
     h2 = torch.einsum("ebcf,efh->ebch", h1, params["fc2"].to(x.dtype))
     h2 = h2 + params["fc2_bias"][:, None, None, :].to(x.dtype)
     out = torch.einsum("bsec,ebch->bsh", combine.to(x.dtype), h2)

@@ -50,8 +50,9 @@
    ``generate`` of ``gpt_125m(num_query_groups=1)`` (MQA, 12 query heads
    on one kv group), +16 tokens: K3's launches exact, tokens identical to
    the plain run's or bf16 near-ties.
-4b. Drives the paged ``ServingEngine`` on GPT-2 125M (32 lanes, 512
-   blocks of 16 tokens) under bench.py's long_prompt_starvation mix, with
+4b. Drives the paged ``ServingEngine`` at GPT-2 125M's widths and
+   ENGINE_LAYERS (6) of its 12 layers (32 lanes, 512 blocks of 16
+   tokens) under bench.py's long_prompt_starvation mix, with
    float and ``quantize_params`` weights and native and int8 pools: exact
    launch identities from the engine's decode-step and prefill-call
    counts, TTFT/TPOT, first tokens against the same engine on the plain
@@ -140,11 +141,11 @@
    the grad/update/param norms), and 3 steps with ``accum_steps=4`` (4 x
    b4) against ``accum_steps=1`` at b16 (losses, scaler decisions).
 6b. Drives the BERT-large AMP-O2 pretrain step (``make_bert_train_step``,
-   ``fused_lamb(lr=1e-4, weight_decay=0.01)``, 24 layers, h=1024) at b8 x
-   s512 on a seeded batch with ragged padding and MLM/NSP labels, under
-   both attention backends: exact launch counts per step (flash: K1 and
-   K5 51 each, K2 24, row 5 24; fused_softmax: K1 and K5 51, row 11 24;
-   both: M1, M2 and M4 once),
+   ``fused_lamb(lr=1e-4, weight_decay=0.01)``, h=1024, at BERT_LAYERS
+   (12) of its 24 layers) at b8 x s512 on a seeded batch with ragged
+   padding and MLM/NSP labels, under both attention backends: exact
+   launch counts per step (flash: K1 and K5 2L+3 each, K2 L, row 5 L;
+   fused_softmax: K1 and K5 2L+3, row 11 L; both: M1, M2 and M4 once),
    step time, tokens/s, MFU, idle share, peak memory (fused_softmax:
    also row 11's forward and the softmax backward composition's device
    ms in one step); then 3 kernel-vs-plain steps at b4 from one state.
@@ -168,6 +169,23 @@
    step ms, and 3 kernel-vs-plain steps at b4 in lockstep.
 6d. A [b, 1, s, s] attention mask through ``gpt_forward`` (GPT-2 widths,
    2 layers): the materialized-score path, row 11 once per layer.
+6e. Single-device training, complete (``training_slice``): the GPT-2
+   350M AMP-O2 step (24 layers, h1024, b8 x s1024, fused head) with and
+   without remat from one state, 3 steps bitwise equal (losses, masters,
+   moments), exact launches of each (remat: K1 4L+1, K2 2L), median step
+   ms, peak memory and a profiled step of each, the remat step against
+   the plain path; the long-context row (GPT-2 125M, b2 x s8192, remat):
+   two steps' ms and peak memory; O4 and O1 at GPT-2 125M's widths, 4
+   layers, b16: launches, kernel vs plain, and an O1 step forced to
+   overflow keeping every master bit for bit; ``memory_efficient``
+   LayerNorm (K1 + the rebuild + K5) at [16384, 768] and [8192, 1024]
+   against the default mode, the rebuild's ms beside K5's, the bytes it
+   frees; a swiglu GPT step (4 layers) kernel vs plain, a ragged swiglu
+   MoE step (2 layers at bench_gpt_moe's widths: row 9 on the 2f-wide
+   fc1, no dropped token) and row 9 at the 2f fc1 against its plain
+   version; and the 350M state saved by ``AsyncCheckpointer`` while a
+   step runs, restored into a fresh state and stepped on bit for bit
+   with the unkilled run.
 7. Prints one JSON line describing every kernel, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -248,6 +266,7 @@ LAMB_TAIL = {"multi_tensor_scale": 1, "multi_tensor_l2norm": 1,
 
 # BERT-large pretraining at phase 2's length (bench.py:2135-2178)
 BERT_BATCH, BERT_SEQ = 8, 512
+BERT_LAYERS = 12                # of BERT-large's 24 (see ENGINE_LAYERS)
 BERT_BACKENDS = ("flash", "fused_softmax")
 # fp32 softmax against its plain version; bf16 results round once from
 # fp32 on both sides, so they may differ by one bf16 step at 1
@@ -1634,6 +1653,12 @@ def mqa_generate_phase(dev):
 
 # the serving engine at bench.py's paged geometry and its
 # long_prompt_starvation mix
+# the engine phases (eager, graph, spec, host tier) run GPT-2 125M's
+# widths at ENGINE_LAYERS of its 12 layers, and BERT-large its widths at
+# BERT_LAYERS of 24: the script's time limit is shared with the
+# single-device training phases (at full depth the whole run took 1146 s
+# of phases on an H100 80GB HBM3 at 700 W, against its 1200 s limit)
+ENGINE_LAYERS = 6
 ENGINE_KW = dict(max_slots=32, max_len=1024, cache_layout="paged",
                  block_size=16, num_blocks=512, top_k=50, top_p=0.95,
                  vocab_limit=VOCAB_LIMIT)
@@ -1809,7 +1834,7 @@ def engine_phase(dev):
     from apex_tpu_torch.ops import _kernel_utils as ku
     from apex_tpu_torch.serving import ServingEngine
 
-    cfg = gpt_125m()
+    cfg = gpt_125m(num_layers=ENGINE_LAYERS)
     L = cfg.num_layers
     weights = {"float": init_gpt_params(cfg, torch.Generator().manual_seed(0),
                                         dev)}
@@ -1941,7 +1966,7 @@ def _engine_weights(dev):
     from apex_tpu_torch.models.quantized import quantize_params
     from apex_tpu_torch.models.transformer_lm import init_gpt_params
 
-    cfg = gpt_125m()
+    cfg = gpt_125m(num_layers=ENGINE_LAYERS)
     weights = {"float": init_gpt_params(cfg, torch.Generator().manual_seed(0),
                                         dev)}
     weights["quantized"] = quantize_params(weights["float"])
@@ -3765,10 +3790,11 @@ def kernel_softmax(dev, gen):
                       f"{SOFTMAX_TOL[torch.bfloat16]}")
 
 
-def bert_cfg(backend):
+def bert_cfg(backend, num_layers=BERT_LAYERS):
     from apex_tpu_torch.models.config import bert_large
 
-    return bert_large(max_position_embeddings=BERT_SEQ, remat=False,
+    return bert_large(num_layers=num_layers,
+                      max_position_embeddings=BERT_SEQ, remat=False,
                       attention_backend=backend)
 
 
@@ -5345,9 +5371,11 @@ def _mt_tree(dev, kind):
     from apex_tpu_torch.optimizers._common import float_leaves
 
     if kind == "bert":
+        # BERT-large's whole master tree (24 layers), as the kernels'
+        # table in PERF.md records it
         init, _ = make_bert_train_step(
-            bert_cfg("flash"), fused_lamb(lr=1e-4, weight_decay=0.01), "O2",
-            device=dev)
+            bert_cfg("flash", num_layers=24),
+            fused_lamb(lr=1e-4, weight_decay=0.01), "O2", device=dev)
     else:
         cfg = _train_cfg() if kind == "gpt" else moe_cfg("ragged")
         init, _ = make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
@@ -5621,6 +5649,692 @@ def multi_tensor_phase(dev):
         overflow["many_leaves"] = _mt_many_leaves(dev)
     torch.cuda.empty_cache()
     return results, overflow
+
+
+
+# ---------------------------------------------------------------------------
+# single-device training, complete: remat, memory_efficient
+# norms, O1/O4, swiglu, the train-state checkpoint
+# ---------------------------------------------------------------------------
+
+# the repo's 350M row (bench.py:129-134) and long-context row (:200-233)
+GPT350_GEOM = dict(num_layers=24, hidden_size=1024, num_attention_heads=16)
+GPT350_BATCH = 8
+LONGCTX_BATCH, LONGCTX_SEQ = 2, 8192
+# depths of the full-width steps the time limit allows (of 12 layers)
+CAST_LAYERS, SWIGLU_LAYERS, SWIGLU_MOE_LAYERS = 4, 4, 2
+CKPT_DIR = Path(__file__).resolve().parent / "build" / "checkpoint_smoke"
+
+
+def _gpt350(remat, seq=TRAIN_SEQ):
+    from apex_tpu_torch.models.config import gpt_125m
+
+    return gpt_125m(max_position_embeddings=seq, remat=remat,
+                    fused_head_ce=True, **GPT350_GEOM)
+
+
+def _seq_batch(cfg, b, s, seed, dev):
+    gen = torch.Generator().manual_seed(seed)
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    labels = torch.randint(0, cfg.vocab_size, (b, s), generator=gen)
+    return tokens.to(dev), labels.to(dev)
+
+
+def _bits_equal(a, b) -> bool:
+    """Two trees of tensors with the same leaves, bit for bit."""
+    from apex_tpu_torch.optimizers._common import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        x.dtype == y.dtype and x.shape == y.shape
+        and torch.equal(x.reshape(-1).view(torch.uint8),
+                        y.reshape(-1).view(torch.uint8))
+        for x, y in zip(la, lb))
+
+
+def _want(counts_of):
+    from apex_tpu_torch.ops import _kernel_utils as ku
+
+    want = {name: 0 for name in ku.KERNELS}
+    want.update(counts_of)
+    return want
+
+
+def _dense_want(L, remat, short=False):
+    """One dense GPT step's launches: K1 (with remat also each layer's two
+    forward norms again in the recompute), K5, the attention forward (again
+    in the recompute) and backward, the optimizer tail."""
+    bwd = ({"flash_attention_bwd_short": L} if short else
+           {"flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L})
+    return _want({"layer_norm_fwd": 2 * L + 1 + (2 * L if remat else 0),
+                  "layer_norm_bwd": 2 * L + 1,
+                  "flash_attention_fwd": L * (2 if remat else 1),
+                  **bwd, **ADAM_TAIL})
+
+
+def _lockstep(cfg, level, batch, state0, dev, what):
+    """CHECK_STEPS steps from ``state0`` on the kernel path and on the
+    plain path (backend="reference"): losses within TRAIN_LOSS_TOL, grad
+    norms within GRAD_NORM_RTOL, identical scaler decisions."""
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.optimizers import fused_adam, global_norm
+
+    runs = {}
+    for backend in (None, "reference"):
+        norms = []
+
+        def post(grads, norms=norms):
+            norms.append(global_norm(grads))
+            return grads
+
+        _, step = make_gpt_train_step(cfg, fused_adam(lr=1e-4), level,
+                                      device=dev, backend=backend,
+                                      grad_postprocess=post)
+        state, seq = state0, []
+        for _ in range(CHECK_STEPS):
+            state, m = step(state, *batch)
+            seq.append((float(m["loss"]), bool(m["overflow"]),
+                        float(m["loss_scale"])))
+        runs[backend] = (seq, [float(n) for n in norms])
+        del state
+    (ks, kn), (ps, pn) = runs[None], runs["reference"]
+    loss_err = max(abs(a[0] - b[0]) for a, b in zip(ks, ps))
+    check(all(math.isfinite(a[0]) for a in ks), f"{what}: losses {ks}")
+    check(loss_err <= TRAIN_LOSS_TOL,
+          f"{what}: kernel vs plain losses {ks} {ps}: {loss_err}")
+    check([a[1:] for a in ks] == [b[1:] for b in ps],
+          f"{what}: scaler decisions kernel {ks} plain {ps}")
+    live = [i for i, s in enumerate(ks) if not s[1]]
+    norm_err = max((abs(kn[i] - pn[i]) / pn[i] for i in live), default=0.0)
+    check(norm_err <= GRAD_NORM_RTOL,
+          f"{what}: grad norms kernel {kn} plain {pn}: {norm_err}")
+    return {"kernel": ks, "plain": ps, "grad_norm_kernel": kn,
+            "grad_norm_plain": pn, "loss_err": loss_err,
+            "grad_norm_rel_err": norm_err}
+
+
+def remat_train_phase(dev):
+    """The GPT-2 350M AMP-O2 step (b8 x s1024, fused head) with and
+    without remat from one state: 3 steps whose losses and whose every
+    master, moment and model parameter are bitwise equal between the two
+    (the recompute repeats the forward's bits), exact launches of each
+    (the recompute's K1 and K2 counted), the median of 10 steps and the
+    peak memory of each, and the remat step on the kernel path against
+    the plain path (3 steps at b4)."""
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.optimizers._common import tree_leaves
+
+    cfgs = {r: _gpt350(r) for r in (False, True)}
+    init = make_gpt_train_step(cfgs[True], fused_adam(lr=1e-4), "O2",
+                               device=dev)[0]
+    t0 = time.perf_counter()
+    state0 = init(torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in tree_leaves(state0.master_params))
+    batches = [_seq_batch(cfgs[True], GPT350_BATCH, TRAIN_SEQ, 10 + i, dev)
+               for i in range(CHECK_STEPS)]
+    L = cfgs[True].num_layers
+    out = {"params": n_params, "init_s": init_s}
+    runs = {}
+    for remat in (False, True):
+        _, step = make_gpt_train_step(cfgs[remat], fused_adam(lr=1e-4),
+                                      "O2", device=dev)
+        state, losses, seq, counts = state0, [], [], None
+        for i, (tok, lab) in enumerate(batches):
+            torch.cuda.synchronize()
+            if i == 0:
+                # --- the main path: counts reset before, read after ----
+                ku.reset_launch_counts()
+            state, m = step(state, tok, lab)
+            torch.cuda.synchronize()
+            if i == 0:
+                counts = ku.launch_counts()
+            losses.append(m["loss"])
+            seq.append((float(m["loss"]), bool(m["overflow"]),
+                        float(m["loss_scale"])))
+        want = _dense_want(L, remat)
+        check(counts == want,
+              f"350m remat={remat} launches {counts} != {want}")
+        runs[remat] = (losses, seq, state, counts, step)
+    (l0, s0, st0, c0, step0), (l1, s1, st1, c1, step1) = (runs[False],
+                                                          runs[True])
+    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+              for a, b in zip(l0, l1)),
+          f"remat losses {s1} != no-remat {s0} bit for bit")
+    for field in ("master_params", "params", "opt_state",
+                  "loss_scale_state", "step"):
+        check(_bits_equal(getattr(st0, field), getattr(st1, field)),
+              f"remat {field} differ from no-remat bit for bit")
+    check(not all(s[1] for s in s1), "every 350m step overflowed")
+    out.update({"losses": s1, "launches_no_remat": c0,
+                "launches_remat": c1})
+    out["check"] = _lockstep(
+        cfgs[True], "O2", _seq_batch(cfgs[True], CHECK_BATCH, TRAIN_SEQ, 20,
+                                     dev), state0, dev, "350m remat")
+    # one train state alive (and the step's next) while each is timed
+    finals = {False: st0, True: st1}
+    del state0, st0, st1, runs
+    tok, lab = batches[0]
+    for remat, step in ((False, step0), (True, step1)):
+        state = finals.pop(remat)
+        torch.cuda.empty_cache()
+
+        def one(step=step):
+            nonlocal state
+            state, _ = step(state, tok, lab)
+
+        one()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms = [wall_ms(one) for _ in range(TRAIN_STEPS)]
+        q1, med, q3 = quartiles(ms)
+        key = "remat" if remat else "no_remat"
+        out[f"step_ms_{key}"] = med
+        out[f"step_ms_q1_q3_{key}"] = [q1, q3]
+        out[f"peak_memory_gb_{key}"] = torch.cuda.max_memory_allocated() / 1e9
+        t_prof, busy, top, by_cat, _ = profile_busy(one)
+        out[f"profiled_{key}"] = {
+            "step_ms": t_prof,
+            "device_busy_ms": busy if busy > 0 else "not measured",
+            "device_idle_share": (1 - busy / t_prof) if busy > 0
+            else "not measured", "device_ms_by_category": by_cat,
+            "device_top_ms": top}
+        del state
+    flops_per_tok = 6 * n_params + 12 * L * cfgs[True].hidden_size * TRAIN_SEQ
+    for key in ("remat", "no_remat"):
+        tps = GPT350_BATCH * TRAIN_SEQ / (out[f"step_ms_{key}"] / 1e3)
+        out[f"tokens_per_s_{key}"] = tps
+        out[f"mfu_{key}"] = tps * flops_per_tok / PEAK_BF16_FLOPS
+    return out
+
+
+def longctx_phase(dev):
+    """The long-context row: GPT-2 125M at b2 x s8192 with remat and the
+    fused head, O2: two steps, each timed, their peak memory and exact
+    launches."""
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.optimizers import fused_adam
+
+    cfg = gpt_125m(max_position_embeddings=LONGCTX_SEQ, remat=True,
+                   fused_head_ce=True)
+    init, step = make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
+                                     device=dev)
+    state = init(torch.Generator().manual_seed(0))
+    tok, lab = _seq_batch(cfg, LONGCTX_BATCH, LONGCTX_SEQ, 30, dev)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ms, losses, counts = [], [], None
+    for i in range(2):
+        torch.cuda.synchronize()
+        if i == 0:
+            ku.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, tok, lab)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            counts = ku.launch_counts()
+        losses.append(float(m["loss"]))
+    want = _dense_want(cfg.num_layers, True)
+    check(counts == want, f"long-context launches {counts} != {want}")
+    check(all(math.isfinite(x) for x in losses), f"losses {losses}")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del state
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "losses": losses, "peak_memory_gb": peak,
+            "counts": counts,
+            "tokens_per_s": LONGCTX_BATCH * LONGCTX_SEQ / (ms[-1] / 1e3),
+            "attention_check": longctx_attention_check(cfg, dev)}
+
+
+def longctx_attention_check(cfg, dev):
+    """One layer's attention at the long-context step's shape ([2, 8192,
+    12, 64] bf16, causal, no dropout or segments: the instantiation the
+    step runs): K2's o and K6/K7's dq, dk and dv against the plain version
+    computed in blocks of PACKED_PLAIN_ROWS query rows.  o is held over
+    1 + |plain| within 2e-2 (a causal row's first outputs average few
+    values, up to ~4, where one bf16 step is up to 2**-5), the gradients
+    within FLASH_BWD_TOL of their largest plain value."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    shape = (LONGCTX_BATCH, LONGCTX_SEQ, cfg.num_attention_heads,
+             cfg.hidden_size // cfg.num_attention_heads)
+    q, k, v, do = (torch.randn(shape, device=dev, generator=gen).bfloat16()
+                   for _ in range(4))
+    kw = {"causal": True}
+    o, lse = tfa.flash_attention_fwd(q, k, v, **kw)
+    ro, _ = _plain_blocks(q, k, v, None, None, None, kw)
+    errs = {"o": float(((o.float() - ro.float()).abs()
+                        / (1 + ro.float().abs())).max())}
+    del ro
+    check(errs["o"] <= 2e-2, f"K2 long context: {errs}")
+    ops = tfa.flash_bwd_operands(q, k, v, o, lse, do)
+    got = (tfa.flash_bwd_dq(ops, causal=True),
+           *tfa.flash_bwd_dkv(ops, causal=True))
+    want = _plain_blocks(q, k, v, o, lse, do, kw)
+    for name, a, e in zip(("dq", "dk", "dv"), got, want):
+        errs[name] = rel_err(a, e)
+    del got, want, ops
+    check(max(errs[n] for n in ("dq", "dk", "dv")) <= FLASH_BWD_TOL,
+          f"K6/K7 long context: {errs}")
+    torch.cuda.empty_cache()
+    return {"shape": f"b{shape[0]} s{shape[1]} n{shape[2]} d{shape[3]} "
+                     "bf16 causal", "errs": errs, "o_tol": 2e-2,
+            "grad_tol": FLASH_BWD_TOL}
+
+
+def per_op_cast_phase(dev):
+    """O4 and O1 on the GPT-2 125M step at b16 x s1024, full width, at
+    CAST_LAYERS of its 12 layers: launches of one kernel step, the
+    median of 5 steps, 3 kernel steps against 3 plain ones from one
+    state (losses, scaler decisions, grad norms), and under O1 (fp16,
+    dynamic scale) a step forced to overflow (the scale set to 2**40)
+    that keeps every master, moment and the step bit for bit."""
+    from apex_tpu_torch.amp.scaler import LossScaleState
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.optimizers import fused_adam
+
+    cfg = gpt_125m(num_layers=CAST_LAYERS, max_position_embeddings=TRAIN_SEQ,
+                   fused_head_ce=True)
+    batch = _seq_batch(cfg, TRAIN_BATCH, TRAIN_SEQ, 40, dev)
+    out = {}
+    for level in ("O4", "O1"):
+        init, step = make_gpt_train_step(cfg, fused_adam(lr=1e-4), level,
+                                         device=dev)
+        state0 = init(torch.Generator().manual_seed(0))
+        row = {"check": _lockstep(cfg, level, batch, state0, dev, level)}
+        state = state0
+        torch.cuda.synchronize()
+        ku.reset_launch_counts()
+        state, m = step(state, *batch)
+        torch.cuda.synchronize()
+        row["counts"] = ku.launch_counts()
+        want = _dense_want(cfg.num_layers, False)
+        check(row["counts"] == want,
+              f"{level} launches {row['counts']} != {want}")
+
+        def one(step=step):
+            nonlocal state
+            state, _ = step(state, *batch)
+
+        row["step_ms"] = quartiles([wall_ms(one) for _ in range(5)])[1]
+        if level == "O1":
+            big = state._replace(loss_scale_state=LossScaleState(
+                torch.tensor(2.0 ** 40, device=dev),
+                torch.zeros((), dtype=torch.int32, device=dev)))
+            after, m = step(big, *batch)
+            check(bool(m["overflow"]), "O1 at scale 2**40 did not overflow")
+            for field in ("master_params", "params", "opt_state", "step"):
+                check(_bits_equal(getattr(after, field),
+                                  getattr(big, field)),
+                      f"O1 overflowed step changed {field}")
+            row["forced_overflow"] = {
+                "overflow": True, "scale_after": float(m["loss_scale"]),
+                "masters_kept_bitwise": True}
+        out[level] = row
+        del state, state0
+    return out
+
+
+def memory_efficient_phase(dev, gen):
+    """``memory_efficient=True`` LayerNorm at the GPT step's [16384, 768]
+    and the 350M step's [8192, 1024] bf16: dx, dγ, dβ against the default
+    mode's (relative to the default's largest value), the rebuild's
+    device ms beside K5's, the saved bytes (what the norm keeps alive
+    past a consumer that saves y anyway), and one forward and backward's
+    launches (K1 1, K5 1)."""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import layer_norm as tln
+
+    rows_main, out, counts = None, {}, None
+    for rows, h in ((TRAIN_BATCH * TRAIN_SEQ, 768),
+                    (GPT350_BATCH * TRAIN_SEQ, 1024)):
+        w = 1 + 0.1 * torch.randn(h, device=dev, generator=gen)
+        b = 0.1 * torch.randn(h, device=dev, generator=gen)
+        x = (torch.randn(rows, h, device=dev, generator=gen) * 2).bfloat16()
+        dy = torch.randn(rows, h, device=dev, generator=gen).bfloat16()
+        grads = {}
+        for me in (False, True):
+            leaves = [t.detach().clone().requires_grad_()
+                      for t in (x, w, b)]
+            torch.cuda.synchronize()
+            if me and counts is None:
+                ku.reset_launch_counts()
+            y = tln.fused_layer_norm(*leaves, memory_efficient=me)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            if me and counts is None:
+                counts = ku.launch_counts()
+            grads[me] = [t.grad for t in leaves]
+        errs = {n: rel_err(a, e) for n, a, e in
+                zip(("dx", "dgamma", "dbeta"), grads[True], grads[False])}
+        check(max(errs.values()) <= LN_BWD_TOL[torch.bfloat16],
+              f"memory_efficient [{rows}, {h}] vs default {errs}")
+        y, mu, rs = tln.layer_norm_fwd_stats(x, w, b)
+        xr = tln.rebuild_input(y, w, b, mu, rs, 1e-5)
+
+        def me_bwd(backend=None):
+            xx = tln.rebuild_input(y, w, b, mu, rs, 1e-5)
+            return tln.layer_norm_bwd(dy, xx, w, mu, rs, backend=backend)
+
+        # bytes the norm keeps alive past its consumer: y feeds a matmul
+        # that saves y; x has no other holder
+        wm = torch.randn(h, 64, device=dev, generator=gen).bfloat16()
+        wm.requires_grad_()
+        ww = w.detach().clone().requires_grad_()
+        alive = {}
+        for me in (False, True):
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            xx = x.clone()
+            z = tln.fused_layer_norm(xx, ww, b, memory_efficient=me) @ wm
+            del xx
+            torch.cuda.synchronize()
+            alive[me] = torch.cuda.memory_allocated() - base
+            del z
+        wb, bb = w.bfloat16(), b.bfloat16()
+        _, lmean, lrstd = torch.ops.aten.native_layer_norm(x, [h], wb, bb,
+                                                           1e-5)
+        nbytes = 3 * rows * h * 2 + 2 * rows * 4 + 4 * h * 4
+        bms, by = bound(nbytes, 17 * rows * h, PEAK_FP32_FLOPS)
+        out[f"[{rows}, {h}] bf16"] = {
+            "errors_vs_default": errs,
+            "rebuild_ms": time_ms(lambda: tln.rebuild_input(
+                y, w, b, mu, rs, 1e-5)),
+            "k5_ms": time_ms(lambda: tln.layer_norm_bwd(dy, xr, w, mu, rs)),
+            "ms": time_ms(me_bwd), "plain_ms": time_ms(
+                lambda: me_bwd("reference")),
+            "library_ms": time_ms(
+                lambda: torch.ops.aten.native_layer_norm_backward(
+                    dy, x, [h], lmean, lrstd, wb, bb, [True, True, True])),
+            "bound_ms": bms, "bound_by": by,
+            "saved_bytes": rows * h * 2,
+            "bytes_alive_past_consumer": {"default": alive[False],
+                                          "memory_efficient": alive[True]},
+            "err": max(max_err(a, e) for a, e in
+                       zip(grads[True], grads[False]))}
+        if rows_main is None:
+            rows_main = out[f"[{rows}, {h}] bf16"]
+        del x, dy, grads, y, xr
+    want = _want({"layer_norm_fwd": 1, "layer_norm_bwd": 1})
+    check(counts == want, f"memory_efficient launches {counts} != {want}")
+    return out, counts
+
+
+def swiglu_phase(dev, gen):
+    """swiglu: the GPT-2 125M-width swiglu step (SWIGLU_LAYERS layers) on
+    the kernel path against the plain path (3 steps at b4); the ragged
+    swiglu MoE step at bench_gpt_moe's widths (SWIGLU_MOE_LAYERS layers,
+    b8 x s512): exact launches with row 9 on the 2f-wide fc1, zero
+    dropped tokens; and row 9's forward and transposed read at the 2f
+    fc1 (N = 4096 over 8 experts with the step's layer-0 loads) against
+    their plain versions, timed."""
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+    from apex_tpu_torch.optimizers import fused_adam
+
+    out = {}
+    cfg = gpt_125m(num_layers=SWIGLU_LAYERS, activation="swiglu",
+                   max_position_embeddings=TRAIN_SEQ, fused_head_ce=True)
+    init, step = make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
+                                     device=dev)
+    state0 = init(torch.Generator().manual_seed(0))
+    batch = _seq_batch(cfg, CHECK_BATCH, TRAIN_SEQ, 50, dev)
+    torch.cuda.synchronize()
+    ku.reset_launch_counts()
+    state, _ = step(state0, *batch)
+    torch.cuda.synchronize()
+    counts = ku.launch_counts()
+    want = _dense_want(cfg.num_layers, False)
+    check(counts == want, f"swiglu gpt launches {counts} != {want}")
+    del state
+    out["gpt"] = {"check": _lockstep(cfg, "O2", batch, state0, dev,
+                                     "swiglu gpt"), "counts": counts}
+    del state0
+
+    mcfg = dataclasses.replace(moe_cfg("ragged"),
+                               num_layers=SWIGLU_MOE_LAYERS,
+                               activation="swiglu")
+    init, step = make_gpt_train_step(mcfg, fused_adam(lr=1e-4), "O2",
+                                     device=dev)
+    state = init(torch.Generator().manual_seed(0))
+    tok, lab = moe_batch(mcfg, MOE_BATCH, 0, dev)
+    state, _ = step(state, tok, lab)
+    torch.cuda.synchronize()
+    ku.reset_launch_counts()
+    state, m = step(state, tok, lab)
+    torch.cuda.synchronize()
+    mcounts = ku.launch_counts()
+    L = mcfg.num_layers
+    want = _want({"layer_norm_fwd": 2 * L + 1, "layer_norm_bwd": 2 * L + 1,
+                  "flash_attention_fwd": L, "flash_attention_bwd_short": L,
+                  "grouped_matmul_mma": 2 * L, "grouped_matmul_mma_t": 2 * L,
+                  **ADAM_TAIL})
+    check(mcounts == want, f"swiglu moe launches {mcounts} != {want}")
+    check(math.isfinite(float(m["loss"])), f"swiglu moe loss {m['loss']}")
+    one_ms = []
+    for _ in range(5):
+        def one():
+            nonlocal state
+            state, _ = step(state, tok, lab)
+        one_ms.append(wall_ms(one))
+    _, probe = moe_probe(state.params, tok, mcfg)
+    stats = probe.stats()
+    check(all(d == 0.0 for d in stats["dropped_fraction"]),
+          f"swiglu ragged dropped tokens {stats['dropped_fraction']}")
+    check(all(sum(ld) == MOE_BATCH * MOE_SEQ * mcfg.moe_top_k
+              for ld in stats["expert_load"]), f"loads {stats}")
+    out["moe"] = {"counts": mcounts, "loss": float(m["loss"]),
+                  "step_ms": quartiles(one_ms)[1], **stats}
+    del state
+
+    # row 9 at the 2f fc1: its forward and the transposed read of its dx
+    loads = stats["expert_load"][0]
+    off = [0]
+    for c in loads:
+        off.append(off[-1] + c)
+    offs = torch.tensor(off, dtype=torch.int32, device=dev)
+    n, g, f2 = off[-1], len(loads), 2 * MOE_F
+    x = torch.randn(n, MOE_H, device=dev, generator=gen).bfloat16()
+    gy = torch.randn(n, f2, device=dev, generator=gen).bfloat16()
+    w = (torch.randn(g, MOE_H, f2, device=dev, generator=gen)
+         * 0.02).bfloat16()
+    variants = {}
+    for kname, a, trans in (("grouped_matmul_mma", x, False),
+                            ("grouped_matmul_mma_t", gy, True)):
+        wf = w.transpose(1, 2) if trans else w
+        got = tgm._gmm_route(a, w, offs, False, trans=trans)
+        want_t = tgm.grouped_matmul_reference(a, wf, offs)
+        err = rel_err(got, want_t)
+        check(err <= GMM_TOL[torch.bfloat16],
+              f"row 9 {kname} at the swiglu 2f fc1: {err}")
+        k, p = a.shape[1], wf.shape[2]
+        bms, by = _gmm_bound(off, n, k, p, 2)
+        lib, note = _grouped_mm_library(a, w, offs, trans)
+        variants[kname] = {
+            f"swiglu fc1 {'dx' if trans else 'forward'} N={n} k={k} p={p}": {
+                "ms": time_ms(lambda: tgm._gmm_route(a, w, offs, False,
+                                                     trans=trans)),
+                "plain_ms": time_ms(lambda: tgm.grouped_matmul_reference(
+                    a, wf, offs), iters=5),
+                "library_ms": None if lib is None else time_ms(lib),
+                "library": note, "bound_ms": bms, "bound_by": by,
+                "err": max_err(got, want_t), "rel_err": err}}
+        del got, want_t
+    return out, variants
+
+
+def checkpoint_resume_phase(dev):
+    """The 350M remat state: 2 steps, an ``AsyncCheckpointer`` save whose
+    write overlaps step 3, step 4; then a fresh ``init_fn`` state restored
+    from the checkpoint takes steps 3 and 4 again: losses, masters,
+    moments, model parameters, scaler and step must be bitwise those of
+    the unkilled run.  Save (blocking and background) and restore ms,
+    bytes, and step 3's ms beside step 4's."""
+    import shutil
+
+    from apex_tpu_torch.amp.frontend import restore_train_state
+    from apex_tpu_torch.checkpoint import AsyncCheckpointer
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.optimizers import fused_adam
+
+    cfg = _gpt350(True)
+    init, step = make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
+                                     device=dev)
+    batches = [_seq_batch(cfg, GPT350_BATCH, TRAIN_SEQ, 60 + i, dev)
+               for i in range(4)]
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    state = init(torch.Generator().manual_seed(0))
+    for tok, lab in batches[:2]:
+        state, _ = step(state, tok, lab)
+    torch.cuda.synchronize()
+    ck = AsyncCheckpointer(str(CKPT_DIR), keep=1)
+    t0 = time.perf_counter()
+    ck.save(2, state)
+    t1 = time.perf_counter()
+    state, m3 = step(state, *batches[2])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    res = ck.wait()
+    t3 = time.perf_counter()
+    state, m4 = step(state, *batches[3])
+    torch.cuda.synchronize()
+    t4 = time.perf_counter()
+    fresh = init(torch.Generator().manual_seed(1))
+    torch.cuda.synchronize()
+    t5 = time.perf_counter()
+    resumed = restore_train_state(str(CKPT_DIR), fresh)
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t5) * 1e3
+    del fresh
+    resumed, r3 = step(resumed, *batches[2])
+    resumed, r4 = step(resumed, *batches[3])
+    for a, b in ((r3, m3), (r4, m4)):
+        check(torch.equal(a["loss"].view(torch.int32),
+                          b["loss"].view(torch.int32)),
+              f"resumed loss {float(a['loss'])} != unkilled "
+              f"{float(b['loss'])}")
+    for field in ("master_params", "params", "opt_state", "loss_scale_state",
+                  "step"):
+        check(_bits_equal(getattr(resumed, field), getattr(state, field)),
+              f"resumed {field} differs from the unkilled run")
+    out = {"bytes": res.bytes, "save_blocking_ms": (t1 - t0) * 1e3,
+           "save_background_ms": res.save_ms,
+           "overlap_ratio": res.overlap_ratio,
+           "step3_ms_during_save": (t2 - t1) * 1e3,
+           "wait_after_step3_ms": (t3 - t2) * 1e3,
+           "step4_ms": (t4 - t3) * 1e3,
+           "restore_ms": restore_ms,
+           "losses": [float(m3["loss"]), float(m4["loss"])]}
+    del state, resumed
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    return out
+
+
+def training_slice(dev, gen, results, paths):
+    """Every single-device training phase, in order; their kernel rows go
+    into ``results`` as variants and their launch counts into ``paths``.
+    Returns the line's entries."""
+    torch.cuda.empty_cache()
+    rem = remat_train_phase(dev)
+    paths["gpt 350m remat"] = rem.pop("launches_remat")
+    paths["gpt 350m no remat"] = rem.pop("launches_no_remat")
+    torch.cuda.empty_cache()
+    lc = longctx_phase(dev)
+    paths["gpt 125m long context remat"] = lc.pop("counts")
+    at = lc["attention_check"]
+    for kname, names in (("flash_attention_fwd", ("o",)),
+                         ("flash_attention_bwd_dq", ("dq",)),
+                         ("flash_attention_bwd_dkv", ("dk", "dv"))):
+        if kname in results:
+            results[kname].setdefault("variants", {})[
+                f"long context {at['shape']}"] = {
+                    n: at["errs"][n] for n in names}
+    torch.cuda.empty_cache()
+    casts = per_op_cast_phase(dev)
+    for level, row in casts.items():
+        paths[f"gpt per-op casts {level}"] = row.pop("counts")
+    torch.cuda.empty_cache()
+    me, me_counts = memory_efficient_phase(dev, gen)
+    paths["memory_efficient layer norm"] = me_counts
+    if "layer_norm_bwd" in results:
+        results["layer_norm_bwd"].setdefault("variants", {}).update(
+            {f"memory_efficient (rebuild + K5) {k}": v
+             for k, v in me.items()})
+    torch.cuda.empty_cache()
+    sw, sw_variants = swiglu_phase(dev, gen)
+    paths["swiglu gpt"] = sw["gpt"].pop("counts")
+    paths["swiglu moe ragged"] = sw["moe"].pop("counts")
+    for kname, rows in sw_variants.items():
+        if kname in results:
+            results[kname].setdefault("variants", {}).update(rows)
+    torch.cuda.empty_cache()
+    ckpt = checkpoint_resume_phase(dev)
+    torch.cuda.empty_cache()
+    return {"remat": rem, "long_context": lc, "per_op_casts": casts,
+            "memory_efficient": me, "swiglu": sw,
+            "swiglu_row9_2f": sw_variants, "checkpoint": ckpt}
+
+
+def print_training_slice(t, smi):
+    rem, lc = t["remat"], t["long_context"]
+    print(f"train gpt 350m (24 layers, h1024, 16 heads; {rem['params']} "
+          f"params) AMP-O2 b{GPT350_BATCH} x s{TRAIN_SEQ} on {smi}: step "
+          f"median no remat {rem['step_ms_no_remat']:.2f} ms (q1-q3 "
+          f"{rem['step_ms_q1_q3_no_remat']}), peak memory "
+          f"{rem['peak_memory_gb_no_remat']:.2f} GB; remat "
+          f"{rem['step_ms_remat']:.2f} ms (q1-q3 "
+          f"{rem['step_ms_q1_q3_remat']}), peak memory "
+          f"{rem['peak_memory_gb_remat']:.2f} GB; MFU {rem['mfu_remat']:.4f}"
+          f" / {rem['mfu_no_remat']:.4f}; {CHECK_STEPS} steps bitwise equal "
+          f"with and without remat, losses {rem['losses']}; kernel vs "
+          f"plain (remat, b{CHECK_BATCH}): max loss diff "
+          f"{rem['check']['loss_err']:.5f}, grad norm max rel diff "
+          f"{rem['check']['grad_norm_rel_err']:.5f}; profiled no remat "
+          f"{json.dumps(rem['profiled_no_remat'])}; remat "
+          f"{json.dumps(rem['profiled_remat'])}")
+    print(f"train gpt 125m long context b{LONGCTX_BATCH} x s{LONGCTX_SEQ} "
+          f"remat on {smi}: step ms {lc['step_ms']}, peak memory "
+          f"{lc['peak_memory_gb']:.2f} GB, losses {lc['losses']}; one "
+          f"layer's attention at {lc['attention_check']['shape']} kernel vs "
+          f"plain {json.dumps(lc['attention_check']['errs'])} (o tol "
+          f"{lc['attention_check']['o_tol']} of 1 + |plain|, gradients "
+          f"{lc['attention_check']['grad_tol']} of max |plain|)")
+    for level, row in t["per_op_casts"].items():
+        c = row["check"]
+        print(f"train gpt 125m width {CAST_LAYERS} layers {level} "
+              f"b{TRAIN_BATCH} x s{TRAIN_SEQ} on {smi}: step median "
+              f"{row['step_ms']:.2f} ms; kernel vs plain {c['kernel']} vs "
+              f"{c['plain']}, max loss diff {c['loss_err']:.5f}, grad norm "
+              f"max rel diff {c['grad_norm_rel_err']:.5f}"
+              + (f"; forced overflow {row['forced_overflow']}"
+                 if "forced_overflow" in row else ""))
+    for shape, row in t["memory_efficient"].items():
+        print(f"memory_efficient layer norm {shape} on {smi}: errors vs "
+              f"the default mode {row['errors_vs_default']}; rebuild "
+              f"{row['rebuild_ms']:.4f} ms beside K5 {row['k5_ms']:.4f} ms;"
+              f" bytes alive past the consumer "
+              f"{row['bytes_alive_past_consumer']}")
+    sw = t["swiglu"]
+    print(f"swiglu gpt 125m width {SWIGLU_LAYERS} layers on {smi}: kernel "
+          f"vs plain max loss diff {sw['gpt']['check']['loss_err']:.5f}, "
+          f"grad norm max rel diff "
+          f"{sw['gpt']['check']['grad_norm_rel_err']:.5f}; swiglu moe "
+          f"ragged {SWIGLU_MOE_LAYERS} layers b{MOE_BATCH} x s{MOE_SEQ}: "
+          f"step median {sw['moe']['step_ms']:.2f} ms, dropped "
+          f"{sw['moe']['dropped_fraction']}; row 9 at the 2f fc1 "
+          f"{json.dumps(t['swiglu_row9_2f'])}")
+    print(f"checkpoint resume gpt 350m on {smi}: {json.dumps(t['checkpoint'])}")
 
 
 def matmul_times(root: str) -> dict:
@@ -6514,6 +7228,10 @@ def main() -> int:
           f"kernel vs plain {gm['logit_err']:.5f} (tol {LOGIT_TOL})")
 
     mark("moe and masks")
+    slice_paths = {}
+    training = training_slice(dev, gen, results, slice_paths)
+    print_training_slice(training, smi)
+    mark("remat, per-op casts, memory_efficient, swiglu, checkpoint")
     print(f"phase seconds: {json.dumps(phase_s)}")
     paths = {"serving": sl["counts"], "mqa generate": mqa["counts"],
              "train_step": tr["counts"], "train_step dropout": trd["counts"],
@@ -6528,6 +7246,7 @@ def main() -> int:
     paths["train_step accum_steps=4"] = ta["launches_accum_4"]
     paths["moe int8 forward"] = mq["counts"]
     paths["generic mask"] = gm["counts"]
+    paths.update(slice_paths)
     for extra in (spec_gen_paths, spec_eng_paths, tier_paths, foreign_paths):
         paths.update(extra)
     paths.update({f"engine {name}": row["counts"]
@@ -6589,7 +7308,7 @@ def main() -> int:
         "generic_mask": {k: v for k, v in gm.items() if k != "counts"},
         "spec_generate": spec_gen, "spec_engine": spec_eng,
         "host_tier": tier, "fp32_over_bf16_pool": foreign,
-        "phase_s": phase_s}
+        "training_slice": training, "phase_s": phase_s}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

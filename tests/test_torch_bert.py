@@ -143,9 +143,9 @@ def test_padding_mask_and_refusals():
     am = torch.tensor([[1, 1, 0], [1, 0, 0]])
     assert torch.equal(tbert._padding_mask(am), am == 0)
     assert tbert._padding_mask(None) is None
+    # remat builds (it raised before); the mesh still raises
     cfg = t_bert_large(remat=True, **GEOM)
-    with pytest.raises(NotImplementedError):
-        tbert.make_bert_train_step(cfg, t_lamb(), "O2", device="cpu")
+    tbert.make_bert_train_step(cfg, t_lamb(), "O2", device="cpu")
     with pytest.raises(NotImplementedError):
         tbert.make_bert_train_step(t_bert_large(**GEOM), t_lamb(), "O2",
                                    mesh=object(), device="cpu")

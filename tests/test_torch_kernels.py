@@ -2205,3 +2205,174 @@ def test_mt_fused_optimizers_on_trees(dev):
                                        atol=1e-9)
         torch.testing.assert_close(u["s"]["b"].cpu(), ru["s"]["b"],
                                    rtol=1e-5, atol=1e-9)
+
+
+# --- single-device training, complete --------------------------------------
+
+
+def _gpt_steps(cfg, dev, steps=2, seed=0, level="O2"):
+    """``steps`` steps at ``level`` of a GPT config from one seeded state:
+    (losses, final state, launches of the first step)."""
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.optimizers import fused_adam
+
+    init, step = make_gpt_train_step(cfg, fused_adam(lr=1e-3), level,
+                                     device=dev)
+    state = init(torch.Generator().manual_seed(seed))
+    gen = torch.Generator().manual_seed(seed + 1)
+    losses, first = [], None
+    for i in range(steps):
+        tok = torch.randint(0, cfg.vocab_size, (2, 256), generator=gen)
+        torch.cuda.synchronize()
+        ku.reset_launch_counts()
+        state, m = step(state, tok.to(dev), tok.to(dev))
+        torch.cuda.synchronize()
+        first = first or ku.launch_counts()
+        losses.append(m["loss"])
+    return losses, state, first
+
+
+def _bitwise_trees(a, b):
+    from apex_tpu_torch.optimizers._common import tree_leaves
+
+    la, lb = tree_leaves(a), tree_leaves(b)
+    return len(la) == len(lb) and all(
+        torch.equal(x.reshape(-1).view(torch.uint8),
+                    y.reshape(-1).view(torch.uint8)) for x, y in zip(la, lb))
+
+
+@pytest.mark.parametrize("extra, level", [
+    ({}, "O2"), ({"num_experts": 4, "moe_routing": "ragged"}, "O2"),
+    ({}, "O1")],
+    ids=["dense", "moe_ragged", "dense_o1"])
+def test_remat_is_bitwise_no_remat_on_the_card(dev, extra, level):
+    """A remat step on the kernel path equals the step without remat bit
+    for bit (losses, masters, moments), and launches the recompute's K1
+    and K2 once more a layer.  Under O1 the recompute runs on autograd's
+    device thread, which re-enters the forward's per-thread
+    ``amp_patch_scope``: its casts must repeat the forward's."""
+    import dataclasses
+
+    from apex_tpu_torch.models.config import gpt_tiny
+
+    base = gpt_tiny(num_layers=3, hidden_size=128, num_attention_heads=2,
+                    vocab_size=512, max_position_embeddings=256,
+                    fused_head_ce=True, **extra)
+    l0, s0, c0 = _gpt_steps(dataclasses.replace(base, remat=False), dev,
+                            steps=3, level=level)
+    l1, s1, c1 = _gpt_steps(dataclasses.replace(base, remat=True), dev,
+                            steps=3, level=level)
+    for a, b in zip(l0, l1):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    assert _bitwise_trees(s0.master_params, s1.master_params)
+    assert _bitwise_trees(s0.opt_state, s1.opt_state)
+    L = base.num_layers
+    assert c1["layer_norm_fwd"] == c0["layer_norm_fwd"] + 2 * L
+    assert c1["flash_attention_fwd"] == c0["flash_attention_fwd"] + L
+    assert c1["layer_norm_bwd"] == c0["layer_norm_bwd"] == 2 * L + 1
+
+
+def test_remat_with_dropout_is_bitwise_on_the_card(dev):
+    """The recompute redraws every dropout mask from the same key words:
+    a remat step with dropout equals the step without remat bit for
+    bit."""
+    import dataclasses
+
+    from apex_tpu_torch.models.config import gpt_tiny
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.utils import prng
+
+    base = gpt_tiny(num_layers=2, hidden_size=128, num_attention_heads=2,
+                    vocab_size=512, max_position_embeddings=256,
+                    hidden_dropout=0.1, attention_dropout=0.1,
+                    drop_path_rate=0.1, fused_head_ce=True)
+    tok = torch.randint(0, 512, (2, 256),
+                        generator=torch.Generator().manual_seed(3)).to(dev)
+    got = []
+    for remat in (False, True):
+        init, step = make_gpt_train_step(
+            dataclasses.replace(base, remat=remat), fused_adam(lr=1e-3),
+            "O2", device=dev)
+        state = init(torch.Generator().manual_seed(0))
+        for i in range(2):
+            state, m = step(state, tok, tok, prng.key(7 + i, dev))
+        got.append((m["loss"], state))
+    assert torch.equal(got[0][0].view(torch.int32),
+                       got[1][0].view(torch.int32))
+    assert _bitwise_trees(got[0][1].master_params, got[1][1].master_params)
+
+
+@pytest.mark.parametrize("rows, hidden", [(16384, 768), (8192, 1024),
+                                          (300, 100)])
+@pytest.mark.parametrize("rms", [False, True])
+def test_k5_memory_efficient_matches_plain(dev, rows, hidden, rms):
+    """memory_efficient=True: x rebuilt from y in front of K5, on the card
+    against the same path's plain version (K1 and K5 once each), also
+    with zero scales (the clamp), and against the default mode's
+    gradients where no scale is zero."""
+    g = _gen(17)
+    x = (torch.randn(rows, hidden, device=dev, generator=g) * 2).bfloat16()
+    w0 = 1 + 0.1 * torch.randn(hidden, device=dev, generator=g)
+    b = None if rms else 0.1 * torch.randn(hidden, device=dev, generator=g)
+    dy = torch.randn(rows, hidden, device=dev, generator=g).bfloat16()
+    zero = w0.clone()
+    zero[::13] = 0.0          # the rebuild's clamp (x is lost in those
+    #                           columns, so only kernel vs plain there)
+    for w, modes in ((zero, (True,)), (w0, (True, False))):
+        _k5_me_case(x, w, b, dy, rms, modes)
+
+
+def _k5_me_case(x, w, b, dy, rms, modes):
+    out = {}
+    for backend in (None, "reference"):
+        for me in modes:
+            leaves = [t.detach().clone().requires_grad_() if t is not None
+                      else None for t in (x, w, b)]
+            ku.reset_launch_counts()
+            if rms:
+                y = tln.fused_rms_norm(leaves[0], leaves[1],
+                                       memory_efficient=me, backend=backend)
+            else:
+                y = tln.fused_layer_norm(*leaves, memory_efficient=me,
+                                         backend=backend)
+            y.backward(dy)
+            torch.cuda.synchronize()
+            counts = ku.launch_counts()
+            if backend is None:
+                assert counts["layer_norm_fwd"] == 1
+                assert counts["layer_norm_bwd"] == 1
+            out[backend, me] = [t.grad for t in leaves if t is not None]
+    for a, e in zip(out[None, True], out["reference", True]):
+        assert float((a.float() - e.float()).abs().max()) <= \
+            2e-2 * float(e.float().abs().max())
+    if False in modes:
+        for a, e in zip(out[None, True], out[None, False]):
+            assert float((a.float() - e.float()).abs().max()) <= \
+                2e-2 * float(e.float().abs().max())
+
+
+@pytest.mark.parametrize("trans", [False, True], ids=["forward", "dx"])
+def test_row9_at_the_swiglu_2f_fc1(dev, trans):
+    """Row 9's 16-bit branch at the swiglu experts' 2f-wide fc1 ([4096,
+    768] x [8, 768, 6144], and the transposed read of its dx) against the
+    plain version."""
+    from apex_tpu_torch.ops import grouped_matmul as tgm
+
+    g = _gen(19)
+    loads = [700, 300, 0, 900, 512, 1024, 260, 400]
+    off = torch.tensor([0] + list(torch.tensor(loads).cumsum(0)),
+                       dtype=torch.int32, device=dev)
+    n, k, f2 = int(off[-1]), 768, 6144
+    w = (torch.randn(8, k, f2, device=dev, generator=g) * 0.02).bfloat16()
+    a = torch.randn(n, f2 if trans else k, device=dev,
+                    generator=g).bfloat16()
+    name = "grouped_matmul_mma_t" if trans else "grouped_matmul_mma"
+    before = ku.KERNELS[name].launches
+    got = tgm._gmm_route(a, w, off, False, trans=trans)
+    torch.cuda.synchronize()
+    assert ku.KERNELS[name].launches == before + 1
+    want = tgm.grouped_matmul_reference(a, w.transpose(1, 2) if trans else w,
+                                        off)
+    assert float((got.float() - want.float()).abs().max()) <= \
+        1e-2 * float(want.float().abs().max())

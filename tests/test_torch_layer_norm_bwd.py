@@ -99,8 +99,18 @@ def test_stats_feed_the_backward():
 
 
 def test_memory_efficient_raises():
-    x = torch.zeros(2, 8)
-    with pytest.raises(NotImplementedError, match="memory_efficient"):
-        tln.fused_layer_norm(x, memory_efficient=True)
-    with pytest.raises(NotImplementedError, match="memory_efficient"):
-        tln.fused_rms_norm(x, memory_efficient=True)
+    """memory_efficient=True is ported (it raised before):
+    the gradients equal the default mode's; the JAX comparison is
+    tests/test_torch_norm_memory_efficient.py."""
+    x = torch.randn(2, 8, generator=torch.Generator().manual_seed(0))
+    w = torch.linspace(0.5, 1.5, 8)
+    for rms in (False, True):
+        got = []
+        for me in (False, True):
+            xx = x.clone().requires_grad_(True)
+            y = (tln.fused_rms_norm(xx, w, memory_efficient=me) if rms
+                 else tln.fused_layer_norm(xx, w, torch.zeros(8),
+                                           memory_efficient=me))
+            y.sum().backward()
+            got.append(xx.grad)
+        torch.testing.assert_close(got[0], got[1], atol=1e-5, rtol=1e-5)

@@ -193,6 +193,19 @@ def test_init_lora_adapter_contract():
 
 
 def test_lora_mlp_swiglu_waits_for_its_port():
+    """The swiglu branch is ported (it raised before): with
+    no adapter rows it is the swiglu MLP; the JAX comparison is
+    tests/test_torch_swiglu.py."""
+    from apex_tpu_torch.models.transformer_lm import _mlp
+
     cfg = TConfig(compute_dtype=torch.float32, activation="swiglu", **CFG)
-    with pytest.raises(NotImplementedError, match="swiglu"):
-        tl.lora_mlp(cfg, {}, torch.zeros(1, 1, 32), {}, {})
+    gen = torch.Generator().manual_seed(0)
+    f = cfg.ffn_hidden_size
+    lp = {"fc1_kernel": torch.randn(32, 2, f, generator=gen) * 0.1,
+          "fc1_bias": torch.randn(2, f, generator=gen) * 0.1,
+          "fc2_kernel": torch.randn(f, 32, generator=gen) * 0.1,
+          "fc2_bias": torch.zeros(32)}
+    x = torch.randn(3, 1, 32, generator=gen)
+    got = tl.lora_mlp(cfg, lp, x, {}, tl.lora_plan(
+        torch.zeros(3, dtype=torch.int32), 1))
+    torch.testing.assert_close(got, _mlp(cfg, lp, x))

@@ -214,8 +214,14 @@ def test_argument_checks_and_the_distributed_slice():
     a = tmoe.switch_moe_mlp(tp, tx, routing="ragged", ep_axis="ep")
     b = tmoe.switch_moe_mlp(tp, tx, routing="ragged", ep_axis=None)
     assert torch.equal(a.out, b.out)
-    with pytest.raises(NotImplementedError, match="swiglu"):
-        tmoe.switch_moe_mlp(tp, tx, routing="ragged", activation="swiglu")
+    # swiglu experts are ported (they raised before): fc1
+    # is the 2f-wide [gate ‖ up]; the JAX comparison is
+    # tests/test_torch_swiglu.py
+    sw = tmoe.init_moe_params(torch.Generator().manual_seed(1), H, F, E,
+                              activation="swiglu", device="cpu")
+    for routing in ("ragged", "capacity"):
+        o = tmoe.switch_moe_mlp(sw, tx, routing=routing, activation="swiglu")
+        assert o.out.shape == tx.shape and torch.isfinite(o.out).all()
 
 
 def test_dropped_fraction_gauge():

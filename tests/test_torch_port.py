@@ -41,6 +41,7 @@ def test_port_imports_no_jax(path):
 COUNTERPARTS = {
     "ops/_kernel_utils.py": "ops/_pallas_utils.py",
     "models/convert.py": None,          # the numpy bridge between the two
+    "utils/prng.py": None,              # jax.random's threefry, in torch
 }
 
 

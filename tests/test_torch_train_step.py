@@ -48,15 +48,21 @@ def test_o2_dtype_chain():
     (dict(drop_path_rate=0.1), "dropout"),
 ])
 def test_unported_config_options_raise(kw, match):
-    """remat is not ported (NotImplementedError); a dropout config's step
-    called without its trailing key words raises TypeError (the JAX
-    step's missing rng argument)."""
+    """A dropout config's step called without its trailing key words
+    raises TypeError (the JAX step's missing rng argument).  remat is
+    ported: its step runs and equals the step without it
+    (tests/test_torch_remat.py holds it bit for bit)."""
     cfg = t_tiny(**dict(GEOM, **kw))
     init, step = t_make(cfg, t_adam(lr=1e-3), "O0", device="cpu")
     state = init(torch.Generator().manual_seed(0))
     tok = torch.zeros(1, 8, dtype=torch.long)
-    exc = NotImplementedError if match == "remat" else TypeError
-    with pytest.raises(exc, match=match):
+    if match == "remat":
+        _, m = step(state, tok, tok)
+        plain = t_make(t_tiny(**GEOM), t_adam(lr=1e-3), "O0",
+                       device="cpu")[1]
+        assert torch.equal(m["loss"], plain(state, tok, tok)[1]["loss"])
+        return
+    with pytest.raises(TypeError, match=match):
         step(state, tok, tok)
 
 
@@ -96,5 +102,14 @@ def test_unported_step_options_raise(kw, match):
 
 @pytest.mark.parametrize("level", ["O1", "O4"])
 def test_per_op_cast_levels_raise(level):
-    with pytest.raises(NotImplementedError, match="per op"):
-        t_make(t_tiny(**GEOM), t_adam(lr=1e-3), level, device="cpu")
+    """The per-op-cast levels are ported (they raised before): the step
+    builds and runs with masters in fp32; the lockstep against JAX is
+    tests/test_torch_amp_patch.py."""
+    init, step = t_make(t_tiny(**GEOM), t_adam(lr=1e-3), level,
+                        device="cpu")
+    state = init(torch.Generator().manual_seed(0))
+    tok = torch.zeros(1, 8, dtype=torch.long)
+    state, m = step(state, tok, tok)
+    assert torch.isfinite(m["loss"])
+    assert state.master_params["layers"]["qkv_kernel"].dtype == \
+        torch.float32
