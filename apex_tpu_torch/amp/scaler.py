@@ -152,16 +152,22 @@ def record_scaler_step(metrics) -> None:
     reg = _telemetry.registry()
     if reg is None:
         return
+    # adopt this step's index first: a loop calls record_scaler_step
+    # before record_step_metrics, and the amp.* records and the thrash
+    # feed carry THIS step
+    if "step" in metrics:
+        try:
+            reg.set_step(int(_host_value(metrics["step"])))
+        except (TypeError, ValueError):
+            pass
     scale = float(_host_value(metrics["loss_scale"]))
     overflow = bool(_host_value(metrics.get("overflow", False)))
     g = reg.gauge("amp.loss_scale")
     prev = g.value
     g.set(scale)
-    # the anomaly detectors are not ported yet; a registry with them
-    # takes the scaler-thrash feed
-    bank = getattr(reg, "detectors", None)
+    bank = reg.detectors
     if bank is not None:
-        bank.feed_scaler(metrics.get("step"), overflow)
+        bank.feed_scaler(reg.step, overflow)
     if overflow:
         reg.counter("amp.overflow_count").inc()
         reg.counter("amp.skipped_steps").inc()

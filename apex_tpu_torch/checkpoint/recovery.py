@@ -13,8 +13,9 @@
 ``after_step`` rolls back when the step's loss is not finite, or when an
 anomaly event of a trigger kind (``anomaly.nan_inf``,
 ``anomaly.loss_spike``, ``anomaly.grad_norm_explosion``) reached the
-metrics registry since the last step (the port has no detector bank
-yet: nothing emits them but the caller).  A rollback waits out the save
+metrics registry since the last step (the detector bank of
+:mod:`~apex_tpu_torch.observability.detectors` fires them from
+``record_step_metrics``).  A rollback waits out the save
 in flight, restores the newest committed checkpoint bit for bit into the
 live state's structure, opens a re-warm window (``lr_scale`` ramps from
 ``lr_scale_floor`` to 1 over ``rewarm_steps`` steps from the restored
@@ -191,10 +192,18 @@ class RecoveryManager:
         # passes its step again
         self._last_saved_step = to_step
         _telemetry.counter("checkpoint.rollbacks").inc()
-        _telemetry.event("anomaly.rollback", from_step=step, to_step=to_step,
-                         rollback_count=self.rollbacks,
-                         rewarm_steps=self.config.rewarm_steps,
-                         lr_scale_floor=self.config.lr_scale_floor)
+        detail = dict(from_step=step, to_step=to_step,
+                      rollback_count=self.rollbacks,
+                      rewarm_steps=self.config.rewarm_steps,
+                      lr_scale_floor=self.config.lr_scale_floor)
+        reg = _telemetry.registry()
+        if reg is not None and reg.detectors is not None:
+            # fires anomaly.rollback (not a trigger kind) and re-arms the
+            # NaN first-seen latch for the next incident
+            reg.detectors.record_rollback(from_step=step, to_step=to_step,
+                                          detail=detail)
+        else:
+            _telemetry.event("anomaly.rollback", **detail)
         self._seen_event = self._newest_event()
         get_logger("checkpoint").warning(
             "rollback %d/%d: anomaly at step %s -> restored step %s; LR "

@@ -136,10 +136,14 @@ def _fused_kernel(q, k_pool, v_pool, block_tables, lengths, w_proj,
     ku.check_aligned("fused_decode_layer", k_pool, v_pool)
     out = torch.empty(b, h_out, dtype=q.dtype, device=q.device)
     ctx = torch.empty(b, nh * dh, dtype=q.dtype, device=q.device)
+    # held until the launch: a scratch freed while its pointer is taken
+    # goes back to the allocator, and another thread's work on the same
+    # stream could take it before this call's kernels are enqueued
+    part = partials(q, k_pool, plan)
     DECODE_LAYER(q.device, ku.ptr(q), ku.ptr(k_pool), ku.ptr(v_pool),
                  ku.ptr(k_scale), ku.ptr(v_scale), ku.ptr(tables),
                  ku.ptr(lens), ku.ptr(w), ku.ptr(cos), ku.ptr(sin),
-                 ku.ptr(out), ku.ptr(ctx), ku.ptr(partials(q, k_pool, plan)),
+                 ku.ptr(out), ku.ptr(ctx), ku.ptr(part),
                  b, nh, dh, nb, bs, g, mb,
                  h_out, d2, scale, ku.dtype_code(q),
                  pool_code(k_pool.dtype), ku.dtype_code(w),

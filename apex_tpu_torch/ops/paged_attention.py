@@ -318,10 +318,11 @@ def _paged_kernel(q, k_pool, v_pool, block_tables, lengths, scale,
                            k_scale, v_scale, tables, lens)
     ku.check_aligned("ragged_paged_attention", k_pool, v_pool)
     out = torch.empty_like(q)
+    part = partials(q, k_pool, plan)   # held until the launch (K3's note)
     PAGED_ATTENTION(q.device, ku.ptr(q), ku.ptr(k_pool), ku.ptr(v_pool),
                     ku.ptr(k_scale), ku.ptr(v_scale), ku.ptr(tables),
                     ku.ptr(lens), ku.ptr(out),
-                    ku.ptr(partials(q, k_pool, plan)), b, nh, dh, nb, bs, g,
+                    ku.ptr(part), b, nh, dh, nb, bs, g,
                     mb,
                     scale, ku.dtype_code(q), pool_code(k_pool.dtype),
                     *plan_args(plan))

@@ -101,15 +101,24 @@ draws its key words from a ``torch.Generator`` (``generator=``), so
 sampled lanes are reproducible per seed but not the JAX tokens (greedy
 lanes are the identity contract); no environment variable overrides
 ``chunk_tokens``, ``host_tier_bytes`` or ``host_tier_wire``; a capture
-or replay failure raises instead of falling back.  Not ported yet
-(raise ``NotImplementedError``): ``submit_prefilled`` and ``drain``.
+or replay failure raises instead of falling back.
+
+The cluster tier's halves: :meth:`ServingEngine.submit_prefilled` queues
+a request whose prefill ran elsewhere (a decoded KV handoff, injected at
+admission through the same ``insert[bucket]`` entry prefill uses, so a
+raw-wire handoff decodes token-identically), and
+:meth:`ServingEngine.drain` pops every request out of the engine as
+migration records (live lanes with their K/V) and plain requests to
+requeue.
 
 Telemetry (no-op unless :func:`~apex_tpu_torch.observability.configure`
 ran) uses the JAX engine's names: ``serving.{requests,prefill_calls,
 decode_steps,tokens_generated,preemptions}`` counters, occupancy, queue
 and block gauges, per-class ``serving.{queue_wait_ms,ttft_ms,tpot_ms,
 e2e_ms,preempt_overhead_ms}`` sketches, ``serving.goodput.{met,
-missed}``, ``serving.adapter.requests{adapter=}``, under ``spec=`` the
+missed}``, ``serving.adapter.requests{adapter=}``, ``serving.kv_injected`` and
+``serving.kv_inject_ms`` for handoffs, ``serving.drained``, under
+``spec=`` the
 ``generate.spec.{draft_tokens,accepted_tokens,verify_calls}`` counters,
 and with the host tier ``serving.host_tier.{page_ins,resumes,replays}``
 beside the tier's own metrics.
@@ -121,7 +130,7 @@ import dataclasses
 import functools
 import time
 from collections import deque
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -195,6 +204,16 @@ class Request:
     # the 1-based AdapterPool slot acquire() pinned (0 = no ref held);
     # release keys off it, so a double release cannot happen
     _lane: int = dataclasses.field(default=0, repr=False)
+    # a cluster KV handoff (submit_prefilled): (k, v, first_token,
+    # prefill_ms) with per-token K/V [L, n, g, dh] on the host; admission
+    # injects it instead of running a prefill, and a preemption drops it
+    # (resume replays through the local prefill, which reproduces a
+    # raw-wire handoff's K/V bit for bit)
+    handoff: Optional[tuple] = dataclasses.field(default=None, repr=False)
+    # a raw-wire handoff of fresh prefill pages is bitwise what a local
+    # flash prefill writes, so it may map and publish flash-namespace
+    # digests; every other handoff claims fresh, private blocks
+    handoff_shareable: bool = False
 
     def __post_init__(self):
         self.prompt = np.asarray(self.prompt, np.int32).reshape(-1)
@@ -527,15 +546,160 @@ class ServingEngine:
         self._set_gauges()
         return req.request_id
 
-    def submit_prefilled(self, *args, **kwargs):
-        raise NotImplementedError(
-            "submit_prefilled (KV handoff, the cluster tier) comes with a "
-            "later slice of the port")
+    def submit_prefilled(self, prompt, k, v, first_token: int, *,
+                         max_new_tokens: int = 32,
+                         temperature: float = 0.0,
+                         eos_token_id: Optional[int] = None,
+                         slo_class: str = "default",
+                         prefill_ms: float = 0.0,
+                         shareable: bool = False,
+                         adapter_id: int = 0) -> int:
+        """Queue a request whose prefill already happened elsewhere: the
+        decode half of prefill/decode disaggregation.
 
-    def drain(self):
-        raise NotImplementedError(
-            "drain (lossless scale-down, the cluster tier) comes with a "
-            "later slice of the port")
+        ``k``/``v`` are the prompt's per-token K/V ``[L, len(prompt),
+        kv_groups, dh]`` (a decoded cluster handoff,
+        :func:`~apex_tpu_torch.serving.cluster.handoff.decode_kv`, or a
+        :meth:`drain` record) and ``first_token`` the token the remote
+        prefill sampled.  Admission writes the K/V into this engine's
+        cache through the ``insert[bucket]`` entry prefill uses (paged:
+        fresh blocks; contiguous: the slot stripe) and the lane decodes
+        on; for a raw-wire handoff between same-dtype caches greedy
+        continuation is token-identical to having prefilled here.
+        ``prefill_ms`` (the remote measurement) is carried onto the
+        Response.
+
+        Injected blocks are private by default: wire-derived pages must
+        not alias the digests of locally computed ones.
+        ``shareable=True`` opts a raw-wire handoff of fresh prefill pages
+        into the flash digest namespace (it maps published prefix blocks
+        and publishes its own full blocks); the caller, which reads the
+        handoff header, owns that judgment.  A preempted handoff is
+        dropped and resumes through the local prefill.
+
+        ``adapter_id``: the adapter the remote prefill ran through;
+        decode folds the same delta.  Adapter handoffs are never
+        shareable."""
+        if adapter_id:
+            if self._adapters is None:
+                raise ValueError(
+                    f"adapter_id={adapter_id} but the engine has no "
+                    "adapter_pool — pass adapter_pool= at construction")
+            if not self._adapters.registered(adapter_id):
+                raise ValueError(
+                    f"adapter_id={adapter_id} is not registered on the "
+                    "engine's adapter pool")
+            shareable = False
+        req = Request(prompt=prompt, max_new_tokens=max_new_tokens,
+                      temperature=temperature, eos_token_id=eos_token_id,
+                      request_id=self._next_id, slo_class=str(slo_class),
+                      adapter_id=int(adapter_id))
+        if req.prompt.size + req.max_new_tokens > self.max_len:
+            raise ValueError(
+                f"prompt ({req.prompt.size}) + max_new_tokens "
+                f"({req.max_new_tokens}) exceeds the engine max_len "
+                f"({self.max_len}); raise max_len or shorten the request")
+        pick_bucket(req.prompt.size, self._submit_buckets)
+        self._check_pool_budget(req)
+        k = torch.as_tensor(k).detach().cpu()
+        v = torch.as_tensor(v).detach().cpu()
+        want = (self.cfg.num_layers, req.prompt.size, self.cfg.kv_groups,
+                self.cfg.kv_channels)
+        if tuple(k.shape) != want or tuple(v.shape) != want:
+            raise ValueError(
+                f"handoff K/V shape {tuple(k.shape)}/{tuple(v.shape)} does "
+                f"not match this engine's cache geometry {want} — refusing "
+                "to reinterpret a foreign handoff")
+        req.handoff = (k, v, int(first_token), float(prefill_ms))
+        req.handoff_shareable = bool(shareable)
+        if self._mgr is not None and req.handoff_shareable:
+            self._admission_state(req)      # digests once, at submit
+        self._next_id += 1
+        req.submitted_t = time.perf_counter()
+        self._queue.append(req)
+        _telemetry.counter("serving.requests").inc()
+        if req.adapter_id:
+            _telemetry.counter("serving.adapter.requests",
+                               {"adapter": str(req.adapter_id)}).inc()
+        _telemetry.event("serving.request.begin", id=req.request_id,
+                         prompt_tokens=int(req.prompt.size),
+                         max_new_tokens=req.max_new_tokens,
+                         slo_class=req.slo_class, injected=True)
+        self._set_gauges()
+        return req.request_id
+
+    def drain(self) -> Tuple[List[dict], List[Request]]:
+        """Pop EVERY request out of the engine → ``(live, requeue)``,
+        leaving it idle (lossless scale-down).
+
+        ``live`` holds one record per decoding lane, everything a
+        survivor engine needs to continue the request exactly where it
+        stopped: the token sequence the cache materialized (prompt +
+        generated minus the pending token) as ``prompt``, the pending
+        token as ``first_token``, the remaining budget, and the per-token
+        K/V (``k``/``v`` ``[L, n, g, dh]`` on the host, through
+        :func:`~apex_tpu_torch.models.generate.extract_kv`; an int8 pool
+        dequantizes).  Feeding a record into another engine's
+        :meth:`submit_prefilled` continues greedy token-identically.
+
+        ``requeue`` holds the requests with nothing to migrate (the
+        queue, and lanes still mid-chunked-prefill) as plain
+        :class:`Request` objects ready for re-submission."""
+        live: List[dict] = []
+        requeue: List[Request] = []
+        cache = self.cache
+        if self._mgr is not None:
+            # one table upload for the whole drain: the ledger does not
+            # change until after extraction
+            cache = dict(self.cache, block_tables=torch.from_numpy(
+                self._tables.copy()).to(self.device))
+        for slot in sorted(self._pool.active,
+                           key=lambda s: self._slots[s].request.request_id):
+            st = self._slots[slot]
+            req = st.request
+            migrated = not st.prefilling and bool(st.tokens)
+            if migrated:
+                k, v = extract_kv(cache, st.cache_len, row=slot)
+                live.append({
+                    "engine_rid": req.request_id,
+                    "prompt": np.concatenate(
+                        [req.prompt, np.asarray(st.tokens[:-1], np.int32)]),
+                    "orig_prompt_len": int(req.prompt.size),
+                    "done_tokens": list(st.tokens),
+                    "first_token": int(st.tokens[-1]),
+                    "max_new_tokens": (req.max_new_tokens
+                                       - len(st.tokens) + 1),
+                    "temperature": req.temperature,
+                    "eos_token_id": req.eos_token_id,
+                    "slo_class": req.slo_class,
+                    "preemptions": req.preemptions,
+                    "decode_polls": st.decode_polls,
+                    "prefill_ms": st.prefill_ms,
+                    "adapter_id": req.adapter_id,
+                    "k": k.cpu(),
+                    "v": v.cpu(),
+                })
+            else:
+                requeue.append(req)
+            self._release_adapter(req)
+            self._slots[slot] = None
+            self._pending[slot] = 0
+            self._temps[slot] = 0.0
+            self._lane_slab[slot] = 0
+            if self._mgr is not None:
+                self._tables[slot, :] = self.num_blocks
+                self._mgr.free_all(st.blocks)
+            self._pool.release(slot)
+            _telemetry.counter("serving.drained").inc()
+            _telemetry.event("serving.request.drained", id=req.request_id,
+                             migrated=migrated)
+        while self._queue:
+            req = self._queue.popleft()
+            req.handoff = None     # its wire pages die with this engine
+            requeue.append(req)
+            _telemetry.counter("serving.drained").inc()
+        self._set_gauges()
+        return live, requeue
 
     def _check_pool_budget(self, req: Request) -> None:
         """Reject a request that could never complete even alone."""
@@ -567,6 +731,9 @@ class ServingEngine:
         decode one token for every live lane; returns the requests
         completed by this step."""
         completed = self._admit()
+        # the queue detector's one valid sampling point: after admission,
+        # before decode frees slots that the next step's admission fills
+        self._feed_queue_detector()
         if self.chunk_tokens:
             completed.extend(self._prefill_chunk_once())
         if any(st is not None and not st.prefilling for st in self._slots):
@@ -667,6 +834,12 @@ class ServingEngine:
             _telemetry.gauge("serving.cache_blocks_hw", tags).set(
                 self._blocks_hw)
 
+    def _feed_queue_detector(self) -> None:
+        reg = _telemetry.registry()
+        if reg is not None and reg.detectors is not None:
+            reg.detectors.feed_serving(
+                len(self._queue), self._pool.n_active / self.max_slots)
+
     # -- admission ---------------------------------------------------------
 
     def _admission_state(self, req: Request):
@@ -686,9 +859,11 @@ class ServingEngine:
 
     def _chunked(self, req: Request) -> bool:
         """Whether the request admits through chunked prefill: a prompt
-        longer than one chunk, not an adapter request (its prefill is one
-        LoRA verify forward)."""
-        if not self.chunk_tokens or req.adapter_id:
+        longer than one chunk, not a KV handoff (its pages come off the
+        wire), not an adapter request (its prefill is one LoRA verify
+        forward)."""
+        if (not self.chunk_tokens or req.handoff is not None
+                or req.adapter_id):
             return False
         return req.prompt.size + len(req.resume_tokens) > self.chunk_tokens
 
@@ -697,7 +872,8 @@ class ServingEngine:
         instead of running a prefill: a preempted request whose
         materialized pages (prompt + generated - 1 tokens: the pending
         token's K/V was never written) are still parked."""
-        return (self._host is not None and bool(req.resume_tokens)
+        return (self._host is not None and req.handoff is None
+                and bool(req.resume_tokens)
                 and self._host.has_request(
                     req.request_id,
                     req.prompt.size + len(req.resume_tokens) - 1))
@@ -728,11 +904,14 @@ class ServingEngine:
         """NEW blocks the request must allocate at admission (published
         prefix hits map, they do not allocate; host-tier digest hits
         allocate and page in; a page-in resume covers its materialized
-        ``n - 1`` tokens fresh; a chunked admission maps only its leading
-        shared chunks)."""
+        ``n - 1`` tokens fresh, a KV handoff all ``n`` unless it is
+        shareable; a chunked admission maps only its leading shared
+        chunks)."""
         n = req.prompt.size + len(req.resume_tokens)
         if self._host_resumable(req):
             return blocks_for(n - 1, self.block_size)
+        if req.handoff is not None and not req.handoff_shareable:
+            return blocks_for(n, self.block_size)
         _tokens, hashes = self._admission_state(req)
         need = blocks_for(n, self.block_size)
         if self._chunked(req):
@@ -762,7 +941,8 @@ class ServingEngine:
                                             + self.reserve_blocks)):
                 # wait for completions or a preemption; meanwhile decode
                 # the head's parked pages, so its page-in does not wait
-                if self._host is not None and req.resume_tokens:
+                if (self._host is not None and req.resume_tokens
+                        and req.handoff is None):
                     self._host.prefetch_request(
                         req.request_id,
                         req.prompt.size + len(req.resume_tokens) - 1)
@@ -1151,8 +1331,11 @@ class ServingEngine:
         unwind here on failure).  A preempted request whose pages are
         still parked in the host tier pages them back in instead
         (:meth:`_admit_one_paged_in`), even where it would replay
-        chunked."""
-        if self._host is not None and req.resume_tokens:
+        chunked.  A KV handoff (:meth:`submit_prefilled`) runs no prefill:
+        its pages come off the wire, its first token from the remote
+        sampler."""
+        if (self._host is not None and req.handoff is None
+                and req.resume_tokens):
             n_kv = req.prompt.size + len(req.resume_tokens) - 1
             kv = self._host.take_request(req.request_id, n_kv)
             if kv is not None:
@@ -1161,11 +1344,15 @@ class ServingEngine:
             _telemetry.counter("serving.host_tier.replays").inc()
         if self._chunked(req):
             return self._admit_one_chunked(req, slot)
-        if req.adapter_id:
+        if req.adapter_id and req.handoff is None:
+            # a handoff's pages come off the wire: only its decode needs
+            # the adapter
             return self._admit_one_adapter(req, slot)
         completed: List[Response] = []
         hashes: List[bytes] = []
-        if self._mgr is not None:
+        shareable = (self._mgr is not None
+                     and (req.handoff is None or req.handoff_shareable))
+        if shareable:
             tokens, hashes = self._admission_state(req)
         else:
             tokens = self._full_tokens(req)
@@ -1175,9 +1362,14 @@ class ServingEngine:
         write_ids: List[int] = []
         page_ins: List[tuple] = []
         shared = 0
-        if self._mgr is not None:
+        if shareable:
+            # prefills and shareable raw-wire handoffs map and publish
+            # flash-namespace digests
             blocks, write_ids, shared, page_ins = self._claim_blocks(
                 tokens, hashes)
+        elif self._mgr is not None:
+            blocks = self._claim_blocks_fresh(n)
+            write_ids = list(blocks)
         t0 = time.perf_counter()
         if req.admitted_t == 0.0:
             req.admitted_t = t0
@@ -1189,14 +1381,22 @@ class ServingEngine:
                 with span("serving.host_page_in"), \
                         compile_label("serving.prefill"):
                     self._page_in_blocks(slot, page_ins)
-            with span("serving.prefill"), compile_label("serving.prefill"):
-                logits, ks, vs = self._prefill_call(tokens, n, bucket)
-                self._insert_prefill_kv(slot, bucket, write_ids, ks, vs, n)
-                first = self._sample(
-                    logits, np.asarray([req.temperature], np.float32),
-                    self._mask_arg(req))
-                tok = int(first[0])                      # host sync
-            self._prefill_count += 1
+            if req.handoff is not None:
+                with span("serving.kv_inject"), \
+                        compile_label("serving.prefill"):
+                    tok = self._inject_handoff(req, slot, bucket, write_ids,
+                                               n)
+            else:
+                with span("serving.prefill"), \
+                        compile_label("serving.prefill"):
+                    logits, ks, vs = self._prefill_call(tokens, n, bucket)
+                    self._insert_prefill_kv(slot, bucket, write_ids, ks, vs,
+                                            n)
+                    first = self._sample(
+                        logits, np.asarray([req.temperature], np.float32),
+                        self._mask_arg(req))
+                    tok = int(first[0])                  # host sync
+                self._prefill_count += 1
             if self._mgr is not None:
                 self._tables[slot, :] = self.num_blocks
                 self._tables[slot, : len(blocks)] = blocks
@@ -1210,8 +1410,15 @@ class ServingEngine:
             if req.preempted_t:
                 req.preempt_overhead_s += now - req.preempted_t
                 req.preempted_t = 0.0
-            _telemetry.counter("serving.prefill_calls").inc()
-            _telemetry.histogram("serving.prefill_ms").observe(ms)
+            if req.handoff is not None:
+                # the prefill ran remotely: count the injection and carry
+                # the remote prefill time onto the Response
+                _telemetry.counter("serving.kv_injected").inc()
+                _telemetry.histogram("serving.kv_inject_ms").observe(ms)
+                ms = req.handoff[3]
+            else:
+                _telemetry.counter("serving.prefill_calls").inc()
+                _telemetry.histogram("serving.prefill_ms").observe(ms)
             _telemetry.counter("serving.tokens_generated").inc()
             if _telemetry.enabled():
                 sample_device_memory()
@@ -1232,6 +1439,22 @@ class ServingEngine:
         if done:
             completed.append(self._complete(slot, done))
         return completed
+
+    def _inject_handoff(self, req: Request, slot: int, bucket: int,
+                        write_ids: List[int], n: int) -> int:
+        """Write a decoded KV handoff into the lane through the
+        ``insert[bucket]`` entry prefill uses (so injection writes exactly
+        what a local prefill would have) → the remotely sampled first
+        token."""
+        k, v, tok, _ms = req.handoff
+        shape = (self.cfg.num_layers, 1, bucket, self.cfg.kv_groups,
+                 self.cfg.kv_channels)
+        ks = torch.zeros(shape, dtype=self._cache_dtype)
+        vs = torch.zeros(shape, dtype=self._cache_dtype)
+        ks[:, 0, :n] = k.to(self._cache_dtype)
+        vs[:, 0, :n] = v.to(self._cache_dtype)
+        self._insert_prefill_kv(slot, bucket, write_ids, ks, vs, n)
+        return int(tok)
 
     def _admit_one_paged_in(self, req: Request, slot: int, k, v
                             ) -> List[Response]:
@@ -1640,6 +1863,10 @@ class ServingEngine:
         # acquires again, possibly paging the adapter back in
         self._release_adapter(req)
         req.resume_tokens = list(st.tokens)
+        # an injected handoff dies with its blocks: resume pages the parked
+        # copy back in or replays through the local prefill
+        req.handoff = None
+        req.handoff_shareable = False
         req.preemptions += 1
         req.resume_polls = st.decode_polls
         req.preempted_t = time.perf_counter()
@@ -1796,6 +2023,9 @@ class ServingEngine:
         _telemetry.counter(
             "serving.goodput.met" if met else "serving.goodput.missed",
             tags).inc()
+        reg = _telemetry.registry()
+        if reg is not None and reg.detectors is not None:
+            reg.detectors.feed_slo(req.slo_class, met)
         _telemetry.histogram("serving.request_ms").observe(latency_ms)
         end = dict(id=req.request_id, finish_reason=reason,
                    tokens=len(st.tokens), latency_ms=round(latency_ms, 3),

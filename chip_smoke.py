@@ -100,6 +100,21 @@
 4h. Drives fp32 compute over a bf16 pool (``cache_dtype``): ``generate``
    (K3 over the foreign pool, teacher-forced logits kernel vs plain) and
    the engine (K3 every step, tokens against the plain engine).
+4i. Drives the cluster tier (``cluster_phase``) on GPT-2 125M at 12
+   layers, bf16, paged blocks of 16: a prefill and a decode worker as
+   separate processes (``spawn_worker_async``, ``--device cuda``) behind a
+   ``Router`` on the raw wire, warmed by two requests, then bench.py's
+   bursty open-loop trace of 24 greedy requests (prompts 17-512, +32) on
+   them and on one in-process engine from the same seed: tokens equal
+   for every request, TTFT and e2e p50/p95 per class, tokens/s, handoff
+   bytes, requeues, the decode worker's ``serving_kv_injected_total``
+   (scraped from its ``/metrics``), the router's ``/healthz``; 4 sampled
+   requests (K4 in both workers); the workers' launch counts from their
+   ``stats`` replies (K1, K2, K4 in the prefill worker; K1, K3, K4 in
+   the decode worker); the int8 and bf16 wires (first divergence, bytes);
+   a mid-flight drain between two decode ``WorkerServer``s in threads on
+   the card (migrated tokens equal the undrained run's); a decode worker
+   on a compiled-ladder directory this run primed (READY ms).
 5. Holds the backward kernels (K5 LayerNorm backward, K6 flash dq, K7
    flash dK/dV) against autograd of their plain forward at the train
    step's shapes, timed like the others; row 5 (the short-key one-pass
@@ -185,7 +200,9 @@
    fc1, no dropped token) and row 9 at the 2f fc1 against its plain
    version; and the 350M state saved by ``AsyncCheckpointer`` while a
    step runs, restored into a fresh state and stepped on bit for bit
-   with the unkilled run.
+   with the unkilled run.  BERT-large (flash) and the ragged GPT-MoE at
+   2 layers, one step each with and without remat: bitwise, K1 +2L and
+   K2 twice in the recompute.
 7. Prints one JSON line describing every kernel, then the card's name and
    power limit, then ``{"ok": true, "device": {...}}`` as the last line.
 
@@ -219,11 +236,17 @@ change, parent).
 
 times rows 6 and 7 under forced split counts and uniform lengths (one
 JSON line): where their time goes.
+
+    python3 chip_smoke.py --cluster
+
+runs only the cluster phase (4i) and the BERT and MoE remat check after
+the kernels' build, with one JSON line.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import gc
 import json
 import math
@@ -5753,16 +5776,60 @@ def _lockstep(cfg, level, batch, state0, dev, what):
             "grad_norm_rel_err": norm_err}
 
 
+def _remat_pair(make_step, cfgs, state0, batches, what):
+    """The step without and with remat from one state, one step a batch
+    of ``batches``: the first step's launches (counts reset just before,
+    read just after); the losses and, after the last step, every master,
+    model parameter, moment, scale state and step count bitwise equal
+    between the two (the recompute repeats the forward's bits).  Each
+    run must apply some update and move the masters off ``state0``: an
+    all-overflow run keeps ``state0`` and would compare equal without
+    testing the recompute's gradients.
+    -> {remat: (state, [(loss, overflow, scale)], counts, step)}"""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+
+    runs, losses = {}, {}
+    for remat in (False, True):
+        step = make_step(cfgs[remat])
+        state, seq, counts = state0, [], None
+        losses[remat] = []
+        for i, batch in enumerate(batches):
+            torch.cuda.synchronize()
+            if i == 0:
+                # --- the main path: counts reset before, read after ----
+                ku.reset_launch_counts()
+            state, m = step(state, *batch)
+            torch.cuda.synchronize()
+            if i == 0:
+                counts = ku.launch_counts()
+            losses[remat].append(m["loss"])
+            seq.append((float(m["loss"]), bool(m["overflow"]),
+                        float(m["loss_scale"])))
+        check(all(math.isfinite(s[0]) for s in seq),
+              f"{what} remat={remat} losses {seq}")
+        check(not all(s[1] for s in seq),
+              f"{what} remat={remat}: every step overflowed {seq}")
+        check(not _bits_equal(state0.master_params, state.master_params),
+              f"{what} remat={remat}: the masters did not move")
+        runs[remat] = (state, seq, counts, step)
+    (st0, s0, _, _), (st1, s1, _, _) = runs[False], runs[True]
+    check(_bits_equal(losses[False], losses[True]),
+          f"{what} remat losses {s1} != no-remat {s0} bit for bit")
+    for field in ("master_params", "params", "opt_state",
+                  "loss_scale_state", "step"):
+        check(_bits_equal(getattr(st0, field), getattr(st1, field)),
+              f"{what} remat {field} differ from no-remat bit for bit")
+    return runs
+
+
 def remat_train_phase(dev):
     """The GPT-2 350M AMP-O2 step (b8 x s1024, fused head) with and
-    without remat from one state: 3 steps whose losses and whose every
-    master, moment and model parameter are bitwise equal between the two
-    (the recompute repeats the forward's bits), exact launches of each
-    (the recompute's K1 and K2 counted), the median of 10 steps and the
-    peak memory of each, and the remat step on the kernel path against
-    the plain path (3 steps at b4)."""
+    without remat from one state (:func:`_remat_pair`): 3 steps, bitwise
+    equal between the two, exact launches of each (the recompute's K1
+    and K2 counted), the median of 10 steps and the peak memory of each,
+    and the remat step on the kernel path against the plain path (3
+    steps at b4)."""
     from apex_tpu_torch.models.gpt import make_gpt_train_step
-    from apex_tpu_torch.ops import _kernel_utils as ku
     from apex_tpu_torch.optimizers import fused_adam
     from apex_tpu_torch.optimizers._common import tree_leaves
 
@@ -5778,37 +5845,15 @@ def remat_train_phase(dev):
                for i in range(CHECK_STEPS)]
     L = cfgs[True].num_layers
     out = {"params": n_params, "init_s": init_s}
-    runs = {}
-    for remat in (False, True):
-        _, step = make_gpt_train_step(cfgs[remat], fused_adam(lr=1e-4),
-                                      "O2", device=dev)
-        state, losses, seq, counts = state0, [], [], None
-        for i, (tok, lab) in enumerate(batches):
-            torch.cuda.synchronize()
-            if i == 0:
-                # --- the main path: counts reset before, read after ----
-                ku.reset_launch_counts()
-            state, m = step(state, tok, lab)
-            torch.cuda.synchronize()
-            if i == 0:
-                counts = ku.launch_counts()
-            losses.append(m["loss"])
-            seq.append((float(m["loss"]), bool(m["overflow"]),
-                        float(m["loss_scale"])))
+    runs = _remat_pair(
+        lambda cfg: make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
+                                        device=dev)[1],
+        cfgs, state0, batches, "350m")
+    for remat, (_, _, counts, _) in runs.items():
         want = _dense_want(L, remat)
         check(counts == want,
               f"350m remat={remat} launches {counts} != {want}")
-        runs[remat] = (losses, seq, state, counts, step)
-    (l0, s0, st0, c0, step0), (l1, s1, st1, c1, step1) = (runs[False],
-                                                          runs[True])
-    check(all(torch.equal(a.view(torch.int32), b.view(torch.int32))
-              for a, b in zip(l0, l1)),
-          f"remat losses {s1} != no-remat {s0} bit for bit")
-    for field in ("master_params", "params", "opt_state",
-                  "loss_scale_state", "step"):
-        check(_bits_equal(getattr(st0, field), getattr(st1, field)),
-              f"remat {field} differ from no-remat bit for bit")
-    check(not all(s[1] for s in s1), "every 350m step overflowed")
+    (st0, _, c0, step0), (st1, s1, c1, step1) = runs[False], runs[True]
     out.update({"losses": s1, "launches_no_remat": c0,
                 "launches_remat": c1})
     out["check"] = _lockstep(
@@ -6250,6 +6295,11 @@ def training_slice(dev, gen, results, paths):
     paths["gpt 350m remat"] = rem.pop("launches_remat")
     paths["gpt 350m no remat"] = rem.pop("launches_no_remat")
     torch.cuda.empty_cache()
+    fam = rem["family"] = remat_family_check(dev)
+    for kind, row in fam.items():
+        paths[f"{kind} remat"] = row.pop("launches_remat")
+        paths[f"{kind} no remat"] = row.pop("launches_no_remat")
+    torch.cuda.empty_cache()
     lc = longctx_phase(dev)
     paths["gpt 125m long context remat"] = lc.pop("counts")
     at = lc["attention_check"]
@@ -6303,6 +6353,9 @@ def print_training_slice(t, smi):
           f"{rem['check']['grad_norm_rel_err']:.5f}; profiled no remat "
           f"{json.dumps(rem['profiled_no_remat'])}; remat "
           f"{json.dumps(rem['profiled_remat'])}")
+    print(f"remat at {REMAT_FAMILY_LAYERS} layers, one AMP-O2 step each, "
+          f"bitwise equal to the step without remat, K1 +2L and K2 x2 in "
+          f"the recompute: {json.dumps(rem['family'])}")
     print(f"train gpt 125m long context b{LONGCTX_BATCH} x s{LONGCTX_SEQ} "
           f"remat on {smi}: step ms {lc['step_ms']}, peak memory "
           f"{lc['peak_memory_gb']:.2f} GB, losses {lc['losses']}; one "
@@ -6335,6 +6388,580 @@ def print_training_slice(t, smi):
           f"{sw['moe']['dropped_fraction']}; row 9 at the 2f fc1 "
           f"{json.dumps(t['swiglu_row9_2f'])}")
     print(f"checkpoint resume gpt 350m on {smi}: {json.dumps(t['checkpoint'])}")
+
+
+REMAT_FAMILY_LAYERS = 2
+
+
+def remat_family_check(dev):
+    """BERT-large (flash) and the ragged GPT-MoE at REMAT_FAMILY_LAYERS
+    layers and full width, one AMP-O2 step each with and without remat
+    from one state (:func:`_remat_pair`: the states after the step
+    bitwise equal, the update applied): K1 launched 2L more times (each
+    layer's two norms again in the recompute) and K2 twice as often, no
+    kernel launched less."""
+    from apex_tpu_torch.models.bert import make_bert_train_step
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.optimizers import fused_adam, fused_lamb
+
+    L = REMAT_FAMILY_LAYERS
+    out = {}
+    for kind in ("bert flash", "moe ragged"):
+        if kind == "bert flash":
+            base = bert_cfg("flash", num_layers=L)
+            make = functools.partial(
+                make_bert_train_step,
+                optimizer=fused_lamb(lr=1e-4, weight_decay=0.01))
+            batch = bert_batch(base, BERT_BATCH, 0, dev)
+        else:
+            base = dataclasses.replace(moe_cfg("ragged"), num_layers=L)
+            make = functools.partial(make_gpt_train_step,
+                                     optimizer=fused_adam(lr=1e-4))
+            batch = moe_batch(base, MOE_BATCH, 0, dev)
+        cfgs = {r: dataclasses.replace(base, remat=r) for r in (False, True)}
+        state0 = make(cfgs[False], policy_or_amp="O2", device=dev)[0](
+            torch.Generator().manual_seed(0))
+        runs = _remat_pair(
+            lambda cfg: make(cfg, policy_or_amp="O2", device=dev)[1],
+            cfgs, state0, [batch], kind)
+        (_, _, c0, _), (_, s1, c1, _) = runs[False], runs[True]
+        check(c1["layer_norm_fwd"] == c0["layer_norm_fwd"] + 2 * L > 2 * L,
+              f"{kind} remat K1 {c1['layer_norm_fwd']} vs no-remat "
+              f"{c0['layer_norm_fwd']}: the recompute's norms not launched")
+        check(c1["flash_attention_fwd"] == 2 * c0["flash_attention_fwd"] > 0,
+              f"{kind} remat K2 {c1['flash_attention_fwd']} vs no-remat "
+              f"{c0['flash_attention_fwd']}")
+        check(all(c1[k] >= c0[k] for k in c0),
+              f"{kind} remat launched a kernel less: {c1} vs {c0}")
+        out[kind] = {"loss": s1[0][0], "overflow": s1[0][1],
+                     "launches_no_remat": c0, "launches_remat": c1}
+        del runs, state0
+        torch.cuda.empty_cache()
+    return out
+
+
+# ---- the cluster serving tier: two worker processes behind a router ----
+
+CLUSTER_REQUESTS = 24
+CLUSTER_NEW = 32
+CLUSTER_SAMPLED = 4
+CLUSTER_SLOTS = 8
+CLUSTER_MAX_LEN = 1024
+CLUSTER_BLOCK = 16
+CLUSTER_SEED = 0
+# class -> prompt lengths (bench.py's _bursty_trace classes, at 17-512
+# tokens)
+CLUSTER_CLASSES = (("interactive", 17, 128), ("standard", 128, 320),
+                   ("batch", 320, 513))
+CLUSTER_MIGRATE = 6             # requests of the in-process drain check
+CLUSTER_WIRES = ("int8", "bf16")
+CLUSTER_TIMEOUT_S = 240         # a worker's READY, a router's replay
+CLUSTER_RPC_S = 120.0
+# GPT-2 125M at full width and depth, as the workers build it
+CLUSTER_MODEL = dict(layers=12, hidden=768, heads=12, vocab=50304,
+                     max_pos=1024, compute_dtype="bfloat16")
+CLUSTER_FLAGS = ["--seed", str(CLUSTER_SEED), "--layers", "12",
+                 "--hidden", "768", "--heads", "12", "--vocab", "50304",
+                 "--max-pos", "1024", "--compute-dtype", "bfloat16",
+                 "--max-len", str(CLUSTER_MAX_LEN), "--vocab-limit",
+                 str(VOCAB_LIMIT), "--block-size", str(CLUSTER_BLOCK),
+                 "--device", "cuda"]
+CLUSTER_DECODE_FLAGS = ["--max-slots", str(CLUSTER_SLOTS),
+                        "--cache-layout", "paged"]
+CLUSTER_ENGINE = dict(max_slots=CLUSTER_SLOTS, max_len=CLUSTER_MAX_LEN,
+                      cache_layout="paged", block_size=CLUSTER_BLOCK,
+                      vocab_limit=VOCAB_LIMIT)
+
+
+def cluster_trace(rng, vocab, n_requests=CLUSTER_REQUESTS, calm_gap_s=0.15,
+                  burst_every=6, burst_len=3):
+    """bench.py's ``_bursty_trace`` arrival process: a calm exponential
+    stream broken by near-simultaneous volleys (every ``burst_every``-th
+    arrival opens ``burst_len`` back-to-back ones); classes cycle
+    interactive / standard / batch, all greedy, +CLUSTER_NEW tokens, the
+    prompt lengths drawn from each class's range → sorted ``[(t_s,
+    submit kwargs)]``."""
+    trace, t, i = [], 0.0, 0
+    while len(trace) < n_requests:
+        volley = burst_len if i % burst_every == 0 else 1
+        for _ in range(volley):
+            if len(trace) >= n_requests:
+                break
+            cls, lo, hi = CLUSTER_CLASSES[len(trace) % len(CLUSTER_CLASSES)]
+            plen = int(rng.randint(lo, hi))
+            trace.append((round(t, 4), dict(
+                prompt=rng.randint(0, vocab, (plen,)).tolist(),
+                max_new_tokens=CLUSTER_NEW, temperature=0.0,
+                slo_class=cls)))
+            t += 0.002
+        t += float(rng.exponential(calm_gap_s))
+        i += 1
+    return trace
+
+
+def replay_single(engine, trace, max_wall_s=CLUSTER_TIMEOUT_S):
+    """Open-loop replay against one engine (arrivals submit at their
+    offsets whatever completes) → (responses by request id, wall s)."""
+    out = []
+    t0 = time.perf_counter()
+    i = 0
+    while i < len(trace) or not engine.idle:
+        now = time.perf_counter() - t0
+        check(now < max_wall_s, "single-engine replay ran out of time")
+        while i < len(trace) and trace[i][0] <= now:
+            engine.submit(**trace[i][1])
+            i += 1
+        if engine.idle:
+            time.sleep(max(0.0, min(trace[i][0] - now, 0.002)))
+            continue
+        out.extend(engine.step())
+    torch.cuda.synchronize()
+    return ({r.request_id: r for r in out},
+            time.perf_counter() - t0)
+
+
+def topology_report(resps, wall_s) -> dict:
+    """wall s, generated tokens/s, and TTFT and e2e p50/p95 per class."""
+    row = {"wall_s": wall_s,
+           "generated_tokens_per_s":
+               sum(len(r.tokens) for r in resps) / wall_s}
+    for cls, _lo, _hi in CLUSTER_CLASSES:
+        rs = [r for r in resps if r.slo_class == cls]
+        row[cls] = {f"{m}_p{q}": pct([getattr(r, f"{m}_ms") for r in rs],
+                                     q / 100)
+                    for m in ("ttft", "e2e") for q in (50, 95)}
+    return row
+
+
+def first_divergence(got, want):
+    """Index of the first differing token (or of the shorter end), None
+    when the sequences are equal."""
+    got, want = list(got), list(want)
+    for j, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            return j
+    return None if len(got) == len(want) else min(len(got), len(want))
+
+
+def check_tokens(resps, ref, trace, what):
+    """Every request's tokens equal the single engine's, or fail naming
+    the request and position."""
+    for rid, r in sorted(resps.items()):
+        j = first_divergence(r.tokens.tolist(), ref[rid].tokens.tolist())
+        if j is not None:
+            print(f"{what}: request {rid} ({trace[rid][1]['slo_class']}, "
+                  f"prompt {len(trace[rid][1]['prompt'])} tokens) differs "
+                  f"from the single engine at position {j}: "
+                  f"{r.tokens.tolist()} vs {ref[rid].tokens.tolist()}")
+        check(j is None, f"{what}: request {rid} differs at position {j}")
+
+
+def scrape(url: str) -> dict:
+    """One /metrics scrape through the port's OpenMetrics parser."""
+    import urllib.request
+
+    from apex_tpu_torch.observability import openmetrics
+
+    with urllib.request.urlopen(url + "/metrics", timeout=10) as r:
+        return openmetrics.parse(r.read().decode())
+
+
+def healthz(url: str) -> int:
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url + "/healthz", timeout=10) as r:
+            return r.status
+    except urllib.error.HTTPError as e:
+        return e.code
+
+
+def spawn_pair(env, decode_extra=(), prefill_extra=()):
+    """Start a prefill and a decode worker process together → the two
+    ready ``PendingWorker`` handles (READY ms on each); kills both and
+    fails when either is not READY in time."""
+    from apex_tpu_torch.serving.cluster.worker import (
+        shutdown_worker, spawn_worker_async)
+
+    pend = [spawn_worker_async("prefill", env=env, timeout=CLUSTER_TIMEOUT_S,
+                               extra_args=CLUSTER_FLAGS + list(prefill_extra)),
+            spawn_worker_async("decode", env=env, timeout=CLUSTER_TIMEOUT_S,
+                               extra_args=CLUSTER_FLAGS + CLUSTER_DECODE_FLAGS
+                               + list(decode_extra))]
+    while any(p.poll() is None for p in pend):
+        time.sleep(0.05)
+    if not all(p.poll() == "ready" for p in pend):
+        for p in pend:
+            shutdown_worker(p.proc)
+        check(False, f"cluster workers not READY: {[p.error for p in pend]}")
+    return pend
+
+
+class MidflightGate:
+    """Once an engine's step has admitted work, later steps hold (no
+    completions, no state touched) until :meth:`restore`, so its lanes are
+    mid-flight when the drain lands."""
+
+    def __init__(self, engine):
+        import threading
+
+        self._open = threading.Event()
+        self._engine, self._orig = engine, engine.step
+
+        def gated():
+            if not self._open.is_set() and engine._pool.n_active:
+                time.sleep(0.002)
+                return []
+            return self._orig()
+
+        engine.step = gated
+
+    def restore(self):
+        self._open.set()
+        self._engine.step = self._orig
+
+
+def wait_until(pred, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if pred():
+            return True
+        time.sleep(0.002)
+    return pred()
+
+
+def drain_check(params, cfg, trace, ref, dev) -> dict:
+    """Two decode WorkerServers in threads on the card behind a router:
+    drain one mid-flight; the migrated requests finish on the survivor
+    with the single engine's tokens."""
+    import threading
+
+    from apex_tpu_torch.serving.cluster import Router, WorkerServer
+
+    kw = dict(CLUSTER_ENGINE, device=dev)
+    pf = WorkerServer("prefill", params, cfg, max_len=CLUSTER_MAX_LEN,
+                      block_size=CLUSTER_BLOCK, vocab_limit=VOCAB_LIMIT,
+                      device=dev)
+    dcs = [WorkerServer("decode", params, cfg, **kw) for _ in range(2)]
+    servers = [pf] + dcs
+    for s in servers:
+        threading.Thread(target=s.serve_forever, daemon=True).start()
+    gate = MidflightGate(dcs[0].engine)
+    router = Router([pf.addr], [d.addr for d in dcs], max_worker_queue=8,
+                    rpc_timeout=CLUSTER_RPC_S)
+    try:
+        for _t, kw_ in trace[:CLUSTER_MIGRATE]:
+            router.submit(**kw_)
+        out = []
+        victim = next(w for w in router._decode if w.addr == dcs[0].addr)
+        check(wait_until(lambda: (out.extend(router.step()),
+                                  victim.in_flight)[1]),
+              "drain check: the victim never got work")
+        check(wait_until(lambda: dcs[0].engine._pool.n_active >= 1),
+              "drain check: the victim admitted nothing")
+        router.scrape_stats()
+        drained = router.drain_worker(dcs[0].addr)
+        out.extend(router.take_drain_completions())
+        router.remove_worker(dcs[0].addr)
+        gate.restore()
+        out.extend(router.run(max_wall_s=CLUSTER_TIMEOUT_S))
+        got = {r.request_id: r for r in out}
+        check(sorted(got) == list(range(CLUSTER_MIGRATE)),
+              f"drain check: completed {sorted(got)}")
+        check(drained["migrated"] >= 1, f"drain check: {drained}")
+        check_tokens(got, ref, trace, "drain and migrate")
+        return {"drained": drained,
+                "migrations": sum(r.migrations for r in out),
+                "requeues": sum(r.requeues for r in out),
+                "identical": len(got)}
+    finally:
+        gate.restore()
+        router.close(shutdown_workers=True)
+        for s in servers:
+            s.stop()
+
+
+def worker_stats(router) -> dict:
+    """Each pool's one worker's stats, scraped now: {pool: stats}; a
+    worker's ``launch_counts`` are its process's running totals."""
+    router.scrape_stats()
+    return {"prefill": dict(router._prefill[0].stats),
+            "decode": dict(router._decode[0].stats)}
+
+
+def worker_launches(before, after, want_of, what) -> dict:
+    """Each worker's launches between two :func:`worker_stats` snapshots,
+    held to the launches its work in that window fixes: a prefill (one
+    request at batch 1) launches K1 2L+1 times and K2 L times, and K4
+    once when the request samples; a decode step K1 2L+1 times and row
+    7 L times, and K4 once when its lanes sample.  ``want_of(pool,
+    calls)`` -> that pool's {kernel: launches}, ``calls`` the worker's
+    prefill calls or decode steps in the window."""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+
+    out = {}
+    for pool, key in (("prefill", "prefill_calls"),
+                      ("decode", "decode_steps")):
+        b, a = before[pool]["launch_counts"], after[pool]["launch_counts"]
+        got = {k: a.get(k, 0) - b.get(k, 0) for k in ku.KERNELS}
+        calls = after[pool][key] - before[pool][key]
+        want = _want(want_of(pool, calls))
+        check(got == want,
+              f"{what}: {pool} worker launched {got}, not {want} "
+              f"({calls} {key})")
+        out[pool] = got
+    return out
+
+
+def cluster_phase(dev) -> dict:
+    """GPT-2 125M at 12 layers, h768, bf16, paged blocks of 16, seed 0:
+    one prefill and one decode worker as separate processes behind a
+    Router (raw wire), a bursty open-loop trace of CLUSTER_REQUESTS greedy
+    requests replayed on them and on one in-process engine from the same
+    seed (tokens equal for every request), then CLUSTER_SAMPLED sampled
+    requests (K4 in both workers), the int8 and bf16 wires, a mid-flight
+    drain in-process, and a decode worker on a primed compiled-ladder
+    directory."""
+    import argparse
+    import os
+
+    import numpy as np
+
+    from apex_tpu_torch import observability as tobs
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.serving import ServingEngine
+    from apex_tpu_torch.serving.cluster import Router
+    from apex_tpu_torch.serving.cluster import worker as cw
+    from apex_tpu_torch.observability import openmetrics
+
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    root = str(Path(__file__).resolve().parent)
+    env = {"PYTHONPATH": root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    trace = cluster_trace(np.random.RandomState(CLUSTER_SEED), VOCAB_LIMIT)
+    out = {"model": "gpt_125m 12 layers h768 bf16, paged blocks of "
+                    f"{CLUSTER_BLOCK}, {CLUSTER_SLOTS} decode lanes",
+           "requests": len(trace), "new_tokens": CLUSTER_NEW,
+           "prompt_tokens": [len(kw["prompt"]) for _t, kw in trace]}
+    procs = []
+    router = None
+    reg = None
+    try:
+        pend = spawn_pair(env, decode_extra=["--export-port", "0"])
+        procs += [p.proc for p in pend]
+        pfw, dcw = pend
+        out["ready_ms"] = {"prefill": pfw.ready_ms, "decode": dcw.ready_ms}
+        check(dcw.metrics is not None, "decode worker exports no /metrics")
+        # bench.py's warmup before the clock: the first two requests at
+        # two tokens (libraries loaded, first calls made in both workers)
+        router = Router([pfw.addr], [dcw.addr], rpc_timeout=CLUSTER_RPC_S)
+        for _t, kw_ in trace[:2]:
+            router.submit(kw_["prompt"], max_new_tokens=2)
+        check(len(router.run(max_wall_s=CLUSTER_TIMEOUT_S)) == 2,
+              "cluster warmup")
+        router.close()
+        injected0 = openmetrics.sample_value(
+            scrape(dcw.metrics), "serving_kv_injected_total")
+        # the router's own telemetry: /healthz over its pool-stall and
+        # SLO detectors
+        reg = tobs.configure(export_port=0)
+        router = Router([pfw.addr], [dcw.addr], rpc_timeout=CLUSTER_RPC_S)
+        # --- the main path: each worker's counts read just before and
+        # just after the replay, the difference its launches -----------
+        st0 = worker_stats(router)
+        t0 = time.perf_counter()
+        got = router.run_trace(trace, max_wall_s=CLUSTER_TIMEOUT_S)
+        wall = time.perf_counter() - t0
+        st1 = worker_stats(router)
+        resps = {r.request_id: r for r in got}
+        check(sorted(resps) == list(range(len(trace))),
+              f"cluster replay completed {sorted(resps)}")
+        out["cluster"] = topology_report(resps.values(), wall)
+        out["cluster"]["handoff_bytes_total"] = sum(
+            r.handoff_bytes for r in resps.values())
+        out["cluster"]["requeued"] = router.stats()["requeued"]
+        out["router_healthz"] = healthz(reg.exporter.url)
+        print(f"cluster replay: {json.dumps(out['cluster'])}")
+        check(out["router_healthz"] == 200,
+              f"router /healthz {out['router_healthz']}: "
+              f"{[a.to_dict() for a in reg.detectors.anomalies]}")
+        tobs.shutdown()
+        reg = None
+        injected = openmetrics.sample_value(
+            scrape(dcw.metrics), "serving_kv_injected_total") - injected0
+        out["decode_kv_injected"] = injected
+        check(injected == len(trace),
+              f"decode worker serving_kv_injected_total grew by "
+              f"{injected}, not {len(trace)}")
+        L = CLUSTER_MODEL["layers"]
+        steps = st1["decode"]["decode_steps"] - st0["decode"]["decode_steps"]
+        check(st1["prefill"]["prefill_calls"]
+              - st0["prefill"]["prefill_calls"] == len(trace),
+              "the prefill worker did not prefill each request once")
+        check(CLUSTER_NEW - 1 <= steps <= len(trace) * (CLUSTER_NEW - 1),
+              f"decode worker ran {steps} steps for {len(trace)} requests "
+              f"of {CLUSTER_NEW - 1} steps each")
+        out["decode_steps"] = steps
+        out["counts"] = worker_launches(
+            st0, st1, lambda pool, n: (
+                {"layer_norm_fwd": (2 * L + 1) * n,
+                 "flash_attention_fwd": L * n} if pool == "prefill" else
+                {"layer_norm_fwd": (2 * L + 1) * n,
+                 "fused_decode_layer": L * n}), "raw-wire replay")
+
+        # the single engine: same seed, same geometry, same trace
+        ns = argparse.Namespace(seed=CLUSTER_SEED, device=str(dev),
+                                **CLUSTER_MODEL)
+        params, cfg = cw._build_model(ns)
+        eng = ServingEngine(params, cfg, device=dev,
+                            generator=torch.Generator().manual_seed(0),
+                            **CLUSTER_ENGINE)
+        eng.run([dict(prompt=kw_["prompt"], max_new_tokens=2)
+                 for _t, kw_ in trace[:2]])           # the same warmup
+        eng = ServingEngine(params, cfg, device=dev,
+                            generator=torch.Generator().manual_seed(0),
+                            **CLUSTER_ENGINE)
+        ref, wall_single = replay_single(eng, trace)
+        check(sorted(ref) == list(range(len(trace))),
+              f"single replay completed {sorted(ref)}")
+        out["single"] = topology_report(ref.values(), wall_single)
+        out["single"]["handoff_bytes_total"] = 0
+        out["single"]["requeued"] = 0
+        check_tokens(resps, ref, trace, "raw-wire cluster")
+        out["tokens_identical"] = len(resps)
+        del eng
+        torch.cuda.empty_cache()
+
+        # sampled requests: K4 in the prefill worker (first tokens) and
+        # the decode worker (every step)
+        rng = np.random.RandomState(CLUSTER_SEED + 1)
+        for _ in range(CLUSTER_SAMPLED):
+            router.submit(rng.randint(0, VOCAB_LIMIT, (64,)).tolist(),
+                          max_new_tokens=CLUSTER_NEW, temperature=0.8)
+        sampled = router.run(max_wall_s=CLUSTER_TIMEOUT_S)
+        st2 = worker_stats(router)
+        check(len(sampled) == CLUSTER_SAMPLED
+              and all(len(r.tokens) == CLUSTER_NEW
+                      and int(r.tokens.max()) < VOCAB_LIMIT
+                      and int(r.tokens.min()) >= 0 for r in sampled),
+              f"sampled requests: {[r.tokens.tolist() for r in sampled]}")
+        check(st2["prefill"]["prefill_calls"]
+              - st1["prefill"]["prefill_calls"] == CLUSTER_SAMPLED,
+              "the prefill worker did not prefill each sampled request once")
+        out["counts_sampled"] = worker_launches(
+            st1, st2, lambda pool, n: (
+                {"layer_norm_fwd": (2 * L + 1) * n,
+                 "flash_attention_fwd": L * n, "fused_sample": n}
+                if pool == "prefill" else
+                {"layer_norm_fwd": (2 * L + 1) * n,
+                 "fused_decode_layer": L * n, "fused_sample": n}),
+            "sampled requests")
+        router.close()
+        router = None
+
+        # compressed wires: not held to token identity
+        out["wires"] = {}
+        for wire in CLUSTER_WIRES:
+            router = Router([pfw.addr], [dcw.addr], wire_dtype=wire,
+                            rpc_timeout=CLUSTER_RPC_S)
+            got = {r.request_id: r for r in
+                   router.run_trace(trace, max_wall_s=CLUSTER_TIMEOUT_S)}
+            check(sorted(got) == list(range(len(trace))),
+                  f"{wire} wire completed {sorted(got)}")
+            div = [first_divergence(got[i].tokens.tolist(),
+                                    ref[i].tokens.tolist())
+                   for i in range(len(trace))]
+            out["wires"][wire] = {
+                "handoff_bytes_total": sum(r.handoff_bytes
+                                           for r in got.values()),
+                "requests_identical": sum(d is None for d in div),
+                "first_divergence": min((d for d in div if d is not None),
+                                        default=None),
+                "first_divergence_by_request": div}
+            router.close(shutdown_workers=wire == CLUSTER_WIRES[-1])
+            router = None
+        for p in procs:
+            cw.shutdown_worker(p)
+        procs = []
+        out["cluster_processes_s"] = time.perf_counter() - t_phase
+
+        # drain and migrate, in-process, on the card
+        ku.reset_launch_counts()
+        out["drain"] = drain_check(params, cfg, trace, ref, dev)
+        out["drain"]["counts"] = ku.launch_counts()
+
+        # the compiled ladder: a decode worker on a directory this run
+        # primed with its kernel libraries (no nvcc in the worker)
+        d = _fresh_dir("cluster_decode")
+        ku.build_all(directory=d / "kernels")
+        t0 = time.perf_counter()
+        gpend = spawn_pair(env, decode_extra=["--compile-cache", str(d)])
+        procs += [p.proc for p in gpend]
+        out["graph_ladder"] = {
+            "ready_ms": {"prefill": gpend[0].ready_ms,
+                         "decode": gpend[1].ready_ms},
+            "spawn_wall_s": time.perf_counter() - t0}
+        router = Router([gpend[0].addr], [gpend[1].addr],
+                        rpc_timeout=CLUSTER_RPC_S)
+        for _t, kw_ in trace[:CLUSTER_MIGRATE]:
+            router.submit(**kw_)
+        got = {r.request_id: r for r in
+               router.run(max_wall_s=CLUSTER_TIMEOUT_S)}
+        router.scrape_stats()
+        st = router._decode[0].stats
+        out["graph_ladder"].update(
+            compile_cache={k: st["compile_cache"][k]
+                           for k in ("entries", "hits", "misses")},
+            requests_identical=sum(
+                first_divergence(got[i].tokens.tolist(),
+                                 ref[i].tokens.tolist()) is None
+                for i in got))
+        check(len(got) == CLUSTER_MIGRATE,
+              f"graph-ladder decode worker completed {sorted(got)}")
+        check(out["graph_ladder"]["requests_identical"] == CLUSTER_MIGRATE,
+              f"graph-ladder decode worker: tokens identical to the single "
+              f"engine for {out['graph_ladder']['requests_identical']} of "
+              f"{CLUSTER_MIGRATE}")
+        router.close(shutdown_workers=True)
+        router = None
+    finally:
+        if router is not None:
+            router.close()
+        if reg is not None:
+            tobs.shutdown()
+        for p in procs:
+            cw.shutdown_worker(p)
+    out["phase_s"] = time.perf_counter() - t_phase
+    return out
+
+
+def _nonzero(counts):
+    return {p: {k: v for k, v in n.items() if v} for p, n in counts.items()}
+
+
+def print_cluster(c, smi):
+    print(f"cluster gpt_125m ({c['model']}) on {smi}: READY ms "
+          f"{json.dumps(c['ready_ms'])}; {c['requests']} greedy requests "
+          f"(+{c['new_tokens']} tokens, prompts "
+          f"{min(c['prompt_tokens'])}-{max(c['prompt_tokens'])}) raw wire: "
+          f"tokens identical to the single engine for "
+          f"{c['tokens_identical']} of {c['requests']}; two processes "
+          f"{json.dumps(c['cluster'])}; single engine "
+          f"{json.dumps(c['single'])}; decode worker "
+          f"serving_kv_injected_total {c['decode_kv_injected']}, router "
+          f"/healthz {c['router_healthz']}; worker launches in the "
+          f"replay ({c['decode_steps']} decode steps) "
+          f"{json.dumps(_nonzero(c['counts']))}, in the "
+          f"{CLUSTER_SAMPLED} sampled requests "
+          f"{json.dumps(_nonzero(c['counts_sampled']))}")
+    print(f"cluster wires on {smi}: {json.dumps(c['wires'])}")
+    dr = c["drain"]
+    print(f"cluster drain in-process on {smi}: {json.dumps(dr['drained'])}, "
+          f"migrations {dr['migrations']}, requeues {dr['requeues']}, "
+          f"identical to the undrained run {dr['identical']} of "
+          f"{CLUSTER_MIGRATE}; graph-ladder decode worker "
+          f"{json.dumps(c['graph_ladder'])}; phase {c['phase_s']:.1f}s")
 
 
 def matmul_times(root: str) -> dict:
@@ -6765,6 +7392,19 @@ def main() -> int:
         # MoE train steps of the port under ROOT
         print(json.dumps(train_times(sys.argv[2])))
         return 0
+    if sys.argv[1:2] == ["--cluster"]:
+        # python3 chip_smoke.py --cluster: the cluster phase and the remat
+        # family check alone (one JSON line)
+        from apex_tpu_torch.ops import _kernel_utils as ku
+        from apex_tpu_torch.ops import (  # noqa: F401  (register them)
+            decode_step, dense, flash_attention, fused_sampling,
+            grouped_matmul, layer_norm, paged_attention, softmax)
+
+        dev = torch.device("cuda")
+        ku.build_all()
+        print(json.dumps({"cluster": cluster_phase(dev),
+                          "remat_family": remat_family_check(dev)}))
+        return 0
     if sys.argv[1:2] == ["--matmul-times"]:
         # python3 chip_smoke.py --matmul-times ROOT: rows 5-7, 9-11, K1
         print(json.dumps(matmul_times(sys.argv[2])))
@@ -6864,6 +7504,8 @@ def main() -> int:
         mark("host tier")
         foreign, foreign_paths = foreign_pool_phase(dev)
         mark("fp32 over bf16 pool")
+    cluster = cluster_phase(dev)
+    mark("cluster")
     for gname, row in graphs.items():
         if "profiled" not in row:
             continue
@@ -6918,6 +7560,7 @@ def main() -> int:
           f"{tier['requests_identical_to_unstarved']} requests; shared "
           f"prefix: {json.dumps(tier['shared_prefix'])}")
     print(f"fp32 compute over a bf16 pool on {smi}: {json.dumps(foreign)}")
+    print_cluster(cluster, smi)
     prof = lora["profiled lora float weights, native pool"]
     print(f"lora engine phase on {smi}: {lora['phase_wall_s']:.1f}s wall; "
           f"profiled run {json.dumps(prof)}")
@@ -7249,6 +7892,13 @@ def main() -> int:
     paths.update(slice_paths)
     for extra in (spec_gen_paths, spec_eng_paths, tier_paths, foreign_paths):
         paths.update(extra)
+    paths["cluster prefill worker"] = cluster["counts"]["prefill"]
+    paths["cluster decode worker"] = cluster["counts"]["decode"]
+    paths["cluster prefill worker sampled"] = (
+        cluster["counts_sampled"]["prefill"])
+    paths["cluster decode worker sampled"] = (
+        cluster["counts_sampled"]["decode"])
+    paths["cluster drain in-process"] = cluster["drain"].pop("counts")
     paths.update({f"engine {name}": row["counts"]
                   for name, row in eng.items() if "counts" in row})
     paths.update({f"engine {name}": row["counts"]
@@ -7261,8 +7911,8 @@ def main() -> int:
     line = {"kernels": [
         {"name": k, "route": "cuda", "source": "apex_tpu_torch/csrc/"
          + ku.KERNELS[k].source, "replaces": ku.KERNELS[k].replaces,
-         "launches": sum(c[k] for c in paths.values()),
-         "launches_by_path": {p: c[k] for p, c in paths.items()},
+         "launches": sum(c.get(k, 0) for c in paths.values()),
+         "launches_by_path": {p: c.get(k, 0) for p, c in paths.items()},
          "max_abs_err": r["err"], "max_rel_err": r.get("rel_err"),
          "tol": r["tol"],
          "tol_of": "max_rel_err" if "rel_err" in r else "max_abs_err",
@@ -7308,6 +7958,8 @@ def main() -> int:
         "generic_mask": {k: v for k, v in gm.items() if k != "counts"},
         "spec_generate": spec_gen, "spec_engine": spec_eng,
         "host_tier": tier, "fp32_over_bf16_pool": foreign,
+        "cluster": {k: v for k, v in cluster.items()
+                    if k not in ("counts", "counts_sampled")},
         "training_slice": training, "phase_s": phase_s}
     print(json.dumps(line))
     print(smi)

@@ -248,6 +248,47 @@ def test_k3_fused_decode_layer(dev, dtype, tol, nh, g, dh, rope, w_dtype):
     assert torch.count_nonzero(out[-1]) == 0
 
 
+def test_k3_row6_threads_share_a_stream(dev):
+    """K3 and row 6 called from two threads on one stream, each thread
+    allocating between calls: every result equals the same call made
+    alone, bit for bit.  (The chunks' scratch must outlive the launch: a
+    scratch freed while its pointer was taken went back to the allocator,
+    and the other thread's next tensor took it before this call's kernels
+    were enqueued.)"""
+    import threading
+
+    from apex_tpu_torch.ops import paged_attention as tpa
+
+    ops = [_decode_operands(dev, torch.bfloat16, 12, 12, 64, seed)
+           for seed in (3, 4)]
+
+    def calls(i):
+        args, _, w, cos, sin = ops[i]
+        return (tds.fused_decode_layer(*args, w, rope_cos=cos, rope_sin=sin),
+                tpa.ragged_paged_attention(*args))
+
+    alone = [calls(i) for i in (0, 1)]
+    torch.cuda.synchronize()
+    got = {0: [], 1: []}
+
+    def worker(i):
+        for _ in range(200):
+            got[i].append(calls(i))
+            torch.randn(1 << 14, device=dev).add_(1.0)
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in (0, 1)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    torch.cuda.synchronize()
+    for i in (0, 1):
+        assert len(got[i]) == 200
+        for out, paged in got[i]:
+            assert torch.equal(out, alone[i][0])
+            assert torch.equal(paged, alone[i][1])
+
+
 def _k4_temps(b, dev, mode="mixed"):
     """Per-row temperatures: greedy rows (0) among sampled ones, or all
     greedy."""

@@ -143,19 +143,115 @@ def test_quantized_params_bytes_and_stats_keys():
                                 dict(host_tier_wire="int8",
                                      token_masks=True)])
 def test_unported_engine_options_raise(kw):
-    """``spec``, ``host_tier_bytes`` and ``host_tier_wire`` are ported now
-    (tests/test_torch_serving_spec.py, tests/test_torch_host_tier.py): the
-    engine builds under them and serves; what stays unported is the
-    cluster tier's ``submit_prefilled`` and ``drain``."""
+    """Every engine option serves KV handoffs as the JAX engine does: a
+    request prefilled elsewhere (the JAX package's prefill, K/V over the
+    raw wire) and injected through ``submit_prefilled`` decodes the same
+    greedy tokens in both engines under the option, beside a local
+    request; ``drain`` empties the engine.  (The name is kept from when
+    the port raised here.)"""
+    from apex_tpu.serving.cluster.handoff import encode_kv as j_encode
+    from apex_tpu_torch.serving.cluster.handoff import decode_kv as t_decode
+
+    jcfg, jp, tcfg, tp = _model(False)
+    kw = dict(ENGINE, cache_layout="paged", **kw)
+    te = TEngine(tp, tcfg, device="cpu", **kw)
+    je = JEngine(jp, jcfg, **kw)
+    prompt = np.arange(5) + 1
+    k, v, first = _jax_remote_prefill(jp, jcfg, prompt, "paged")
+    hdr, blobs = j_encode(k, v, wire_dtype="raw")
+    tk, tv = t_decode(hdr, blobs)
+    te.submit_prefilled(prompt, tk, tv, first, max_new_tokens=6,
+                        prefill_ms=1.5)
+    je.submit_prefilled(prompt, k, v, first, max_new_tokens=6,
+                        prefill_ms=1.5)
+    for e in (te, je):
+        e.submit(np.arange(7) + 2, max_new_tokens=4)
+    tout, jout = te.run(), je.run()
+    assert [r.tokens.tolist() for r in tout] == \
+        [r.tokens.tolist() for r in jout]
+    assert tout[0].tokens[0] == first and tout[0].prefill_ms == 1.5
+    assert te.stats()["prefill_calls"] == 1     # the local request only
+    te.submit(np.arange(5) + 1, max_new_tokens=4)
+    live, requeue = te.drain()
+    assert te.idle and not live and len(requeue) == 1
+
+
+def _jax_remote_prefill(params, cfg, prompt, scratch_layout,
+                        cache_dtype=jnp.float32):
+    """The JAX package's prefill of one prompt into a bucket scratch
+    cache → (per-token K/V, greedy first token), as its cluster prefill
+    worker computes them."""
+    from apex_tpu.models.generate import extract_kv, init_kv_cache, prefill
+    from apex_tpu.serving.batching import default_buckets, pad_prompt
+    from apex_tpu.serving.batching import pick_bucket
+
+    n = len(prompt)
+    bucket = pick_bucket(n, default_buckets(32))
+    padded = jnp.asarray(pad_prompt(np.asarray(prompt, np.int32),
+                                    bucket)[None])
+    lens = jnp.asarray([n], jnp.int32)
+    if scratch_layout == "paged":
+        scratch = init_kv_cache(cfg, 1, bucket, cache_dtype=cache_dtype,
+                                cache_layout="paged", block_size=4)
+        logits, cache = prefill(params, padded, cfg, prompt_lens=lens,
+                                cache=scratch)
+    else:
+        logits, cache = prefill(params, padded, cfg, prompt_lens=lens,
+                                max_len=bucket, cache_dtype=cache_dtype)
+    k, v = extract_kv(cache, n)
+    return np.asarray(k), np.asarray(v), int(jnp.argmax(logits[0]))
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+@pytest.mark.parametrize("cache_dtype", ["float32", "bfloat16"])
+def test_submit_prefilled_raw_wire_token_identical(layout, cache_dtype):
+    """The JAX package's ``test_raw_wire_token_identical`` on the port:
+    extract (the JAX prefill, cross-layout) → raw wire → the port's
+    ``submit_prefilled``, then decode: the greedy outputs equal a port
+    engine that prefilled locally and the JAX engine fed the same
+    handoffs."""
+    from apex_tpu.serving.cluster.handoff import encode_kv as j_encode
+    from apex_tpu_torch.serving.cluster.handoff import decode_kv as t_decode
+
+    jcfg, jp, tcfg, tp = _model(False)
+    rng = np.random.RandomState(4)
+    prompts = [rng.randint(0, 128, (n,)) for n in (5, 9)]
+    kw = dict(max_slots=2, max_len=32, cache_layout=layout, block_size=4)
+    tdt, jdt = getattr(torch, cache_dtype), getattr(jnp, cache_dtype)
+    ref_eng = TEngine(tp, tcfg, cache_dtype=tdt, device="cpu", **kw)
+    ref = {tuple(r.prompt.tolist()): r.tokens.tolist()
+           for r in ref_eng.run([dict(prompt=p, max_new_tokens=5)
+                                 for p in prompts])}
+    te = TEngine(tp, tcfg, cache_dtype=tdt, device="cpu", **kw)
+    je = JEngine(jp, jcfg, cache_dtype=jdt, **kw)
+    for p in prompts:
+        k, v, first = _jax_remote_prefill(
+            jp, jcfg, p, "paged" if layout == "contiguous" else "contiguous",
+            cache_dtype=jdt)
+        hdr, blobs = j_encode(k, v, wire_dtype="raw")
+        tk, tv = t_decode(hdr, blobs)
+        assert tk.dtype == tdt
+        te.submit_prefilled(p, tk, tv, first, max_new_tokens=5)
+        je.submit_prefilled(p, k, v, first, max_new_tokens=5)
+    out = {tuple(r.prompt.tolist()): r.tokens.tolist() for r in te.run()}
+    jout = {tuple(r.prompt.tolist()): r.tokens.tolist() for r in je.run()}
+    assert out == ref == jout
+    assert te.stats()["prefill_calls"] == 0
+
+
+def test_submit_prefilled_refusals():
+    """A foreign geometry, an unknown adapter and an over-long request
+    are refused as the JAX engine refuses them."""
     _, _, tcfg, tp = _model(False)
-    te = TEngine(tp, tcfg, device="cpu",
-                 **dict(ENGINE, cache_layout="paged", **kw))
-    out = te.run([dict(prompt=np.arange(5) + 1, max_new_tokens=4)])
-    assert len(out) == 1 and out[0].tokens.size == 4
-    with pytest.raises(NotImplementedError):
-        te.submit_prefilled(np.arange(3))
-    with pytest.raises(NotImplementedError):
-        te.drain()
+    te = TEngine(tp, tcfg, device="cpu", **ENGINE)
+    k = torch.zeros(2, 3, 4, 16)
+    with pytest.raises(ValueError, match="geometry"):
+        te.submit_prefilled([1, 2, 3, 4], k, k, 1, max_new_tokens=4)
+    with pytest.raises(ValueError, match="adapter_pool"):
+        te.submit_prefilled([1, 2, 3], k, k, 1, adapter_id=2)
+    with pytest.raises(ValueError, match="max_len"):
+        te.submit_prefilled([1, 2, 3], k, k, 1, max_new_tokens=40)
+    assert te.idle
 
 
 def test_sampled_lanes_are_seeded_and_in_vocab():
