@@ -21,13 +21,17 @@ with LoRA adapters, the single-device AMP train step
 the LayerNorm and flash-attention backward kernels), and the BERT
 pretrain step ``models.bert.make_bert_train_step`` (``optimizers.
 fused_lamb``, the short-key flash backward, the scaled masked softmax of
-``ops.softmax`` and ``transformer.functional.FusedScaleMaskSoftmax``).
+``ops.softmax`` and ``transformer.functional.FusedScaleMaskSoftmax``),
+and data- and context-parallel GPT training over ``torch.distributed``
+(``parallel``: the launcher, the rank mesh, DDP, ring and Ulysses
+attention; ``comm``: compressed gradient collectives).
 """
 
 __version__ = "0.1.0"
 
-_LAZY_SUBMODULES = ("amp", "models", "multi_tensor", "observability", "ops",
-                    "optimizers", "serving", "transformer", "utils")
+_LAZY_SUBMODULES = ("amp", "comm", "models", "multi_tensor", "observability",
+                    "ops", "optimizers", "parallel", "serving", "transformer",
+                    "utils")
 
 
 def __getattr__(name):

@@ -48,8 +48,19 @@ model steps' dropout key) is split per microbatch as the JAX step splits it
 train state in the JAX package's sharded format (``apex_tpu_torch.
 checkpoint``), :func:`state_dict` / :func:`load_state_dict` the scaler.
 
-Not in this slice (they raise ``NotImplementedError``): ``axis_name``,
-``grad_comm``, ``overlap_comm`` (distributed training).
+``axis_name`` names the process group the gradients are reduced over
+(``apex_tpu/amp/frontend.py:106``): a ``torch.distributed`` group, or a
+mesh axis name (or tuple of names) of the installed mesh
+(``transformer/parallel_state``).  After the unscale the gradients are
+averaged over it (``utils/collectives.grad_mean``) and the finite flag
+AND-ed over it, so every rank takes the same overflow decision.
+``grad_comm`` (``"fp32"``, ``"bf16"``, ``"int8"`` or a
+``comm.GradCommConfig``; needs ``axis_name``) routes a compressing wire
+through ``comm.reduce_gradients``; with error feedback (int8's default)
+the state carries this rank's fp32 residuals in ``TrainState.
+comm_state``, kept unchanged by an overflowed step.  ``overlap_comm``
+(tensor-parallel comm overlap) raises ``NotImplementedError``: it comes
+with the tensor-parallel slice.
 """
 
 from __future__ import annotations
@@ -59,6 +70,7 @@ from typing import Any, Callable, NamedTuple, Optional, Tuple, Union
 import torch
 from torch.profiler import record_function
 
+from apex_tpu_torch import comm as comm_lib
 from apex_tpu_torch.amp import scaler as scaler_lib
 from apex_tpu_torch.amp.patch import amp_patch_scope
 from apex_tpu_torch.amp.policy import Policy, _effective, policy_for_opt_level
@@ -67,9 +79,11 @@ from apex_tpu_torch.optimizers._common import (
     apply_or_keep, float_leaves, global_norm, is_float_leaf, norm_metrics,
     rebuild, tree_map)
 from apex_tpu_torch.utils import prng
+from apex_tpu_torch.utils.collectives import flag_and, grad_mean
 from apex_tpu_torch.utils.registry import check_backend
 
 __all__ = ["AmpState", "TrainState", "initialize", "make_train_step",
+           "resolve_group",
            "state_dict", "load_state_dict", "save_train_state",
            "restore_train_state"]
 
@@ -105,11 +119,20 @@ class TrainState(NamedTuple):
     master_params: Any                # fp32 masters (== params when disabled)
     opt_state: Any
     loss_scale_state: scaler_lib.LossScaleState
+    # this rank's error-feedback residuals when grad_comm compresses with
+    # error feedback (comm.init_error_state layout); None otherwise
+    comm_state: Any = None
 
 
-def _later_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} comes with the distributed-training slice of the port")
+def resolve_group(axis_name):
+    """A process group from ``axis_name``: a mesh axis name or tuple of
+    names (the installed mesh's group of this rank's line), or a group
+    (``torch.distributed`` group, ``collectives.SINGLE``) as it is."""
+    if isinstance(axis_name, (str, tuple)):
+        from apex_tpu_torch.transformer.parallel_state import get_mesh
+
+        return get_mesh().group(axis_name)
+    return axis_name
 
 
 def _is_key_words(x) -> bool:
@@ -183,13 +206,21 @@ def make_train_step(loss_fn: Callable, optimizer: Any,
     metrics carry ``loss`` (the microbatches' mean), ``overflow``,
     ``loss_scale`` and ``step`` (this step's index) as device tensors,
     and the norms under ``norm_telemetry``."""
-    if axis_name is not None:
-        raise _later_slice("axis_name (data-parallel gradient reduction)")
-    if grad_comm is not None:
-        raise _later_slice("grad_comm (compressed gradient collectives)")
     if overlap_comm is not None:
-        raise _later_slice("overlap_comm (tensor-parallel comm overlap)")
+        raise NotImplementedError(
+            "overlap_comm (the ring collective-matmul of the tensor-parallel "
+            "exits) comes with the tensor-parallel slice of the port")
     check_backend(backend)
+    comm_cfg = None
+    if grad_comm is not None:
+        comm_cfg = comm_lib.resolve(grad_comm)
+        if axis_name is None:
+            raise ValueError(
+                "grad_comm is a cross-rank gradient reduction spec and "
+                "needs axis_name= to name the group to reduce over")
+    compressing = comm_cfg is not None and comm_cfg.compresses
+    use_ef = compressing and comm_cfg.use_error_feedback
+    group = resolve_group(axis_name) if axis_name is not None else None
     amp_state = (policy_or_amp if isinstance(policy_or_amp, AmpState)
                  else initialize(policy_or_amp, device=device))
     policy, ls_cfg = amp_state.policy, amp_state.loss_scale_config
@@ -208,7 +239,9 @@ def make_train_step(loss_fn: Callable, optimizer: Any,
         return TrainState(step=step, params=model_params,
                           master_params=master,
                           opt_state=optimizer.init(master),
-                          loss_scale_state=own(amp_state.loss_scale_state))
+                          loss_scale_state=own(amp_state.loss_scale_state),
+                          comm_state=(comm_lib.init_error_state(master)
+                                      if use_ef else None))
 
     def scaled_grads(masters, leaves, ls_state, batch):
         """(one gradient per float master, loss, aux) of one (micro)batch."""
@@ -248,14 +281,34 @@ def make_train_step(loss_fn: Callable, optimizer: Any,
                     backend=backend)[0]
             loss = torch.stack(losses).mean()
         grads = rebuild(masters, got)
+        del got     # the unscale writes new fp32 gradients: free these
         with record_function("amp.unscale"):
             grads, finite = scaler_lib.unscale_grads(
                 grads, ls_state, divide_by=max(accum_steps, 1),
                 backend=backend)
+        new_comm_state = state.comm_state
+        if group is not None:
+            with torch.no_grad(), record_function("amp.grad_reduce"):
+                if compressing:
+                    # residuals in unscaled fp32 units: a loss-scale
+                    # change between steps leaves the carried error valid
+                    grads, new_comm_state = comm_lib.reduce_gradients(
+                        grads, group, comm_cfg,
+                        residuals=state.comm_state if use_ef else None)
+                else:
+                    # the unscaled gradients are the step's own: reduce
+                    # in place (no second gradient tree on the device)
+                    grads = grad_mean(grads, group, inplace=True)
+                finite = flag_and(finite, group)
         if grad_postprocess is not None:
             grads = grad_postprocess(grads)
         new_ls_state, overflow = scaler_lib.update_loss_scale(
             ls_cfg, ls_state, ~finite)
+        if use_ef:
+            # an overflowed step's residuals are garbage: keep the old
+            new_comm_state = tuple(
+                torch.where(overflow, old, new)
+                for new, old in zip(new_comm_state, state.comm_state))
 
         old_master = state.master_params
         with torch.no_grad(), record_function("amp.optimizer_tail"):
@@ -284,7 +337,8 @@ def make_train_step(loss_fn: Callable, optimizer: Any,
                 master_params=(new_master if policy.master_weights
                                else new_params),
                 opt_state=new_opt_state,
-                loss_scale_state=new_ls_state)
+                loss_scale_state=new_ls_state,
+                comm_state=new_comm_state)
         metrics = {"loss": loss, "overflow": overflow,
                    "loss_scale": new_ls_state.loss_scale,
                    "step": state.step}

@@ -110,6 +110,7 @@ class AsyncCheckpointer:
         if process_index not in (None, 0):
             raise NotImplementedError(
                 "saving from another process than 0 comes with the "
+                "checkpoint's multi-process half, a later "
                 "distributed-training slice of the port")
         self.directory = directory
         self.keep = keep

@@ -28,7 +28,8 @@ Restore is driven by a template (the freshly initialised state): the
 tree structure, every shape and dtype must match the manifest, every
 digest is checked, and each leaf is placed on the template leaf's device
 bit for bit.  One process only: more processes, ``reshard=True`` and
-mesh geometry come with the distributed-training slice, and raise.
+mesh geometry come with the checkpoint's multi-process half (a later
+distributed-training slice), and raise.
 """
 
 from __future__ import annotations
@@ -63,7 +64,8 @@ class CheckpointError(RuntimeError):
 
 def _distributed(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} comes with the distributed-training slice of the port")
+        f"{what} comes with the checkpoint's multi-process half, a later "
+        "distributed-training slice of the port")
 
 
 def _step_dir(directory: str, step: int) -> str:

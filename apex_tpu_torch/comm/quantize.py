@@ -1,6 +1,7 @@
-"""Block-scaled wire-format quantization (``apex_tpu/comm/quantize.py``),
-the codec half: pure elementwise and blockwise math over the last axis,
-bit for bit the JAX package's.
+"""Block-scaled wire-format quantization (``apex_tpu/comm/quantize.py``):
+pure elementwise and blockwise math over the last axis, bit for bit the
+JAX package's; the codec of the KV handoff and of the compressed gradient
+collectives (``comm/reduce.py``).
 
 Wire formats:
 
@@ -20,7 +21,7 @@ import torch
 import torch.nn.functional as F
 
 __all__ = ["WIRE_DTYPES", "quantize_blocks", "dequantize_blocks",
-           "wire_itemsize"]
+           "wire_itemsize", "scale_bytes_per_element"]
 
 WIRE_DTYPES = ("fp32", "bf16", "int8")
 
@@ -30,6 +31,11 @@ _INT8_MAX = 127.0
 def wire_itemsize(wire_dtype: str) -> int:
     """Bytes per element on the wire for ``wire_dtype``."""
     return {"fp32": 4, "bf16": 2, "int8": 1}[wire_dtype]
+
+
+def scale_bytes_per_element(wire_dtype: str, block: int) -> float:
+    """Amortized fp32 scale bytes per element (int8 only)."""
+    return 4.0 / block if wire_dtype == "int8" else 0.0
 
 
 def _pad_last(x: torch.Tensor, multiple: int) -> torch.Tensor:

@@ -17,6 +17,13 @@
 // another segment (or of a negative id) is masked, and a key tile whose
 // ids cannot meet the query tile's is skipped.
 //
+// fp32 output (apex_flash_fwd_f32): _fwd_pallas(..., out_dtype=float32), the
+// call of the ring's chunk forward (apex_tpu/parallel/ring_attention.py:153):
+// 16-bit q, k, v in, o written from the fp32 accumulator without rounding,
+// so that the ring's lse merge of the chunks stays in fp32.  The Hopper
+// kernel's epilogue is a template parameter (an instantiation of its own,
+// not a branch), without dropout or segment ids.
+//
 // Bound on the H100: at the serving shapes (b=8, s<=512, d=64) bytes —
 // q, k, v and o are read and written once and the causal, padded pairs
 // need fewer flops than the ~295 flop/byte ridge; longer sequences turn
@@ -213,13 +220,15 @@ struct Fwd {
 // kExt: the instantiation that takes segment ids or dropout.  It is a
 // kernel of its own: compiled into the same kernel as a branch, its code
 // cost the calls without either 5-12% on an H100 (a variant with the
-// branch compiled out timed as the kernel without it).
-template <typename T, int D, bool kExt>
+// branch compiled out timed as the kernel without it).  TO: o's element
+// type, T, or float for the ring's chunk calls (apex_flash_fwd_f32), whose
+// partial results feed an fp32 merge; only the epilogue differs.
+template <typename T, int D, bool kExt, typename TO = T>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                           const __grid_constant__ CUtensorMap tk,
                           const __grid_constant__ CUtensorMap tv,
-                          const float* __restrict__ kpm, T* __restrict__ o,
+                          const float* __restrict__ kpm, TO* __restrict__ o,
                           float* __restrict__ lse, int nb, int sq, int sk,
                           int n, int g, int dr, float scale, int causal,
                           FlashExtras ex) {
@@ -542,14 +551,14 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
               l == 0.0f ? APEX_NEG_INF
                         : (m_i[i] + log2f(safe_l)) * sm90::kLn2;
       }
-      sm90::store_rows<T>(acc_o, inv, o + ((size_t)b * sq * n + h) * dr,
+      sm90::store_rows<TO>(acc_o, inv, o + ((size_t)b * sq * n + h) * dr,
                           (size_t)n * dr, row0, sq, dr);
     }
     if (wg == 0) sm90::turn_begin(wg);  // the last hand-over
   }
 }
 
-template <typename T, int D, bool kExt>
+template <typename T, int D, bool kExt, typename TO = T>
 int launch_sm90(const void* q, const void* k, const void* v, const void* kpm,
                 void* o, void* lse, int b, int sq, int sk, int n, int g,
                 int dr, float scale, int causal, const FlashExtras& ex,
@@ -560,24 +569,31 @@ int launch_sm90(const void* q, const void* k, const void* v, const void* kpm,
   if (err == 0) err = sm90::encode_bsnd<T>(&tk, k, b, sk, g, dr, C::BK);
   if (err == 0) err = sm90::encode_bsnd<T>(&tv, v, b, sk, g, dr, C::BK);
   if (err == 0)
-    err = sm90::set_smem(flash_fwd_sm90_kernel<T, D, kExt>, C::bytes);
+    err = sm90::set_smem(flash_fwd_sm90_kernel<T, D, kExt, TO>, C::bytes);
   int grid = 0;
   if (err == 0) err = sm90::persistent_grid((sq + C::BQ - 1) / C::BQ * b * n,
                                             &grid);
   if (err != 0) return err;
-  flash_fwd_sm90_kernel<T, D, kExt><<<grid, sm90::kThreads, C::bytes,
-                                      stream>>>(
-      tq, tk, tv, (const float*)kpm, (T*)o, (float*)lse, b, sq, sk, n, g, dr,
-      scale, causal, ex);
+  flash_fwd_sm90_kernel<T, D, kExt, TO><<<grid, sm90::kThreads, C::bytes,
+                                          stream>>>(
+      tq, tk, tv, (const float*)kpm, (TO*)o, (float*)lse, b, sq, sk, n, g,
+      dr, scale, causal, ex);
   return (int)cudaGetLastError();
 }
 
+// out_f32: o is fp32 whatever T (the same kernel on 16-bit inputs, its
+// fp32 epilogue; fp32 inputs write fp32 anyway).
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v, const void* kpm,
            void* o, void* lse, int b, int sq, int sk, int n, int g, int dr,
-           float scale, int causal, const FlashExtras& ex,
+           float scale, int causal, const FlashExtras& ex, bool out_f32,
            cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
+    if (out_f32)
+      return has_extras(ex) ? (int)cudaErrorInvalidValue
+                            : launch_sm90<T, D, false, float>(
+                                  q, k, v, kpm, o, lse, b, sq, sk, n, g, dr,
+                                  scale, causal, ex, stream);
     return has_extras(ex)
                ? launch_sm90<T, D, true>(q, k, v, kpm, o, lse, b, sq, sk, n,
                                          g, dr, scale, causal, ex, stream)
@@ -599,6 +615,37 @@ int launch(const void* q, const void* k, const void* v, const void* kpm,
 
 }  // namespace
 
+namespace {
+
+int fwd_entry(const void* q, const void* k, const void* v, const void* kpm,
+              void* o, void* lse, int b, int sq, int sk, int n, int g, int d,
+              float scale, int causal, int dtype, const void* seed,
+              unsigned threshold, float inv_keep, const void* seg,
+              const void* seg_rng, bool out_f32, cudaStream_t stream) {
+  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0 ||
+      (seg != nullptr && (seg_rng == nullptr || sq != sk)))
+    return (int)cudaErrorInvalidValue;
+  const FlashExtras ex = make_extras(seed, threshold, inv_keep, seg, seg_rng);
+  APEX_DISPATCH_FLOAT(dtype, T, {
+    switch (sm90::head_panel(d)) {
+      case 32:
+        return launch<T, 32>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d, scale,
+                             causal, ex, out_f32, stream);
+      case 64:
+        return launch<T, 64>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d, scale,
+                             causal, ex, out_f32, stream);
+      case 128:
+        return launch<T, 128>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d,
+                              scale, causal, ex, out_f32, stream);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  });
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // q [b, sq, n, d], k/v [b, sk, g, d], o like q (dtype), kpm [b, sk] fp32
 // additive or NULL, lse [b·n, sq] fp32.  d a multiple of 8 up to 128: the
 // kernels of the next of 32, 64 and 128 (sm90::head_panel) run on tiles
@@ -613,26 +660,24 @@ extern "C" int apex_flash_fwd(const void* q, const void* k, const void* v,
                               const void* seed, unsigned threshold,
                               float inv_keep, const void* seg,
                               const void* seg_rng, cudaStream_t stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0 ||
-      (seg != nullptr && (seg_rng == nullptr || sq != sk)))
-    return (int)cudaErrorInvalidValue;
-  const FlashExtras ex = make_extras(seed, threshold, inv_keep, seg, seg_rng);
-  APEX_DISPATCH_FLOAT(dtype, T, {
-    switch (sm90::head_panel(d)) {
-      case 32:
-        return launch<T, 32>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d, scale,
-                             causal, ex, stream);
-      case 64:
-        return launch<T, 64>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d, scale,
-                             causal, ex, stream);
-      case 128:
-        return launch<T, 128>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d,
-                              scale, causal, ex, stream);
-      default:
-        return (int)cudaErrorInvalidValue;
-    }
-  });
-  return (int)cudaErrorInvalidValue;
+  return fwd_entry(q, k, v, kpm, o, lse, b, sq, sk, n, g, d, scale, causal,
+                   dtype, seed, threshold, inv_keep, seg, seg_rng, false,
+                   stream);
+}
+
+// As apex_flash_fwd with o fp32 [b, sq, n, d] whatever the inputs' dtype
+// (the fp32 outputs of _fwd_pallas(..., out_dtype=float32) that the ring's
+// chunk calls take); no dropout or segment ids on 16-bit inputs.
+extern "C" int apex_flash_fwd_f32(const void* q, const void* k, const void* v,
+                                  const void* kpm, void* o, void* lse, int b,
+                                  int sq, int sk, int n, int g, int d,
+                                  float scale, int causal, int dtype,
+                                  const void* seed, unsigned threshold,
+                                  float inv_keep, const void* seg,
+                                  const void* seg_rng, cudaStream_t stream) {
+  return fwd_entry(q, k, v, kpm, o, lse, b, sq, sk, n, g, d, scale, causal,
+                   dtype, seed, threshold, inv_keep, seg, seg_rng, true,
+                   stream);
 }
 
 namespace {

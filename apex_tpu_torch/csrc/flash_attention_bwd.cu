@@ -34,6 +34,14 @@
 // (:511-527); keys of another segment are masked, and tile pairs whose
 // ids cannot meet are skipped (both sides walk the same live tiles).
 //
+// fp32 outputs (apex_flash_bwd_dq_f32, apex_flash_bwd_dkv_f32):
+// _bwd_pallas(..., out_dtype=float32), the ring's chunk backward
+// (apex_tpu/parallel/ring_attention.py:179), which passes the global lse
+// and delta of the whole ring and sums the chunks' dq, dk and dv in fp32:
+// the accumulators are stored unrounded (dk and dv GQA-summed in fp32).  The
+// Hopper kernels' epilogue is a template parameter (an instantiation of its
+// own), without dropout or segment ids.
+//
 // Numbers.  The TPU kernels keep p and ds in fp32.  Here 16-bit inputs
 // run all four products on the tensor cores with fp32 accumulators, so p
 // and ds are rounded to the input type before the dv, dk and dq products;
@@ -245,7 +253,7 @@ struct BwdDq {
   static constexpr int bytes = bar_off + (4 + 2 * STAGES) * 8 + 1024;
 };
 
-template <typename T, int D, bool kExt>
+template <typename T, int D, bool kExt, typename TO = T>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     flash_bwd_dq_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
@@ -254,7 +262,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              const float* __restrict__ kpm,
-                             T* __restrict__ dq, int nb, int sq, int sk,
+                             TO* __restrict__ dq, int nb, int sq, int sk,
                              int n, int g, int dr, float scale, int causal,
                              FlashExtras ex) {
   using C = BwdDq<D>;
@@ -542,7 +550,7 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       }
       ring += u;
       const float one[2] = {1.0f, 1.0f};
-      sm90::store_rows<T>(acc_dq, one, dq + ((size_t)b * sq * n + h) * dr,
+      sm90::store_rows<TO>(acc_dq, one, dq + ((size_t)b * sq * n + h) * dr,
                           (size_t)n * dr, row0, sq, dr);
     }
     if (wg == 0) sm90::turn_begin(wg);  // the last hand-over
@@ -591,7 +599,7 @@ struct DkvItem {
   }
 };
 
-template <typename T, int D, bool kExt>
+template <typename T, int D, bool kExt, typename TO = T>
 __global__ void __launch_bounds__(sm90::kThreads, 1)
     flash_bwd_dkv_sm90_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
@@ -600,7 +608,8 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               const float* __restrict__ kpm,
-                              T* __restrict__ dk, T* __restrict__ dv, int nb,
+                              TO* __restrict__ dk, TO* __restrict__ dv,
+                              int nb,
                               int sq, int sk, int n, int g, int dr,
                               float scale, int causal, FlashExtras ex) {
   using C = BwdDkv<D>;
@@ -914,10 +923,10 @@ __global__ void __launch_bounds__(sm90::kThreads, 1)
       ring += u;
       const float one[2] = {1.0f, 1.0f};
       const size_t off = ((size_t)b * sk * g + kvh) * dr;
-      sm90::store_rows<T>(acc_dk, one, dk + off, (size_t)g * dr, key0, sk,
-                          dr);
-      sm90::store_rows<T>(acc_dv, one, dv + off, (size_t)g * dr, key0, sk,
-                          dr);
+      sm90::store_rows<TO>(acc_dk, one, dk + off, (size_t)g * dr, key0, sk,
+                           dr);
+      sm90::store_rows<TO>(acc_dv, one, dv + off, (size_t)g * dr, key0, sk,
+                           dr);
     }
     if (wg == 0) sm90::turn_begin(wg);  // the last hand-over
   }
@@ -935,7 +944,7 @@ int bwd_maps(CUtensorMap* tq, CUtensorMap* tk, CUtensorMap* tv,
   return err;
 }
 
-template <typename T, int D, bool kExt>
+template <typename T, int D, bool kExt, typename TO = T>
 int launch_dq_sm90(const void* q, const void* k, const void* v,
                    const void* dout, const void* lse, const void* delta,
                    const void* kpm, void* dq, int b, int sq, int sk, int n,
@@ -946,19 +955,20 @@ int launch_dq_sm90(const void* q, const void* k, const void* v,
   int err = bwd_maps<T, D>(&tq, &tk, &tv, &tdo, q, k, v, dout, b, sq, sk, n,
                            g, dr, C::BQ, C::BK);
   if (err == 0)
-    err = sm90::set_smem(flash_bwd_dq_sm90_kernel<T, D, kExt>, C::bytes);
+    err = sm90::set_smem(flash_bwd_dq_sm90_kernel<T, D, kExt, TO>,
+                         C::bytes);
   int grid = 0;
   if (err == 0)
     err = sm90::persistent_grid((sq + C::BQ - 1) / C::BQ * b * n, &grid);
   if (err != 0) return err;
-  flash_bwd_dq_sm90_kernel<T, D, kExt><<<grid, sm90::kThreads, C::bytes,
-                                         stream>>>(
+  flash_bwd_dq_sm90_kernel<T, D, kExt, TO><<<grid, sm90::kThreads, C::bytes,
+                                             stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-      (const float*)kpm, (T*)dq, b, sq, sk, n, g, dr, scale, causal, ex);
+      (const float*)kpm, (TO*)dq, b, sq, sk, n, g, dr, scale, causal, ex);
   return (int)cudaGetLastError();
 }
 
-template <typename T, int D, bool kExt>
+template <typename T, int D, bool kExt, typename TO = T>
 int launch_dkv_sm90(const void* q, const void* k, const void* v,
                     const void* dout, const void* lse, const void* delta,
                     const void* kpm, void* dk, void* dv, int b, int sq,
@@ -969,25 +979,34 @@ int launch_dkv_sm90(const void* q, const void* k, const void* v,
   int err = bwd_maps<T, D>(&tq, &tk, &tv, &tdo, q, k, v, dout, b, sq, sk, n,
                            g, dr, C::BQ, C::BK);
   if (err == 0)
-    err = sm90::set_smem(flash_bwd_dkv_sm90_kernel<T, D, kExt>, C::bytes);
+    err = sm90::set_smem(flash_bwd_dkv_sm90_kernel<T, D, kExt, TO>,
+                         C::bytes);
   int grid = 0;
   if (err == 0)
     err = sm90::persistent_grid((sk + C::BK - 1) / C::BK * b * g, &grid);
   if (err != 0) return err;
-  flash_bwd_dkv_sm90_kernel<T, D, kExt><<<grid, sm90::kThreads, C::bytes,
-                                          stream>>>(
+  flash_bwd_dkv_sm90_kernel<T, D, kExt, TO><<<grid, sm90::kThreads,
+                                              C::bytes, stream>>>(
       tq, tk, tv, tdo, (const float*)lse, (const float*)delta,
-      (const float*)kpm, (T*)dk, (T*)dv, b, sq, sk, n, g, dr, scale, causal,
-      ex);
+      (const float*)kpm, (TO*)dk, (TO*)dv, b, sq, sk, n, g, dr, scale,
+      causal, ex);
   return (int)cudaGetLastError();
 }
 
+// out_f32: dq (dk, dv) fp32 whatever T (the 16-bit kernels' fp32
+// epilogue; fp32 inputs write fp32 anyway).
 template <typename T, int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, const void* kpm, void* dq,
               int b, int sq, int sk, int n, int g, int dr, float scale,
-              int causal, const FlashExtras& ex, cudaStream_t stream) {
+              int causal, const FlashExtras& ex, bool out_f32,
+              cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
+    if (out_f32)
+      return has_extras(ex) ? (int)cudaErrorInvalidValue
+                            : launch_dq_sm90<T, D, false, float>(
+                                  q, k, v, dout, lse, delta, kpm, dq, b, sq,
+                                  sk, n, g, dr, scale, causal, ex, stream);
     return has_extras(ex)
                ? launch_dq_sm90<T, D, true>(q, k, v, dout, lse, delta, kpm,
                                             dq, b, sq, sk, n, g, dr, scale,
@@ -1012,9 +1031,15 @@ template <typename T, int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, const void* kpm, void* dk,
                void* dv, int b, int sq, int sk, int n, int g, int dr,
-               float scale, int causal, const FlashExtras& ex,
+               float scale, int causal, const FlashExtras& ex, bool out_f32,
                cudaStream_t stream) {
   if constexpr (sizeof(T) == 2) {
+    if (out_f32)
+      return has_extras(ex) ? (int)cudaErrorInvalidValue
+                            : launch_dkv_sm90<T, D, false, float>(
+                                  q, k, v, dout, lse, delta, kpm, dk, dv, b,
+                                  sq, sk, n, g, dr, scale, causal, ex,
+                                  stream);
     return has_extras(ex)
                ? launch_dkv_sm90<T, D, true>(q, k, v, dout, lse, delta, kpm,
                                              dk, dv, b, sq, sk, n, g, dr,
@@ -1037,6 +1062,44 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 
 }  // namespace
 
+namespace {
+
+bool bwd_args_ok(int b, int sq, int sk, int n, int g, const void* seg,
+                 const void* seg_rng) {
+  return b > 0 && sq > 0 && sk > 0 && g > 0 && n % g == 0 &&
+         (seg == nullptr || (seg_rng != nullptr && sq == sk));
+}
+
+int dq_entry(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, const void* kpm, void* dq,
+             int b, int sq, int sk, int n, int g, int d, float scale,
+             int causal, int dtype, const FlashExtras& ex, bool out_f32,
+             cudaStream_t stream) {
+  APEX_DISPATCH_FLOAT(dtype, T, {
+    APEX_DISPATCH_HEAD_DIM(d, D, (launch_dq<T, D>(q, k, v, dout, lse, delta,
+                                                  kpm, dq, b, sq, sk, n, g, d,
+                                                  scale, causal, ex, out_f32,
+                                                  stream)));
+  });
+  return (int)cudaErrorInvalidValue;
+}
+
+int dkv_entry(const void* q, const void* k, const void* v, const void* dout,
+              const void* lse, const void* delta, const void* kpm, void* dk,
+              void* dv, int b, int sq, int sk, int n, int g, int d,
+              float scale, int causal, int dtype, const FlashExtras& ex,
+              bool out_f32, cudaStream_t stream) {
+  APEX_DISPATCH_FLOAT(dtype, T, {
+    APEX_DISPATCH_HEAD_DIM(d, D, (launch_dkv<T, D>(q, k, v, dout, lse, delta,
+                                                   kpm, dk, dv, b, sq, sk, n,
+                                                   g, d, scale, causal, ex,
+                                                   out_f32, stream)));
+  });
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // namespace
+
 // q, do [b, sq, n, d] and k, v [b, sk, g, d] of dtype; lse, delta
 // [b*n, sq] fp32; kpm [b, sk] fp32 additive or NULL; dq like q.  d a
 // multiple of 8 up to 128, on the tiles of the next of 32, 64 and 128
@@ -1050,16 +1113,33 @@ extern "C" int apex_flash_bwd_dq(const void* q, const void* k, const void* v,
                                  const void* seed, unsigned threshold,
                                  float inv_keep, const void* seg,
                                  const void* seg_rng, cudaStream_t stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0 ||
-      (seg != nullptr && (seg_rng == nullptr || sq != sk)))
+  if (!bwd_args_ok(b, sq, sk, n, g, seg, seg_rng))
     return (int)cudaErrorInvalidValue;
-  const FlashExtras ex = make_extras(seed, threshold, inv_keep, seg, seg_rng);
-  APEX_DISPATCH_FLOAT(dtype, T, {
-    APEX_DISPATCH_HEAD_DIM(d, D, (launch_dq<T, D>(q, k, v, dout, lse, delta,
-                                                  kpm, dq, b, sq, sk, n, g, d,
-                                                  scale, causal, ex, stream)));
-  });
-  return (int)cudaErrorInvalidValue;
+  return dq_entry(q, k, v, dout, lse, delta, kpm, dq, b, sq, sk, n, g, d,
+                  scale, causal, dtype,
+                  make_extras(seed, threshold, inv_keep, seg, seg_rng), false,
+                  stream);
+}
+
+// As apex_flash_bwd_dq with dq fp32 [b, sq, n, d] whatever the inputs'
+// dtype (the ring's chunk backward); no dropout or segment ids on 16-bit
+// inputs.
+extern "C" int apex_flash_bwd_dq_f32(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     const void* kpm, void* dq, int b,
+                                     int sq, int sk, int n, int g, int d,
+                                     float scale, int causal, int dtype,
+                                     const void* seed, unsigned threshold,
+                                     float inv_keep, const void* seg,
+                                     const void* seg_rng,
+                                     cudaStream_t stream) {
+  if (!bwd_args_ok(b, sq, sk, n, g, seg, seg_rng))
+    return (int)cudaErrorInvalidValue;
+  return dq_entry(q, k, v, dout, lse, delta, kpm, dq, b, sq, sk, n, g, d,
+                  scale, causal, dtype,
+                  make_extras(seed, threshold, inv_keep, seg, seg_rng), true,
+                  stream);
 }
 
 // As apex_flash_bwd_dq; dk, dv like k (summed over each group's heads).
@@ -1072,17 +1152,32 @@ extern "C" int apex_flash_bwd_dkv(const void* q, const void* k,
                                   const void* seed, unsigned threshold,
                                   float inv_keep, const void* seg,
                                   const void* seg_rng, cudaStream_t stream) {
-  if (b <= 0 || sq <= 0 || sk <= 0 || g <= 0 || n % g != 0 ||
-      (seg != nullptr && (seg_rng == nullptr || sq != sk)))
+  if (!bwd_args_ok(b, sq, sk, n, g, seg, seg_rng))
     return (int)cudaErrorInvalidValue;
-  const FlashExtras ex = make_extras(seed, threshold, inv_keep, seg, seg_rng);
-  APEX_DISPATCH_FLOAT(dtype, T, {
-    APEX_DISPATCH_HEAD_DIM(d, D, (launch_dkv<T, D>(q, k, v, dout, lse, delta,
-                                                   kpm, dk, dv, b, sq, sk, n,
-                                                   g, d, scale, causal, ex,
-                                                   stream)));
-  });
-  return (int)cudaErrorInvalidValue;
+  return dkv_entry(q, k, v, dout, lse, delta, kpm, dk, dv, b, sq, sk, n, g,
+                   d, scale, causal, dtype,
+                   make_extras(seed, threshold, inv_keep, seg, seg_rng),
+                   false, stream);
+}
+
+// As apex_flash_bwd_dkv with dk, dv fp32 [b, sk, g, d] (each group's heads
+// summed in fp32) whatever the inputs' dtype (the ring's chunk backward).
+extern "C" int apex_flash_bwd_dkv_f32(const void* q, const void* k,
+                                      const void* v, const void* dout,
+                                      const void* lse, const void* delta,
+                                      const void* kpm, void* dk, void* dv,
+                                      int b, int sq, int sk, int n, int g,
+                                      int d, float scale, int causal,
+                                      int dtype, const void* seed,
+                                      unsigned threshold, float inv_keep,
+                                      const void* seg, const void* seg_rng,
+                                      cudaStream_t stream) {
+  if (!bwd_args_ok(b, sq, sk, n, g, seg, seg_rng))
+    return (int)cudaErrorInvalidValue;
+  return dkv_entry(q, k, v, dout, lse, delta, kpm, dk, dv, b, sq, sk, n, g,
+                   d, scale, causal, dtype,
+                   make_extras(seed, threshold, inv_keep, seg, seg_rng),
+                   true, stream);
 }
 
 namespace {

@@ -28,6 +28,12 @@
 // above the diagonal or of disjoint segment ranges are skipped.  No
 // atomics: every output element has one writer.
 //
+// Each entry has an _f32 twin that writes its outputs (o; dq; dk and dv,
+// GQA-summed) in fp32 whatever the inputs' dtype: the ring's chunk calls,
+// _fwd_pallas / _bwd_pallas(..., out_dtype=float32)
+// (apex_tpu/parallel/ring_attention.py:153, :179); the output type is a
+// template parameter of the same kernels.
+//
 // Bound on the H100 at d = 256: operations (4 d flops per open pair in
 // the forward, 10 d in the backward), at the tensor cores' rate; these
 // kernels run on the CUDA cores (67 TFLOP/s fp32), a simple design first.
@@ -135,12 +141,14 @@ __device__ __forceinline__ float row8_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 4);
 }
 
-// K2's wide branch: o and lse of (32-query tile, b*n, output chunk).
-template <typename T>
+// K2's wide branch: o and lse of (32-query tile, b*n, output chunk).  TO
+// (here and in the dq and dk/dv kernels): the output's element type, T or
+// float (the ring's fp32 chunk outputs, the *_f32 entries).
+template <typename T, typename TO = T>
 __global__ void __launch_bounds__(kWThreads)
     flash_fwd_wide_kernel(const T* __restrict__ q, const T* __restrict__ k,
                           const T* __restrict__ v,
-                          const float* __restrict__ kpm, T* __restrict__ o,
+                          const float* __restrict__ kpm, TO* __restrict__ o,
                           float* __restrict__ lse, int sq, int sk, int n,
                           int g, int d, float scale, int causal,
                           FlashExtras ex) {
@@ -198,7 +206,7 @@ __global__ void __launch_bounds__(kWThreads)
 
   if (row < sq) {
     const float safe_l = l == 0.0f ? 1.0f : l;
-    store_chunk<T>(acc, 1.0f / safe_l,
+    store_chunk<TO>(acc, 1.0f / safe_l,
                    o + (((size_t)b * sq + row) * n + h) * d, col0, d);
     if (blockIdx.z == 0 && c8 == 0)
       lse[(size_t)bh * sq + row] =
@@ -207,7 +215,7 @@ __global__ void __launch_bounds__(kWThreads)
 }
 
 // K6's wide branch: dq of (32-query tile, b*n, output chunk).
-template <typename T>
+template <typename T, typename TO = T>
 __global__ void __launch_bounds__(kWThreads)
     flash_bwd_dq_wide_kernel(const T* __restrict__ q,
                              const T* __restrict__ k,
@@ -216,7 +224,8 @@ __global__ void __launch_bounds__(kWThreads)
                              const float* __restrict__ lse,
                              const float* __restrict__ delta,
                              const float* __restrict__ kpm,
-                             T* __restrict__ dq, int sq, int sk, int n, int g,
+                             TO* __restrict__ dq, int sq, int sk, int n,
+                             int g,
                              int d, float scale, int causal, FlashExtras ex) {
   __shared__ float sA[kWB * kLD], sB[kWB * kLD], sP[kWB * kLP];
   const int r = threadIdx.x >> 3, c8 = threadIdx.x & 7;
@@ -258,13 +267,13 @@ __global__ void __launch_bounds__(kWThreads)
     chunk_product<T>(acc, sP, sB, kb, kstr, k0, sk, col0, d);
   }
   if (row < sq)
-    store_chunk<T>(acc, 1.0f, dq + (((size_t)b * sq + row) * n + h) * d,
+    store_chunk<TO>(acc, 1.0f, dq + (((size_t)b * sq + row) * n + h) * d,
                    col0, d);
 }
 
 // K7's wide branch: dk and dv of (32-key tile, b*g, output chunk), summed
 // over the group's rep query heads.
-template <typename T>
+template <typename T, typename TO = T>
 __global__ void __launch_bounds__(kWThreads, 1)
     flash_bwd_dkv_wide_kernel(const T* __restrict__ q,
                               const T* __restrict__ k,
@@ -273,7 +282,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
                               const float* __restrict__ lse,
                               const float* __restrict__ delta,
                               const float* __restrict__ kpm,
-                              T* __restrict__ dk, T* __restrict__ dv, int sq,
+                              TO* __restrict__ dk, TO* __restrict__ dv,
+                              int sq,
                               int sk, int n, int g, int d, float scale,
                               int causal, FlashExtras ex) {
   __shared__ float sA[kWB * kLD], sB[kWB * kLD], sP[kWB * kLP],
@@ -342,8 +352,8 @@ __global__ void __launch_bounds__(kWThreads, 1)
   }
   if (key < sk) {
     const size_t off = (((size_t)b * sk + key) * g + kvh) * d;
-    store_chunk<T>(acc_dk, 1.0f, dk + off, col0, d);
-    store_chunk<T>(acc_dv, 1.0f, dv + off, col0, d);
+    store_chunk<TO>(acc_dk, 1.0f, dk + off, col0, d);
+    store_chunk<TO>(acc_dv, 1.0f, dv + off, col0, d);
   }
 }
 
@@ -360,86 +370,124 @@ bool args_ok(int b, int sq, int sk, int n, int g, int d, const void* seg,
          (seg == nullptr || (seg_rng != nullptr && sq == sk));
 }
 
+template <typename T, typename TO>
+int fwd_wide(const void* q, const void* k, const void* v, const void* kpm,
+             void* o, void* lse, int b, int sq, int sk, int n, int g, int d,
+             float scale, int causal, const FlashExtras& ex,
+             cudaStream_t stream) {
+  dim3 grid;
+  if (int err = wide_grid(sq, b * n, d, &grid)) return err;
+  flash_fwd_wide_kernel<T, TO><<<grid, kWThreads, 0, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const float*)kpm, (TO*)o,
+      (float*)lse, sq, sk, n, g, d, scale, causal, ex);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename TO>
+int dq_wide(const void* q, const void* k, const void* v, const void* dout,
+            const void* lse, const void* delta, const void* kpm, void* dq,
+            int b, int sq, int sk, int n, int g, int d, float scale,
+            int causal, const FlashExtras& ex, cudaStream_t stream) {
+  dim3 grid;
+  if (int err = wide_grid(sq, b * n, d, &grid)) return err;
+  flash_bwd_dq_wide_kernel<T, TO><<<grid, kWThreads, 0, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (const float*)kpm, (TO*)dq, sq,
+      sk, n, g, d, scale, causal, ex);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, typename TO>
+int dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+             const void* lse, const void* delta, const void* kpm, void* dk,
+             void* dv, int b, int sq, int sk, int n, int g, int d,
+             float scale, int causal, const FlashExtras& ex,
+             cudaStream_t stream) {
+  dim3 grid;
+  if (int err = wide_grid(sk, b * g, d, &grid)) return err;
+  flash_bwd_dkv_wide_kernel<T, TO><<<grid, kWThreads, 0, stream>>>(
+      (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
+      (const float*)lse, (const float*)delta, (const float*)kpm, (TO*)dk,
+      (TO*)dv, sq, sk, n, g, d, scale, causal, ex);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
+
+// The entries below (each with an _f32 twin whose outputs are fp32
+// whatever the inputs' dtype: the ring's chunk calls) define themselves
+// through these: NAME, then the output type of the dtype T.
+#define APEX_WIDE_FWD(NAME, TO)                                              \
+  extern "C" int NAME(const void* q, const void* k, const void* v,           \
+                      const void* kpm, void* o, void* lse, int b, int sq,    \
+                      int sk, int n, int g, int d, float scale, int causal,  \
+                      int dtype, const void* seed, unsigned threshold,       \
+                      float inv_keep, const void* seg, const void* seg_rng,  \
+                      cudaStream_t stream) {                                 \
+    if (!args_ok(b, sq, sk, n, g, d, seg, seg_rng))                          \
+      return (int)cudaErrorInvalidValue;                                     \
+    const FlashExtras ex =                                                   \
+        make_extras(seed, threshold, inv_keep, seg, seg_rng);                \
+    APEX_DISPATCH_FLOAT(dtype, T, {                                          \
+      return fwd_wide<T, TO>(q, k, v, kpm, o, lse, b, sq, sk, n, g, d,       \
+                             scale, causal, ex, stream);                     \
+    });                                                                      \
+    return (int)cudaErrorInvalidValue;                                       \
+  }
+
+#define APEX_WIDE_DQ(NAME, TO)                                               \
+  extern "C" int NAME(const void* q, const void* k, const void* v,           \
+                      const void* dout, const void* lse, const void* delta,  \
+                      const void* kpm, void* dq, int b, int sq, int sk,      \
+                      int n, int g, int d, float scale, int causal,          \
+                      int dtype, const void* seed, unsigned threshold,       \
+                      float inv_keep, const void* seg, const void* seg_rng,  \
+                      cudaStream_t stream) {                                 \
+    if (!args_ok(b, sq, sk, n, g, d, seg, seg_rng))                          \
+      return (int)cudaErrorInvalidValue;                                     \
+    const FlashExtras ex =                                                   \
+        make_extras(seed, threshold, inv_keep, seg, seg_rng);                \
+    APEX_DISPATCH_FLOAT(dtype, T, {                                          \
+      return dq_wide<T, TO>(q, k, v, dout, lse, delta, kpm, dq, b, sq, sk,   \
+                            n, g, d, scale, causal, ex, stream);             \
+    });                                                                      \
+    return (int)cudaErrorInvalidValue;                                       \
+  }
+
+#define APEX_WIDE_DKV(NAME, TO)                                              \
+  extern "C" int NAME(const void* q, const void* k, const void* v,           \
+                      const void* dout, const void* lse, const void* delta,  \
+                      const void* kpm, void* dk, void* dv, int b, int sq,    \
+                      int sk, int n, int g, int d, float scale, int causal,  \
+                      int dtype, const void* seed, unsigned threshold,       \
+                      float inv_keep, const void* seg, const void* seg_rng,  \
+                      cudaStream_t stream) {                                 \
+    if (!args_ok(b, sq, sk, n, g, d, seg, seg_rng))                          \
+      return (int)cudaErrorInvalidValue;                                     \
+    const FlashExtras ex =                                                   \
+        make_extras(seed, threshold, inv_keep, seg, seg_rng);                \
+    APEX_DISPATCH_FLOAT(dtype, T, {                                          \
+      return dkv_wide<T, TO>(q, k, v, dout, lse, delta, kpm, dk, dv, b, sq,  \
+                             sk, n, g, d, scale, causal, ex, stream);        \
+    });                                                                      \
+    return (int)cudaErrorInvalidValue;                                       \
+  }
 
 // q [b, sq, n, d], k/v [b, sk, g, d], o like q, kpm [b, sk] fp32 additive
 // or NULL, lse [b·n, sq] fp32, any d; dtype fp32, bf16 or fp16.  seed,
 // threshold, inv_keep, seg and seg_rng as apex_flash_fwd's.
-extern "C" int apex_flash_fwd_wide(const void* q, const void* k,
-                                   const void* v, const void* kpm, void* o,
-                                   void* lse, int b, int sq, int sk, int n,
-                                   int g, int d, float scale, int causal,
-                                   int dtype, const void* seed,
-                                   unsigned threshold, float inv_keep,
-                                   const void* seg, const void* seg_rng,
-                                   cudaStream_t stream) {
-  if (!args_ok(b, sq, sk, n, g, d, seg, seg_rng))
-    return (int)cudaErrorInvalidValue;
-  const FlashExtras ex = make_extras(seed, threshold, inv_keep, seg, seg_rng);
-  dim3 grid;
-  if (int err = wide_grid(sq, b * n, d, &grid)) return err;
-  APEX_DISPATCH_FLOAT(dtype, T, {
-    flash_fwd_wide_kernel<T><<<grid, kWThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const float*)kpm, (T*)o,
-        (float*)lse, sq, sk, n, g, d, scale, causal, ex);
-    return (int)cudaGetLastError();
-  });
-  return (int)cudaErrorInvalidValue;
-}
+APEX_WIDE_FWD(apex_flash_fwd_wide, T)
+APEX_WIDE_FWD(apex_flash_fwd_wide_f32, float)
 
 // q, do [b, sq, n, d] and k, v [b, sk, g, d]; lse, delta [b·n, sq] fp32;
 // dq like q; any d.
-extern "C" int apex_flash_bwd_dq_wide(const void* q, const void* k,
-                                      const void* v, const void* dout,
-                                      const void* lse, const void* delta,
-                                      const void* kpm, void* dq, int b,
-                                      int sq, int sk, int n, int g, int d,
-                                      float scale, int causal, int dtype,
-                                      const void* seed, unsigned threshold,
-                                      float inv_keep, const void* seg,
-                                      const void* seg_rng,
-                                      cudaStream_t stream) {
-  if (!args_ok(b, sq, sk, n, g, d, seg, seg_rng))
-    return (int)cudaErrorInvalidValue;
-  const FlashExtras ex = make_extras(seed, threshold, inv_keep, seg, seg_rng);
-  dim3 grid;
-  if (int err = wide_grid(sq, b * n, d, &grid)) return err;
-  APEX_DISPATCH_FLOAT(dtype, T, {
-    flash_bwd_dq_wide_kernel<T><<<grid, kWThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-        (const float*)lse, (const float*)delta, (const float*)kpm, (T*)dq,
-        sq, sk, n, g, d, scale, causal, ex);
-    return (int)cudaGetLastError();
-  });
-  return (int)cudaErrorInvalidValue;
-}
+APEX_WIDE_DQ(apex_flash_bwd_dq_wide, T)
+APEX_WIDE_DQ(apex_flash_bwd_dq_wide_f32, float)
 
 // As apex_flash_bwd_dq_wide; dk, dv like k (summed over each group's
 // heads).
-extern "C" int apex_flash_bwd_dkv_wide(const void* q, const void* k,
-                                       const void* v, const void* dout,
-                                       const void* lse, const void* delta,
-                                       const void* kpm, void* dk, void* dv,
-                                       int b, int sq, int sk, int n, int g,
-                                       int d, float scale, int causal,
-                                       int dtype, const void* seed,
-                                       unsigned threshold, float inv_keep,
-                                       const void* seg, const void* seg_rng,
-                                       cudaStream_t stream) {
-  if (!args_ok(b, sq, sk, n, g, d, seg, seg_rng))
-    return (int)cudaErrorInvalidValue;
-  const FlashExtras ex = make_extras(seed, threshold, inv_keep, seg, seg_rng);
-  dim3 grid;
-  if (int err = wide_grid(sk, b * g, d, &grid)) return err;
-  APEX_DISPATCH_FLOAT(dtype, T, {
-    flash_bwd_dkv_wide_kernel<T><<<grid, kWThreads, 0, stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout,
-        (const float*)lse, (const float*)delta, (const float*)kpm, (T*)dk,
-        (T*)dv, sq, sk, n, g, d, scale, causal, ex);
-    return (int)cudaGetLastError();
-  });
-  return (int)cudaErrorInvalidValue;
-}
+APEX_WIDE_DKV(apex_flash_bwd_dkv_wide, T)
+APEX_WIDE_DKV(apex_flash_bwd_dkv_wide_f32, float)
 
 namespace {
 

@@ -972,8 +972,9 @@ __device__ __forceinline__ float quad_max(float v) {
 }
 
 // Rows row0, row0 + 8 of an m64nD accumulator (this thread's two rows),
-// scaled by mul[i], rounded to T and stored to out + row * stride if the
-// row is below nrows; columns from ncols (even) on are not stored.
+// scaled by mul[i], rounded to T (or kept, when T is float: the fp32
+// epilogue of the ring's chunk calls) and stored to out + row * stride if
+// the row is below nrows; columns from ncols (even) on are not stored.
 template <typename T, int R>
 __device__ __forceinline__ void store_rows(const float (&acc)[R],
                                            const float (&mul)[2], T* out,
@@ -987,7 +988,11 @@ __device__ __forceinline__ void store_rows(const float (&acc)[R],
     T* dst = out + (size_t)row * stride;
 #pragma unroll
     for (int r = 2 * i; r < R; r += 4) {
-      if (frag_col(r, lane) < ncols)
+      if (frag_col(r, lane) >= ncols) continue;
+      if constexpr (std::is_same<T, float>::value)
+        *reinterpret_cast<float2*>(dst + frag_col(r, lane)) =
+            make_float2(acc[r] * mul[i], acc[r + 1] * mul[i]);
+      else
         *reinterpret_cast<uint32_t*>(dst + frag_col(r, lane)) =
             pack2<T>(acc[r] * mul[i], acc[r + 1] * mul[i]);
     }

@@ -164,7 +164,8 @@ def make_bert_train_step(cfg: TransformerConfig, optimizer: Any,
     op to its plain version.  The mesh belongs to a later slice."""
     if mesh is not None:
         raise NotImplementedError(
-            "mesh comes with the distributed-training slice of the port")
+            "BERT's mesh comes with a later distributed-training slice of "
+            "the port (data/context-parallel training covers GPT)")
     check_backend(backend)
     dev = resolve_device(device)
 

@@ -548,14 +548,13 @@ def set_step(step: int) -> None:
 
 
 def _rank_tags() -> dict:
-    """``host`` / ``num_hosts`` from ``torch.distributed`` when a process
-    group is up, else 0 of 1 (the JAX package's tags on one process)."""
-    import torch.distributed as dist
+    """``host`` / ``num_hosts``: this process's rank and the world's size
+    (``parallel_state.world_rank`` / ``world_size``; 0 of 1 without a
+    process group, the JAX package's tags on one process)."""
+    from apex_tpu_torch.transformer import parallel_state
 
-    if dist.is_available() and dist.is_initialized():
-        return {"host": int(dist.get_rank()),
-                "num_hosts": int(dist.get_world_size())}
-    return {"host": 0, "num_hosts": 1}
+    return {"host": parallel_state.world_rank(),
+            "num_hosts": parallel_state.world_size()}
 
 
 def configure(

@@ -35,6 +35,14 @@ chunks of 256 columns a CTA), counted as branches of rows 3, 4a and 4b
 of their own: the forward, and a backward that always takes the split
 pair (dq, then dk/dv), whatever the key length.
 
+``out_dtype=torch.float32`` on 16-bit inputs runs the fp32-output branch
+of K2, K6 and K7 (and of the wide kernels): the same kernels with an fp32
+epilogue, each counted as a kernel of its own (``*_f32out``), o, dq, dk and
+dv written from the fp32 accumulators without rounding; the backward then
+takes the caller's ``delta`` beside its ``lse``.  These are the calls of the
+ring's chunks (``parallel/ring_attention.py``), which merge and carry their
+partial results in fp32.
+
 Attention dropout and segment ids run in every kernel, as the JAX
 kernels' ``dropout_p`` and ``has_seg`` branches do.  The keep mask is
 JAX's counter hash :func:`keep_mask` of (seed, batch·heads + query head,
@@ -72,7 +80,8 @@ from apex_tpu_torch.utils.registry import check_backend, on_cuda
 
 __all__ = ["flash_attention", "flash_attention_fwd", "flash_attention_bwd",
            "flash_attention_packed", "segment_ids_from_cu_seqlens",
-           "flash_bwd_operands", "flash_bwd_dq", "flash_bwd_dkv",
+           "flash_bwd_operands", "attention_delta", "flash_bwd_dq",
+           "flash_bwd_dkv",
            "flash_bwd_fused", "SHORT_KEYS_MAX", "SHORT_CLUSTER_KEYS",
            "short_cluster", "short_rank_steps", "short_resident_clusters",
            "hopper_attributes", "MAX_HEAD_DIM", "head_panel",
@@ -129,6 +138,17 @@ FLASH_BWD_DKV_WIDE = ku.register(ku.Kernel(
     "flash_attention_bwd_dkv_wide", "flash_attention_wide.cu",
     "apex_flash_bwd_dkv_wide", [ctypes.c_void_p] * 9 + _BWD_ARGS,
     replaces="apex_tpu/ops/flash_attention.py:452"))
+
+# fp32 outputs from 16-bit inputs (``out_dtype=torch.float32``): the calls
+# the ring makes (_fwd_pallas / _bwd_pallas(..., out_dtype=float32),
+# apex_tpu/parallel/ring_attention.py:153, :179); each its own count
+_F32_OUT = {}
+for _k in (FLASH_FWD, FLASH_BWD_DQ, FLASH_BWD_DKV, FLASH_FWD_WIDE,
+           FLASH_BWD_DQ_WIDE, FLASH_BWD_DKV_WIDE):
+    _F32_OUT[_k.name] = ku.register(ku.Kernel(
+        _k.name + "_f32out", _k.source, _k.symbol + "_f32",
+        _k.argtypes[:-1], replaces=_k.replaces))
+del _k
 
 # the JAX auto route's crossover (APEX_TPU_FLASH_BWD_FUSED_MAX default)
 SHORT_KEYS_MAX = 512
@@ -328,16 +348,21 @@ def seed_from_key(rng, device=None) -> torch.Tensor:
     return seed
 
 
-def dropout_keep(shape, seed, dropout_p: float, device, row0: int = 0):
+def dropout_keep(shape, seed, dropout_p: float, device, row0: int = 0,
+                 lead0: int = 0):
     """The keep mask of a tensor of ``shape`` viewed as ``[B, R, C]`` (the
     leading axes flattened, then the last two), keyed by ``seed`` (the
     ``[1]`` int32 of :func:`seed_from_key`): :func:`keep_mask` of (seed,
-    the flat leading index, ``row0 +`` the row, the column).  For scores
-    ``[b, n, sq, sk]`` these are the kernels' coordinates (``bh = batch·n
-    + head``, global query rows from ``row0`` and key columns); the train
-    steps' hidden and drop-path masks use the same layout."""
+    ``lead0 +`` the flat leading index, ``row0 +`` the row, the column).
+    For scores ``[b, n, sq, sk]`` these are the kernels' coordinates (``bh
+    = batch·n + head``, global query rows from ``row0`` and key columns);
+    the train steps' hidden and drop-path masks use the same layout.  A
+    shard of a global tensor (a rank's rows of the batch and the
+    sequence) takes the global mask's slice through ``lead0`` and
+    ``row0``."""
     shape = tuple(shape)
-    bh = torch.arange(math.prod(shape[:-2]), device=device)[:, None, None]
+    bh = torch.arange(lead0, lead0 + math.prod(shape[:-2]),
+                      device=device)[:, None, None]
     row = torch.arange(row0, row0 + shape[-2], device=device)[None, :, None]
     col = torch.arange(shape[-1], device=device)[None, None, :]
     return keep_mask(torch.as_tensor(seed).to(device), bh, row, col,
@@ -623,49 +648,82 @@ def _pad_head(*ts):
                  for t in ts)
 
 
+def _out_kernel(kernel, q, out_dtype, ex):
+    """``kernel``, or its fp32-output twin when ``out_dtype`` asks fp32
+    outputs of 16-bit inputs (fp32 inputs write fp32 anyway); the tiled
+    twins take no dropout or segment ids."""
+    if out_dtype is None or out_dtype == q.dtype:
+        return kernel
+    if out_dtype != torch.float32:
+        raise ValueError(f"out_dtype {out_dtype}: the kernels write the "
+                         "inputs' dtype or float32")
+    if ex["seed"] is not None or ex["seg"] is not None:
+        raise ValueError("out_dtype=float32 (the ring's chunk calls) takes "
+                         "no dropout or segment ids")
+    return _F32_OUT[kernel.name]
+
+
 def flash_attention_fwd(q, k, v, *, causal: bool = False,
                         key_padding_mask=None,
                         scale: Optional[float] = None,
-                        dropout_p: float = 0.0, seed=None, segment_ids=None
+                        dropout_p: float = 0.0, seed=None, segment_ids=None,
+                        out_dtype: Optional[torch.dtype] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel K2 on CUDA tensors (the wide branch above
     :data:`MAX_HEAD_DIM`) → ``(o [b, sq, n, d] in q's dtype, lse [b·n,
     sq] fp32)``; fully masked rows get o = 0, lse = -1e30.  ``seed`` (a
     ``[1]`` int32 device tensor) turns dropout on at ``dropout_p``;
-    ``segment_ids`` ``[b, s]`` int32."""
+    ``segment_ids`` ``[b, s]`` int32.  ``out_dtype=torch.float32`` writes
+    ``o`` in fp32 from 16-bit inputs (the fp32-output branch, without
+    dropout or segment ids: the ring's chunk forward)."""
     kpm, scale = _kernel_operands(q, k, v, key_padding_mask, scale)
     b, sq, n, d = q.shape
     sk, g = k.shape[1], k.shape[2]
     ex = _extras(q, k, dropout_p, seed, segment_ids)
     wide = wide_head(d)
+    kernel = _out_kernel(FLASH_FWD_WIDE if wide else FLASH_FWD, q,
+                         out_dtype, ex)
     q, k, v = (t.contiguous() for t in (q, k, v)) if wide \
         else _pad_head(q, k, v)
     ku.check_cuda_operands("flash_attention", q, k, v, kpm, ex["seed"],
                            ex["seg"], ex["ranges"])
     ku.check_aligned("flash_attention", q, k, v)
-    o = torch.empty_like(q)
+    o = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
     lse = torch.empty(b * n, sq, dtype=torch.float32, device=q.device)
-    kernel = FLASH_FWD_WIDE if wide else FLASH_FWD
     kernel(q.device, ku.ptr(q), ku.ptr(k), ku.ptr(v), ku.ptr(kpm),
            ku.ptr(o), ku.ptr(lse), b, sq, sk, n, g, q.shape[-1], scale,
            int(causal), ku.dtype_code(q), *_extra_args(ex))
     return o[..., :d], lse
 
 
+def attention_delta(do, o) -> torch.Tensor:
+    """``rowsum(do·o)`` in fp32 as ``[b·n, sq]`` (the backward's delta;
+    XLA in JAX, a torch op here)."""
+    b, sq, n, _ = o.shape
+    return (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
+        b * n, sq).contiguous()
+
+
 def flash_bwd_operands(q, k, v, o, lse, do, *, key_padding_mask=None,
                        scale: Optional[float] = None,
                        dropout_p: float = 0.0, seed=None,
-                       segment_ids=None) -> dict:
+                       segment_ids=None, delta=None) -> dict:
     """Checked, contiguous operands of K6, K7 and row 5 (and the wide
-    pair), with ``delta = rowsum(do·o)`` ``[b·n, sq]`` fp32 (XLA in JAX,
-    a torch op here); a head size up to 128 that is not a multiple of 8
-    is zero-padded to one (``d`` keeps the real size, and the gradients
-    are sliced back to it)."""
+    pair), with ``delta = rowsum(do·o)`` ``[b·n, sq]`` fp32
+    (:func:`attention_delta`), or the caller's ``delta`` as it is (then
+    ``o`` may be None: the ring passes the delta and lse of its whole
+    row, not of the chunk); a head size up to 128 that is not a multiple
+    of 8 is zero-padded to one (``d`` keeps the real size, and the
+    gradients are sliced back to it)."""
     kpm, scale = _kernel_operands(q, k, v, key_padding_mask, scale)
     b, sq, n, d = q.shape
     do = do.to(q.dtype)
-    delta = (do.float() * o.float()).sum(-1).transpose(1, 2).reshape(
-        b * n, sq).contiguous()
+    if delta is None:
+        delta = attention_delta(do, o)
+    elif delta.shape != (b * n, sq) or delta.dtype != torch.float32:
+        raise ValueError(f"delta {tuple(delta.shape)} {delta.dtype}, want "
+                         f"{(b * n, sq)} float32")
+    delta = delta.contiguous()
     ex = _extras(q, k, dropout_p, seed, segment_ids)
     if wide_head(d):
         q, k, v, do = (t.contiguous() for t in (q, k, v, do))
@@ -689,23 +747,32 @@ def _bwd_tail(ops, causal):
             ku.dtype_code(q), *_extra_args(ops["extras"]))
 
 
-def flash_bwd_dq(ops: dict, *, causal: bool) -> torch.Tensor:
+def flash_bwd_dq(ops: dict, *, causal: bool,
+                 out_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Kernel K6 (the wide branch above :data:`MAX_HEAD_DIM`) on
-    :func:`flash_bwd_operands` → dq like q."""
-    dq = torch.empty_like(ops["q"])
-    kernel = FLASH_BWD_DQ_WIDE if wide_head(ops["d"]) else FLASH_BWD_DQ
+    :func:`flash_bwd_operands` → dq like q, or fp32 under
+    ``out_dtype=torch.float32`` (the fp32-output branch)."""
+    q = ops["q"]
+    kernel = _out_kernel(FLASH_BWD_DQ_WIDE if wide_head(ops["d"])
+                         else FLASH_BWD_DQ, q, out_dtype, ops["extras"])
+    dq = torch.empty(q.shape, dtype=out_dtype or q.dtype, device=q.device)
     kernel(dq.device, *(ku.ptr(ops[n]) for n in (
         "q", "k", "v", "do", "lse", "delta", "kpm")), ku.ptr(dq),
         *_bwd_tail(ops, causal))
     return dq[..., :ops["d"]]
 
 
-def flash_bwd_dkv(ops: dict, *, causal: bool):
+def flash_bwd_dkv(ops: dict, *, causal: bool,
+                  out_dtype: Optional[torch.dtype] = None):
     """Kernel K7 (the wide branch above :data:`MAX_HEAD_DIM`) on
     :func:`flash_bwd_operands` → (dk, dv) like k, each group's query
-    heads summed into its row."""
-    dk, dv = torch.empty_like(ops["k"]), torch.empty_like(ops["v"])
-    kernel = FLASH_BWD_DKV_WIDE if wide_head(ops["d"]) else FLASH_BWD_DKV
+    heads summed into its row; fp32 (summed in fp32) under
+    ``out_dtype=torch.float32``."""
+    k = ops["k"]
+    kernel = _out_kernel(FLASH_BWD_DKV_WIDE if wide_head(ops["d"])
+                         else FLASH_BWD_DKV, k, out_dtype, ops["extras"])
+    dk, dv = (torch.empty(k.shape, dtype=out_dtype or k.dtype,
+                          device=k.device) for _ in range(2))
     kernel(dk.device, *(ku.ptr(ops[n]) for n in (
         "q", "k", "v", "do", "lse", "delta", "kpm")), ku.ptr(dk), ku.ptr(dv),
         *_bwd_tail(ops, causal))

@@ -16,8 +16,8 @@
   no atomic scatter.  No token is dropped.
 
 The expert-parallel island of the JAX package (the ``shard_map`` over an
-``ep`` mesh axis, the compressed all-to-all and the rings) belongs to
-the distributed-training slice: ``ep_mesh=``, or ``overlap_comm=True``
+``ep`` mesh axis, the compressed all-to-all and the rings) belongs to a
+later distributed-training slice: ``ep_mesh=``, or ``overlap_comm=True``
 with an ``ep`` axis, raise.  With ``ep_axis`` set and no mesh the local
 math runs, as the JAX package does on one device.
 """
@@ -345,8 +345,8 @@ def switch_moe_mlp(params: dict, x: torch.Tensor, *,
     if ep_mesh is not None or (overlap_comm and ep_axis is not None):
         raise NotImplementedError(
             "the expert-parallel island (ep_mesh=, overlap_comm=True over "
-            "an 'ep' axis) comes with the distributed-training slice of "
-            "the port")
+            "an 'ep' axis) comes with the MoE EP slice, a later "
+            "distributed-training slice of the port")
     if routing == "capacity":
         return _capacity_moe(
             params, x, capacity_factor=capacity_factor, top_k=top_k,

@@ -1,7 +1,9 @@
 """Rank-annotated logging (``apex_tpu/utils/logging.py``).
 
-One process is rank 0 of 1 until the distributed-training slice: the
-formatter prints ``[host 0/1]`` and ``print_rank_0`` prints."""
+The formatter prints ``[host r/N]`` from the world of ``torch.
+distributed`` (0 of 1 without a process group), plus the installed
+mesh's shape (``parallel_state.get_rank_info``); ``print_rank_0`` prints
+on rank 0 only."""
 
 from __future__ import annotations
 
@@ -15,14 +17,20 @@ _LOGGER_NAME = "apex_tpu_torch"
 
 
 def _rank() -> int:
-    return 0
+    from apex_tpu_torch.transformer.parallel_state import world_rank
+
+    return world_rank()
 
 
 class RankInfoFormatter(logging.Formatter):
-    """Prepends the host rank to every record."""
+    """Prepends the host rank (and the mesh, when one is installed) to
+    every record."""
 
     def format(self, record):
-        record.rank_info = f"[host {_rank()}/1]"
+        from apex_tpu_torch.transformer import parallel_state
+
+        record.rank_info = (f"[host {_rank()}/{parallel_state.world_size()}]"
+                            + parallel_state.get_rank_info())
         return super().format(record)
 
 
@@ -50,7 +58,6 @@ def set_logging_level(level) -> None:
 
 
 def print_rank_0(message: str) -> None:
-    """Print on process 0 only (every process, until the distributed
-    slice: there is one)."""
+    """Print on process 0 only."""
     if _rank() == 0:
         print(message, flush=True)

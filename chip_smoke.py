@@ -726,7 +726,8 @@ def kernel_flash_gpt_shape(dev, gen):
 # shows
 EXTRAS_SPILL_MAX = 192
 WIDE_SPILL_MAX = 64
-HOPPER_SOURCES = {"flash_attention.cu": 12, "flash_attention_bwd.cu": 24,
+# (K2, K6 and K7 also with fp32 outputs, without extras: +6 and +12)
+HOPPER_SOURCES = {"flash_attention.cu": 18, "flash_attention_bwd.cu": 36,
                   "flash_attention_bwd_short.cu": 12,
                   "grouped_matmul.cu": 14, "dense_int8.cu": 18}
 
@@ -7369,6 +7370,614 @@ def serving_times(root: str) -> dict:
             "runs": SERVING_TIME_RUNS, **res}
 
 
+# ---------------------------------------------------------------------------
+# data- and context-parallel training (``--distributed``)
+# ---------------------------------------------------------------------------
+
+# the ring's chunk at the long-context CP row: b2 x s8192 over sp = 2
+RING_CHUNK = (2, 4096, 12, 64)
+# o of the fp32-output K2 against its fp32 plain chunk, relative to the
+# plain chunk's max |o| as the backward rows are (FLASH_BWD_TOL): the
+# kernel rounds p to bf16 for the PV product, and o, an average of randn
+# v over thousands of keys, is small (max |o| ~0.13 at RING_CHUNK)
+RING_O_TOL = 2e-2
+CP_SP = 2
+CP_LOSS_RTOL, CP_GNORM_RTOL = 2e-3, 1e-2
+DDP_DP = 2
+DDP_STEPS = 5
+DDP_WIRES = ("fp32", "bf16", "int8")
+DDP_RTOL = 1e-3            # fp32 wire against the single-process step
+DDP_TRACK_RTOL = 5e-3      # bf16 and int8 wires' losses against fp32's
+# their reduced gradients' norms against the fp32 wire's, every step:
+# the wire's own error (a sum for a mean, or any scale, fails)
+DDP_GNORM_RTOL = {"bf16": 1e-3, "int8": 5e-3}
+DIST_TIMEOUT_S = 600
+DIST_COUNTERS = ("collectives.psum.bytes", "collectives.pmean.bytes",
+                 "collectives.ppermute.bytes", "collectives.all_to_all.bytes",
+                 "collectives.all_gather.bytes",
+                 "collectives.compressed.bytes",
+                 "collectives.compressed.raw_bytes",
+                 "collectives.host_staged_bytes")
+
+
+def _ring_bounds(b, s, n, g, d, pairs):
+    """Bounds of the fp32-output K2, K6 and K7 for ``pairs`` open (query,
+    key) pairs: bf16 q, k, v, do read once, fp32 o, dq, dk, dv written
+    once, fp32 lse and delta; 4·d, 6·d and 8·d flops a pair."""
+    qb, kb, st = b * s * n * d * 2, b * s * g * d * 2, b * n * s * 4
+    return {"fwd": bound(qb + 2 * kb + 2 * qb + st, 4 * d * pairs,
+                         PEAK_BF16_FLOPS),
+            "dq": bound(2 * qb + 2 * kb + 2 * st + 2 * qb, 6 * d * pairs,
+                        PEAK_BF16_FLOPS),
+            "dkv": bound(2 * qb + 2 * kb + 2 * st + 4 * kb, 8 * d * pairs,
+                         PEAK_BF16_FLOPS)}
+
+
+def _ring_case(dev, gen, b, s, n, g, d, diag):
+    """One chunk call of the ring at [b, s, n, d] (k, v at g groups),
+    full or diagonal: the fp32-output K2, then K6 and K7 from its lse and
+    the delta of its o rounded to bf16 (the ring's own), against the
+    ring's plain chunks; each timed in a CUDA graph beside its bound, its
+    plain version, SDPA (forward; the whole backward) and the
+    16-bit-output kernel on the same inputs.  → {kernel key: row}."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+    from apex_tpu_torch.parallel.ring_attention import (
+        _chunk_bwd_ref, _chunk_fwd_ref)
+
+    f32 = torch.float32
+    q = torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+    k = torch.randn(b, s, g, d, device=dev, generator=gen).bfloat16()
+    v = torch.randn(b, s, g, d, device=dev, generator=gen).bfloat16()
+    do = torch.randn(b, s, n, d, device=dev, generator=gen).bfloat16()
+    scale = d ** -0.5
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=diag, scale=scale,
+                                     out_dtype=f32)
+    ro, rlse = _chunk_fwd_ref(q, k, v, scale, diag)
+    errs = {"o": rel_err(o, ro), "max |o| plain": float(ro.abs().max()),
+            "lse": max_err(lse, rlse)}
+    abs_o = max_err(o, ro)
+    del ro, rlse
+    delta = tfa.attention_delta(do, o.to(q.dtype))
+    ops = tfa.flash_bwd_operands(q, k, v, None, lse, do, scale=scale,
+                                 delta=delta)
+    got = (tfa.flash_bwd_dq(ops, causal=diag, out_dtype=f32),
+           *tfa.flash_bwd_dkv(ops, causal=diag, out_dtype=f32))
+    want = _chunk_bwd_ref(q, k, v, do, lse, delta, scale, diag)
+    abs_bwd = {}
+    for name, a, e in zip(("dq", "dk", "dv"), got, want):
+        check(a.dtype == f32 and a.shape == e.shape
+              and float(a.abs().max()) > 0,
+              f"ring chunk {name}: {a.dtype} {tuple(a.shape)}, "
+              f"max |{name}| {float(a.abs().max())}")
+        errs[f"max |{name}| plain"] = float(e.abs().max())
+        errs[name] = rel_err(a, e)
+        abs_bwd[name] = max_err(a, e)
+    del got, want
+    what = f"ring chunk b{b} s{s} n{n} g{g} d{d} {'diag' if diag else 'full'}"
+    check(o.dtype == f32 and errs["o"] <= RING_O_TOL
+          and errs["lse"] <= 1e-3, f"{what} forward: {errs}")
+    check(max(errs[x] for x in ("dq", "dk", "dv")) <= FLASH_BWD_TOL,
+          f"{what} backward: {errs}")
+    pairs = b * n * s * (s + 1) // 2 if diag else b * n * s * s
+    bd = _ring_bounds(b, s, n, g, d, pairs)
+    plain_f = time_ms(lambda: _chunk_fwd_ref(q, k, v, scale, diag), iters=1,
+                      reps=2)
+    plain_b = time_ms(lambda: _chunk_bwd_ref(q, k, v, do, lse, delta, scale,
+                                             diag), iters=1, reps=2)
+    lib_f, lib_b = _sdpa_fwd_bwd_ms(q, k, v, do, is_causal=diag,
+                                    enable_gqa=g != n)
+    o16, lse16 = tfa.flash_attention_fwd(q, k, v, causal=diag, scale=scale)
+    ops16 = tfa.flash_bwd_operands(q, k, v, o16, lse16, do, scale=scale)
+    rows = {}
+    for key, fn, fn16, plain, lib, err in (
+            ("fwd", lambda: tfa.flash_attention_fwd(
+                q, k, v, causal=diag, scale=scale, out_dtype=f32),
+             lambda: tfa.flash_attention_fwd(q, k, v, causal=diag,
+                                             scale=scale),
+             plain_f, lib_f, abs_o),
+            ("dq", lambda: tfa.flash_bwd_dq(ops, causal=diag, out_dtype=f32),
+             lambda: tfa.flash_bwd_dq(ops16, causal=diag), plain_b, lib_b,
+             abs_bwd["dq"]),
+            ("dkv", lambda: tfa.flash_bwd_dkv(ops, causal=diag,
+                                              out_dtype=f32),
+             lambda: tfa.flash_bwd_dkv(ops16, causal=diag), plain_b, lib_b,
+             max(abs_bwd["dk"], abs_bwd["dv"]))):
+        rows[key] = {"ms": time_ms(fn), "bf16_out_ms": time_ms(fn16),
+                     "plain_ms": plain, "library_ms": lib,
+                     "bound_ms": bd[key][0], "bound_by": bd[key][1],
+                     "err": err, "detail": dict(errs)}
+        rows[key]["rel_err"] = max(errs[x] for x in (
+            ("o",) if key == "fwd" else ("dq",) if key == "dq"
+            else ("dk", "dv")))
+    del q, k, v, do, o, lse, delta, ops, o16, lse16, ops16
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ring_kernel_check(dev, gen):
+    """(a) The fp32-output branches of K2, K6 and K7 at the ring's chunk
+    shape (RING_CHUNK, bf16): the main row a full chunk (below the
+    diagonal, every rank but the first runs one a layer), variants the
+    diagonal chunk, GQA n12/g4 and d128; the wide twins at WIDE_SHAPE,
+    d256.  → {kernel name: result row}."""
+    b, s, n, d = RING_CHUNK
+    out = {}
+    names = {"fwd": "flash_attention_fwd_f32out",
+             "dq": "flash_attention_bwd_dq_f32out",
+             "dkv": "flash_attention_bwd_dkv_f32out"}
+    cases = [(f"b{b} s{s} n{n} d{d} bf16 in, fp32 out, full chunk", names,
+              (b, s, n, n, d, False)),
+             (f"b{b} s{s} n{n} d{d} diagonal chunk (causal)", names,
+              (b, s, n, n, d, True)),
+             (f"b{b} s{s} n{n} g4 d{d} GQA, full chunk", names,
+              (b, s, n, 4, d, False)),
+             (f"b{b} s{s} n{n} d128 full chunk", names,
+              (b, s, n, n, 128, False))]
+    wb, ws, wn = WIDE_SHAPE
+    wide = {k: v.replace("_f32out", "_wide_f32out")
+            for k, v in names.items()}
+    cases.append((f"b{wb} s{ws} n{wn} d{WIDE_DIMS[0]} bf16 in, fp32 out, "
+                  "full chunk (wide kernels)", wide,
+                  (wb, ws, wn, wn, WIDE_DIMS[0], False)))
+    for shape, kn, args in cases:
+        rows = _ring_case(dev, gen, *args)
+        for key, row in rows.items():
+            name = kn[key]
+            if name not in out:
+                tol = RING_O_TOL if key == "fwd" else FLASH_BWD_TOL
+                out[name] = dict(row, tol=tol, variants={}, shape=shape + (
+                    "; plain = the ring's plain chunk; library = SDPA "
+                    + ("forward" if key == "fwd" else
+                       "backward (dq, dk, dv)")))
+            else:
+                out[name]["variants"][shape] = row
+    return out
+
+
+def gpt_shape_bf16_times(dev, gen):
+    """The 16-bit-output K2, K6 and K7 at the GPT O2 step's shape (b16
+    s1024 n12 d64 causal): the instantiations every other path runs,
+    timed beside the fp32-output branches (PERF.md records 0.1004,
+    0.1276 and 0.1514 ms)."""
+    from apex_tpu_torch.ops import flash_attention as tfa
+
+    q, k, v, o, lse, do, ops = _flash_bwd_case(
+        dev, gen, TRAIN_BATCH, TRAIN_SEQ, 12, 12, 64, True, None)
+    out = {"flash_attention_fwd": time_ms(
+               lambda: tfa.flash_attention_fwd(q, k, v, causal=True)),
+           "flash_attention_bwd_dq": time_ms(
+               lambda: tfa.flash_bwd_dq(ops, causal=True)),
+           "flash_attention_bwd_dkv": time_ms(
+               lambda: tfa.flash_bwd_dkv(ops, causal=True))}
+    del q, k, v, o, lse, do, ops
+    return out
+
+
+def run_ranks(job: str, world: int) -> list:
+    """``world`` processes of this script (``--dist-rank``), gloo ranks
+    sharing the card (NCCL refuses two ranks on one device), each writing
+    its JSON; a rank's failure fails the phase."""
+    import socket
+    import tempfile
+
+    from apex_tpu_torch.ops import _kernel_utils as ku
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    ku.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = Path(tempfile.mkdtemp(prefix=f"{job}-", dir=ku.BUILD_DIR))
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--dist-rank", job,
+         str(r), str(world), str(port), str(out)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=DIST_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    check(all(p.returncode == 0 for p in procs), f"{job} ranks failed:\n"
+          + "\n".join(f"--- rank {r} exit {p.returncode}\n{log[-4000:]}"
+                      for r, (p, log) in enumerate(zip(procs, logs))))
+    return [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(world)]
+
+
+def _counter_values() -> dict:
+    from apex_tpu_torch.observability import metrics
+
+    reg = metrics.registry()
+    return {k: int(reg.counter(k).value) for k in DIST_COUNTERS}
+
+
+class GradPeak:
+    """A ``grad_postprocess`` that reads the peak memory so far, and the
+    bytes live, when the step hands it the reduced gradients: the peak of
+    the forward, the backward, the unscale and the gradient reduction,
+    before the optimizer tail (whose new masters and moments beside the
+    old are the same size on every rank and in one process)."""
+
+    def __init__(self):
+        self.gb, self.live_gb = [], []
+
+    def __call__(self, grads):
+        self.gb.append(torch.cuda.max_memory_allocated() / 1e9)
+        self.live_gb.append(torch.cuda.memory_allocated() / 1e9)
+        return grads
+
+
+def _warm_blas(dev):
+    """fp32 and bf16 matmuls (with a bias, cuBLASLt's route), forward and
+    backward: the BLAS workspaces, which the caching allocator holds from
+    a thread's first matmul on (one for this thread, one for the autograd
+    engine's device thread: 32 MiB each on the H100), exist before a
+    measurement's base is read, in a fresh rank process as in the
+    parent."""
+    for dt in (torch.float32, torch.bfloat16):
+        a = torch.ones(64, 64, device=dev, dtype=dt, requires_grad=True)
+        torch.addmm(a[0], a, a).sum().backward()
+        (a @ a).sum().backward()
+    torch.cuda.synchronize()
+
+
+def _timed_steps(step, make_state, batch, n, grad_peak):
+    """``n`` steps from ``make_state()``: launches of the first (counts
+    set to 0 just before, read just after), each step's ms, loss, grad
+    norm and overflow, each step's peak memory, its peak up to its
+    gradients and the bytes live there (``grad_peak``, the step's
+    ``grad_postprocess``), all less the bytes allocated before the state
+    was made (a process's other tensors and the BLAS workspaces do not
+    count), the collectives' bytes over all ``n``."""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+
+    _warm_blas(torch.device("cuda", torch.cuda.current_device()))
+    base = torch.cuda.memory_allocated()
+    state = make_state()
+    torch.cuda.synchronize()
+    c0 = _counter_values()
+    ms, losses, gnorms, overflow, counts, peaks = [], [], [], [], None, []
+    for i in range(n):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()    # each step's own peaks
+        if i == 0:
+            ku.reset_launch_counts()
+        t0 = time.perf_counter()
+        state, m = step(state, *batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            counts = ku.launch_counts()
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+        overflow.append(bool(m["overflow"]))
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 1e9)
+    c1 = _counter_values()
+    comm_leaves = (0 if getattr(state, "comm_state", None) is None
+                   else len(state.comm_state))
+    del state
+    torch.cuda.empty_cache()
+    return {"step_ms": ms, "losses": losses, "grad_norms": gnorms,
+            "overflow": overflow, "counts": counts,
+            "peak_memory_gb": max(peaks), "peak_memory_gb_by_step": peaks,
+            "grad_peak_memory_gb": max(grad_peak.gb) - base / 1e9,
+            "grad_live_memory_gb": max(grad_peak.live_gb) - base / 1e9,
+            "comm_state_leaves": comm_leaves,
+            "bytes": {k: c1[k] - c0[k] for k in DIST_COUNTERS}}
+
+
+def cp_rank(dev, rank, world):
+    """One rank of (b): the long-context row over sp = world, ring then
+    Ulysses, two steps each from the seed-0 state."""
+    from apex_tpu_torch.models.config import gpt_125m
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.parallel import create_mesh
+
+    cfg = gpt_125m(max_position_embeddings=LONGCTX_SEQ, remat=True,
+                   fused_head_ce=True)
+    mesh = create_mesh(sp=world)
+    batch = _seq_batch(cfg, LONGCTX_BATCH, LONGCTX_SEQ, 30, dev)
+    out = {}
+    for mode in ("ring", "ulysses"):
+        peak = GradPeak()
+        init, step = make_gpt_train_step(
+            cfg, fused_adam(lr=1e-4), "O2", mesh, seq_axis="sp",
+            context_parallel=mode, device=dev, norm_telemetry=True,
+            grad_postprocess=peak)
+        out[mode] = _timed_steps(
+            step, lambda: init(torch.Generator().manual_seed(0)), batch, 2,
+            peak)
+    return out
+
+
+def ddp_rank(dev, rank, world):
+    """One rank of (c): make_ddp_train_step over dp = world on the GPT O2
+    step's geometry (global b16 x s1024, this rank's b8), each wire
+    DDP_STEPS steps from the seed-0 state."""
+    from apex_tpu_torch.models.transformer_lm import gpt_loss, init_gpt_params
+    from apex_tpu_torch.optimizers import fused_adam
+    from apex_tpu_torch.parallel import create_mesh, make_ddp_train_step
+
+    cfg = _train_cfg()
+    mesh = create_mesh(dp=world)
+    batch = _batch(cfg, TRAIN_BATCH, 41, dev)
+
+    def loss_fn(params, tokens, labels):
+        return gpt_loss(params, tokens, labels, cfg)
+
+    out = {}
+    for wire in DDP_WIRES:
+        peak = GradPeak()
+        init, step = make_ddp_train_step(
+            loss_fn, fused_adam(lr=1e-4), "O2", mesh, batch_axes=2,
+            grad_comm=wire, device=dev, norm_telemetry=True,
+            grad_postprocess=peak)
+        out[wire] = _timed_steps(
+            step, lambda: init(init_gpt_params(
+                cfg, torch.Generator().manual_seed(0), dev)), batch,
+            DDP_STEPS, peak)
+    return out
+
+
+def dist_rank(job, rank, world, port, out_dir) -> dict:
+    """``--dist-rank JOB RANK WORLD PORT DIR``: one gloo rank on the card
+    (shared with the others), its job's result written to
+    DIR/rank<RANK>.json."""
+    import torch.distributed as dist
+
+    from apex_tpu_torch.observability import metrics
+    from apex_tpu_torch.ops import _kernel_utils as ku
+    from apex_tpu_torch.ops import (  # noqa: F401  (register the kernels)
+        flash_attention, layer_norm)
+    from apex_tpu_torch.parallel import destroy_distributed, init_distributed
+
+    init_distributed(f"127.0.0.1:{port}", world, rank, backend="gloo",
+                     device="cuda", share_device=True)
+    try:
+        dev = torch.device("cuda", torch.cuda.current_device())
+        ku.build_all()          # the parent built them: loads, no nvcc
+        metrics.configure(detectors=False)
+        res = {"cp": cp_rank, "ddp": ddp_rank}[job](dev, rank, world)
+        res["device"] = str(dev)
+        Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+        dist.barrier()
+    finally:
+        metrics.shutdown()
+        destroy_distributed()
+    return {"rank": rank, "job": job}
+
+
+def _single_steps(cfg, batch, n, dev):
+    """The single-process step from the seed-0 state with norm telemetry:
+    ``_timed_steps`` over ``n`` steps."""
+    from apex_tpu_torch.models.gpt import make_gpt_train_step
+    from apex_tpu_torch.observability import metrics
+    from apex_tpu_torch.optimizers import fused_adam
+
+    peak = GradPeak()
+    init, step = make_gpt_train_step(cfg, fused_adam(lr=1e-4), "O2",
+                                     device=dev, norm_telemetry=True,
+                                     grad_postprocess=peak)
+    metrics.configure(detectors=False)
+    try:
+        return _timed_steps(step, lambda: init(
+            torch.Generator().manual_seed(0)), batch, n, peak)
+    finally:
+        metrics.shutdown()
+
+
+def _nz(counts) -> dict:
+    """The kernels a run launched (a process registers only the kernels
+    its imports define)."""
+    return {k: v for k, v in counts.items() if v}
+
+
+def _rel(a, b) -> float:
+    return abs(a - b) / max(abs(b), 1e-30)
+
+
+def cp_phase(dev):
+    """(b) bench.py's long-context CP row (GPT-2 125M, b2 x s8192, remat,
+    fused head, O2 fused_adam(lr=1e-4)) on sp = CP_SP gloo ranks sharing
+    the card, ring then Ulysses, two steps each, against the
+    single-process long-context step from the same seed: first-step loss
+    within CP_LOSS_RTOL, its norm_telemetry gradient norm within
+    CP_GNORM_RTOL, exact launches on each rank (ring rank r: the
+    fp32-output K2 2L(r+1) with remat, K6 and K7 L(r+1); Ulysses: the
+    single-process step's), and each rank's peak memory: the ring's peak
+    through its gradients (forward, backward, reduction: the activations
+    that context parallelism splits) below the single process's.  The
+    whole step's peak is printed, not held: it is the optimizer tail's,
+    where the old and the new masters, moments and 16-bit params beside
+    the fp32 gradients (~3.98 GB at 125M) are the same on a rank as in
+    one process, so a rank comes no lower there."""
+    from apex_tpu_torch.models.config import gpt_125m
+
+    cfg = gpt_125m(max_position_embeddings=LONGCTX_SEQ, remat=True,
+                   fused_head_ce=True)
+    L = cfg.num_layers
+    ref = _single_steps(cfg, _seq_batch(cfg, LONGCTX_BATCH, LONGCTX_SEQ, 30,
+                                        dev), 2, dev)
+    check(not ref["overflow"][0] and math.isfinite(ref["grad_norms"][0]),
+          f"long-context reference step: {ref}")
+    attn = _dense_want(L, True)
+    for k in ("layer_norm_fwd", "layer_norm_bwd", "flash_attention_fwd",
+              "flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        check(ref["counts"][k] == attn[k],
+              f"long-context reference launches {ref['counts']}")
+    ranks = run_ranks("cp", CP_SP)
+    moved = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    for r, res in enumerate(ranks):
+        for mode in ("ring", "ulysses"):
+            row = res[mode]
+            what = f"cp {mode} rank {r}"
+            check(not any(row["overflow"]), f"{what} overflow: {row}")
+            check(_rel(row["losses"][0], ref["losses"][0]) <= CP_LOSS_RTOL,
+                  f"{what} first loss {row['losses'][0]} vs single "
+                  f"{ref['losses'][0]}")
+            check(_rel(row["grad_norms"][0], ref["grad_norms"][0])
+                  <= CP_GNORM_RTOL, f"{what} grad norm "
+                  f"{row['grad_norms'][0]} vs {ref['grad_norms'][0]}")
+            want = dict(ref["counts"])
+            if mode == "ring":
+                for k in moved:
+                    want[f"{k}_f32out"] = want.pop(k) * (r + 1)
+                    want[k] = 0
+            check(_nz(row["counts"]) == _nz(want),
+                  f"{what} launches {_nz(row['counts'])} != "
+                  f"{_nz(want)}")
+            check(all(math.isfinite(x) for x in row["losses"]),
+                  f"{what} losses {row['losses']}")
+        check(res["ring"]["grad_peak_memory_gb"]
+              < ref["grad_peak_memory_gb"],
+              f"ring rank {r} peak {res['ring']['grad_peak_memory_gb']:.3f} "
+              f"GB (forward, backward, reduction) not below one process's "
+              f"{ref['grad_peak_memory_gb']:.3f} GB")
+    return {"reference": ref, "ranks": ranks,
+            "sp": CP_SP, "batch": LONGCTX_BATCH, "seq": LONGCTX_SEQ}
+
+
+def ddp_phase(dev):
+    """(c) make_ddp_train_step over dp = DDP_DP gloo ranks sharing the
+    card, GPT-2 125M at b16 x s1024 (b8 a rank), O2 fused_adam(lr=1e-4),
+    grad_comm fp32, bf16 and int8, DDP_STEPS steps each: the fp32 wire's
+    first loss and gradient norm within DDP_RTOL of the single-process
+    headline step's, the bf16 and int8 (error feedback) wires' losses
+    within DDP_TRACK_RTOL of the fp32 wire's and their gradient norms
+    within DDP_GNORM_RTOL of its at every step, exact launches
+    (the single-process step's), the wire-byte counters."""
+    cfg = _train_cfg()
+    ref = _single_steps(cfg, _batch(cfg, TRAIN_BATCH, 41, dev), DDP_STEPS,
+                        dev)
+    ranks = run_ranks("ddp", DDP_DP)
+    for r, res in enumerate(ranks):
+        fp32 = res["fp32"]
+        check(_rel(fp32["losses"][0], ref["losses"][0]) <= DDP_RTOL
+              and _rel(fp32["grad_norms"][0], ref["grad_norms"][0])
+              <= DDP_RTOL, f"ddp fp32 rank {r}: loss {fp32['losses'][0]} "
+              f"grad norm {fp32['grad_norms'][0]} vs single "
+              f"{ref['losses'][0]} {ref['grad_norms'][0]}")
+        for wire in DDP_WIRES:
+            row = res[wire]
+            check(_nz(row["counts"]) == _nz(ref["counts"]),
+                  f"ddp {wire} rank {r} launches "
+                  f"{_nz(row['counts'])} != {_nz(ref['counts'])}")
+            check(not any(row["overflow"]) and all(
+                _rel(a, b) <= DDP_TRACK_RTOL
+                for a, b in zip(row["losses"], fp32["losses"])),
+                f"ddp {wire} rank {r} losses {row['losses']} vs fp32 "
+                f"{fp32['losses']}")
+            if wire in DDP_GNORM_RTOL:
+                check(all(_rel(a, b) <= DDP_GNORM_RTOL[wire] for a, b in
+                          zip(row["grad_norms"], fp32["grad_norms"])),
+                      f"ddp {wire} rank {r} grad norms {row['grad_norms']} "
+                      f"vs fp32 {fp32['grad_norms']}")
+            check(row["losses"] == ranks[0][wire]["losses"],
+                  f"ddp {wire}: the ranks' averaged losses differ")
+        check(res["int8"]["comm_state_leaves"] > 0,
+              "ddp int8: no error-feedback residuals in the state")
+    return {"reference": ref, "ranks": ranks, "dp": DDP_DP,
+            "global_batch": TRAIN_BATCH, "seq": TRAIN_SEQ}
+
+
+def print_distributed(ring, gpt_bf16, cp, ddp, smi):
+    print(f"ring chunk kernels (fp32 outputs) on {smi}: "
+          + "; ".join(f"{k} {r['ms']:.4f} ms (16-bit output "
+                      f"{r['bf16_out_ms']:.4f}), bound {r['bound_ms']:.4f} "
+                      f"({r['bound_by']}), plain {r['plain_ms']:.3f}, SDPA "
+                      f"{r['library_ms']:.4f}, err {r['err']:.3g} "
+                      f"({r['rel_err']:.3g} of the plain max |x|, tol "
+                      f"{r['tol']})"
+                      for k, r in ring.items())
+          + f"; variants {json.dumps({k: r['variants'] for k, r in ring.items()})}")
+    print(f"16-bit-output K2, K6, K7 at the GPT step's shape (b16 s1024 n12 "
+          f"d64 causal) on {smi}: {json.dumps(gpt_bf16)} (PERF.md: 0.1004, "
+          f"0.1276, 0.1514 ms)")
+    ref = cp["reference"]
+    print(f"cp long context gpt_125m b{cp['batch']} x s{cp['seq']} remat, "
+          f"sp={cp['sp']} gloo ranks sharing one card (no scaling claim) on "
+          f"{smi}: single process first loss {ref['losses'][0]:.6f}, grad "
+          f"norm {ref['grad_norms'][0]:.6f}, {ref['step_ms'][0]:.1f} ms, peak "
+          f"{ref['peak_memory_gb']:.3f} GB (through the gradients "
+          f"{ref['grad_peak_memory_gb']:.3f} GB, live there "
+          f"{ref['grad_live_memory_gb']:.3f} GB); "
+          + "; ".join(f"{mode} rank {r}: losses {res[mode]['losses']}, grad "
+                      f"norms {res[mode]['grad_norms']}, step ms "
+                      f"{[round(x, 1) for x in res[mode]['step_ms']]}, peak "
+                      f"{res[mode]['peak_memory_gb']:.3f} GB (through the "
+                      f"gradients {res[mode]['grad_peak_memory_gb']:.3f} "
+                      f"GB, live there "
+                      f"{res[mode]['grad_live_memory_gb']:.3f} GB), launches "
+                      f"{json.dumps({k: c for k, c in res[mode]['counts'].items() if c})}"
+                      f", bytes {json.dumps(res[mode]['bytes'])}"
+                      for r, res in enumerate(cp["ranks"])
+                      for mode in ("ring", "ulysses")))
+    ref = ddp["reference"]
+    print(f"ddp gpt_125m b{ddp['global_batch']} x s{ddp['seq']} over "
+          f"dp={ddp['dp']} gloo ranks sharing one card (no scaling claim) on "
+          f"{smi}: single process losses {ref['losses']}, grad norms "
+          f"{ref['grad_norms']}; "
+          + "; ".join(f"{wire} rank {r}: losses {res[wire]['losses']}, grad "
+                      f"norms {res[wire]['grad_norms']}, step ms "
+                      f"{[round(x, 1) for x in res[wire]['step_ms']]}, bytes "
+                      f"{json.dumps(res[wire]['bytes'])}"
+                      for r, res in enumerate(ddp["ranks"])
+                      for wire in DDP_WIRES))
+
+
+def distributed_paths(cp, ddp) -> dict:
+    """Each rank's launches on the distributed paths, by path."""
+    paths = {}
+    for r, res in enumerate(cp["ranks"]):
+        for mode in ("ring", "ulysses"):
+            paths[f"cp {mode} rank {r}"] = res[mode]["counts"]
+    for r, res in enumerate(ddp["ranks"]):
+        for wire in DDP_WIRES:
+            paths[f"ddp {wire} rank {r}"] = res[wire]["counts"]
+    return paths
+
+
+def distributed_slice(dev, gen, report):
+    """(a)-(c); ``report(name, row)`` records each kernel row.  →
+    (summary, path counts)."""
+    ring = ring_kernel_check(dev, gen)      # SDPA's backward: not under
+    for kname, r in ring.items():           # inference_mode
+        report(kname, r)
+    gpt_bf16 = gpt_shape_bf16_times(dev, gen)
+    torch.cuda.empty_cache()
+    cp = cp_phase(dev)
+    ddp = ddp_phase(dev)
+    return ({"ring": ring, "gpt_shape_bf16_ms": gpt_bf16, "cp": cp,
+             "ddp": ddp}, distributed_paths(cp, ddp))
+
+
+def kernels_line(results, paths) -> dict:
+    """The contract's ``kernels`` entry of every measured kernel: its
+    launches summed over the main paths' counts (each read around its
+    path's run), and by path."""
+    from apex_tpu_torch.ops import _kernel_utils as ku
+
+    return {"kernels": [
+        {"name": k, "route": "cuda", "source": "apex_tpu_torch/csrc/"
+         + ku.KERNELS[k].source, "replaces": ku.KERNELS[k].replaces,
+         "launches": sum(c.get(k, 0) for c in paths.values()),
+         "launches_by_path": {p: c.get(k, 0) for p, c in paths.items()},
+         "max_abs_err": r["err"], "max_rel_err": r.get("rel_err"),
+         "tol": r["tol"],
+         "tol_of": "max_rel_err" if "rel_err" in r else "max_abs_err",
+         "ms": r["ms"],
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+         "variants": r.get("variants", {})}
+        for k, r in results.items()]}
+
+
 def main() -> int:
     check(torch.cuda.is_available(),
           "no CUDA device: chip_smoke.py runs only on the card")
@@ -7409,6 +8018,14 @@ def main() -> int:
         # python3 chip_smoke.py --matmul-times ROOT: rows 5-7, 9-11, K1
         print(json.dumps(matmul_times(sys.argv[2])))
         return 0
+    if sys.argv[1:2] == ["--dist-rank"]:
+        # python3 chip_smoke.py --dist-rank JOB RANK WORLD PORT DIR: one
+        # gloo rank of the distributed phases (run_ranks starts them)
+        job, rank, world, port, out_dir = sys.argv[2:7]
+        print(json.dumps(dist_rank(job, int(rank), int(world), int(port),
+                                   out_dir)))
+        return 0
+    distributed_only = sys.argv[1:2] == ["--distributed"]
     dev = torch.device("cuda")
     # wall seconds of each phase, printed at the end (the script's time
     # limit is shared by all of them)
@@ -7475,6 +8092,20 @@ def main() -> int:
 
     mark("build and hopper line")
     gen = torch.Generator(device="cuda").manual_seed(0)
+    if distributed_only:
+        # python3 chip_smoke.py --distributed: (a)-(c) alone
+        dist_sum, dist_paths = distributed_slice(dev, gen, report)
+        mark("distributed: ring kernels, cp, ddp")
+        print_distributed(dist_sum["ring"], dist_sum["gpt_shape_bf16_ms"],
+                          dist_sum["cp"], dist_sum["ddp"], smi)
+        print(f"phase seconds: {json.dumps(phase_s)}")
+        print(json.dumps(kernels_line(results, dist_paths)
+                         | {"distributed": dist_sum, "phase_s": phase_s}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     with torch.inference_mode():
         for kname, fn in (("layer_norm_fwd", kernel_layer_norm),
                           ("flash_attention_fwd", kernel_flash),
@@ -7875,6 +8506,10 @@ def main() -> int:
     training = training_slice(dev, gen, results, slice_paths)
     print_training_slice(training, smi)
     mark("remat, per-op casts, memory_efficient, swiglu, checkpoint")
+    dist_sum, dist_paths = distributed_slice(dev, gen, report)
+    mark("distributed: ring kernels, cp, ddp")
+    print_distributed(dist_sum["ring"], dist_sum["gpt_shape_bf16_ms"],
+                      dist_sum["cp"], dist_sum["ddp"], smi)
     print(f"phase seconds: {json.dumps(phase_s)}")
     paths = {"serving": sl["counts"], "mqa generate": mqa["counts"],
              "train_step": tr["counts"], "train_step dropout": trd["counts"],
@@ -7890,6 +8525,7 @@ def main() -> int:
     paths["moe int8 forward"] = mq["counts"]
     paths["generic mask"] = gm["counts"]
     paths.update(slice_paths)
+    paths.update(dist_paths)
     for extra in (spec_gen_paths, spec_eng_paths, tier_paths, foreign_paths):
         paths.update(extra)
     paths["cluster prefill worker"] = cluster["counts"]["prefill"]
@@ -7908,19 +8544,7 @@ def main() -> int:
         paths[f"graph engine {gname}"] = row["counts"]
         if "chunked" in row:
             paths[f"chunked graph engine {gname}"] = row["chunked"]["counts"]
-    line = {"kernels": [
-        {"name": k, "route": "cuda", "source": "apex_tpu_torch/csrc/"
-         + ku.KERNELS[k].source, "replaces": ku.KERNELS[k].replaces,
-         "launches": sum(c.get(k, 0) for c in paths.values()),
-         "launches_by_path": {p: c.get(k, 0) for p, c in paths.items()},
-         "max_abs_err": r["err"], "max_rel_err": r.get("rel_err"),
-         "tol": r["tol"],
-         "tol_of": "max_rel_err" if "rel_err" in r else "max_abs_err",
-         "ms": r["ms"],
-         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
-         "bound_by": r["bound_by"], "library_ms": r["library_ms"],
-         "variants": r.get("variants", {})}
-        for k, r in results.items()],
+    line = kernels_line(results, paths) | {
         "slice": {k: v for k, v in sl.items() if k != "counts"},
         "mqa_generate": {k: v for k, v in mqa.items() if k != "counts"},
         "engine": {n: {k: v for k, v in row.items() if k != "counts"}
@@ -7960,7 +8584,8 @@ def main() -> int:
         "host_tier": tier, "fp32_over_bf16_pool": foreign,
         "cluster": {k: v for k, v in cluster.items()
                     if k not in ("counts", "counts_sampled")},
-        "training_slice": training, "phase_s": phase_s}
+        "training_slice": training, "distributed": dist_sum,
+        "phase_s": phase_s}
     print(json.dumps(line))
     print(smi)
     print(json.dumps({"ok": True, "device": {

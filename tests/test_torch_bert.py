@@ -33,7 +33,10 @@ from apex_tpu_torch.models.config import bert_large as t_bert_large
 from apex_tpu_torch.models.convert import (
     params_from_numpy, params_to_numpy, train_state_from_jax)
 from apex_tpu_torch.optimizers import LambState, fused_lamb as t_lamb
-from torch_train_cases import _tree_rel
+from torch_train_cases import (  # noqa: F401  (one_torch_thread: fixture)
+    _tree_rel, one_torch_thread, oracle_jit)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GEOM = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
             vocab_size=128, max_position_embeddings=64)
@@ -106,6 +109,7 @@ def test_o2_lamb_train_step_tracks_jax(backend):
     jcfg, tcfg = _cfgs(backend, "bf16")
     j_init, j_step = jbert.make_bert_train_step(
         jcfg, j_lamb(lr=1e-3, weight_decay=0.01), "O2")
+    j_step = oracle_jit(j_step)
     jstate = j_init(jax.random.PRNGKey(0))
     jstate = jstate._replace(loss_scale_state=JLossScaleState(
         jnp.float32(2.0 ** 24), jnp.int32(0)))

@@ -22,6 +22,9 @@ from apex_tpu_torch.optimizers import fused_lamb as t_lamb
 from test_torch_bert import make_batch
 from test_torch_train_dropout import (  # noqa: F401  (hashed_jax: fixture)
     BERT_GEOM, STEPS, _check, _lockstep, _norm_hooks, hashed_jax)
+from torch_train_cases import one_torch_thread, oracle_jit  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("backend", ["flash", "fused_softmax"])
@@ -34,6 +37,7 @@ def test_bert_o2_lamb_dropout_step_tracks_jax(hashed_jax, backend):
     j_init, j_step = jbert.make_bert_train_step(
         jcfg, j_lamb(lr=1e-3, weight_decay=0.01), "O2",
         grad_postprocess=j_post)
+    j_step = oracle_jit(j_step)
     jstate = j_init(jax.random.PRNGKey(0))
     jstate = jstate._replace(loss_scale_state=JLossScaleState(
         jnp.float32(2.0 ** 15), jnp.int32(0)))
@@ -64,10 +68,13 @@ def test_bert_dropout_loss_matches_jax_fp32(hashed_jax, backend):
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     tok, mlm, nsp, tt, am = make_batch(BERT_GEOM["vocab_size"], 3, 48, 5)
     key = jax.random.PRNGKey(3)
-    want = float(jbert.bert_pretrain_loss(
-        jp, jnp.asarray(tok), jnp.asarray(mlm), jnp.asarray(nsp), jcfg,
-        tokentype_ids=jnp.asarray(tt), attention_mask=jnp.asarray(am),
-        dropout_rng=key))
+
+    def j_loss(p, a, b, c, t_, m, k):
+        return jbert.bert_pretrain_loss(p, a, b, c, jcfg, tokentype_ids=t_,
+                                        attention_mask=m, dropout_rng=k)
+
+    want = float(oracle_jit(j_loss)(
+        jp, *(jnp.asarray(x) for x in (tok, mlm, nsp, tt, am)), key))
     t = [torch.from_numpy(a).long() for a in (tok, mlm, nsp, tt)]
     got = float(tbert.bert_pretrain_loss(
         tp, *t[:3], tcfg, tokentype_ids=t[3],

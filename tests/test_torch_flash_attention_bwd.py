@@ -18,6 +18,9 @@ import torch
 
 from apex_tpu.ops.flash_attention import flash_attention as j_flash
 from apex_tpu_torch.ops import flash_attention as tfa
+from torch_train_cases import one_torch_thread, oracle_jit  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TOL = 1e-5
 
@@ -42,6 +45,22 @@ def _inputs(b, s, n, g, d, lens, seed=0):
     return q, k, v, do, kpm
 
 
+def _jax_grads(q, k, v, do, kpm, causal, dtype=jnp.float32):
+    """``jax.vjp`` of the JAX flash_attention at ``do``, as one jitted
+    program (the interpret-mode kernels compile once instead of
+    dispatching op by op: the same values).  A fresh jit each call, so
+    the route that APEX_TPU_FLASH_BWD selects at trace time is never
+    taken from another test's cache."""
+    def grads(q_, k_, v_, do_, kpm_):
+        return jax.vjp(lambda a, b, c: j_flash(
+            a, b, c, causal=causal, key_padding_mask=kpm_),
+            q_, k_, v_)[1](do_)
+
+    return oracle_jit(grads)(
+        *(jnp.asarray(a, dtype) for a in (q, k, v, do)),
+        None if kpm is None else jnp.asarray(kpm))
+
+
 def _rel(got, want):
     want = np.asarray(want)
     return float(np.abs(np.asarray(got) - want).max()
@@ -54,11 +73,7 @@ def test_grads_match_jax(monkeypatch, mode, case):
     monkeypatch.setenv("APEX_TPU_FLASH_BWD", mode)
     b, s, n, g, d, causal, lens = CASES[case]
     q, k, v, do, kpm = _inputs(b, s, n, g, d, lens)
-    jkpm = None if kpm is None else jnp.asarray(kpm)
-    _, vjp = jax.vjp(lambda q_, k_, v_: j_flash(
-        q_, k_, v_, causal=causal, key_padding_mask=jkpm),
-        *(jnp.asarray(a) for a in (q, k, v)))
-    want = vjp(jnp.asarray(do))
+    want = _jax_grads(q, k, v, do, kpm, causal)
 
     leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
     out = tfa.flash_attention(
@@ -93,11 +108,7 @@ class TestShortKeys:
         b, s, n, g, d, causal, lens = SHORT_CASES[case]
         assert s <= tfa.SHORT_KEYS_MAX
         q, k, v, do, kpm = _inputs(b, s, n, g, d, lens, seed=2)
-        jkpm = None if kpm is None else jnp.asarray(kpm)
-        _, vjp = jax.vjp(lambda q_, k_, v_: j_flash(
-            q_, k_, v_, causal=causal, key_padding_mask=jkpm),
-            *(jnp.asarray(a) for a in (q, k, v)))
-        want = vjp(jnp.asarray(do))
+        want = _jax_grads(q, k, v, do, kpm, causal)
         leaves = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
         tfa.flash_attention(
             *leaves, causal=causal,
@@ -125,12 +136,8 @@ def test_grads_match_jax_head_dims(monkeypatch, mode, d, dtype, tol, causal,
     monkeypatch.setenv("APEX_TPU_FLASH_BWD", mode)
     b, s, n, g = 2, 24, 4, 2
     q, k, v, do, kpm = _inputs(b, s, n, g, d, lens, seed=d)
-    jkpm = None if kpm is None else jnp.asarray(kpm)
     jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
-    _, vjp = jax.vjp(lambda q_, k_, v_: j_flash(
-        q_, k_, v_, causal=causal, key_padding_mask=jkpm),
-        *(jnp.asarray(a, jdt) for a in (q, k, v)))
-    want = vjp(jnp.asarray(do, jdt))
+    want = _jax_grads(q, k, v, do, kpm, causal, jdt)
     leaves = [torch.from_numpy(a).to(tdt).requires_grad_()
               for a in (q, k, v)]
     tfa.flash_attention(

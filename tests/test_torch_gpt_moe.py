@@ -34,6 +34,9 @@ from apex_tpu_torch.models.convert import train_state_from_jax
 from apex_tpu_torch.models.gpt import make_gpt_train_step as t_make
 from apex_tpu_torch.optimizers import fused_adam as t_adam
 from apex_tpu_torch.transformer import moe as tmoe
+from torch_train_cases import one_torch_thread, oracle_jit  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GEOM = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
             vocab_size=128, max_position_embeddings=16, num_experts=4)
@@ -83,7 +86,7 @@ def _probe_jax(cfg):
             jmoe.switch_moe_mlp, jmoe._router_probs = real_moe, real_probs
         return [(o.aux_loss, o.expert_load, p)
                 for o, p in zip(outs, probs_seen)]
-    return jax.jit(probe)
+    return oracle_jit(probe)
 
 
 def _probe_torch(params, tok, cfg):
@@ -114,6 +117,7 @@ def test_moe_train_step_tracks_jax(routing, top_k):
     jcfg = j_tiny(compute_dtype=jnp.bfloat16, scan_layers=False, **kw)
     tcfg = t_tiny(compute_dtype=torch.bfloat16, **kw)
     j_init, j_step = j_make(jcfg, j_adam(lr=1e-3), "O2")
+    j_step = oracle_jit(j_step)
     jstate = j_init(jax.random.PRNGKey(0))
     jstate = jstate._replace(loss_scale_state=JLossScaleState(
         jnp.float32(2.0 ** 24), jnp.int32(0)))

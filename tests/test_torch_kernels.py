@@ -2,6 +2,7 @@
 short-key flash backward, row 6 ragged paged attention, row 9 ragged
 grouped matmul — its fp32, 16-bit, transposed and int8 branches — row 10
 int8-weight matmul, row 11 scaled masked softmax)
+and the fp32-output branches of K2, K6 and K7 (the ring's chunk calls)
 against their plain PyTorch versions, on the card.  Marked
 ``cuda``: they skip where there is no CUDA device.  This file imports no
 JAX, so on a GPU machine without JAX it runs as
@@ -2417,3 +2418,102 @@ def test_row9_at_the_swiglu_2f_fc1(dev, trans):
                                         off)
     assert float((got.float() - want.float()).abs().max()) <= \
         1e-2 * float(want.float().abs().max())
+
+
+# ---- the fp32-output branches of K2, K6 and K7 (the ring's chunk calls) ----
+
+_F32_GEOMETRIES = [(12, 12, 64, 300), (12, 4, 64, 1030), (4, 2, 128, 130),
+                   (4, 4, 40, 130), (4, 1, 256, 70)]
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("n, g, d, s", _F32_GEOMETRIES)
+def test_k2_k6_k7_fp32_outputs_match_the_ring_chunks(dev, dtype, causal, n,
+                                                     g, d, s):
+    """``out_dtype=torch.float32``: K2 writes fp32 o from 16-bit inputs,
+    K6/K7 fp32 dq and GQA-summed dk/dv from the caller's lse and delta
+    (the ring's global ones; here the chunk's own), against the ring's
+    plain chunks (``parallel/ring_attention._chunk_fwd_ref`` and
+    ``_chunk_bwd_ref``).  The kernels round p (and ds) to the input type
+    for their products: tolerance 2e-2 bf16, 4e-3 fp16, o's absolute
+    part that of the plain max |o| (o averages randn v over the keys, so
+    it is small).  d = 256 runs the
+    wide kernels' fp32 twins.  Each call launches its ``*_f32out`` kernel
+    once and the 16-bit-output kernels not at all."""
+    from apex_tpu_torch.parallel.ring_attention import (
+        _chunk_bwd_ref, _chunk_fwd_ref)
+
+    tol = 2e-2 if dtype == torch.bfloat16 else 4e-3
+    gen = _gen(5)
+    b, scale = 2, d ** -0.5
+    q = torch.randn(b, s, n, d, device=dev, generator=gen).to(dtype)
+    k = torch.randn(b, s, g, d, device=dev, generator=gen).to(dtype)
+    v = torch.randn(b, s, g, d, device=dev, generator=gen).to(dtype)
+    do = torch.randn(b, s, n, d, device=dev, generator=gen).to(dtype)
+    ku.reset_launch_counts()
+    o, lse = tfa.flash_attention_fwd(q, k, v, causal=causal, scale=scale,
+                                     out_dtype=torch.float32)
+    ref_o, ref_lse = _chunk_fwd_ref(q, k, v, scale, causal)
+    assert o.dtype == torch.float32 and o.shape == q.shape
+    torch.testing.assert_close(
+        o, ref_o, atol=tol * float(ref_o.abs().max()), rtol=tol)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-4)
+    delta = tfa.attention_delta(do, o.to(dtype))
+    ops = tfa.flash_bwd_operands(q, k, v, None, lse, do, scale=scale,
+                                 delta=delta)
+    dq = tfa.flash_bwd_dq(ops, causal=causal, out_dtype=torch.float32)
+    dk, dv = tfa.flash_bwd_dkv(ops, causal=causal, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    want = _chunk_bwd_ref(q, k, v, do, lse, delta, scale, causal)
+    for got, ref in zip((dq, dk, dv), want):
+        assert got.dtype == torch.float32 and got.shape == ref.shape
+        torch.testing.assert_close(got, ref, atol=tol * 4, rtol=tol)
+    wide = "_wide" if d > tfa.MAX_HEAD_DIM else ""
+    counts = ku.launch_counts()
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        assert counts[f"{name}{wide}_f32out"] == 1
+        assert counts[f"{name}{wide}"] == 0
+
+
+def test_fp32_outputs_refuse_dropout_and_segments(dev):
+    """The tiled kernels' fp32 twins are instantiated without the extras:
+    dropout or segment ids with ``out_dtype=float32`` raise."""
+    q = torch.randn(1, 64, 2, 64, device=dev, dtype=torch.bfloat16)
+    seed = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="dropout or segment"):
+        tfa.flash_attention_fwd(q, q, q, dropout_p=0.1, seed=seed,
+                                out_dtype=torch.float32)
+    with pytest.raises(ValueError, match="out_dtype"):
+        tfa.flash_attention_fwd(q, q, q, out_dtype=torch.float16)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_one_rank_ring_is_flash_attention(dev, causal):
+    """A ring of one rank (``collectives.SINGLE``) runs one chunk: the
+    fp32-output K2, then K6 and K7 from its lse and delta; o and the
+    gradients equal flash attention's within bf16 rounding."""
+    from apex_tpu_torch.parallel import ring_attention
+    from apex_tpu_torch.utils.collectives import SINGLE
+
+    gen = _gen(6)
+    q, k, v = (torch.randn(2, 700, 4, 64, device=dev, generator=gen)
+               .to(torch.bfloat16).requires_grad_(True) for _ in range(3))
+    do = torch.randn(2, 700, 4, 64, device=dev, generator=gen).to(
+        torch.bfloat16)
+    ku.reset_launch_counts()
+    o = ring_attention(q, k, v, SINGLE, causal=causal)
+    got = torch.autograd.grad(o, (q, k, v), do)
+    counts = ku.launch_counts()
+    assert counts["flash_attention_fwd_f32out"] == 1
+    assert counts["flash_attention_bwd_dq_f32out"] == 1
+    assert counts["flash_attention_bwd_dkv_f32out"] == 1
+    ref = tfa.flash_attention(q, k, v, causal=causal)
+    want = torch.autograd.grad(ref, (q, k, v), do)
+    torch.testing.assert_close(o.float(), ref.float(),
+                               atol=2e-2 * float(ref.float().abs().max()),
+                               rtol=2e-2)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a.float(), b.float(), atol=5e-2,
+                                   rtol=2e-2)

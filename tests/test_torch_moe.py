@@ -21,6 +21,9 @@ from apex_tpu.transformer import moe as jmoe
 from apex_tpu_torch.models.convert import params_from_numpy
 from apex_tpu_torch.ops import grouped_matmul as tgm
 from apex_tpu_torch.transformer import moe as tmoe
+from torch_train_cases import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 B, S, H, F, E = 2, 16, 64, 96, 4
 TOL = 1e-5

@@ -37,6 +37,22 @@ def test_port_imports_no_jax(path):
     assert not roots & {"jax", "jaxlib", "apex_tpu"}, roots
 
 
+# the distributed-training slice's modules: the AST check above covers
+# each (none imports jax or apex_tpu)
+DISTRIBUTED_MODULES = (
+    "parallel/__init__.py", "parallel/launch.py", "parallel/mesh.py",
+    "parallel/distributed.py", "parallel/clip_grad.py",
+    "parallel/ring_attention.py", "parallel/ulysses.py",
+    "utils/collectives.py", "transformer/parallel_state.py",
+    "comm/config.py", "comm/bucketing.py", "comm/reduce.py")
+
+
+def test_distributed_modules_are_import_checked():
+    checked = {p.relative_to(ROOT / "apex_tpu_torch").as_posix()
+               for p in PORT_FILES if "apex_tpu_torch" in p.parts}
+    assert set(DISTRIBUTED_MODULES) <= checked
+
+
 # port modules whose JAX counterpart has another name, or none
 COUNTERPARTS = {
     "ops/_kernel_utils.py": "ops/_pallas_utils.py",

@@ -29,6 +29,9 @@ from apex_tpu_torch.models.convert import train_state_from_jax
 from apex_tpu_torch.models.gpt import make_gpt_train_step as t_make
 from apex_tpu_torch.optimizers import fused_adam as t_adam
 from apex_tpu_torch.utils import prng
+from torch_train_cases import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 GEOM = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
             vocab_size=256, max_position_embeddings=32)

@@ -27,6 +27,9 @@ from apex_tpu_torch.models.convert import params_from_numpy
 from apex_tpu_torch.models.quantized import param_bytes
 from apex_tpu_torch.models.quantized import quantize_params as t_quantize
 from apex_tpu_torch.serving import ServingEngine as TEngine
+from torch_train_cases import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CFG = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
            vocab_size=128, max_position_embeddings=64,

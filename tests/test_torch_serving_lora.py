@@ -18,6 +18,9 @@ from apex_tpu_torch.models.generate import generate as t_generate
 from apex_tpu_torch.serving import ServingEngine as TEngine
 from torch_serving_lora_cases import (
     ENGINE, TCFG, _engines, _lockstep, _model, _oracle, _requests)
+from torch_train_cases import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("layout", ["contiguous", "paged"])

@@ -35,6 +35,9 @@ from apex_tpu_torch.models import speculative as ts
 from apex_tpu_torch.models.config import TransformerConfig as TConfig
 from apex_tpu_torch.models.convert import params_from_numpy
 from apex_tpu_torch.observability import metrics as ttel
+from torch_train_cases import one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 CFG = dict(num_layers=2, hidden_size=128, num_attention_heads=4,
            vocab_size=256, max_position_embeddings=96,

@@ -48,6 +48,9 @@ from apex_tpu_torch.models.transformer_lm import _mlp as t_mlp
 from apex_tpu_torch.ops import swiglu as tsw
 from apex_tpu_torch.optimizers import fused_adam as t_adam
 from torch_port_cases import lora_pair
+from torch_train_cases import one_torch_thread, oracle_jit  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 OP_TOL = {"float32": 1e-6, "bfloat16": 2.0 ** -7}
 LOSS_TOL = {"O0": 1e-4, "O2": 3e-2}
@@ -162,7 +165,7 @@ def test_mlp_site_matches_jax():
 
 def _lockstep(jcfg, tcfg, level, steps, batch, seq, seed=0):
     j_init_fn, j_step = j_make(jcfg, j_adam(lr=1e-3), level)
-    j_step = jax.jit(j_step)
+    j_step = oracle_jit(j_step)
     jstate = j_init_fn(jax.random.PRNGKey(seed))
     if level == "O2":
         jstate = jstate._replace(loss_scale_state=JLossScaleState(

@@ -46,6 +46,9 @@ from apex_tpu_torch.optimizers import fused_lamb as t_lamb
 from apex_tpu_torch.optimizers import global_norm as t_global_norm
 from apex_tpu_torch.ops import flash_attention as tfa
 from test_torch_bert import make_batch
+from torch_train_cases import one_torch_thread, oracle_jit  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 STEPS = 3
 LOSS_TOL, NORM_RTOL = 3e-2, 2e-2
@@ -171,6 +174,7 @@ def test_gpt_o2_dropout_step_tracks_jax(hashed_jax, rates):
     j_norms, t_norms, j_post, t_post = _norm_hooks()
     j_init, j_step = j_make(jcfg, j_adam(lr=1e-3), "O2",
                             grad_postprocess=j_post)
+    j_step = oracle_jit(j_step)
     jstate = j_init(jax.random.PRNGKey(0))
     jstate = jstate._replace(loss_scale_state=JLossScaleState(
         jnp.float32(2.0 ** 15), jnp.int32(0)))
@@ -207,6 +211,7 @@ def test_moe_o2_dropout_step_tracks_jax(hashed_jax, routing, top_k):
     j_norms, t_norms, j_post, t_post = _norm_hooks()
     j_init, j_step = j_make(jcfg, j_adam(lr=1e-3), "O2",
                             grad_postprocess=j_post)
+    j_step = oracle_jit(j_step)
     jstate = j_init(jax.random.PRNGKey(0))
     jstate = jstate._replace(loss_scale_state=JLossScaleState(
         jnp.float32(2.0 ** 15), jnp.int32(0)))
@@ -257,8 +262,9 @@ def test_moe_dropout_loss_matches_jax_fp32(hashed_jax):
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     tok, lab = _gpt_batches(GPT_GEOM["vocab_size"])[0]
     key = jax.random.PRNGKey(7)
-    want = float(j_loss(jp, jnp.asarray(tok), jnp.asarray(lab), jcfg,
-                        dropout_rng=key))
+    want = float(oracle_jit(lambda p, t, lb, k: j_loss(
+        p, t, lb, jcfg, dropout_rng=k))(jp, jnp.asarray(tok),
+                                        jnp.asarray(lab), key))
     got = float(ttlm.gpt_loss(tp, torch.from_numpy(tok).long(),
                               torch.from_numpy(lab).long(), tcfg,
                               dropout_rng=layer_words(key, 2)))
@@ -283,8 +289,9 @@ def test_gpt_dropout_loss_matches_jax_fp32(hashed_jax, drop_path):
     tp = params_from_numpy(jax.tree.map(np.asarray, jp), device="cpu")
     tok, lab = _gpt_batches(GPT_GEOM["vocab_size"])[0]
     key = jax.random.PRNGKey(7)
-    want = float(j_loss(jp, jnp.asarray(tok), jnp.asarray(lab), jcfg,
-                        dropout_rng=key))
+    want = float(oracle_jit(lambda p, t, lb, k: j_loss(
+        p, t, lb, jcfg, dropout_rng=k))(jp, jnp.asarray(tok),
+                                        jnp.asarray(lab), key))
     got = float(ttlm.gpt_loss(tp, torch.from_numpy(tok).long(),
                               torch.from_numpy(lab).long(), tcfg,
                               dropout_rng=layer_words(key, 2)))

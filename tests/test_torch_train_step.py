@@ -20,7 +20,10 @@ import torch
 from apex_tpu_torch.models.config import gpt_tiny as t_tiny
 from apex_tpu_torch.models.gpt import make_gpt_train_step as t_make
 from apex_tpu_torch.optimizers import fused_adam as t_adam
-from torch_train_cases import GEOM, check_tracks_jax
+from torch_train_cases import (  # noqa: F401  (one_torch_thread: fixture)
+    GEOM, check_tracks_jax, one_torch_thread)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused_ce", "xentropy"])
 def test_train_step_tracks_jax(fused):
@@ -85,18 +88,25 @@ def _dropout_step_with_accum():
 
 
 @pytest.mark.parametrize("kw, match", [
-    (dict(mesh=object()), "distributed"),
+    (dict(mesh="tp"), "tensor-parallel slice"),
     (dict(overlap_comm=True), "overlap_comm"),
     (dict(accum_steps=2), "dropout key words"),
 ])
 def test_unported_step_options_raise(kw, match):
-    """The distributed options raise; so does accum_steps > 1 on a step
-    whose last argument is dropout key words (JAX splits a threefry key
-    there).  norm_telemetry works: tests/test_torch_norm_telemetry.py."""
+    """The options of later slices raise (a mesh with a tp axis above 1,
+    overlap_comm; the data- and context-parallel mesh runs:
+    tests/test_torch_context_parallel.py); so does accum_steps > 1 on a
+    step whose last argument is dropout key words (JAX splits a threefry
+    key there).  norm_telemetry works: tests/test_torch_norm_telemetry.py."""
+    from apex_tpu_torch.parallel import create_mesh
+
     with pytest.raises(NotImplementedError, match=match):
         if "accum_steps" in kw:
             _dropout_step_with_accum()
         else:
+            if kw.get("mesh") == "tp":
+                # the layout of a tp = 2 mesh; it raises before any group
+                kw = dict(mesh=create_mesh(ranks=[0, 1], tp=2))
             t_make(t_tiny(**GEOM), t_adam(lr=1e-3), "O2", device="cpu", **kw)
 
 

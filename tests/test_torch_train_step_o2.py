@@ -4,7 +4,9 @@ tests/test_torch_train_step.py, split off to keep each file short."""
 
 import pytest
 
-from torch_train_cases import check_tracks_jax
+from torch_train_cases import check_tracks_jax, one_torch_thread  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 @pytest.mark.parametrize("fused", [True, False], ids=["fused_ce", "xentropy"])

@@ -1,11 +1,14 @@
 """Shared cases of the port-vs-JAX train-step tests
 (tests/test_torch_train_step.py, tests/test_torch_train_step_o2.py): a
 two-layer GPT, 20 numpy batches, both packages stepped from one
-converted JAX state, and the whole-tree relative distance."""
+converted JAX state, and the whole-tree relative distance.  Also the
+helpers that keep the port's slow test files cheap: :func:`oracle_jit`
+for their JAX oracles and the :func:`one_torch_thread` module fixture."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from apex_tpu.amp.scaler import LossScaleState as JLossScaleState
@@ -26,6 +29,31 @@ MASTER_TOL = {"O0": 1e-4, "O2": 2e-2}
 MOMENT_TOL = {"O0": 1e-4, "O2": 5e-2}
 
 
+# the JAX oracles' programs compiled by XLA's CPU backend at LLVM -O0:
+# the same HLO and the same values (no fast-math at either level), in a
+# third less compile time, which dominates these tests
+FAST_COMPILE = {"xla_backend_optimization_level": 0}
+
+
+def oracle_jit(fn, **kw):
+    """``jax.jit`` of a JAX oracle (a step, a loss, a probe) with
+    :data:`FAST_COMPILE`; an already-jitted ``fn`` compiles as one
+    program under these options."""
+    return jax.jit(fn, compiler_options=FAST_COMPILE, **kw)
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """torch's CPU ops on one thread while a module runs (restored after
+    it): these tests' tensors are tiny, and idle OpenMP workers spin
+    between ops, a third of the tests' CPU time, which the other test
+    processes sharing the machine lose."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def _batches(vocab, seed=0):
     rng = np.random.RandomState(seed)
     for _ in range(STEPS):
@@ -42,6 +70,7 @@ def _run(opt_level, fused):
     jcfg = j_tiny(compute_dtype=compute[0], scan_layers=False, **kw)
     tcfg = t_tiny(compute_dtype=compute[1], **kw)
     j_init, j_step = j_make(jcfg, j_adam(lr=1e-3), opt_level)
+    j_step = oracle_jit(j_step)
     jstate = j_init(jax.random.PRNGKey(0))
     if opt_level == "O2":
         jstate = jstate._replace(loss_scale_state=JLossScaleState(
